@@ -1,0 +1,209 @@
+"""gRPC server wiring (the reference's gateway/server.py, without the
+metrics sidecar and reflection, which are later slices of the port).
+
+- listen address from ``LISTEN_ADDR``, default ``:50051``;
+- keepalive: MaxConnectionIdle 5m, Time 2h, Timeout 20s;
+- unary + streaming logging interceptor that skips health checks;
+- health service with SERVING for ``polykey.v2.PolykeyService`` and ``""``;
+- graceful drain on SIGINT/SIGTERM: health shutdown first, then stop.
+
+The backend is selected as in the reference: ``POLYKEY_BACKEND=engine``
+(or its alias ``tpu``) mounts the GPU inference engine
+(gateway/torch_service.py); the default stays the dependency-free mock.
+The engine runs on the GPU unless ``POLYKEY_DEVICE=cpu`` asks for the CPU.
+
+Run: ``POLYKEY_BACKEND=engine python -m polykey_tpu_torch.gateway.server``
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+from concurrent import futures
+from typing import Optional
+
+import grpc
+
+from ..proto import health_v1_pb2 as health_pb
+from ..proto import polykey_v2_pb2 as pk
+from ..proto.health_v1_grpc import SERVICE_NAME as HEALTH_SERVICE_NAME
+from ..proto.health_v1_grpc import add_HealthServicer_to_server
+from ..proto.polykey_v2_grpc import (
+    SERVICE_NAME,
+    PolykeyServiceServicer,
+    add_PolykeyServiceServicer_to_server,
+)
+from . import errors
+from .health import HealthService
+from .interceptor import LoggingInterceptor
+from .jsonlog import Logger
+from .service import Service
+
+_KEEPALIVE_OPTIONS = [
+    ("grpc.max_connection_idle_ms", 5 * 60 * 1000),   # MaxConnectionIdle 5m
+    ("grpc.keepalive_time_ms", 2 * 60 * 60 * 1000),   # Time 2h
+    ("grpc.keepalive_timeout_ms", 20 * 1000),         # Timeout 20s
+    # Fail loudly when the port is taken instead of sharing it.
+    ("grpc.so_reuseport", 0),
+]
+
+
+class PolykeyServer(PolykeyServiceServicer):
+    """RPC handler layer: log the request shape, delegate to the Service
+    seam, map typed errors to their status codes (anything else surfaces
+    as Unknown, as a bare Go error does in the reference)."""
+
+    def __init__(self, service: Service, logger: Optional[Logger] = None):
+        self.service = service
+        self.logger = logger or Logger()
+
+    def _log_call(self, rpc: str, request: pk.ExecuteToolRequest) -> None:
+        self.logger.info(
+            f"{rpc} called",
+            tool_name=request.tool_name,
+            has_parameters=request.HasField("parameters"),
+            has_secret_id=request.HasField("secret_id"),
+            has_metadata=request.HasField("metadata"),
+        )
+
+    @staticmethod
+    def _unpack(request: pk.ExecuteToolRequest):
+        return (
+            request.tool_name,
+            request.parameters if request.HasField("parameters") else None,
+            request.secret_id if request.HasField("secret_id") else None,
+            request.metadata if request.HasField("metadata") else None,
+        )
+
+    def _abort_status(self, rpc: str, context, e: errors.RpcStatusError):
+        expected = e.code in (
+            grpc.StatusCode.RESOURCE_EXHAUSTED,
+            grpc.StatusCode.DEADLINE_EXCEEDED,
+        )
+        log = self.logger.warn if expected else self.logger.error
+        log(f"Service {rpc} failed", error=str(e), code=e.code.name)
+        metadata = e.trailing_metadata()
+        if metadata:
+            context.set_trailing_metadata(metadata)
+        context.abort(e.code, str(e))
+
+    def ExecuteTool(self, request, context):
+        self._log_call("ExecuteTool", request)
+        errors.set_rpc_deadline(errors.deadline_from_context(context))
+        try:
+            return self.service.execute_tool(*self._unpack(request))
+        except errors.RpcStatusError as e:
+            self._abort_status("ExecuteTool", context, e)
+        except Exception as e:
+            self.logger.error("Service ExecuteTool failed", error=str(e))
+            context.abort(grpc.StatusCode.UNKNOWN, str(e))
+        finally:
+            errors.set_rpc_deadline(None)       # handler threads are pooled
+
+    def ExecuteToolStream(self, request, context):
+        self._log_call("ExecuteToolStream", request)
+        errors.set_rpc_deadline(errors.deadline_from_context(context))
+        try:
+            yield from self.service.execute_tool_stream(*self._unpack(request))
+        except errors.RpcStatusError as e:
+            self._abort_status("ExecuteToolStream", context, e)
+        except Exception as e:
+            self.logger.error("Service ExecuteToolStream failed", error=str(e))
+            context.abort(grpc.StatusCode.UNKNOWN, str(e))
+        finally:
+            errors.set_rpc_deadline(None)
+
+
+def normalize_address(addr: str) -> str:
+    """Accept Go-style ':50051' (bind all interfaces) as well as host:port."""
+    return "[::]" + addr if addr.startswith(":") else addr
+
+
+def build_server(
+    service: Service,
+    logger: Optional[Logger] = None,
+    address: str = ":50051",
+    max_workers: int = 32,
+    health: Optional[HealthService] = None,
+):
+    """Assemble the gRPC server; returns (server, health, port)."""
+    logger = logger or Logger()
+    server = grpc.server(
+        futures.ThreadPoolExecutor(
+            max_workers=max_workers, thread_name_prefix="polykey-rpc"
+        ),
+        interceptors=[LoggingInterceptor(logger)],
+        options=_KEEPALIVE_OPTIONS,
+    )
+    add_PolykeyServiceServicer_to_server(PolykeyServer(service, logger), server)
+    if health is None:
+        health = HealthService()
+    add_HealthServicer_to_server(health, server)
+    health.set_serving_status(SERVICE_NAME, health_pb.HealthCheckResponse.SERVING)
+    health.set_serving_status("", health_pb.HealthCheckResponse.SERVING)
+    try:
+        port = server.add_insecure_port(normalize_address(address))
+    except RuntimeError as e:               # grpc raises on bind failure
+        raise OSError(f"failed to listen on {address}: {e}") from e
+    if port == 0:
+        raise OSError(f"failed to listen on {address}")
+    return server, health, port
+
+
+_SERVICE_TABLE = {
+    SERVICE_NAME: ["ExecuteTool", "ExecuteToolStream"],
+    HEALTH_SERVICE_NAME: ["Check", "Watch"],
+}
+
+
+def _default_service(logger: Logger, health: HealthService, device=None) -> Service:
+    """TorchService for POLYKEY_BACKEND=engine|tpu, the mock otherwise."""
+    backend = os.environ.get("POLYKEY_BACKEND", "mock").lower()
+    if backend in ("tpu", "engine"):
+        from .torch_service import TorchService
+
+        return TorchService.from_env(health=health, logger=logger, device=device)
+    from .mock_service import MockService
+
+    return MockService()
+
+
+def serve(service: Optional[Service] = None, address: Optional[str] = None) -> None:
+    """Process entry point: serve until SIGINT/SIGTERM."""
+    logger = Logger(level=os.environ.get("POLYKEY_LOG_LEVEL", "info"))
+    if address is None:
+        address = os.environ.get("LISTEN_ADDR") or ":50051"
+    health = HealthService()
+    if service is None:
+        try:
+            service = _default_service(logger, health)
+        except Exception as e:
+            logger.error("failed to initialize backend", error=str(e))
+            raise SystemExit(1)
+    try:
+        server, health, _ = build_server(service, logger, address, health=health)
+    except OSError as e:
+        logger.error("failed to listen", error=str(e))
+        raise SystemExit(1)
+    logger.info("Registered services:")
+    for name, methods in _SERVICE_TABLE.items():
+        logger.info("Service registered", name=name, methods=len(methods))
+
+    quit_event = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: quit_event.set())
+    server.start()
+    logger.info("server starting", address=address)
+    quit_event.wait()
+    logger.info("server shutting down")
+    health.shutdown()
+    server.stop(grace=10).wait()
+    close = getattr(service, "close", None)
+    if close is not None:
+        close()
+    logger.info("server stopped")
+
+
+if __name__ == "__main__":
+    serve()

@@ -36,6 +36,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the fast tier-1 run (-m 'not slow')"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped without one"
+    )
 
 
 @pytest.fixture(autouse=True, scope="module")
