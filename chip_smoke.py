@@ -11,15 +11,24 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
 3. kernels: each kernel against its plain PyTorch version on the card, at
             Llama-3-8B shapes in bf16: largest error against the stated
             tolerance, kernel / plain / library-call times (CUDA events) and
-            the least time the card could take (the roofline bound).
+            the least time the card could take (the roofline bound). The
+            ragged kernel at the engine's default ragged stream: 16 decode
+            singles over 1..4096 keys plus two 512-token chunks (T = 1040).
 4. slice:   a full-width, depth-2 Llama-3-8B runs prefill (bucket 128) and
             8 decode steps through forward_paged, once through the kernels
             and once through their plain versions; the logits must agree.
+            Then a mixed prefill+decode run through forward_ragged, kernels
+            against plain and against forward_paged on the same tokens.
 5. serve:   the full 32-layer Llama-3-8B (random bf16 weights from --seed)
             behind the port's gRPC server on a free local port, with the
-            default EngineConfig; 4 concurrent llm_generate requests. Every
-            kernel's launch count is set to 0 before this phase and must
-            have risen after it.
+            default EngineConfig; 5 concurrent llm_generate requests, one of
+            them a ~1500-token prompt (chunked prefill). Every kernel's
+            launch count is set to 0 before this phase and the bucketed
+            path's kernels must have risen after it.
+6. ragged:  the same weights behind a second engine with ragged_dispatch
+            on, the same requests: the ragged, decode and write kernels
+            must have launched, the flash kernel not (every prefill rides
+            the ragged stream).
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -362,6 +371,98 @@ def kernel_flash(gen) -> dict:
     return result
 
 
+def _ragged_case(gen, lens, kvs, T, empty):
+    """Ranges from row 0 in order, `empty` unused ranges past the stream,
+    pools [2048, 16, 8, 128] bf16 with distinct pages per sequence and NaN
+    in the unwritten V rows of each sequence's last page."""
+    N, ps, Hk, Hq, D = 2048, PAGE_SIZE, 8, 32, 128
+    starts = [sum(lens[:i]) for i in range(len(lens))] + [T] * empty
+    lens, kvs = list(lens) + [0] * empty, list(kvs) + [0] * empty
+    k_pool = _randn((N, ps, Hk, D), gen)
+    v_pool = _randn((N, ps, Hk, D), gen)
+    tables = torch.zeros((len(lens), TABLE), dtype=torch.int32, device="cuda")
+    order = (torch.randperm(N - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+    used = 0
+    for s, kv in enumerate(kvs):
+        npg = -(-kv // ps)
+        if npg:
+            tables[s, :npg] = order[used: used + npg]
+            used += npg
+            v_pool[int(tables[s, npg - 1]), kv - (npg - 1) * ps:] = float("nan")
+    q = _randn((T, Hq, D), gen)
+    meta = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (starts, lens, kvs)]
+    return (q, k_pool, v_pool, tables, *meta), (starts, lens, kvs)
+
+
+def kernel_ragged(gen) -> dict:
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    T, Hq, Hk, D = 1040, 32, 8, 128
+    ctx = [1, 15, 16, 17, 31, 33, 255, 256, 257, 1000, 1024, 2047, 2049,
+           3001, 4095, 4096]
+    singles = [1] * len(ctx)
+    cases = [
+        # 16 decode singles, a first chunk (kv 512), a second chunk (kv 1024).
+        ("main", singles + [512, 512], ctx + [512, 1024], 14, None, None),
+        ("softcap 50, window 1024", singles + [512, 512], ctx + [512, 1024], 14,
+         50.0, 1024),
+        # A 300-token tail range at KV length 1800, 724 padding rows.
+        ("tail + padding", singles + [300], ctx + [1800], 15, None, None),
+    ]
+    result = None
+    for label, lens, kvs, empty, softcap, window in cases:
+        args, (starts, lens_, kvs_) = _ragged_case(gen, lens, kvs, T, empty)
+        work = rk.ragged_work(starts, lens_, kvs_, T, Hq // Hk, "cuda")
+        kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window)
+        out = rk.ragged_attention_cuda(*args, work=work, **kw)
+        ref = rk.ragged_attention_plain(*args, **kw)
+        # Per element: the kernel rounds each probability to bf16 once (unit
+        # roundoff 2^-8), so it may differ from the fp32 plain version by
+        # 2^-8 sum p|v| / l; the plain attention over |V| gives that sum,
+        # and the factor 2 and 1e-4 cover exp and fp32 sums in another order.
+        ref_abs = rk.ragged_attention_plain(*args[:2], args[2].abs(), *args[3:], **kw)
+        tol = 2.0 ** -7 * ref_abs + 1e-4
+        sync()
+        used = sum(lens)
+        check(bool(torch.isfinite(out).all()), "ragged output is not finite")
+        check(bool((out[used:] == 0).all()), "ragged padding rows are not 0")
+        err = (out - ref).abs().max().item()
+        ratio = ((out - ref).abs() / tol).max().item()
+        check(ratio <= 1.0, f"ragged kernel differs from plain beyond tolerance: "
+              f"largest err/tol {ratio}")
+        ms = device_time_ms(lambda: rk.ragged_attention_cuda(*args, work=work, **kw))
+        plain = device_time_ms(lambda: rk.ragged_attention_plain(*args, **kw), reps=2)
+        # What this run's data needs: each query row sees keys
+        # [max(0, p - window + 1), p]; each sequence's K and V rows are read
+        # once over the union of its rows' spans.
+        kv_rows = pairs = 0
+        for st, ln, kv in zip(starts, lens_, kvs_):
+            n = max(0, min(st + ln, T) - st)
+            if n == 0:
+                continue
+            p0, p1 = kv - ln, kv - ln + n - 1
+            lo = max(0, p0 - window + 1) if window else 0
+            kv_rows += p1 + 1 - lo
+            pairs += sum(min(p + 1, window) if window else p + 1
+                         for p in range(p0, p1 + 1))
+        nbytes = 2 * kv_rows * Hk * D * 2 + T * Hq * D * (2 + 4)
+        flops = 4 * pairs * Hq * D
+        b_ms, b_by = bound_ms(nbytes, flops)
+        say("kernels", f"ragged_paged_attention [{label}] T={T} Hq={Hq} Hk={Hk} "
+            f"D={D} ps=16 P=256, {len(work.items)} work items x {Hk} kv heads, "
+            f"{work.n_part} partial slots: max |err| {err:.3e}, largest err/tol "
+            f"{ratio:.3f} (tolerance per element 2^-7 sum p|v| + 1e-4: the "
+            "kernel rounds each probability to bf16 once, the fp32 plain "
+            "version does not); padding rows 0; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if result is None:
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        else:
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+    return result
+
+
 def phase_kernels(seed: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -373,6 +474,7 @@ def phase_kernels(seed: int) -> dict:
             "paged_write": kernel_write(gen),
             "paged_attention_decode": kernel_decode(gen),
             "flash_attention": kernel_flash(gen),
+            "ragged_paged_attention": kernel_ragged(gen),
         }
     sync()
     return results
@@ -381,10 +483,11 @@ def phase_kernels(seed: int) -> dict:
 # -- phase 4 ---------------------------------------------------------------
 
 class _PlainPath:
-    """Route forward_paged through the plain versions with the reference's
-    own kill switches (POLYKEY_DISABLE_FLASH, POLYKEY_DISABLE_PAGED_KERNEL)."""
+    """Route the forward passes through the plain versions with the
+    reference's own kill switches."""
 
-    NAMES = ("POLYKEY_DISABLE_FLASH", "POLYKEY_DISABLE_PAGED_KERNEL")
+    NAMES = ("POLYKEY_DISABLE_FLASH", "POLYKEY_DISABLE_PAGED_KERNEL",
+             "POLYKEY_DISABLE_RAGGED_KERNEL")
 
     def __enter__(self):
         self.saved = {n: os.environ.get(n) for n in self.NAMES}
@@ -451,7 +554,8 @@ def phase_slice(seed: int) -> None:
         with _PlainPath():
             want = run()
         after = _launches()
-    check(all(mid[n] > before[n] for n in mid),
+    bucketed = ("flash_attention", "paged_attention_decode", "paged_write")
+    check(all(mid[n] > before[n] for n in bucketed),
           f"the kernel run skipped a kernel: {before} -> {mid}")
     check(after == mid, f"the plain run launched kernels: {mid} -> {after}")
     check(bool(torch.isfinite(got).all()), "slice logits are not finite")
@@ -464,11 +568,136 @@ def phase_slice(seed: int) -> None:
         f"the 0.055 measured on the H100: bf16 activations round differently "
         f"once attention sums in another order); argmax agreement {agree:.3f} "
         f"(must be 1); kernel launches in the kernel run "
-        f"{({n: mid[n] - before[n] for n in mid})}")
+        f"{({n: mid[n] - before[n] for n in bucketed})}")
     check(err <= 0.12, f"slice logits differ by {err}")
     check(agree == 1.0, f"slice argmax agrees on only {agree:.3f} of the rows")
+    _slice_ragged(cfg, params, gen)
     del params
     torch.cuda.empty_cache()
+
+
+def _slice_ragged(cfg, params, gen) -> None:
+    """Mixed prefill+decode through forward_ragged: a first dispatch
+    prefills prompts A (100 tokens) and B (77); the next four decode A and
+    B one token each, and the first of them also prefills prompt C (200
+    tokens), which decodes in the last three. Logits of the rows that
+    sample: kernels against plain, and against forward_paged over the same
+    tokens (prefill per prompt, then batched decode steps)."""
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.transformer import (
+        forward_paged, forward_ragged, unembed,
+    )
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    ps, P, steps = 16, 256, 4
+    lens = {"A": 100, "B": 77, "C": 200}
+    prompts = {k: torch.randint(3, 259, (n,), generator=gen, device="cuda",
+                                dtype=torch.int32) for k, n in lens.items()}
+    forced = torch.randint(3, 259, (steps, 3), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    per = -(-(max(lens.values()) + steps) // ps)
+    tables = {k: torch.zeros(P, dtype=torch.int32, device="cuda") for k in lens}
+    for i, k in enumerate(lens):
+        tables[k][:per] = torch.arange(1 + i * per, 1 + (i + 1) * per)
+    num_pages = 1 + 3 * per
+
+    def dispatches():
+        """Per dispatch: [(seq, tokens, first position)] ranges."""
+        out = [[("A", prompts["A"], 0), ("B", prompts["B"], 0)]]
+        for i in range(steps):
+            live = ["A", "B"] + (["C"] if i else [])
+            ranges = [(k, forced[i, j:j + 1], lens[k] + i - (1 if k == "C" else 0))
+                      for j, k in enumerate(live)]
+            if i == 0:
+                ranges.append(("C", prompts["C"], 0))
+            out.append(ranges)
+        return out
+
+    def run_ragged():
+        paged = init_paged_kv(cfg, num_pages, ps, torch.bfloat16, "cuda")
+        logits = []
+        for ranges in dispatches():
+            toks = torch.cat([t for _, t, _ in ranges])
+            used = toks.shape[0]
+            T = -(-used // rk.TOKEN_TILE) * rk.TOKEN_TILE
+            tokens = torch.zeros(T, dtype=torch.int32, device="cuda")
+            tokens[:used] = toks
+            positions = torch.zeros(T, dtype=torch.int32, device="cuda")
+            token_tables = torch.zeros((T, P), dtype=torch.int32, device="cuda")
+            starts, seq_lens, kvs, rows = [], [], [], []
+            off = 0
+            for k, t, p0 in ranges:
+                n = t.shape[0]
+                positions[off:off + n] = torch.arange(p0, p0 + n)
+                token_tables[off:off + n] = tables[k]
+                starts.append(off)
+                seq_lens.append(n)
+                kvs.append(p0 + n)
+                rows.append(off + n - 1)
+                off += n
+            meta = [torch.tensor(x, dtype=torch.int32, device="cuda")
+                    for x in (starts, seq_lens, kvs)]
+            seq_tables = torch.stack([tables[k] for k, _, _ in ranges])
+            work = rk.ragged_work(starts, seq_lens, kvs, T,
+                                  cfg.num_heads // cfg.num_kv_heads, "cuda")
+            hidden, paged = forward_ragged(params, cfg, tokens, positions, paged,
+                                           token_tables, *meta, seq_tables, work=work)
+            logits.append(unembed(params, cfg, hidden[torch.tensor(rows, device="cuda")]))
+        sync()
+        return torch.cat(logits)
+
+    def run_paged():
+        paged = init_paged_kv(cfg, num_pages, ps, torch.bfloat16, "cuda")
+        logits = []
+        for ranges in dispatches():
+            rows = []
+            singles = [(k, t, p0) for k, t, p0 in ranges if t.shape[0] == 1]
+            if singles:
+                hidden, paged = forward_paged(
+                    params, cfg, torch.stack([t for _, t, _ in singles]),
+                    torch.tensor([[p0] for _, _, p0 in singles], dtype=torch.int32,
+                                 device="cuda"),
+                    paged, torch.stack([tables[k] for k, _, _ in singles]))
+                rows.append(hidden[:, 0])
+            for k, t, p0 in ranges:
+                if t.shape[0] > 1:
+                    pos = torch.arange(p0, p0 + t.shape[0], dtype=torch.int32,
+                                       device="cuda")[None]
+                    hidden, paged = forward_paged(params, cfg, t[None], pos, paged,
+                                                  tables[k][None])
+                    rows.append(hidden[:, -1])
+            logits.append(unembed(params, cfg, torch.cat(rows)))
+        sync()
+        return torch.cat(logits)
+
+    with torch.inference_mode():
+        before = _launches()
+        got = run_ragged()
+        mid = _launches()
+        with _PlainPath():
+            want = run_ragged()
+        after = _launches()
+        paged_ref = run_paged()
+    name = "ragged_paged_attention"
+    check(mid[name] > before[name] and mid["paged_write"] > before["paged_write"],
+          f"the ragged kernel run skipped a kernel: {before} -> {mid}")
+    check(after == mid, f"the plain ragged run launched kernels: {mid} -> {after}")
+    check(bool(torch.isfinite(got).all()), "ragged slice logits are not finite")
+    rms = want.square().mean().sqrt().item()
+    for label, ref in (("plain forward_ragged", want), ("forward_paged", paged_ref)):
+        err = (got - ref).abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        say("slice", f"llama-3-8b width, 2 layers, bf16, forward_ragged with kernels "
+            f"vs {label}: 1 prefill dispatch (A 100, B 77 tokens) + {steps} mixed "
+            f"dispatches (A, B decode; C 200-token prefill, then decode), "
+            f"{got.shape[0]} sampled rows: max |dlogit| {err:.4f} over logits of RMS "
+            f"{rms:.3f} (tolerance 0.12, the bucketed slice's bound); argmax "
+            f"agreement {agree:.3f} (must be 1); ragged kernel launches "
+            f"{mid[name] - before[name]} in the kernel run, "
+            f"{after[name] - mid[name]} in the plain run")
+        check(err <= 0.12, f"ragged slice logits differ from {label} by {err}")
+        check(agree == 1.0, f"ragged slice argmax agrees with {label} on only "
+              f"{agree:.3f} of the rows")
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -493,6 +722,16 @@ LONG = [
      "token is sampled from the last hidden state of the prompt. Keep the "
      "description concrete and brief, and mention the cost. ") * 1,
 ]
+# About 1500 tokens (the byte tokenizer: one per byte, plus BOS): past the
+# largest bucket, so it prefills in three chunks of up to 512 tokens.
+DOCUMENT = (
+    "Section {}. The service keeps a pool of key and value pages on the card "
+    "and gives each request a table of page ids; a prompt longer than the "
+    "largest bucket prefills one chunk at a time while other requests go on "
+    "decoding, and its first token is sampled from the last chunk. Pages "
+    "return on finish. "
+)
+LONG_DOC = "".join(DOCUMENT.format(i) for i in range(5)) + "Summarize the document."
 
 
 def _struct(**kv):
@@ -503,7 +742,9 @@ def _struct(**kv):
     return s
 
 
-def phase_serve(seed: int, card: str) -> dict:
+def phase_serve(seed: int, card: str, ragged: bool = False, params=None) -> dict:
+    """Serve through gRPC. Bucketed (default) or ragged dispatch; `params`
+    reuses the weights of an earlier engine (shut down first)."""
     import grpc
 
     from polykey_tpu_torch.engine.config import EngineConfig
@@ -514,17 +755,21 @@ def phase_serve(seed: int, card: str) -> dict:
     from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
     from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
 
-    config = EngineConfig(model="llama-3-8b")
+    phase = "ragged" if ragged else "serve"
+    config = EngineConfig(model="llama-3-8b", ragged_dispatch=ragged)
     t0 = time.monotonic()
-    engine = InferenceEngine(config, device="cuda", seed=seed)
+    engine = InferenceEngine(config, params=params, device="cuda", seed=seed)
     sync()
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
     kv = 2 * engine.paged.k.numel() * engine.paged.k.element_size()
-    say("serve", f"engine up in {time.monotonic() - t0:.1f} s: {config.model}, "
+    mode = (f"ragged dispatch, stream width {engine.stats()['ragged_width']} "
+            f"(prefill budget {engine.stats()['prefill_budget']})" if ragged
+            else f"buckets {config.prefill_buckets}, chunks of 512")
+    say(phase, f"engine up in {time.monotonic() - t0:.1f} s: {config.model}, "
         f"{len(engine.params['layers'])} layers, bf16 weights {nbytes / 2**30:.2f} "
         f"GiB, KV pool {kv / 2**30:.2f} GiB ({config.num_pages} pages x "
-        f"{config.page_size}), {config.max_decode_slots} slots, buckets "
-        f"{config.prefill_buckets}, decode block {config.decode_block_steps}")
+        f"{config.page_size}), {config.max_decode_slots} slots, {mode}, decode "
+        f"block {config.decode_block_steps}")
     # Keep each request the gateway submits, to read its timings after.
     submitted: list = []
     submit = engine.submit
@@ -546,9 +791,17 @@ def phase_serve(seed: int, card: str) -> dict:
         results = _serve_requests(stub, pk, submitted)
         counts = {name: k.launches for name, k in KERNELS.items()}
         sync()
-        say("serve", f"kernel launches in this phase: {counts}")
-        check(all(n > 0 for n in counts.values()),
-              f"a kernel of the main path was not launched: {counts}")
+        say(phase, f"kernel launches in this phase: {counts}")
+        if ragged:
+            check(all(counts[n] > 0 for n in (
+                "ragged_paged_attention", "paged_attention_decode", "paged_write")),
+                f"a kernel of the ragged path was not launched: {counts}")
+            check(counts["flash_attention"] == 0,
+                  f"a prefill left the ragged stream: {counts}")
+        else:
+            check(all(counts[n] > 0 for n in (
+                "flash_attention", "paged_attention_decode", "paged_write")),
+                f"a kernel of the main path was not launched: {counts}")
         # Token-level determinism on the same engine: the gRPC text of a
         # random-weight model over a 128k vocab is mostly ids outside the
         # byte tokenizer's range, so compare the ids themselves too.
@@ -568,10 +821,10 @@ def phase_serve(seed: int, card: str) -> dict:
             ids.append(toks)
         check(ids[0] == ids[1] and len(ids[0]) == 32,
               "a repeated greedy prompt gave other token ids")
-        say("serve", f"repeated greedy prompt: identical 32 token ids "
+        say(phase, f"repeated greedy prompt: identical 32 token ids "
             f"{ids[0][:8]}...")
         for r in results:
-            say("serve", f"{r['label']}: status {r['status']}, prompt "
+            say(phase, f"{r['label']}: status {r['status']}, prompt "
                 f"{r['prompt_tokens']} tokens, {r['completion_tokens']} completion "
                 f"tokens, TTFT {r['ttft_ms']:.1f} ms, {r['tok_s']:.1f} tok/s "
                 f"(wall {r['wall_s']:.2f} s) on {card}")
@@ -580,7 +833,7 @@ def phase_serve(seed: int, card: str) -> dict:
         server.stop(grace=5).wait()
         service.close()
     sync()
-    return {"requests": results, "launches": counts}
+    return {"requests": results, "launches": counts, "params": engine.params}
 
 
 def _leaves(tree):
@@ -595,16 +848,17 @@ def _leaves(tree):
 
 
 def _serve_requests(stub, pk, submitted: list) -> list[dict]:
-    """After one warm-up request per bucket, 4 concurrent requests: two
-    short prompts (bucket 128), two long (bucket 512); one streamed, the
-    rest unary; then the first greedy prompt again, which must return the
-    same text."""
+    """After one warm-up request per bucket, 5 concurrent requests: two
+    short prompts (bucket 128), two long (bucket 512), one ~1500-token
+    document (chunked prefill); one streamed, the rest unary; then the
+    first greedy prompt again, which must return the same text."""
     specs = [
         ("short greedy", SHORT[0], dict(), False),
         ("short sampled stream", SHORT[1], dict(temperature=0.8, top_p=0.9,
                                                   top_k=50, seed=7), True),
         ("long greedy", LONG[0], dict(), False),
         ("long sampled", LONG[1], dict(temperature=1.0, top_p=0.95, seed=11), False),
+        ("document greedy", LONG_DOC, dict(), False),
     ]
     # One request per bucket first, alone: the first prefill of each shape
     # pays one-time library set-up that is not serving latency.
@@ -701,9 +955,20 @@ def main() -> int:
     phase_slice(args.seed)
     sync()
     serve = phase_serve(args.seed, dev["smi"])
+    ragged = phase_serve(args.seed, dev["smi"], ragged=True,
+                         params=serve.pop("params"))
+    del ragged["params"]
+    for bucketed, rag in zip(serve["requests"], ragged["requests"]):
+        say("ragged", f"{bucketed['label']}: TTFT bucketed {bucketed['ttft_ms']:.1f} ms,"
+            f" ragged {rag['ttft_ms']:.1f} ms; tok/s bucketed "
+            f"{bucketed['tok_s']:.1f}, ragged {rag['tok_s']:.1f} on {dev['smi']}")
 
     from polykey_tpu_torch.engine.engine import KERNELS
 
+    # Each kernel's launches come from the serve phase that runs it: the
+    # ragged kernel's from the ragged engine, the others' from the bucketed.
+    launches = dict(serve["launches"])
+    launches["ragged_paged_attention"] = ragged["launches"]["ragged_paged_attention"]
     sources = {
         "flash_attention": ("polykey_tpu_torch/csrc/flash_attention.cu",
                             "polykey_tpu/ops/flash_attention.py:157"),
@@ -711,14 +976,18 @@ def main() -> int:
                                    "polykey_tpu/ops/paged_attention_kernel.py:349"),
         "paged_write": ("polykey_tpu_torch/csrc/paged_write.cu",
                         "polykey_tpu/ops/paged_write_kernel.py:134"),
+        "ragged_paged_attention": (
+            "polykey_tpu_torch/csrc/ragged_paged_attention.cu",
+            "polykey_tpu/ops/ragged_paged_attention_kernel.py:387"),
     }
     summary = []
     for name in KERNELS:
         src, tpu = sources[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                 "launches": serve["launches"][name]}
+                 "launches": launches[name]}
         entry.update(kernels[name])
         summary.append(entry)
+    check(all(e["launches"] > 0 for e in summary), f"a kernel read 0 launches: {summary}")
     print(json.dumps({"kernels": summary}), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,11 @@ except `lookahead_blocks` (1) and `adaptive_block` (off), the only values
 this slice serves. `validate` raises NotImplementedError for the knobs
 whose part of the port has not landed yet, naming the ROADMAP.md item, so
 a deployment that asks for them fails at startup instead of being served
-by something else: ragged dispatch, the prefix cache and host KV
-tier, speculative decoding, int8 KV and int8/int4 weights, the lookahead
-pipeline and adaptive block, the top-p prefilter, replica and disaggregated
-pools, checkpoints, and mesh axes above 1.
+by something else: the prefix cache and host KV tier, speculative
+decoding, int8 KV and int8/int4 weights, the lookahead pipeline and
+adaptive block, the top-p prefilter, replica and disaggregated pools,
+checkpoints, and mesh axes above 1. Chunked prefill (`prefill_chunk`,
+`prefill_budget`) and ragged dispatch (`ragged_dispatch`) are served.
 """
 
 from __future__ import annotations
@@ -169,6 +170,10 @@ class EngineConfig:
                 )
         if self.decode_block_steps < 1:
             raise ValueError("decode_block_steps must be >= 1")
+        if self.prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0 (0 → max bucket)")
+        if self.prefill_budget < 0:
+            raise ValueError("prefill_budget must be >= 0 (0 → 2 x prefill chunk)")
         if self.max_queue_depth < 0:
             raise ValueError("max_queue_depth must be >= 0 (0 → unbounded)")
         if self.kv_dtype not in ("", "bfloat16", "float32", "int8"):
@@ -180,14 +185,12 @@ class EngineConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
         unported = [
-            (self.ragged_dispatch, "ragged_dispatch (POLYKEY_RAGGED)",
-             "kernel 4, ragged paged attention"),
             (self.prefix_cache or self.host_kv_bytes > 0,
              "prefix_cache / host_kv_bytes", "prefix cache and host-KV tier"),
             (self.draft_model is not None, "draft_model",
              "speculative decoding"),
             (self.kv_dtype == "int8", "kv_dtype=int8",
-             "int8-KV variants of kernels 2 and 3"),
+             "int8-KV variants of kernels 2, 3 and 4"),
             (self.quantize, "quantize (POLYKEY_QUANTIZE)",
              "int8/int4 weights"),
             (self.lookahead_blocks > 1 or self.adaptive_block,

@@ -10,22 +10,33 @@ GPU (the reference's engine/engine.py, default path).
 - Admission: waiting requests take free slots and prefill in padded
   length buckets, up to 8 same-bucket prompts per dispatch (padded to
   1, 2, 4 or 8 rows). The sampled first token and the slot's geometry are
-  merged into the device-resident lane state (`_merge_lane_fn`).
+  merged into the device-resident lane state (`_merge_lane_fn`). A prompt
+  longer than the largest bucket prefills in chunks of `prefill_chunk`
+  tokens, one per loop iteration (`_advance_chunked_prefills`).
+- Interleaving: while decode lanes are live, each loop iteration admits
+  and chunks at most `prefill_budget` prefill tokens (the first chunk
+  always goes: a progress floor), round-robin over pending slots.
 - Decode: one dispatch runs `decode_block_steps` steps for the whole batch
   with device-side EOS/cap liveness (`_decode_fn`) and returns one packed
   [K, B] token array (-1 where a lane emitted nothing), read once per
   block. This port runs the exact-sync mode (lookahead depth 1): each
   block is read before the next is dispatched.
+- Ragged dispatch (`ragged_dispatch`, POLYKEY_RAGGED=1; kill switch
+  POLYKEY_DISABLE_RAGGED=1): every prompt registers as pending token
+  ranges, and any iteration with prefill work runs ONE flat dispatch of
+  every decode lane's single token plus up to the budget of prefill
+  tokens (`_ragged_fn`, the ragged attention kernel); pure-decode
+  iterations keep the K-step block.
 - RNG: every sampled draw is keyed by (request seed, token position)
   (engine/sampling.py), so a seeded stream does not depend on the batch.
 
-Not ported yet (ROADMAP.md queue A): chunked prefill of prompts longer than
-the largest bucket (such a request ends with an error naming it), the
-lookahead pipeline, ragged dispatch, prefix cache, speculative decoding.
+Not ported yet (ROADMAP.md queue A): the lookahead pipeline, the prefix
+cache, speculative decoding, int8 KV.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -38,8 +49,14 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig, get_config
-from ..models.transformer import forward_paged, init_params, unembed
-from ..ops import flash_attention, paged_attention_kernel, paged_write_kernel
+from ..models.transformer import forward_paged, forward_ragged, init_params, unembed
+from ..ops import (
+    flash_attention,
+    paged_attention_kernel,
+    paged_write_kernel,
+    ragged_paged_attention_kernel,
+)
+from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
 from .config import EngineConfig
 from .kv_cache import AllocationError, BlockAllocator, PagedKV, init_paged_kv
 from .metrics import EngineMetrics, RequestTimings
@@ -59,6 +76,7 @@ KERNELS = {
     "flash_attention": flash_attention.KERNEL,
     "paged_attention_decode": paged_attention_kernel.KERNEL,
     "paged_write": paged_write_kernel.KERNEL,
+    "ragged_paged_attention": ragged_paged_attention_kernel.KERNEL,
 }
 
 
@@ -97,9 +115,37 @@ class _Slot:
     prompt_len: int
     position_cap: int              # absolute position limit
     prompt_ids: Optional[np.ndarray] = None   # until the prefill dispatch
+    # Chunked / ragged prefill: the prompt's ids while any are left to
+    # prefill, and how many already are (`pending is None` once merged).
+    pending: Optional[np.ndarray] = None
+    filled: int = 0
     generated: int = 0
     merged: bool = False           # device lane activated
     last_emit: float = 0.0
+
+
+class _RRCursor:
+    """Starved-first round-robin cursor over a modulo-N slot space. A
+    sweep iterates `scan`; a completed sweep calls `advance`, so index
+    order alone never privileges a slot; an early exit (budget spent,
+    stream full) calls `reanchor` on the first skipped slot, so it scans
+    first next time."""
+
+    __slots__ = ("pos",)
+
+    def __init__(self) -> None:
+        self.pos = 0
+
+    def scan(self, n: int):
+        """(pos + 0) % n ... (pos + n - 1) % n, anchored at the call."""
+        base = self.pos
+        return ((base + off) % n for off in range(n))
+
+    def reanchor(self, i: int) -> None:
+        self.pos = i
+
+    def advance(self, n: int) -> None:
+        self.pos = (self.pos + 1) % n
 
 
 class EngineDeadError(RuntimeError):
@@ -170,6 +216,85 @@ def _decode_fn(
         packed.append(torch.where(act, tokens, torch.full_like(tokens, -1)))
         last, seq, act = tokens, new_seq, cont
     return torch.stack(packed), last, seq, act, paged
+
+
+def _ragged_fn(
+    params, cfg: ModelConfig, paged: PagedKV,
+    last_tokens, seq_lens, page_tables, active, caps, seeds, temperature,
+    top_p, top_k,
+    pre_tokens, pre_pos, pre_table_idx, pre_tables,
+    pre_range_start, pre_range_len, pre_range_kv, pre_range_table,
+    pre_sample_idx, pre_sample_pos, pre_seeds, pre_temp, pre_top_p,
+    pre_top_k,
+    *, greedy: bool, eos_id: int, work=None,
+):
+    """One flat mixed prefill+decode dispatch: every decode lane advances
+    exactly one step and up to W prefill tokens (ranges appended by the
+    host's batch builder) prefill, through one [B + W]-token forward_ragged.
+
+    Rows [0, B) are the decode lanes' single tokens (row b = slot b at
+    position seq_lens[b] - 1; inactive lanes compute masked garbage through
+    their garbage tables, as in _decode_fn); rows [B, B + W) are the
+    prefill stream. `pre_table_idx[w]` maps each prefill row to its slot's
+    host-side table in `pre_tables` [B, P] (index B: an all-garbage row).
+    `pre_range_*` [B] describe the ranges for the ragged attention (unused
+    ones are empty ranges past the end). Decode rows sample and stop
+    exactly as one _decode_fn step and return the same packed [1, B] row;
+    `pre_sample_idx[b]` names the prefill row whose hidden state samples
+    slot b's first token at position key `pre_sample_pos[b]` (= prompt
+    length, as _prefill_fn keys it); the host reads only final-range
+    slots' draws. `work` is the ragged kernel's work list for these
+    ranges. Returns (packed, tokens, seq_lens, active, first, paged)."""
+    B = last_tokens.shape[0]
+    W = pre_tokens.shape[0]
+    dev = last_tokens.device
+    tokens = torch.cat([last_tokens, pre_tokens])
+    positions = torch.cat([torch.clamp(seq_lens - 1, min=0), pre_pos]).to(torch.int32)
+    tables_ext = torch.cat([pre_tables, torch.zeros_like(pre_tables[:1])])
+    token_tables = torch.cat([page_tables, tables_ext[pre_table_idx.long()]])
+    rng_starts = torch.cat([torch.arange(B, dtype=torch.int32, device=dev),
+                            B + pre_range_start])
+    rng_lens = torch.cat([torch.ones(B, dtype=torch.int32, device=dev), pre_range_len])
+    rng_kv = torch.cat([torch.clamp(seq_lens, min=1), pre_range_kv])
+    seq_tables = torch.cat([page_tables, tables_ext[pre_range_table.long()]])
+    hidden, paged = forward_ragged(
+        params, cfg, tokens, positions, paged, token_tables,
+        rng_starts, rng_lens, rng_kv, seq_tables, work=work,
+    )
+    logits = unembed(params, cfg, hidden[:B])
+    dec = sample_tail(logits, seeds, seq_lens, temperature, top_p, top_k, greedy)
+    dec = torch.where(active, dec, torch.zeros_like(dec))
+    new_seq = seq_lens + active.to(torch.int32)
+    cont = active & (dec != eos_id) & (new_seq < caps)
+    packed = torch.where(active, dec, torch.full_like(dec, -1))[None, :]
+    rows = hidden[B + torch.clamp(pre_sample_idx, 0, W - 1).long()]
+    first = sample_tail(
+        unembed(params, cfg, rows), pre_seeds, pre_sample_pos, pre_temp,
+        pre_top_p, pre_top_k, greedy,
+    )
+    return packed, dec, new_seq, cont, first, paged
+
+
+def ragged_zero_operands(B: int, W: int, P: int) -> tuple:
+    """The 14 positional prefill operands of `_ragged_fn`, all-zero /
+    all-garbage (no ranges, no sample rows): the one builder of a
+    synthetic ragged call, and the layout `_ragged_prefill_operands` fills."""
+    return (
+        np.zeros((W,), np.int32),            # pre_tokens
+        np.zeros((W,), np.int32),            # pre_pos
+        np.full((W,), B, np.int32),          # pre_table_idx -> garbage row
+        np.zeros((B, P), np.int32),          # pre_tables
+        np.full((B,), W, np.int32),          # pre_range_start -> past end
+        np.zeros((B,), np.int32),            # pre_range_len
+        np.zeros((B,), np.int32),            # pre_range_kv
+        np.full((B,), B, np.int32),          # pre_range_table -> garbage
+        np.zeros((B,), np.int32),            # pre_sample_idx
+        np.zeros((B,), np.int32),            # pre_sample_pos
+        np.zeros((B, 2), np.int32),          # pre_seeds
+        np.zeros((B,), np.float32),          # pre_temp
+        np.ones((B,), np.float32),           # pre_top_p
+        np.zeros((B,), np.int32),            # pre_top_k
+    )
 
 
 def _merge_lane_fn(
@@ -259,6 +384,23 @@ class InferenceEngine:
         }
         self._slots: list[Optional[_Slot]] = [None] * B
 
+        self._chunk = config.prefill_chunk or max(config.prefill_buckets)
+        # Prefill tokens per loop iteration while decode lanes are live,
+        # floored at one chunk: the budget bounds a decode stall, it must
+        # never wedge a long prompt.
+        self._prefill_budget = max(config.prefill_budget or 2 * self._chunk,
+                                   self._chunk)
+        self._chunk_rr = _RRCursor()
+        # Ragged dispatch; POLYKEY_DISABLE_RAGGED=1 falls back to the
+        # bucketed paths without a config change.
+        self._ragged = config.ragged_dispatch and os.environ.get(
+            "POLYKEY_DISABLE_RAGGED", ""
+        ).lower() not in ("1", "true")
+        # Prefill stream width: the budget, floored at one chunk and padded
+        # so the whole stream (B + W rows) is a multiple of TOKEN_TILE.
+        W = max(self._prefill_budget, self._chunk)
+        self._ragged_width = W + (-(B + W)) % TOKEN_TILE
+
         self._submit: queue.Queue[GenRequest] = queue.Queue()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -296,11 +438,25 @@ class InferenceEngine:
             "pages_total": self.config.num_pages,
             "queued": self._submit.qsize(),
             "lookahead_depth": 1,
+            "prefill_budget": self._prefill_budget,
+            "ragged": self._ragged,
             "kernel_launches": {
                 name: k.launches for name, k in KERNELS.items()
             },
         })
+        if self._ragged:
+            snap["ragged_width"] = self._ragged_width
         return snap
+
+    def set_prefill_budget(self, tokens: int) -> int:
+        """Interleaved-prefill token budget per loop iteration, floored at
+        one chunk and, in ragged mode, capped at the stream width; returns
+        the value applied."""
+        tokens = max(int(tokens), self._chunk)
+        if self._ragged:
+            tokens = min(tokens, self._ragged_width)
+        self._prefill_budget = tokens
+        return tokens
 
     @property
     def busy(self) -> bool:
@@ -321,9 +477,21 @@ class InferenceEngine:
         try:
             with torch.inference_mode():
                 while not self._stop.is_set():
-                    worked = self._admit()
-                    if self._active.any():
-                        self._process_step(self._dispatch_step())
+                    # With live decode lanes, admissions and chunks share
+                    # the per-iteration prefill budget; with none there is
+                    # no stream to stall and the budget is waived.
+                    decode_live = bool(self._active.any())
+                    budget = self._prefill_budget if decode_live else None
+                    worked, spent = self._admit(budget)
+                    if not self._ragged:
+                        remaining = None if budget is None else max(0, budget - spent)
+                        chunked = self._advance_chunked_prefills(remaining)
+                        worked = worked or chunked > 0
+                        self.metrics.on_prefill_interleave(spent + chunked, decode_live)
+                    if self._active.any() or (
+                        self._ragged and self._has_pending_prefill()
+                    ):
+                        self._step()
                         worked = True
                     if not worked:
                         self.metrics.on_dispatch_idle()
@@ -355,20 +523,25 @@ class InferenceEngine:
         request.out.put(("error", message))
         self.metrics.on_finish(request.timings, failed=True)
 
-    def _admit(self) -> bool:
-        """Admit waiting requests into free slots; prefill them in
-        per-bucket groups. Returns whether any request was taken."""
+    def _admit(self, budget: Optional[int] = None) -> tuple[bool, int]:
+        """Admit waiting requests into free slots; prefill short prompts
+        in per-bucket groups, register long ones (and, in ragged mode,
+        every one) as pending. Each grouped admission charges its bucket
+        width against `budget` (None: unbounded); once it is spent the
+        rest of the queue waits for the next iteration. Returns (whether
+        any request was taken, tokens charged)."""
         admitted = False
+        spent = 0
         groups: dict[int, list] = {}
         try:
-            while True:
+            while budget is None or spent < budget:
                 free = [i for i, s in enumerate(self._slots) if s is None]
                 if not free:
-                    return admitted
+                    return admitted, spent
                 try:
                     request = self._submit.get_nowait()
                 except queue.Empty:
-                    return admitted
+                    return admitted, spent
                 admitted = True
                 if request.cancelled.is_set():
                     continue
@@ -382,13 +555,15 @@ class InferenceEngine:
                     # Pool exhausted: back to the front of the queue until
                     # running requests release pages (FIFO fairness).
                     self._requeue_front(request)
-                    return admitted
+                    return admitted, spent
                 if prep is None:
                     continue
                 bucket = prep[0]
+                spent += bucket
                 groups.setdefault(bucket, []).append(prep[1])
                 if len(groups[bucket]) >= _MAX_PREFILL_GROUP:
                     self._dispatch_prefill_group(bucket, groups.pop(bucket))
+            return admitted, spent
         finally:
             for bucket, group in groups.items():
                 self._dispatch_prefill_group(bucket, group)
@@ -405,7 +580,9 @@ class InferenceEngine:
 
     def _prepare_request(self, slot_idx: int, request: GenRequest):
         """Tokenize, budget, allocate pages and register the slot; returns
-        (bucket, slot_idx) or None when the request was refused."""
+        (bucket, slot_idx) for a short prompt the caller prefills in a
+        group, or None for a prompt registered as pending (chunked
+        prefill, or any prompt in ragged mode)."""
         cfg = self.config
         request.timings.prefill_start = time.monotonic()
         prompt_ids = self.tokenizer.encode(request.prompt)
@@ -418,15 +595,6 @@ class InferenceEngine:
             prompt_ids = prompt_ids[-max_prompt:]      # keep the prompt tail
         prompt_len = len(prompt_ids)
         request.timings.prompt_tokens = prompt_len
-        bucket = self._bucket_for(prompt_len)
-        if bucket is None:
-            self._fail_request(
-                request,
-                f"prompt of {prompt_len} tokens exceeds the largest prefill "
-                f"bucket ({max(cfg.prefill_buckets)}): chunked prefill is "
-                "not ported to polykey_tpu_torch yet (ROADMAP.md queue A)",
-            )
-            return None
         total_len = prompt_len + max_new
         pages = self.allocator.alloc(-(-total_len // cfg.page_size))
         table = np.zeros((cfg.pages_per_seq,), dtype=np.int32)
@@ -438,60 +606,80 @@ class InferenceEngine:
         seed_row = np.array(
             [(s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF], np.uint32
         ).view(np.int32)
-        self._slots[slot_idx] = _Slot(
+        slot = _Slot(
             request=request, pages=pages, table=table, seed_row=seed_row,
             prompt_len=prompt_len, position_cap=total_len,
-            prompt_ids=np.asarray(prompt_ids, dtype=np.int32),
         )
+        self._slots[slot_idx] = slot
+        ids = np.asarray(prompt_ids, dtype=np.int32)
+        bucket = self._bucket_for(prompt_len)
+        if self._ragged or bucket is None:
+            # Ragged mode: every prompt is token ranges of the next ragged
+            # dispatches. Bucketed mode: a prompt past the largest bucket
+            # prefills one chunk per iteration. Either way the slot's table
+            # stays off the device until its lane merges, so decode blocks
+            # keep writing this lane's garbage to page 0.
+            slot.pending = ids
+            return None
+        slot.prompt_ids = ids
         return bucket, slot_idx
 
-    def _dispatch_prefill_group(self, bucket: int, group: list) -> None:
-        """One prefill dispatch for up to 8 same-bucket admissions, padded
-        to 1, 2, 4 or 8 rows; padded rows use the garbage page."""
-        n = len(group)
-        n_pad = 1 if n == 1 else 2 if n == 2 else 4 if n <= 4 else 8
+    def _run_prefill(self, rows: list, width: int, n_pad: int) -> torch.Tensor:
+        """One _prefill_fn dispatch of `n_pad` windows of `width` tokens;
+        `rows` holds (slot, ids, start) for the real ones, the rest point
+        at the garbage page. Returns the sampled tokens [n_pad] (device)."""
         cfg = self.config
-        tokens = np.zeros((n_pad, bucket), dtype=np.int32)
+        tokens = np.zeros((n_pad, width), dtype=np.int32)
+        starts = np.zeros((n_pad,), dtype=np.int32)
         last_rel = np.zeros((n_pad,), dtype=np.int32)
         tables = np.zeros((n_pad, cfg.pages_per_seq), dtype=np.int32)
         temp = np.zeros((n_pad,), dtype=np.float32)
         top_p = np.ones((n_pad,), dtype=np.float32)
         top_k = np.zeros((n_pad,), dtype=np.int32)
         seeds = np.zeros((n_pad, 2), dtype=np.int32)
-        useful = 0
-        for r, slot_idx in enumerate(group):
-            slot = self._slots[slot_idx]
-            ids, slot.prompt_ids = slot.prompt_ids, None
+        for r, (slot, ids, start) in enumerate(rows):
             tokens[r, : len(ids)] = ids
+            starts[r] = start
             last_rel[r] = len(ids) - 1
             tables[r] = slot.table
             temp[r] = slot.request.temperature
             top_p[r] = slot.request.top_p
             top_k[r] = slot.request.top_k
             seeds[r] = slot.seed_row
-            useful += len(ids)
-        greedy = bool(np.all(temp == 0.0))
         dev = self.device
 
         def put(a):
             return torch.from_numpy(a).to(dev)
 
+        ps = cfg.page_size
+        toks_dev, self.paged = _prefill_fn(
+            self.params, self.model_cfg, self.paged,
+            put(tokens), put(starts), put(last_rel), put(tables), put(seeds),
+            put(temp), put(top_p), put(top_k),
+            greedy=bool(np.all(temp == 0.0)),
+            aligned=width % ps == 0 and not np.any(starts % ps),
+        )
+        return toks_dev
+
+    def _dispatch_prefill_group(self, bucket: int, group: list) -> None:
+        """One prefill dispatch for up to 8 same-bucket admissions, padded
+        to 1, 2, 4 or 8 rows; padded rows use the garbage page."""
+        n = len(group)
+        n_pad = 1 if n == 1 else 2 if n == 2 else 4 if n <= 4 else 8
+        rows = []
+        for slot_idx in group:
+            slot = self._slots[slot_idx]
+            rows.append((slot, slot.prompt_ids, 0))
+            slot.prompt_ids = None
         try:
-            toks_dev, self.paged = _prefill_fn(
-                self.params, self.model_cfg, self.paged,
-                put(tokens), torch.zeros(n_pad, dtype=torch.int32, device=dev),
-                put(last_rel), put(tables), put(seeds), put(temp), put(top_p),
-                put(top_k), greedy=greedy,
-                # Every window starts at position 0.
-                aligned=bucket % cfg.page_size == 0,
-            )
+            toks_dev = self._run_prefill(rows, bucket, n_pad)
         except Exception as e:
             # Contain the failure to this group: every member is registered
             # and must be finished, or its pages leak and its client hangs.
             for slot_idx in group:
                 self._finish(slot_idx, error=f"prefill failed: {e}")
             return
-        self.metrics.on_padding_tokens(n_pad * bucket, useful)
+        self.metrics.on_padding_tokens(n_pad * bucket, sum(len(ids) for _, ids, _ in rows))
         for r, slot_idx in enumerate(group):
             self._merge_slot(slot_idx, toks_dev, r)
         first = toks_dev.cpu().numpy()
@@ -510,6 +698,7 @@ class InferenceEngine:
             eos_id=self.tokenizer.eos_id,
         )
         slot.merged = True
+        slot.pending = None
         self._seq_lens[slot_idx] = slot.prompt_len + 1
         self._active[slot_idx] = True
         self._temperature[slot_idx] = request.temperature
@@ -524,10 +713,203 @@ class InferenceEngine:
         request.out.put(("token", token))
         self._maybe_finish(slot_idx, token)
 
+    def _has_pending_prefill(self) -> bool:
+        return any(s is not None and s.pending is not None for s in self._slots)
+
+    def _advance_chunked_prefills(self, budget: Optional[int]) -> int:
+        """Advance slots mid-chunked-prefill, round-robin from the cursor,
+        one chunk per slot, until `budget` tokens are spent (None: every
+        pending slot advances one chunk). The first chunk always goes.
+        Returns the prefill tokens charged."""
+        spent = 0
+        B = len(self._slots)
+        for i in self._chunk_rr.scan(B):
+            s = self._slots[i]
+            if s is None or s.pending is None:
+                continue
+            if budget is not None and spent > 0 and spent >= budget:
+                self._chunk_rr.reanchor(i)      # starved: first next time
+                return spent
+            spent += self._prefill_one_chunk(i)
+        self._chunk_rr.advance(B)
+        return spent
+
+    def _prefill_one_chunk(self, slot_idx: int) -> int:
+        """Prefill the next chunk of a long prompt at its offset through
+        _prefill_fn (N = 1); the final chunk samples the first token and
+        merges the lane. Returns the chunk width charged, 0 when the slot
+        ended without a dispatch (cancelled, expired, failed)."""
+        slot = self._slots[slot_idx]
+        request = slot.request
+        if request.cancelled.is_set():
+            self._finish(slot_idx, error="cancelled")
+            return 0
+        if self._deadline_expired(request):
+            self.metrics.on_deadline_expired("prefill")
+            self._finish(slot_idx, error=f"{DEADLINE_MSG} during prefill")
+            return 0
+        C = self._chunk
+        take = min(C, len(slot.pending) - slot.filled)
+        ids = slot.pending[slot.filled:slot.filled + take]
+        final = slot.filled + take >= len(slot.pending)
+        try:
+            token_dev = self._run_prefill([(slot, ids, slot.filled)], C, 1)
+        except Exception as e:
+            self._finish(slot_idx, error=f"prefill failed: {e}")
+            return 0
+        self.metrics.on_padding_tokens(C, take)
+        if final:
+            self._merge_slot(slot_idx, token_dev, 0)
+            self._resolve_slot(slot_idx, int(token_dev.cpu()[0]))
+        else:
+            slot.filled += take
+        return C
+
+    def _build_ragged_batch(self) -> list:
+        """The next ragged dispatch's token ranges: round-robin from the
+        cursor over slots with pending prompt tokens, one range of up to a
+        chunk per slot, until the budget (while decode lanes are live) or
+        the stream width is spent; the first range always goes. Returns
+        [(slot_idx, slot, take)]."""
+        W = self._ragged_width
+        budget = min(self._prefill_budget, W) if self._active.any() else W
+        ranges: list = []
+        spent = 0
+        B = len(self._slots)
+        starved = None
+        for i in self._chunk_rr.scan(B):
+            s = self._slots[i]
+            if s is None or s.pending is None:
+                continue
+            if s.request.cancelled.is_set():
+                self._finish(i, error="cancelled")
+                continue
+            if self._deadline_expired(s.request):
+                self.metrics.on_deadline_expired("prefill")
+                self._finish(i, error=f"{DEADLINE_MSG} during prefill")
+                continue
+            if spent >= budget and ranges:
+                starved = i
+                break
+            take = min(self._chunk, len(s.pending) - s.filled, W - spent)
+            if take <= 0:
+                if ranges:
+                    starved = i
+                break
+            ranges.append((i, s, take))
+            spent += take
+        if starved is not None:
+            self._chunk_rr.reanchor(starved)
+        else:
+            self._chunk_rr.advance(B)
+        return ranges
+
+    def _ragged_prefill_operands(self, ranges: list, W: int):
+        """The 14 `pre_*` numpy operands of a ragged dispatch of stream
+        width W for `ranges`; returns (operands, real prefill tokens)."""
+        cfg = self.config
+        ops = ragged_zero_operands(cfg.max_decode_slots, W, cfg.pages_per_seq)
+        (pre_tokens, pre_pos, pre_tidx, pre_tables, rng_start, rng_len, rng_kv,
+         rng_tidx, smp_idx, smp_pos, smp_seeds, smp_temp, smp_top_p,
+         smp_top_k) = ops
+        off = 0
+        for r, (i, s, take) in enumerate(ranges):
+            pre_tokens[off:off + take] = s.pending[s.filled:s.filled + take]
+            pre_pos[off:off + take] = np.arange(s.filled, s.filled + take)
+            pre_tidx[off:off + take] = i
+            pre_tables[i] = s.table
+            rng_start[r] = off
+            rng_len[r] = take
+            rng_kv[r] = s.filled + take
+            rng_tidx[r] = i
+            if s.filled + take >= len(s.pending):
+                # Final range: sample the first token from its last row at
+                # position key prompt_len, as _prefill_fn does.
+                smp_idx[i] = off + take - 1
+                smp_pos[i] = s.filled + take
+                smp_seeds[i] = s.seed_row
+                smp_temp[i] = s.request.temperature
+                smp_top_p[i] = s.request.top_p
+                smp_top_k[i] = s.request.top_k
+            off += take
+        return ops, off
+
+    def _dispatch_ragged(self, ranges: list) -> bool:
+        """One flat mixed prefill+decode dispatch of `ranges` plus every
+        decode lane's single token, read back at once: final-range slots
+        merge and take their first token, the decode lanes' packed row is
+        processed like a one-step block. Returns False when the dispatch
+        failed (its ranged slots are finished, the lanes are untouched)."""
+        cfg = self.config
+        W = self._ragged_width
+        B = cfg.max_decode_slots
+        ops, useful = self._ragged_prefill_operands(ranges, W)
+        act = self._active
+        lanes = int(act.sum())
+        smp_temp = ops[11]
+        greedy = bool(np.all(self._temperature[act] == 0.0)) and bool(
+            np.all(smp_temp == 0.0))
+        # The kernel's work list from host values: decode lanes see
+        # max(seq_len, 1) keys (the host mirror is exact at depth 1).
+        mc = self.model_cfg
+        work = ragged_work(
+            np.concatenate([np.arange(B), B + ops[4]]),
+            np.concatenate([np.ones(B, np.int32), ops[5]]),
+            np.concatenate([np.maximum(self._seq_lens, 1), ops[6]]),
+            B + W, mc.num_heads // mc.num_kv_heads, self.device,
+        )
+        self.metrics.on_dispatch(lanes, 1, slots=B)
+        self.metrics.on_padding_tokens(W, useful)
+        self.metrics.on_prefill_interleave(useful, lanes > 0)
+        dev = self._dev
+        try:
+            packed_dev, last, seq, active, first_dev, self.paged = _ragged_fn(
+                self.params, mc, self.paged,
+                dev["last_tokens"], dev["seq_lens"], dev["page_tables"],
+                dev["active"], dev["caps"], dev["seeds"], dev["temperature"],
+                dev["top_p"], dev["top_k"],
+                *(torch.from_numpy(a).to(self.device) for a in ops),
+                greedy=greedy, eos_id=self.tokenizer.eos_id, work=work,
+            )
+        except Exception as e:
+            # Contained to the ranged slots, as a failed prefill group is;
+            # the decode lanes' state was not advanced.
+            for i, s, _take in ranges:
+                if self._slots[i] is s:
+                    self._finish(i, error=f"prefill failed: {e}")
+            return False
+        dev["last_tokens"], dev["seq_lens"], dev["active"] = last, seq, active
+        finals = []
+        for i, s, take in ranges:
+            if s.filled + take >= len(s.pending):
+                self._merge_slot(i, first_dev, i)
+                finals.append(i)
+            else:
+                s.filled += take
+        # One device-to-host copy: the packed decode row, then the first
+        # tokens.
+        host = self._read_back(packed_dev, first_dev)
+        for i in finals:
+            if self._slots[i] is not None:
+                self._resolve_slot(i, int(host[B + i]))
+        self._emit_block(host[:B].reshape(1, B))
+        return True
+
+    def _step(self) -> None:
+        """One dispatch, read back before anything else changes the slots
+        (lookahead depth 1): in ragged mode a ragged dispatch while prefill
+        work is pending, else a decode block of the live lanes."""
+        if self._ragged:
+            ranges = self._build_ragged_batch()
+            if ranges and self._dispatch_ragged(ranges):
+                return
+            if not self._active.any():
+                return
+        packed_dev = self._dispatch_step()
+        self._emit_block(self._read_back(packed_dev).reshape(packed_dev.shape))
+
     def _dispatch_step(self) -> torch.Tensor:
-        """Run one decode block; returns its packed [K, B] device tensor.
-        At lookahead depth 1 it is read before anything else changes the
-        slots, so no per-block request snapshot is needed."""
+        """Run one decode block; returns its packed [K, B] device tensor."""
         dev = self._dev
         act = self._active
         greedy = bool(np.all(self._temperature[act] == 0.0))
@@ -543,11 +925,17 @@ class InferenceEngine:
         dev["last_tokens"], dev["seq_lens"], dev["active"] = last, seq, active
         return packed
 
-    def _process_step(self, packed_dev: torch.Tensor) -> None:
-        """Read a block's packed tokens and emit/finish on the host."""
+    def _read_back(self, *tensors: torch.Tensor) -> np.ndarray:
+        """The int32 device tensors, flattened and joined, in one
+        device-to-host copy that waits for the dispatch."""
         t_sync = time.monotonic()
-        packed = packed_dev.cpu().numpy()              # [K, B]; waits for the block
+        host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
         self.metrics.on_process_block(0, (time.monotonic() - t_sync) * 1e3)
+        return host
+
+    def _emit_block(self, packed: np.ndarray) -> None:
+        """Emit a block's packed [K, B] tokens and finish streams on the
+        host."""
         emitted = 0
         for i, slot in enumerate(self._slots):
             if slot is None or not self._active[i]:

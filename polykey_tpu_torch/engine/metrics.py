@@ -8,9 +8,9 @@ per-request Usage on the streaming RPC.
 TTFT and inter-token latency are histogram-backed (obs.histogram): fixed
 log-spaced buckets give O(1)-memory p50/p95/p99 over the full history.
 
-This covers what the port's default engine path records; the counters of
-speculative decoding, the host-KV tier, interleaved prefill and device-time
-attribution come with the slices that port those features.
+This covers what the port's engine paths record; the counters of
+speculative decoding, the host-KV tier and device-time attribution come
+with the slices that port those features.
 """
 
 from __future__ import annotations
@@ -87,6 +87,11 @@ class EngineMetrics:
         # padded group width vs the real prompt tokens).
         self.tokens_dispatched_total = 0
         self.tokens_useful_total = 0
+        # Interleaved prefill: prefill tokens dispatched in all, and the
+        # most in one loop iteration while decode lanes were live (the
+        # stall the prefill budget bounds).
+        self.prefill_tokens_total = 0
+        self.interleave_max_tokens = 0
         # Per processed block: the observed lookahead (0 at depth 1) and
         # the host stall, the ms the host blocked on the block's readback.
         self.blocks_processed = 0
@@ -120,6 +125,16 @@ class EngineMetrics:
         block of the next request is not charged the idle wait."""
         with self._lock:
             self._last_dispatch_t = 0.0
+
+    def on_prefill_interleave(self, tokens: int, decode_live: bool) -> None:
+        """Prefill tokens dispatched in one engine-loop iteration;
+        `decode_live` marks iterations that had live decode lanes."""
+        if tokens <= 0:
+            return
+        with self._lock:
+            self.prefill_tokens_total += tokens
+            if decode_live and tokens > self.interleave_max_tokens:
+                self.interleave_max_tokens = tokens
 
     def on_padding_tokens(self, dispatched: int, useful: int) -> None:
         """Token rows computed vs useful for one prefill dispatch."""
@@ -234,6 +249,8 @@ class EngineMetrics:
                 "lane_steps": self.lane_steps,
                 "steps_dispatched": self.steps_dispatched,
                 "lanes_ewma": round(self._lanes_ewma, 2),
+                "prefill_tokens_total": self.prefill_tokens_total,
+                "interleave_max_tokens": self.interleave_max_tokens,
                 "tokens_dispatched": self.tokens_dispatched_total,
                 "tokens_useful": self.tokens_useful_total,
                 "tokens_useful_fraction": (

@@ -167,6 +167,59 @@ def forward_paged(
     return x, paged
 
 
+def forward_ragged(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [T] int flat token stream
+    positions: torch.Tensor,     # [T] int32 absolute positions
+    paged,                       # engine.kv_cache.PagedKV
+    token_tables: torch.Tensor,  # [T, P] int32 per-TOKEN table rows
+    seq_starts: torch.Tensor,    # [S] int32 ragged range starts
+    seq_lens: torch.Tensor,      # [S] int32 new-token counts
+    kv_lens: torch.Tensor,       # [S] int32 KV lengths (new incl.)
+    page_tables: torch.Tensor,   # [S, P] int32 per-SEQUENCE tables
+    *,
+    work=None,
+):
+    """Forward pass over a ragged flat token stream: decode and prefill
+    tokens of many sequences in one call, each attending over its own
+    paged KV; returns (hidden [T, H], paged).
+
+    Position-wise compute runs on the stream as a [1, T] batch. The KV
+    write goes through paged_write's T == 1 path with one row per token
+    ([T, 1], the decode write kernel); attention through
+    ragged_paged_attention, whose kernel takes `work`
+    (ops.ragged_paged_attention_kernel.ragged_work) from a caller that knows
+    the ranges on the host. Padding rows carry position 0 and all-garbage
+    table rows: they write to the reserved garbage page, like inactive
+    decode lanes."""
+    from ..ops.paged_attention import paged_write
+    from ..ops.ragged_paged_attention_kernel import ragged_paged_attention
+
+    T = tokens.shape[0]
+    pos_row = positions.reshape(T, 1)
+
+    def attend(layer_idx, q, k, v):
+        kc, vc = paged.k[layer_idx], paged.v[layer_idx]
+        paged_write(kc, vc, k.reshape(T, 1, *k.shape[2:]),
+                    v.reshape(T, 1, *v.shape[2:]), token_tables, pos_row)
+        ctx = ragged_paged_attention(
+            q[0], kc, vc, page_tables, seq_starts, seq_lens, kv_lens,
+            scale=cfg.q_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+            window=layer_window(cfg, layer_idx),
+            work=work,
+        )
+        return ctx[None]
+
+    x = embed_tokens(params, cfg, tokens[None])
+    for i, layer in enumerate(params["layers"]):
+        x = apply_layer(layer, i, x, positions[None], cfg, attend)
+    norm_offset = 1.0 if cfg.scale_embeddings else 0.0
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, norm_offset)
+    return x[0], paged
+
+
 def unembed(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     """Project hidden states to fp32 vocab logits, applying Gemma's final
     soft-cap. Callers gather the rows they need first."""

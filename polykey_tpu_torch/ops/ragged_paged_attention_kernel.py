@@ -1,0 +1,270 @@
+"""Ragged paged attention (the reference's
+ops/ragged_paged_attention_kernel.py): one call attends a flat token stream
+of decode singles and prefill chunks, each sequence over its own paged KV.
+
+Sequence s owns rows [seq_starts[s], seq_starts[s] + seq_lens[s]) of
+q [T, Hq, D] and attends over its KV positions [0, kv_lens[s]) through
+page_tables[s]; the query position of row r is
+kv_lens[s] - seq_lens[s] + (r - seq_starts[s]). Causal masking inside the
+new tokens, GQA, logit soft-capping and a sliding window. The output is
+normalized, and rows outside every range (padding, empty ranges, ranges
+that start past the stream) are exactly 0.
+
+The kernel (csrc/ragged_paged_attention.cu) takes a work list that the host
+builds from the ranges (`ragged_work`): tiles of 64 / G query tokens per
+(sequence, kv head), long contexts split into shares whose partial states a
+second launch merges. On a CUDA tensor the kernel runs or the call raises;
+`ragged_attention_plain` computes the same function in plain PyTorch, one
+sequence at a time, and runs only for CPU tensors, as the comparison in
+tests and chip_smoke.py, and under POLYKEY_DISABLE_RAGGED_KERNEL=1, the
+reference's kill switch (off by default).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ._build import F, I, P, Kernel, check_cuda_tensor
+
+KERNEL = Kernel(
+    "pk_ragged_attention",
+    [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I],
+)
+
+# Flat streams must be a multiple of this many rows. Load-bearing beyond
+# this module: the engine pads its ragged stream width against it.
+TOKEN_TILE = 8
+
+RAGGED_HEAD_DIMS = frozenset({64, 128, 256})
+RAGGED_GROUPS = frozenset({1, 2, 4, 8})   # query heads per kv head
+TILE_ROWS = 64        # query-head rows per CTA: 64 / G tokens x G heads
+# Visible keys per split of a tile; the decode kernel's best split on an
+# H100 (PERF.md), so a long decode context spreads over as many CTAs.
+SPLIT_ROWS = 256
+_NEG_INF = -1e30
+
+
+def _window_int(window) -> int:
+    return 0 if window is None else int(window)
+
+
+def use_ragged_kernel() -> bool:
+    """POLYKEY_DISABLE_RAGGED_KERNEL=1 is the operational kill switch: the
+    ragged kernel is its own code, so a fault there can be contained
+    without taking the decode kernel down (the plain version serves)."""
+    return os.environ.get("POLYKEY_DISABLE_RAGGED_KERNEL", "").lower() not in (
+        "1", "true"
+    )
+
+
+@dataclass
+class RaggedWork:
+    """The kernel's work list on the device: `items` and `merges` are
+    [n, 6] int32 rows (sequence, first stream row, row count, split, split
+    count, partial slot); `n_part` partial slots hold the splits' states."""
+
+    items: torch.Tensor
+    merges: torch.Tensor
+    n_part: int
+
+
+def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int,
+                device) -> RaggedWork:
+    """Cut the ranges (host values: sequences, lists or numpy arrays) into
+    the kernel's items. `kv_lens` sizes the splits only; the kernel reads
+    the true KV lengths on the device, so an estimate is never wrong, at
+    worst slower. Every row of every range must be covered, so the starts
+    and lengths must be the ones the kernel is given."""
+    if groups not in RAGGED_GROUPS:
+        raise ValueError(f"ragged kernel: Hq / Hk = {groups} not in {sorted(RAGGED_GROUPS)}")
+    tq = TILE_ROWS // groups
+    items, merges = [], []
+    n_part = 0
+    for s, (start, length, kv) in enumerate(zip(
+            np.asarray(seq_starts).tolist(), np.asarray(seq_lens).tolist(),
+            np.asarray(kv_lens).tolist())):
+        end = min(start + length, T)
+        for row0 in range(max(start, 0), end, tq):
+            n = min(tq, end - row0)
+            visible = kv - length + (row0 - start) + n    # the last row's keys
+            nsplit = max(1, -(-visible // SPLIT_ROWS))
+            if nsplit == 1:
+                items.append((s, row0, n, 0, 1, 0))
+                continue
+            items.extend((s, row0, n, j, nsplit, n_part) for j in range(nsplit))
+            merges.append((s, row0, n, 0, nsplit, n_part))
+            n_part += nsplit
+
+    def put(rows):
+        a = np.asarray(rows, dtype=np.int32).reshape(-1, 6)
+        return torch.from_numpy(a).to(device)
+
+    return RaggedWork(put(items), put(merges), n_part)
+
+
+def ragged_attention_plain(
+    q: torch.Tensor,             # [T, Hq, D]
+    k_pages: torch.Tensor,       # [N, ps, Hk, D]
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor,   # [S, P] int32
+    seq_starts: torch.Tensor,    # [S] int32
+    seq_lens: torch.Tensor,      # [S] int32
+    kv_lens: torch.Tensor,       # [S] int32
+    *,
+    scale: float,
+    logit_softcap: Optional[float] = None,
+    window=None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch; returns normalized fp32
+    [T, Hq, D]. Per sequence: gather its window [0, kv_len) once and attend
+    its rows, so memory grows with one window, not with one window per
+    token. Reads the range metadata on the host."""
+    T, Hq, D = q.shape
+    _, ps, Hk, _ = k_pages.shape
+    P_ = page_tables.shape[1]
+    G = Hq // Hk
+    w = _window_int(window)
+    out = torch.zeros((T, Hq, D), dtype=torch.float32, device=q.device)
+    for s, (start, length, kv) in enumerate(zip(
+            seq_starts.tolist(), seq_lens.tolist(), kv_lens.tolist())):
+        first, end = max(start, 0), min(start + length, T)
+        pages = min(-(-kv // ps), P_)
+        if end <= first or pages <= 0:
+            continue
+        n, S = end - first, pages * ps
+        idx = page_tables[s, :pages].long()
+        k = k_pages[idx].reshape(S, Hk, D).float()
+        v = v_pages[idx].reshape(S, Hk, D).float()
+        kv_pos = torch.arange(S, device=q.device)
+        # Rows at or past kv_len were never written: zero them, so stale
+        # NaN cannot reach a sum through a probability of 0.
+        v = torch.where((kv_pos < kv)[:, None, None], v, torch.zeros_like(v))
+        q_pos = kv - length + torch.arange(first - start, end - start, device=q.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]                  # [n, S]
+        if w > 0:
+            mask &= kv_pos[None, :] > q_pos[:, None] - w
+        qs = q[first:end].float().reshape(n, Hk, G, D)
+        logits = torch.einsum("thgd,shd->hgts", qs, k) * scale
+        if logit_softcap is not None:
+            logits = logit_softcap * torch.tanh(logits / logit_softcap)
+        logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("hgts,shd->hgtd", p, v) / torch.clamp(l, min=1e-9)
+        out[first:end] = o.permute(2, 0, 1, 3).reshape(n, Hq, D)
+    return out
+
+
+def ragged_attention_cuda(
+    q, k_pages, v_pages, page_tables, seq_starts, seq_lens, kv_lens, *,
+    scale, logit_softcap=None, window=None, work: Optional[RaggedWork] = None,
+) -> torch.Tensor:
+    """Launch the CUDA kernel; returns normalized fp32 [T, Hq, D]. Without
+    a `work` list it builds one from the range metadata, which reads it on
+    the host (a device sync). Raises on anything the kernel does not take."""
+    T, Hq, D = q.shape
+    N, ps, Hk, Dk = k_pages.shape
+    S, P_ = page_tables.shape
+    check_cuda_tensor("q", q, torch.bfloat16, 3)
+    check_cuda_tensor("k_pages", k_pages, torch.bfloat16, 4)
+    check_cuda_tensor("v_pages", v_pages, torch.bfloat16, 4)
+    check_cuda_tensor("page_tables", page_tables, torch.int32, 2)
+    for name, t in (("seq_starts", seq_starts), ("seq_lens", seq_lens),
+                    ("kv_lens", kv_lens)):
+        check_cuda_tensor(name, t, torch.int32, 1)
+        if t.shape[0] != S:
+            raise ValueError(f"ragged kernel: {name} has {t.shape[0]} rows, tables {S}")
+    if D not in RAGGED_HEAD_DIMS or Dk != D or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"ragged kernel: head_dim {D} (pools {tuple(k_pages.shape)}) "
+            f"not in {sorted(RAGGED_HEAD_DIMS)}"
+        )
+    if Hq % Hk or Hq // Hk not in RAGGED_GROUPS:
+        raise ValueError(
+            f"ragged kernel: Hq={Hq}, Hk={Hk} needs Hq / Hk in {sorted(RAGGED_GROUPS)}"
+        )
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ragged kernel: {name} is not 16-byte aligned")
+    if work is None:
+        work = ragged_work(seq_starts.cpu(), seq_lens.cpu(), kv_lens.cpu(), T,
+                           Hq // Hk, q.device)
+    for name, t in (("work.items", work.items), ("work.merges", work.merges)):
+        check_cuda_tensor(name, t, torch.int32, 2)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = torch.zeros((T, Hq, D), **f32)
+    n_part = max(work.n_part, 1)
+    part_acc = torch.empty((n_part, Hk, TILE_ROWS, D), **f32)
+    part_ml = torch.empty((n_part, Hk, TILE_ROWS, 2), **f32)
+    if work.items.shape[0]:
+        KERNEL(
+            q, k_pages, v_pages, page_tables, seq_starts, seq_lens, kv_lens,
+            work.items, work.merges, out, part_acc, part_ml,
+            work.items.shape[0], work.merges.shape[0], T, Hq, Hk, D, ps, P_,
+            float(scale), float(logit_softcap or 0.0), _window_int(window),
+        )
+    return out
+
+
+def ragged_gather_attention(
+    q: torch.Tensor,             # [T, Hq, D]
+    k_pages: torch.Tensor,       # [N, ps, Hk, D]
+    v_pages: torch.Tensor,
+    token_tables: torch.Tensor,  # [T, P] int32, each token's table row
+    q_positions: torch.Tensor,   # [T] int32 absolute positions
+    *,
+    scale: float,
+    logit_softcap: Optional[float] = None,
+    window=None,
+) -> torch.Tensor:
+    """The reference's per-token gather: one batch row per token through
+    paged_attention. Every token materializes its whole window, so it is a
+    test oracle at small sizes, never a serving path."""
+    from .paged_attention import paged_attention
+
+    out = paged_attention(
+        q[:, None], k_pages, v_pages, token_tables,
+        q_positions[:, None].to(torch.int32),
+        scale=scale, logit_softcap=logit_softcap, window=window,
+    )
+    return out[:, 0]
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,             # [T, Hq, D] flat token stream (tile-padded)
+    k_pages: torch.Tensor,       # [N, ps, Hk, D]
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor,   # [S, P] int32 per-sequence tables
+    seq_starts: torch.Tensor,    # [S] int32 row range starts (ascending)
+    seq_lens: torch.Tensor,      # [S] int32 new-token counts
+    kv_lens: torch.Tensor,       # [S] int32 KV lengths (new tokens incl.)
+    *,
+    scale: float,
+    logit_softcap: Optional[float] = None,
+    window=None,
+    token_tile: int = TOKEN_TILE,
+    work: Optional[RaggedWork] = None,
+) -> torch.Tensor:
+    """Ragged paged attention over the flat stream; returns [T, Hq, D] in
+    q's dtype. `work` is the kernel's work list (`ragged_work`), built by a
+    caller that knows the ranges on the host; the plain path ignores it."""
+    T = q.shape[0]
+    if T % token_tile:
+        raise ValueError(
+            f"ragged token stream T={T} must be a multiple of "
+            f"token_tile={token_tile} (the engine pads the stream)"
+        )
+    args = (q.contiguous(), k_pages, v_pages, page_tables.to(torch.int32).contiguous(),
+            *(t.to(torch.int32).contiguous() for t in (seq_starts, seq_lens, kv_lens)))
+    kw = dict(scale=scale, logit_softcap=logit_softcap, window=window)
+    if q.device.type == "cuda" and use_ragged_kernel():
+        out = ragged_attention_cuda(*args, work=work, **kw)
+    else:
+        out = ragged_attention_plain(*args, **kw)
+    return out.to(q.dtype)

@@ -1,12 +1,15 @@
-"""Where a decode step's time goes, on the GPU.
+"""Where a decode step's (or a ragged dispatch's) time goes, on the GPU.
 
-    python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0]
+    python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0] [--ragged]
 
 Builds the 32-layer Llama-3-8B with random bf16 weights, puts 16 live lanes
 (the default EngineConfig's slots) at `context` positions of the default
 paged KV pool, and runs the engine's decode block (`engine._decode_fn`, the
 default 8 greedy steps) once to warm up, once on the host clock, and once
-under torch.profiler. Prints, per step:
+under torch.profiler. With --ragged it runs one ragged dispatch instead
+(`engine._ragged_fn`): the 16 lanes' single tokens plus the default
+1024-token prefill budget, as a first 512-token chunk (KV length 512) and a
+second one (KV length 1024). Prints, per step (per dispatch with --ragged):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
 launches, and the kernels that took the most device time. Each line names
@@ -20,6 +23,7 @@ import collections
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 
@@ -27,15 +31,18 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--context", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ragged", action="store_true",
+                    help="profile one ragged mixed prefill+decode dispatch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
 
     from ..engine.config import EngineConfig
-    from ..engine.engine import _decode_fn
+    from ..engine.engine import _decode_fn, _ragged_fn, ragged_zero_operands
     from ..engine.kv_cache import init_paged_kv
     from ..models.config import get_config
     from ..models.transformer import init_params
+    from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -71,15 +78,50 @@ def main() -> None:
         top_k=torch.zeros(B, dtype=torch.int32, device=dev),
     )
 
+    lane_args = [state[k] for k in ("last_tokens", "seq_lens", "page_tables", "active",
+                                    "caps", "seeds", "temperature", "top_p", "top_k")]
+
     def block():
         nonlocal paged
         packed, *_, paged = _decode_fn(
-            params, cfg, paged, state["last_tokens"], state["seq_lens"],
-            state["page_tables"], state["active"], state["caps"], state["seeds"],
-            state["temperature"], state["top_p"], state["top_k"],
-            greedy=True, steps=steps, eos_id=-1,
+            params, cfg, paged, *lane_args, greedy=True, steps=steps, eos_id=-1,
         )
         return packed.cpu()
+
+    if args.ragged:
+        # The engine's stream: W = the default 1024-token budget, padded so
+        # B + W is a multiple of TOKEN_TILE. Two prompts on fresh pages: X
+        # prefills its first chunk (positions 0..511), Y its second
+        # (512..1023, the final one, which samples Y's first token).
+        chunk = max(econf.prefill_buckets)
+        W = 2 * chunk + (-(B + 2 * chunk)) % TOKEN_TILE
+        pre = ragged_zero_operands(B, W, P)
+        (tokens, pos, tidx, ptables, r_start, r_len, r_kv, r_tidx,
+         s_idx, s_pos) = pre[:10]
+        fresh = 1 + (B * per + np.arange(3 * chunk // ps)) % (econf.num_pages - 1)
+        ptables[0, : chunk // ps] = fresh[: chunk // ps]
+        ptables[1, : 2 * chunk // ps] = fresh[chunk // ps:]
+        tokens[: 2 * chunk] = np.random.default_rng(args.seed).integers(3, 259, 2 * chunk)
+        pos[: 2 * chunk] = np.arange(2 * chunk)
+        tidx[: 2 * chunk] = np.repeat([0, 1], chunk)
+        r_start[:2], r_len[:2], r_kv[:2], r_tidx[:2] = [0, chunk], chunk, [chunk, 2 * chunk], [0, 1]
+        s_idx[1], s_pos[1] = 2 * chunk - 1, 2 * chunk
+        work = ragged_work(
+            np.concatenate([np.arange(B), B + r_start]),
+            np.concatenate([np.ones(B, np.int32), r_len]),
+            np.concatenate([np.full(B, args.context), r_kv]),
+            B + W, cfg.num_heads // cfg.num_kv_heads, dev,
+        )
+        pre_dev = [torch.from_numpy(a).to(dev) for a in pre]
+        steps = 1
+
+        def block():  # noqa: F811 - the ragged dispatch replaces the block
+            nonlocal paged
+            packed, *_, first, paged = _ragged_fn(
+                params, cfg, paged, *lane_args, *pre_dev, greedy=True, eos_id=-1,
+                work=work,
+            )
+            return torch.cat([packed.reshape(-1), first]).cpu()
 
     with torch.inference_mode():
         block()
@@ -100,10 +142,16 @@ def main() -> None:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / steps
-    where = (f"{cfg.name} {cfg.num_layers} layers bf16, B={B}, context "
-             f"{args.context}, block of {steps} greedy steps, on {card}")
+    if args.ragged:
+        where = (f"{cfg.name} {cfg.num_layers} layers bf16, one ragged dispatch: "
+                 f"B={B} decode lanes at context {args.context} + {W}-token prefill "
+                 f"stream (chunks at KV 512 and 1024), greedy, on {card}")
+    else:
+        where = (f"{cfg.name} {cfg.num_layers} layers bf16, B={B}, context "
+                 f"{args.context}, block of {steps} greedy steps, on {card}")
     print(f"[profile_decode] {where}")
-    print(f"[profile_decode] per step: wall {wall_ms:.3f} ms (host clock, "
+    unit = "dispatch" if args.ragged else "step"
+    print(f"[profile_decode] per {unit}: wall {wall_ms:.3f} ms (host clock, "
           f"unprofiled block); device busy in kernels {busy_ms:.3f} ms "
           f"(profiled block); idle share {1 - busy_ms / wall_ms:.3f}; "
           f"{len(kernels) / steps:.0f} kernel launches")
@@ -112,8 +160,8 @@ def main() -> None:
               "device time not measured")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, n) in top:
-        print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/step "
-              f"{n / steps:6.0f} launches/step  {name[:110]}")
+        print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/{unit} "
+              f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
 
 
 if __name__ == "__main__":

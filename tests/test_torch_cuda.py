@@ -11,7 +11,9 @@ path; these cover the other geometries each kernel is instantiated for
 partial tiles) and the wrappers' refusals. Tolerances as in chip_smoke.py:
 decode 2e-3 on the normalized fp32 output (fp32 sums in another order),
 flash per element 2^-7 (|ref| + sum p|v|) + 1e-4 (bf16 probabilities and
-output rounded once on each side), the write exact.
+output rounded once on each side), ragged per element 2^-7 sum p|v| + 1e-4
+(the kernel rounds each probability to bf16 once, unit roundoff 2^-8; the
+factor 2 covers exp and fp32 sums in another order), the write exact.
 """
 
 import pytest
@@ -118,3 +120,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     pos = torch.zeros(2, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="Hq / Hk"):
         pak.paged_decode_cuda(qd, pool, pool, tables, pos, scale=0.1)
+
+
+def _ragged_case(gen, D, Hq, Hk, lens, kvs, ps=8, P=80, empty=2):
+    """Ascending ranges from row 0, the stream padded to a multiple of 8,
+    `empty` unused ranges past its end; distinct pages per sequence, and
+    NaN in the unwritten V rows of each sequence's last page."""
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    used = sum(lens)
+    T = -(-used // rk.TOKEN_TILE) * rk.TOKEN_TILE
+    starts = [sum(lens[:i]) for i in range(len(lens))] + [T] * empty
+    lens, kvs = list(lens) + [0] * empty, list(kvs) + [0] * empty
+    pages = [-(-kv // ps) for kv in kvs]
+    N = sum(pages) + 1
+    kp, vp = _randn((N, ps, Hk, D), gen), _randn((N, ps, Hk, D), gen)
+    tables = torch.zeros((len(lens), P), dtype=torch.int32, device="cuda")
+    nxt = 1
+    for s, (kv, n) in enumerate(zip(kvs, pages)):
+        if n:
+            tables[s, :n] = torch.arange(nxt, nxt + n)
+            nxt += n
+            vp[nxt - 1, kv - (n - 1) * ps:] = float("nan")
+    q = _randn((T, Hq, D), gen)
+    meta = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (starts, lens, kvs)]
+    return (q, kp, vp, tables, *meta), used
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_ragged_kernel_geometries(gen, D, groups):
+    """Decode singles from 1 to 640 keys (split and unsplit), a 37-token
+    range whose rows start mid-page (page boundaries fall inside query
+    tiles), a 130-token range at KV length 500 (multi-tile, split), padding
+    rows and empty ranges."""
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    Hk = 2
+    lens = [1, 1, 1, 1, 1, 37, 130]
+    kvs = [1, 8, 9, 300, 640, 57, 500]
+    args, used = _ragged_case(gen, D, Hk * groups, Hk, lens, kvs)
+    for kw in (dict(), dict(logit_softcap=30.0, window=50), dict(window=200)):
+        out = rk.ragged_attention_cuda(*args, scale=D ** -0.5, **kw)
+        ref = rk.ragged_attention_plain(*args, scale=D ** -0.5, **kw)
+        ref_abs = rk.ragged_attention_plain(*args[:2], args[2].abs(), *args[3:],
+                                            scale=D ** -0.5, **kw)
+        tol = 2.0 ** -7 * ref_abs + 1e-4
+        assert torch.isfinite(out).all(), kw
+        assert ((out - ref).abs() <= tol).all(), (kw, (out - ref).abs().max().item())
+        assert (out[used:] == 0).all(), kw
+
+
+def test_ragged_kernel_launch_count_and_refusals(gen):
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    args, _ = _ragged_case(gen, 64, 6, 2, [1, 5], [9, 5])
+    with pytest.raises(ValueError, match="Hq / Hk"):
+        rk.ragged_attention_cuda(*args, scale=0.1)
+    args, _ = _ragged_case(gen, 64, 4, 2, [1, 5], [9, 5])
+    with pytest.raises(ValueError, match="must be"):
+        rk.ragged_attention_cuda(args[0].float(), *args[1:], scale=0.1)
+    before = rk.KERNEL.launches
+    rk.ragged_paged_attention(*args, scale=0.1)
+    assert rk.KERNEL.launches == before + 1

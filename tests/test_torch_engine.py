@@ -147,10 +147,14 @@ def test_cancel_frees_the_slot(engines):
 
 
 def test_prompt_longer_than_the_largest_bucket_errors(engines):
-    _, teng = engines
+    """A 45-byte prompt, past the largest bucket (32), no longer errors:
+    it is served through chunked prefill with the JAX engine's tokens."""
+    jeng, teng = engines
+    want = _run(jeng, JGenRequest, ["x" * 45], max_new_tokens=4)
     (tokens, done, error), = _run(teng, GenRequest, ["x" * 45], max_new_tokens=4)
-    assert tokens == [] and done is None
-    assert "chunked prefill" in error and "not ported" in error
+    assert error is None and done is not None
+    assert tokens == want[0][0] and len(tokens) == 4
+    assert done.prompt_tokens == want[0][1].prompt_tokens
 
 
 def test_stats_report_kernel_launches(engines):
@@ -158,12 +162,13 @@ def test_stats_report_kernel_launches(engines):
     stats = teng.stats()
     assert stats["device"] == "cpu" and stats["slots_total"] == 4
     assert set(stats["kernel_launches"]) == {
-        "flash_attention", "paged_attention_decode", "paged_write"}
+        "flash_attention", "paged_attention_decode", "paged_write",
+        "ragged_paged_attention"}
     assert stats["requests_completed"] >= 1
 
 
 def test_unported_knobs_refuse_to_start():
-    for knob in (dict(ragged_dispatch=True), dict(prefix_cache=True),
+    for knob in (dict(prefix_cache=True),
                  dict(host_kv_bytes=1 << 20), dict(draft_model="tiny-llama"),
                  dict(kv_dtype="int8"), dict(quantize=True), dict(tp=2),
                  dict(lookahead_blocks=2)):

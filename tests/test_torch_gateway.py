@@ -129,7 +129,8 @@ def test_engine_stats(stack):
     stats = dict(resp.struct_output)
     assert stats["model"] == "tiny-llama-ascii" and stats["device"] == "cpu"
     assert set(dict(stats["kernel_launches"])) == {
-        "flash_attention", "paged_attention_decode", "paged_write"}
+        "flash_attention", "paged_attention_decode", "paged_write",
+        "ragged_paged_attention"}
 
 
 @pytest.mark.parametrize("tool", ["example_tool", "struct_tool", "file_tool", "nope"])
