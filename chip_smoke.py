@@ -14,27 +14,35 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             the least time the card could take (the roofline bound). The
             ragged kernel at the engine's default ragged stream: 16 decode
             singles over 1..4096 keys plus two 512-token chunks (T = 1040).
+            Then the int8-KV variants at the same shapes: the quantizing
+            write (16 and 1040 rows, exact), decode and ragged over int8
+            pools with bf16 scales.
 4. slice:   a full-width, depth-2 Llama-3-8B runs prefill (bucket 128) and
             8 decode steps through forward_paged, once through the kernels
             and once through their plain versions; the logits must agree.
             Then a mixed prefill+decode run through forward_ragged, kernels
             against plain and against forward_paged on the same tokens.
+            Both again over int8 KV, kernels against plain, and the hidden
+            states against the bf16-KV runs (the reference's 0.05 gate).
 5. serve:   the full 32-layer Llama-3-8B (random bf16 weights from --seed)
             behind the port's gRPC server on a free local port, with the
             default EngineConfig; 5 concurrent llm_generate requests, one of
             them a ~1500-token prompt (chunked prefill). Every kernel's
-            launch count is set to 0 before this phase and the bucketed
-            path's kernels must have risen after it.
+            launch count is set to 0 before this phase; the bucketed path's
+            kernels must have risen after it, and no other.
 6. ragged:  the same weights behind a second engine with ragged_dispatch
             on, the same requests: the ragged, decode and write kernels
             must have launched, the flash kernel not (every prefill rides
             the ragged stream).
+7. serve-int8, ragged-int8: phases 5 and 6 again with kv_dtype="int8"
+            (POLYKEY_KV_DTYPE=int8): only the int8 variants of decode,
+            write and ragged run, beside flash in the bucketed mode.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
-kernel. The last line is {"ok": true, "device": {...}}. Without a CUDA
-device, or without the package beside this script, it exits non-zero and
-prints no result.
+kernel, its launches taken from the serve phase that runs it. The last
+line is {"ok": true, "device": {...}}. Without a CUDA device, or without
+the package beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -189,7 +197,76 @@ def kernel_write(gen) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range):
+def kernel_write_int8(gen) -> dict:
+    """The quantizing write: 16 decode lanes (lanes 13-15 inactive on page 0)
+    and the 1040 rows of a ragged stream, into int8 [2048, 16, 8, 128] pools
+    with bf16 scales; exact against its plain version."""
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+    from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
+
+    N, ps, Hk, D, P = 2048, 16, 8, 128, 256
+    pools = [quantize_kv_rows(_randn((N, ps, Hk, D), gen)) for _ in range(2)]
+    result = None
+    for B in (16, 1040):
+        k_new, v_new = _randn((B, 1, Hk, D), gen), _randn((B, 1, Hk, D), gen)
+        k_new[1] = 0.0                                   # an all-zero row
+        # Each row to its own slot: a random page and offset per active row;
+        # the last 3 rows are inactive, on the garbage page 0.
+        slots = torch.randperm((N - 1) * ps, generator=gen, device="cuda")[:B]
+        positions = torch.randint(0, P * ps, (B, 1), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+        positions[:, 0] = positions[:, 0] - positions[:, 0] % ps + (slots % ps).to(torch.int32)
+        tables = torch.zeros((B, P), dtype=torch.int32, device="cuda")
+        rows = torch.arange(B, device="cuda")
+        tables[rows, positions[:, 0].long() // ps] = (1 + slots // ps).to(torch.int32)
+        tables[B - 3:] = 0
+        kern = [(v.clone(), s.clone()) for v, s in pools]
+        plain = [(v.clone(), s.clone()) for v, s in pools]
+        pw.paged_write_int8_cuda(*kern, k_new, v_new, tables, positions)
+        pw.paged_write_int8_plain(*plain, k_new, v_new, tables, positions)
+        sync()
+        diff = [int((a[1:].view(torch.int8) != b[1:].view(torch.int8)).sum())
+                for ka, kb in zip(kern, plain) for a, b in zip(ka, kb)]
+        check(sum(diff) == 0, f"int8 write differs from plain in {diff} bytes")
+        page_ids, offsets = pw._slots(tables, positions, ps)
+        (kq, ks), (vq, vs) = kern
+
+        def library():
+            for (values, scales), new in (((kq, ks), k_new), ((vq, vs), v_new)):
+                q8, sc = quantize_kv_rows(new[:, 0])
+                values.index_put_((page_ids, offsets), q8)
+                scales.index_put_((page_ids, offsets), sc)
+
+        ms = device_time_ms(lambda: pw.paged_write_int8_cuda(
+            *kern, k_new, v_new, tables, positions))
+        plain_ms = device_time_ms(lambda: pw.paged_write_int8_plain(
+            *plain, k_new, v_new, tables, positions))
+        lib = device_time_ms(library)
+        nbytes = 2 * B * Hk * D * 2 + 2 * B * Hk * (D + 2) + 2 * B * 4
+        b_ms, b_by = bound_ms(nbytes, 0)
+        say("kernels", f"paged_write_int8 B={B} bf16 rows into int8 pools [{N},{ps},"
+            f"{Hk},{D}] + bf16 scales: bytes differing from plain {sum(diff)} "
+            f"(tolerance 0: the quantizer is exact); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, quantize + index_put_ x4 {lib:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
+        if result is None:
+            result = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+    return result
+
+
+def _int8_pools(k_pool, v_pool, stale):
+    """Quantize bf16 pools into (values, scales) pairs; `stale` [N, ps]
+    rows are unwritten slots, whose scales hold NaN."""
+    from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
+
+    pairs = [quantize_kv_rows(torch.nan_to_num(p, nan=0.0)) for p in (k_pool, v_pool)]
+    for _, scales in pairs:
+        scales[stale] = float("nan")
+    return pairs
+
+
+def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8):
     from polykey_tpu_torch.ops import paged_attention_kernel as pak
 
     ps, P = PAGE_SIZE, TABLE
@@ -209,6 +286,8 @@ def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range):
         last = int(tables[b, npg - 1])
         tail = n - (npg - 1) * ps
         v_pool[last, tail:] = float("nan")
+    if int8:
+        k_pool, v_pool = _int8_pools(k_pool, v_pool, torch.isnan(v_pool).any(-1).any(-1))
     q = _randn((B, Hq, D), gen)
     pos = torch.tensor([n - 1 for n in ctx_lens], dtype=torch.int32, device="cuda")
     kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window,
@@ -236,14 +315,17 @@ def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range):
         lo, hi = max(first // ps, rlo), min(-(-n // ps), rhi)
         busy_ctas += Hk * len({(p - rlo) // split for p in range(lo, hi)})
     grid = Hk * B * max(1, -(-(rhi - rlo) // split))
-    nbytes = (2 * visible * Hk * D * 2 + B * Hq * D * 2 + B * Hq * (D + 2) * 4
+    row = Hk * (D + 2) if int8 else Hk * D * 2      # one K or V row, scales incl.
+    nbytes = (2 * visible * row + B * Hq * D * 2 + B * Hq * (D + 2) * 4
               + read_pages * 4 + B * 4)
     flops = 4 * Hq * D * visible
     ctas = f"{grid} CTAs, {busy_ctas} with rows to read"
     return (q, k_pool, v_pool, tables, pos, kw), err, nbytes, flops, ctas
 
 
-def kernel_decode(gen) -> dict:
+def kernel_decode(gen, int8: bool = False) -> dict:
+    """The decode kernel, or with `int8` its int8 variant over pools
+    quantized from the same kind of data (stale scales NaN)."""
     from polykey_tpu_torch.ops import paged_attention_kernel as pak
 
     # Context lengths over 1..4096 with page-boundary cases.
@@ -259,16 +341,18 @@ def kernel_decode(gen) -> dict:
     result = None
     for label, D, Hq, Hk, lens, softcap, window, prange in cases:
         args, err, nbytes, flops, ctas = _decode_case(gen, D, Hq, Hk, lens,
-                                                      softcap, window, prange)
+                                                      softcap, window, prange, int8)
         q, kp, vp, tables, pos, kw = args
         ms = device_time_ms(lambda: pak.paged_decode_cuda(q, kp, vp, tables, pos, **kw))
         plain = device_time_ms(
             lambda: pak.paged_decode_plain(q, kp, vp, tables, pos, **kw), reps=2)
         b_ms, b_by = bound_ms(nbytes, flops)
-        say("kernels", f"paged_attention_decode [{label}] B={len(lens)} Hq={Hq} "
-            f"Hk={Hk} D={D} ps=16 P=256, ctx 1..4096: max |err| {err:.3e} "
-            "(tolerance 2e-3 on the normalized fp32 output: bf16 inputs, fp32 "
-            "accumulation in another order); "
+        name = "paged_attention_decode_int8" if int8 else "paged_attention_decode"
+        pools = "int8 pools + bf16 scales" if int8 else "bf16 pools"
+        say("kernels", f"{name} [{label}] B={len(lens)} Hq={Hq} "
+            f"Hk={Hk} D={D} ps=16 P=256, {pools}, ctx 1..4096: max |err| {err:.3e} "
+            "(tolerance 2e-3 on the normalized fp32 output: bf16 inputs, "
+            "dequantized and accumulated in fp32 in another order); "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
             f"({b_by}); {ctas}, on "
             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
@@ -371,7 +455,7 @@ def kernel_flash(gen) -> dict:
     return result
 
 
-def _ragged_case(gen, lens, kvs, T, empty):
+def _ragged_case(gen, lens, kvs, T, empty, int8):
     """Ranges from row 0 in order, `empty` unused ranges past the stream,
     pools [2048, 16, 8, 128] bf16 with distinct pages per sequence and NaN
     in the unwritten V rows of each sequence's last page."""
@@ -389,12 +473,16 @@ def _ragged_case(gen, lens, kvs, T, empty):
             tables[s, :npg] = order[used: used + npg]
             used += npg
             v_pool[int(tables[s, npg - 1]), kv - (npg - 1) * ps:] = float("nan")
+    if int8:
+        k_pool, v_pool = _int8_pools(k_pool, v_pool, torch.isnan(v_pool).any(-1).any(-1))
     q = _randn((T, Hq, D), gen)
     meta = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (starts, lens, kvs)]
     return (q, k_pool, v_pool, tables, *meta), (starts, lens, kvs)
 
 
-def kernel_ragged(gen) -> dict:
+def kernel_ragged(gen, int8: bool = False) -> dict:
+    """The ragged kernel, or with `int8` its int8 variant over pools
+    quantized from the same kind of data (stale scales NaN)."""
     from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
 
     T, Hq, Hk, D = 1040, 32, 8, 128
@@ -411,16 +499,19 @@ def kernel_ragged(gen) -> dict:
     ]
     result = None
     for label, lens, kvs, empty, softcap, window in cases:
-        args, (starts, lens_, kvs_) = _ragged_case(gen, lens, kvs, T, empty)
+        args, (starts, lens_, kvs_) = _ragged_case(gen, lens, kvs, T, empty, int8)
         work = rk.ragged_work(starts, lens_, kvs_, T, Hq // Hk, "cuda")
         kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window)
         out = rk.ragged_attention_cuda(*args, work=work, **kw)
         ref = rk.ragged_attention_plain(*args, **kw)
         # Per element: the kernel rounds each probability to bf16 once (unit
-        # roundoff 2^-8), so it may differ from the fp32 plain version by
-        # 2^-8 sum p|v| / l; the plain attention over |V| gives that sum,
-        # and the factor 2 and 1e-4 cover exp and fp32 sums in another order.
-        ref_abs = rk.ragged_attention_plain(*args[:2], args[2].abs(), *args[3:], **kw)
+        # roundoff 2^-8; for int8 the probability times its V scale, over
+        # V values exact in bf16), so it may differ from the fp32 plain
+        # version by 2^-8 sum p|v| / l over the (dequantized) V; the plain
+        # attention over |V| gives that sum, and the factor 2 and 1e-4 cover
+        # exp and fp32 sums in another order.
+        v_abs = (args[2][0].abs(), args[2][1]) if int8 else args[2].abs()
+        ref_abs = rk.ragged_attention_plain(*args[:2], v_abs, *args[3:], **kw)
         tol = 2.0 ** -7 * ref_abs + 1e-4
         sync()
         used = sum(lens)
@@ -445,11 +536,14 @@ def kernel_ragged(gen) -> dict:
             kv_rows += p1 + 1 - lo
             pairs += sum(min(p + 1, window) if window else p + 1
                          for p in range(p0, p1 + 1))
-        nbytes = 2 * kv_rows * Hk * D * 2 + T * Hq * D * (2 + 4)
+        row = Hk * (D + 2) if int8 else Hk * D * 2    # one K or V row, scales incl.
+        nbytes = 2 * kv_rows * row + T * Hq * D * (2 + 4)
         flops = 4 * pairs * Hq * D
         b_ms, b_by = bound_ms(nbytes, flops)
-        say("kernels", f"ragged_paged_attention [{label}] T={T} Hq={Hq} Hk={Hk} "
-            f"D={D} ps=16 P=256, {len(work.items)} work items x {Hk} kv heads, "
+        name = "ragged_paged_attention_int8" if int8 else "ragged_paged_attention"
+        pools = "int8 pools + bf16 scales" if int8 else "bf16 pools"
+        say("kernels", f"{name} [{label}] T={T} Hq={Hq} Hk={Hk} "
+            f"D={D} ps=16 P=256, {pools}, {len(work.items)} work items x {Hk} kv heads, "
             f"{work.n_part} partial slots: max |err| {err:.3e}, largest err/tol "
             f"{ratio:.3f} (tolerance per element 2^-7 sum p|v| + 1e-4: the "
             "kernel rounds each probability to bf16 once, the fp32 plain "
@@ -475,6 +569,9 @@ def phase_kernels(seed: int) -> dict:
             "paged_attention_decode": kernel_decode(gen),
             "flash_attention": kernel_flash(gen),
             "ragged_paged_attention": kernel_ragged(gen),
+            "paged_write_int8": kernel_write_int8(gen),
+            "paged_attention_decode_int8": kernel_decode(gen, int8=True),
+            "ragged_paged_attention_int8": kernel_ragged(gen, int8=True),
         }
     sync()
     return results
@@ -487,7 +584,7 @@ class _PlainPath:
     reference's own kill switches."""
 
     NAMES = ("POLYKEY_DISABLE_FLASH", "POLYKEY_DISABLE_PAGED_KERNEL",
-             "POLYKEY_DISABLE_RAGGED_KERNEL")
+             "POLYKEY_DISABLE_RAGGED_KERNEL", "POLYKEY_DISABLE_KV_KERNEL")
 
     def __enter__(self):
         self.saved = {n: os.environ.get(n) for n in self.NAMES}
@@ -532,10 +629,13 @@ def phase_slice(seed: int) -> None:
     for b in range(B):
         tables[b, :per] = torch.arange(1 + b * per, 1 + (b + 1) * per)
 
-    def run():
-        paged = init_paged_kv(cfg, 1 + B * per, ps, torch.bfloat16, "cuda")
+    def run(int8=False):
+        """Logits of the sampled rows and every hidden state of the run."""
+        paged = init_paged_kv(cfg, 1 + B * per, ps, torch.bfloat16, "cuda",
+                              kv_dtype=torch.int8 if int8 else None)
         positions = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
         hidden, paged = forward_paged(params, cfg, tokens, positions, paged, tables)
+        hiddens = [hidden.reshape(-1, hidden.shape[-1])]
         rows = torch.tensor([n - 1 for n in prompt_lens], device="cuda")
         logits = [unembed(params, cfg, hidden[torch.arange(B), rows])]
         for i in range(steps):
@@ -543,37 +643,60 @@ def phase_slice(seed: int) -> None:
                                device="cuda")
             hidden, paged = forward_paged(params, cfg, forced[i][:, None], pos,
                                           paged, tables)
+            hiddens.append(hidden[:, 0])
             logits.append(unembed(params, cfg, hidden[:, 0]))
         sync()
-        return torch.stack(logits)
+        return torch.stack(logits), torch.cat(hiddens).float()
 
-    with torch.inference_mode():
-        before = _launches()
-        got = run()
-        mid = _launches()
-        with _PlainPath():
-            want = run()
-        after = _launches()
     bucketed = ("flash_attention", "paged_attention_decode", "paged_write")
-    check(all(mid[n] > before[n] for n in bucketed),
-          f"the kernel run skipped a kernel: {before} -> {mid}")
-    check(after == mid, f"the plain run launched kernels: {mid} -> {after}")
-    check(bool(torch.isfinite(got).all()), "slice logits are not finite")
-    err = (got - want).abs().max().item()
-    rms = want.square().mean().sqrt().item()
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    say("slice", f"llama-3-8b width, 2 layers, bf16: prefill T={T} (prompts "
-        f"{prompt_lens}) + {steps} decode steps, kernels vs plain: max |dlogit| "
-        f"{err:.4f} over logits of RMS {rms:.3f} (tolerance 0.12, about twice "
-        f"the 0.055 measured on the H100: bf16 activations round differently "
-        f"once attention sums in another order); argmax agreement {agree:.3f} "
-        f"(must be 1); kernel launches in the kernel run "
-        f"{({n: mid[n] - before[n] for n in bucketed})}")
-    check(err <= 0.12, f"slice logits differ by {err}")
-    check(agree == 1.0, f"slice argmax agrees on only {agree:.3f} of the rows")
+    bucketed8 = ("flash_attention", "paged_attention_decode_int8", "paged_write_int8")
+    with torch.inference_mode():
+        for int8, names in ((False, bucketed), (True, bucketed8)):
+            before = _launches()
+            got, hidden = run(int8)
+            mid = _launches()
+            with _PlainPath():
+                want, _ = run(int8)
+            after = _launches()
+            ran = {n: mid[n] - before[n] for n in mid if mid[n] > before[n]}
+            check(set(ran) == set(names),
+                  f"the kernel run launched {ran}, not each of {names} alone")
+            check(after == mid, f"the plain run launched kernels: {mid} -> {after}")
+            check(bool(torch.isfinite(got).all()), "slice logits are not finite")
+            err = (got - want).abs().max().item()
+            rms = want.square().mean().sqrt().item()
+            agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            kv = "int8 KV" if int8 else "bf16 KV"
+            say("slice", f"llama-3-8b width, 2 layers, bf16 weights, {kv}: prefill "
+                f"T={T} (prompts {prompt_lens}) + {steps} decode steps, kernels vs "
+                f"plain: max |dlogit| {err:.4f} over logits of RMS {rms:.3f} "
+                f"(tolerance 0.12, about twice the 0.055 measured on the H100 for "
+                f"bf16 KV: bf16 activations round differently once attention sums "
+                f"in another order); argmax agreement {agree:.3f} (must be 1); "
+                f"kernel launches in the kernel run {ran}")
+            check(err <= 0.12, f"slice logits differ by {err}")
+            check(agree == 1.0, f"slice argmax agrees on only {agree:.3f} of the rows")
+            if int8:
+                _kv_gap("forward_paged", hidden, hidden_bf16)
+            else:
+                hidden_bf16 = hidden
     _slice_ragged(cfg, params, gen)
     del params
     torch.cuda.empty_cache()
+
+
+def _kv_gap(label: str, hidden_int8, hidden_bf16) -> None:
+    """The reference's int8-KV accuracy gate (tests/test_kv_cache.py,
+    test_forward_paged_int8_kv_tracks_fp): the largest hidden-state gap
+    between int8 and bf16 KV on the same tokens, relative to the largest
+    bf16 hidden value, under 0.05."""
+    check(bool(torch.isfinite(hidden_int8).all()), f"{label} int8 hidden not finite")
+    gap = ((hidden_int8 - hidden_bf16).abs().max()
+           / (hidden_bf16.abs().max() + 1e-6)).item()
+    say("slice", f"{label}, int8 KV vs bf16 KV on the same tokens, kernels: largest "
+        f"|dh| / max |h| {gap:.5f} over {hidden_bf16.shape[0]} hidden rows "
+        f"(tolerance 0.05, the reference's int8-KV accuracy gate)")
+    check(gap < 0.05, f"{label}: int8 KV hidden states differ from bf16 by {gap}")
 
 
 def _slice_ragged(cfg, params, gen) -> None:
@@ -613,9 +736,10 @@ def _slice_ragged(cfg, params, gen) -> None:
             out.append(ranges)
         return out
 
-    def run_ragged():
-        paged = init_paged_kv(cfg, num_pages, ps, torch.bfloat16, "cuda")
-        logits = []
+    def run_ragged(int8=False):
+        paged = init_paged_kv(cfg, num_pages, ps, torch.bfloat16, "cuda",
+                              kv_dtype=torch.int8 if int8 else None)
+        logits, hiddens = [], []
         for ranges in dispatches():
             toks = torch.cat([t for _, t, _ in ranges])
             used = toks.shape[0]
@@ -643,8 +767,9 @@ def _slice_ragged(cfg, params, gen) -> None:
             hidden, paged = forward_ragged(params, cfg, tokens, positions, paged,
                                            token_tables, *meta, seq_tables, work=work)
             logits.append(unembed(params, cfg, hidden[torch.tensor(rows, device="cuda")]))
+            hiddens.append(hidden[:used])
         sync()
-        return torch.cat(logits)
+        return torch.cat(logits), torch.cat(hiddens).float()
 
     def run_paged():
         paged = init_paged_kv(cfg, num_pages, ps, torch.bfloat16, "cuda")
@@ -672,10 +797,10 @@ def _slice_ragged(cfg, params, gen) -> None:
 
     with torch.inference_mode():
         before = _launches()
-        got = run_ragged()
+        got, hidden_bf16 = run_ragged()
         mid = _launches()
         with _PlainPath():
-            want = run_ragged()
+            want, _ = run_ragged()
         after = _launches()
         paged_ref = run_paged()
     name = "ragged_paged_attention"
@@ -698,6 +823,31 @@ def _slice_ragged(cfg, params, gen) -> None:
         check(err <= 0.12, f"ragged slice logits differ from {label} by {err}")
         check(agree == 1.0, f"ragged slice argmax agrees with {label} on only "
               f"{agree:.3f} of the rows")
+
+    # The same dispatches over int8 KV: the int8 ragged and write kernels
+    # alone, against their plain versions and against bf16 KV.
+    names8 = ("ragged_paged_attention_int8", "paged_write_int8")
+    with torch.inference_mode():
+        before = _launches()
+        got8, hidden_int8 = run_ragged(int8=True)
+        mid = _launches()
+        with _PlainPath():
+            want8, _ = run_ragged(int8=True)
+        after = _launches()
+    ran = {n: mid[n] - before[n] for n in mid if mid[n] > before[n]}
+    check(set(ran) == set(names8), f"the int8 ragged run launched {ran}, not {names8}")
+    check(after == mid, f"the plain int8 ragged run launched kernels: {mid} -> {after}")
+    check(bool(torch.isfinite(got8).all()), "int8 ragged slice logits are not finite")
+    err = (got8 - want8).abs().max().item()
+    agree = (got8.argmax(-1) == want8.argmax(-1)).float().mean().item()
+    say("slice", f"llama-3-8b width, 2 layers, bf16 weights, int8 KV, forward_ragged "
+        f"with kernels vs plain, the same {steps + 1} dispatches: max |dlogit| "
+        f"{err:.4f} over logits of RMS {want8.square().mean().sqrt().item():.3f} "
+        f"(tolerance 0.12, the bf16 slices' bound); argmax agreement {agree:.3f} "
+        f"(must be 1); kernel launches {ran}")
+    check(err <= 0.12, f"int8 ragged slice logits differ from plain by {err}")
+    check(agree == 1.0, f"int8 ragged slice argmax agrees on only {agree:.3f}")
+    _kv_gap("forward_ragged", hidden_int8, hidden_bf16)
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -742,9 +892,21 @@ def _struct(**kv):
     return s
 
 
-def phase_serve(seed: int, card: str, ragged: bool = False, params=None) -> dict:
-    """Serve through gRPC. Bucketed (default) or ragged dispatch; `params`
-    reuses the weights of an earlier engine (shut down first)."""
+# The kernels each serve phase must launch; every other kernel must not.
+SERVE_KERNELS = {
+    (False, False): ("flash_attention", "paged_attention_decode", "paged_write"),
+    (True, False): ("ragged_paged_attention", "paged_attention_decode", "paged_write"),
+    (False, True): ("flash_attention", "paged_attention_decode_int8", "paged_write_int8"),
+    (True, True): ("ragged_paged_attention_int8", "paged_attention_decode_int8",
+                   "paged_write_int8"),
+}
+
+
+def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
+                int8: bool = False) -> dict:
+    """Serve through gRPC. Bucketed (default) or ragged dispatch, over bf16
+    or (`int8`) int8 KV; `params` reuses the weights of an earlier engine
+    (shut down first)."""
     import grpc
 
     from polykey_tpu_torch.engine.config import EngineConfig
@@ -755,19 +917,21 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None) -> dict
     from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
     from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
 
-    phase = "ragged" if ragged else "serve"
-    config = EngineConfig(model="llama-3-8b", ragged_dispatch=ragged)
+    phase = ("ragged" if ragged else "serve") + ("-int8" if int8 else "")
+    config = EngineConfig(model="llama-3-8b", ragged_dispatch=ragged,
+                          kv_dtype="int8" if int8 else "")
     t0 = time.monotonic()
     engine = InferenceEngine(config, params=params, device="cuda", seed=seed)
     sync()
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
-    kv = 2 * engine.paged.k.numel() * engine.paged.k.element_size()
+    kv = engine.paged.nbytes
     mode = (f"ragged dispatch, stream width {engine.stats()['ragged_width']} "
             f"(prefill budget {engine.stats()['prefill_budget']})" if ragged
             else f"buckets {config.prefill_buckets}, chunks of 512")
     say(phase, f"engine up in {time.monotonic() - t0:.1f} s: {config.model}, "
         f"{len(engine.params['layers'])} layers, bf16 weights {nbytes / 2**30:.2f} "
-        f"GiB, KV pool {kv / 2**30:.2f} GiB ({config.num_pages} pages x "
+        f"GiB, KV pool {kv / 2**30:.4f} GiB ({engine.stats()['kv_dtype']}"
+        f"{', scales included' if int8 else ''}; {config.num_pages} pages x "
         f"{config.page_size}), {config.max_decode_slots} slots, {mode}, decode "
         f"block {config.decode_block_steps}")
     # Keep each request the gateway submits, to read its timings after.
@@ -792,16 +956,13 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None) -> dict
         counts = {name: k.launches for name, k in KERNELS.items()}
         sync()
         say(phase, f"kernel launches in this phase: {counts}")
-        if ragged:
-            check(all(counts[n] > 0 for n in (
-                "ragged_paged_attention", "paged_attention_decode", "paged_write")),
-                f"a kernel of the ragged path was not launched: {counts}")
-            check(counts["flash_attention"] == 0,
-                  f"a prefill left the ragged stream: {counts}")
-        else:
-            check(all(counts[n] > 0 for n in (
-                "flash_attention", "paged_attention_decode", "paged_write")),
-                f"a kernel of the main path was not launched: {counts}")
+        # The ragged modes' prefills ride the stream (flash 0); int8 KV
+        # runs only the int8 variants, bf16 KV only the bf16 ones.
+        want = SERVE_KERNELS[(ragged, int8)]
+        check(all(counts[n] > 0 for n in want),
+              f"a kernel of this path was not launched: {counts}")
+        check(all(counts[n] == 0 for n in counts if n not in want),
+              f"a kernel of another path was launched: {counts}")
         # Token-level determinism on the same engine: the gRPC text of a
         # random-weight model over a 128k vocab is mostly ids outside the
         # byte tokenizer's range, so compare the ids themselves too.
@@ -833,7 +994,8 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None) -> dict
         server.stop(grace=5).wait()
         service.close()
     sync()
-    return {"requests": results, "launches": counts, "params": engine.params}
+    return {"requests": results, "launches": counts, "params": engine.params,
+            "kv_gib": kv / 2**30}
 
 
 def _leaves(tree):
@@ -954,31 +1116,47 @@ def main() -> int:
     kernels = phase_kernels(args.seed)
     phase_slice(args.seed)
     sync()
-    serve = phase_serve(args.seed, dev["smi"])
-    ragged = phase_serve(args.seed, dev["smi"], ragged=True,
-                         params=serve.pop("params"))
-    del ragged["params"]
-    for bucketed, rag in zip(serve["requests"], ragged["requests"]):
-        say("ragged", f"{bucketed['label']}: TTFT bucketed {bucketed['ttft_ms']:.1f} ms,"
-            f" ragged {rag['ttft_ms']:.1f} ms; tok/s bucketed "
-            f"{bucketed['tok_s']:.1f}, ragged {rag['tok_s']:.1f} on {dev['smi']}")
+    serves = {}
+    params = None
+    for ragged, int8 in ((False, False), (True, False), (False, True), (True, True)):
+        out = phase_serve(args.seed, dev["smi"], ragged=ragged, params=params,
+                          int8=int8)
+        params = out.pop("params")
+        serves[(ragged, int8)] = out
+    del params
+    for int8 in (False, True):
+        kv = "int8 KV" if int8 else "bf16 KV"
+        for bucketed, rag in zip(serves[(False, int8)]["requests"],
+                                 serves[(True, int8)]["requests"]):
+            say("serve", f"{kv}, {bucketed['label']}: TTFT bucketed "
+                f"{bucketed['ttft_ms']:.1f} ms, ragged {rag['ttft_ms']:.1f} ms; "
+                f"tok/s bucketed {bucketed['tok_s']:.1f}, ragged {rag['tok_s']:.1f} "
+                f"on {dev['smi']}")
+    say("serve", f"KV pool: bf16 {serves[(False, False)]['kv_gib']:.4f} GiB, int8 "
+        f"{serves[(False, True)]['kv_gib']:.4f} GiB (scales included)")
 
     from polykey_tpu_torch.engine.engine import KERNELS
 
-    # Each kernel's launches come from the serve phase that runs it: the
-    # ragged kernel's from the ragged engine, the others' from the bucketed.
-    launches = dict(serve["launches"])
-    launches["ragged_paged_attention"] = ragged["launches"]["ragged_paged_attention"]
+    # Each kernel's launches come from the serve phase that runs it (the
+    # first of SERVE_KERNELS' phases naming it).
+    launches = {}
+    for key, names in SERVE_KERNELS.items():
+        for name in names:
+            launches.setdefault(name, serves[key]["launches"][name])
+    paged_src = "polykey_tpu_torch/csrc/paged_attention_decode.cu"
+    ragged_src = "polykey_tpu_torch/csrc/ragged_paged_attention.cu"
+    decode_tpu = "polykey_tpu/ops/paged_attention_kernel.py:349"
+    ragged_tpu = "polykey_tpu/ops/ragged_paged_attention_kernel.py:387"
+    write_tpu = "polykey_tpu/ops/paged_write_kernel.py:134"
     sources = {
         "flash_attention": ("polykey_tpu_torch/csrc/flash_attention.cu",
                             "polykey_tpu/ops/flash_attention.py:157"),
-        "paged_attention_decode": ("polykey_tpu_torch/csrc/paged_attention_decode.cu",
-                                   "polykey_tpu/ops/paged_attention_kernel.py:349"),
-        "paged_write": ("polykey_tpu_torch/csrc/paged_write.cu",
-                        "polykey_tpu/ops/paged_write_kernel.py:134"),
-        "ragged_paged_attention": (
-            "polykey_tpu_torch/csrc/ragged_paged_attention.cu",
-            "polykey_tpu/ops/ragged_paged_attention_kernel.py:387"),
+        "paged_attention_decode": (paged_src, decode_tpu),
+        "paged_write": ("polykey_tpu_torch/csrc/paged_write.cu", write_tpu),
+        "ragged_paged_attention": (ragged_src, ragged_tpu),
+        "paged_attention_decode_int8": (paged_src, decode_tpu),
+        "paged_write_int8": ("polykey_tpu_torch/csrc/paged_write_int8.cu", write_tpu),
+        "ragged_paged_attention_int8": (ragged_src, ragged_tpu),
     }
     summary = []
     for name in KERNELS:

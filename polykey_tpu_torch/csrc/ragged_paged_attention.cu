@@ -5,11 +5,15 @@
 // row r is kv_lens[s] - seq_lens[s] + (r - seq_starts[s]). Causal masking
 // inside the new tokens, GQA, an optional logit soft-cap and sliding window.
 // The output is NORMALIZED fp32 [T, Hq, D]; rows outside every sequence are
-// left to the caller, who zero-fills the output.
+// left to the caller, who zero-fills the output. Two entry points share one
+// kernel template over the KV row type: pk_ragged_attention (bf16 pools)
+// and pk_ragged_attention_int8 (int8 pools plus a bf16 scale per (row, kv
+// head)).
 //
 // Replaces: polykey_tpu/ops/ragged_paged_attention_kernel.py, _ragged_call
 // (body _ragged_kernel), reached from ragged_paged_attention through
-// forward_ragged on the engine's ragged dispatch.
+// forward_ragged on the engine's ragged dispatch: its bf16 path and its
+// quantized=True path (int8 KV).
 //
 // Bound on this card: bytes for the decode singles (one query row per
 // sequence against its whole context, about 1 flop per byte), operations for
@@ -41,6 +45,18 @@
 // probability exactly 0 and rows past the split's end are zero-filled, so
 // stale NaN in unwritten pool rows cannot reach a sum. Warps whose 16 rows
 // hold no query (the tail of a decode single's tile) skip the arithmetic.
+//
+// int8 KV, without a second rounding: values up to +-127 are exact in
+// bf16, so the int8 K and V rows go into the same bf16 shared-memory tiles
+// unchanged (16 values per 16-byte load) and the WMMA products stay exact.
+// The scales stage beside the tiles in fp32 (0 for rows not loaded). Each
+// logit column is multiplied by its K scale in fp32 before the softmax, and
+// each key's V scale is folded into its probability before that is rounded
+// to bf16 for the P V product: sum_j p_j (v8_j vs_j) = sum_j (p_j vs_j) v8_j.
+// So rounding enters where the bf16 kernel rounds, once per probability,
+// and the same per-element tolerance holds over the dequantized V. A masked
+// key's folded probability is set to 0, never p x vs, so a stale V scale
+// cannot reach a sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,8 +91,39 @@ struct Layout {
   static constexpr int M = POS + align128(BM * 4);
   static constexpr int L = M + align128(BM * 4);
   static constexpr int PG = L + align128(BM * 4);
-  static constexpr int BYTES = PG + align128(BK * 4);
+  static constexpr int KS = PG + align128(BK * 4);   // fp32 K / V scales (int8)
+  static constexpr int VS = KS + align128(BK * 4);
+  static constexpr int BYTES = VS + align128(BK * 4);
 };
+
+// KV row types: the element, values per 16-byte load, and whether a bf16
+// scale per (row, kv head) rides beside the row.
+struct Bf16Rows {
+  using T = __nv_bfloat16;
+  static constexpr int VEC = 8;
+  static constexpr bool kScaled = false;
+};
+
+struct Int8Rows {
+  using T = int8_t;
+  static constexpr int VEC = 16;
+  static constexpr bool kScaled = true;
+};
+
+// 16 int8 values of one 16-byte load into 16 bf16 (exact) at dst.
+__device__ __forceinline__ void store_i8x16_as_bf16(const uint4& raw, __nv_bfloat16* dst) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint4 out[2];
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      h[2 * i + j] = __floats2bfloat162_rn((float)((int)(w[i] << (24 - 16 * j)) >> 24),
+                                           (float)((int)(w[i] << (16 - 16 * j)) >> 24));
+  reinterpret_cast<uint4*>(dst)[0] = out[0];
+  reinterpret_cast<uint4*>(dst)[1] = out[1];
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -102,8 +149,10 @@ __device__ __forceinline__ int item_rows(const int32_t* it, int start, int len,
 
 struct Params {
   const __nv_bfloat16* q;        // [T, Hq, D]
-  const __nv_bfloat16* k_pool;   // [N, ps, Hk, D]
-  const __nv_bfloat16* v_pool;
+  const void* k_pool;            // [N, ps, Hk, D] bf16 or int8
+  const void* v_pool;
+  const __nv_bfloat16* ks_pool;  // [N, ps, Hk] (int8 pools only)
+  const __nv_bfloat16* vs_pool;
   const int32_t* page_tables;    // [S, P]
   const int32_t* seq_starts;     // [S]
   const int32_t* seq_lens;
@@ -118,11 +167,13 @@ struct Params {
   int window;
 };
 
-template <int D>
+template <int D, class KV>
 __global__ void __launch_bounds__(kThreads) ragged_tile_kernel(const Params a) {
   using Lay = Layout<D>;
+  using T = typename KV::T;
   constexpr int LDQ = Lay::LDQ, LDS = Lay::LDS, LDP = Lay::LDP, LDO = Lay::LDO;
-  constexpr int VEC = D / 8;                 // 16-byte vectors per row
+  constexpr int VEC = D / 8;                 // 16-byte vectors per bf16 row
+  constexpr int KVEC = D / KV::VEC;          // 16-byte vectors per pool row
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::Q);
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::K);
@@ -134,6 +185,10 @@ __global__ void __launch_bounds__(kThreads) ragged_tile_kernel(const Params a) {
   float* m_s = reinterpret_cast<float*>(smem + Lay::M);
   float* l_s = reinterpret_cast<float*>(smem + Lay::L);
   int* pg_s = reinterpret_cast<int*>(smem + Lay::PG);
+  float* ks_s = reinterpret_cast<float*>(smem + Lay::KS);
+  float* vs_s = reinterpret_cast<float*>(smem + Lay::VS);
+  const T* k_pool = reinterpret_cast<const T*>(a.k_pool);
+  const T* v_pool = reinterpret_cast<const T*>(a.v_pool);
 
   const int G = a.G, tq = BM / G;
   const int g = blockIdx.y;
@@ -181,18 +236,36 @@ __global__ void __launch_bounds__(kThreads) ragged_tile_kernel(const Params a) {
       pg_s[tid] = kr < my_hi ? a.page_tables[(int64_t)s * a.P + kr / a.ps] : 0;
     }
     __syncthreads();
-    for (int i = tid; i < BK * VEC; i += kThreads) {
-      const int r = i / VEC, c = i % VEC;
+    for (int i = tid; i < BK * KVEC; i += kThreads) {
+      const int r = i / KVEC, c = i % KVEC;
       const int kr = k0 + r;
       uint4 kv4 = zero, vv4 = zero;
       if (kr < my_hi) {
         const int64_t off =
-            (((int64_t)pg_s[r] * a.ps + kr % a.ps) * a.Hk + g) * D + c * 8;
-        kv4 = *reinterpret_cast<const uint4*>(a.k_pool + off);
-        vv4 = *reinterpret_cast<const uint4*>(a.v_pool + off);
+            (((int64_t)pg_s[r] * a.ps + kr % a.ps) * a.Hk + g) * D + c * KV::VEC;
+        kv4 = *reinterpret_cast<const uint4*>(k_pool + off);
+        vv4 = *reinterpret_cast<const uint4*>(v_pool + off);
       }
-      *reinterpret_cast<uint4*>(k_s + r * LDQ + c * 8) = kv4;
-      *reinterpret_cast<uint4*>(v_s + r * LDQ + c * 8) = vv4;
+      if constexpr (KV::kScaled) {
+        store_i8x16_as_bf16(kv4, k_s + r * LDQ + c * 16);
+        store_i8x16_as_bf16(vv4, v_s + r * LDQ + c * 16);
+      } else {
+        *reinterpret_cast<uint4*>(k_s + r * LDQ + c * 8) = kv4;
+        *reinterpret_cast<uint4*>(v_s + r * LDQ + c * 8) = vv4;
+      }
+    }
+    if constexpr (KV::kScaled) {
+      if (tid < BK) {
+        const int kr = k0 + tid;
+        float ks = 0.f, vs = 0.f;
+        if (kr < my_hi) {
+          const int64_t row = ((int64_t)pg_s[tid] * a.ps + kr % a.ps) * a.Hk + g;
+          ks = __bfloat162float(a.ks_pool[row]);
+          vs = __bfloat162float(a.vs_pool[row]);
+        }
+        ks_s[tid] = ks;
+        vs_s[tid] = vs;
+      }
     }
     __syncthreads();
 
@@ -231,7 +304,9 @@ __global__ void __launch_bounds__(kThreads) ragged_tile_kernel(const Params a) {
         for (int c = 0; c < 2; ++c) {
           const int col = lane + 32 * c;
           const int kvp = k0 + col;
-          float x = s_s[r * LDS + col] * a.scale;
+          float x = s_s[r * LDS + col];
+          if constexpr (KV::kScaled) x *= ks_s[col];
+          x *= a.scale;
           if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
           ok[c] = kvp < my_hi && kvp <= qp && (a.window <= 0 || kvp > qp - a.window);
           sv[c] = ok[c] ? x : kNegInf;
@@ -242,8 +317,13 @@ __global__ void __launch_bounds__(kThreads) ragged_tile_kernel(const Params a) {
         const float p1 = ok[1] ? expf(sv[1] - m_new) : 0.f;
         const float sum = warp_sum(p0 + p1);
         const float corr = expf(m_prev - m_new);
-        p_s[r * LDP + lane] = __float2bfloat16(p0);
-        p_s[r * LDP + lane + 32] = __float2bfloat16(p1);
+        if constexpr (KV::kScaled) {
+          p_s[r * LDP + lane] = __float2bfloat16(ok[0] ? p0 * vs_s[lane] : 0.f);
+          p_s[r * LDP + lane + 32] = __float2bfloat16(ok[1] ? p1 * vs_s[lane + 32] : 0.f);
+        } else {
+          p_s[r * LDP + lane] = __float2bfloat16(p0);
+          p_s[r * LDP + lane + 32] = __float2bfloat16(p1);
+        }
         for (int d = lane; d < D; d += 32) o_s[r * LDO + d] *= corr;
         if (lane == 0) {
           m_s[r] = m_new;
@@ -324,17 +404,33 @@ __global__ void __launch_bounds__(kThreads) ragged_merge_kernel(const Params a, 
   }
 }
 
-template <int D>
+template <int D, class KV>
 int launch(const Params& a, int n_items, int n_merges, cudaStream_t stream) {
   const int bytes = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_tile_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      ragged_tile_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  ragged_tile_kernel<D><<<dim3(n_items, a.Hk), kThreads, bytes, stream>>>(a);
+  ragged_tile_kernel<D, KV><<<dim3(n_items, a.Hk), kThreads, bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_merges == 0) return (int)err;
   ragged_merge_kernel<<<dim3(n_merges, a.Hk), kThreads, 0, stream>>>(a, D);
   return (int)cudaGetLastError();
+}
+
+template <class KV>
+int ragged(const Params& a, int D, int n_items, int n_merges, void* stream) {
+  if (a.Hk <= 0 || a.Hq < a.Hk || a.Hq % a.Hk != 0 || BM % (a.Hq / a.Hk) != 0 || a.ps <= 0 ||
+      a.P <= 0 || a.T < 0 || n_items < 0 || n_merges < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_items == 0 || a.T == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 64: return launch<64, KV>(a, n_items, n_merges, s);
+    case 128: return launch<128, KV>(a, n_items, n_merges, s);
+    case 256: return launch<256, KV>(a, n_items, n_merges, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -351,23 +447,29 @@ extern "C" int pk_ragged_attention(
     void* part_acc, void* part_ml, int n_items, int n_merges, int T, int Hq,
     int Hk, int D, int ps, int P, float scale, float softcap, int window,
     void* stream) {
-  if (Hk <= 0 || Hq % Hk != 0 || BM % (Hq / Hk) != 0 || ps <= 0 || P <= 0 ||
-      T < 0 || n_items < 0 || n_merges < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n_items == 0 || T == 0) return 0;
-  const Params a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,
-                 (const __nv_bfloat16*)v_pool, (const int32_t*)page_tables,
-                 (const int32_t*)seq_starts, (const int32_t*)seq_lens,
-                 (const int32_t*)kv_lens, (const int32_t*)items,
-                 (const int32_t*)merges, (float*)out, (float*)part_acc,
-                 (float*)part_ml, T, Hq, Hk, Hq / Hk, ps, P, scale, softcap,
-                 window};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 64: return launch<64>(a, n_items, n_merges, s);
-    case 128: return launch<128>(a, n_items, n_merges, s);
-    case 256: return launch<256>(a, n_items, n_merges, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Params a{(const __nv_bfloat16*)q, k_pool, v_pool, nullptr, nullptr,
+                 (const int32_t*)page_tables, (const int32_t*)seq_starts,
+                 (const int32_t*)seq_lens, (const int32_t*)kv_lens,
+                 (const int32_t*)items, (const int32_t*)merges, (float*)out,
+                 (float*)part_acc, (float*)part_ml, T, Hq, Hk,
+                 Hk > 0 ? Hq / Hk : 0, ps, P, scale, softcap, window};
+  return ragged<Bf16Rows>(a, D, n_items, n_merges, stream);
+}
+
+// int8 pools [N, ps, Hk, D] with bf16 scales ks_pool / vs_pool [N, ps, Hk].
+extern "C" int pk_ragged_attention_int8(
+    const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
+    const void* vs_pool, const void* page_tables, const void* seq_starts,
+    const void* seq_lens, const void* kv_lens, const void* items,
+    const void* merges, void* out, void* part_acc, void* part_ml, int n_items,
+    int n_merges, int T, int Hq, int Hk, int D, int ps, int P, float scale,
+    float softcap, int window, void* stream) {
+  const Params a{(const __nv_bfloat16*)q, k_pool, v_pool,
+                 (const __nv_bfloat16*)ks_pool, (const __nv_bfloat16*)vs_pool,
+                 (const int32_t*)page_tables, (const int32_t*)seq_starts,
+                 (const int32_t*)seq_lens, (const int32_t*)kv_lens,
+                 (const int32_t*)items, (const int32_t*)merges, (float*)out,
+                 (float*)part_acc, (float*)part_ml, T, Hq, Hk,
+                 Hk > 0 ? Hq / Hk : 0, ps, P, scale, softcap, window};
+  return ragged<Int8Rows>(a, D, n_items, n_merges, stream);
 }

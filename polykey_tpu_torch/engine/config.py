@@ -6,10 +6,11 @@ this slice serves. `validate` raises NotImplementedError for the knobs
 whose part of the port has not landed yet, naming the ROADMAP.md item, so
 a deployment that asks for them fails at startup instead of being served
 by something else: the prefix cache and host KV tier, speculative
-decoding, int8 KV and int8/int4 weights, the lookahead pipeline and
-adaptive block, the top-p prefilter, replica and disaggregated pools,
-checkpoints, and mesh axes above 1. Chunked prefill (`prefill_chunk`,
-`prefill_budget`) and ragged dispatch (`ragged_dispatch`) are served.
+decoding, int8/int4 weights, the lookahead pipeline and adaptive block,
+the top-p prefilter, replica and disaggregated pools, checkpoints, and
+mesh axes above 1. Chunked prefill (`prefill_chunk`, `prefill_budget`),
+ragged dispatch (`ragged_dispatch`) and the int8 KV cache
+(`kv_dtype="int8"`) are served.
 """
 
 from __future__ import annotations
@@ -189,8 +190,6 @@ class EngineConfig:
              "prefix_cache / host_kv_bytes", "prefix cache and host-KV tier"),
             (self.draft_model is not None, "draft_model",
              "speculative decoding"),
-            (self.kv_dtype == "int8", "kv_dtype=int8",
-             "int8-KV variants of kernels 2, 3 and 4"),
             (self.quantize, "quantize (POLYKEY_QUANTIZE)",
              "int8/int4 weights"),
             (self.lookahead_blocks > 1 or self.adaptive_block,

@@ -29,9 +29,14 @@ GPU (the reference's engine/engine.py, default path).
   iterations keep the K-step block.
 - RNG: every sampled draw is keyed by (request seed, token position)
   (engine/sampling.py), so a seeded stream does not depend on the batch.
+- int8 KV (`kv_dtype="int8"`, POLYKEY_KV_DTYPE=int8): int8 value pools
+  plus bf16 scale pools; rows quantize as they are written and
+  dequantize as attention reads them, through the int8 kernels in both
+  dispatch modes (flash still serves the bucketed prefill, over a window
+  dequantized to bf16).
 
 Not ported yet (ROADMAP.md queue A): the lookahead pipeline, the prefix
-cache, speculative decoding, int8 KV.
+cache, speculative decoding.
 """
 
 from __future__ import annotations
@@ -77,6 +82,9 @@ KERNELS = {
     "paged_attention_decode": paged_attention_kernel.KERNEL,
     "paged_write": paged_write_kernel.KERNEL,
     "ragged_paged_attention": ragged_paged_attention_kernel.KERNEL,
+    "paged_attention_decode_int8": paged_attention_kernel.KERNEL_INT8,
+    "paged_write_int8": paged_write_kernel.KERNEL_INT8,
+    "ragged_paged_attention_int8": ragged_paged_attention_kernel.KERNEL_INT8,
 }
 
 
@@ -361,6 +369,7 @@ class InferenceEngine:
         self.paged = init_paged_kv(
             self.model_cfg, config.num_pages, config.page_size,
             pool_dtype, self.device,
+            kv_dtype=torch.int8 if config.kv_dtype == "int8" else None,
         )
         self.allocator = BlockAllocator(config.num_pages)
 
@@ -440,6 +449,9 @@ class InferenceEngine:
             "lookahead_depth": 1,
             "prefill_budget": self._prefill_budget,
             "ragged": self._ragged,
+            "kv_dtype": "int8" if self.paged.quantized else str(
+                self.paged.k.dtype).removeprefix("torch."),
+            "kv_pool_bytes": self.paged.nbytes,
             "kernel_launches": {
                 name: k.launches for name, k in KERNELS.items()
             },

@@ -1,17 +1,20 @@
 """Paged KV cache: device-side page pools + host-side block allocator
-(the reference's engine/kv_cache.py, full-precision pools).
+(the reference's engine/kv_cache.py).
 
 Layout (per K and V): [num_layers, num_pages, page_size, num_kv_heads,
 head_dim]. Page 0 is reserved as the garbage page — inactive decode lanes
 point their tables at it so masked lanes always have a safe write target.
+int8 KV adds bf16 scale pools [num_layers, num_pages, page_size,
+num_kv_heads] beside int8 value pools.
 
 The allocator is the reference's pure-Python one (the native ctypes
-allocator is a later slice). int8 KV pools are a later slice too.
+allocator is a later slice).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -68,10 +71,33 @@ class BlockAllocator:
 @dataclass
 class PagedKV:
     """Device page pools: k/v [L, num_pages, page_size, Hk, D]. Updated in
-    place by ops/paged_attention.paged_write."""
+    place by ops/paged_attention.paged_write.
+
+    With int8 KV (EngineConfig.kv_dtype="int8") k/v hold int8 values and
+    ks/vs the per-(token, head) bf16 scales [L, num_pages, page_size, Hk]:
+    symmetric absmax over head_dim, quantized at write time and
+    dequantized at read time. ks/vs are None for full-precision pools."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
+
+    def layer(self, i: int):
+        """Layer i's (k, v) cache operands: pools, or (values, scales)
+        pairs when quantized (the ops dispatch on the pair form)."""
+        if self.quantized:
+            return (self.k[i], self.ks[i]), (self.v[i], self.vs[i])
+        return self.k[i], self.v[i]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.ks, self.vs) if t is not None)
 
     @property
     def page_size(self) -> int:
@@ -85,8 +111,18 @@ class PagedKV:
 def init_paged_kv(
     cfg: ModelConfig, num_pages: int, page_size: int,
     dtype: torch.dtype = torch.bfloat16, device="cpu",
+    kv_dtype: Optional[torch.dtype] = None,
 ) -> PagedKV:
+    """`kv_dtype=torch.int8` builds quantized pools (+ bf16 scale pools);
+    None keeps the full-precision layout in `dtype`."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_dtype == torch.int8:
+        return PagedKV(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            ks=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            vs=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+        )
     return PagedKV(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -95,7 +131,10 @@ def init_paged_kv(
 
 def kv_pool_bytes(
     cfg: ModelConfig, num_pages: int, page_size: int,
-    dtype: torch.dtype = torch.bfloat16,
+    dtype: torch.dtype = torch.bfloat16, kv_dtype: Optional[torch.dtype] = None,
 ) -> int:
-    per_slot = cfg.num_kv_heads * cfg.head_dim * torch.finfo(dtype).bits // 8
+    if kv_dtype == torch.int8:
+        per_slot = cfg.num_kv_heads * (cfg.head_dim + 2)   # values + bf16 scale
+    else:
+        per_slot = cfg.num_kv_heads * cfg.head_dim * dtype.itemsize
     return 2 * cfg.num_layers * num_pages * page_size * per_slot

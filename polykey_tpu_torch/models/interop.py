@@ -6,7 +6,9 @@ been brought to the host as a numpy array (`jax.device_get` or
 the port's parameter dict (models/transformer.py: one dict per layer).
 bf16 leaves (ml_dtypes bfloat16, which `torch.from_numpy` rejects) pass as
 a uint16 view and come back with `.view(torch.bfloat16)`, bit for bit.
-This module imports no JAX; it only reads numpy arrays.
+`paged_kv_from_numpy` does the same for the reference's PagedKV (int8
+values and bf16 scales for int8 KV), so both packages can start from the
+same pools. This module imports no JAX; it only reads numpy arrays.
 """
 
 from __future__ import annotations
@@ -55,3 +57,16 @@ def params_from_numpy(tree: dict, device="cpu", dtype: Optional[torch.dtype] = N
     }
     params["layers"] = [pick(stacked, i) for i in range(num_layers)]
     return params
+
+
+def paged_kv_from_numpy(paged, device="cpu"):
+    """The reference's PagedKV with numpy leaves k, v and, for int8 KV, ks
+    and vs (None for fp pools) -> the port's engine.kv_cache.PagedKV, bit
+    for bit."""
+    from ..engine.kv_cache import PagedKV
+
+    return PagedKV(**{
+        name: None if getattr(paged, name) is None
+        else tensor_from_numpy(getattr(paged, name), device)
+        for name in ("k", "v", "ks", "vs")
+    })

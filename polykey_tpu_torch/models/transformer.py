@@ -139,7 +139,9 @@ def forward_paged(
     reads them; prefill (T = bucket) attends through the gathered window
     and the flash kernel, decode (T = 1) through the paged decode kernel.
     `aligned` (see ops.paged_attention.paged_write) is decided once for
-    all layers: by the caller on the host, or here from `positions`."""
+    all layers: by the caller on the host, or here from `positions`. With
+    int8 pools (`paged.quantized`) each layer's cache operands are
+    (values, scales) pairs, on which the write and read ops dispatch."""
     from ..ops.paged_attention import paged_attention, paged_write, positions_aligned
     from ..ops.paged_attention_kernel import paged_attention_decode
 
@@ -150,7 +152,7 @@ def forward_paged(
         aligned = positions_aligned(positions, ps)
 
     def attend(layer_idx, q, k, v):
-        kc, vc = paged.k[layer_idx], paged.v[layer_idx]
+        kc, vc = paged.layer(layer_idx)
         paged_write(kc, vc, k, v, page_tables, positions, aligned=aligned)
         return op(
             q, kc, vc, page_tables, positions,
@@ -192,7 +194,8 @@ def forward_ragged(
     (ops.ragged_paged_attention_kernel.ragged_work) from a caller that knows
     the ranges on the host. Padding rows carry position 0 and all-garbage
     table rows: they write to the reserved garbage page, like inactive
-    decode lanes."""
+    decode lanes. int8 pools go to each layer as (values, scales) pairs,
+    as in forward_paged."""
     from ..ops.paged_attention import paged_write
     from ..ops.ragged_paged_attention_kernel import ragged_paged_attention
 
@@ -200,7 +203,7 @@ def forward_ragged(
     pos_row = positions.reshape(T, 1)
 
     def attend(layer_idx, q, k, v):
-        kc, vc = paged.k[layer_idx], paged.v[layer_idx]
+        kc, vc = paged.layer(layer_idx)
         paged_write(kc, vc, k.reshape(T, 1, *k.shape[2:]),
                     v.reshape(T, 1, *v.shape[2:]), token_tables, pos_row)
         ctx = ragged_paged_attention(

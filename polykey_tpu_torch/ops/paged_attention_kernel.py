@@ -12,6 +12,14 @@ CUDA tensor the kernel runs or the call raises;
 only for CPU tensors and as the comparison in tests and chip_smoke.py.
 POLYKEY_DISABLE_PAGED_KERNEL=1 is the reference's kill switch (off by
 default): it routes decode through the gather path, ops/paged_attention.py.
+
+int8 KV: the pools come as (values, scales) pairs, values [N, ps, Hk, D]
+int8 and scales [N, ps, Hk] bf16, and go to the int8 kernel
+(pk_paged_decode_int8, the same source's template over int8 rows, its own
+launch count `KERNEL_INT8`), which dequantizes in fp32 registers as the reference's kernel does,
+k8 * ks. POLYKEY_DISABLE_KV_KERNEL=1, the reference's kill switch for the
+int8 paths (off by default), sends int8 decode to the gather path and the
+int8 decode write to the scatter.
 """
 
 from __future__ import annotations
@@ -23,10 +31,10 @@ import torch
 
 from ._build import F, I, P, Kernel, check_cuda_tensor
 
-KERNEL = Kernel(
-    "pk_paged_decode",
-    [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, I, I, I, I],
-)
+_ARGS = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, I, I, I, I]
+KERNEL = Kernel("pk_paged_decode", _ARGS)
+# The int8 variant takes the two scale pools after the value pools.
+KERNEL_INT8 = Kernel("pk_paged_decode_int8", _ARGS[:3] + [P, P] + _ARGS[3:])
 
 DECODE_HEAD_DIMS = frozenset({64, 128, 256})
 DECODE_GROUPS = frozenset({1, 2, 4, 8})   # query heads per kv head
@@ -41,10 +49,23 @@ def _window_int(window) -> int:
     return 0 if window is None else int(window)
 
 
+def pool_values(pages) -> torch.Tensor:
+    return pages[0] if isinstance(pages, tuple) else pages
+
+
+def gather_pages_f32(pages, idx: torch.Tensor) -> torch.Tensor:
+    """fp32 rows [*idx.shape, ps, Hk, D] of the pages `idx`; an int8 pair
+    is dequantized in fp32, k8 * ks, the kernels' arithmetic."""
+    if isinstance(pages, tuple):
+        values, scales = pages
+        return values[idx].float() * scales[idx][..., None].float()
+    return pages[idx].float()
+
+
 def paged_decode_plain(
     q: torch.Tensor,             # [B, Hq, D]
-    k_pages: torch.Tensor,       # [N, ps, Hk, D]
-    v_pages: torch.Tensor,
+    k_pages,                     # [N, ps, Hk, D], or an int8 (values, scales) pair
+    v_pages,
     page_tables: torch.Tensor,   # [B, P] int32
     positions: torch.Tensor,     # [B] int32
     *,
@@ -57,13 +78,13 @@ def paged_decode_plain(
     kernel's contract: rows outside [lo, hi) ∩ [rlo, rhi) or masked by
     position/window contribute nothing, m starts at -1e30."""
     B, Hq, D = q.shape
-    _, ps, Hk, _ = k_pages.shape
+    _, ps, Hk, _ = pool_values(k_pages).shape
     P_ = page_tables.shape[1]
     rlo, rhi = page_range if page_range is not None else (0, P_)
     G = Hq // Hk
     S = P_ * ps
-    k = k_pages[page_tables.long()].reshape(B, S, Hk, D).float()
-    v = v_pages[page_tables.long()].reshape(B, S, Hk, D).float()
+    k = gather_pages_f32(k_pages, page_tables.long()).reshape(B, S, Hk, D)
+    v = gather_pages_f32(v_pages, page_tables.long()).reshape(B, S, Hk, D)
     kv_pos = torch.arange(S, device=q.device)[None, :]           # [1, S]
     pos = positions.reshape(B, 1).long()
     valid = (kv_pos <= pos) & (kv_pos >= rlo * ps) & (kv_pos < rhi * ps)
@@ -86,23 +107,47 @@ def paged_decode_plain(
     )
 
 
+def check_kv_pools(kernel: str, k_pages, v_pages) -> tuple:
+    """Check a kernel's K/V pool operands on the card: bf16 pools, or int8
+    (values, scales) pairs with bf16 scales [N, ps, Hk]. Returns the
+    tensors to pass, (k, v) or (k, v, ks, vs), and whether they are int8."""
+    if isinstance(k_pages, tuple) != isinstance(v_pages, tuple):
+        raise ValueError(f"{kernel}: k and v pools must both be pairs or both not")
+    if not isinstance(k_pages, tuple):
+        check_cuda_tensor("k_pages", k_pages, torch.bfloat16, 4)
+        check_cuda_tensor("v_pages", v_pages, torch.bfloat16, 4)
+        if v_pages.shape != k_pages.shape:
+            raise ValueError(f"{kernel}: k and v pools differ in shape")
+        return (k_pages, v_pages), False
+    (kq, ks), (vq, vs) = k_pages, v_pages
+    for name, t in (("k_pages", kq), ("v_pages", vq)):
+        check_cuda_tensor(name, t, torch.int8, 4)
+    for name, t in (("k_scales", ks), ("v_scales", vs)):
+        check_cuda_tensor(name, t, torch.bfloat16, 3)
+    if vq.shape != kq.shape or ks.shape != kq.shape[:3] or vs.shape != ks.shape:
+        raise ValueError(
+            f"{kernel}: int8 pools {tuple(kq.shape)} / {tuple(vq.shape)} need "
+            f"scales {tuple(kq.shape[:3])}, got {tuple(ks.shape)} / {tuple(vs.shape)}"
+        )
+    return (kq, vq, ks, vs), True
+
+
 def paged_decode_cuda(
     q, k_pages, v_pages, page_tables, positions, *, scale,
     logit_softcap=None, window=None, page_range=None,
 ):
-    """Launch the CUDA kernel; returns (acc, m, l). Raises on anything the
-    kernel does not take."""
+    """Launch the CUDA kernel (the int8 one for (values, scales) pairs);
+    returns (acc, m, l). Raises on anything the kernel does not take."""
     B, Hq, D = q.shape
-    N, ps, Hk, Dk = k_pages.shape
+    pools, int8 = check_kv_pools("paged decode kernel", k_pages, v_pages)
+    N, ps, Hk, Dk = pools[0].shape
     P_ = page_tables.shape[1]
     check_cuda_tensor("q", q, torch.bfloat16, 3)
-    check_cuda_tensor("k_pages", k_pages, torch.bfloat16, 4)
-    check_cuda_tensor("v_pages", v_pages, torch.bfloat16, 4)
     check_cuda_tensor("page_tables", page_tables, torch.int32, 2)
     check_cuda_tensor("positions", positions, torch.int32, 1)
-    if D not in DECODE_HEAD_DIMS or Dk != D or v_pages.shape != k_pages.shape:
+    if D not in DECODE_HEAD_DIMS or Dk != D:
         raise ValueError(
-            f"paged decode kernel: head_dim {D} (pools {tuple(k_pages.shape)}) "
+            f"paged decode kernel: head_dim {D} (pools {tuple(pools[0].shape)}) "
             f"not in {sorted(DECODE_HEAD_DIMS)}"
         )
     if Hq % Hk or Hq // Hk not in DECODE_GROUPS:
@@ -112,7 +157,7 @@ def paged_decode_cuda(
         )
     if page_tables.shape[0] != B or positions.shape[0] != B:
         raise ValueError("paged decode kernel: batch sizes disagree")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", q), ("k_pages", pools[0]), ("v_pages", pools[1])):
         if t.data_ptr() % 16:
             raise ValueError(f"paged decode kernel: {name} is not 16-byte aligned")
     rlo, rhi = page_range if page_range is not None else (0, P_)
@@ -130,8 +175,8 @@ def paged_decode_cuda(
          torch.empty((B, Hq, nsplit), **f32))
         if nsplit > 1 else (acc, m, l)
     )
-    KERNEL(
-        q, k_pages, v_pages, page_tables, positions, acc, m, l, *parts,
+    (KERNEL_INT8 if int8 else KERNEL)(
+        q, *pools, page_tables, positions, acc, m, l, *parts,
         B, Hq, Hk, D, ps, P_, float(scale), float(logit_softcap or 0.0),
         _window_int(window), int(rlo), int(rhi), split_pages, nsplit,
     )
@@ -145,10 +190,21 @@ def use_paged_kernel() -> bool:
     )
 
 
+def use_quantized_paged_kernel() -> bool:
+    """Gate of the int8-KV kernel paths (decode read, decode write): the
+    data pools' gate plus the reference's own kill switch,
+    POLYKEY_DISABLE_KV_KERNEL=1, so a fault in the int8 kernels can be
+    contained without taking the working bf16 kernels down (the int8
+    gather and scatter serve instead)."""
+    if os.environ.get("POLYKEY_DISABLE_KV_KERNEL", "").lower() in ("1", "true"):
+        return False
+    return use_paged_kernel()
+
+
 def paged_attention_decode(
     q: torch.Tensor,             # [B, 1, Hq, D]
-    k_pages: torch.Tensor,       # [N, ps, Hk, D]
-    v_pages: torch.Tensor,
+    k_pages,                     # [N, ps, Hk, D], or an int8 (values, scales) pair
+    v_pages,
     page_tables: torch.Tensor,   # [B, P]
     q_positions: torch.Tensor,   # [B, 1]
     *,
@@ -157,7 +213,8 @@ def paged_attention_decode(
     window=None,
 ) -> torch.Tensor:
     """Decode-step paged attention; returns [B, 1, Hq, D]."""
-    if not use_paged_kernel():
+    gate = use_quantized_paged_kernel if isinstance(k_pages, tuple) else use_paged_kernel
+    if not gate():
         from .paged_attention import paged_attention
 
         return paged_attention(

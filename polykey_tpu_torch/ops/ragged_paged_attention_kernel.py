@@ -18,6 +18,12 @@ second launch merges. On a CUDA tensor the kernel runs or the call raises;
 sequence at a time, and runs only for CPU tensors, as the comparison in
 tests and chip_smoke.py, and under POLYKEY_DISABLE_RAGGED_KERNEL=1, the
 reference's kill switch (off by default).
+
+int8 KV: the pools come as (values, scales) pairs and go to the int8
+kernel (pk_ragged_attention_int8, the same source's template over int8
+rows, launch count `KERNEL_INT8`): the same work list, splits and merge
+over int8 K/V tiles. The plain version dequantizes in fp32, k8 * ks. Only
+POLYKEY_DISABLE_RAGGED_KERNEL gates it, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,11 +36,12 @@ import numpy as np
 import torch
 
 from ._build import F, I, P, Kernel, check_cuda_tensor
+from .paged_attention_kernel import check_kv_pools, gather_pages_f32, pool_values
 
-KERNEL = Kernel(
-    "pk_ragged_attention",
-    [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I],
-)
+_ARGS = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I]
+KERNEL = Kernel("pk_ragged_attention", _ARGS)
+# The int8 variant takes the two scale pools after the value pools.
+KERNEL_INT8 = Kernel("pk_ragged_attention_int8", _ARGS[:3] + [P, P] + _ARGS[3:])
 
 # Flat streams must be a multiple of this many rows. Load-bearing beyond
 # this module: the engine pads its ragged stream width against it.
@@ -109,8 +116,8 @@ def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int,
 
 def ragged_attention_plain(
     q: torch.Tensor,             # [T, Hq, D]
-    k_pages: torch.Tensor,       # [N, ps, Hk, D]
-    v_pages: torch.Tensor,
+    k_pages,                     # [N, ps, Hk, D], or an int8 (values, scales) pair
+    v_pages,
     page_tables: torch.Tensor,   # [S, P] int32
     seq_starts: torch.Tensor,    # [S] int32
     seq_lens: torch.Tensor,      # [S] int32
@@ -125,7 +132,7 @@ def ragged_attention_plain(
     its rows, so memory grows with one window, not with one window per
     token. Reads the range metadata on the host."""
     T, Hq, D = q.shape
-    _, ps, Hk, _ = k_pages.shape
+    _, ps, Hk, _ = pool_values(k_pages).shape
     P_ = page_tables.shape[1]
     G = Hq // Hk
     w = _window_int(window)
@@ -138,8 +145,8 @@ def ragged_attention_plain(
             continue
         n, S = end - first, pages * ps
         idx = page_tables[s, :pages].long()
-        k = k_pages[idx].reshape(S, Hk, D).float()
-        v = v_pages[idx].reshape(S, Hk, D).float()
+        k = gather_pages_f32(k_pages, idx).flatten(0, 1)
+        v = gather_pages_f32(v_pages, idx).flatten(0, 1)
         kv_pos = torch.arange(S, device=q.device)
         # Rows at or past kv_len were never written: zero them, so stale
         # NaN cannot reach a sum through a probability of 0.
@@ -165,31 +172,31 @@ def ragged_attention_cuda(
     q, k_pages, v_pages, page_tables, seq_starts, seq_lens, kv_lens, *,
     scale, logit_softcap=None, window=None, work: Optional[RaggedWork] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel; returns normalized fp32 [T, Hq, D]. Without
-    a `work` list it builds one from the range metadata, which reads it on
-    the host (a device sync). Raises on anything the kernel does not take."""
+    """Launch the CUDA kernel (the int8 one for (values, scales) pairs);
+    returns normalized fp32 [T, Hq, D]. Without a `work` list it builds one
+    from the range metadata, which reads it on the host (a device sync).
+    Raises on anything the kernel does not take."""
     T, Hq, D = q.shape
-    N, ps, Hk, Dk = k_pages.shape
+    pools, int8 = check_kv_pools("ragged kernel", k_pages, v_pages)
+    N, ps, Hk, Dk = pools[0].shape
     S, P_ = page_tables.shape
     check_cuda_tensor("q", q, torch.bfloat16, 3)
-    check_cuda_tensor("k_pages", k_pages, torch.bfloat16, 4)
-    check_cuda_tensor("v_pages", v_pages, torch.bfloat16, 4)
     check_cuda_tensor("page_tables", page_tables, torch.int32, 2)
     for name, t in (("seq_starts", seq_starts), ("seq_lens", seq_lens),
                     ("kv_lens", kv_lens)):
         check_cuda_tensor(name, t, torch.int32, 1)
         if t.shape[0] != S:
             raise ValueError(f"ragged kernel: {name} has {t.shape[0]} rows, tables {S}")
-    if D not in RAGGED_HEAD_DIMS or Dk != D or v_pages.shape != k_pages.shape:
+    if D not in RAGGED_HEAD_DIMS or Dk != D:
         raise ValueError(
-            f"ragged kernel: head_dim {D} (pools {tuple(k_pages.shape)}) "
+            f"ragged kernel: head_dim {D} (pools {tuple(pools[0].shape)}) "
             f"not in {sorted(RAGGED_HEAD_DIMS)}"
         )
     if Hq % Hk or Hq // Hk not in RAGGED_GROUPS:
         raise ValueError(
             f"ragged kernel: Hq={Hq}, Hk={Hk} needs Hq / Hk in {sorted(RAGGED_GROUPS)}"
         )
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", q), ("k_pages", pools[0]), ("v_pages", pools[1])):
         if t.data_ptr() % 16:
             raise ValueError(f"ragged kernel: {name} is not 16-byte aligned")
     if work is None:
@@ -203,8 +210,8 @@ def ragged_attention_cuda(
     part_acc = torch.empty((n_part, Hk, TILE_ROWS, D), **f32)
     part_ml = torch.empty((n_part, Hk, TILE_ROWS, 2), **f32)
     if work.items.shape[0]:
-        KERNEL(
-            q, k_pages, v_pages, page_tables, seq_starts, seq_lens, kv_lens,
+        (KERNEL_INT8 if int8 else KERNEL)(
+            q, *pools, page_tables, seq_starts, seq_lens, kv_lens,
             work.items, work.merges, out, part_acc, part_ml,
             work.items.shape[0], work.merges.shape[0], T, Hq, Hk, D, ps, P_,
             float(scale), float(logit_softcap or 0.0), _window_int(window),
@@ -214,8 +221,8 @@ def ragged_attention_cuda(
 
 def ragged_gather_attention(
     q: torch.Tensor,             # [T, Hq, D]
-    k_pages: torch.Tensor,       # [N, ps, Hk, D]
-    v_pages: torch.Tensor,
+    k_pages,                     # [N, ps, Hk, D], or an int8 (values, scales) pair
+    v_pages,
     token_tables: torch.Tensor,  # [T, P] int32, each token's table row
     q_positions: torch.Tensor,   # [T] int32 absolute positions
     *,
@@ -238,8 +245,8 @@ def ragged_gather_attention(
 
 def ragged_paged_attention(
     q: torch.Tensor,             # [T, Hq, D] flat token stream (tile-padded)
-    k_pages: torch.Tensor,       # [N, ps, Hk, D]
-    v_pages: torch.Tensor,
+    k_pages,                     # [N, ps, Hk, D], or an int8 (values, scales) pair
+    v_pages,
     page_tables: torch.Tensor,   # [S, P] int32 per-sequence tables
     seq_starts: torch.Tensor,    # [S] int32 row range starts (ascending)
     seq_lens: torch.Tensor,      # [S] int32 new-token counts

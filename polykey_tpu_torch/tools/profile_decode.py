@@ -1,6 +1,7 @@
 """Where a decode step's (or a ragged dispatch's) time goes, on the GPU.
 
     python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0] [--ragged]
+        [--kv-dtype int8]
 
 Builds the 32-layer Llama-3-8B with random bf16 weights, puts 16 live lanes
 (the default EngineConfig's slots) at `context` positions of the default
@@ -9,7 +10,9 @@ default 8 greedy steps) once to warm up, once on the host clock, and once
 under torch.profiler. With --ragged it runs one ragged dispatch instead
 (`engine._ragged_fn`): the 16 lanes' single tokens plus the default
 1024-token prefill budget, as a first 512-token chunk (KV length 512) and a
-second one (KV length 1024). Prints, per step (per dispatch with --ragged):
+second one (KV length 1024). --kv-dtype int8 runs either over the int8 KV
+pool (int8 values plus bf16 scales, EngineConfig.kv_dtype="int8"), whose
+rows quantize as they are written. Prints, per step (per dispatch with --ragged):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
 launches, and the kernels that took the most device time. Each line names
@@ -33,6 +36,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ragged", action="store_true",
                     help="profile one ragged mixed prefill+decode dispatch")
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
+                    help="KV pool: bf16, or int8 values with bf16 scales")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
@@ -54,7 +59,9 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, torch.bfloat16, dev, gen)
-    paged = init_paged_kv(cfg, econf.num_pages, econf.page_size, torch.bfloat16, dev)
+    int8 = args.kv_dtype == "int8"
+    paged = init_paged_kv(cfg, econf.num_pages, econf.page_size, torch.bfloat16, dev,
+                          kv_dtype=torch.int8 if int8 else None)
     P, ps = econf.pages_per_seq, econf.page_size
     per = -(-(args.context + 3 * steps) // ps)
     if per > P:
@@ -142,12 +149,13 @@ def main() -> None:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / steps
+    pool = "int8 KV" if int8 else "bf16 KV"
     if args.ragged:
-        where = (f"{cfg.name} {cfg.num_layers} layers bf16, one ragged dispatch: "
+        where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one ragged dispatch: "
                  f"B={B} decode lanes at context {args.context} + {W}-token prefill "
                  f"stream (chunks at KV 512 and 1024), greedy, on {card}")
     else:
-        where = (f"{cfg.name} {cfg.num_layers} layers bf16, B={B}, context "
+        where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, B={B}, context "
                  f"{args.context}, block of {steps} greedy steps, on {card}")
     print(f"[profile_decode] {where}")
     unit = "dispatch" if args.ragged else "step"

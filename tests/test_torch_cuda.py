@@ -14,6 +14,10 @@ flash per element 2^-7 (|ref| + sum p|v|) + 1e-4 (bf16 probabilities and
 output rounded once on each side), ragged per element 2^-7 sum p|v| + 1e-4
 (the kernel rounds each probability to bf16 once, unit roundoff 2^-8; the
 factor 2 covers exp and fp32 sums in another order), the write exact.
+The int8-KV variants are held to the same bounds over the dequantized
+values (k8 * ks, v8 * vs): the int8 decode kernel dequantizes in fp32 as
+its plain version does; the int8 ragged kernel folds each V scale into the
+probability before the one bf16 rounding; the quantizing write is exact.
 """
 
 import pytest
@@ -183,3 +187,131 @@ def test_ragged_kernel_launch_count_and_refusals(gen):
     before = rk.KERNEL.launches
     rk.ragged_paged_attention(*args, scale=0.1)
     assert rk.KERNEL.launches == before + 1
+
+
+def _int8_pools(gen, N, ps, Hk, D):
+    """int8 values and bf16 scales as the quantizing write stores them."""
+    from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
+
+    pairs = [quantize_kv_rows(_randn((N, ps, Hk, D), gen) * 3) for _ in range(2)]
+    return pairs[0], pairs[1]
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_decode_int8_kernel_geometries(gen, D, groups):
+    """The int8 decode kernel over contexts 1..640 (split and unsplit),
+    soft-cap, window and a page range; NaN in the values AND the scales of
+    every unwritten row of each sequence's last page."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+
+    Hk, ps, P = 2, 8, 80
+    ctx = [1, 7, 8, 9, 100, 255, 256, 257, 640]
+    B, Hq = len(ctx), Hk * groups
+    pages = [-(-n // ps) for n in ctx]
+    N = sum(pages) + 1
+    (kq, ks), (vq, vs) = _int8_pools(gen, N, ps, Hk, D)
+    tables = torch.zeros((B, P), dtype=torch.int32, device="cuda")
+    nxt = 1
+    for b, n in enumerate(pages):
+        tables[b, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+        tail = ctx[b] - (n - 1) * ps
+        ks[nxt - 1, tail:] = float("nan")
+        vs[nxt - 1, tail:] = float("nan")
+    q = _randn((B, Hq, D), gen)
+    pos = torch.tensor([n - 1 for n in ctx], dtype=torch.int32, device="cuda")
+    before = pak.KERNEL_INT8.launches
+    for kw in (dict(), dict(logit_softcap=30.0, window=50),
+               dict(page_range=(3, 40))):
+        got = pak.paged_decode_cuda(q, (kq, ks), (vq, vs), tables, pos,
+                                    scale=D ** -0.5, **kw)
+        want = pak.paged_decode_plain(q, (kq, ks), (vq, vs), tables, pos,
+                                      scale=D ** -0.5, **kw)
+        out = got[0] / torch.clamp(got[2], min=1e-9)
+        ref = want[0] / torch.clamp(want[2], min=1e-9)
+        assert torch.isfinite(out).all(), kw
+        assert (out - ref).abs().max().item() <= 2e-3, kw
+        assert (got[1] - want[1]).abs().max().item() <= 1e-3, kw
+    assert pak.KERNEL_INT8.launches == before + 3
+
+
+@pytest.mark.parametrize("Hk,D", [(1, 64), (2, 128), (3, 64), (5, 256), (8, 128)])
+def test_write_int8_kernel_is_exact(gen, Hk, D):
+    """The quantizing write against quantize_kv_rows + index writes, bit for
+    bit, for kv-head counts below 8 (scale rows of Hk x 2 bytes, no whole
+    number of 16-byte vectors) and above; an inactive lane, a negative
+    position, and all-zero and tie-heavy rows."""
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+
+    N, ps, B, P = 40, 8, 7, 5
+    (kq, ks), (vq, vs) = _int8_pools(gen, N, ps, Hk, D)
+    kn, vn = _randn((B, 1, Hk, D), gen), _randn((B, 1, Hk, D), gen)
+    kn[1] = 0.0                                          # absmax floor 1e-8
+    vn[2] = torch.round(vn[2] * 4) / 4                   # many exact halves
+    vn[2, 0, :, 0] = 31.75                               # scale 0.25 exactly
+    tables = torch.arange(1, 1 + B * P, dtype=torch.int32, device="cuda").reshape(B, P)
+    tables[5] = 0
+    pos = torch.tensor([[0], [7], [8], [39], [12], [0], [-3]], dtype=torch.int32,
+                       device="cuda")
+    a = (kq.clone(), ks.clone()), (vq.clone(), vs.clone())
+    b = (kq.clone(), ks.clone()), (vq.clone(), vs.clone())
+    pw.paged_write_int8_cuda(*a, kn, vn, tables, pos)
+    pw.paged_write_int8_plain(*b, kn, vn, tables, pos)
+    for x, y in zip((*a[0], *a[1]), (*b[0], *b[1])):
+        assert torch.equal(x[1:].view(torch.int8), y[1:].view(torch.int8))
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_ragged_int8_kernel_geometries(gen, D, groups):
+    """The int8 ragged kernel on the bf16 kernel's streams, with NaN in the
+    values and scales of the unwritten rows; tolerance over the dequantized
+    V, padding rows exactly 0."""
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    Hk = 2
+    lens = [1, 1, 1, 1, 1, 37, 130]
+    kvs = [1, 8, 9, 300, 640, 57, 500]
+    (q, kp, vp, tables, *meta), used = _ragged_case(gen, D, Hk * groups, Hk, lens, kvs)
+    from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
+
+    kpair = quantize_kv_rows(torch.nan_to_num(kp, nan=0.0))
+    vpair = quantize_kv_rows(torch.nan_to_num(vp, nan=0.0))
+    stale = torch.isnan(vp).any(-1)                      # [N, ps, Hk]
+    vpair[1][stale] = float("nan")
+    kpair[1][stale] = float("nan")
+    before = rk.KERNEL_INT8.launches
+    for kw in (dict(), dict(logit_softcap=30.0, window=50), dict(window=200)):
+        out = rk.ragged_attention_cuda(q, kpair, vpair, tables, *meta,
+                                       scale=D ** -0.5, **kw)
+        ref = rk.ragged_attention_plain(q, kpair, vpair, tables, *meta,
+                                        scale=D ** -0.5, **kw)
+        vabs = (vpair[0].abs(), vpair[1])
+        ref_abs = rk.ragged_attention_plain(q, kpair, vabs, tables, *meta,
+                                            scale=D ** -0.5, **kw)
+        tol = 2.0 ** -7 * ref_abs + 1e-4
+        assert torch.isfinite(out).all(), kw
+        assert ((out - ref).abs() <= tol).all(), (kw, (out - ref).abs().max().item())
+        assert (out[used:] == 0).all(), kw
+    assert rk.KERNEL_INT8.launches == before + 3
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+
+    (kq, ks), (vq, vs) = _int8_pools(gen, 4, 8, 2, 64)
+    qd = _randn((2, 4, 64), gen)
+    tables = torch.ones((2, 3), dtype=torch.int32, device="cuda")
+    pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="must be"):
+        pak.paged_decode_cuda(qd, (kq.float(), ks), (vq, vs), tables, pos, scale=0.1)
+    with pytest.raises(ValueError, match="scales"):
+        pak.paged_decode_cuda(qd, (kq, ks[:, :4]), (vq, vs), tables, pos, scale=0.1)
+    with pytest.raises(ValueError, match="pairs"):
+        pak.paged_decode_cuda(qd, (kq, ks), vq, tables, pos, scale=0.1)
+    rows = _randn((2, 1, 2, 64), gen)
+    with pytest.raises(ValueError, match="must be"):
+        pw.paged_write_int8_cuda((kq, ks), (vq, vs), rows.float(), rows, tables,
+                                 pos[:, None])

@@ -163,14 +163,16 @@ def test_stats_report_kernel_launches(engines):
     assert stats["device"] == "cpu" and stats["slots_total"] == 4
     assert set(stats["kernel_launches"]) == {
         "flash_attention", "paged_attention_decode", "paged_write",
-        "ragged_paged_attention"}
+        "ragged_paged_attention", "paged_attention_decode_int8",
+        "paged_write_int8", "ragged_paged_attention_int8"}
+    assert stats["kv_dtype"] == "float32"
     assert stats["requests_completed"] >= 1
 
 
 def test_unported_knobs_refuse_to_start():
     for knob in (dict(prefix_cache=True),
                  dict(host_kv_bytes=1 << 20), dict(draft_model="tiny-llama"),
-                 dict(kv_dtype="int8"), dict(quantize=True), dict(tp=2),
+                 dict(quantize=True), dict(tp=2),
                  dict(lookahead_blocks=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()

@@ -130,7 +130,8 @@ def test_engine_stats(stack):
     assert stats["model"] == "tiny-llama-ascii" and stats["device"] == "cpu"
     assert set(dict(stats["kernel_launches"])) == {
         "flash_attention", "paged_attention_decode", "paged_write",
-        "ragged_paged_attention"}
+        "ragged_paged_attention", "paged_attention_decode_int8",
+        "paged_write_int8", "ragged_paged_attention_int8"}
 
 
 @pytest.mark.parametrize("tool", ["example_tool", "struct_tool", "file_tool", "nope"])

@@ -471,6 +471,7 @@ def test_round_robin_cursor():
 
 def test_config_accepts_ragged():
     EngineConfig(**FIELDS, ragged_dispatch=True).validate()
+    EngineConfig(**FIELDS, ragged_dispatch=True, kv_dtype="int8").validate()
     with pytest.raises(NotImplementedError, match="not ported"):
         dataclasses.replace(EngineConfig(**FIELDS, ragged_dispatch=True),
-                            kv_dtype="int8").validate()
+                            quantize=True).validate()
