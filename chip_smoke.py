@@ -380,28 +380,61 @@ def _sdpa(q, k, v, qpos, S, scale, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, scale=scale)
 
 
+def _flash_positions(layout: str, B: int, T: int):
+    """"mixed": row 0 prefills positions 0..T-1; row 1 a prompt that starts
+    mid-window at 1000 and whose last quarter is padding (position -1).
+    "chunk3": every row a 512-token chunk at positions 1024..1535, the
+    third chunk of the serve's document."""
+    qpos = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    if layout == "chunk3":
+        return qpos + 1024
+    qpos[1] += 1000
+    qpos[1, T - T // 4:] = -1
+    return qpos
+
+
+def _nan_unseen(x, qpos, window):
+    """NaN in every window row no query of its batch row sees (past the
+    largest position, before the smallest one's window): stale slots."""
+    x = x.clone()
+    for b in range(x.shape[0]):
+        valid = qpos[b][qpos[b] >= 0]
+        x[b, int(valid.max()) + 1:] = float("nan")
+        if window:
+            x[b, :max(0, int(valid.min()) - window + 1)] = float("nan")
+    return x
+
+
 def kernel_flash(gen) -> dict:
     from polykey_tpu_torch.ops import flash_attention as fa
 
     cases = [
-        ("main", 2, 512, 4096, 32, 8, 128, None, None),
-        ("T=128", 2, 128, 4096, 32, 8, 128, None, None),
-        ("softcap 50, window 1024", 2, 512, 4096, 32, 8, 128, 50.0, 1024),
-        ("D=64", 2, 512, 4096, 32, 8, 64, None, None),
-        ("D=256", 2, 512, 4096, 16, 8, 256, None, None),
+        ("main", 2, 512, 4096, 32, 8, 128, None, None, "mixed", False),
+        ("T=128", 2, 128, 4096, 32, 8, 128, None, None, "mixed", False),
+        ("softcap 50, window 1024", 2, 512, 4096, 32, 8, 128, 50.0, 1024, "mixed", False),
+        ("D=64", 2, 512, 4096, 32, 8, 64, None, None, "mixed", False),
+        ("D=256", 2, 512, 4096, 16, 8, 256, None, None, "mixed", False),
+        ("document chunk 3, positions 1024..1535", 1, 512, 4096, 32, 8, 128, None,
+         None, "chunk3", False),
+        ("short bucket", 4, 128, 4096, 32, 8, 128, None, None, "mixed", False),
+        ("stale rows NaN, window 1024", 2, 512, 4096, 32, 8, 128, None, 1024, "mixed",
+         True),
     ]
     result = None
-    for label, B, T, S, Hq, Hk, D, softcap, window in cases:
+    for label, B, T, S, Hq, Hk, D, softcap, window, layout, stale in cases:
         q = _randn((B, T, Hq, D), gen)
         k = _randn((B, S, Hk, D), gen)
         v = _randn((B, S, Hk, D), gen)
-        # Row 0 prefills positions 0..T-1; row 1 a prompt whose tail rows
-        # are padding (position -1) and which starts mid-window.
-        qpos = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
-        qpos[1] += 1000
-        qpos[1, T - T // 4:] = -1
+        qpos = _flash_positions(layout, B, T)
         kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window)
-        out = fa.flash_attention_cuda(q, k, v, qpos, **kw)
+        # The stale case feeds the kernel NaN where no query looks and
+        # holds it to the plain version over the same window with 0 there.
+        if stale:
+            kk, vk = _nan_unseen(k, qpos, window), _nan_unseen(v, qpos, window)
+            k, v = torch.nan_to_num(kk, nan=0.0), torch.nan_to_num(vk, nan=0.0)
+        else:
+            kk, vk = k, v
+        out = fa.flash_attention_cuda(q, kk, vk, qpos, **kw)
         ref = fa.flash_attention_plain(q, k, v, qpos, **kw).float()
         # Per element: each side rounds every probability and its output to
         # bf16 once (unit roundoff 2^-8), so the two may differ by
@@ -410,16 +443,16 @@ def kernel_flash(gen) -> dict:
         ref_abs = fa.flash_attention_plain(q, k, v.abs(), qpos, **kw).float()
         tol = 2.0 ** -7 * (ref.abs() + ref_abs) + 1e-4
         sync()
-        check(bool(torch.isfinite(out.float()).all()), "flash output is not finite")
-        check(bool((out[1, T - T // 4:] == 0).all()), "flash padding rows are not 0")
+        check(bool(torch.isfinite(out.float()).all()), f"flash [{label}] output is not finite")
+        check(bool((out[qpos < 0] == 0).all()), f"flash [{label}] padding rows are not 0")
         diff = (out.float() - ref).abs()
         err = diff.max().item()
-        # Rows 0 (prefix from 0) and 1 (offset 1000, mid-window) apart, so
-        # the small outputs of long rows are held to their own scale.
+        # Each batch row apart, so the small outputs of long rows are held
+        # to their own scale.
         ratio = [(diff[b] / tol[b]).max().item() for b in range(B)]
-        check(max(ratio) <= 1.0, f"flash kernel differs from plain beyond "
+        check(max(ratio) <= 1.0, f"flash kernel [{label}] differs from plain beyond "
               f"tolerance: largest err/tol per batch row {ratio}")
-        ms = device_time_ms(lambda: fa.flash_attention_cuda(q, k, v, qpos, **kw))
+        ms = device_time_ms(lambda: fa.flash_attention_cuda(q, kk, vk, qpos, **kw))
         plain = device_time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, **kw),
                                reps=2)
         lib = device_time_ms(_sdpa(q, k, v, qpos, S, D ** -0.5, window), reps=2)
@@ -439,12 +472,13 @@ def kernel_flash(gen) -> dict:
         flops = 4 * D * Hq * visible
         nbytes = 2 * (2 * q.numel() + 2 * kv_rows * Hk * D) + qpos.numel() * 4
         b_ms, b_by = bound_ms(nbytes, flops)
+        rows = ", ".join(f"{r:.3f}" for r in ratio)
         say("kernels", f"flash_attention [{label}] B={B} T={T} S={S} Hq={Hq} Hk={Hk} "
-            f"D={D}: max |err| {err:.3e}, largest err/tol row 0 {ratio[0]:.3f}, "
-            f"row 1 {ratio[1]:.3f} (tolerance per element 2^-7 (|ref| + "
+            f"D={D}: max |err| {err:.3e}, largest err/tol per batch row {rows} "
+            "(tolerance per element 2^-7 (|ref| + "
             "sum p|v|) + 1e-4: bf16 probabilities and output rounded once on "
             "each side, fp32 accumulation in another order); kernel "
-            f"{ms:.4f} ms, plain "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
             f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by})")
         if result is None:

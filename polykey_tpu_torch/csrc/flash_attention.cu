@@ -6,70 +6,206 @@
 // Replaces: polykey_tpu/ops/flash_attention.py, _flash_bhsd (body _kernel),
 // reached from flash_attention through paged_attention on prefill.
 //
-// Bound on this card: operations. A tile of 64 queries against 64 keys
-// does 2 x 64 x 64 x D flops for each of QK^T and PV on 64 x D x 2 x 2 bytes
-// of K and V — 64 flops per byte, well into the tensor cores' territory for
-// the long windows of prefill (S = 4096 on the default engine geometry).
+// Bound on this card: operations. At prefill widths a 64-query tile does
+// 4 x 64 x D flops per key against 2 x D x 2 bytes of that key's K and V
+// row, 64 flops per byte before reuse across query tiles and heads of a
+// group, so only the tensor cores' rate can bound it.
 //
-// Design: one CTA of four warps per (batch, query head, 64-row query tile).
-// Q stays in shared memory; K and V stream through shared memory 64 rows at
-// a time. Each warp owns 16 query rows: it computes its 16 x 64 logits with
-// bf16 WMMA tiles (fp32 accumulation), applies scale, soft-cap and the
-// position mask, updates its rows' fp32 running max and sum, writes the
-// probabilities as bf16 (the reference also rounds them to V's dtype) and
-// adds P x V into the fp32 output tile in shared memory with WMMA again.
-// Key tiles wholly after the tile's largest query position, or wholly before
-// its window, are never loaded — for a 512-token prompt in a 4096-slot window
-// that skip is what keeps the cost at the causal triangle instead of 8 x it.
-// Rows masked for every query of the tile are zero-filled on load, and
-// masked probabilities are exactly 0. Padding rows (position -1) see no key
-// and produce 0.
+// Design: one CTA per (query head, batch row, 64-query tile), one
+// warpgroup (128 threads); the score, probability and output tiles never
+// touch shared memory.
+// - Tiles: 64 queries against BK keys, BK = 64 (32 at D = 256, where the
+//   O accumulator alone is 128 registers a thread). Q, K and V sit in
+//   shared memory in the 128-byte-swizzled layout that wgmma's descriptors
+//   name: rows of 64 bf16 values, 8-row atoms of 1024 bytes, one atom
+//   column per 64 of D.
+// - Ring: K and V stream through STAGES = 2 stages of BK keys, filled by
+//   cp.async 16 bytes a thread; tile j+1 is in flight while the tensor
+//   cores work on tile j (cp.async.wait_group, then a proxy fence so that
+//   wgmma's reads see the copies).
+// - S = Q K^T: wgmma m64nBKk16, Q and K both K-major from shared memory.
+// - Softmax on the accumulator registers: each row lives on the 4 lanes of
+//   a quad, so its max reduces over two shuffles; exp2 with log2(e) folded
+//   into the scale; the running sum stays per lane until the epilogue.
+// - O += P V: wgmma m64nDk16 (m64n128k16 per half at D = 256), P packed to
+//   bf16 in registers as the A operand (the accumulator layout of S is the
+//   A-fragment layout of this product), V from shared memory MN-major (the
+//   transpose flag). O stays in fp32 registers and is rescaled there.
+// - Epilogue: O / l, rounded to bf16 once, stored from registers.
+// Key tiles wholly after the tile's largest position, or wholly before its
+// window, are never loaded; the position mask runs only on tiles that
+// straddle a boundary. Stale rows: the window is gathered from pages whose
+// unwritten slots may hold anything (NaN in a dequantized int8 window),
+// and 0 x NaN is NaN, so every row outside [kv_lo, kv_hi) is copied with a
+// source size of 0 (cp.async zero-fills it) and masked probabilities are
+// exactly 0. Padding rows (position -1) see no key and produce 0. Query
+// tiles are issued largest first (the causal triangle puts the most work
+// in the last tiles), so the tail of the grid runs on a full card.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+constexpr int BQ = 64;         // query rows per CTA: the M of one wgmma
+constexpr int STAGES = 2;      // K/V ring depth
+constexpr int kThreads = 128;  // one warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
-
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
-
+// Keys per ring stage, and shared memory of one CTA from a 1024-byte
+// aligned base: the Q tile (64 rows x D), then the ring's stages, each a K
+// tile and a V tile of BK rows x D. At D = 256 the O accumulator alone is
+// 128 registers a thread, so the key tile halves there to keep S, P and
+// the copies' addresses out of local memory.
 template <int D>
 struct Layout {
-  static constexpr int LDQ = D + 8;     // bf16 row stride of Q, K, V tiles
-  static constexpr int LDS = BK + 4;    // fp32 row stride of the logits
-  static constexpr int LDP = BK + 8;    // bf16 row stride of the probabilities
-  static constexpr int LDO = D + 4;     // fp32 row stride of the output tile
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int Q_TILE = BQ * D * 2;
+  static constexpr int KV_TILE = BK * D * 2;
   static constexpr int Q = 0;
-  static constexpr int K = Q + align128(BQ * LDQ * 2);
-  static constexpr int V = K + align128(BK * LDQ * 2);
-  static constexpr int S = V + align128(BK * LDQ * 2);
-  static constexpr int Pb = S + align128(BQ * LDS * 4);
-  static constexpr int O = Pb + align128(BQ * LDP * 2);
-  static constexpr int POS = O + align128(BQ * LDO * 4);
-  static constexpr int M = POS + align128(BQ * 4);
-  static constexpr int L = M + align128(BQ * 4);
-  static constexpr int BYTES = L + align128(BQ * 4);
+  static constexpr int RING = Q_TILE;
+  static constexpr int BYTES = RING + STAGES * 2 * KV_TILE;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Byte offset of 16-byte chunk c (of D / 8) in row r of a swizzled tile of
+// ROWS rows: atom column c / 8 holds the rows' 128 bytes each, and chunk
+// c % 8 of row r sits at chunk (c % 8) ^ (r % 8), the pattern wgmma's
+// 128-byte swizzle reads.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swizzle(int r, int c) {
+  return (uint32_t)((c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, the
+// leading byte offset (the stride between atom columns along M or N of an
+// MN-major operand; unused for K-major) and the stride byte offset
+// (1024: from one 8-row atom to the next).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Ties registers that an in-flight wgmma writes to this point in program
+// order, so that no read of them moves above the wait before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ROWS rows of D values into a swizzled tile: row r from src + (r0 + r) *
+// stride, zero-filled where r0 + r lies outside [lo, hi).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
+                                          int64_t stride, int r0, int lo, int hi,
+                                          int tid) {
+  constexpr int C = D / 8;
+#pragma unroll
+  for (int it = 0; it < ROWS * C / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int r = i / C, c = i % C;
+    const int s = r0 + r;
+    const bool ok = s >= lo && s < hi;
+    cp_async16(dst + swizzle<ROWS>(r, c), ok ? src + s * stride + c * 8 : src, ok);
+  }
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <int D>
@@ -81,168 +217,209 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     __nv_bfloat16* __restrict__ out,       // [B, T, Hq, D]
     int T, int S, int Hq, int Hk, float scale, float softcap, int window) {
   using Lay = Layout<D>;
-  constexpr int LDQ = Lay::LDQ, LDS = Lay::LDS, LDP = Lay::LDP, LDO = Lay::LDO;
-  constexpr int VEC = D / 8;                 // 16-byte vectors per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::Q);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::K);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::V);
-  float* s_s = reinterpret_cast<float*>(smem + Lay::S);
-  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::Pb);
-  float* o_s = reinterpret_cast<float*>(smem + Lay::O);
-  int* pos_s = reinterpret_cast<int*>(smem + Lay::POS);
-  float* m_s = reinterpret_cast<float*>(smem + Lay::M);
-  float* l_s = reinterpret_cast<float*>(smem + Lay::L);
-  __shared__ int tile_max, tile_min;
+  constexpr int BK = Lay::BK;
+  const float kNegInf = __int_as_float(0xff800000);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int pos_s[BQ];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base + Lay::Q;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;     // largest tiles first
   const int g = h / (Hq / Hk);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = qt * BQ;
 
-  if (tid < BQ) {
-    const int t = q0 + tid;
-    pos_s[tid] = t < T ? qpos[(int64_t)b * T + t] : -1;
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  for (int i = tid; i < BQ * LDO; i += kThreads) o_s[i] = 0.f;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < BQ * VEC; i += kThreads) {
-    const int r = i / VEC, c = i % VEC;
-    const int t = q0 + r;
-    uint4 val = zero;
-    if (t < T) {
-      val = *reinterpret_cast<const uint4*>(
-          q + (((int64_t)b * T + t) * Hq + h) * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(q_s + r * LDQ + c * 8) = val;
-  }
+  if (tid < BQ) pos_s[tid] = q0 + tid < T ? qpos[(int64_t)b * T + q0 + tid] : -1;
   __syncthreads();
-  if (warp == 0) {
+  // Tile-wide largest position, smallest valid one, smallest of all (-1
+  // when the tile holds padding); every warp reduces the same 64 values.
+  int mx, mn, mn_any;
+  {
     const int a = pos_s[lane], c = pos_s[lane + 32];
-    int mx = max(a, c);
-    int mn = min(a < 0 ? INT_MAX : a, c < 0 ? INT_MAX : c);
+    mx = max(a, c);
+    mn = min(a < 0 ? INT_MAX : a, c < 0 ? INT_MAX : c);
+    mn_any = min(a, c);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-    }
-    if (lane == 0) {
-      tile_max = mx;
-      tile_min = mn;
+      mn_any = min(mn_any, __shfl_xor_sync(0xffffffffu, mn_any, o));
     }
   }
-  __syncthreads();
-
   // Keys any row of this tile can see: [kv_lo, kv_hi).
-  const int kv_hi = min(S, tile_max + 1);
-  int kv_lo = 0;
-  if (window > 0 && tile_min != INT_MAX) kv_lo = max(0, tile_min - window + 1);
+  const int kv_hi = min(S, mx + 1);
+  const int kv_lo = (window > 0 && mn != INT_MAX) ? max(0, mn - window + 1) : 0;
   const int j_lo = kv_lo / BK;
   const int j_hi = kv_hi > 0 ? (kv_hi + BK - 1) / BK : 0;
 
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int k0 = j * BK;
-    for (int i = tid; i < BK * VEC; i += kThreads) {
-      const int r = i / VEC, c = i % VEC;
-      const int s = k0 + r;
-      uint4 kv = zero, vv = zero;
-      if (s >= kv_lo && s < kv_hi) {
-        const int64_t off = (((int64_t)b * S + s) * Hk + g) * D + c * 8;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * LDQ + c * 8) = kv;
-      *reinterpret_cast<uint4*>(v_s + r * LDQ + c * 8) = vv;
-    }
-    __syncthreads();
+  // This thread's two rows of every accumulator: quad row r_a and r_a + 8
+  // of its warp's 16; columns 2 * (lane % 4) + {0, 1} of each 8.
+  const int r_a = warp * 16 + (lane >> 2), r_b = r_a + 8;
+  const int p_a = pos_s[r_a], p_b = pos_s[r_b];
+  const int col0 = 2 * (lane & 3);
 
-    // Logits for this warp's 16 rows: S = Q K^T.
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[BK / 16];
+  float o[D / 2];
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sf[n], 0.f);
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  const int64_t kv_stride = (int64_t)Hk * D;
+  const __nv_bfloat16* k_src = k + ((int64_t)b * S * Hk + g) * D;
+  const __nv_bfloat16* v_src = v + ((int64_t)b * S * Hk + g) * D;
+  const float scale_log2 = scale * kLog2e;
+  const float cap_log2 = softcap * kLog2e;
+  const float inv_cap = softcap > 0.f ? scale / softcap : 0.f;
+
+  if (j_lo < j_hi) {
+    // Prologue: Q with the first STAGES - 1 key tiles, one group each.
+    load_tile<D, BQ>(q_s, q + ((int64_t)b * T * Hq + h) * D, (int64_t)Hq * D, q0, 0, T, tid);
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (j_lo + st < j_hi) {
+        const uint32_t stage = base + Lay::RING + st * 2 * Lay::KV_TILE;
+        load_tile<D, BK>(stage, k_src, kv_stride, (j_lo + st) * BK, kv_lo, kv_hi, tid);
+        load_tile<D, BK>(stage + Lay::KV_TILE, v_src, kv_stride, (j_lo + st) * BK, kv_lo,
+                     kv_hi, tid);
+      }
+      cp_async_commit();
+    }
+
+    for (int j = j_lo; j < j_hi; ++j) {
+      const int it = j - j_lo;
+      const int jn = j + STAGES - 1;
+      if (jn < j_hi) {
+        const uint32_t stage = base + Lay::RING + ((it + STAGES - 1) % STAGES) * 2 * Lay::KV_TILE;
+        load_tile<D, BK>(stage, k_src, kv_stride, jn * BK, kv_lo, kv_hi, tid);
+        load_tile<D, BK>(stage + Lay::KV_TILE, v_src, kv_stride, jn * BK, kv_lo, kv_hi, tid);
+      }
+      cp_async_commit();
+      cp_async_wait<STAGES - 1>();       // tile j (and Q) has landed
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+
+      const uint32_t k_s = base + Lay::RING + (it % STAGES) * 2 * Lay::KV_TILE;
+      const uint32_t v_s = k_s + Lay::KV_TILE;
+
+      // S = Q K^T over D in steps of 16 (32 bytes inside an atom column).
+      fence_regs<BK / 2>(s);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, q_s + warp * 16 * LDQ + kk * 16, LDQ);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, k_s + n * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(sf[n], af, bf, sf[n]);
+        const uint32_t in_atom = (kk & 3) * 32;
+        const uint64_t dq = smem_desc(q_s + (kk >> 2) * (BQ * 128) + in_atom, 16);
+        const uint64_t dk = smem_desc(k_s + (kk >> 2) * (BK * 128) + in_atom, 16);
+        if constexpr (BK == 64) {
+          wgmma_ss_n64(s, dq, dk, kk > 0);
+        } else {
+          wgmma_ss_n32(s, dq, dk, kk > 0);
         }
       }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::store_matrix_sync(s_s + warp * 16 * LDS + n * 16, sf[n], LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<BK / 2>(s);
 
-    // Online softmax of the warp's rows; lanes cover columns lane, lane+32.
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qp = pos_s[r];
-      float sv[2];
-      bool ok[2];
+      // Logits in log2 units; s[4n + e] is row (e < 2 ? r_a : r_b), key
+      // k0 + 8n + col0 + (e & 1).
+      const int k0 = j * BK;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c;
-        const int kvp = k0 + col;
-        float x = s_s[r * LDS + col] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        ok[c] = kvp <= qp && kvp < S && (window <= 0 || kvp > qp - window);
-        sv[c] = ok[c] ? x : kNegInf;
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = softcap > 0.f ? cap_log2 * tanhf(s[i] * inv_cap) : s[i] * scale_log2;
       }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(sv[0], sv[1])));
-      const float p0 = ok[0] ? expf(sv[0] - m_new) : 0.f;
-      const float p1 = ok[1] ? expf(sv[1] - m_new) : 0.f;
-      const float sum = warp_sum(p0 + p1);
-      const float corr = expf(m_prev - m_new);
-      p_s[r * LDP + lane] = __float2bfloat16(p0);
-      p_s[r * LDP + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < D; d += 32) o_s[r * LDO + d] *= corr;
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = corr * l_s[r] + sum;
+      const bool full = k0 + BK - 1 <= mn_any && k0 + BK <= S &&
+                        (window <= 0 || k0 > mx - window);
+      if (!full) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int kvp = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          const int p = (i & 2) ? p_b : p_a;
+          const bool ok = kvp <= p && kvp < S && (window <= 0 || kvp > p - window);
+          s[i] = ok ? s[i] : kNegInf;
+        }
       }
-    }
-    __syncwarp();
+      float x_a = kNegInf, x_b = kNegInf;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        if (i & 2) x_b = fmaxf(x_b, s[i]);
+        else x_a = fmaxf(x_a, s[i]);
+      }
+#pragma unroll
+      for (int w = 1; w <= 2; w <<= 1) {
+        x_a = fmaxf(x_a, __shfl_xor_sync(0xffffffffu, x_a, w));
+        x_b = fmaxf(x_b, __shfl_xor_sync(0xffffffffu, x_b, w));
+      }
+      const float n_a = fmaxf(m_a, x_a), n_b = fmaxf(m_b, x_b);
+      // A row that has seen no key yet keeps max -inf; subtract 0 there
+      // so that its masked logits give exp2(-inf) = 0, not NaN.
+      const float u_a = n_a == kNegInf ? 0.f : n_a;
+      const float u_b = n_b == kNegInf ? 0.f : n_b;
+      const float c_a = ex2(m_a - u_a), c_b = ex2(m_b - u_b);
+      m_a = n_a;
+      m_b = n_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = ex2(s[i] - ((i & 2) ? u_b : u_a));
+        if (i & 2) sum_b += s[i];
+        else sum_a += s[i];
+      }
+      l_a = l_a * c_a + sum_a;
+      l_b = l_b * c_b + sum_b;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? c_b : c_a;
 
-    // O += P V for the warp's rows.
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf[BK / 16];
+      // P as bf16 A fragments: k-step kk takes the 8-key blocks 2kk, 2kk+1.
+      uint32_t pa[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::load_matrix_sync(pf[kk], p_s + warp * 16 * LDP + kk * 16, LDP);
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
-#pragma unroll 2
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-        float* optr = o_s + warp * 16 * LDO + n * 16;
-        wmma::load_matrix_sync(of, optr, LDO, wmma::mem_row_major);
+
+      // O += P V over the BK keys in steps of 16 (2048 bytes of V rows);
+      // N spans the atom columns of D at a stride of one BK-row column.
+      fence_regs<D / 2>(o);
+      wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, v_s + kk * 16 * LDQ + n * 16, LDQ);
-          wmma::mma_sync(of, pf[kk], vf, of);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (D == 64) {
+          wgmma_rs_n64(o, pa[kk], smem_desc(v_s + kk * 2048, BK * 128));
+        } else {
+#pragma unroll
+          for (int n = 0; n < D / 128; ++n) {
+            wgmma_rs_n128(o + 64 * n, pa[kk],
+                          smem_desc(v_s + n * 2 * (BK * 128) + kk * 2048, BK * 128));
+          }
         }
-        wmma::store_matrix_sync(optr, of, LDO, wmma::mem_row_major);
       }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<D / 2>(o);
+      __syncthreads();                     // every warp is done with this stage
     }
-    __syncthreads();
   }
 
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int t = q0 + r;
-    if (t >= T) continue;
-    const float l = fmaxf(l_s[r], 1e-9f);
-    out[(((int64_t)b * T + t) * Hq + h) * D + d] = __float2bfloat16(o_s[r * LDO + d] / l);
+  // Epilogue: each row's sum over its quad, O / l rounded to bf16 once.
+#pragma unroll
+  for (int w = 1; w <= 2; w <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, w);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, w);
+  }
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  const int t_a = q0 + r_a, t_b = q0 + r_b;
+  uint32_t* out_a = reinterpret_cast<uint32_t*>(out + (((int64_t)b * T + t_a) * Hq + h) * D + col0);
+  uint32_t* out_b = reinterpret_cast<uint32_t*>(out + (((int64_t)b * T + t_b) * Hq + h) * D + col0);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (t_a < T) out_a[4 * n] = pack_bf16(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
+    if (t_b < T) out_b[4 * n] = pack_bf16(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
   }
 }
 
@@ -250,11 +427,11 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
            void* out, int B, int T, int S, int Hq, int Hk, float scale,
            float softcap, int window, cudaStream_t stream) {
-  const int bytes = Layout<D>::BYTES;
+  const int bytes = Layout<D>::BYTES + 1024;     // room to align the base
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BQ - 1) / BQ, Hq, B);
+  dim3 grid(Hq, B, (T + BQ - 1) / BQ);
   flash_kernel<D><<<grid, kThreads, bytes, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int32_t*)qpos, (__nv_bfloat16*)out, T,

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_failed: Optional[RuntimeError] = None   # a failed build, raised again, not redone
 build_log: str = ""          # ptxas register/spill report of the last build
 build_seconds: float = 0.0   # 0.0 when the library came from the cache
 
@@ -104,11 +105,15 @@ def _build(sources: list[Path], out: Path) -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built first if it is missing or stale."""
-    global _lib, build_log, build_seconds
+    """The kernel library, built first if it is missing or stale. A build
+    that fails is not tried again in this process: every later call raises
+    its error at once."""
+    global _lib, _failed, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
+        if _failed is not None:
+            raise _failed
         sources = _sources()
         digest = _digest(sources)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -120,7 +125,11 @@ def load_library() -> ctypes.CDLL:
         )
         if not fresh:
             t0 = time.monotonic()
-            build_log = _build(sources, lib_path)
+            try:
+                build_log = _build(sources, lib_path)
+            except RuntimeError as e:
+                _failed = e
+                raise
             build_seconds = time.monotonic() - t0
             stamp.write_text(digest + "\n")
         _lib = ctypes.CDLL(str(lib_path))

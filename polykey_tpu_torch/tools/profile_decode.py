@@ -1,7 +1,7 @@
-"""Where a decode step's (or a ragged dispatch's) time goes, on the GPU.
+"""Where a decode step's (or a ragged dispatch's, or a prefill's) time goes, on the GPU.
 
     python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0] [--ragged]
-        [--kv-dtype int8]
+        [--kv-dtype int8] [--prefill [T]]
 
 Builds the 32-layer Llama-3-8B with random bf16 weights, puts 16 live lanes
 (the default EngineConfig's slots) at `context` positions of the default
@@ -12,7 +12,15 @@ under torch.profiler. With --ragged it runs one ragged dispatch instead
 1024-token prefill budget, as a first 512-token chunk (KV length 512) and a
 second one (KV length 1024). --kv-dtype int8 runs either over the int8 KV
 pool (int8 values plus bf16 scales, EngineConfig.kv_dtype="int8"), whose
-rows quantize as they are written. Prints, per step (per dispatch with --ragged):
+rows quantize as they are written. With --prefill T (512 if T is left
+out) it runs one bucketed prefill instead (`engine._prefill_fn`, the
+engine's prefill entry: forward_paged over a [1, T] window at positions
+context..context+T-1, then the unembed and the sample), through the flash
+kernel over the gathered window, and splits its device time into flash,
+the window gather of `paged_gather_kv` (with the int8 dequantize; the
+scales' own small gather counts as the rest), the KV write, GEMMs and the
+rest (elementwise, norms, RoPE, copies). Prints, per
+step (per dispatch with --ragged, per prefill with --prefill):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
 launches, and the kernels that took the most device time. Each line names
@@ -23,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import subprocess
 import time
 
@@ -38,12 +47,17 @@ def main() -> None:
                     help="profile one ragged mixed prefill+decode dispatch")
     ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default="bf16",
                     help="KV pool: bf16, or int8 values with bf16 scales")
+    ap.add_argument("--prefill", type=int, nargs="?", const=512, default=None,
+                    metavar="T", help="profile one bucketed prefill of T tokens "
+                    "(default 512) at positions context..context+T-1")
     args = ap.parse_args()
+    if args.ragged and args.prefill is not None:
+        raise SystemExit("profile_decode: --ragged and --prefill profile different dispatches")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
 
     from ..engine.config import EngineConfig
-    from ..engine.engine import _decode_fn, _ragged_fn, ragged_zero_operands
+    from ..engine.engine import _decode_fn, _prefill_fn, _ragged_fn, ragged_zero_operands
     from ..engine.kv_cache import init_paged_kv
     from ..models.config import get_config
     from ..models.transformer import init_params
@@ -130,7 +144,33 @@ def main() -> None:
             )
             return torch.cat([packed.reshape(-1), first]).cpu()
 
-    with torch.inference_mode():
+    if args.prefill is not None:
+        T = args.prefill
+        need = -(-(args.context + T) // ps)
+        if need > P:
+            raise SystemExit(f"profile_decode: context {args.context} + {T} tokens need "
+                             f"{need} pages of a {P}-entry table")
+        # One prompt row, its context pages already in the pool (random
+        # data: the kernels' work does not depend on it), its chunk next.
+        ptable = torch.zeros((1, P), dtype=torch.int32, device=dev)
+        ptable[0, :need] = (1 + torch.arange(need, device=dev) % (econf.num_pages - 1)).to(
+            torch.int32)
+        tokens = torch.randint(3, 259, (1, T), generator=gen, device=dev, dtype=torch.int32)
+        start = torch.tensor([args.context], dtype=torch.int32, device=dev)
+        last_rel = torch.tensor([T - 1], dtype=torch.int32, device=dev)
+        aligned = args.context % ps == 0 and T % ps == 0
+        samp = (state["seeds"][:1], state["temperature"][:1], state["top_p"][:1],
+                state["top_k"][:1])
+        steps = 1
+
+        def block():  # noqa: F811 - the prefill replaces the block
+            nonlocal paged
+            token, paged = _prefill_fn(params, cfg, paged, tokens, start, last_rel, ptable,
+                                       *samp, greedy=True, aligned=aligned)
+            return token.cpu()
+
+    labels = _labelled_ranges() if args.prefill is not None else contextlib.nullcontext()
+    with labels, torch.inference_mode():
         block()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -142,15 +182,22 @@ def main() -> None:
             block()
             torch.cuda.synchronize()
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # A record_function range also shows on the device as an annotation
+    # spanning its kernels (idle gaps included): kept apart, not a kernel.
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in device if e.name in _RANGES]
+    kernels = [e for e in device if e.name not in _RANGES]
     by_name: dict = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / steps
     pool = "int8 KV" if int8 else "bf16 KV"
-    if args.ragged:
+    if args.prefill is not None:
+        where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one bucketed prefill "
+                 f"of {args.prefill} tokens at positions {args.context}.."
+                 f"{args.context + args.prefill - 1}, greedy, on {card}")
+    elif args.ragged:
         where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one ragged dispatch: "
                  f"B={B} decode lanes at context {args.context} + {W}-token prefill "
                  f"stream (chunks at KV 512 and 1024), greedy, on {card}")
@@ -158,7 +205,7 @@ def main() -> None:
         where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, B={B}, context "
                  f"{args.context}, block of {steps} greedy steps, on {card}")
     print(f"[profile_decode] {where}")
-    unit = "dispatch" if args.ragged else "step"
+    unit = "prefill" if args.prefill is not None else "dispatch" if args.ragged else "step"
     print(f"[profile_decode] per {unit}: wall {wall_ms:.3f} ms (host clock, "
           f"unprofiled block); device busy in kernels {busy_ms:.3f} ms "
           f"(profiled block); idle share {1 - busy_ms / wall_ms:.3f}; "
@@ -166,10 +213,76 @@ def main() -> None:
     if not kernels:
         print("[profile_decode] the profiler recorded no device kernels: "
               "device time not measured")
+    if args.prefill is not None:
+        _print_breakdown(kernels, spans, busy_ms, unit)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, n) in top:
         print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/{unit} "
               f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
+
+
+# Functions whose kernels the prefill breakdown counts under their own
+# label: PyTorch's index kernels serve both the gather and the write, so
+# their names alone cannot tell the two apart.
+_RANGES = {
+    "paged_gather_kv": "window gather",
+    "dequantize_kv": "window gather",
+    "paged_write": "KV write",
+}
+
+
+@contextlib.contextmanager
+def _labelled_ranges():
+    """Wrap each of _RANGES' functions of ops.paged_attention in a
+    torch.profiler.record_function range named after it, for this run."""
+    from ..ops import paged_attention as pa
+
+    saved = {name: getattr(pa, name) for name in _RANGES}
+
+    def wrap(name, fn):
+        def labelled(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return labelled
+
+    for name, fn in saved.items():
+        setattr(pa, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(pa, name, fn)
+
+
+def _is_gemm(name: str) -> bool:
+    n = name.lower()
+    return any(tag in n for tag in ("gemm", "nvjet", "cutlass", "xmma", "cublas"))
+
+
+def _print_breakdown(kernels: list, spans: list, busy_ms: float, unit: str) -> None:
+    """Device ms of one prefill by part: flash and GEMMs by kernel name; the
+    gather and the write by the labelled range whose device span holds the
+    kernel's start (one stream runs them in order); the rest elementwise."""
+    parts = {p: [0.0, 0] for p in ("flash", "GEMMs", "window gather", "KV write",
+                                   "elementwise and other")}
+    for e in kernels:
+        t = e.time_range
+        if "flash_kernel" in e.name:
+            part = "flash"
+        elif _is_gemm(e.name):
+            part = "GEMMs"
+        else:
+            part = next((_RANGES[s.name] for s in spans
+                         if s.time_range.start <= t.start < s.time_range.end),
+                        "elementwise and other")
+        parts[part][0] += t.elapsed_us() / 1e3
+        parts[part][1] += 1
+    if not spans:
+        print("[profile_decode] the profiler recorded no labelled device ranges: "
+              "gather and write are counted under elementwise and other")
+    for part, (ms, n) in parts.items():
+        print(f"[profile_decode]   {part:22s} {ms:8.3f} ms/{unit} "
+              f"({ms / busy_ms:.3f} of device busy, {n} launches)")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ the card (which need not have JAX, hence no conftest):
 chip_smoke.py checks the kernels at the Llama-3-8B shapes of the main
 path; these cover the other geometries each kernel is instantiated for
 (head dims 64/128/256, 1/2/4/8 query heads per kv head, small pages,
-partial tiles) and the wrappers' refusals. Tolerances as in chip_smoke.py:
+partial tiles, stale rows that hold NaN) and the wrappers' refusals.
+Tolerances as in chip_smoke.py:
 decode 2e-3 on the normalized fp32 output (fp32 sums in another order),
 flash per element 2^-7 (|ref| + sum p|v|) + 1e-4 (bf16 probabilities and
 output rounded once on each side), ragged per element 2^-7 sum p|v| + 1e-4
@@ -68,25 +69,56 @@ def test_decode_kernel_geometries(gen, D, groups):
         assert (got[1] - want[1]).abs().max().item() <= 1e-3, kw
 
 
+def _stale_rows(x, qpos, window):
+    """A copy of the window `x` [B, S, Hk, D] with NaN in every row no query
+    of its batch row can see: past the largest position, before the
+    smallest position's window."""
+    x = x.clone()
+    for b in range(x.shape[0]):
+        valid = qpos[b][qpos[b] >= 0]
+        if valid.numel() == 0:
+            x[b] = float("nan")
+            continue
+        x[b, int(valid.max()) + 1:] = float("nan")
+        if window:
+            x[b, :max(0, int(valid.min()) - window + 1)] = float("nan")
+    return x
+
+
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("Hq,Hk", [(4, 4), (8, 2)])
-def test_flash_kernel_geometries(gen, D, Hq, Hk):
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("T", [1, 63, 65, 200])
+def test_flash_kernel_geometries(gen, D, groups, T):
+    """Query counts around the 64-row tile, GQA groups 1..8, windows whose
+    edge falls inside a key tile, a batch row of padding only (and, at
+    T=200, a last query tile of padding), and stale rows: NaN in K and V
+    at every row no query sees, against the plain version over the same
+    window with those rows 0."""
     from polykey_tpu_torch.ops import flash_attention as fa
 
-    B, T, S = 2, 200, 333                     # partial query and key tiles
+    Hk, B, S = 2, 3, 333                      # partial query and key tiles
+    Hq = Hk * groups
     q, k, v = (_randn((B, T, Hq, D), gen), _randn((B, S, Hk, D), gen),
                _randn((B, S, Hk, D), gen))
     qpos = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
     qpos[1] += 120
-    qpos[1, 150:] = -1
-    for kw in (dict(), dict(logit_softcap=50.0, window=64)):
-        out = fa.flash_attention_cuda(q, k, v, qpos, scale=D ** -0.5, **kw)
-        ref = fa.flash_attention_plain(q, k, v, qpos, scale=D ** -0.5, **kw).float()
-        ref_abs = fa.flash_attention_plain(q, k, v.abs(), qpos, scale=D ** -0.5,
-                                           **kw).float()
-        tol = 2.0 ** -7 * (ref.abs() + ref_abs) + 1e-4
-        assert ((out.float() - ref).abs() <= tol).all(), kw
-        assert (out[1, 150:] == 0).all()
+    pad = T - T // 4
+    qpos[1, pad:] = -1
+    qpos[2] = -1
+    for kw in (dict(), dict(logit_softcap=50.0, window=64), dict(window=37)):
+        w = kw.get("window")
+        for stale in (False, True):
+            kk, vv = (_stale_rows(k, qpos, w), _stale_rows(v, qpos, w)) if stale else (k, v)
+            out = fa.flash_attention_cuda(q, kk, vv, qpos, scale=D ** -0.5, **kw)
+            kz, vz = torch.nan_to_num(kk, nan=0.0), torch.nan_to_num(vv, nan=0.0)
+            ref = fa.flash_attention_plain(q, kz, vz, qpos, scale=D ** -0.5, **kw).float()
+            ref_abs = fa.flash_attention_plain(q, kz, vz.abs(), qpos, scale=D ** -0.5,
+                                               **kw).float()
+            tol = 2.0 ** -7 * (ref.abs() + ref_abs) + 1e-4
+            assert torch.isfinite(out).all(), (kw, stale)
+            err = (out.float() - ref).abs()
+            assert (err <= tol).all(), (kw, stale, (err / tol).max().item())
+            assert (out[1, pad:] == 0).all() and (out[2] == 0).all(), (kw, stale)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

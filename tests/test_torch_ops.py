@@ -241,3 +241,25 @@ def test_kill_switches_route_to_the_plain_paths(monkeypatch):
                             _t(wpts), _t(wpos))
     np.testing.assert_array_equal(got_w[0].numpy(), want_w[0].numpy())
     _close(t_flash(_t(fq), _t(fk), _t(fv), _t(fpos), scale=0.25), want_f)
+
+
+def test_a_failed_kernel_build_is_not_redone(monkeypatch, tmp_path):
+    """A kernel build that fails raises its error again on every later call
+    without running nvcc again (a test run would otherwise rebuild the
+    library once per test)."""
+    from polykey_tpu_torch.ops import _build
+
+    calls = []
+
+    def failing(sources, out):
+        calls.append(out)
+        raise RuntimeError("nvcc failed for flash_attention.cu")
+
+    monkeypatch.setattr(_build, "_build", failing)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_failed", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    for _ in range(3):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            _build.load_library()
+    assert len(calls) == 1
