@@ -294,33 +294,43 @@ def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8):
               page_range=page_range)
     acc, m, l = pak.paged_decode_cuda(q, k_pool, v_pool, tables, pos, **kw)
     acc_p, m_p, l_p = pak.paged_decode_plain(q, k_pool, v_pool, tables, pos, **kw)
+    tol = pak.decode_error_bound(q, k_pool, v_pool, tables, pos, **kw)
     sync()
     out = acc / torch.clamp(l, min=1e-9)
     out_p = acc_p / torch.clamp(l_p, min=1e-9)
     check(bool(torch.isfinite(out).all()), "decode kernel output is not finite")
-    err = (out - out_p).abs().max().item()
-    err_m = (m - m_p).abs().max().item()
-    check(err <= 2e-3 and err_m <= 1e-3,
-          f"decode kernel differs from plain: out {err}, m {err_m}")
+    diff = (out - out_p).abs()
+    err, err_m = diff.max().item(), (m - m_p).abs().max().item()
+    ratio = (diff / tol).max().item()
+    check(ratio <= 1.0 and err <= 2e-3 and err_m <= 1e-3,
+          f"decode kernel differs from plain: out {err} (largest err/tol {ratio}), "
+          f"m {err_m}")
     # Rows this run's data needs: [max(0, pos - window + 1), pos] within
     # the page range; each read once, plus the page ids of their pages.
     rlo, rhi = page_range or (0, P)
-    split = max(1, min(pak.MAX_SPLIT_PAGES, pak.SPLIT_ROWS // ps))
-    visible = read_pages = busy_ctas = 0
+    split = pak.split_pages(ps, int8)
+    visible = read_pages = busy_ctas = merged = 0
     for n in ctx_lens:
         first = max(n - window, 0) if window else 0
         rows = max(0, min(n, rhi * ps) - max(first, rlo * ps))
         visible += rows
         read_pages += -(-rows // ps)
         lo, hi = max(first // ps, rlo), min(-(-n // ps), rhi)
-        busy_ctas += Hk * len({(p - rlo) // split for p in range(lo, hi)})
+        splits = len({(p - rlo) // split for p in range(lo, hi)})
+        busy_ctas += Hk * splits
+        merged += Hk * (splits > 1)
     grid = Hk * B * max(1, -(-(rhi - rlo) // split))
     row = Hk * (D + 2) if int8 else Hk * D * 2      # one K or V row, scales incl.
     nbytes = (2 * visible * row + B * Hq * D * 2 + B * Hq * (D + 2) * 4
               + read_pages * 4 + B * 4)
     flops = 4 * Hq * D * visible
-    ctas = f"{grid} CTAs, {busy_ctas} with rows to read"
-    return (q, k_pool, v_pool, tables, pos, kw), err, nbytes, flops, ctas
+    if int8:
+        ctas = (f"{busy_ctas} of the grid's {grid} CTAs hold rows and work (the rest "
+                f"return at once); {merged} (sequence, kv head) merges in the launch")
+    else:
+        ctas = (f"{grid} CTAs, {busy_ctas} with rows to read, then a merge launch of "
+                f"{B * Hq} CTAs")
+    return (q, k_pool, v_pool, tables, pos, kw), (err, ratio), nbytes, flops, ctas
 
 
 def kernel_decode(gen, int8: bool = False) -> dict:
@@ -337,11 +347,12 @@ def kernel_decode(gen, int8: bool = False) -> dict:
         ("window 1000", 128, 32, 8, ctx, None, 1000, None),
         ("D=64", 64, 32, 8, ctx, None, None, None),
         ("pages [3, 200)", 128, 32, 8, ctx, None, None, (3, 200)),
+        ("serve: 16 lanes at context 512", 128, 32, 8, [512] * 16, None, None, None),
     ]
     result = None
     for label, D, Hq, Hk, lens, softcap, window, prange in cases:
-        args, err, nbytes, flops, ctas = _decode_case(gen, D, Hq, Hk, lens,
-                                                      softcap, window, prange, int8)
+        args, (err, ratio), nbytes, flops, ctas = _decode_case(
+            gen, D, Hq, Hk, lens, softcap, window, prange, int8)
         q, kp, vp, tables, pos, kw = args
         ms = device_time_ms(lambda: pak.paged_decode_cuda(q, kp, vp, tables, pos, **kw))
         plain = device_time_ms(
@@ -349,10 +360,14 @@ def kernel_decode(gen, int8: bool = False) -> dict:
         b_ms, b_by = bound_ms(nbytes, flops)
         name = "paged_attention_decode_int8" if int8 else "paged_attention_decode"
         pools = "int8 pools + bf16 scales" if int8 else "bf16 pools"
+        why = ("int8 values exact in fp16 on tensor cores, each probability times its "
+               "V scale rounded to fp16 once, fp32 sums" if int8 else
+               "bf16 inputs accumulated in fp32 in another order, held to the same bound")
         say("kernels", f"{name} [{label}] B={len(lens)} Hq={Hq} "
-            f"Hk={Hk} D={D} ps=16 P=256, {pools}, ctx 1..4096: max |err| {err:.3e} "
-            "(tolerance 2e-3 on the normalized fp32 output: bf16 inputs, "
-            "dequantized and accumulated in fp32 in another order); "
+            f"Hk={Hk} D={D} ps=16 P=256, {pools}, ctx {min(lens)}..{max(lens)}: "
+            f"max |err| {err:.3e}, largest err/tol {ratio:.3f} (tolerance per element "
+            "of the normalized output 2^-11 sum p|v| / l + 2^-25 sum |v8| / l + "
+            f"1e-5 (1 + sum p|v| / l), and 2e-3 flat, 1e-3 on m: {why}); "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
             f"({b_by}); {ctas}, on "
             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")

@@ -5,9 +5,11 @@ The kernel (csrc/paged_attention_decode.cu) reads only the pages a
 sequence owns, [lo, hi) from its position and sliding window, clipped to a
 page sub-range [rlo, rhi), and returns UNNORMALIZED online-softmax state
 (acc [B, Hq, D] f32, m and l [B, Hq, 1] f32); `paged_attention_decode`
-normalizes. The context splits over CTAs of SPLIT_ROWS rows whose partial
-states a second launch merges (the wrapper allocates their scratch). On a
-CUDA tensor the kernel runs or the call raises;
+normalizes. The context splits over CTAs of SPLIT_ROWS rows (bf16 pools)
+or SPLIT_ROWS_INT8 rows (int8 pools) whose partial states are merged: by
+a second launch for bf16 pools, inside the one launch for int8 pools. The wrapper takes the per-split scratch from
+`split_scratch` and the int8 kernel's arrival counters from
+`arrival_counters`. On a CUDA tensor the kernel runs or the call raises;
 `paged_decode_plain` computes the same function in plain PyTorch and runs
 only for CPU tensors and as the comparison in tests and chip_smoke.py.
 POLYKEY_DISABLE_PAGED_KERNEL=1 is the reference's kill switch (off by
@@ -15,9 +17,13 @@ default): it routes decode through the gather path, ops/paged_attention.py.
 
 int8 KV: the pools come as (values, scales) pairs, values [N, ps, Hk, D]
 int8 and scales [N, ps, Hk] bf16, and go to the int8 kernel
-(pk_paged_decode_int8, the same source's template over int8 rows, its own
-launch count `KERNEL_INT8`), which dequantizes in fp32 registers as the reference's kernel does,
-k8 * ks. POLYKEY_DISABLE_KV_KERNEL=1, the reference's kill switch for the
+(pk_paged_decode_int8, its own launch count `KERNEL_INT8`): K, V and
+scales stream through a shared-memory ring, q.k and p.v run on tensor
+cores over int8 values taken exactly into fp16 without an int-to-float
+conversion, the K scale multiplies each logit and the V scale each
+probability (rounded to fp16 once; `decode_error_bound` gives the
+tolerance that follows), and splits without rows do no work.
+POLYKEY_DISABLE_KV_KERNEL=1, the reference's kill switch for the
 int8 paths (off by default), sends int8 decode to the gather path and the
 int8 decode write to the scatter.
 """
@@ -33,15 +39,23 @@ from ._build import F, I, P, Kernel, check_cuda_tensor
 
 _ARGS = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, I, I, I, I]
 KERNEL = Kernel("pk_paged_decode", _ARGS)
-# The int8 variant takes the two scale pools after the value pools.
-KERNEL_INT8 = Kernel("pk_paged_decode_int8", _ARGS[:3] + [P, P] + _ARGS[3:])
+# The int8 variant takes the two scale pools after the value pools and the
+# arrival counters after the scratch.
+KERNEL_INT8 = Kernel("pk_paged_decode_int8",
+                     _ARGS[:3] + [P, P] + _ARGS[3:11] + [P] + _ARGS[11:])
 
 DECODE_HEAD_DIMS = frozenset({64, 128, 256})
 DECODE_GROUPS = frozenset({1, 2, 4, 8})   # query heads per kv head
-# KV rows per split CTA (split-KV over the context). Of 64..1024 rows,
-# 256 was fastest on an H100 at B=16 for contexts of 128, 512 and 1..4096.
+# KV rows per split CTA (split-KV over the context). bf16: of 64..1024
+# rows, 256 was fastest on an H100 at B=16 for contexts of 128, 512 and
+# 1..4096. int8 (16-warp CTAs): of 512..4096 rows, 1024 was fastest at
+# contexts 1..4096 and within 8% of the best at 16 lanes of context 512
+# (chip_smoke.py's decode cases). Pages per split are capped by each
+# kernel's table of page ids in shared memory.
 SPLIT_ROWS = 256
+SPLIT_ROWS_INT8 = 1024
 MAX_SPLIT_PAGES = 64
+MAX_SPLIT_PAGES_INT8 = 256
 _NEG_INF = -1e30
 
 
@@ -107,6 +121,33 @@ def paged_decode_plain(
     )
 
 
+def decode_error_bound(q, k_pages, v_pages, page_tables, positions, **kw) -> torch.Tensor:
+    """Per-element bound [B, Hq, D] on how far a decode kernel's normalized
+    output, acc / l, may lie from `paged_decode_plain`'s on the same inputs
+    (keywords as there). The int8 kernel takes q and the int8 values into
+    fp16 exactly (bf16 q from 2^-14 to 65504) and rounds each probability
+    times its V scale, p vs, to fp16 once before p.v: an error of at most
+    2^-11 p vs where the product is a normal fp16 number and 2^-25 below.
+    Over the rows that count that is 2^-11 sum p |v| / l + 2^-25 sum |v8|
+    / l; 1e-5 (1 + sum p |v| / l) covers exp, the logits and fp32 sums in
+    another order. The bf16 kernel rounds nothing below fp32 and is held to
+    the same bound."""
+    def magnitudes(pages, unit_scales: bool):
+        if not isinstance(pages, tuple):
+            return pages.abs()
+        values, scales = pages
+        return values.abs(), torch.ones_like(scales) if unit_scales else scales
+
+    acc_abs, _, l = paged_decode_plain(q, k_pages, magnitudes(v_pages, False),
+                                       page_tables, positions, **kw)
+    # q = 0: every row that counts has p = 1, so acc sums its |v8|.
+    v8_sum, _, _ = paged_decode_plain(torch.zeros_like(q), k_pages, magnitudes(v_pages, True),
+                                      page_tables, positions, **kw)
+    l = torch.clamp(l, min=1e-9)
+    mean_abs = acc_abs / l
+    return 2.0 ** -11 * mean_abs + 2.0 ** -25 * v8_sum / l + 1e-5 * (1 + mean_abs)
+
+
 def check_kv_pools(kernel: str, k_pages, v_pages) -> tuple:
     """Check a kernel's K/V pool operands on the card: bf16 pools, or int8
     (values, scales) pairs with bf16 scales [N, ps, Hk]. Returns the
@@ -130,6 +171,48 @@ def check_kv_pools(kernel: str, k_pages, v_pages) -> tuple:
             f"scales {tuple(kq.shape[:3])}, got {tuple(ks.shape)} / {tuple(vs.shape)}"
         )
     return (kq, vq, ks, vs), True
+
+
+def split_pages(ps: int, int8: bool) -> int:
+    """Pages per split of the decode kernels for pages of `ps` rows."""
+    if int8:
+        return max(1, min(MAX_SPLIT_PAGES_INT8, SPLIT_ROWS_INT8 // ps))
+    return max(1, min(MAX_SPLIT_PAGES, SPLIT_ROWS // ps))
+
+
+def split_scratch(B: int, Hq: int, D: int, nsplit: int, device) -> tuple:
+    """Per-split state of a split call, f32: acc [B, Hq, nsplit, D], m and
+    l [B, Hq, nsplit]. Uninitialized: a kernel writes a split's state
+    before it reads it, and reads no split that holds no rows."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((B, Hq, nsplit, D), **f32), torch.empty((B, Hq, nsplit), **f32),
+            torch.empty((B, Hq, nsplit), **f32))
+
+
+# (device, stream) -> every arrival-counter buffer handed out, newest last.
+_ARRIVALS: dict = {}
+
+
+def arrival_counters(n: int, device) -> torch.Tensor:
+    """At least `n` int32 arrival counters for the int8 kernel's calls on
+    `device`'s current stream, zero between calls (a call resets every
+    counter it counts on). Calls that share a buffer must not overlap, so
+    each stream has its own, and the calls on it run in stream order. A
+    buffer is replaced by a larger one when too small but never freed, so
+    a CUDA graph that captured a call keeps valid counters. A counter is
+    left nonzero only by a launch that dies mid-grid, which leaves the
+    CUDA context unusable anyway."""
+    device = torch.device(device)
+    stream = 0
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        stream = torch.cuda.current_stream(device).cuda_stream
+    held = _ARRIVALS.setdefault((str(device), stream), [])
+    if not held or held[-1].numel() < n:
+        size = max(n, 2 * held[-1].numel() if held else 1)
+        held.append(torch.zeros(size, dtype=torch.int32, device=device))
+    return held[-1]
 
 
 def paged_decode_cuda(
@@ -160,25 +243,26 @@ def paged_decode_cuda(
     for name, t in (("q", q), ("k_pages", pools[0]), ("v_pages", pools[1])):
         if t.data_ptr() % 16:
             raise ValueError(f"paged decode kernel: {name} is not 16-byte aligned")
+    # The int8 kernel copies each scale as the aligned 4-byte word holding it.
+    for name, t in zip(("k_scales", "v_scales"), pools[2:]):
+        if t.data_ptr() % 4:
+            raise ValueError(f"paged decode kernel: {name} is not 4-byte aligned")
     rlo, rhi = page_range if page_range is not None else (0, P_)
     if not 0 <= rlo <= rhi <= P_:
         raise ValueError(f"paged decode kernel: page range [{rlo}, {rhi}) of {P_}")
-    split_pages = max(1, min(MAX_SPLIT_PAGES, SPLIT_ROWS // ps))
-    nsplit = max(1, -(-(rhi - rlo) // split_pages))
+    split = split_pages(ps, int8)
+    nsplit = max(1, -(-(rhi - rlo) // split))
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.empty((B, Hq, D), **f32)
     m = torch.empty((B, Hq, 1), **f32)
     l = torch.empty((B, Hq, 1), **f32)
-    # Per-split state, merged by the kernel's second launch.
-    parts = (
-        (torch.empty((B, Hq, nsplit, D), **f32), torch.empty((B, Hq, nsplit), **f32),
-         torch.empty((B, Hq, nsplit), **f32))
-        if nsplit > 1 else (acc, m, l)
-    )
+    parts = split_scratch(B, Hq, D, nsplit, q.device) if nsplit > 1 else (acc, m, l)
+    if int8:
+        parts = (*parts, arrival_counters(B * Hk, q.device))
     (KERNEL_INT8 if int8 else KERNEL)(
         q, *pools, page_tables, positions, acc, m, l, *parts,
         B, Hq, Hk, D, ps, P_, float(scale), float(logit_softcap or 0.0),
-        _window_int(window), int(rlo), int(rhi), split_pages, nsplit,
+        _window_int(window), int(rlo), int(rhi), split, nsplit,
     )
     return acc, m, l
 

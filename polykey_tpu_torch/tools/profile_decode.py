@@ -1,7 +1,7 @@
 """Where a decode step's (or a ragged dispatch's, or a prefill's) time goes, on the GPU.
 
     python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0] [--ragged]
-        [--kv-dtype int8] [--prefill [T]]
+        [--kv-dtype int8] [--prefill [T]] [--repeat N]
 
 Builds the 32-layer Llama-3-8B with random bf16 weights, puts 16 live lanes
 (the default EngineConfig's slots) at `context` positions of the default
@@ -23,7 +23,10 @@ rest (elementwise, norms, RoPE, copies). Prints, per
 step (per dispatch with --ragged, per prefill with --prefill):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
-launches, and the kernels that took the most device time. Each line names
+launches, the device time of decode attention (the paged decode kernels
+and the bf16 kernel's merge), and the kernels that took the most device
+time. --repeat N measures N times in the process (wall and profile each
+time) and ends with the median and range of each number. Each line names
 the card and its power limit. Needs a CUDA device.
 """
 
@@ -32,6 +35,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import statistics
 import subprocess
 import time
 
@@ -50,6 +54,8 @@ def main() -> None:
     ap.add_argument("--prefill", type=int, nargs="?", const=512, default=None,
                     metavar="T", help="profile one bucketed prefill of T tokens "
                     "(default 512) at positions context..context+T-1")
+    ap.add_argument("--repeat", type=int, default=1, metavar="N",
+                    help="measure N times and report the median and range")
     args = ap.parse_args()
     if args.ragged and args.prefill is not None:
         raise SystemExit("profile_decode: --ragged and --prefill profile different dispatches")
@@ -169,29 +175,6 @@ def main() -> None:
                                        *samp, greedy=True, aligned=aligned)
             return token.cpu()
 
-    labels = _labelled_ranges() if args.prefill is not None else contextlib.nullcontext()
-    with labels, torch.inference_mode():
-        block()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        block()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            block()
-            torch.cuda.synchronize()
-
-    # A record_function range also shows on the device as an annotation
-    # spanning its kernels (idle gaps included): kept apart, not a kernel.
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [e for e in device if e.name in _RANGES]
-    kernels = [e for e in device if e.name not in _RANGES]
-    by_name: dict = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
-    busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / steps
     pool = "int8 KV" if int8 else "bf16 KV"
     if args.prefill is not None:
         where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one bucketed prefill "
@@ -206,20 +189,62 @@ def main() -> None:
                  f"{args.context}, block of {steps} greedy steps, on {card}")
     print(f"[profile_decode] {where}")
     unit = "prefill" if args.prefill is not None else "dispatch" if args.ragged else "step"
+    labels = _labelled_ranges() if args.prefill is not None else contextlib.nullcontext()
+    runs = collections.defaultdict(list)
+    with labels, torch.inference_mode():
+        block()
+        torch.cuda.synchronize()
+        for rep in range(args.repeat):
+            t0 = time.perf_counter()
+            block()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                block()
+                torch.cuda.synchronize()
+            for key, value in _report(prof, wall_ms, steps, unit, args.prefill is not None,
+                                      rep == args.repeat - 1).items():
+                runs[key].append(value)
+    if args.repeat > 1:
+        for key, values in runs.items():
+            print(f"[profile_decode] {key} over {args.repeat} runs: median "
+                  f"{statistics.median(values):.3f}, range {min(values):.3f}-"
+                  f"{max(values):.3f}")
+
+
+def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
+            top_kernels: bool) -> dict:
+    """Print one measurement; returns its numbers per `unit`."""
+    # A record_function range also shows on the device as an annotation
+    # spanning its kernels (idle gaps included): kept apart, not a kernel.
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in device if e.name in _RANGES]
+    kernels = [e for e in device if e.name not in _RANGES]
+    by_name: dict = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / steps
+    decode_ms = sum(us for name, (us, _) in by_name.items()
+                    if "paged_decode" in name) / 1e3 / steps
     print(f"[profile_decode] per {unit}: wall {wall_ms:.3f} ms (host clock, "
           f"unprofiled block); device busy in kernels {busy_ms:.3f} ms "
           f"(profiled block); idle share {1 - busy_ms / wall_ms:.3f}; "
-          f"{len(kernels) / steps:.0f} kernel launches")
+          f"{len(kernels) / steps:.0f} kernel launches; decode attention "
+          f"{decode_ms:.3f} ms")
     if not kernels:
         print("[profile_decode] the profiler recorded no device kernels: "
               "device time not measured")
-    if args.prefill is not None:
+    if prefill:
         _print_breakdown(kernels, spans, busy_ms, unit)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    for name, (us, n) in top:
-        print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/{unit} "
-              f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
-
+    if top_kernels:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        for name, (us, n) in top:
+            print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/{unit} "
+                  f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
+    return {"wall ms": wall_ms, "device busy ms": busy_ms,
+            "idle share": 1 - busy_ms / wall_ms, "decode attention ms": decode_ms}
 
 # Functions whose kernels the prefill breakdown counts under their own
 # label: PyTorch's index kernels serve both the gather and the write, so

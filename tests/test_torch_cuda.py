@@ -16,9 +16,13 @@ output rounded once on each side), ragged per element 2^-7 sum p|v| + 1e-4
 (the kernel rounds each probability to bf16 once, unit roundoff 2^-8; the
 factor 2 covers exp and fp32 sums in another order), the write exact.
 The int8-KV variants are held to the same bounds over the dequantized
-values (k8 * ks, v8 * vs): the int8 decode kernel dequantizes in fp32 as
-its plain version does; the int8 ragged kernel folds each V scale into the
-probability before the one bf16 rounding; the quantizing write is exact.
+values (k8 * ks, v8 * vs), and the int8 decode kernel, which takes the int8
+values exactly in fp16 on tensor cores with fp32 sums and rounds each
+probability times its V scale to fp16 once, also per element to
+paged_attention_kernel.decode_error_bound (2^-11 sum p|v| / l + 2^-25
+sum |v8| / l + 1e-5 (1 + sum p|v| / l)); the int8 ragged kernel folds each
+V scale into the probability before the one bf16 rounding; the quantizing
+write is exact.
 """
 
 import pytest
@@ -229,16 +233,39 @@ def _int8_pools(gen, N, ps, Hk, D):
     return pairs[0], pairs[1]
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("groups", [1, 2, 4, 8])
-def test_decode_int8_kernel_geometries(gen, D, groups):
-    """The int8 decode kernel over contexts 1..640 (split and unsplit),
-    soft-cap, window and a page range; NaN in the values AND the scales of
-    every unwritten row of each sequence's last page."""
-    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+_CTX = [1, 7, 8, 9, 100, 255, 256, 257, 640]
+# (D, groups, Hk, ps, P, contexts): every head dim and group at Hk = 2 and
+# pages of 8; the serve geometry (Hq 32, Hk 8, D 128, pages of 16, P 256)
+# at ring-stage (256 rows) and split (1024 rows) boundaries; a batch whose
+# sequences mostly hold one row (most splits empty); Hk 3 and 5 with pages
+# of 8 and 16 (scale blocks of ps x Hk x 2 bytes, not a multiple of 16),
+# split and unsplit; G = 8 at D = 256, the register-heaviest instance, at
+# its stage (128 rows) and split boundaries.
+_INT8_DECODE = [(D, g, 2, 8, 80, _CTX) for D in (64, 128, 256) for g in (1, 2, 4, 8)] + [
+    (128, 4, 8, 16, 256, [255, 256, 257, 511, 512, 513, 1023, 1024, 1025, 2049, 4096]),
+    (128, 4, 8, 16, 256, [1] * 12 + [2, 17, 1100, 4096]),
+    (64, 2, 3, 8, 80, _CTX),
+    (128, 1, 3, 16, 128, [1, 15, 16, 17, 300, 1025, 2000]),
+    (64, 4, 5, 16, 40, [1, 15, 16, 17, 300, 640]),
+    (128, 2, 5, 8, 300, [1, 7, 8, 9, 1023, 1024, 1025, 2400]),
+    (256, 8, 2, 16, 256, [1, 127, 128, 129, 1023, 1024, 1025, 3000]),
+]
 
-    Hk, ps, P = 2, 8, 80
-    ctx = [1, 7, 8, 9, 100, 255, 256, 257, 640]
+
+def _poisoned(split_scratch):
+    """`split_scratch` with every per-split buffer filled with NaN."""
+    def scratch(*args, **kwargs):
+        parts = split_scratch(*args, **kwargs)
+        for t in parts:
+            t.fill_(float("nan"))
+        return parts
+    return scratch
+
+
+def _int8_decode_inputs(gen, D, groups, Hk, ps, P, ctx):
+    """(q, k pair, v pair, tables, positions) over int8 pools, each sequence
+    on pages of its own; the unwritten rows of each last page hold 127 in
+    K and NaN in both scales."""
     B, Hq = len(ctx), Hk * groups
     pages = [-(-n // ps) for n in ctx]
     N = sum(pages) + 1
@@ -249,23 +276,78 @@ def test_decode_int8_kernel_geometries(gen, D, groups):
         tables[b, :n] = torch.arange(nxt, nxt + n)
         nxt += n
         tail = ctx[b] - (n - 1) * ps
+        kq[nxt - 1, tail:] = 127
         ks[nxt - 1, tail:] = float("nan")
         vs[nxt - 1, tail:] = float("nan")
     q = _randn((B, Hq, D), gen)
     pos = torch.tensor([n - 1 for n in ctx], dtype=torch.int32, device="cuda")
+    return q, (kq, ks), (vq, vs), tables, pos
+
+
+def _check_int8_decode(pak, got, args, **kw):
+    """`got` (acc, m, l) against the plain version: finite, within
+    decode_error_bound per element and 2e-3 flat, m within 1e-3."""
+    want = pak.paged_decode_plain(*args, **kw)
+    out = got[0] / torch.clamp(got[2], min=1e-9)
+    ref = want[0] / torch.clamp(want[2], min=1e-9)
+    assert torch.isfinite(out).all(), kw
+    assert ((out - ref).abs() <= pak.decode_error_bound(*args, **kw)).all(), kw
+    assert (out - ref).abs().max().item() <= 2e-3, kw
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3, kw
+
+
+@pytest.mark.parametrize("D,groups,Hk,ps,P,ctx", _INT8_DECODE)
+def test_decode_int8_kernel_geometries(gen, monkeypatch, D, groups, Hk, ps, P, ctx):
+    """The int8 decode kernel over contexts split and unsplit, soft-cap,
+    window and a page range; NaN in the values AND the scales of every
+    unwritten row of each sequence's last page. Each call is repeated and
+    must give bit-identical (acc, m, l) (splits merge in split order, the
+    arrival counters are back at 0), and again with the split scratch
+    poisoned with NaN (no split without rows is read)."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+
+    args = _int8_decode_inputs(gen, D, groups, Hk, ps, P, ctx)
     before = pak.KERNEL_INT8.launches
-    for kw in (dict(), dict(logit_softcap=30.0, window=50),
-               dict(page_range=(3, 40))):
-        got = pak.paged_decode_cuda(q, (kq, ks), (vq, vs), tables, pos,
-                                    scale=D ** -0.5, **kw)
-        want = pak.paged_decode_plain(q, (kq, ks), (vq, vs), tables, pos,
-                                      scale=D ** -0.5, **kw)
-        out = got[0] / torch.clamp(got[2], min=1e-9)
-        ref = want[0] / torch.clamp(want[2], min=1e-9)
-        assert torch.isfinite(out).all(), kw
-        assert (out - ref).abs().max().item() <= 2e-3, kw
-        assert (got[1] - want[1]).abs().max().item() <= 1e-3, kw
-    assert pak.KERNEL_INT8.launches == before + 3
+    cases = (dict(), dict(logit_softcap=30.0, window=50), dict(page_range=(3, 40)))
+    for kw in cases:
+        got = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
+        _check_int8_decode(pak, got, args, scale=D ** -0.5, **kw)
+        again = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(pak, "split_scratch", _poisoned(pak.split_scratch))
+            poisoned = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
+        for other in (again, poisoned):
+            for x, y in zip(got, other):
+                assert torch.equal(x, y), kw
+        assert (pak.arrival_counters(0, "cuda") == 0).all(), kw
+    assert pak.KERNEL_INT8.launches == before + 3 * len(cases)
+
+
+def test_decode_int8_counters_survive_growth(gen):
+    """On a stream of its own (so a counter buffer of its own): a small
+    call, a larger batch that outgrows the buffer, and the small call
+    again. The two small calls are bit-identical, the large one is within
+    its bound, the outgrown buffer is still held (a graph that captured it
+    would still point at live memory), and every counter is back at 0."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+
+    small = _int8_decode_inputs(gen, 128, 4, 8, 16, 256, [300, 1100, 2100])
+    large = _int8_decode_inputs(gen, 128, 4, 8, 16, 256, [1100] * 40 + [4096])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = pak.paged_decode_cuda(*small, scale=128 ** -0.5)
+        buf = pak.arrival_counters(0, "cuda")
+        big = pak.paged_decode_cuda(*large, scale=128 ** -0.5)
+        grown = pak.arrival_counters(0, "cuda")
+        again = pak.paged_decode_cuda(*small, scale=128 ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    assert grown is not buf and grown.numel() >= 41 * 8 > buf.numel()
+    assert any(t is buf for held in pak._ARRIVALS.values() for t in held)
+    assert (buf == 0).all() and (grown == 0).all()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+    _check_int8_decode(pak, big, large, scale=128 ** -0.5)
 
 
 @pytest.mark.parametrize("Hk,D", [(1, 64), (2, 128), (3, 64), (5, 256), (8, 128)])

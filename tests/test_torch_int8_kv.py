@@ -215,19 +215,92 @@ def _decode_case(seed, B=5, Hq=8, Hk=2, D=16, ps=16, P=8,
     return q, pools, pts, pos
 
 
-@pytest.mark.parametrize("softcap,win", [(None, None), (50.0, None), (None, 24),
-                                         (30.0, 24)])
-def test_quantized_decode_matches_jax_kernel(softcap, win):
+# Contexts 255..257 straddle the CUDA kernel's ring stages and 1023..1025
+# its splits; a batch of one-row sequences leaves most of its splits
+# empty. Hk = 2, D = 64.
+_SPLIT_EDGES = dict(B=6, D=64, P=65, positions=(254, 255, 256, 1022, 1023, 1024))
+_SINGLE_ROWS = dict(B=8, D=64, P=20, positions=(0, 0, 0, 0, 0, 0, 1, 300))
+
+
+@pytest.mark.parametrize("softcap,win,layout", [
+    pytest.param(None, None, {}, id="None-None"),
+    pytest.param(50.0, None, {}, id="50.0-None"),
+    pytest.param(None, 24, {}, id="None-24"),
+    pytest.param(30.0, 24, {}, id="30.0-24"),
+    pytest.param(None, None, _SPLIT_EDGES, id="split-edges"),
+    pytest.param(50.0, 300, _SPLIT_EDGES, id="split-edges-softcap-window"),
+    pytest.param(None, None, _SINGLE_ROWS, id="single-rows"),
+])
+def test_quantized_decode_matches_jax_kernel(softcap, win, layout):
     """The plain int8 decode (what the wrapper takes on the CPU) against the
     JAX int8 kernel in interpret mode: page-boundary positions, garbage
-    tails, GQA, soft-cap and window."""
-    q, pools, pts, pos = _decode_case(0)
+    tails, GQA, soft-cap and window; contexts at the CUDA kernel's split
+    edges, and a batch of mostly one-row sequences."""
+    q, pools, pts, pos = _decode_case(0, **layout)
     want = j_decode(jnp.asarray(q), *_jax_pairs(*pools), jnp.asarray(pts),
                     jnp.asarray(pos), scale=0.125, logit_softcap=softcap,
                     window=None if win is None else jnp.int32(win), interpret=True)
     got = pak.paged_attention_decode(_t(q), *_torch_pairs(*pools), _t(pts), _t(pos),
                                      scale=0.125, logit_softcap=softcap, window=win)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+def test_decode_scratch_helpers():
+    """The wrapper's scratch: per-split state of the asked shapes, and one
+    zeroed int32 counter buffer per (device, stream), reused while it is
+    large enough and replaced, never freed, by a larger zeroed one when it
+    is not."""
+    acc_p, m_p, l_p = pak.split_scratch(3, 8, 64, 5, "cpu")
+    assert acc_p.shape == (3, 8, 5, 64) and m_p.shape == l_p.shape == (3, 8, 5)
+    assert {t.dtype for t in (acc_p, m_p, l_p)} == {torch.float32}
+    first = pak.arrival_counters(6, "cpu")
+    assert first.dtype == torch.int32 and first.numel() >= 6 and (first == 0).all()
+    assert pak.arrival_counters(4, "cpu") is first
+    grown = pak.arrival_counters(first.numel() + 1, "cpu")
+    assert grown.numel() > first.numel() and (grown == 0).all()
+    assert pak.arrival_counters(1, torch.device("cpu")) is grown
+    # The outgrown buffer stays held: a captured graph may still use it.
+    assert any(t is first for t in pak._ARRIVALS[("cpu", 0)])
+
+
+def _fp16_pv_decode(q, k_pair, v_pair, pts, pos, scale):
+    """The int8 CUDA kernel's arithmetic in plain torch, normalized: fp32
+    logits, each probability times its V scale rounded to fp16 once, fp32
+    sums over the exact int8 V values."""
+    (v8, vs), idx = v_pair, pts.long()
+    B, Hq, D = q.shape
+    Hk = v8.shape[2]
+    k = pak.gather_pages_f32(k_pair, idx).reshape(B, -1, Hk, D)
+    valid = torch.arange(k.shape[1])[None] <= pos[:, None]          # [B, S]
+    k = torch.where(valid[..., None, None], k, torch.zeros_like(k))
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, Hk, -1, D).float(), k) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * valid[:, None, None]
+    v_scale = torch.where(valid[..., None], vs[idx].float().reshape(B, -1, Hk), 0.0)
+    pv = (p * v_scale.permute(0, 2, 1)[:, :, None]).half().float()
+    acc = torch.einsum("bhgs,bshd->bhgd", pv, v8[idx].float().reshape(B, -1, Hk, D))
+    return (acc / p.sum(-1, keepdim=True)).reshape(B, Hq, D)
+
+
+def test_decode_error_bound_covers_fp16_rounding_and_catches_a_dropped_page():
+    """decode_error_bound, the int8 decode kernel's tolerance: it holds the
+    kernel's one fp16 rounding (emulated) at contexts up to 1024 with NaN
+    in stale scales, and it is tight enough that leaving out a sequence's
+    first page fails it."""
+    q, (k8, v8, ks, vs), pts, pos = _decode_case(4, **_SPLIT_EDGES)
+    ks, vs = ks.copy(), vs.copy()
+    for b, p in enumerate(pos[:, 0]):
+        ks[pts[b, p // 16], p % 16 + 1:] = np.nan
+        vs[pts[b, p // 16], p % 16 + 1:] = np.nan
+    k_pair, v_pair = _torch_pairs(k8, v8, ks, vs)
+    args = (_t(q)[:, 0], k_pair, v_pair, _t(pts), _t(pos)[:, 0])
+    acc, _, l = pak.paged_decode_plain(*args, scale=0.125)
+    ref = acc / l
+    bound = pak.decode_error_bound(*args, scale=0.125)
+    assert torch.isfinite(bound).all() and (bound >= 1e-5).all()
+    emulated = _fp16_pv_decode(*args, scale=0.125)
+    assert 0 < (emulated - ref).abs().max() and ((emulated - ref).abs() <= bound).all()
+    acc, _, l = pak.paged_decode_plain(*args, scale=0.125, page_range=(1, pts.shape[1]))
+    assert ((acc / l - ref).abs() > bound).any(dim=(1, 2)).all()
 
 
 def test_quantized_decode_never_multiplies_stale_scales():
