@@ -13,7 +13,9 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             tolerance, kernel / plain / library-call times (CUDA events) and
             the least time the card could take (the roofline bound). The
             ragged kernel at the engine's default ragged stream: 16 decode
-            singles over 1..4096 keys plus two 512-token chunks (T = 1040).
+            singles over 1..4096 keys plus two 512-token chunks (T = 1040),
+            at profile_decode --ragged's (16 lanes at context 512), and
+            the 16 singles alone.
             Then the int8-KV variants at the same shapes: the quantizing
             write (16 and 1040 rows, exact), decode and ragged over int8
             pools with bf16 scales.
@@ -534,22 +536,28 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
     quantized from the same kind of data (stale scales NaN)."""
     from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
 
-    T, Hq, Hk, D = 1040, 32, 8, 128
+    Hq, Hk, D = 32, 8, 128
     ctx = [1, 15, 16, 17, 31, 33, 255, 256, 257, 1000, 1024, 2047, 2049,
            3001, 4095, 4096]
     singles = [1] * len(ctx)
     cases = [
         # 16 decode singles, a first chunk (kv 512), a second chunk (kv 1024).
-        ("main", singles + [512, 512], ctx + [512, 1024], 14, None, None),
-        ("softcap 50, window 1024", singles + [512, 512], ctx + [512, 1024], 14,
+        ("main", singles + [512, 512], ctx + [512, 1024], 1040, 14, None, None),
+        ("softcap 50, window 1024", singles + [512, 512], ctx + [512, 1024], 1040, 14,
          50.0, 1024),
         # A 300-token tail range at KV length 1800, 724 padding rows.
-        ("tail + padding", singles + [300], ctx + [1800], 15, None, None),
+        ("tail + padding", singles + [300], ctx + [1800], 1040, 15, None, None),
+        # profile_decode --ragged's dispatch: 16 lanes at context 512, a
+        # first chunk (kv 512) and a second (kv 1024).
+        ("serve: 16 lanes at context 512", singles + [512, 512], [512] * 16 + [512, 1024],
+         1040, 14, None, None),
+        # The main case's singles alone: the byte-bound part of the stream.
+        ("singles: the main case's 16 alone", singles, ctx, 16, 16, None, None),
     ]
     result = None
-    for label, lens, kvs, empty, softcap, window in cases:
+    for label, lens, kvs, T, empty, softcap, window in cases:
         args, (starts, lens_, kvs_) = _ragged_case(gen, lens, kvs, T, empty, int8)
-        work = rk.ragged_work(starts, lens_, kvs_, T, Hq // Hk, "cuda")
+        work = rk.ragged_work(starts, lens_, kvs_, T, Hq // Hk, Hk, "cuda")
         kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window)
         out = rk.ragged_attention_cuda(*args, work=work, **kw)
         ref = rk.ragged_attention_plain(*args, **kw)
@@ -591,13 +599,16 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
         b_ms, b_by = bound_ms(nbytes, flops)
         name = "ragged_paged_attention_int8" if int8 else "ragged_paged_attention"
         pools = "int8 pools + bf16 scales" if int8 else "bf16 pools"
+        merged = "by a second launch" if int8 else "in the launch"
         say("kernels", f"{name} [{label}] T={T} Hq={Hq} Hk={Hk} "
             f"D={D} ps=16 P=256, {pools}, {len(work.items)} work items x {Hk} kv heads, "
-            f"{work.n_part} partial slots: max |err| {err:.3e}, largest err/tol "
+            f"{work.merges.shape[0]} split into {work.n_part} shares, merged {merged}: "
+            f"max |err| {err:.3e}, largest err/tol "
             f"{ratio:.3f} (tolerance per element 2^-7 sum p|v| + 1e-4: the "
             "kernel rounds each probability to bf16 once, the fp32 plain "
             "version does not); padding rows 0; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+            f"{ms:.4f} ms ({ms / b_ms:.1f}x the bound), plain {plain:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
         if result is None:
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                       "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
@@ -812,7 +823,8 @@ def _slice_ragged(cfg, params, gen) -> None:
                     for x in (starts, seq_lens, kvs)]
             seq_tables = torch.stack([tables[k] for k, _, _ in ranges])
             work = rk.ragged_work(starts, seq_lens, kvs, T,
-                                  cfg.num_heads // cfg.num_kv_heads, "cuda")
+                                  cfg.num_heads // cfg.num_kv_heads, cfg.num_kv_heads,
+                                  "cuda")
             hidden, paged = forward_ragged(params, cfg, tokens, positions, paged,
                                            token_tables, *meta, seq_tables, work=work)
             logits.append(unembed(params, cfg, hidden[torch.tensor(rows, device="cuda")]))
@@ -1194,6 +1206,7 @@ def main() -> int:
             launches.setdefault(name, serves[key]["launches"][name])
     paged_src = "polykey_tpu_torch/csrc/paged_attention_decode.cu"
     ragged_src = "polykey_tpu_torch/csrc/ragged_paged_attention.cu"
+    ragged_bf16_src = "polykey_tpu_torch/csrc/ragged_paged_attention_bf16.cu"
     decode_tpu = "polykey_tpu/ops/paged_attention_kernel.py:349"
     ragged_tpu = "polykey_tpu/ops/ragged_paged_attention_kernel.py:387"
     write_tpu = "polykey_tpu/ops/paged_write_kernel.py:134"
@@ -1202,7 +1215,7 @@ def main() -> int:
                             "polykey_tpu/ops/flash_attention.py:157"),
         "paged_attention_decode": (paged_src, decode_tpu),
         "paged_write": ("polykey_tpu_torch/csrc/paged_write.cu", write_tpu),
-        "ragged_paged_attention": (ragged_src, ragged_tpu),
+        "ragged_paged_attention": (ragged_bf16_src, ragged_tpu),
         "paged_attention_decode_int8": (paged_src, decode_tpu),
         "paged_write_int8": ("polykey_tpu_torch/csrc/paged_write_int8.cu", write_tpu),
         "ragged_paged_attention_int8": (ragged_src, ragged_tpu),

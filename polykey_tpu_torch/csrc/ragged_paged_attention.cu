@@ -1,19 +1,19 @@
-// Ragged paged attention: one call attends a flat token stream q [T, Hq, D]
-// that mixes decode singles and prefill chunks. Sequence s owns the rows
-// [seq_starts[s], seq_starts[s] + seq_lens[s]) and attends over its own KV
-// positions [0, kv_lens[s]) through its page-table row; the query position of
-// row r is kv_lens[s] - seq_lens[s] + (r - seq_starts[s]). Causal masking
-// inside the new tokens, GQA, an optional logit soft-cap and sliding window.
-// The output is NORMALIZED fp32 [T, Hq, D]; rows outside every sequence are
-// left to the caller, who zero-fills the output. Two entry points share one
-// kernel template over the KV row type: pk_ragged_attention (bf16 pools)
-// and pk_ragged_attention_int8 (int8 pools plus a bf16 scale per (row, kv
-// head)).
+// Ragged paged attention over int8 KV pools: one call attends a flat token
+// stream q [T, Hq, D] that mixes decode singles and prefill chunks. Sequence
+// s owns the rows [seq_starts[s], seq_starts[s] + seq_lens[s]) and attends
+// over its own KV positions [0, kv_lens[s]) through its page-table row; the
+// query position of row r is kv_lens[s] - seq_lens[s] + (r - seq_starts[s]).
+// Causal masking inside the new tokens, GQA, an optional logit soft-cap and
+// sliding window. The output is NORMALIZED fp32 [T, Hq, D]; rows outside
+// every sequence are left to the caller, who zero-fills the output. One
+// entry point, pk_ragged_attention_int8 (int8 pools plus a bf16 scale per
+// (row, kv head)), over a kernel template on the KV row type; the bf16
+// pools' kernel is ragged_paged_attention_bf16.cu.
 //
 // Replaces: polykey_tpu/ops/ragged_paged_attention_kernel.py, _ragged_call
 // (body _ragged_kernel), reached from ragged_paged_attention through
-// forward_ragged on the engine's ragged dispatch: its bf16 path and its
-// quantized=True path (int8 KV).
+// forward_ragged on the engine's ragged dispatch: its quantized=True path
+// (int8 KV).
 //
 // Bound on this card: bytes for the decode singles (one query row per
 // sequence against its whole context, about 1 flop per byte), operations for
@@ -30,12 +30,11 @@
 // rows are 64 / G tokens times the G = Hq / Hk query heads that share that kv
 // head, so each K/V row crosses from memory once for all of them (GQA). A
 // decode single is a 1-token item; a prefill range is cut into items of
-// 64 / G tokens. Long contexts split: an item covering more than a few
-// hundred visible keys is given several splits, each CTA of which takes an
-// equal share of the tile's visible key range [lo, hi) (read on the device
-// from kv_lens, so the host's split count is a work estimate, never a
-// correctness input), writes unnormalized (acc, m, l) to its partial slot,
-// and a second small kernel merges the slots by exp(m - m_max): the decode
+// 64 / G tokens. Long contexts split (ragged_work says which): each CTA of a
+// split item takes an equal share of the tile's visible key range [lo, hi)
+// (read on the device from kv_lens, so the host's split count is a work
+// estimate, never a correctness input), writes unnormalized (acc, m, l) to
+// its partial slot, and a second small kernel merges the slots by exp(m - m_max): the decode
 // kernel's split-KV form. Inside a CTA the arithmetic is the flash kernel's:
 // K and V stream through shared memory 64 rows at a time (page ids staged
 // first), Q K^T and P V run as bf16 WMMA tiles with fp32 accumulation, and an
@@ -96,14 +95,8 @@ struct Layout {
   static constexpr int BYTES = VS + align128(BK * 4);
 };
 
-// KV row types: the element, values per 16-byte load, and whether a bf16
+// KV row type: the element, values per 16-byte load, and whether a bf16
 // scale per (row, kv head) rides beside the row.
-struct Bf16Rows {
-  using T = __nv_bfloat16;
-  static constexpr int VEC = 8;
-  static constexpr bool kScaled = false;
-};
-
 struct Int8Rows {
   using T = int8_t;
   static constexpr int VEC = 16;
@@ -439,24 +432,8 @@ int ragged(const Params& a, int D, int n_items, int n_merges, void* stream) {
 // row count, split, split count, partial slot), built on the host
 // (polykey_tpu_torch/ops/ragged_paged_attention_kernel.py, ragged_work);
 // part_acc [n_part, Hk, 64, D] and part_ml [n_part, Hk, 64, 2] are the
-// caller's fp32 scratch for the multi-split items.
-extern "C" int pk_ragged_attention(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* page_tables, const void* seq_starts, const void* seq_lens,
-    const void* kv_lens, const void* items, const void* merges, void* out,
-    void* part_acc, void* part_ml, int n_items, int n_merges, int T, int Hq,
-    int Hk, int D, int ps, int P, float scale, float softcap, int window,
-    void* stream) {
-  const Params a{(const __nv_bfloat16*)q, k_pool, v_pool, nullptr, nullptr,
-                 (const int32_t*)page_tables, (const int32_t*)seq_starts,
-                 (const int32_t*)seq_lens, (const int32_t*)kv_lens,
-                 (const int32_t*)items, (const int32_t*)merges, (float*)out,
-                 (float*)part_acc, (float*)part_ml, T, Hq, Hk,
-                 Hk > 0 ? Hq / Hk : 0, ps, P, scale, softcap, window};
-  return ragged<Bf16Rows>(a, D, n_items, n_merges, stream);
-}
-
-// int8 pools [N, ps, Hk, D] with bf16 scales ks_pool / vs_pool [N, ps, Hk].
+// caller's fp32 scratch for the multi-split items; int8 pools [N, ps, Hk,
+// D] with bf16 scales ks_pool / vs_pool [N, ps, Hk].
 extern "C" int pk_ragged_attention_int8(
     const void* q, const void* k_pool, const void* v_pool, const void* ks_pool,
     const void* vs_pool, const void* page_tables, const void* seq_starts,

@@ -868,7 +868,7 @@ class InferenceEngine:
             np.concatenate([np.arange(B), B + ops[4]]),
             np.concatenate([np.ones(B, np.int32), ops[5]]),
             np.concatenate([np.maximum(self._seq_lens, 1), ops[6]]),
-            B + W, mc.num_heads // mc.num_kv_heads, self.device,
+            B + W, mc.num_heads // mc.num_kv_heads, mc.num_kv_heads, self.device,
         )
         self.metrics.on_dispatch(lanes, 1, slots=B)
         self.metrics.on_padding_tokens(W, useful)

@@ -10,20 +10,24 @@ new tokens, GQA, logit soft-capping and a sliding window. The output is
 normalized, and rows outside every range (padding, empty ranges, ranges
 that start past the stream) are exactly 0.
 
-The kernel (csrc/ragged_paged_attention.cu) takes a work list that the host
-builds from the ranges (`ragged_work`): tiles of 64 / G query tokens per
-(sequence, kv head), long contexts split into shares whose partial states a
-second launch merges. On a CUDA tensor the kernel runs or the call raises;
+The kernel (csrc/ragged_paged_attention_bf16.cu) takes a work list that the
+host builds from the ranges (`ragged_work`): tiles of 64 / G query tokens
+per (sequence, kv head), longest first; a long decode single split into
+shares of SPLIT_ROWS keys (a prefill tile only when the stream is too small
+to fill the card), whose partial states the last share to finish merges
+inside the same launch, on counters from `arrival_counters`. On a CUDA
+tensor the kernel runs or the call raises;
 `ragged_attention_plain` computes the same function in plain PyTorch, one
 sequence at a time, and runs only for CPU tensors, as the comparison in
 tests and chip_smoke.py, and under POLYKEY_DISABLE_RAGGED_KERNEL=1, the
 reference's kill switch (off by default).
 
 int8 KV: the pools come as (values, scales) pairs and go to the int8
-kernel (pk_ragged_attention_int8, the same source's template over int8
-rows, launch count `KERNEL_INT8`): the same work list, splits and merge
-over int8 K/V tiles. The plain version dequantizes in fp32, k8 * ks. Only
-POLYKEY_DISABLE_RAGGED_KERNEL gates it, as in the reference.
+kernel (csrc/ragged_paged_attention.cu, pk_ragged_attention_int8, launch
+count `KERNEL_INT8`): the same work list over int8 K/V tiles, whose split
+items a second launch merges (the list's `merges`). The plain version
+dequantizes in fp32, k8 * ks. Only POLYKEY_DISABLE_RAGGED_KERNEL gates it,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -36,12 +40,15 @@ import numpy as np
 import torch
 
 from ._build import F, I, P, Kernel, check_cuda_tensor
-from .paged_attention_kernel import check_kv_pools, gather_pages_f32, pool_values
+from .paged_attention_kernel import (
+    arrival_counters, check_kv_pools, gather_pages_f32, pool_values,
+)
 
-_ARGS = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I]
-KERNEL = Kernel("pk_ragged_attention", _ARGS)
-# The int8 variant takes the two scale pools after the value pools.
-KERNEL_INT8 = Kernel("pk_ragged_attention_int8", _ARGS[:3] + [P, P] + _ARGS[3:])
+# bf16: q, pools, ranges, items, out, the split scratch and its counters.
+KERNEL = Kernel("pk_ragged_attention", [P] * 12 + [I] * 7 + [F, F, I])
+# int8: the scale pools after the value pools, the merge list after the
+# items, and no counters.
+KERNEL_INT8 = Kernel("pk_ragged_attention_int8", [P] * 14 + [I] * 8 + [F, F, I])
 
 # Flat streams must be a multiple of this many rows. Load-bearing beyond
 # this module: the engine pads its ragged stream width against it.
@@ -50,9 +57,15 @@ TOKEN_TILE = 8
 RAGGED_HEAD_DIMS = frozenset({64, 128, 256})
 RAGGED_GROUPS = frozenset({1, 2, 4, 8})   # query heads per kv head
 TILE_ROWS = 64        # query-head rows per CTA: 64 / G tokens x G heads
-# Visible keys per split of a tile; the decode kernel's best split on an
-# H100 (PERF.md), so a long decode context spreads over as many CTAs.
-SPLIT_ROWS = 256
+# Visible keys per split of a decode single (a 1-token item), so a long
+# context spreads over CTAs: of 128..2048, 512 was fastest on an H100 for
+# the 16 singles of chip_smoke.py's main case alone, and within 8% of the
+# best with its prefill chunks (PERF.md, section 6). A prefill tile, which
+# already does 64 / G tokens' work per key, splits only in a stream of too
+# few CTAs to fill half the card's SMs (CARD_SMS, an H100 SXM's 132), and
+# then as a single does.
+SPLIT_ROWS = 512
+CARD_SMS = 132
 _NEG_INF = -1e30
 
 
@@ -73,45 +86,79 @@ def use_ragged_kernel() -> bool:
 class RaggedWork:
     """The kernel's work list on the device: `items` and `merges` are
     [n, 6] int32 rows (sequence, first stream row, row count, split, split
-    count, partial slot); `n_part` partial slots hold the splits' states."""
+    count, partial slot); `n_part` partial slots hold the splits' states.
+    The bf16 kernel merges in its launch and reads only `items`. `gaps` are
+    the stream's row ranges [lo, hi) outside every item, which the wrapper
+    zero-fills (the kernels write every row of every item)."""
 
     items: torch.Tensor
     merges: torch.Tensor
     n_part: int
+    gaps: tuple
 
 
-def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int,
+def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int, kv_heads: int,
                 device) -> RaggedWork:
     """Cut the ranges (host values: sequences, lists or numpy arrays) into
-    the kernel's items. `kv_lens` sizes the splits only; the kernel reads
-    the true KV lengths on the device, so an estimate is never wrong, at
-    worst slower. Every row of every range must be covered, so the starts
-    and lengths must be the ones the kernel is given."""
+    the kernel's items, ordered by visible keys per CTA, longest first
+    (ties in stream order; a split item's shares stay together). `kv_lens`
+    sizes the splits and the order only; the kernel reads the true KV
+    lengths on the device, so an estimate is never wrong, at worst slower.
+    Every row of every range must be covered, so the starts and lengths
+    must be the ones the kernel is given."""
     if groups not in RAGGED_GROUPS:
         raise ValueError(f"ragged kernel: Hq / Hk = {groups} not in {sorted(RAGGED_GROUPS)}")
     tq = TILE_ROWS // groups
-    items, merges = [], []
-    n_part = 0
+    tiles = []      # (sequence, first row, rows, keys its last row sees)
     for s, (start, length, kv) in enumerate(zip(
             np.asarray(seq_starts).tolist(), np.asarray(seq_lens).tolist(),
             np.asarray(kv_lens).tolist())):
         end = min(start + length, T)
         for row0 in range(max(start, 0), end, tq):
             n = min(tq, end - row0)
-            visible = kv - length + (row0 - start) + n    # the last row's keys
-            nsplit = max(1, -(-visible // SPLIT_ROWS))
-            if nsplit == 1:
-                items.append((s, row0, n, 0, 1, 0))
-                continue
-            items.extend((s, row0, n, j, nsplit, n_part) for j in range(nsplit))
-            merges.append((s, row0, n, 0, nsplit, n_part))
-            n_part += nsplit
+            tiles.append((s, row0, n, kv - length + (row0 - start) + n))
+
+    def nsplit(n, visible, cut_prefill):
+        return max(1, -(-visible // SPLIT_ROWS)) if n == 1 or cut_prefill else 1
+
+    ctas = kv_heads * sum(nsplit(n, vis, False) for _, _, n, vis in tiles)
+    cut = 2 * ctas < CARD_SMS
+    ranked, merges = [], []
+    n_part = 0
+    for s, row0, n, visible in tiles:
+        ns = nsplit(n, visible, cut)
+        if ns == 1:
+            rows = [(s, row0, n, 0, 1, 0)]
+        else:
+            rows = [(s, row0, n, j, ns, n_part) for j in range(ns)]
+            merges.append((s, row0, n, 0, ns, n_part))
+            n_part += ns
+        ranked.append((-(-visible // ns), rows))
+    ranked.sort(key=lambda r: -r[0])
+    items = [row for _, rows in ranked for row in rows]
+    gaps, at = [], 0
+    for _, row0, n, _ in sorted(tiles, key=lambda tile: tile[1]):
+        if row0 > at:
+            gaps.append((at, row0))
+        at = max(at, row0 + n)
+    if at < T:
+        gaps.append((at, T))
 
     def put(rows):
         a = np.asarray(rows, dtype=np.int32).reshape(-1, 6)
         return torch.from_numpy(a).to(device)
 
-    return RaggedWork(put(items), put(merges), n_part)
+    return RaggedWork(put(items), put(merges), n_part, tuple(gaps))
+
+
+def ragged_scratch(n_part: int, Hk: int, D: int, device) -> tuple:
+    """The split items' fp32 state, acc [n_part, Hk, 64, D] and (m, l)
+    [n_part, Hk, 64, 2]. Uninitialized: a split writes its rows' state
+    before any merge reads it."""
+    f32 = dict(dtype=torch.float32, device=device)
+    n = max(n_part, 1)
+    return (torch.empty((n, Hk, TILE_ROWS, D), **f32),
+            torch.empty((n, Hk, TILE_ROWS, 2), **f32))
 
 
 def ragged_attention_plain(
@@ -201,21 +248,25 @@ def ragged_attention_cuda(
             raise ValueError(f"ragged kernel: {name} is not 16-byte aligned")
     if work is None:
         work = ragged_work(seq_starts.cpu(), seq_lens.cpu(), kv_lens.cpu(), T,
-                           Hq // Hk, q.device)
+                           Hq // Hk, Hk, q.device)
     for name, t in (("work.items", work.items), ("work.merges", work.merges)):
         check_cuda_tensor(name, t, torch.int32, 2)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.zeros((T, Hq, D), **f32)
-    n_part = max(work.n_part, 1)
-    part_acc = torch.empty((n_part, Hk, TILE_ROWS, D), **f32)
-    part_ml = torch.empty((n_part, Hk, TILE_ROWS, 2), **f32)
-    if work.items.shape[0]:
-        (KERNEL_INT8 if int8 else KERNEL)(
-            q, *pools, page_tables, seq_starts, seq_lens, kv_lens,
-            work.items, work.merges, out, part_acc, part_ml,
-            work.items.shape[0], work.merges.shape[0], T, Hq, Hk, D, ps, P_,
-            float(scale), float(logit_softcap or 0.0), _window_int(window),
-        )
+    out = torch.empty((T, Hq, D), dtype=torch.float32, device=q.device)
+    for lo, hi in work.gaps:
+        out[lo:hi].zero_()
+    n_items = work.items.shape[0]
+    if n_items == 0:
+        return out
+    scratch = ragged_scratch(work.n_part, Hk, D, q.device)
+    tail = (T, Hq, Hk, D, ps, P_, float(scale), float(logit_softcap or 0.0),
+            _window_int(window))
+    ranges = (page_tables, seq_starts, seq_lens, kv_lens)
+    if int8:
+        KERNEL_INT8(q, *pools, *ranges, work.items, work.merges, out, *scratch,
+                    n_items, work.merges.shape[0], *tail)
+    else:
+        counters = arrival_counters(max(work.n_part, 1) * Hk, q.device)
+        KERNEL(q, *pools, *ranges, work.items, out, *scratch, counters, n_items, *tail)
     return out
 
 

@@ -24,10 +24,12 @@ step (per dispatch with --ragged, per prefill with --prefill):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
 launches, the device time of decode attention (the paged decode kernels
-and the bf16 kernel's merge), and the kernels that took the most device
-time. --repeat N measures N times in the process (wall and profile each
-time) and ends with the median and range of each number. Each line names
-the card and its power limit. Needs a CUDA device.
+and the bf16 kernel's merge) and of ragged attention (every kernel whose
+name holds "ragged", the int8 kernel's merge launch included), and the
+kernels that took the most device time. --repeat N measures N times in
+the process (wall and profile each time) and ends with the median and
+range of each number. Each line names the card and its power limit.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -137,7 +139,7 @@ def main() -> None:
             np.concatenate([np.arange(B), B + r_start]),
             np.concatenate([np.ones(B, np.int32), r_len]),
             np.concatenate([np.full(B, args.context), r_kv]),
-            B + W, cfg.num_heads // cfg.num_kv_heads, dev,
+            B + W, cfg.num_heads // cfg.num_kv_heads, cfg.num_kv_heads, dev,
         )
         pre_dev = [torch.from_numpy(a).to(dev) for a in pre]
         steps = 1
@@ -228,11 +230,13 @@ def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / steps
     decode_ms = sum(us for name, (us, _) in by_name.items()
                     if "paged_decode" in name) / 1e3 / steps
+    ragged_ms = sum(us for name, (us, _) in by_name.items()
+                    if "ragged" in name) / 1e3 / steps
     print(f"[profile_decode] per {unit}: wall {wall_ms:.3f} ms (host clock, "
           f"unprofiled block); device busy in kernels {busy_ms:.3f} ms "
           f"(profiled block); idle share {1 - busy_ms / wall_ms:.3f}; "
           f"{len(kernels) / steps:.0f} kernel launches; decode attention "
-          f"{decode_ms:.3f} ms")
+          f"{decode_ms:.3f} ms; ragged attention {ragged_ms:.3f} ms")
     if not kernels:
         print("[profile_decode] the profiler recorded no device kernels: "
               "device time not measured")
@@ -244,7 +248,8 @@ def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
             print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/{unit} "
                   f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
     return {"wall ms": wall_ms, "device busy ms": busy_ms,
-            "idle share": 1 - busy_ms / wall_ms, "decode attention ms": decode_ms}
+            "idle share": 1 - busy_ms / wall_ms, "decode attention ms": decode_ms,
+            "ragged attention ms": ragged_ms}
 
 # Functions whose kernels the prefill breakdown counts under their own
 # label: PyTorch's index kernels serve both the gather and the write, so

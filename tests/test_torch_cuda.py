@@ -187,28 +187,113 @@ def _ragged_case(gen, D, Hq, Hk, lens, kvs, ps=8, P=80, empty=2):
     return (q, kp, vp, tables, *meta), used
 
 
+def _ragged_within_tolerance(rk, out, args, **kw):
+    """Per element: |out - plain| <= 2^-7 sum p|v| / l + 1e-4 (a tensor of
+    booleans), the plain version on `args`."""
+    ref = rk.ragged_attention_plain(*args, **kw)
+    ref_abs = rk.ragged_attention_plain(*args[:2], args[2].abs(), *args[3:], **kw)
+    return (out - ref).abs() <= 2.0 ** -7 * ref_abs + 1e-4
+
+
+def _ragged_calls(rk, monkeypatch, args, **kw):
+    """The bf16 kernel three times on `args`: twice, then with the split
+    scratch poisoned with NaN; all three must be bit-identical (splits
+    merge in split order, the arrival counters are back at 0, no merge
+    reads a slot no split wrote). Returns the first output and the work
+    list."""
+    (T, Hq, _), Hk = args[0].shape, args[1].shape[2]
+    work = rk.ragged_work(*(a.cpu() for a in args[4:]), T, Hq // Hk, Hk, "cuda")
+    scratch = rk.ragged_scratch
+
+    def poisoned(*a):
+        parts = scratch(*a)
+        for x in parts:
+            x.fill_(float("nan"))
+        return parts
+
+    got = rk.ragged_attention_cuda(*args, work=work, **kw)
+    again = rk.ragged_attention_cuda(*args, work=work, **kw)
+    with monkeypatch.context() as mp:
+        mp.setattr(rk, "ragged_scratch", poisoned)
+        bad = rk.ragged_attention_cuda(*args, work=work, **kw)
+    assert torch.equal(got, again) and torch.equal(got, bad), kw
+    return got, work
+
+
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("groups", [1, 2, 4, 8])
-def test_ragged_kernel_geometries(gen, D, groups):
-    """Decode singles from 1 to 640 keys (split and unsplit), a 37-token
+def test_ragged_kernel_geometries(gen, monkeypatch, D, groups):
+    """Decode singles from 1 to 4096 keys (split and unsplit), a 37-token
     range whose rows start mid-page (page boundaries fall inside query
-    tiles), a 130-token range at KV length 500 (multi-tile, split), padding
-    rows and empty ranges."""
+    tiles), a 130-token range at KV length 500 (multi-tile), padding rows
+    and empty ranges; and a stream of one 40-token range at KV length 1500,
+    too few CTAs to fill the card, whose prefill tiles split. Every call
+    three times, bit-identical, the last with NaN in the split scratch;
+    the arrival counters back at 0."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
     from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
 
     Hk = 2
-    lens = [1, 1, 1, 1, 1, 37, 130]
-    kvs = [1, 8, 9, 300, 640, 57, 500]
-    args, used = _ragged_case(gen, D, Hk * groups, Hk, lens, kvs)
-    for kw in (dict(), dict(logit_softcap=30.0, window=50), dict(window=200)):
-        out = rk.ragged_attention_cuda(*args, scale=D ** -0.5, **kw)
-        ref = rk.ragged_attention_plain(*args, scale=D ** -0.5, **kw)
-        ref_abs = rk.ragged_attention_plain(*args[:2], args[2].abs(), *args[3:],
-                                            scale=D ** -0.5, **kw)
-        tol = 2.0 ** -7 * ref_abs + 1e-4
-        assert torch.isfinite(out).all(), kw
-        assert ((out - ref).abs() <= tol).all(), (kw, (out - ref).abs().max().item())
-        assert (out[used:] == 0).all(), kw
+    streams = [([1, 1, 1, 1, 1, 1, 37, 130], [1, 8, 9, 300, 640, 4096, 57, 500]),
+               ([40], [1500])]
+    before = rk.KERNEL.launches
+    for lens, kvs in streams:
+        args, used = _ragged_case(gen, D, Hk * groups, Hk, lens, kvs, P=512)
+        for kw in (dict(), dict(logit_softcap=30.0, window=50), dict(window=200)):
+            out, work = _ragged_calls(rk, monkeypatch, args, scale=D ** -0.5, **kw)
+            assert torch.isfinite(out).all(), kw
+            ok = _ragged_within_tolerance(rk, out, args, scale=D ** -0.5, **kw)
+            assert ok.all(), kw
+            assert (out[used:] == 0).all(), kw
+            assert (pak.arrival_counters(0, "cuda") == 0).all(), kw
+        items = work.items.cpu()
+        if len(lens) > 2:           # the 4096-key single splits
+            assert (items[items[:, 0] == 5][:, 4] == -(-4096 // rk.SPLIT_ROWS)).all()
+        else:                       # so do the lone range's prefill tiles
+            assert (items[:, 4] > 1).any() and (items[:, 2] > 1).all()
+    assert rk.KERNEL.launches == before + 3 * 3 * len(streams)
+
+
+def test_ragged_kernel_counters_survive_growth(gen, monkeypatch):
+    """On a stream of its own (so a counter buffer of its own): a small
+    call, a larger one that outgrows the counter buffer, and the small call
+    again. The two small calls are bit-identical, the large one within its
+    tolerance, the outgrown buffer still held, and every counter back at 0."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    small, _ = _ragged_case(gen, 128, 8, 2, [1, 1], [700, 30], P=160)
+    large, _ = _ragged_case(gen, 128, 8, 2, [1] * 40, [1100] * 40, P=160, empty=0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = rk.ragged_attention_cuda(*small, scale=128 ** -0.5)
+        buf = pak.arrival_counters(0, "cuda")
+        big = rk.ragged_attention_cuda(*large, scale=128 ** -0.5)
+        grown = pak.arrival_counters(0, "cuda")
+        again = rk.ragged_attention_cuda(*small, scale=128 ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert grown is not buf and grown.numel() >= 40 * 2 > buf.numel()
+    assert any(x is buf for held in pak._ARRIVALS.values() for x in held)
+    assert (buf == 0).all() and (grown == 0).all()
+    assert torch.equal(first, again)
+    assert _ragged_within_tolerance(rk, big, large, scale=128 ** -0.5).all()
+
+
+def test_ragged_tolerance_catches_a_swapped_page(gen):
+    """The kernel given a table in which one page of the 300-key single is
+    another sequence's page, against the plain version on the true table:
+    the per-element tolerance must fail, so it would catch a dropped page."""
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    args, _ = _ragged_case(gen, 128, 8, 2, [1, 1, 1, 37], [9, 300, 640, 57])
+    tables = args[3].clone()
+    tables[1, 5] = args[3][2, 0]
+    out = rk.ragged_attention_cuda(*args[:3], tables, *args[4:], scale=128 ** -0.5)
+    ok = _ragged_within_tolerance(rk, out, args, scale=128 ** -0.5)
+    assert torch.isfinite(out).all()
+    assert ok[0].all() and ok[2:].all() and not ok[1].all()
 
 
 def test_ragged_kernel_launch_count_and_refusals(gen):

@@ -161,26 +161,84 @@ def test_ragged_tile_alignment_raises():
         rk.ragged_paged_attention(*args, scale=0.125)
 
 
-def test_ragged_work_covers_every_row_once():
+def _keys_per_cta(items, starts, lens, kvs):
+    """Visible keys of each item's last row over its split count: the
+    work estimate the list is ordered by."""
+    s, row0, n, ns = items[:, 0], items[:, 1], items[:, 2], items[:, 4]
+    visible = kvs[s] - lens[s] + (row0 - starts[s]) + n
+    return -(-visible // ns)
+
+
+def _check_cover(work, starts, lens, T, tq):
+    """Each row of each range in exactly one tile of at most `tq` tokens,
+    no row past the ranges; every split item's shares 0..n-1 present once,
+    its partial slots [part, part + n) disjoint from every other's."""
+    items = work.items.numpy()
+    covered = np.zeros(T, int)
+    for s, row0, n, split, nsplit, part in items:
+        assert 0 < n <= tq and starts[s] <= row0 and row0 + n <= starts[s] + lens[s]
+        if split == 0:
+            covered[row0:row0 + n] += 1
+    want = np.zeros(T, int)
+    for st, ln in zip(starts, lens):
+        want[st:min(st + ln, T)] += 1
+    assert covered.tolist() == want.tolist()
+    merges = work.merges.numpy()
+    for s, row0, n, _, nsplit, part in merges:
+        shares = items[(items[:, 0] == s) & (items[:, 1] == row0)]
+        assert sorted(shares[:, 3].tolist()) == list(range(nsplit))
+        assert (shares[:, 4] == nsplit).all() and (shares[:, 5] == part).all()
+    slots = sorted(p + j for _, _, _, _, ns, p in merges for j in range(ns))
+    assert slots == list(range(work.n_part))
+    assert len(merges) == len({(s, r) for s, r, _, sp, ns, _ in items if ns > 1})
+    return items
+
+
+@pytest.mark.parametrize("kv_heads,tail_splits", [(2, 3), (8, 1)])
+def test_ragged_work_covers_every_row_once(kv_heads, tail_splits):
     """The kernel's work list: each row of each range in exactly one tile,
-    tiles of 64 / G tokens, a split count from the visible keys, partial
-    slots numbered without overlap."""
+    tiles of 64 / G tokens, partial slots numbered without overlap, the
+    long decode single split by its visible keys. Without prefill splits
+    the stream is 13 CTAs a kv head: at 2 kv heads, 26, under half the
+    card's 132 SMs, so its prefill tiles split too (the last tile of the
+    1100-key range into ceil(1100 / 512) = 3); at 8, 104, they stay
+    whole. Rows outside every range are the work list's gaps."""
     starts = np.array([0, 1, 2, 40, 200], np.int32)
     lens = np.array([1, 1, 38, 100, 0], np.int32)
     kvs = np.array([1, 700, 38, 1100, 0], np.int32)
-    work = rk.ragged_work(starts, lens, kvs, 144, 4, "cpu")
-    items = work.items.numpy()
-    covered = np.zeros(144, int)
-    for s, row0, n, split, nsplit, part in items:
-        assert 0 < n <= 16 and starts[s] <= row0 and row0 + n <= starts[s] + lens[s]
-        if split == 0:
-            covered[row0:row0 + n] += 1
-    assert covered[:140].tolist() == [1] * 140 and covered[140:].sum() == 0
-    # The 700-key decode single needs ceil(700 / 256) = 3 splits.
-    assert sorted(items[items[:, 0] == 1][:, 3].tolist()) == [0, 1, 2]
-    merges = work.merges.numpy()
-    slots = sorted(p + j for _, _, _, _, ns, p in merges for j in range(ns))
-    assert slots == list(range(work.n_part))
+    work = rk.ragged_work(starts, lens, kvs, 144, 4, kv_heads, "cpu")
+    items = _check_cover(work, starts, lens, 144, 16)
+    assert rk.SPLIT_ROWS == 512
+    # The 700-key decode single needs ceil(700 / 512) = 2 splits.
+    assert sorted(items[items[:, 0] == 1][:, 3].tolist()) == [0, 1]
+    tail = items[(items[:, 0] == 3) & (items[:, 1] == 136)]
+    assert len(tail) == tail_splits and (tail[:, 4] == tail_splits).all()
+    keys = _keys_per_cta(items, starts, lens, kvs)
+    assert (np.diff(keys) <= 0).all()
+    assert work.gaps == ((140, 144),)
+
+
+def test_ragged_work_default_stream_keeps_prefill_tiles_whole():
+    """The engine's default ragged stream (16 decode singles over 1..4096
+    keys plus 1024 prefill rows as chunks at KV 512 and 1024; G = 4, Hk =
+    8) fills the card without prefill splits: no prefill tile is split,
+    every single past SPLIT_ROWS keys is, and items come longest first by
+    visible keys per CTA."""
+    ctx = [1, 15, 16, 17, 31, 33, 255, 256, 257, 1000, 1024, 2047, 2049,
+           3001, 4095, 4096]
+    starts = np.array(list(range(16)) + [16, 528], np.int32)
+    lens = np.array([1] * 16 + [512, 512], np.int32)
+    kvs = np.array(ctx + [512, 1024], np.int32)
+    work = rk.ragged_work(starts, lens, kvs, 1040, 4, 8, "cpu")
+    items = _check_cover(work, starts, lens, 1040, 16)
+    prefill = items[items[:, 2] > 1]
+    assert len(prefill) == 64 and (prefill[:, 4] == 1).all()
+    singles = items[items[:, 2] == 1]
+    for s, n in enumerate(ctx):
+        assert (singles[singles[:, 0] == s][:, 4] == -(-n // rk.SPLIT_ROWS)).all()
+    assert work.n_part == sum(-(-n // rk.SPLIT_ROWS) for n in ctx if n > rk.SPLIT_ROWS)
+    keys = _keys_per_cta(items, starts, lens, kvs)
+    assert (np.diff(keys) <= 0).all() and keys[0] == 1024
 
 
 # -- forward_ragged and _ragged_fn --------------------------------------------
