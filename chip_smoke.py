@@ -132,7 +132,8 @@ def phase_build() -> None:
         f"sources built and loaded in {time.monotonic() - t0:.2f} s "
         f"(compile {_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if (any(w in line for w in ("Compiling entry", "registers", "spill", "wgmma"))
+                or line.startswith("==")):
             print(f"  ptxas {line.strip()}", file=sys.stderr)
 
 
@@ -599,10 +600,11 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
         b_ms, b_by = bound_ms(nbytes, flops)
         name = "ragged_paged_attention_int8" if int8 else "ragged_paged_attention"
         pools = "int8 pools + bf16 scales" if int8 else "bf16 pools"
-        merged = "by a second launch" if int8 else "in the launch"
+        items = work.items.cpu()
+        split = len({(s, r) for s, r, _, _, ns, _ in items.tolist() if ns > 1})
         say("kernels", f"{name} [{label}] T={T} Hq={Hq} Hk={Hk} "
-            f"D={D} ps=16 P=256, {pools}, {len(work.items)} work items x {Hk} kv heads, "
-            f"{work.merges.shape[0]} split into {work.n_part} shares, merged {merged}: "
+            f"D={D} ps=16 P=256, {pools}, {len(items)} work items x {Hk} kv heads, "
+            f"{split} split into {work.n_part} shares, merged in the launch: "
             f"max |err| {err:.3e}, largest err/tol "
             f"{ratio:.3f} (tolerance per element 2^-7 sum p|v| + 1e-4: the "
             "kernel rounds each probability to bf16 once, the fp32 plain "
@@ -1206,7 +1208,6 @@ def main() -> int:
             launches.setdefault(name, serves[key]["launches"][name])
     paged_src = "polykey_tpu_torch/csrc/paged_attention_decode.cu"
     ragged_src = "polykey_tpu_torch/csrc/ragged_paged_attention.cu"
-    ragged_bf16_src = "polykey_tpu_torch/csrc/ragged_paged_attention_bf16.cu"
     decode_tpu = "polykey_tpu/ops/paged_attention_kernel.py:349"
     ragged_tpu = "polykey_tpu/ops/ragged_paged_attention_kernel.py:387"
     write_tpu = "polykey_tpu/ops/paged_write_kernel.py:134"
@@ -1215,7 +1216,7 @@ def main() -> int:
                             "polykey_tpu/ops/flash_attention.py:157"),
         "paged_attention_decode": (paged_src, decode_tpu),
         "paged_write": ("polykey_tpu_torch/csrc/paged_write.cu", write_tpu),
-        "ragged_paged_attention": (ragged_bf16_src, ragged_tpu),
+        "ragged_paged_attention": (ragged_src, ragged_tpu),
         "paged_attention_decode_int8": (paged_src, decode_tpu),
         "paged_write_int8": ("polykey_tpu_torch/csrc/paged_write_int8.cu", write_tpu),
         "ragged_paged_attention_int8": (ragged_src, ragged_tpu),

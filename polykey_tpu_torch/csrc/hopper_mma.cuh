@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the kernels that run wgmma over tiles
-// in shared memory (flash_attention.cu, ragged_paged_attention_bf16.cu):
+// in shared memory (flash_attention.cu, ragged_paged_attention.cu):
 // the 128-byte swizzle and its matrix descriptor, cp.async, wgmma's fences
 // and the products at the shapes the two kernels take, and small register
 // helpers. Every helper has internal linkage, one copy per source.

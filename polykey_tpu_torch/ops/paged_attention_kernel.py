@@ -195,8 +195,8 @@ _ARRIVALS: dict = {}
 
 def arrival_counters(n: int, device) -> torch.Tensor:
     """At least `n` int32 arrival counters for the calls of the kernels that
-    merge their splits in the launch (the int8 decode kernel, the bf16
-    ragged kernel) on `device`'s current stream, zero between calls (a
+    merge their splits in the launch (the int8 decode kernel, both ragged
+    kernels) on `device`'s current stream, zero between calls (a
     call resets every counter it counts on). Calls that share a buffer must not overlap, so
     each stream has its own, and the calls on it run in stream order. A
     buffer is replaced by a larger one when too small but never freed, so

@@ -10,24 +10,25 @@ new tokens, GQA, logit soft-capping and a sliding window. The output is
 normalized, and rows outside every range (padding, empty ranges, ranges
 that start past the stream) are exactly 0.
 
-The kernel (csrc/ragged_paged_attention_bf16.cu) takes a work list that the
-host builds from the ranges (`ragged_work`): tiles of 64 / G query tokens
-per (sequence, kv head), longest first; a long decode single split into
-shares of SPLIT_ROWS keys (a prefill tile only when the stream is too small
-to fill the card), whose partial states the last share to finish merges
-inside the same launch, on counters from `arrival_counters`. On a CUDA
-tensor the kernel runs or the call raises;
+The kernel (csrc/ragged_paged_attention.cu, pk_ragged_attention) takes a
+work list that the host builds from the ranges (`ragged_work`): tiles of
+64 / G query tokens per (sequence, kv head), longest first; a long decode
+single split into shares of SPLIT_ROWS keys (a prefill tile only when the
+stream is too small to fill the card), whose partial states the last share
+to finish merges inside the same launch, on counters from
+`arrival_counters`. On a CUDA tensor the kernel runs or the call raises;
 `ragged_attention_plain` computes the same function in plain PyTorch, one
 sequence at a time, and runs only for CPU tensors, as the comparison in
 tests and chip_smoke.py, and under POLYKEY_DISABLE_RAGGED_KERNEL=1, the
 reference's kill switch (off by default).
 
 int8 KV: the pools come as (values, scales) pairs and go to the int8
-kernel (csrc/ragged_paged_attention.cu, pk_ragged_attention_int8, launch
-count `KERNEL_INT8`): the same work list over int8 K/V tiles, whose split
-items a second launch merges (the list's `merges`). The plain version
-dequantizes in fp32, k8 * ks. Only POLYKEY_DISABLE_RAGGED_KERNEL gates it,
-as in the reference.
+instance of the same kernel template (pk_ragged_attention_int8, launch
+count `KERNEL_INT8`): the same work list, one launch, the merge inside it;
+the int8 rows are taken exactly into bf16 tiles in shared memory, the K
+scale multiplies each logit and the V scale folds into each probability.
+The plain version dequantizes in fp32, k8 * ks. Only
+POLYKEY_DISABLE_RAGGED_KERNEL gates it, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,11 +45,10 @@ from .paged_attention_kernel import (
     arrival_counters, check_kv_pools, gather_pages_f32, pool_values,
 )
 
-# bf16: q, pools, ranges, items, out, the split scratch and its counters.
+# q, pools, ranges, items, out, the split scratch and its counters; int8
+# with the scale pools after the value pools.
 KERNEL = Kernel("pk_ragged_attention", [P] * 12 + [I] * 7 + [F, F, I])
-# int8: the scale pools after the value pools, the merge list after the
-# items, and no counters.
-KERNEL_INT8 = Kernel("pk_ragged_attention_int8", [P] * 14 + [I] * 8 + [F, F, I])
+KERNEL_INT8 = Kernel("pk_ragged_attention_int8", [P] * 14 + [I] * 7 + [F, F, I])
 
 # Flat streams must be a multiple of this many rows. Load-bearing beyond
 # this module: the engine pads its ragged stream width against it.
@@ -84,15 +84,15 @@ def use_ragged_kernel() -> bool:
 
 @dataclass
 class RaggedWork:
-    """The kernel's work list on the device: `items` and `merges` are
-    [n, 6] int32 rows (sequence, first stream row, row count, split, split
-    count, partial slot); `n_part` partial slots hold the splits' states.
-    The bf16 kernel merges in its launch and reads only `items`. `gaps` are
-    the stream's row ranges [lo, hi) outside every item, which the wrapper
-    zero-fills (the kernels write every row of every item)."""
+    """The kernel's work list on the device: `items` are [n, 6] int32 rows
+    (sequence, first stream row, row count, split, split count, partial
+    slot); the `n_part` partial slots hold the splits' states, which both
+    kernels merge in their launch (an item of n splits owns slots
+    [part, part + n)). `gaps` are the stream's row ranges [lo, hi) outside
+    every item, which the wrapper zero-fills (the kernels write every row of
+    every item)."""
 
     items: torch.Tensor
-    merges: torch.Tensor
     n_part: int
     gaps: tuple
 
@@ -123,7 +123,7 @@ def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int, kv_heads: in
 
     ctas = kv_heads * sum(nsplit(n, vis, False) for _, _, n, vis in tiles)
     cut = 2 * ctas < CARD_SMS
-    ranked, merges = [], []
+    ranked = []
     n_part = 0
     for s, row0, n, visible in tiles:
         ns = nsplit(n, visible, cut)
@@ -131,7 +131,6 @@ def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int, kv_heads: in
             rows = [(s, row0, n, 0, 1, 0)]
         else:
             rows = [(s, row0, n, j, ns, n_part) for j in range(ns)]
-            merges.append((s, row0, n, 0, ns, n_part))
             n_part += ns
         ranked.append((-(-visible // ns), rows))
     ranked.sort(key=lambda r: -r[0])
@@ -144,11 +143,8 @@ def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int, kv_heads: in
     if at < T:
         gaps.append((at, T))
 
-    def put(rows):
-        a = np.asarray(rows, dtype=np.int32).reshape(-1, 6)
-        return torch.from_numpy(a).to(device)
-
-    return RaggedWork(put(items), put(merges), n_part, tuple(gaps))
+    rows = torch.from_numpy(np.asarray(items, dtype=np.int32).reshape(-1, 6))
+    return RaggedWork(rows.to(device), n_part, tuple(gaps))
 
 
 def ragged_scratch(n_part: int, Hk: int, D: int, device) -> tuple:
@@ -246,11 +242,14 @@ def ragged_attention_cuda(
     for name, t in (("q", q), ("k_pages", pools[0]), ("v_pages", pools[1])):
         if t.data_ptr() % 16:
             raise ValueError(f"ragged kernel: {name} is not 16-byte aligned")
+    # The int8 kernel copies each scale as the aligned 4-byte word holding it.
+    for name, t in zip(("k_scales", "v_scales"), pools[2:]):
+        if t.data_ptr() % 4:
+            raise ValueError(f"ragged kernel: {name} is not 4-byte aligned")
     if work is None:
         work = ragged_work(seq_starts.cpu(), seq_lens.cpu(), kv_lens.cpu(), T,
                            Hq // Hk, Hk, q.device)
-    for name, t in (("work.items", work.items), ("work.merges", work.merges)):
-        check_cuda_tensor(name, t, torch.int32, 2)
+    check_cuda_tensor("work.items", work.items, torch.int32, 2)
     out = torch.empty((T, Hq, D), dtype=torch.float32, device=q.device)
     for lo, hi in work.gaps:
         out[lo:hi].zero_()
@@ -258,15 +257,11 @@ def ragged_attention_cuda(
     if n_items == 0:
         return out
     scratch = ragged_scratch(work.n_part, Hk, D, q.device)
-    tail = (T, Hq, Hk, D, ps, P_, float(scale), float(logit_softcap or 0.0),
-            _window_int(window))
-    ranges = (page_tables, seq_starts, seq_lens, kv_lens)
-    if int8:
-        KERNEL_INT8(q, *pools, *ranges, work.items, work.merges, out, *scratch,
-                    n_items, work.merges.shape[0], *tail)
-    else:
-        counters = arrival_counters(max(work.n_part, 1) * Hk, q.device)
-        KERNEL(q, *pools, *ranges, work.items, out, *scratch, counters, n_items, *tail)
+    counters = arrival_counters(max(work.n_part, 1) * Hk, q.device)
+    (KERNEL_INT8 if int8 else KERNEL)(
+        q, *pools, page_tables, seq_starts, seq_lens, kv_lens, work.items, out,
+        *scratch, counters, n_items, T, Hq, Hk, D, ps, P_, float(scale),
+        float(logit_softcap or 0.0), _window_int(window))
     return out
 
 

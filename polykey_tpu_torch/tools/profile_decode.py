@@ -25,10 +25,10 @@ the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
 launches, the device time of decode attention (the paged decode kernels
 and the bf16 kernel's merge) and of ragged attention (every kernel whose
-name holds "ragged", the int8 kernel's merge launch included), and the
-kernels that took the most device time. --repeat N measures N times in
-the process (wall and profile each time) and ends with the median and
-range of each number. Each line names the card and its power limit.
+name holds "ragged"), and the kernels that took the most device time.
+--repeat N measures N times in the process (wall and profile each time)
+and ends with the median and range of each number. Each line names the
+card and its power limit.
 Needs a CUDA device.
 """
 

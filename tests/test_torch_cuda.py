@@ -187,21 +187,41 @@ def _ragged_case(gen, D, Hq, Hk, lens, kvs, ps=8, P=80, empty=2):
     return (q, kp, vp, tables, *meta), used
 
 
+def _ragged_int8_case(gen, D, Hq, Hk, lens, kvs, **kw):
+    """_ragged_case over int8 pools quantized from its bf16 ones; in the
+    unwritten rows of each sequence's last page K holds 127 and both scales
+    NaN."""
+    from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
+
+    (q, kp, vp, *rest), used = _ragged_case(gen, D, Hq, Hk, lens, kvs, **kw)
+    stale = torch.isnan(vp).any(-1)                      # [N, ps, Hk]
+    kpair = quantize_kv_rows(kp)
+    vpair = quantize_kv_rows(torch.nan_to_num(vp, nan=0.0))
+    kpair[0][stale] = 127
+    for _, scales in (kpair, vpair):
+        scales[stale] = float("nan")
+    return (q, kpair, vpair, *rest), used
+
+
 def _ragged_within_tolerance(rk, out, args, **kw):
     """Per element: |out - plain| <= 2^-7 sum p|v| / l + 1e-4 (a tensor of
-    booleans), the plain version on `args`."""
+    booleans), the plain version on `args`; over int8 pools p|v| is over the
+    dequantized V."""
+    v = args[2]
+    v_abs = (v[0].abs(), v[1]) if isinstance(v, tuple) else v.abs()
     ref = rk.ragged_attention_plain(*args, **kw)
-    ref_abs = rk.ragged_attention_plain(*args[:2], args[2].abs(), *args[3:], **kw)
+    ref_abs = rk.ragged_attention_plain(*args[:2], v_abs, *args[3:], **kw)
     return (out - ref).abs() <= 2.0 ** -7 * ref_abs + 1e-4
 
 
 def _ragged_calls(rk, monkeypatch, args, **kw):
-    """The bf16 kernel three times on `args`: twice, then with the split
-    scratch poisoned with NaN; all three must be bit-identical (splits
-    merge in split order, the arrival counters are back at 0, no merge
-    reads a slot no split wrote). Returns the first output and the work
-    list."""
-    (T, Hq, _), Hk = args[0].shape, args[1].shape[2]
+    """The kernel (bf16, or int8 for (values, scales) pools) three times on
+    `args`: twice, then with the split scratch poisoned with NaN; all three
+    must be bit-identical (splits merge in split order, the arrival counters
+    are back at 0, no merge reads a slot no split wrote). Returns the first
+    output and the work list."""
+    pool = args[1][0] if isinstance(args[1], tuple) else args[1]
+    (T, Hq, _), Hk = args[0].shape, pool.shape[2]
     work = rk.ragged_work(*(a.cpu() for a in args[4:]), T, Hq // Hk, Hk, "cuda")
     scratch = rk.ragged_scratch
 
@@ -259,11 +279,20 @@ def test_ragged_kernel_counters_survive_growth(gen, monkeypatch):
     call, a larger one that outgrows the counter buffer, and the small call
     again. The two small calls are bit-identical, the large one within its
     tolerance, the outgrown buffer still held, and every counter back at 0."""
+    _counters_survive_growth(gen, _ragged_case)
+
+
+def test_ragged_int8_kernel_counters_survive_growth(gen):
+    """test_ragged_kernel_counters_survive_growth over int8 pools."""
+    _counters_survive_growth(gen, _ragged_int8_case)
+
+
+def _counters_survive_growth(gen, case):
     from polykey_tpu_torch.ops import paged_attention_kernel as pak
     from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
 
-    small, _ = _ragged_case(gen, 128, 8, 2, [1, 1], [700, 30], P=160)
-    large, _ = _ragged_case(gen, 128, 8, 2, [1] * 40, [1100] * 40, P=160, empty=0)
+    small, _ = case(gen, 128, 8, 2, [1, 1], [700, 30], P=160)
+    large, _ = case(gen, 128, 8, 2, [1] * 40, [1100] * 40, P=160, empty=0)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -285,9 +314,19 @@ def test_ragged_tolerance_catches_a_swapped_page(gen):
     """The kernel given a table in which one page of the 300-key single is
     another sequence's page, against the plain version on the true table:
     the per-element tolerance must fail, so it would catch a dropped page."""
+    _swapped_page(gen, _ragged_case)
+
+
+def test_ragged_int8_tolerance_catches_a_swapped_page(gen):
+    """test_ragged_tolerance_catches_a_swapped_page over int8 pools: the
+    int8 tolerance must fail on the swapped page too."""
+    _swapped_page(gen, _ragged_int8_case)
+
+
+def _swapped_page(gen, case):
     from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
 
-    args, _ = _ragged_case(gen, 128, 8, 2, [1, 1, 1, 37], [9, 300, 640, 57])
+    args, _ = case(gen, 128, 8, 2, [1, 1, 1, 37], [9, 300, 640, 57])
     tables = args[3].clone()
     tables[1, 5] = args[3][2, 0]
     out = rk.ragged_attention_cuda(*args[:3], tables, *args[4:], scale=128 ** -0.5)
@@ -463,37 +502,53 @@ def test_write_int8_kernel_is_exact(gen, Hk, D):
 
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("groups", [1, 2, 4, 8])
-def test_ragged_int8_kernel_geometries(gen, D, groups):
-    """The int8 ragged kernel on the bf16 kernel's streams, with NaN in the
-    values and scales of the unwritten rows; tolerance over the dequantized
-    V, padding rows exactly 0."""
+def test_ragged_int8_kernel_geometries(gen, monkeypatch, D, groups):
+    """The int8 ragged kernel on the bf16 kernel's two streams (decode
+    singles split and unsplit, ranges whose rows start mid-page, a
+    multi-tile range, padding rows and empty ranges; a lone 40-token range
+    at KV 1500 whose prefill tiles split), with 127 in the stale K values
+    and NaN in the stale scales. Every call three times, bit-identical, the
+    last with NaN in the split scratch; tolerance over the dequantized V,
+    padding rows exactly 0, the arrival counters back at 0."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
     from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
 
     Hk = 2
-    lens = [1, 1, 1, 1, 1, 37, 130]
-    kvs = [1, 8, 9, 300, 640, 57, 500]
-    (q, kp, vp, tables, *meta), used = _ragged_case(gen, D, Hk * groups, Hk, lens, kvs)
-    from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
-
-    kpair = quantize_kv_rows(torch.nan_to_num(kp, nan=0.0))
-    vpair = quantize_kv_rows(torch.nan_to_num(vp, nan=0.0))
-    stale = torch.isnan(vp).any(-1)                      # [N, ps, Hk]
-    vpair[1][stale] = float("nan")
-    kpair[1][stale] = float("nan")
+    streams = [([1, 1, 1, 1, 1, 1, 37, 130], [1, 8, 9, 300, 640, 4096, 57, 500]),
+               ([40], [1500])]
     before = rk.KERNEL_INT8.launches
-    for kw in (dict(), dict(logit_softcap=30.0, window=50), dict(window=200)):
-        out = rk.ragged_attention_cuda(q, kpair, vpair, tables, *meta,
-                                       scale=D ** -0.5, **kw)
-        ref = rk.ragged_attention_plain(q, kpair, vpair, tables, *meta,
-                                        scale=D ** -0.5, **kw)
-        vabs = (vpair[0].abs(), vpair[1])
-        ref_abs = rk.ragged_attention_plain(q, kpair, vabs, tables, *meta,
-                                            scale=D ** -0.5, **kw)
-        tol = 2.0 ** -7 * ref_abs + 1e-4
+    for lens, kvs in streams:
+        args, used = _ragged_int8_case(gen, D, Hk * groups, Hk, lens, kvs, P=512)
+        for kw in (dict(), dict(logit_softcap=30.0, window=50), dict(window=200)):
+            out, work = _ragged_calls(rk, monkeypatch, args, scale=D ** -0.5, **kw)
+            assert torch.isfinite(out).all(), kw
+            ok = _ragged_within_tolerance(rk, out, args, scale=D ** -0.5, **kw)
+            assert ok.all(), kw
+            assert (out[used:] == 0).all(), kw
+            assert (pak.arrival_counters(0, "cuda") == 0).all(), kw
+        items = work.items.cpu()
+        if len(lens) > 2:           # the 4096-key single splits
+            assert (items[items[:, 0] == 5][:, 4] == -(-4096 // rk.SPLIT_ROWS)).all()
+        else:                       # so do the lone range's prefill tiles
+            assert (items[:, 4] > 1).any() and (items[:, 2] > 1).all()
+    assert rk.KERNEL_INT8.launches == before + 3 * 3 * len(streams)
+
+
+@pytest.mark.parametrize("Hk,groups,ps", [(1, 4, 16), (3, 2, 8), (5, 1, 16)])
+def test_ragged_int8_kernel_odd_kv_heads(gen, monkeypatch, Hk, groups, ps):
+    """Scale rows of Hk x 2 bytes that are not a whole number of 4-byte
+    words (odd Hk): each scale comes as the aligned word that holds it, and
+    its half is picked by row. Singles split and unsplit and a prefill
+    range, repeated bit for bit, within tolerance."""
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    args, used = _ragged_int8_case(gen, 128, Hk * groups, Hk, [1, 1, 1, 45],
+                                   [7, 333, 1300, 90], ps=ps, P=256)
+    for kw in (dict(), dict(window=100)):
+        out, _ = _ragged_calls(rk, monkeypatch, args, scale=128 ** -0.5, **kw)
         assert torch.isfinite(out).all(), kw
-        assert ((out - ref).abs() <= tol).all(), (kw, (out - ref).abs().max().item())
+        assert _ragged_within_tolerance(rk, out, args, scale=128 ** -0.5, **kw).all(), kw
         assert (out[used:] == 0).all(), kw
-    assert rk.KERNEL_INT8.launches == before + 3
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -514,3 +569,15 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="must be"):
         pw.paged_write_int8_cuda((kq, ks), (vq, vs), rows.float(), rows, tables,
                                  pos[:, None])
+    # The int8 ragged kernel: int8 values, and scales on a 4-byte boundary
+    # (each is copied as the aligned word that holds it).
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    args, _ = _ragged_int8_case(gen, 64, 4, 2, [1, 5], [9, 5])
+    (kq, ks), (vq, vs) = args[1], args[2]
+    with pytest.raises(ValueError, match="must be"):
+        rk.ragged_attention_cuda(args[0], (kq.float(), ks), (vq, vs), *args[3:], scale=0.1)
+    odd = torch.empty(ks.numel() + 1, dtype=ks.dtype, device="cuda")[1:].view(ks.shape)
+    odd.copy_(ks)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        rk.ragged_attention_cuda(args[0], (kq, odd), (vq, vs), *args[3:], scale=0.1)

@@ -183,14 +183,15 @@ def _check_cover(work, starts, lens, T, tq):
     for st, ln in zip(starts, lens):
         want[st:min(st + ln, T)] += 1
     assert covered.tolist() == want.tolist()
-    merges = work.merges.numpy()
-    for s, row0, n, _, nsplit, part in merges:
+    split = {(s, r) for s, r, _, _, ns, _ in items if ns > 1}
+    for s, row0 in split:
         shares = items[(items[:, 0] == s) & (items[:, 1] == row0)]
+        nsplit, part = shares[0, 4], shares[0, 5]
         assert sorted(shares[:, 3].tolist()) == list(range(nsplit))
         assert (shares[:, 4] == nsplit).all() and (shares[:, 5] == part).all()
-    slots = sorted(p + j for _, _, _, _, ns, p in merges for j in range(ns))
+    # Share j of a split item owns slot part + j: every slot once.
+    slots = sorted(p + j for _, _, _, j, ns, p in items if ns > 1)
     assert slots == list(range(work.n_part))
-    assert len(merges) == len({(s, r) for s, r, _, sp, ns, _ in items if ns > 1})
     return items
 
 
