@@ -278,8 +278,8 @@ def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8):
     N = sum(pages) + 1
     k_pool = _randn((N, ps, Hk, D), gen)
     v_pool = _randn((N, ps, Hk, D), gen)
-    # Stale rows past each position hold NaN: masked rows must never reach
-    # the sums (0 x NaN would poison them).
+    # Stale K and V rows past each position hold NaN: masked rows must never
+    # reach the sums (0 x NaN would poison them).
     tables = torch.zeros((B, P), dtype=torch.int32, device="cuda")
     order = (torch.randperm(N - 1, generator=gen, device="cuda") + 1).to(torch.int32)
     used = 0
@@ -288,6 +288,7 @@ def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8):
         used += npg
         last = int(tables[b, npg - 1])
         tail = n - (npg - 1) * ps
+        k_pool[last, tail:] = float("nan")
         v_pool[last, tail:] = float("nan")
     if int8:
         k_pool, v_pool = _int8_pools(k_pool, v_pool, torch.isnan(v_pool).any(-1).any(-1))
@@ -327,12 +328,8 @@ def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8):
     nbytes = (2 * visible * row + B * Hq * D * 2 + B * Hq * (D + 2) * 4
               + read_pages * 4 + B * 4)
     flops = 4 * Hq * D * visible
-    if int8:
-        ctas = (f"{busy_ctas} of the grid's {grid} CTAs hold rows and work (the rest "
-                f"return at once); {merged} (sequence, kv head) merges in the launch")
-    else:
-        ctas = (f"{grid} CTAs, {busy_ctas} with rows to read, then a merge launch of "
-                f"{B * Hq} CTAs")
+    ctas = (f"one launch: {busy_ctas} of the grid's {grid} CTAs hold rows and work "
+            f"(the rest return at once); {merged} (sequence, kv head) merges in the launch")
     return (q, k_pool, v_pool, tables, pos, kw), (err, ratio), nbytes, flops, ctas
 
 
@@ -365,7 +362,8 @@ def kernel_decode(gen, int8: bool = False) -> dict:
         pools = "int8 pools + bf16 scales" if int8 else "bf16 pools"
         why = ("int8 values exact in fp16 on tensor cores, each probability times its "
                "V scale rounded to fp16 once, fp32 sums" if int8 else
-               "bf16 inputs accumulated in fp32 in another order, held to the same bound")
+               "bf16 q, K and V exact on tensor cores, each probability in two bf16 "
+               "halves (bf16(p) and bf16(p - bf16(p)), within 2^-16 p), fp32 sums")
         say("kernels", f"{name} [{label}] B={len(lens)} Hq={Hq} "
             f"Hk={Hk} D={D} ps=16 P=256, {pools}, ctx {min(lens)}..{max(lens)}: "
             f"max |err| {err:.3e}, largest err/tol {ratio:.3f} (tolerance per element "

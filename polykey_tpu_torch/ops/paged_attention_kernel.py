@@ -5,27 +5,30 @@ The kernel (csrc/paged_attention_decode.cu) reads only the pages a
 sequence owns, [lo, hi) from its position and sliding window, clipped to a
 page sub-range [rlo, rhi), and returns UNNORMALIZED online-softmax state
 (acc [B, Hq, D] f32, m and l [B, Hq, 1] f32); `paged_attention_decode`
-normalizes. The context splits over CTAs of SPLIT_ROWS rows (bf16 pools)
-or SPLIT_ROWS_INT8 rows (int8 pools) whose partial states are merged: by
-a second launch for bf16 pools, inside the one launch for int8 pools. The wrapper takes the per-split scratch from
-`split_scratch` and the int8 kernel's arrival counters from
-`arrival_counters`. On a CUDA tensor the kernel runs or the call raises;
-`paged_decode_plain` computes the same function in plain PyTorch and runs
-only for CPU tensors and as the comparison in tests and chip_smoke.py.
+normalizes. One kernel template serves both pool types, one launch a
+call: the context splits over CTAs of SPLIT_ROWS rows (bf16 pools) or
+SPLIT_ROWS_INT8 rows (int8 pools), a CTA whose split holds no rows
+returns at once, K and V stream through a shared-memory ring, q.k and p.v
+run on tensor cores, and the last split of each (sequence, kv head) to
+finish merges the others inside the launch. The wrapper takes the
+per-split scratch from `split_scratch` and the arrival counters from
+`arrival_counters`. bf16 pools go to pk_paged_decode (launch count
+`KERNEL`): bf16 operands, each probability in two bf16 halves so that p.v
+keeps p to 2^-16 relative. On a CUDA tensor the kernel runs or the call
+raises; `paged_decode_plain` computes the same function in plain PyTorch
+and runs only for CPU tensors and as the comparison in tests and
+chip_smoke.py. `decode_error_bound` is the tolerance of both instances.
 POLYKEY_DISABLE_PAGED_KERNEL=1 is the reference's kill switch (off by
 default): it routes decode through the gather path, ops/paged_attention.py.
 
 int8 KV: the pools come as (values, scales) pairs, values [N, ps, Hk, D]
-int8 and scales [N, ps, Hk] bf16, and go to the int8 kernel
-(pk_paged_decode_int8, its own launch count `KERNEL_INT8`): K, V and
-scales stream through a shared-memory ring, q.k and p.v run on tensor
-cores over int8 values taken exactly into fp16 without an int-to-float
-conversion, the K scale multiplies each logit and the V scale each
-probability (rounded to fp16 once; `decode_error_bound` gives the
-tolerance that follows), and splits without rows do no work.
-POLYKEY_DISABLE_KV_KERNEL=1, the reference's kill switch for the
-int8 paths (off by default), sends int8 decode to the gather path and the
-int8 decode write to the scatter.
+int8 and scales [N, ps, Hk] bf16, and go to pk_paged_decode_int8 (its own
+launch count `KERNEL_INT8`): the scales ride the ring beside the values,
+the int8 values are taken exactly into fp16 without an int-to-float
+conversion, and the K scale multiplies each logit and the V scale each
+probability (rounded to fp16 once). POLYKEY_DISABLE_KV_KERNEL=1, the
+reference's kill switch for the int8 paths (off by default), sends int8
+decode to the gather path and the int8 decode write to the scatter.
 """
 
 from __future__ import annotations
@@ -37,22 +40,24 @@ import torch
 
 from ._build import F, I, P, Kernel, check_cuda_tensor
 
-_ARGS = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, I, I, I, I, I]
+# Pointers: q, k, v, tables, positions, acc, m, l, the split scratch, the
+# arrival counters.
+_ARGS = [P] * 12 + [I, I, I, I, I, I, F, F, I, I, I, I, I]
 KERNEL = Kernel("pk_paged_decode", _ARGS)
-# The int8 variant takes the two scale pools after the value pools and the
-# arrival counters after the scratch.
-KERNEL_INT8 = Kernel("pk_paged_decode_int8",
-                     _ARGS[:3] + [P, P] + _ARGS[3:11] + [P] + _ARGS[11:])
+# The int8 variant takes the two scale pools after the value pools.
+KERNEL_INT8 = Kernel("pk_paged_decode_int8", _ARGS[:3] + [P, P] + _ARGS[3:])
 
 DECODE_HEAD_DIMS = frozenset({64, 128, 256})
 DECODE_GROUPS = frozenset({1, 2, 4, 8})   # query heads per kv head
-# KV rows per split CTA (split-KV over the context). bf16: of 64..1024
-# rows, 256 was fastest on an H100 at B=16 for contexts of 128, 512 and
-# 1..4096. int8 (16-warp CTAs): of 512..4096 rows, 1024 was fastest at
-# contexts 1..4096 and within 8% of the best at 16 lanes of context 512
-# (chip_smoke.py's decode cases). Pages per split are capped by each
-# kernel's table of page ids in shared memory.
-SPLIT_ROWS = 256
+# KV rows per split CTA (split-KV over the context). bf16 (8-warp CTAs at D
+# = 128): of 256..1024 rows, 1024 was fastest at 16 lanes of context 512
+# and 768-1024 at contexts 1..4096, within 1% of each other. int8 (16-warp
+# CTAs): of 512..4096 rows, 1024 was fastest at contexts 1..4096 and within
+# 8% of the best at 16 lanes of context 512 (chip_smoke.py's decode cases,
+# on an H100; PERF.md, section 6). Pages per split are capped by each
+# instance's table of page ids in shared memory (kMaxSplitPages and
+# kMaxSplitPagesInt8 in the source).
+SPLIT_ROWS = 1024
 SPLIT_ROWS_INT8 = 1024
 MAX_SPLIT_PAGES = 64
 MAX_SPLIT_PAGES_INT8 = 256
@@ -130,8 +135,9 @@ def decode_error_bound(q, k_pages, v_pages, page_tables, positions, **kw) -> tor
     2^-11 p vs where the product is a normal fp16 number and 2^-25 below.
     Over the rows that count that is 2^-11 sum p |v| / l + 2^-25 sum |v8|
     / l; 1e-5 (1 + sum p |v| / l) covers exp, the logits and fp32 sums in
-    another order. The bf16 kernel rounds nothing below fp32 and is held to
-    the same bound."""
+    another order. The bf16 kernel takes q, K and V exactly and each
+    probability in two bf16 halves, hi = bf16(p) and lo = bf16(p - hi),
+    within 2^-16 p of p: inside the same bound."""
     def magnitudes(pages, unit_scales: bool):
         if not isinstance(pages, tuple):
             return pages.abs()
@@ -195,9 +201,9 @@ _ARRIVALS: dict = {}
 
 def arrival_counters(n: int, device) -> torch.Tensor:
     """At least `n` int32 arrival counters for the calls of the kernels that
-    merge their splits in the launch (the int8 decode kernel, both ragged
-    kernels) on `device`'s current stream, zero between calls (a
-    call resets every counter it counts on). Calls that share a buffer must not overlap, so
+    merge their splits in the launch (both decode kernels, both ragged
+    kernels) on `device`'s current stream, zero between calls (a call
+    resets every counter it counts on). Calls that share a buffer must not overlap, so
     each stream has its own, and the calls on it run in stream order. A
     buffer is replaced by a larger one when too small but never freed, so
     a CUDA graph that captured a call keeps valid counters. A counter is
@@ -258,10 +264,9 @@ def paged_decode_cuda(
     m = torch.empty((B, Hq, 1), **f32)
     l = torch.empty((B, Hq, 1), **f32)
     parts = split_scratch(B, Hq, D, nsplit, q.device) if nsplit > 1 else (acc, m, l)
-    if int8:
-        parts = (*parts, arrival_counters(B * Hk, q.device))
     (KERNEL_INT8 if int8 else KERNEL)(
         q, *pools, page_tables, positions, acc, m, l, *parts,
+        arrival_counters(B * Hk, q.device),
         B, Hq, Hk, D, ps, P_, float(scale), float(logit_softcap or 0.0),
         _window_int(window), int(rlo), int(rhi), split, nsplit,
     )

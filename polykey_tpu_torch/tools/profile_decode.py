@@ -23,8 +23,8 @@ rest (elementwise, norms, RoPE, copies). Prints, per
 step (per dispatch with --ragged, per prefill with --prefill):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
-launches, the device time of decode attention (the paged decode kernels
-and the bf16 kernel's merge) and of ragged attention (every kernel whose
+launches, the device time of decode attention (every kernel whose name
+holds "paged_decode") and of ragged attention (every kernel whose
 name holds "ragged"), and the kernels that took the most device time.
 --repeat N measures N times in the process (wall and profile each time)
 and ends with the median and range of each number. Each line names the

@@ -10,7 +10,9 @@ path; these cover the other geometries each kernel is instantiated for
 (head dims 64/128/256, 1/2/4/8 query heads per kv head, small pages,
 partial tiles, stale rows that hold NaN) and the wrappers' refusals.
 Tolerances as in chip_smoke.py:
-decode 2e-3 on the normalized fp32 output (fp32 sums in another order),
+decode 2e-3 on the normalized fp32 output and, per element,
+paged_attention_kernel.decode_error_bound (below; the bf16 kernel takes q,
+K and V exactly and each probability in two bf16 halves, within 2^-16 p),
 flash per element 2^-7 (|ref| + sum p|v|) + 1e-4 (bf16 probabilities and
 output rounded once on each side), ragged per element 2^-7 sum p|v| + 1e-4
 (the kernel rounds each probability to bf16 once, unit roundoff 2^-8; the
@@ -45,11 +47,20 @@ def _randn(shape, gen, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("groups", [1, 2, 4, 8])
-def test_decode_kernel_geometries(gen, D, groups):
-    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+def test_decode_kernel_geometries(gen, monkeypatch, D, groups):
+    """The bf16 decode kernel over contexts split and unsplit, soft-cap,
+    window and a page range; NaN in the unwritten K and V rows of each
+    sequence's last page. Within 2e-3 flat and decode_error_bound per
+    element, m within 1e-3; every call repeated bit-identically, once more
+    with the split scratch poisoned with NaN; the arrival counters back at
+    0; one launch a call."""
+    _decode_repeat_and_poison(gen, monkeypatch, _bf16_decode_inputs,
+                              D, groups, 2, 8, 80, _CTX)
 
-    Hk, ps, P = 2, 8, 80
-    ctx = [1, 7, 8, 9, 100, 255, 256, 257, 640]
+
+def _bf16_decode_inputs(gen, D, groups, Hk, ps, P, ctx):
+    """(q, k, v, tables, positions) over bf16 pools, each sequence on pages
+    of its own; the unwritten rows of each last page hold NaN in K and V."""
     B, Hq = len(ctx), Hk * groups
     pages = [-(-n // ps) for n in ctx]
     N = sum(pages) + 1
@@ -59,18 +70,38 @@ def test_decode_kernel_geometries(gen, D, groups):
     for b, n in enumerate(pages):
         tables[b, :n] = torch.arange(nxt, nxt + n)
         nxt += n
-        vp[nxt - 1, ctx[b] - (n - 1) * ps:] = float("nan")     # stale tail
+        tail = ctx[b] - (n - 1) * ps
+        kp[nxt - 1, tail:] = float("nan")
+        vp[nxt - 1, tail:] = float("nan")
     q = _randn((B, Hq, D), gen)
     pos = torch.tensor([n - 1 for n in ctx], dtype=torch.int32, device="cuda")
-    for kw in (dict(), dict(logit_softcap=30.0, window=50),
-               dict(page_range=(3, 40))):
-        got = pak.paged_decode_cuda(q, kp, vp, tables, pos, scale=D ** -0.5, **kw)
-        want = pak.paged_decode_plain(q, kp, vp, tables, pos, scale=D ** -0.5, **kw)
-        out = got[0] / torch.clamp(got[2], min=1e-9)
-        ref = want[0] / torch.clamp(want[2], min=1e-9)
-        assert torch.isfinite(out).all()
-        assert (out - ref).abs().max().item() <= 2e-3, kw
-        assert (got[1] - want[1]).abs().max().item() <= 1e-3, kw
+    return q, kp, vp, tables, pos
+
+
+def _decode_repeat_and_poison(gen, monkeypatch, inputs, D, groups, Hk, ps, P, ctx):
+    """The decode kernel on `inputs`' case (bf16 or int8 pools) with no
+    options, soft-cap and window, and a page range: each call checked by
+    _check_decode, repeated bit-identically, and again with the split
+    scratch poisoned with NaN (no split without rows is read); the arrival
+    counters back at 0 after each; one launch of the pools' kernel a call."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+
+    args = inputs(gen, D, groups, Hk, ps, P, ctx)
+    kernel = pak.KERNEL_INT8 if isinstance(args[1], tuple) else pak.KERNEL
+    before = kernel.launches
+    cases = (dict(), dict(logit_softcap=30.0, window=50), dict(page_range=(3, 40)))
+    for kw in cases:
+        got = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
+        _check_decode(pak, got, args, scale=D ** -0.5, **kw)
+        again = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(pak, "split_scratch", _poisoned(pak.split_scratch))
+            poisoned = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
+        for other in (again, poisoned):
+            for x, y in zip(got, other):
+                assert torch.equal(x, y), kw
+        assert (pak.arrival_counters(0, "cuda") == 0).all(), kw
+    assert kernel.launches == before + 3 * len(cases)
 
 
 def _stale_rows(x, qpos, window):
@@ -408,7 +439,7 @@ def _int8_decode_inputs(gen, D, groups, Hk, ps, P, ctx):
     return q, (kq, ks), (vq, vs), tables, pos
 
 
-def _check_int8_decode(pak, got, args, **kw):
+def _check_decode(pak, got, args, **kw):
     """`got` (acc, m, l) against the plain version: finite, within
     decode_error_bound per element and 2e-3 flat, m within 1e-3."""
     want = pak.paged_decode_plain(*args, **kw)
@@ -420,6 +451,26 @@ def _check_int8_decode(pak, got, args, **kw):
     assert (got[1] - want[1]).abs().max().item() <= 1e-3, kw
 
 
+# The int8 list's serve geometries over bf16 pools, at the bf16 instance's
+# stage (128 rows at D = 128, 64 at D = 256, 256 at D = 64) and split
+# boundaries; a batch whose sequences mostly hold one row.
+_BF16_DECODE = [
+    (128, 4, 8, 16, 256, [127, 128, 129, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025,
+                          2049, 4096]),
+    (128, 4, 8, 16, 256, [1] * 12 + [2, 17, 1100, 4096]),
+    (64, 2, 8, 16, 256, [1, 255, 256, 257, 1023, 1024, 1025, 4096]),
+    (256, 8, 2, 16, 256, [1, 63, 64, 65, 511, 512, 513, 1023, 1024, 1025, 3000]),
+]
+
+
+@pytest.mark.parametrize("D,groups,Hk,ps,P,ctx", _BF16_DECODE)
+def test_decode_kernel_serve_geometries(gen, monkeypatch, D, groups, Hk, ps, P, ctx):
+    """test_decode_kernel_geometries at the serve geometry (Hq 32, Hk 8, D
+    128, pages of 16, P 256) and its neighbours."""
+    _decode_repeat_and_poison(gen, monkeypatch, _bf16_decode_inputs,
+                              D, groups, Hk, ps, P, ctx)
+
+
 @pytest.mark.parametrize("D,groups,Hk,ps,P,ctx", _INT8_DECODE)
 def test_decode_int8_kernel_geometries(gen, monkeypatch, D, groups, Hk, ps, P, ctx):
     """The int8 decode kernel over contexts split and unsplit, soft-cap,
@@ -428,35 +479,29 @@ def test_decode_int8_kernel_geometries(gen, monkeypatch, D, groups, Hk, ps, P, c
     must give bit-identical (acc, m, l) (splits merge in split order, the
     arrival counters are back at 0), and again with the split scratch
     poisoned with NaN (no split without rows is read)."""
-    from polykey_tpu_torch.ops import paged_attention_kernel as pak
-
-    args = _int8_decode_inputs(gen, D, groups, Hk, ps, P, ctx)
-    before = pak.KERNEL_INT8.launches
-    cases = (dict(), dict(logit_softcap=30.0, window=50), dict(page_range=(3, 40)))
-    for kw in cases:
-        got = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
-        _check_int8_decode(pak, got, args, scale=D ** -0.5, **kw)
-        again = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
-        with monkeypatch.context() as mp:
-            mp.setattr(pak, "split_scratch", _poisoned(pak.split_scratch))
-            poisoned = pak.paged_decode_cuda(*args, scale=D ** -0.5, **kw)
-        for other in (again, poisoned):
-            for x, y in zip(got, other):
-                assert torch.equal(x, y), kw
-        assert (pak.arrival_counters(0, "cuda") == 0).all(), kw
-    assert pak.KERNEL_INT8.launches == before + 3 * len(cases)
+    _decode_repeat_and_poison(gen, monkeypatch, _int8_decode_inputs,
+                              D, groups, Hk, ps, P, ctx)
 
 
-def test_decode_int8_counters_survive_growth(gen):
+def test_decode_counters_survive_growth(gen):
     """On a stream of its own (so a counter buffer of its own): a small
-    call, a larger batch that outgrows the buffer, and the small call
+    bf16 call, a larger batch that outgrows the buffer, and the small call
     again. The two small calls are bit-identical, the large one is within
     its bound, the outgrown buffer is still held (a graph that captured it
     would still point at live memory), and every counter is back at 0."""
+    _decode_counters_survive_growth(gen, _bf16_decode_inputs)
+
+
+def test_decode_int8_counters_survive_growth(gen):
+    """test_decode_counters_survive_growth over int8 pools."""
+    _decode_counters_survive_growth(gen, _int8_decode_inputs)
+
+
+def _decode_counters_survive_growth(gen, inputs):
     from polykey_tpu_torch.ops import paged_attention_kernel as pak
 
-    small = _int8_decode_inputs(gen, 128, 4, 8, 16, 256, [300, 1100, 2100])
-    large = _int8_decode_inputs(gen, 128, 4, 8, 16, 256, [1100] * 40 + [4096])
+    small = inputs(gen, 128, 4, 8, 16, 256, [300, 1100, 2100])
+    large = inputs(gen, 128, 4, 8, 16, 256, [1100] * 40 + [4096])
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -471,7 +516,7 @@ def test_decode_int8_counters_survive_growth(gen):
     assert (buf == 0).all() and (grown == 0).all()
     for x, y in zip(first, again):
         assert torch.equal(x, y)
-    _check_int8_decode(pak, big, large, scale=128 ** -0.5)
+    _check_decode(pak, big, large, scale=128 ** -0.5)
 
 
 @pytest.mark.parametrize("Hk,D", [(1, 64), (2, 128), (3, 64), (5, 256), (8, 128)])

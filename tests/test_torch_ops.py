@@ -22,6 +22,7 @@ from polykey_tpu.ops.paged_attention_kernel import (
 from polykey_tpu.ops.paged_write_kernel import paged_write_decode_kernel
 from polykey_tpu_torch.ops import attention as tattn
 from polykey_tpu_torch.ops import paged_attention as tpa
+from polykey_tpu_torch.ops import paged_attention_kernel as pak
 from polykey_tpu_torch.ops.flash_attention import flash_attention as t_flash
 from polykey_tpu_torch.ops.paged_attention_kernel import (
     paged_attention_decode as t_decode,
@@ -144,6 +145,54 @@ def test_paged_decode_never_multiplies_stale_v():
     vp[pts[1, 1], 5:] = np.nan               # rows 21..31 of lane 1
     got = t_decode(_t(q), _t(kp), _t(vp), _t(pts), _t(pos), scale=0.25)
     assert np.isfinite(got.numpy()).all()
+
+
+def _split_p_decode(q, k_pages, v_pages, pts, pos, scale):
+    """The bf16 CUDA decode kernel's arithmetic in plain torch, normalized:
+    fp32 logits from bf16 q and K, each probability in two bf16 halves,
+    hi = bf16(p) and lo = bf16(p - hi), and fp32 sums of hi v and lo v over
+    the bf16 V values (two products, as the kernel's two mma)."""
+    idx = pts.long()
+    B, Hq, D = q.shape
+    Hk = k_pages.shape[2]
+    k = k_pages[idx].float().reshape(B, -1, Hk, D)
+    v = v_pages[idx].float().reshape(B, -1, Hk, D)
+    valid = torch.arange(k.shape[1])[None] <= pos[:, None]          # [B, S]
+    k = torch.where(valid[..., None, None], k, torch.zeros_like(k))
+    v = torch.where(valid[..., None, None], v, torch.zeros_like(v))
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, Hk, -1, D).float(), k) * scale
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * valid[:, None, None]
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    acc = (torch.einsum("bhgs,bshd->bhgd", hi, v)
+           + torch.einsum("bhgs,bshd->bhgd", lo, v))
+    return (acc / p.sum(-1, keepdim=True)).reshape(B, Hq, D)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_error_bound_covers_the_bf16_kernels_split_p_and_catches_a_dropped_page(D):
+    """decode_error_bound, the bf16 decode kernel's tolerance too: it holds
+    the kernel's arithmetic (emulated: P in two bf16 halves) over bf16
+    pools with NaN in the stale K and V rows, at contexts on the kernel's
+    stage and split edges up to 1024, and it is tight enough that leaving
+    out a sequence's first page fails it."""
+    positions = [127, 128, 255, 256, 511, 1023, 1024]
+    q, kp, vp, pts, pos = _paged_case(len(positions), 8, 2, D, 16, 65, positions, seed=D)
+    kp, vp = kp.copy(), vp.copy()
+    for b, p in enumerate(positions):
+        kp[pts[b, p // 16], p % 16 + 1:] = np.nan
+        vp[pts[b, p // 16], p % 16 + 1:] = np.nan
+    args = (_t(q)[:, 0].bfloat16(), _t(kp).bfloat16(), _t(vp).bfloat16(), _t(pts),
+            _t(pos)[:, 0])
+    acc, _, l = pak.paged_decode_plain(*args, scale=D ** -0.5)
+    ref = acc / l
+    bound = pak.decode_error_bound(*args, scale=D ** -0.5)
+    assert torch.isfinite(bound).all() and (bound >= 1e-5).all()
+    emulated = _split_p_decode(*args, scale=D ** -0.5)
+    assert 0 < (emulated - ref).abs().max() and ((emulated - ref).abs() <= bound).all()
+    acc, _, l = pak.paged_decode_plain(*args, scale=D ** -0.5, page_range=(1, pts.shape[1]))
+    assert ((acc / l - ref).abs() > bound).any(dim=(1, 2)).all()
 
 
 def test_paged_gather_matches():
