@@ -16,9 +16,11 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             singles over 1..4096 keys plus two 512-token chunks (T = 1040),
             at profile_decode --ragged's (16 lanes at context 512), and
             the 16 singles alone.
-            Then the int8-KV variants at the same shapes: the quantizing
-            write (16 and 1040 rows, exact), decode and ragged over int8
-            pools with bf16 scales.
+            Both paged writes (the copy and the quantizing one) at 16
+            lanes and at a 1040-row ragged stream, exact, beside the
+            launch floor (an empty kernel timed back to back). Then the
+            int8-KV variants at the same shapes: decode and ragged over
+            int8 pools with bf16 scales.
 4. slice:   a full-width, depth-2 Llama-3-8B runs prefill (bucket 128) and
             8 decode steps through forward_paged, once through the kernels
             and once through their plain versions; the logits must agree.
@@ -146,83 +148,109 @@ def _randn(shape, gen, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _write_slots(gen, B, N, ps, P, pad):
+    """Positions [B, 1] and tables [B, P] that send each of the first B - pad
+    rows to its own slot (a random page and offset) and the last `pad` rows
+    (inactive lanes, a stream's padding) to the garbage page 0 at position 0."""
+    slots = torch.randperm((N - 1) * ps, generator=gen, device="cuda")[:B]
+    positions = torch.randint(0, P * ps, (B, 1), generator=gen, device="cuda",
+                              dtype=torch.int32)
+    positions[:, 0] = positions[:, 0] - positions[:, 0] % ps + (slots % ps).to(torch.int32)
+    tables = torch.zeros((B, P), dtype=torch.int32, device="cuda")
+    rows = torch.arange(B, device="cuda")
+    tables[rows, positions[:, 0].long() // ps] = (1 + slots // ps).to(torch.int32)
+    tables[B - pad:] = 0
+    positions[B - pad:] = 0
+    return positions, tables
+
+
+def _write_case(label, B, err, kernel, plain, library, nbytes) -> dict:
+    """Time one write case (kernel, plain version, library call) beside its
+    bound and the launch floor: an empty kernel timed back to back by the
+    same method, the least any launch takes."""
+    ms, plain_ms, lib = (device_time_ms(f) for f in (kernel, plain, library))
+    floor = device_time_ms(lambda: torch.cuda._sleep(0))
+    b_ms, b_by = bound_ms(nbytes, 0)
+    say("kernels", f"{label}, B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib:.4f} ms, bound {b_ms:.6f} ms ({b_by}), launch floor "
+        f"{floor:.4f} ms")
+    return {"rows": B, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+            "launch_floor_ms": floor}
+
+
 def kernel_write(gen) -> dict:
-    """B = 16 lanes into [2048, 16, 8, 128] pools; lanes 13-15 inactive on
-    the garbage page 0."""
+    """B = 16 lanes into [2048, 16, 8, 128] pools, lanes 13-15 inactive on
+    the garbage page 0; then the 1040 rows of a ragged stream, the last 3
+    padding on page 0."""
     from polykey_tpu_torch.ops import paged_write_kernel as pw
 
-    B, N, ps, Hk, D, P = 16, 2048, 16, 8, 128, 256
+    N, ps, Hk, D, P = 2048, 16, 8, 128, 256
     k_pool = _randn((N, ps, Hk, D), gen)
     v_pool = _randn((N, ps, Hk, D), gen)
-    k_new = _randn((B, 1, Hk, D), gen)
-    v_new = _randn((B, 1, Hk, D), gen)
-    positions = torch.tensor(
-        [0, 15, 16, 17, 100, 255, 256, 1000, 2047, 2048, 3000, 4095, 7, 0, 0, 0],
-        dtype=torch.int32, device="cuda",
-    ).reshape(B, 1)
-    tables = torch.randint(1, N, (B, P), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    tables[13:] = 0
-    # Distinct target pages, so no two active lanes write the same row.
-    targets = torch.randperm(N - 1, generator=gen, device="cuda")[:13] + 1
-    tables[torch.arange(13, device="cuda"), positions[:13, 0].long() // ps] = (
-        targets.to(torch.int32))
-    kk, vk = k_pool.clone(), v_pool.clone()
-    kp, vp = k_pool.clone(), v_pool.clone()
-    pw.paged_write_decode_cuda(kk, vk, k_new, v_new, tables, positions)
-    pw.paged_write_decode_plain(kp, vp, k_new, v_new, tables, positions)
-    sync()
-    # Exact on every page but the garbage page 0 (inactive lanes race there).
-    err = max(
-        (kk[1:].float() - kp[1:].float()).abs().max().item(),
-        (vk[1:].float() - vp[1:].float()).abs().max().item(),
-    )
-    check(err == 0.0, f"paged write differs from plain by {err}")
-    page_ids, offsets = pw._slots(tables, positions, ps)
-    rows_k, rows_v = k_new[:, 0], v_new[:, 0]
+    cases = []
+    for B in (16, 1040):
+        k_new = _randn((B, 1, Hk, D), gen)
+        v_new = _randn((B, 1, Hk, D), gen)
+        if B == 16:
+            positions = torch.tensor(
+                [0, 15, 16, 17, 100, 255, 256, 1000, 2047, 2048, 3000, 4095, 7, 0, 0, 0],
+                dtype=torch.int32, device="cuda",
+            ).reshape(B, 1)
+            tables = torch.randint(1, N, (B, P), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            tables[13:] = 0
+            # Distinct target pages, so no two active lanes write the same row.
+            targets = torch.randperm(N - 1, generator=gen, device="cuda")[:13] + 1
+            tables[torch.arange(13, device="cuda"), positions[:13, 0].long() // ps] = (
+                targets.to(torch.int32))
+        else:
+            positions, tables = _write_slots(gen, B, N, ps, P, 3)
+        kk, vk = k_pool.clone(), v_pool.clone()
+        kp, vp = k_pool.clone(), v_pool.clone()
+        pw.paged_write_decode_cuda(kk, vk, k_new, v_new, tables, positions)
+        pw.paged_write_decode_plain(kp, vp, k_new, v_new, tables, positions)
+        sync()
+        # Exact on every page but the garbage page 0 (inactive lanes race there).
+        err = max(
+            (kk[1:].float() - kp[1:].float()).abs().max().item(),
+            (vk[1:].float() - vp[1:].float()).abs().max().item(),
+        )
+        check(err == 0.0, f"paged write B={B} differs from plain by {err}")
+        say("kernels", f"paged_write B={B} pools [{N},{ps},{Hk},{D}] bf16: max |err| "
+            f"{err} (tolerance 0: a copy)")
+        page_ids, offsets = pw._slots(tables, positions, ps)
+        rows_k, rows_v = k_new[:, 0], v_new[:, 0]
 
-    def library():
-        kk.index_put_((page_ids, offsets), rows_k)
-        vk.index_put_((page_ids, offsets), rows_v)
+        def library():
+            kk.index_put_((page_ids, offsets), rows_k)
+            vk.index_put_((page_ids, offsets), rows_v)
 
-    ms = device_time_ms(lambda: pw.paged_write_decode_cuda(
-        kk, vk, k_new, v_new, tables, positions))
-    plain = device_time_ms(lambda: pw.paged_write_decode_plain(
-        kp, vp, k_new, v_new, tables, positions))
-    lib = device_time_ms(library)
-    row = Hk * D * 2
-    nbytes = 2 * 2 * B * row + 2 * B * 4      # rows read + written; index reads
-    b_ms, b_by = bound_ms(nbytes, 0)
-    say("kernels", f"paged_write B={B} pools [{N},{ps},{Hk},{D}] bf16: max |err| "
-        f"{err} (tolerance 0: a copy); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"index_put_ x2 {lib:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": b_ms, "bound_by": b_by}
+        row = Hk * D * 2
+        cases.append(_write_case(
+            "paged_write (library: index_put_ x2)", B, err,
+            lambda: pw.paged_write_decode_cuda(kk, vk, k_new, v_new, tables, positions),
+            lambda: pw.paged_write_decode_plain(kp, vp, k_new, v_new, tables, positions),
+            library,
+            2 * 2 * B * row + 2 * B * 4))      # rows read + written; index reads
+    return {**cases[0], "stream": cases[1]}     # 16 lanes; the stream beside
 
 
 def kernel_write_int8(gen) -> dict:
     """The quantizing write: 16 decode lanes (lanes 13-15 inactive on page 0)
-    and the 1040 rows of a ragged stream, into int8 [2048, 16, 8, 128] pools
-    with bf16 scales; exact against its plain version."""
+    and the 1040 rows of a ragged stream (the last 3 padding on page 0),
+    into int8 [2048, 16, 8, 128] pools with bf16 scales; exact against its
+    plain version."""
     from polykey_tpu_torch.ops import paged_write_kernel as pw
     from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
 
     N, ps, Hk, D, P = 2048, 16, 8, 128, 256
     pools = [quantize_kv_rows(_randn((N, ps, Hk, D), gen)) for _ in range(2)]
-    result = None
+    cases = []
     for B in (16, 1040):
         k_new, v_new = _randn((B, 1, Hk, D), gen), _randn((B, 1, Hk, D), gen)
         k_new[1] = 0.0                                   # an all-zero row
-        # Each row to its own slot: a random page and offset per active row;
-        # the last 3 rows are inactive, on the garbage page 0.
-        slots = torch.randperm((N - 1) * ps, generator=gen, device="cuda")[:B]
-        positions = torch.randint(0, P * ps, (B, 1), generator=gen, device="cuda",
-                                  dtype=torch.int32)
-        positions[:, 0] = positions[:, 0] - positions[:, 0] % ps + (slots % ps).to(torch.int32)
-        tables = torch.zeros((B, P), dtype=torch.int32, device="cuda")
-        rows = torch.arange(B, device="cuda")
-        tables[rows, positions[:, 0].long() // ps] = (1 + slots // ps).to(torch.int32)
-        tables[B - 3:] = 0
+        positions, tables = _write_slots(gen, B, N, ps, P, 3)
         kern = [(v.clone(), s.clone()) for v, s in pools]
         plain = [(v.clone(), s.clone()) for v, s in pools]
         pw.paged_write_int8_cuda(*kern, k_new, v_new, tables, positions)
@@ -230,7 +258,10 @@ def kernel_write_int8(gen) -> dict:
         sync()
         diff = [int((a[1:].view(torch.int8) != b[1:].view(torch.int8)).sum())
                 for ka, kb in zip(kern, plain) for a, b in zip(ka, kb)]
-        check(sum(diff) == 0, f"int8 write differs from plain in {diff} bytes")
+        check(sum(diff) == 0, f"int8 write B={B} differs from plain in {diff} bytes")
+        say("kernels", f"paged_write_int8 B={B} bf16 rows into int8 pools [{N},{ps},"
+            f"{Hk},{D}] + bf16 scales: bytes differing from plain {sum(diff)} "
+            "(tolerance 0: the quantizer is exact)")
         page_ids, offsets = pw._slots(tables, positions, ps)
         (kq, ks), (vq, vs) = kern
 
@@ -240,22 +271,13 @@ def kernel_write_int8(gen) -> dict:
                 values.index_put_((page_ids, offsets), q8)
                 scales.index_put_((page_ids, offsets), sc)
 
-        ms = device_time_ms(lambda: pw.paged_write_int8_cuda(
-            *kern, k_new, v_new, tables, positions))
-        plain_ms = device_time_ms(lambda: pw.paged_write_int8_plain(
-            *plain, k_new, v_new, tables, positions))
-        lib = device_time_ms(library)
-        nbytes = 2 * B * Hk * D * 2 + 2 * B * Hk * (D + 2) + 2 * B * 4
-        b_ms, b_by = bound_ms(nbytes, 0)
-        say("kernels", f"paged_write_int8 B={B} bf16 rows into int8 pools [{N},{ps},"
-            f"{Hk},{D}] + bf16 scales: bytes differing from plain {sum(diff)} "
-            f"(tolerance 0: the quantizer is exact); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, quantize + index_put_ x4 {lib:.4f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by})")
-        if result is None:
-            result = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
-    return result
+        cases.append(_write_case(
+            "paged_write_int8 (library: quantize + index_put_ x4)", B, 0.0,
+            lambda: pw.paged_write_int8_cuda(*kern, k_new, v_new, tables, positions),
+            lambda: pw.paged_write_int8_plain(*plain, k_new, v_new, tables, positions),
+            library,
+            2 * B * Hk * D * 2 + 2 * B * Hk * (D + 2) + 2 * B * 4))
+    return {**cases[0], "stream": cases[1]}     # 16 lanes; the stream beside
 
 
 def _int8_pools(k_pool, v_pool, stale):
@@ -1208,15 +1230,16 @@ def main() -> int:
     ragged_src = "polykey_tpu_torch/csrc/ragged_paged_attention.cu"
     decode_tpu = "polykey_tpu/ops/paged_attention_kernel.py:349"
     ragged_tpu = "polykey_tpu/ops/ragged_paged_attention_kernel.py:387"
+    write_src = "polykey_tpu_torch/csrc/paged_write.cu"
     write_tpu = "polykey_tpu/ops/paged_write_kernel.py:134"
     sources = {
         "flash_attention": ("polykey_tpu_torch/csrc/flash_attention.cu",
                             "polykey_tpu/ops/flash_attention.py:157"),
         "paged_attention_decode": (paged_src, decode_tpu),
-        "paged_write": ("polykey_tpu_torch/csrc/paged_write.cu", write_tpu),
+        "paged_write": (write_src, write_tpu),
         "ragged_paged_attention": (ragged_src, ragged_tpu),
         "paged_attention_decode_int8": (paged_src, decode_tpu),
-        "paged_write_int8": ("polykey_tpu_torch/csrc/paged_write_int8.cu", write_tpu),
+        "paged_write_int8": (write_src, write_tpu),
         "ragged_paged_attention_int8": (ragged_src, ragged_tpu),
     }
     summary = []

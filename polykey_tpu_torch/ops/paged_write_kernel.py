@@ -12,9 +12,10 @@ chip_smoke.py.
 int8 KV: for (values, scales) pool pairs the rows quantize on the way in
 (`quantize_kv_rows`, per (row, head): absmax over D, a bf16 scale, round
 half to even) and land in four pools, int8 k and v plus their bf16
-scales. On a CUDA tensor the quantizing kernel (csrc/paged_write_int8.cu,
-its own launch count `KERNEL_INT8`) does all of it in one launch;
-`paged_write_int8_plain` is its plain version, bit for bit the same.
+scales. On a CUDA tensor the quantizing instance of the same kernel
+template (csrc/paged_write.cu, its own launch count `KERNEL_INT8`) does all
+of it in one launch; `paged_write_int8_plain` is its plain version, bit for
+bit the same (a head holding a NaN gets a NaN scale in both).
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ def paged_write_decode_cuda(k_pages, v_pages, k_new, v_new, page_tables, positio
             f"paged write kernel: a row of {row_bytes} bytes is not a whole "
             "number of 16-byte vectors"
         )
+    if any(t.data_ptr() % 16 for t in (k_pages, v_pages, k_rows, v_rows)):
+        raise ValueError("paged write kernel: pools and rows must be 16-byte aligned")
     KERNEL(k_pages, v_pages, k_rows, v_rows, page_tables, pos, B, P_, ps, row_bytes)
     return k_pages, v_pages
 
@@ -102,8 +105,9 @@ def paged_write_int8_plain(
 
 def paged_write_int8_cuda(k_pages, v_pages, k_new, v_new, page_tables, positions):
     """Quantize and write one bf16 row per lane in one launch. Any Hk and D
-    (the kernel stores bytes and scales one element per thread, so no row
-    needs to be a whole number of 16-byte vectors)."""
+    (the kernel picks each lane's vector width from D and the alignment of
+    the rows and pools, down to single values, so no row needs to be a
+    whole number of 16-byte vectors)."""
     pools, int8 = check_kv_pools("paged write int8 kernel", k_pages, v_pages)
     if not int8:
         raise ValueError("paged write int8 kernel: pools must be (values, scales) pairs")

@@ -24,8 +24,9 @@ step (per dispatch with --ragged, per prefill with --prefill):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
 launches, the device time of decode attention (every kernel whose name
-holds "paged_decode") and of ragged attention (every kernel whose
-name holds "ragged"), and the kernels that took the most device time.
+holds "paged_decode"), of ragged attention (every kernel whose name
+holds "ragged") and of the paged write kernel (every kernel whose name
+holds "paged_write"), and the kernels that took the most device time.
 --repeat N measures N times in the process (wall and profile each time)
 and ends with the median and range of each number. Each line names the
 card and its power limit.
@@ -232,11 +233,14 @@ def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
                     if "paged_decode" in name) / 1e3 / steps
     ragged_ms = sum(us for name, (us, _) in by_name.items()
                     if "ragged" in name) / 1e3 / steps
+    write_ms = sum(us for name, (us, _) in by_name.items()
+                   if "paged_write" in name) / 1e3 / steps
     print(f"[profile_decode] per {unit}: wall {wall_ms:.3f} ms (host clock, "
           f"unprofiled block); device busy in kernels {busy_ms:.3f} ms "
           f"(profiled block); idle share {1 - busy_ms / wall_ms:.3f}; "
           f"{len(kernels) / steps:.0f} kernel launches; decode attention "
-          f"{decode_ms:.3f} ms; ragged attention {ragged_ms:.3f} ms")
+          f"{decode_ms:.3f} ms; ragged attention {ragged_ms:.3f} ms; paged write "
+          f"kernel {write_ms:.4f} ms")
     if not kernels:
         print("[profile_decode] the profiler recorded no device kernels: "
               "device time not measured")
@@ -249,7 +253,7 @@ def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
                   f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
     return {"wall ms": wall_ms, "device busy ms": busy_ms,
             "idle share": 1 - busy_ms / wall_ms, "decode attention ms": decode_ms,
-            "ragged attention ms": ragged_ms}
+            "ragged attention ms": ragged_ms, "paged write kernel ms": write_ms}
 
 # Functions whose kernels the prefill breakdown counts under their own
 # label: PyTorch's index kernels serve both the gather and the write, so

@@ -191,6 +191,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     pos = torch.zeros(2, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="Hq / Hk"):
         pak.paged_decode_cuda(qd, pool, pool, tables, pos, scale=0.1)
+    # The copy moves 16-byte vectors: rows 8 bytes off a boundary are refused.
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+
+    rows = torch.empty(2 * 2 * 64 + 4, dtype=torch.bfloat16, device="cuda")[4:]
+    rows = rows.view(2, 1, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pw.paged_write_decode_cuda(pool, pool.clone(), rows, rows, tables, pos[:, None])
 
 
 def _ragged_case(gen, D, Hq, Hk, lens, kvs, ps=8, P=80, empty=2):
@@ -519,12 +526,14 @@ def _decode_counters_survive_growth(gen, inputs):
     _check_decode(pak, big, large, scale=128 ** -0.5)
 
 
-@pytest.mark.parametrize("Hk,D", [(1, 64), (2, 128), (3, 64), (5, 256), (8, 128)])
+@pytest.mark.parametrize("Hk,D", [(1, 64), (2, 128), (3, 64), (5, 256), (8, 128),
+                                  (2, 48)])
 def test_write_int8_kernel_is_exact(gen, Hk, D):
     """The quantizing write against quantize_kv_rows + index writes, bit for
     bit, for kv-head counts below 8 (scale rows of Hk x 2 bytes, no whole
-    number of 16-byte vectors) and above; an inactive lane, a negative
-    position, and all-zero and tie-heavy rows."""
+    number of 16-byte vectors) and above, and a head dim off the vector path
+    (48: not a multiple of 32 lanes x 2 values); an inactive lane, a
+    negative position, and all-zero and tie-heavy rows."""
     from polykey_tpu_torch.ops import paged_write_kernel as pw
 
     N, ps, B, P = 40, 8, 7, 5
@@ -542,6 +551,81 @@ def test_write_int8_kernel_is_exact(gen, Hk, D):
     pw.paged_write_int8_cuda(*a, kn, vn, tables, pos)
     pw.paged_write_int8_plain(*b, kn, vn, tables, pos)
     for x, y in zip((*a[0], *a[1]), (*b[0], *b[1])):
+        assert torch.equal(x[1:].view(torch.int8), y[1:].view(torch.int8))
+
+
+def _leaves(pools):
+    return [t for p in pools for t in (p if isinstance(p, tuple) else (p,))]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_write_kernels_at_stream_size(gen, int8):
+    """Both write instances over a 300-row ragged stream ([T, 1] rows, each
+    active row to its own slot) whose last 40 rows are padding: all-zero
+    table rows at position 0, all writing slot 0 of the garbage page 0.
+    Exact against the plain version on every page but page 0; one launch a
+    call."""
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+
+    N, ps, Hk, D, P, T, pad = 400, 16, 8, 128, 64, 300, 40
+    slots = torch.randperm((N - 1) * ps, generator=gen, device="cuda")[:T]
+    pidx = torch.randint(0, P, (T,), generator=gen, device="cuda")
+    pos = (pidx * ps + slots % ps).to(torch.int32)
+    tables = torch.zeros((T, P), dtype=torch.int32, device="cuda")
+    tables[torch.arange(T, device="cuda"), pidx] = (1 + slots // ps).to(torch.int32)
+    tables[T - pad:] = 0
+    pos[T - pad:] = 0
+    kn, vn = _randn((T, 1, Hk, D), gen), _randn((T, 1, Hk, D), gen)
+    if int8:
+        pools = _int8_pools(gen, N, ps, Hk, D)
+        a = tuple((v.clone(), s.clone()) for v, s in pools)
+        b = tuple((v.clone(), s.clone()) for v, s in pools)
+        kernel, plain, count = pw.paged_write_int8_cuda, pw.paged_write_int8_plain, pw.KERNEL_INT8
+    else:
+        pools = _randn((N, ps, Hk, D), gen), _randn((N, ps, Hk, D), gen)
+        a = tuple(p.clone() for p in pools)
+        b = tuple(p.clone() for p in pools)
+        kernel, plain, count = pw.paged_write_decode_cuda, pw.paged_write_decode_plain, pw.KERNEL
+    before = count.launches
+    kernel(*a, kn, vn, tables, pos[:, None])
+    assert count.launches == before + 1
+    plain(*b, kn, vn, tables, pos[:, None])
+    for x, y in zip(_leaves(a), _leaves(b)):
+        assert torch.equal(x[1:].view(torch.int8), y[1:].view(torch.int8))
+
+
+def test_write_int8_kernel_keeps_a_nan_scale(gen):
+    """One NaN in one head of a K row and of a V row: that (row, head)'s
+    written scale is NaN and its dequantized values all NaN, in the kernel
+    and in the plain version alike (the reference's jnp.max keeps NaN too).
+    The int8 bytes of such a head have no defined value in either package,
+    so they and the NaN scales (whose NaN bits may differ) are blanked
+    before every other head and row is compared byte for byte."""
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+    from polykey_tpu_torch.ops.paged_attention import dequantize_kv
+
+    N, ps, Hk, D, B, P = 40, 8, 4, 128, 7, 5
+    (kq, ks), (vq, vs) = _int8_pools(gen, N, ps, Hk, D)
+    kn, vn = _randn((B, 1, Hk, D), gen), _randn((B, 1, Hk, D), gen)
+    kn[3, 0, 2, 77] = float("nan")
+    vn[4, 0, 0, 5] = float("nan")
+    tables = torch.arange(1, 1 + B * P, dtype=torch.int32, device="cuda").reshape(B, P)
+    pos = torch.tensor([[0], [7], [8], [39], [12], [20], [33]], dtype=torch.int32,
+                       device="cuda")
+    a = (kq.clone(), ks.clone()), (vq.clone(), vs.clone())
+    b = (kq.clone(), ks.clone()), (vq.clone(), vs.clone())
+    pw.paged_write_int8_cuda(*a, kn, vn, tables, pos)
+    pw.paged_write_int8_plain(*b, kn, vn, tables, pos)
+    page_ids, offsets = pw._slots(tables, pos, ps)
+    for pools in (a, b):
+        for (values, scales), (row, head) in zip(pools, ((3, 2), (4, 0))):
+            at = page_ids[row], offsets[row]
+            assert torch.isnan(scales[at][head])
+            assert torch.isnan(dequantize_kv(values[at], scales[at], torch.float32)[head]).all()
+            assert not torch.isnan(scales[at][torch.arange(Hk, device="cuda") != head]).any()
+            values[at[0], at[1], head] = 0
+            scales[at[0], at[1], head] = 0
+    for x, y in zip(_leaves(a), _leaves(b)):
         assert torch.equal(x[1:].view(torch.int8), y[1:].view(torch.int8))
 
 

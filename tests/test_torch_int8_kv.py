@@ -121,6 +121,26 @@ def test_quantize_kv_rows_is_bit_identical(kind):
     _same(back.view(torch.int32), np.asarray(want).view(np.int32), "dequantized")
 
 
+def test_quantize_kv_rows_keeps_a_nan_scale():
+    """A head holding a NaN gets a NaN scale in both packages (jnp.max and
+    torch.amax keep NaN, and so do the clamp to 1e-8 and the division), as
+    the card's quantizing write does; every other head's values and scales
+    stay bit-identical. The NaN head's int8 values have no defined value in
+    either package and are not compared."""
+    rows = _rows("normal")
+    rows[1, 3, 2, 9] = np.nan
+    jq, js = jpa.quantize_kv_rows(jnp.asarray(rows))
+    tq, ts = tpa.quantize_kv_rows(_t(rows))
+    nan = np.zeros(rows.shape[:-1], bool)
+    nan[1, 3, 2] = True
+    js32 = np.asarray(js, np.float32)
+    assert np.isnan(js32[nan]).all() and torch.isnan(ts.float()[torch.from_numpy(nan)]).all()
+    assert not np.isnan(js32[~nan]).any()
+    keep = torch.from_numpy(~nan)
+    _same(tq[keep], np.asarray(jq)[~nan], "values")
+    _same(ts[keep], np.asarray(js)[~nan], "scales")
+
+
 # -- the write ----------------------------------------------------------------
 
 
