@@ -41,6 +41,19 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
 7. serve-int8, ragged-int8: phases 5 and 6 again with kv_dtype="int8"
             (POLYKEY_KV_DTYPE=int8): only the int8 variants of decode,
             write and ragged run, beside flash in the bucketed mode.
+            Every serve runs the default pipeline: lookahead depth 2 and
+            the adaptive block, each decode block a replay of one of the
+            four CUDA graphs the engine captured at start ((greedy,
+            sampled) x (8, 1) steps). Each prints its replays and
+            captures, the observed lookahead and the host stall p50, and
+            fails unless the graphs were replayed in it.
+8. graph:   the full-depth Llama-3-8B decode block (16 greedy lanes at
+            context 512, as profile_decode sets it up; bf16 and int8 KV),
+            eager and as a replay of its graph, from the same lane state:
+            the packed tokens and the final lane state must be identical;
+            then both in turns (eager, graph, graph, eager, ...), each
+            run's wall per step on the host clock and its idle share from
+            torch.profiler.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -1033,12 +1046,28 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
     channel = grpc.insecure_channel(f"127.0.0.1:{port}")
     stub = PolykeyServiceStub(channel)
     try:
+        check(config.lookahead_blocks == 2 and config.adaptive_block,
+              f"not the default pipeline: {config}")
+        replays = engine.stats()["decode_graph_replays"]
         for k in KERNELS.values():
             k.launches = 0
         results = _serve_requests(stub, pk, submitted)
         counts = {name: k.launches for name, k in KERNELS.items()}
+        stats = engine.stats()
         sync()
         say(phase, f"kernel launches in this phase: {counts}")
+        replays = stats["decode_graph_replays"] - replays
+        say(phase, f"decode graphs: {stats['decode_graph_captures']} captured at start "
+            f"(pool {stats['decode_graph_pool_bytes'] / 2**20:.1f} MiB), {replays} "
+            f"replays in this phase; lookahead depth {stats['lookahead_depth']}, "
+            f"observed max {stats['lookahead_observed_max']} (mean "
+            f"{stats['lookahead_observed_mean']}; {stats['blocks_overlapped']} of "
+            f"{stats['blocks_processed']} blocks overlapped); host stall p50 "
+            f"{stats.get('host_stall_ms_p50', 'not measured')} ms, p95 "
+            f"{stats.get('host_stall_ms_p95', 'not measured')} ms")
+        check(stats["decode_graph_captures"] == 4,
+              f"{stats['decode_graph_captures']} decode graphs captured, not 4")
+        check(replays > 0, "no decode graph was replayed in this phase")
         # The ragged modes' prefills ride the stream (flash 0); int8 KV
         # runs only the int8 variants, bf16 KV only the bf16 ones.
         want = SERVE_KERNELS[(ragged, int8)]
@@ -1079,6 +1108,74 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
     sync()
     return {"requests": results, "launches": counts, "params": engine.params,
             "kv_gib": kv / 2**30}
+
+
+# -- phase 8 ---------------------------------------------------------------
+
+def phase_graph(seed: int, params, card: str, turns: int = 3) -> None:
+    """The full-depth decode block eager and as its graph's replay, from the
+    same lanes: identical tokens and lane state, then walls and idle shares
+    in turns."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.tools.profile_decode import (
+        LANES,
+        decode_block,
+        decode_lanes,
+        device_kernels,
+    )
+
+    econf = EngineConfig(model="llama-3-8b")
+    cfg = get_config(econf.model)
+    steps, context = econf.decode_block_steps, 512
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for int8 in (False, True):
+        kv = "int8 KV" if int8 else "bf16 KV"
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        paged, state = decode_lanes(econf, cfg, context, gen, int8)
+        with torch.inference_mode():
+            eager, reset = decode_block(params, cfg, paged, state, steps)
+            graph, _ = decode_block(params, cfg, paged, state, steps, graph=True)
+            out = {}
+            for name, run in (("eager", eager), ("graph", graph)):
+                reset()
+                packed = run().clone()
+                out[name] = (packed, {k: state[k].clone() for k in LANES})
+            sync()
+            check(torch.equal(out["graph"][0], out["eager"][0]),
+                  f"{kv}: the graph's packed tokens differ from the eager block's")
+            check(all(torch.equal(out["graph"][1][k], out["eager"][1][k]) for k in LANES),
+                  f"{kv}: the graph's lane state differs from the eager block's")
+            tokens = out["eager"][0]
+            check(bool((tokens >= 0).all()), f"{kv}: a live lane emitted nothing")
+            walls, idle = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+            for turn in range(2 * turns):
+                name = ("eager", "graph", "graph", "eager")[turn % 4]
+                run = eager if name == "eager" else graph
+                reset()
+                sync()
+                t0 = time.perf_counter()
+                run()
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+                reset()
+                sync()
+                with torch.profiler.profile(activities=acts) as prof:
+                    run()
+                    sync()
+                busy = sum(e.time_range.elapsed_us() for e in device_kernels(prof)) / 1e3
+                walls[name].append(wall / steps)
+                idle[name].append(1 - busy / wall if busy else float("nan"))
+        del paged, state
+        say("graph", f"llama-3-8b 32 layers bf16, {kv}, 16 greedy lanes at context "
+            f"{context}, block of {steps}: graph replay and eager block identical "
+            f"(packed [{steps}, 16] tokens {tokens[0, :4].tolist()}..., lane state)")
+        for name in ("eager", "graph"):
+            w, i = walls[name], idle[name]
+            say("graph", f"{kv}, {name}: wall per step median {statistics.median(w):.3f} "
+                f"ms (range {min(w):.3f}-{max(w):.3f}), idle share median "
+                f"{statistics.median(i):.3f} (range {min(i):.3f}-{max(i):.3f}), "
+                f"{len(w)} runs, on {card}")
 
 
 def _leaves(tree):
@@ -1206,6 +1303,8 @@ def main() -> int:
                           int8=int8)
         params = out.pop("params")
         serves[(ragged, int8)] = out
+    phase_graph(args.seed, params, dev["smi"])
+    sync()
     del params
     for int8 in (False, True):
         kv = "int8 KV" if int8 else "bf16 KV"

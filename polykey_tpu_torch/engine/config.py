@@ -1,16 +1,15 @@
 """Engine configuration (the reference's engine/config.py, POLYKEY_* env).
 
-The fields and their env names are the reference's; the defaults are too,
-except `lookahead_blocks` (1) and `adaptive_block` (off), the only values
-this slice serves. `validate` raises NotImplementedError for the knobs
-whose part of the port has not landed yet, naming the ROADMAP.md item, so
-a deployment that asks for them fails at startup instead of being served
-by something else: the prefix cache and host KV tier, speculative
-decoding, int8/int4 weights, the lookahead pipeline and adaptive block,
+The fields, their env names and their defaults are the reference's.
+`validate` raises NotImplementedError for the knobs whose part of the port
+has not landed yet, naming the ROADMAP.md item, so a deployment that asks
+for them fails at startup instead of being served by something else: the
+prefix cache and host KV tier, speculative decoding, int8/int4 weights,
 the top-p prefilter, replica and disaggregated pools, checkpoints, and
 mesh axes above 1. Chunked prefill (`prefill_chunk`, `prefill_budget`),
-ragged dispatch (`ragged_dispatch`) and the int8 KV cache
-(`kv_dtype="int8"`) are served.
+ragged dispatch (`ragged_dispatch`), the int8 KV cache
+(`kv_dtype="int8"`), the lookahead pipeline (`lookahead_blocks`) and the
+adaptive block (`adaptive_block`) are served.
 """
 
 from __future__ import annotations
@@ -69,10 +68,17 @@ class EngineConfig:
     # with device-side EOS/cap stopping; their tokens come back as one
     # packed [K, B] read.
     decode_block_steps: int = 8
-    adaptive_block: bool = False
-    # Dispatched-but-unread decode blocks. 1 = dispatch, then read — the
-    # exact-sync mode, the only one ported so far.
-    lookahead_blocks: int = 1
+    # Load-adaptive block: while ONE stream is active, dispatch blocks of
+    # max(1, K // 8) steps, so a lone stream's tokens arrive one at a time
+    # at the device's step rate; the output is the same either way.
+    adaptive_block: bool = True
+    # Dispatched-but-unprocessed decode blocks (pipeline depth): up to
+    # `lookahead_blocks` full-K blocks stay queued on the device, so the
+    # host's processing and the packed read hide behind device compute.
+    # When the adaptive block shrinks K, the lookahead portion scales by
+    # the same factor (1 + (depth - 1) x K / steps, at most 64 blocks).
+    # 1 = dispatch, then read (exactly synchronous).
+    lookahead_blocks: int = 2
 
     top_p_candidates: int = 0
     draft_model: Optional[str] = None
@@ -133,7 +139,12 @@ class EngineConfig:
             ),
             host_kv_bytes=_env_int("POLYKEY_HOST_KV_BYTES", cls.host_kv_bytes),
             decode_block_steps=_env_int("POLYKEY_DECODE_BLOCK", cls.decode_block_steps),
-            adaptive_block=_env_bool("POLYKEY_ADAPTIVE_BLOCK"),
+            # Default on; POLYKEY_ADAPTIVE_BLOCK=0 pins the static block.
+            adaptive_block=os.environ.get(
+                "POLYKEY_ADAPTIVE_BLOCK", "1"
+            ).lower() in ("1", "true"),
+            # POLYKEY_DISPATCH_LOOKAHEAD wins over the legacy
+            # POLYKEY_LOOKAHEAD (the engine also reads it at construction).
             lookahead_blocks=_env_int(
                 "POLYKEY_DISPATCH_LOOKAHEAD",
                 _env_int("POLYKEY_LOOKAHEAD", cls.lookahead_blocks),
@@ -171,6 +182,8 @@ class EngineConfig:
                 )
         if self.decode_block_steps < 1:
             raise ValueError("decode_block_steps must be >= 1")
+        if self.lookahead_blocks < 1:
+            raise ValueError("lookahead_blocks must be >= 1")
         if self.prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0 (0 → max bucket)")
         if self.prefill_budget < 0:
@@ -192,9 +205,6 @@ class EngineConfig:
              "speculative decoding"),
             (self.quantize, "quantize (POLYKEY_QUANTIZE)",
              "int8/int4 weights"),
-            (self.lookahead_blocks > 1 or self.adaptive_block,
-             "lookahead_blocks > 1 / adaptive_block",
-             "lookahead pipeline on CUDA streams and adaptive block"),
             (self.top_p_candidates > 0, "top_p_candidates",
              "top-p candidate prefilter"),
             (self.replicas > 1 or bool(self.disagg), "replicas / disagg",

@@ -18,15 +18,29 @@ GPU (the reference's engine/engine.py, default path).
   always goes: a progress floor), round-robin over pending slots.
 - Decode: one dispatch runs `decode_block_steps` steps for the whole batch
   with device-side EOS/cap liveness (`_decode_fn`) and returns one packed
-  [K, B] token array (-1 where a lane emitted nothing), read once per
-  block. This port runs the exact-sync mode (lookahead depth 1): each
-  block is read before the next is dispatched.
+  [K, B] token array (-1 where a lane emitted nothing). On the GPU each
+  block is a replay of a CUDA graph captured once per (greedy, steps) at
+  engine start (engine/decode_graph.py), the counterpart of the
+  reference's jitted block; the lane state lives in fixed buffers that
+  every writer updates in place. With the adaptive block (the default) a
+  lone active stream gets blocks of max(1, K // 8) steps.
+- Lookahead pipeline (`lookahead_blocks`, POLYKEY_DISPATCH_LOOKAHEAD;
+  default 2): a block's packed tokens go to pinned host memory by a
+  non-blocking copy and a CUDA event, and the host processes the block
+  only after dispatching the next one, so its readback and bookkeeping
+  hide behind the device's work on the next block. Every dispatch, merge,
+  retire and copy runs on one stream, whose order makes a stale block
+  safe: device-side stopping ends the lanes the host finished, and a
+  per-block snapshot of the slots' requests keeps a cancelled lane's
+  tokens from its slot's next occupant. Depth 1 is exactly synchronous.
+  A bucketed admission reads its first token at once, behind the blocks
+  in flight.
 - Ragged dispatch (`ragged_dispatch`, POLYKEY_RAGGED=1; kill switch
   POLYKEY_DISABLE_RAGGED=1): every prompt registers as pending token
-  ranges, and any iteration with prefill work runs ONE flat dispatch of
-  every decode lane's single token plus up to the budget of prefill
-  tokens (`_ragged_fn`, the ragged attention kernel); pure-decode
-  iterations keep the K-step block.
+  ranges, and any iteration with prefill work drains the pipeline and runs
+  ONE synchronous flat dispatch of every decode lane's single token plus
+  up to the budget of prefill tokens (`_ragged_fn`, the ragged attention
+  kernel); pure-decode iterations replay the K-step block and pipeline.
 - RNG: every sampled draw is keyed by (request seed, token position)
   (engine/sampling.py), so a seeded stream does not depend on the batch.
 - int8 KV (`kv_dtype="int8"`, POLYKEY_KV_DTYPE=int8): int8 value pools
@@ -35,8 +49,9 @@ GPU (the reference's engine/engine.py, default path).
   dispatch modes (flash still serves the bucketed prefill, over a window
   dequantized to bf16).
 
-Not ported yet (ROADMAP.md queue A): the lookahead pipeline, the prefix
-cache, speculative decoding.
+Not ported yet (ROADMAP.md queue A): CUDA graphs of the prefill and of
+the ragged dispatch, the pipelined ragged dispatch and the lazy
+first-token read, the prefix cache, speculative decoding.
 """
 
 from __future__ import annotations
@@ -46,8 +61,9 @@ import queue
 import threading
 import time
 import traceback
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,6 +79,7 @@ from ..ops import (
 )
 from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
 from .config import EngineConfig
+from .decode_graph import DecodeGraphs
 from .kv_cache import AllocationError, BlockAllocator, PagedKV, init_paged_kv
 from .metrics import EngineMetrics, RequestTimings
 from .sampling import sample_tail
@@ -156,6 +173,21 @@ class _RRCursor:
         self.pos = (self.pos + 1) % n
 
 
+class _InflightBlock(NamedTuple):
+    """One dispatched-but-unprocessed decode block of the lookahead
+    pipeline: its packed [K, B] tokens on their way to host memory (`host`,
+    landed once `event` has fired; no event on the CPU, where the block ran
+    in the call), the request in each slot at dispatch time, and its
+    dispatch sequence number: at process time, the engine's
+    `_dispatch_seq - seq` is the OBSERVED lookahead, the blocks dispatched
+    after this one before its readback."""
+
+    host: torch.Tensor
+    event: Optional[torch.cuda.Event]
+    reqs: list
+    seq: int
+
+
 class EngineDeadError(RuntimeError):
     """The engine cannot take work."""
 
@@ -206,8 +238,11 @@ def _decode_fn(
     Each step writes KV for the current tokens at position seq_lens-1,
     samples the next token for live lanes and advances the lane state on
     the device. A lane stops at EOS or when seq_lens reaches its position
-    cap, mirroring the host's _maybe_finish. Returns (packed [steps, B]
-    int32 with -1 where a lane emitted nothing, last, seq, active, paged).
+    cap, mirroring the host's _maybe_finish. The final lane state goes
+    back into `last_tokens`, `seq_lens` and `active` IN PLACE (the
+    reference returns it and donates the old buffers), so a CUDA graph of
+    this block reads and writes fixed addresses. Returns the packed
+    [steps, B] int32 tokens, -1 where a lane emitted nothing.
     """
     last, seq, act = last_tokens, seq_lens, active
     packed = []
@@ -223,7 +258,10 @@ def _decode_fn(
         cont = act & (tokens != eos_id) & (new_seq < caps)
         packed.append(torch.where(act, tokens, torch.full_like(tokens, -1)))
         last, seq, act = tokens, new_seq, cont
-    return torch.stack(packed), last, seq, act, paged
+    last_tokens.copy_(last)
+    seq_lens.copy_(seq)
+    active.copy_(act)
+    return torch.stack(packed)
 
 
 def _ragged_fn(
@@ -377,6 +415,7 @@ class InferenceEngine:
         # thread only), and the device-resident lane state the decode
         # blocks advance.
         self._seq_lens = np.zeros((B,), dtype=np.int32)
+        self._caps = np.zeros((B,), dtype=np.int32)
         self._active = np.zeros((B,), dtype=bool)
         self._temperature = np.zeros((B,), dtype=np.float32)
         dev = self.device
@@ -392,6 +431,34 @@ class InferenceEngine:
             "seeds": torch.zeros((B, 2), dtype=torch.int32, device=dev),
         }
         self._slots: list[Optional[_Slot]] = [None] * B
+
+        # Block sizes: K, and with the adaptive block max(1, K // 8) for a
+        # lone stream; one decode graph per (greedy, steps), captured on
+        # the engine thread before it serves.
+        K = config.decode_block_steps
+        self._block_steps = K
+        self._solo_steps = max(1, K // 8) if config.adaptive_block else K
+        self._graphs = DecodeGraphs(
+            self._decode_block, self.device,
+            [(g, k) for g in (True, False) for k in (K, self._solo_steps)],
+        )
+        # Lookahead pipeline: dispatched-but-unprocessed blocks, oldest
+        # first. Depth counts the block just dispatched, so depth 2 keeps
+        # one block in flight while the next is dispatched and depth 1 is
+        # dispatch-then-read. POLYKEY_DISPATCH_LOOKAHEAD overrides the
+        # config however it was built (the reference's operator knob).
+        self._inflight_q: deque = deque()
+        try:
+            self._depth = max(1, int(os.environ.get(
+                "POLYKEY_DISPATCH_LOOKAHEAD", config.lookahead_blocks)))
+        except ValueError:
+            self._depth = config.lookahead_blocks
+        # In-flight target for the current block size: a K / steps times
+        # smaller block deepens the LOOKAHEAD portion by that factor (the
+        # same steps queued ahead), capped at 64 blocks and at what the
+        # active streams still need; depth 1 stays 1 at every size.
+        self._depth_target = self._depth
+        self._dispatch_seq = 0
 
         self._chunk = config.prefill_chunk or max(config.prefill_buckets)
         # Prefill tokens per loop iteration while decode lanes are live,
@@ -414,10 +481,14 @@ class InferenceEngine:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.dead: Optional[str] = None
+        self._started = threading.Event()
         self._thread = threading.Thread(
             target=self._run, name="polykey-engine", daemon=True
         )
         self._thread.start()
+        # The engine thread captures the decode graphs first; no other
+        # thread may touch the device while it captures.
+        self._started.wait()
 
     # -- public API (any thread) -------------------------------------------
 
@@ -446,7 +517,12 @@ class InferenceEngine:
             "pages_free": self.allocator.num_free,
             "pages_total": self.config.num_pages,
             "queued": self._submit.qsize(),
-            "lookahead_depth": 1,
+            "inflight_blocks": len(self._inflight_q),
+            "lookahead_depth": self._depth,
+            "lookahead_target": self._depth_target,
+            "decode_graph_captures": self._graphs.captures,
+            "decode_graph_replays": self._graphs.replays,
+            "decode_graph_pool_bytes": self._graphs.pool_bytes,
             "prefill_budget": self._prefill_budget,
             "ragged": self._ragged,
             "kv_dtype": "int8" if self.paged.quantized else str(
@@ -459,6 +535,13 @@ class InferenceEngine:
         if self._ragged:
             snap["ragged_width"] = self._ragged_width
         return snap
+
+    def set_lookahead(self, depth: int) -> int:
+        """Pipeline depth (POLYKEY_DISPATCH_LOOKAHEAD), clamped to 1..64;
+        the next dispatch's in-flight target follows it. Returns the value
+        applied."""
+        self._depth = max(1, min(64, int(depth)))
+        return self._depth
 
     def set_prefill_budget(self, tokens: int) -> int:
         """Interleaved-prefill token budget per loop iteration, floored at
@@ -488,6 +571,8 @@ class InferenceEngine:
     def _run(self) -> None:
         try:
             with torch.inference_mode():
+                self._graphs.capture()
+                self._started.set()
                 while not self._stop.is_set():
                     # With live decode lanes, admissions and chunks share
                     # the per-iteration prefill budget; with none there is
@@ -500,10 +585,30 @@ class InferenceEngine:
                         chunked = self._advance_chunked_prefills(remaining)
                         worked = worked or chunked > 0
                         self.metrics.on_prefill_interleave(spent + chunked, decode_live)
+                    # Dispatch frontier: keep up to `_depth_target` blocks
+                    # in flight, the one dispatched now included.
+                    dispatched = False
                     if self._active.any() or (
                         self._ragged and self._has_pending_prefill()
                     ):
-                        self._step()
+                        block = self._dispatch_step()
+                        worked = True
+                        if block is not None:
+                            self._inflight_q.append(block)
+                            dispatched = True
+                    # Processed frontier: process down to `_depth_target -
+                    # 1` queued blocks, and any older block whose copy has
+                    # landed, but keep the freshest in flight at depth > 1:
+                    # block N is read after block N + 1 is dispatched.
+                    # Iterations that dispatched nothing drain it all.
+                    target = max(0, self._depth_target - 1) if dispatched else 0
+                    floor = 1 if (dispatched and self._depth > 1) else 0
+                    while self._inflight_q and (
+                        len(self._inflight_q) > target
+                        or (len(self._inflight_q) > floor
+                            and self._block_ready(self._inflight_q[0]))
+                    ):
+                        self._process_step(self._inflight_q.popleft())
                         worked = True
                     if not worked:
                         self.metrics.on_dispatch_idle()
@@ -520,6 +625,8 @@ class InferenceEngine:
             self._fail_all(self.dead)
             if self.health is not None:
                 self.health.shutdown()
+        finally:
+            self._started.set()     # also when the capture failed
 
     def _bucket_for(self, length: int) -> Optional[int]:
         for b in self.config.prefill_buckets:
@@ -712,6 +819,7 @@ class InferenceEngine:
         slot.merged = True
         slot.pending = None
         self._seq_lens[slot_idx] = slot.prompt_len + 1
+        self._caps[slot_idx] = slot.position_cap
         self._active[slot_idx] = True
         self._temperature[slot_idx] = request.temperature
 
@@ -848,10 +956,11 @@ class InferenceEngine:
 
     def _dispatch_ragged(self, ranges: list) -> bool:
         """One flat mixed prefill+decode dispatch of `ranges` plus every
-        decode lane's single token, read back at once: final-range slots
-        merge and take their first token, the decode lanes' packed row is
-        processed like a one-step block. Returns False when the dispatch
-        failed (its ranged slots are finished, the lanes are untouched)."""
+        decode lane's single token, read back at once, with no block in
+        flight: final-range slots merge and take their first token, the
+        decode lanes' packed row is processed like a one-step block.
+        Returns False when the dispatch failed (its ranged slots are
+        finished, the lanes are untouched)."""
         cfg = self.config
         W = self._ragged_width
         B = cfg.max_decode_slots
@@ -862,7 +971,8 @@ class InferenceEngine:
         greedy = bool(np.all(self._temperature[act] == 0.0)) and bool(
             np.all(smp_temp == 0.0))
         # The kernel's work list from host values: decode lanes see
-        # max(seq_len, 1) keys (the host mirror is exact at depth 1).
+        # max(seq_len, 1) keys (the host mirror is exact with no block in
+        # flight).
         mc = self.model_cfg
         work = ragged_work(
             np.concatenate([np.arange(B), B + ops[4]]),
@@ -870,6 +980,7 @@ class InferenceEngine:
             np.concatenate([np.maximum(self._seq_lens, 1), ops[6]]),
             B + W, mc.num_heads // mc.num_kv_heads, mc.num_kv_heads, self.device,
         )
+        self._depth_target = self._depth
         self.metrics.on_dispatch(lanes, 1, slots=B)
         self.metrics.on_padding_tokens(W, useful)
         self.metrics.on_prefill_interleave(useful, lanes > 0)
@@ -890,7 +1001,12 @@ class InferenceEngine:
                 if self._slots[i] is s:
                     self._finish(i, error=f"prefill failed: {e}")
             return False
-        dev["last_tokens"], dev["seq_lens"], dev["active"] = last, seq, active
+        # In place: the decode graphs captured these buffers.
+        dev["last_tokens"].copy_(last)
+        dev["seq_lens"].copy_(seq)
+        dev["active"].copy_(active)
+        self._dispatch_seq += 1
+        reqs = self._snapshot_requests()
         finals = []
         for i, s, take in ranges:
             if s.filled + take >= len(s.pending):
@@ -900,57 +1016,123 @@ class InferenceEngine:
                 s.filled += take
         # One device-to-host copy: the packed decode row, then the first
         # tokens.
-        host = self._read_back(packed_dev, first_dev)
+        t_sync = time.monotonic()
+        host = torch.cat([packed_dev.reshape(-1), first_dev]).cpu().numpy()
+        self.metrics.on_process_block(0, (time.monotonic() - t_sync) * 1e3)
         for i in finals:
             if self._slots[i] is not None:
                 self._resolve_slot(i, int(host[B + i]))
-        self._emit_block(host[:B].reshape(1, B))
+        self._emit_block(host[:B].reshape(1, B), reqs)
         return True
 
-    def _step(self) -> None:
-        """One dispatch, read back before anything else changes the slots
-        (lookahead depth 1): in ragged mode a ragged dispatch while prefill
-        work is pending, else a decode block of the live lanes."""
-        if self._ragged:
+    def _dispatch_step(self) -> Optional[_InflightBlock]:
+        """Dispatch one decode block without waiting for it; returns its
+        in-flight record, or None when this iteration's work was a ragged
+        dispatch (read at once) or nothing. In ragged mode pending prefill
+        work first drains the pipeline and goes as one ragged dispatch."""
+        if self._ragged and self._has_pending_prefill():
+            self._drain_inflight()
             ranges = self._build_ragged_batch()
             if ranges and self._dispatch_ragged(ranges):
-                return
+                return None
             if not self._active.any():
-                return
-        packed_dev = self._dispatch_step()
-        self._emit_block(self._read_back(packed_dev).reshape(packed_dev.shape))
-
-    def _dispatch_step(self) -> torch.Tensor:
-        """Run one decode block; returns its packed [K, B] device tensor."""
-        dev = self._dev
+                return None
         act = self._active
+        lanes = int(act.sum())
+        # The greedy graph skips the sampler's sort and draws; host
+        # `_active` covers every lane live on the device, so it is safe.
         greedy = bool(np.all(self._temperature[act] == 0.0))
-        steps = self.config.decode_block_steps
-        self.metrics.on_dispatch(int(act.sum()), steps, slots=len(self._slots))
-        packed, last, seq, active, self.paged = _decode_fn(
+        # Adaptive K: a lone stream gets the small block.
+        steps = self._solo_steps if lanes == 1 else self._block_steps
+        # Constant steps in flight across block sizes, but never more
+        # blocks than the longest remaining budget needs: a stopped lane's
+        # steps still cost a full weight read each.
+        blocks_needed = max(1, -(-self._remaining_budget(act) // steps))
+        self._depth_target = min(
+            64, 1 + (self._depth - 1) * (self._block_steps // steps), blocks_needed,
+        )
+        self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
+        packed = self._graphs.run(greedy, steps)
+        host, event = self._copy_to_host(packed)
+        self._dispatch_seq += 1
+        return _InflightBlock(host, event, self._snapshot_requests(), self._dispatch_seq)
+
+    def _decode_block(self, *, greedy: bool, steps: int) -> torch.Tensor:
+        """The block body the decode graphs capture: `_decode_fn` over the
+        engine's weights, pools and lane-state buffers."""
+        dev = self._dev
+        return _decode_fn(
             self.params, self.model_cfg, self.paged,
             dev["last_tokens"], dev["seq_lens"], dev["page_tables"],
             dev["active"], dev["caps"], dev["seeds"], dev["temperature"],
             dev["top_p"], dev["top_k"],
             greedy=greedy, steps=steps, eos_id=self.tokenizer.eos_id,
         )
-        dev["last_tokens"], dev["seq_lens"], dev["active"] = last, seq, active
-        return packed
 
-    def _read_back(self, *tensors: torch.Tensor) -> np.ndarray:
-        """The int32 device tensors, flattened and joined, in one
-        device-to-host copy that waits for the dispatch."""
+    @staticmethod
+    def _copy_to_host(packed: torch.Tensor):
+        """Start the packed tokens' copy to host memory; returns (host
+        tensor, CUDA event that fires when it has landed). On the CPU the
+        block's own tensor is the host copy and there is no event."""
+        if packed.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _remaining_budget(self, act) -> int:
+        """Longest remaining token budget over active lanes (host
+        mirrors): the tail-work cap of the in-flight target."""
+        return int(np.max(np.where(act, self._caps - self._seq_lens, 0)))
+
+    def _snapshot_requests(self) -> list:
+        """The request in each slot at dispatch time: a slot can be
+        finished (cancel) and re-admitted while its block is in flight, and
+        the stale lane's tokens must never reach the new occupant."""
+        return [s.request if s is not None else None for s in self._slots]
+
+    @staticmethod
+    def _block_ready(block: _InflightBlock) -> bool:
+        """Whether the block's packed copy has landed (its read would not
+        block the host)."""
+        return block.event is None or block.event.query()
+
+    def _process_step(self, block: _InflightBlock) -> None:
+        """Read a dispatched block's tokens and emit/finish on the host.
+        Slots activated after its dispatch were not in it: their lanes
+        were inactive and their columns read -1, and the request snapshot
+        skips them."""
+        # Observed lookahead: blocks dispatched after this one, before its
+        # readback (0 is the synchronous depth-1 shape).
+        lookahead = self._dispatch_seq - block.seq
+        if not any(s is not None and s.request is block.reqs[i]
+                   for i, s in enumerate(self._slots)):
+            # Dead block: every dispatch-time occupant is gone; nothing to
+            # emit, so nothing is read (no stall).
+            self.metrics.on_process_block(lookahead, None)
+            return
         t_sync = time.monotonic()
-        host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
-        self.metrics.on_process_block(0, (time.monotonic() - t_sync) * 1e3)
-        return host
+        if block.event is not None:
+            block.event.synchronize()
+        packed = block.host.numpy()
+        self.metrics.on_process_block(lookahead, (time.monotonic() - t_sync) * 1e3)
+        self._emit_block(packed, block.reqs)
 
-    def _emit_block(self, packed: np.ndarray) -> None:
-        """Emit a block's packed [K, B] tokens and finish streams on the
-        host."""
+    def _drain_inflight(self) -> None:
+        """Process every in-flight block, oldest first."""
+        while self._inflight_q:
+            self._process_step(self._inflight_q.popleft())
+
+    def _emit_block(self, packed: np.ndarray, reqs: list) -> None:
+        """Emit a block's packed [K, B] tokens to the requests that held
+        their slots at dispatch (`reqs`) and finish streams on the host.
+        The block's own K, not the configured one: the adaptive block
+        varies it."""
         emitted = 0
         for i, slot in enumerate(self._slots):
-            if slot is None or not self._active[i]:
+            if slot is None or not self._active[i] or slot.request is not reqs[i]:
                 continue
             if slot.request.cancelled.is_set():
                 self._finish(i, error="cancelled")
@@ -1001,6 +1183,7 @@ class InferenceEngine:
         self._slots[slot_idx] = None
         self._active[slot_idx] = False
         self._seq_lens[slot_idx] = 0
+        self._caps[slot_idx] = 0
         self._temperature[slot_idx] = 0.0
         if slot.merged and self.dead is None:
             _retire_lane_fn(self._dev, slot_idx)
@@ -1018,6 +1201,7 @@ class InferenceEngine:
             pass
 
     def _fail_all(self, message: str) -> None:
+        self._inflight_q.clear()   # unprocessed blocks: their streams fail
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._finish(i, error=message)

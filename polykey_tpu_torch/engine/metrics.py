@@ -1,8 +1,8 @@
 """Serving metrics: the north-star counters (tok/s, TTFT) plus engine gauges.
 
 Request phase timestamps (enqueue → prefill → first token → finish),
-throughput and occupancy counters, padding waste and the host stall of the
-depth-1 decode loop. Snapshots surface through the `engine_stats` tool and
+throughput and occupancy counters, padding waste, and the lookahead
+pipeline's observed lookahead and host stall per processed block. Snapshots surface through the `engine_stats` tool and
 per-request Usage on the streaming RPC.
 
 TTFT and inter-token latency are histogram-backed (obs.histogram): fixed
@@ -92,9 +92,11 @@ class EngineMetrics:
         # stall the prefill budget bounds).
         self.prefill_tokens_total = 0
         self.interleave_max_tokens = 0
-        # Per processed block: the observed lookahead (0 at depth 1) and
-        # the host stall, the ms the host blocked on the block's readback.
+        # Per processed block: the observed lookahead (0 at depth 1; blocks
+        # with 1 or more are `blocks_overlapped`) and the host stall, the
+        # ms the host blocked on the block's readback.
         self.blocks_processed = 0
+        self.blocks_overlapped = 0
         self.blocks_synced = 0
         self.lookahead_sum = 0
         self.lookahead_max = 0
@@ -108,9 +110,10 @@ class EngineMetrics:
     def on_process_block(self, lookahead: int, stall_ms: Optional[float]) -> None:
         """One block processed with `lookahead` newer blocks already
         dispatched; `stall_ms` is the blocking-readback wall time (None
-        when the sync was skipped)."""
+        for a dead block, whose read was skipped)."""
         with self._lock:
             self.blocks_processed += 1
+            self.blocks_overlapped += lookahead > 0
             self.lookahead_sum += lookahead
             if lookahead > self.lookahead_max:
                 self.lookahead_max = lookahead
@@ -259,6 +262,7 @@ class EngineMetrics:
                     if self.tokens_dispatched_total else None
                 ),
                 "blocks_processed": self.blocks_processed,
+                "blocks_overlapped": self.blocks_overlapped,
                 "lookahead_observed_max": self.lookahead_max,
                 "lookahead_observed_mean": (
                     round(self.lookahead_sum / self.blocks_processed, 2)

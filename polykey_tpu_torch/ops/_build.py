@@ -11,11 +11,15 @@ root, and is redone whenever a source's content hash or the flags change.
 
 Every kernel is a `Kernel`: its C symbol and argument types, and a
 `launches` count that goes up by one at each launch and nowhere else, so
-a run can show which kernels its main path went through.
+a run can show which kernels its main path went through. A CUDA graph
+replays its kernels without a call: `uncounted` takes a capture's launches
+back out of the counts and records them, and `count_replay` adds them
+again for each replay, so the counts stay the launches the card ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -141,6 +145,9 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 
+_KERNELS: list = []   # every Kernel made, for `uncounted`
+
+
 class Kernel:
     """One C entry point of the library plus its launch count."""
 
@@ -149,6 +156,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        _KERNELS.append(self)
 
     def __call__(self, *args) -> None:
         """Launch on the current stream. Pointer arguments are passed as
@@ -167,6 +175,29 @@ class Kernel:
                 f"({_error_name(err)})"
             )
         self.launches += 1
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Run a block whose launches are not the card's work: a warm-up, or a
+    CUDA graph capture, whose launches run only when it is replayed. Yields
+    a dict that, once the block ends, maps each kernel launched in it to
+    its launches there; those are taken back out of the kernels' counts."""
+    before = [(k, k.launches) for k in _KERNELS]
+    made: dict = {}
+    try:
+        yield made
+    finally:
+        for k, n in before:
+            if k.launches != n:
+                made[k] = k.launches - n
+                k.launches = n
+
+
+def count_replay(made: dict) -> None:
+    """Count one replay of a graph whose capture made `made` launches."""
+    for k, n in made.items():
+        k.launches += n
 
 
 def _error_name(err: int) -> str:

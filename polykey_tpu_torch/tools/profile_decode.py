@@ -1,13 +1,18 @@
 """Where a decode step's (or a ragged dispatch's, or a prefill's) time goes, on the GPU.
 
     python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0] [--ragged]
-        [--kv-dtype int8] [--prefill [T]] [--repeat N]
+        [--kv-dtype int8] [--prefill [T]] [--graph] [--repeat N]
 
 Builds the 32-layer Llama-3-8B with random bf16 weights, puts 16 live lanes
 (the default EngineConfig's slots) at `context` positions of the default
 paged KV pool, and runs the engine's decode block (`engine._decode_fn`, the
 default 8 greedy steps) once to warm up, once on the host clock, and once
-under torch.profiler. With --ragged it runs one ragged dispatch instead
+under torch.profiler; the lanes go back to `context` before each run (the
+block advances them in place). With --graph it also captures the block as
+the engine does (engine/decode_graph.py: on idle lanes, then the lanes are
+set live) and measures the eager block and the graph's replay in turns
+(eager, graph, graph, eager, ...), each line and summary labelled with its
+mode; its launches are the kernels the profiler saw the card run. With --ragged it runs one ragged dispatch instead
 (`engine._ragged_fn`): the 16 lanes' single tokens plus the default
 1024-token prefill budget, as a first 512-token chunk (KV length 512) and a
 second one (KV length 1024). --kv-dtype int8 runs either over the int8 KV
@@ -57,17 +62,20 @@ def main() -> None:
     ap.add_argument("--prefill", type=int, nargs="?", const=512, default=None,
                     metavar="T", help="profile one bucketed prefill of T tokens "
                     "(default 512) at positions context..context+T-1")
+    ap.add_argument("--graph", action="store_true",
+                    help="measure the decode block eagerly and as a CUDA graph replay, "
+                    "in turns")
     ap.add_argument("--repeat", type=int, default=1, metavar="N",
                     help="measure N times and report the median and range")
     args = ap.parse_args()
-    if args.ragged and args.prefill is not None:
-        raise SystemExit("profile_decode: --ragged and --prefill profile different dispatches")
+    if sum((args.ragged, args.prefill is not None, args.graph)) > 1:
+        raise SystemExit("profile_decode: --ragged, --prefill and --graph profile "
+                         "different dispatches")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
 
     from ..engine.config import EngineConfig
-    from ..engine.engine import _decode_fn, _prefill_fn, _ragged_fn, ragged_zero_operands
-    from ..engine.kv_cache import init_paged_kv
+    from ..engine.engine import _prefill_fn, _ragged_fn, ragged_zero_operands
     from ..models.config import get_config
     from ..models.transformer import init_params
     from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
@@ -79,44 +87,19 @@ def main() -> None:
     econf = EngineConfig(model="llama-3-8b")
     cfg = get_config(econf.model)
     B, steps = econf.max_decode_slots, econf.decode_block_steps
+    P, ps = econf.pages_per_seq, econf.page_size
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, torch.bfloat16, dev, gen)
     int8 = args.kv_dtype == "int8"
-    paged = init_paged_kv(cfg, econf.num_pages, econf.page_size, torch.bfloat16, dev,
-                          kv_dtype=torch.int8 if int8 else None)
-    P, ps = econf.pages_per_seq, econf.page_size
+    paged, state = decode_lanes(econf, cfg, args.context, gen, int8)
     per = -(-(args.context + 3 * steps) // ps)
-    if per > P:
-        raise SystemExit(f"profile_decode: context {args.context} needs {per} "
-                         f"pages of a {P}-entry table")
-    # Distinct pages while the pool lasts; past it, lanes share pages
-    # (the data is random either way; every id stays inside the pool).
-    ids = 1 + torch.arange(B * per, device=dev) % (econf.num_pages - 1)
-    tables = torch.zeros((B, P), dtype=torch.int32, device=dev)
-    tables[:, :per] = ids.reshape(B, per).to(torch.int32)
-    state = dict(
-        last_tokens=torch.randint(3, 259, (B,), generator=gen, device=dev,
-                                  dtype=torch.int32),
-        seq_lens=torch.full((B,), args.context, dtype=torch.int32, device=dev),
-        page_tables=tables,
-        active=torch.ones(B, dtype=torch.bool, device=dev),
-        caps=torch.full((B,), econf.max_seq_len, dtype=torch.int32, device=dev),
-        seeds=torch.zeros((B, 2), dtype=torch.int32, device=dev),
-        temperature=torch.zeros(B, device=dev),
-        top_p=torch.ones(B, device=dev),
-        top_k=torch.zeros(B, dtype=torch.int32, device=dev),
-    )
-
-    lane_args = [state[k] for k in ("last_tokens", "seq_lens", "page_tables", "active",
-                                    "caps", "seeds", "temperature", "top_p", "top_k")]
-
-    def block():
-        nonlocal paged
-        packed, *_, paged = _decode_fn(
-            params, cfg, paged, *lane_args, greedy=True, steps=steps, eos_id=-1,
-        )
-        return packed.cpu()
+    lane_args = [state[k] for k in LANES]
+    eager, reset = decode_block(params, cfg, paged, state, steps)
+    blocks = {"eager": lambda: eager().cpu()}
+    if args.graph:
+        graph, _ = decode_block(params, cfg, paged, state, steps, graph=True)
+        blocks["graph"] = lambda: graph().cpu()
 
     if args.ragged:
         # The engine's stream: W = the default 1024-token budget, padded so
@@ -145,13 +128,14 @@ def main() -> None:
         pre_dev = [torch.from_numpy(a).to(dev) for a in pre]
         steps = 1
 
-        def block():  # noqa: F811 - the ragged dispatch replaces the block
-            nonlocal paged
-            packed, *_, first, paged = _ragged_fn(
+        def ragged():
+            packed, *_, first, _ = _ragged_fn(
                 params, cfg, paged, *lane_args, *pre_dev, greedy=True, eos_id=-1,
                 work=work,
             )
             return torch.cat([packed.reshape(-1), first]).cpu()
+
+        blocks = {"ragged": ragged}
 
     if args.prefill is not None:
         T = args.prefill
@@ -172,11 +156,12 @@ def main() -> None:
                 state["top_k"][:1])
         steps = 1
 
-        def block():  # noqa: F811 - the prefill replaces the block
-            nonlocal paged
-            token, paged = _prefill_fn(params, cfg, paged, tokens, start, last_rel, ptable,
-                                       *samp, greedy=True, aligned=aligned)
+        def prefill():
+            token, _ = _prefill_fn(params, cfg, paged, tokens, start, last_rel, ptable,
+                                   *samp, greedy=True, aligned=aligned)
             return token.cpu()
+
+        blocks = {"prefill": prefill}
 
     pool = "int8 KV" if int8 else "bf16 KV"
     if args.prefill is not None:
@@ -194,36 +179,127 @@ def main() -> None:
     unit = "prefill" if args.prefill is not None else "dispatch" if args.ragged else "step"
     labels = _labelled_ranges() if args.prefill is not None else contextlib.nullcontext()
     runs = collections.defaultdict(list)
+    names = list(blocks)
     with labels, torch.inference_mode():
-        block()
+        for fn in blocks.values():
+            reset()
+            fn()
         torch.cuda.synchronize()
         for rep in range(args.repeat):
-            t0 = time.perf_counter()
-            block()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                block()
+            # In turns: a, b, b, a, ... so drift falls on both alike.
+            for name in names if rep % 2 == 0 else names[::-1]:
+                fn = blocks[name]
+                reset()
                 torch.cuda.synchronize()
-            for key, value in _report(prof, wall_ms, steps, unit, args.prefill is not None,
-                                      rep == args.repeat - 1).items():
-                runs[key].append(value)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+                reset()
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                tag = f"{name} " if len(names) > 1 else ""
+                for key, value in _report(prof, wall_ms, steps, unit, args.prefill is not None,
+                                          rep == args.repeat - 1, tag).items():
+                    runs[tag + key].append(value)
     if args.repeat > 1:
         for key, values in runs.items():
             print(f"[profile_decode] {key} over {args.repeat} runs: median "
                   f"{statistics.median(values):.3f}, range {min(values):.3f}-"
-                  f"{max(values):.3f}")
+                  f"{max(values):.3f} on {card}")
+
+
+LANES = ("last_tokens", "seq_lens", "page_tables", "active", "caps", "seeds",
+         "temperature", "top_p", "top_k")
+
+
+def decode_lanes(econf, cfg, context: int, gen: torch.Generator, int8: bool):
+    """The engine's default paged KV pool on the card (int8 values with bf16
+    scales for `int8`) and its `max_decode_slots` lanes live and greedy at
+    `context` positions, each table holding room for three blocks more.
+    Returns (paged, lane state dict keyed as the engine's)."""
+    from ..engine.kv_cache import init_paged_kv
+
+    dev = torch.device("cuda")
+    B, steps = econf.max_decode_slots, econf.decode_block_steps
+    paged = init_paged_kv(cfg, econf.num_pages, econf.page_size, torch.bfloat16, dev,
+                          kv_dtype=torch.int8 if int8 else None)
+    P, ps = econf.pages_per_seq, econf.page_size
+    per = -(-(context + 3 * steps) // ps)
+    if per > P:
+        raise SystemExit(f"profile_decode: context {context} needs {per} "
+                         f"pages of a {P}-entry table")
+    # Distinct pages while the pool lasts; past it, lanes share pages
+    # (the data is random either way; every id stays inside the pool).
+    ids = 1 + torch.arange(B * per, device=dev) % (econf.num_pages - 1)
+    tables = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    tables[:, :per] = ids.reshape(B, per).to(torch.int32)
+    state = dict(
+        last_tokens=torch.randint(3, 259, (B,), generator=gen, device=dev,
+                                  dtype=torch.int32),
+        seq_lens=torch.full((B,), context, dtype=torch.int32, device=dev),
+        page_tables=tables,
+        active=torch.ones(B, dtype=torch.bool, device=dev),
+        caps=torch.full((B,), econf.max_seq_len, dtype=torch.int32, device=dev),
+        seeds=torch.zeros((B, 2), dtype=torch.int32, device=dev),
+        temperature=torch.zeros(B, device=dev),
+        top_p=torch.ones(B, device=dev),
+        top_k=torch.zeros(B, dtype=torch.int32, device=dev),
+    )
+    return paged, state
+
+
+def decode_block(params, cfg, paged, state: dict, steps: int, graph: bool = False):
+    """(run, reset) for one greedy decode block of `steps` over the lanes
+    of `state`: `run()` dispatches it, eagerly (`engine._decode_fn`) or, with
+    `graph`, as the replay of a CUDA graph captured here the engine's way
+    (engine/decode_graph.py, on idle lanes that are then set live again),
+    and returns its packed [steps, B] tokens on the device; `reset()` puts
+    the lanes back where they were when this was called (a block advances
+    them in place)."""
+    from ..engine.decode_graph import DecodeGraphs
+    from ..engine.engine import _decode_fn
+
+    live = {k: t.clone() for k, t in state.items()}
+
+    def reset():
+        for k, t in live.items():
+            state[k].copy_(t)
+
+    def body(*, greedy, steps):
+        return _decode_fn(params, cfg, paged, *(state[k] for k in LANES),
+                          greedy=greedy, steps=steps, eos_id=-1)
+
+    if not graph:
+        return (lambda: body(greedy=True, steps=steps)), reset
+    for k in ("last_tokens", "seq_lens", "page_tables", "active"):
+        state[k].zero_()
+    graphs = DecodeGraphs(body, torch.device("cuda"), [(True, steps)])
+    with torch.inference_mode():
+        graphs.capture()
+    reset()
+    return (lambda: graphs.run(True, steps)), reset
+
+
+def device_kernels(prof) -> list:
+    """The CUDA kernels a torch.profiler run recorded on the card (without
+    the labelled ranges' annotation spans)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _RANGES]
 
 
 def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
-            top_kernels: bool) -> dict:
-    """Print one measurement; returns its numbers per `unit`."""
+            top_kernels: bool, tag: str = "") -> dict:
+    """Print one measurement (labelled `tag`); returns its numbers per
+    `unit`."""
     # A record_function range also shows on the device as an annotation
     # spanning its kernels (idle gaps included): kept apart, not a kernel.
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [e for e in device if e.name in _RANGES]
-    kernels = [e for e in device if e.name not in _RANGES]
+    spans = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.name in _RANGES]
+    kernels = device_kernels(prof)
     by_name: dict = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
@@ -235,7 +311,7 @@ def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
                     if "ragged" in name) / 1e3 / steps
     write_ms = sum(us for name, (us, _) in by_name.items()
                    if "paged_write" in name) / 1e3 / steps
-    print(f"[profile_decode] per {unit}: wall {wall_ms:.3f} ms (host clock, "
+    print(f"[profile_decode] {tag}per {unit}: wall {wall_ms:.3f} ms (host clock, "
           f"unprofiled block); device busy in kernels {busy_ms:.3f} ms "
           f"(profiled block); idle share {1 - busy_ms / wall_ms:.3f}; "
           f"{len(kernels) / steps:.0f} kernel launches; decode attention "
@@ -252,7 +328,8 @@ def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
             print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/{unit} "
                   f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
     return {"wall ms": wall_ms, "device busy ms": busy_ms,
-            "idle share": 1 - busy_ms / wall_ms, "decode attention ms": decode_ms,
+            "idle share": 1 - busy_ms / wall_ms, "kernel launches": len(kernels) / steps,
+            "decode attention ms": decode_ms,
             "ragged attention ms": ragged_ms, "paged write kernel ms": write_ms}
 
 # Functions whose kernels the prefill breakdown counts under their own

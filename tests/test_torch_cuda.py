@@ -710,3 +710,181 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
     odd.copy_(ks)
     with pytest.raises(ValueError, match="4-byte aligned"):
         rk.ragged_attention_cuda(args[0], (kq, odd), (vq, vs), *args[3:], scale=0.1)
+
+
+# -- the decode block as CUDA graphs (engine/decode_graph.py) -----------------
+
+_LANES = ("last_tokens", "seq_lens", "page_tables", "active", "caps", "seeds",
+          "temperature", "top_p", "top_k")
+
+
+def _graph_parts(gen, int8):
+    """A 2-layer model at head_dim 64 (2 query heads per kv head, so both
+    decode kernels take it), bf16 weights, pools of 64 pages of 16 rows
+    (int8 values with bf16 scales for `int8`), and 4 idle lanes."""
+    from dataclasses import replace
+
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.transformer import init_params
+
+    cfg = replace(get_config("tiny-llama"), hidden_size=256, intermediate_size=512,
+                  head_dim=64)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen)
+    paged = init_paged_kv(cfg, 64, 16, torch.bfloat16, "cuda",
+                          kv_dtype=torch.int8 if int8 else None)
+    B, P = 4, 16
+    i32 = dict(dtype=torch.int32, device="cuda")
+    state = dict(
+        last_tokens=torch.zeros(B, **i32), seq_lens=torch.zeros(B, **i32),
+        page_tables=torch.zeros((B, P), **i32),
+        active=torch.zeros(B, dtype=torch.bool, device="cuda"),
+        caps=torch.zeros(B, **i32), seeds=torch.zeros((B, 2), **i32),
+        temperature=torch.zeros(B, device="cuda"), top_p=torch.ones(B, device="cuda"),
+        top_k=torch.zeros(B, **i32),
+    )
+    return cfg, params, paged, state
+
+
+def _capture(cfg, params, paged, state, eos_id=2):
+    """DecodeGraphs over the parts, captured for steps 8 and 1 while every
+    lane is idle, as the engine captures."""
+    from polykey_tpu_torch.engine.decode_graph import DecodeGraphs
+    from polykey_tpu_torch.engine.engine import _decode_fn
+
+    def body(*, greedy, steps):
+        return _decode_fn(params, cfg, paged, *(state[k] for k in _LANES),
+                          greedy=greedy, steps=steps, eos_id=eos_id)
+
+    graphs = DecodeGraphs(body, torch.device("cuda"),
+                          [(g, k) for g in (True, False) for k in (8, 1)])
+    with torch.inference_mode():
+        graphs.capture()
+    return graphs
+
+
+def _fill_lanes(gen, paged, state, sampled):
+    """Random KV in every pool; lanes 0-2 live at contexts 5, 40 and 100 on
+    pages of their own (lane 3 idle on the garbage page); sampled lanes at
+    temperatures 0.8 and 1.0 with top-p and top-k, one greedy."""
+    for t in (paged.k, paged.v):
+        if paged.quantized:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda",
+                                  dtype=torch.int32).to(torch.int8))
+        else:
+            t.copy_(_randn(t.shape, gen))
+    for t in (paged.ks, paged.vs):
+        if t is not None:
+            t.copy_((torch.rand(t.shape, generator=gen, device="cuda") * 0.02
+                     + 1e-3).to(torch.bfloat16))
+    P = state["page_tables"].shape[1]
+    for b, n in enumerate((5, 40, 100)):
+        state["page_tables"][b] = torch.arange(1 + P * b, 1 + P * (b + 1))
+        state["seq_lens"][b] = n
+    state["last_tokens"][:3] = torch.randint(3, 500, (3,), generator=gen, device="cuda",
+                                             dtype=torch.int32)
+    state["active"][:3] = True
+    state["caps"][:3] = 200
+    state["seeds"].copy_(torch.randint(0, 1 << 30, (4, 2), generator=gen, device="cuda",
+                                       dtype=torch.int32))
+    if sampled:
+        state["temperature"][:3] = torch.tensor([0.8, 1.0, 0.0])
+        state["top_p"][0] = 0.9
+        state["top_k"][0] = 20
+
+
+def _pools(paged):
+    return [t for t in (paged.k, paged.v, paged.ks, paged.vs) if t is not None]
+
+
+def _eager_and_replay(cfg, params, paged, state, graphs, greedy, steps, eos_id=2):
+    """The eager `_decode_fn` on copies of the lane state and the pools, then
+    a replay on the live ones; returns (eager packed, replay packed, eager
+    lane state, eager pools)."""
+    from polykey_tpu_torch.engine.engine import _decode_fn
+    from polykey_tpu_torch.engine.kv_cache import PagedKV
+
+    with torch.inference_mode():
+        ref = {k: t.clone() for k, t in state.items()}
+        ref_paged = PagedKV(*(t.clone() if t is not None else None
+                              for t in (paged.k, paged.v, paged.ks, paged.vs)))
+        want = _decode_fn(params, cfg, ref_paged, *(ref[k] for k in _LANES),
+                          greedy=greedy, steps=steps, eos_id=eos_id)
+        got = graphs.run(greedy, steps).clone()
+    torch.cuda.synchronize()
+    return want, got, ref, ref_paged
+
+
+@pytest.mark.parametrize("steps", [8, 1])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_graph_replay_matches_eager(gen, int8, greedy, steps):
+    """Captured while every lane is idle, a replay from live lanes gives
+    the eager block's packed tokens, final lane state and pools, bit for
+    bit; the capture's warm-up wrote only the garbage page."""
+    cfg, params, paged, state = _graph_parts(gen, int8)
+    graphs = _capture(cfg, params, paged, state)
+    assert graphs.captures == 4 and graphs.pool_bytes >= 0
+    assert all(not t[:, 1:].any() for t in _pools(paged)), "warm-up wrote past page 0"
+    assert not state["active"].any() and not state["seq_lens"].any()
+    _fill_lanes(gen, paged, state, sampled=not greedy)
+    want, got, ref, ref_paged = _eager_and_replay(cfg, params, paged, state, graphs,
+                                                  greedy, steps)
+    assert got.shape == (steps, 4) and (got[:, :3] >= 0).any()
+    assert torch.equal(got, want) and (got[:, 3] == -1).all()
+    for k in _LANES:
+        assert torch.equal(state[k], ref[k]), k
+    for a, b in zip(_pools(paged), _pools(ref_paged)):
+        assert torch.equal(a, b)
+    assert graphs.replays == 1
+
+
+def test_decode_graph_serves_a_lane_merged_in_place(gen):
+    """A lane merged by `_merge_lane_fn` after the capture (in place, as the
+    engine merges) is served by the next replay as by the eager block."""
+    from polykey_tpu_torch.engine.engine import _merge_lane_fn
+
+    cfg, params, paged, state = _graph_parts(gen, False)
+    graphs = _capture(cfg, params, paged, state)
+    _fill_lanes(gen, paged, state, sampled=False)
+    ptrs = {k: t.data_ptr() for k, t in state.items()}
+    with torch.inference_mode():
+        first = torch.tensor([0, 321], dtype=torch.int32, device="cuda")
+        table = torch.zeros(16, dtype=torch.int32, device="cuda")
+        table[:15] = torch.arange(49, 64)
+        _merge_lane_fn(state, 3, first, 1, 30, 200, 0.0, 1.0, 0, table,
+                       torch.tensor([5, 6], dtype=torch.int32, device="cuda"), eos_id=2)
+    want, got, ref, _ = _eager_and_replay(cfg, params, paged, state, graphs, True, 8)
+    assert {k: t.data_ptr() for k, t in state.items()} == ptrs
+    assert got[0, 3].item() >= 0 and torch.equal(got, want)
+    for k in _LANES:
+        assert torch.equal(state[k], ref[k]), k
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_graph_counts_launches_and_resets_the_counters(gen, int8):
+    """Capture and warm-up count no launch; each replay adds the launches its
+    capture made (one decode and one write kernel a layer a step); every
+    arrival counter reads 0 after replays."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+
+    decode = pak.KERNEL_INT8 if int8 else pak.KERNEL
+    write = pw.KERNEL_INT8 if int8 else pw.KERNEL
+    cfg, params, paged, state = _graph_parts(gen, int8)
+    before = (decode.launches, write.launches)
+    graphs = _capture(cfg, params, paged, state)
+    assert (decode.launches, write.launches) == before
+    _fill_lanes(gen, paged, state, sampled=True)
+    L = cfg.num_layers
+    with torch.inference_mode():
+        for greedy, steps in ((True, 8), (False, 1), (False, 8), (True, 1)):
+            n0, w0 = decode.launches, write.launches
+            graphs.run(greedy, steps)
+            assert decode.launches - n0 == L * steps
+            assert write.launches - w0 == L * steps
+    torch.cuda.synchronize()
+    assert graphs.replays == 4
+    for held in pak._ARRIVALS.values():
+        for buf in held:
+            assert not buf.any()

@@ -172,10 +172,21 @@ def test_stats_report_kernel_launches(engines):
 def test_unported_knobs_refuse_to_start():
     for knob in (dict(prefix_cache=True),
                  dict(host_kv_bytes=1 << 20), dict(draft_model="tiny-llama"),
-                 dict(quantize=True), dict(tp=2),
-                 dict(lookahead_blocks=2)):
+                 dict(quantize=True), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()
+
+
+def test_pipeline_knobs_validate_with_the_reference_defaults():
+    """The lookahead pipeline and the adaptive block are served: both
+    validate, and the defaults are the JAX EngineConfig's."""
+    dataclasses.replace(TEST_CONFIG, lookahead_blocks=2, adaptive_block=True).validate()
+    with pytest.raises(ValueError, match="lookahead_blocks"):
+        dataclasses.replace(TEST_CONFIG, lookahead_blocks=0).validate()
+    port, ref = EngineConfig(), JEngineConfig()
+    for name in ("decode_block_steps", "adaptive_block", "lookahead_blocks"):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert port.lookahead_blocks == 2 and port.adaptive_block is True
 
 
 def test_default_device_is_the_gpu(monkeypatch):

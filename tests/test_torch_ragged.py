@@ -485,7 +485,10 @@ def test_ragged_budget_clipped_chunk_tail(jax_params, want):
 
 
 def test_ragged_decode_only_iterations_keep_block_path(jax_params):
-    _, stats = _serve(jax_params, [dict(prompt="abc", max_new_tokens=12, seed=1)],
+    """Two lanes (a lone one would take the adaptive block's 1-step blocks):
+    their decode-only iterations run K-step blocks."""
+    _, stats = _serve(jax_params, [dict(prompt="abc", max_new_tokens=12, seed=1),
+                                   dict(prompt="xyz", max_new_tokens=12, seed=1)],
                       ragged_dispatch=True)
     assert stats["steps_dispatched"] > stats["blocks_dispatched"]
 
