@@ -44,9 +44,17 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             Every serve runs the default pipeline: lookahead depth 2 and
             the adaptive block, each decode block a replay of one of the
             four CUDA graphs the engine captured at start ((greedy,
-            sampled) x (8, 1) steps). Each prints its replays and
-            captures, the observed lookahead and the host stall p50, and
-            fails unless the graphs were replayed in it.
+            sampled) x (8, 1) steps), and in the bucketed serves each
+            prefill and chunk a replay of one of 16 prefill graphs
+            (buckets 128, 512 x group pads 1, 2, 4, 8 x greedy, sampled),
+            its first token read lazily; a ragged dispatch goes out
+            without draining the blocks in flight. Each prints the graphs'
+            capture seconds and pool bytes, its replays, the observed
+            lookahead and the host stall p50, and fails unless the decode
+            graphs were replayed in it, and (bucketed) unless the prefill
+            graphs were, no prefill ran eagerly and every flash launch came
+            from a prefill replay, or (ragged) unless a ragged dispatch
+            went out with another block in flight.
 8. graph:   the full-depth Llama-3-8B decode block (16 greedy lanes at
             context 512, as profile_decode sets it up; bf16 and int8 KV),
             eager and as a replay of its graph, from the same lane state:
@@ -54,6 +62,11 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             then both in turns (eager, graph, graph, eager, ...), each
             run's wall per step on the host clock and its idle share from
             torch.profiler.
+9. prefill-graph: the full-depth bucketed prefill (512 tokens at positions
+            1024..1535, 1 and 8 rows, greedy; bf16 and int8 KV), eager and
+            as a replay of its graph, from the same pools: the sampled
+            tokens and the KV pages of the rows must be identical; then
+            both in turns, 3 runs each, each run's wall and idle share.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -1048,7 +1061,7 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
     try:
         check(config.lookahead_blocks == 2 and config.adaptive_block,
               f"not the default pipeline: {config}")
-        replays = engine.stats()["decode_graph_replays"]
+        before = engine.stats()
         for k in KERNELS.values():
             k.launches = 0
         results = _serve_requests(stub, pk, submitted)
@@ -1056,9 +1069,13 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         stats = engine.stats()
         sync()
         say(phase, f"kernel launches in this phase: {counts}")
-        replays = stats["decode_graph_replays"] - replays
-        say(phase, f"decode graphs: {stats['decode_graph_captures']} captured at start "
-            f"(pool {stats['decode_graph_pool_bytes'] / 2**20:.1f} MiB), {replays} "
+        replays = stats["decode_graph_replays"] - before["decode_graph_replays"]
+        prefills = stats["prefill_graph_replays"] - before["prefill_graph_replays"]
+        say(phase, f"graphs captured at start in {stats['graph_capture_s']:.2f} s: "
+            f"{stats['decode_graph_captures']} decode, {stats['prefill_graph_captures']} "
+            f"prefill, one pool of {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
+            f"(decode and prefill together) on {card}")
+        say(phase, f"decode graphs: {replays} "
             f"replays in this phase; lookahead depth {stats['lookahead_depth']}, "
             f"observed max {stats['lookahead_observed_max']} (mean "
             f"{stats['lookahead_observed_mean']}; {stats['blocks_overlapped']} of "
@@ -1068,6 +1085,27 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         check(stats["decode_graph_captures"] == 4,
               f"{stats['decode_graph_captures']} decode graphs captured, not 4")
         check(replays > 0, "no decode graph was replayed in this phase")
+        layers = len(engine.params["layers"])
+        if ragged:
+            behind = (stats["ragged_behind_inflight"]
+                      - before["ragged_behind_inflight"])
+            say(phase, f"ragged dispatches: {stats['ragged_dispatches'] - before['ragged_dispatches']}"
+                f" in this phase, {behind} of them dispatched with another block "
+                f"in flight")
+            check(behind > 0, "no ragged dispatch went out with another block in flight")
+        else:
+            eager = stats["prefill_eager"] - before["prefill_eager"]
+            say(phase, f"prefill graphs: {prefills} replays in this phase, {eager} "
+                f"prefills run eagerly; flash launches {counts['flash_attention']} "
+                f"= {layers} layers x {counts['flash_attention'] / layers:.0f}")
+            check(stats["prefill_graph_captures"] == 16,
+                  f"{stats['prefill_graph_captures']} prefill graphs captured, not 16")
+            check(prefills > 0 and eager == 0,
+                  f"prefills: {prefills} graph replays, {eager} eager")
+            # Flash runs only in the prefill: every launch came from a replay.
+            check(counts["flash_attention"] == layers * prefills,
+                  f"{counts['flash_attention']} flash launches for {prefills} prefill "
+                  f"replays of {layers} layers")
         # The ragged modes' prefills ride the stream (flash 0); int8 KV
         # runs only the int8 variants, bf16 KV only the bf16 ones.
         want = SERVE_KERNELS[(ragged, int8)]
@@ -1176,6 +1214,101 @@ def phase_graph(seed: int, params, card: str, turns: int = 3) -> None:
                 f"ms (range {min(w):.3f}-{max(w):.3f}), idle share median "
                 f"{statistics.median(i):.3f} (range {min(i):.3f}-{max(i):.3f}), "
                 f"{len(w)} runs, on {card}")
+
+
+# -- phase 9 ---------------------------------------------------------------
+
+def phase_prefill_graph(seed: int, params, card: str, turns: int = 3) -> None:
+    """The full-depth bucketed prefill (width 512 at positions 1024..1535,
+    group pads 1 and 8, greedy) eager and as its graph's replay from the
+    same pools: identical tokens and KV pages, then walls and idle shares
+    in turns."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.tools.profile_decode import (
+        device_kernels,
+        prefill_block,
+        prefill_inputs,
+    )
+
+    econf = EngineConfig(model="llama-3-8b")
+    cfg = get_config(econf.model)
+    T, context = max(econf.prefill_buckets), 1024
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for int8 in (False, True):
+        kv = "int8 KV" if int8 else "bf16 KV"
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        paged = init_paged_kv(cfg, econf.num_pages, econf.page_size, torch.bfloat16,
+                              "cuda", kv_dtype=torch.int8 if int8 else None)
+        pools = [t for t in (paged.k, paged.v, paged.ks, paged.vs) if t is not None]
+        for n in (1, 8):
+            ops = prefill_inputs(econf, cfg, T, context, n, gen)
+            tables = ops.views(T)[3]
+            pages = torch.unique(tables[tables > 0]).long()
+            with torch.inference_mode():
+                eager = prefill_block(params, cfg, paged, ops, T)
+                graph = prefill_block(params, cfg, paged, ops, T, graph=True)
+                # Random KV on the rows' pages: the context is read, the
+                # chunk written.
+                for t in pools:
+                    shape = (t.shape[0], len(pages), *t.shape[2:])
+                    if t.dtype == torch.int8:
+                        fill = torch.randint(-127, 128, shape, generator=gen,
+                                             device="cuda", dtype=torch.int8)
+                    elif int8:
+                        fill = (torch.rand(shape, generator=gen, device="cuda") * 0.02
+                                + 1e-3).to(torch.bfloat16)
+                    else:
+                        fill = torch.randn(shape, generator=gen, device="cuda",
+                                           dtype=torch.bfloat16)
+                    t[:, pages] = fill
+                    del fill
+                saved = [t[:, pages].clone() for t in pools]
+                out = {}
+                for name, run in (("eager", eager), ("graph", graph)):
+                    for t, v in zip(pools, saved):
+                        t[:, pages] = v
+                    tokens = run().clone()
+                    out[name] = (tokens, [t[:, pages].clone() for t in pools])
+                sync()
+                check(torch.equal(out["graph"][0], out["eager"][0]),
+                      f"{kv}, {n} rows: the graph's tokens differ from the eager prefill's")
+                check(all(torch.equal(a, b) for a, b in zip(out["graph"][1], out["eager"][1])),
+                      f"{kv}, {n} rows: the graph's KV pages differ from the eager prefill's")
+                check(not all(torch.equal(a, b) for a, b in zip(saved, out["eager"][1])),
+                      f"{kv}, {n} rows: the prefill wrote no KV")
+                tokens = out["eager"][0].tolist()
+                del saved, out
+                walls, idle = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+                for turn in range(2 * turns):
+                    name = ("eager", "graph", "graph", "eager")[turn % 4]
+                    run = eager if name == "eager" else graph
+                    sync()
+                    t0 = time.perf_counter()
+                    run()
+                    sync()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    with torch.profiler.profile(activities=acts) as prof:
+                        run()
+                        sync()
+                    busy = sum(e.time_range.elapsed_us() for e in device_kernels(prof)) / 1e3
+                    walls[name].append(wall)
+                    idle[name].append(1 - busy / wall if busy else float("nan"))
+            del graph, eager, ops
+            torch.cuda.empty_cache()
+            say("prefill-graph", f"llama-3-8b 32 layers bf16, {kv}, {n} x {T} tokens at "
+                f"positions {context}..{context + T - 1}, greedy: graph replay and eager "
+                f"prefill identical (tokens {tokens}, the KV pages of {len(pages)} pages)")
+            for name in ("eager", "graph"):
+                w, i = walls[name], idle[name]
+                say("prefill-graph", f"{kv}, {n} rows, {name}: walls "
+                    f"{', '.join(f'{x:.3f}' for x in w)} ms, idle shares "
+                    f"{', '.join(f'{x:.3f}' for x in i)}; median wall "
+                    f"{statistics.median(w):.3f} ms, idle {statistics.median(i):.3f}, "
+                    f"on {card}")
+        del paged, pools
+        torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -1304,6 +1437,8 @@ def main() -> int:
         params = out.pop("params")
         serves[(ragged, int8)] = out
     phase_graph(args.seed, params, dev["smi"])
+    sync()
+    phase_prefill_graph(args.seed, params, dev["smi"])
     sync()
     del params
     for int8 in (False, True):

@@ -12,7 +12,13 @@ GPU (the reference's engine/engine.py, default path).
   1, 2, 4 or 8 rows). The sampled first token and the slot's geometry are
   merged into the device-resident lane state (`_merge_lane_fn`). A prompt
   longer than the largest bucket prefills in chunks of `prefill_chunk`
-  tokens, one per loop iteration (`_advance_chunked_prefills`).
+  tokens, one per loop iteration (`_advance_chunked_prefills`). On the
+  GPU every prefill is a replay of a CUDA graph captured at engine start
+  per (width, group pad, greedy, aligned), the counterpart of the
+  reference's one executable per static prefill shape; a chunk at an
+  offset replays its width's graph, positions being operands. The
+  operands go up through pinned memory into fixed buffers, without a
+  sync.
 - Interleaving: while decode lanes are live, each loop iteration admits
   and chunks at most `prefill_budget` prefill tokens (the first chunk
   always goes: a progress floor), round-robin over pending slots.
@@ -20,10 +26,10 @@ GPU (the reference's engine/engine.py, default path).
   with device-side EOS/cap liveness (`_decode_fn`) and returns one packed
   [K, B] token array (-1 where a lane emitted nothing). On the GPU each
   block is a replay of a CUDA graph captured once per (greedy, steps) at
-  engine start (engine/decode_graph.py), the counterpart of the
-  reference's jitted block; the lane state lives in fixed buffers that
-  every writer updates in place. With the adaptive block (the default) a
-  lone active stream gets blocks of max(1, K // 8) steps.
+  engine start (engine/graphs.py), the counterpart of the reference's
+  jitted block; the lane state lives in fixed buffers that every writer
+  updates in place. With the adaptive block (the default) a lone active
+  stream gets blocks of max(1, K // 8) steps.
 - Lookahead pipeline (`lookahead_blocks`, POLYKEY_DISPATCH_LOOKAHEAD;
   default 2): a block's packed tokens go to pinned host memory by a
   non-blocking copy and a CUDA event, and the host processes the block
@@ -33,14 +39,23 @@ GPU (the reference's engine/engine.py, default path).
   safe: device-side stopping ends the lanes the host finished, and a
   per-block snapshot of the slots' requests keeps a cancelled lane's
   tokens from its slot's next occupant. Depth 1 is exactly synchronous.
-  A bucketed admission reads its first token at once, behind the blocks
-  in flight.
+- Lazy first token (the reference's `_resolve_prefills`): a merged
+  prefill's sampled token goes to pinned host memory the same way, and
+  the slot keeps a handle to it (`_FirstToken`). The loop delivers every
+  handle whose copy has landed after the dispatch frontier, all of them
+  on an idle iteration; before the host waits for a block it delivers
+  the first tokens queued ahead of that block (they land no later), and
+  a block's processing delivers a slot's first token before its block
+  tokens. Depth 1 reads it at once.
 - Ragged dispatch (`ragged_dispatch`, POLYKEY_RAGGED=1; kill switch
   POLYKEY_DISABLE_RAGGED=1): every prompt registers as pending token
-  ranges, and any iteration with prefill work drains the pipeline and runs
-  ONE synchronous flat dispatch of every decode lane's single token plus
-  up to the budget of prefill tokens (`_ragged_fn`, the ragged attention
-  kernel); pure-decode iterations replay the K-step block and pipeline.
+  ranges, and any iteration with prefill work runs ONE flat dispatch of
+  every decode lane's single token plus up to the budget of prefill
+  tokens (`_ragged_fn`, the ragged attention kernel), eagerly, returned
+  as an in-flight block like a decode block; pure-decode iterations
+  replay the K-step block. Its kernel work list is built from the host's
+  lengths plus the steps in flight, an estimate: the kernel reads the
+  true key counts on the device.
 - RNG: every sampled draw is keyed by (request seed, token position)
   (engine/sampling.py), so a seeded stream does not depend on the batch.
 - int8 KV (`kv_dtype="int8"`, POLYKEY_KV_DTYPE=int8): int8 value pools
@@ -49,13 +64,13 @@ GPU (the reference's engine/engine.py, default path).
   dispatch modes (flash still serves the bucketed prefill, over a window
   dequantized to bf16).
 
-Not ported yet (ROADMAP.md queue A): CUDA graphs of the prefill and of
-the ragged dispatch, the pipelined ragged dispatch and the lazy
-first-token read, the prefix cache, speculative decoding.
+Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
+dispatch, the prefix cache, speculative decoding.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import queue
 import threading
@@ -79,13 +94,14 @@ from ..ops import (
 )
 from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
 from .config import EngineConfig
-from .decode_graph import DecodeGraphs
+from .graphs import CudaGraphs
 from .kv_cache import AllocationError, BlockAllocator, PagedKV, init_paged_kv
 from .metrics import EngineMetrics, RequestTimings
 from .sampling import sample_tail
 from .tokenizer import load_tokenizer
 
 _MAX_PREFILL_GROUP = 8   # burst admissions batched per prefill dispatch
+_GROUP_PADS = (1, 2, 4, 8)
 
 # Error-message prefix contract with the gateway: engine failures that
 # begin with this map to gRPC DEADLINE_EXCEEDED (torch_service).
@@ -147,6 +163,9 @@ class _Slot:
     generated: int = 0
     merged: bool = False           # device lane activated
     last_emit: float = 0.0
+    # The merged prefill's first token on its way to host memory, until
+    # delivered.
+    first: Optional["_FirstToken"] = None
 
 
 class _RRCursor:
@@ -174,10 +193,10 @@ class _RRCursor:
 
 
 class _InflightBlock(NamedTuple):
-    """One dispatched-but-unprocessed decode block of the lookahead
-    pipeline: its packed [K, B] tokens on their way to host memory (`host`,
-    landed once `event` has fired; no event on the CPU, where the block ran
-    in the call), the request in each slot at dispatch time, and its
+    """One dispatched-but-unprocessed decode block (or ragged dispatch) of
+    the lookahead pipeline: its packed [K, B] tokens on their way to host
+    memory (`host`, landed once `event` has fired; no event on the CPU,
+    where the block ran in the call), the request in each slot at dispatch time, and its
     dispatch sequence number: at process time, the engine's
     `_dispatch_seq - seq` is the OBSERVED lookahead, the blocks dispatched
     after this one before its readback."""
@@ -185,6 +204,18 @@ class _InflightBlock(NamedTuple):
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
     reqs: list
+    seq: int
+
+
+class _FirstToken(NamedTuple):
+    """A merged lane's sampled first token on its way to host memory: row
+    `row` of `host`, landed once `event` has fired (no event on the CPU).
+    `seq` is the engine's `_dispatch_seq` when its copy was queued: every
+    block of a higher sequence number runs after it on the stream."""
+
+    host: torch.Tensor
+    event: Optional[torch.cuda.Event]
+    row: int
     seq: int
 
 
@@ -343,6 +374,88 @@ def ragged_zero_operands(B: int, W: int, P: int) -> tuple:
     )
 
 
+def _pack(arrays, pin: bool) -> torch.Tensor:
+    """The int32 and float32 `arrays` end to end in one int32 host tensor,
+    pinned (`pin`) for a copy to the card that does not synchronize.
+    A fresh tensor a call: PyTorch's pinned allocator keeps its block until
+    the copies that read it have run, so a refill cannot overtake a copy
+    still queued behind the blocks in flight."""
+    host = torch.empty(sum(a.size for a in arrays), dtype=torch.int32, pin_memory=pin)
+    flat = host.numpy()
+    off = 0
+    for a in arrays:
+        flat[off:off + a.size] = np.ascontiguousarray(a).view(np.int32).reshape(-1)
+        off += a.size
+    return host
+
+
+def _unpack(buf: torch.Tensor, specs) -> list:
+    """Views of the int32 tensor `buf` laid out as `_pack` lays out arrays
+    of `specs`, [(shape, numpy dtype)]."""
+    views, off = [], 0
+    for shape, dtype in specs:
+        n = int(np.prod(shape))
+        v = buf[off:off + n]
+        if np.dtype(dtype) == np.float32:
+            v = v.view(torch.float32)
+        views.append(v.view(shape))
+        off += n
+    return views
+
+
+def _to_device(arrays, device) -> list:
+    """`arrays` (int32, float32) on `device` as views of one buffer, sent
+    by one copy through pinned memory that does not synchronize."""
+    dev = torch.device(device)
+    host = _pack(arrays, pin=dev.type == "cuda")
+    buf = host.to(dev, non_blocking=True)
+    return _unpack(buf, [(a.shape, a.dtype) for a in arrays])
+
+
+def prefill_graph_keys(buckets, chunk: int, page_size: int) -> list:
+    """The prefill graphs' keys (width, n_pad, greedy, aligned): every
+    bucket at every group pad, and the chunk width alone when it is no
+    bucket. Buckets prefill from position 0 and chunks from multiples of
+    the chunk, so a width's windows are page-aligned exactly when the
+    width is a multiple of the page size: `aligned` takes that one value."""
+    shapes = {(w, n) for w in buckets for n in _GROUP_PADS} | {(chunk, 1)}
+    return [(w, n, g, w % page_size == 0) for w, n in sorted(shapes)
+            for g in (True, False)]
+
+
+class PrefillOperands:
+    """`_prefill_fn`'s operands at group pad `n`, in fixed buffers (the
+    addresses the prefill graphs capture), made as ordinary allocations
+    before any capture and zero-filled, so every table row points at the
+    garbage page 0. One int32 buffer holds starts, last_rel, tables, seeds,
+    temperature, top_p, top_k and, last, the [n, width] tokens, so every
+    width's views start at the same addresses; `upload` fills it by one
+    copy (through pinned memory on the card, without a sync)."""
+
+    def __init__(self, n: int, max_width: int, pages_per_seq: int, device):
+        self.n, self._P = n, pages_per_seq
+        size = sum(int(np.prod(shape)) for shape, _ in self.specs(max_width))
+        self.buf = torch.zeros(size, dtype=torch.int32, device=device)
+
+    def specs(self, width: int) -> list:
+        n, i32, f32 = self.n, np.int32, np.float32
+        return [((n,), i32), ((n,), i32), ((n, self._P), i32), ((n, 2), i32),
+                ((n,), f32), ((n,), f32), ((n,), i32), ((n, width), i32)]
+
+    def views(self, width: int) -> tuple:
+        """Device views in `_prefill_fn`'s order: (tokens, start, last_rel,
+        page_table, seeds, temperature, top_p, top_k)."""
+        *rest, tokens = _unpack(self.buf, self.specs(width))
+        return (tokens, *rest)
+
+    def upload(self, tokens, start, last_rel, page_table, seeds, temperature,
+               top_p, top_k) -> None:
+        """Fill the buffers from numpy arrays in `views`' order."""
+        host = _pack([start, last_rel, page_table, seeds, temperature, top_p, top_k,
+                      tokens], pin=self.buf.is_cuda)
+        self.buf[:host.numel()].copy_(host, non_blocking=True)
+
+
 def _merge_lane_fn(
     state: dict, slot: int, tokens_vec, row: int, seq_len: int, cap: int,
     temp: float, tp: float, tk: int, table_row, seed_row, *, eos_id: int,
@@ -433,15 +546,10 @@ class InferenceEngine:
         self._slots: list[Optional[_Slot]] = [None] * B
 
         # Block sizes: K, and with the adaptive block max(1, K // 8) for a
-        # lone stream; one decode graph per (greedy, steps), captured on
-        # the engine thread before it serves.
+        # lone stream.
         K = config.decode_block_steps
         self._block_steps = K
         self._solo_steps = max(1, K // 8) if config.adaptive_block else K
-        self._graphs = DecodeGraphs(
-            self._decode_block, self.device,
-            [(g, k) for g in (True, False) for k in (K, self._solo_steps)],
-        )
         # Lookahead pipeline: dispatched-but-unprocessed blocks, oldest
         # first. Depth counts the block just dispatched, so depth 2 keeps
         # one block in flight while the next is dispatched and depth 1 is
@@ -476,6 +584,24 @@ class InferenceEngine:
         # so the whole stream (B + W rows) is a multiple of TOKEN_TILE.
         W = max(self._prefill_budget, self._chunk)
         self._ragged_width = W + (-(B + W)) % TOKEN_TILE
+        self._ragged_dispatches = 0
+        self._ragged_behind = 0      # dispatched with a block in flight
+
+        # CUDA graphs, captured on the engine thread before it serves: one
+        # decode block per (greedy, steps), and in bucketed mode one
+        # prefill per (width, group pad, greedy, aligned) over the fixed
+        # operand buffers of each group pad.
+        bodies = {"decode": (self._decode_block, [
+            (g, k) for g in (True, False) for k in (K, self._solo_steps)])}
+        self._prefill_ops: dict[int, PrefillOperands] = {}
+        if not self._ragged:
+            keys = prefill_graph_keys(config.prefill_buckets, self._chunk,
+                                      config.page_size)
+            widest = max(k[0] for k in keys)
+            self._prefill_ops = {n: PrefillOperands(n, widest, P, dev)
+                                 for n in _GROUP_PADS}
+            bodies["prefill"] = (self._prefill_body, keys)
+        self._graphs = CudaGraphs(self.device, bodies)
 
         self._submit: queue.Queue[GenRequest] = queue.Queue()
         self._wake = threading.Event()
@@ -486,9 +612,11 @@ class InferenceEngine:
             target=self._run, name="polykey-engine", daemon=True
         )
         self._thread.start()
-        # The engine thread captures the decode graphs first; no other
-        # thread may touch the device while it captures.
+        # The engine thread captures the graphs first; no other thread may
+        # touch the device while it captures. A failed capture raises here.
         self._started.wait()
+        if self.dead is not None:
+            raise EngineDeadError(self.dead)
 
     # -- public API (any thread) -------------------------------------------
 
@@ -520,9 +648,15 @@ class InferenceEngine:
             "inflight_blocks": len(self._inflight_q),
             "lookahead_depth": self._depth,
             "lookahead_target": self._depth_target,
-            "decode_graph_captures": self._graphs.captures,
-            "decode_graph_replays": self._graphs.replays,
-            "decode_graph_pool_bytes": self._graphs.pool_bytes,
+            "decode_graph_captures": self._graphs.captures["decode"],
+            "decode_graph_replays": self._graphs.replays["decode"],
+            "prefill_graph_captures": self._graphs.captures["prefill"],
+            "prefill_graph_replays": self._graphs.replays["prefill"],
+            "prefill_eager": self._graphs.eager["prefill"],
+            "graph_pool_bytes": self._graphs.pool_bytes,
+            "graph_capture_s": round(self._graphs.capture_seconds, 3),
+            "first_tokens_pending": sum(
+                s is not None and s.first is not None for s in self._slots),
             "prefill_budget": self._prefill_budget,
             "ragged": self._ragged,
             "kv_dtype": "int8" if self.paged.quantized else str(
@@ -534,6 +668,8 @@ class InferenceEngine:
         })
         if self._ragged:
             snap["ragged_width"] = self._ragged_width
+            snap["ragged_dispatches"] = self._ragged_dispatches
+            snap["ragged_behind_inflight"] = self._ragged_behind
         return snap
 
     def set_lookahead(self, depth: int) -> int:
@@ -596,6 +732,10 @@ class InferenceEngine:
                         if block is not None:
                             self._inflight_q.append(block)
                             dispatched = True
+                    # First tokens whose copies have landed, after the
+                    # dispatch: the prefill's device time overlaps the
+                    # block's, and its read never blocks the loop.
+                    self._resolve_prefills()
                     # Processed frontier: process down to `_depth_target -
                     # 1` queued blocks, and any older block whose copy has
                     # landed, but keep the freshest in flight at depth > 1:
@@ -612,6 +752,7 @@ class InferenceEngine:
                         worked = True
                     if not worked:
                         self.metrics.on_dispatch_idle()
+                        self._resolve_prefills(block=True)
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
             self._fail_all("engine is shut down")
@@ -743,10 +884,14 @@ class InferenceEngine:
         slot.prompt_ids = ids
         return bucket, slot_idx
 
-    def _run_prefill(self, rows: list, width: int, n_pad: int) -> torch.Tensor:
+    def _run_prefill(self, rows: list, width: int, n_pad: int):
         """One _prefill_fn dispatch of `n_pad` windows of `width` tokens;
         `rows` holds (slot, ids, start) for the real ones, the rest point
-        at the garbage page. Returns the sampled tokens [n_pad] (device)."""
+        at the garbage page. The operands go up into the group pad's fixed
+        buffers and the prefill graph of (width, n_pad, greedy, aligned)
+        replays (on the CPU the body runs). Returns the sampled tokens
+        [n_pad] and the page tables [n_pad, P] and seeds [n_pad, 2] the
+        dispatch read, all on the device."""
         cfg = self.config
         tokens = np.zeros((n_pad, width), dtype=np.int32)
         starts = np.zeros((n_pad,), dtype=np.int32)
@@ -765,33 +910,41 @@ class InferenceEngine:
             top_p[r] = slot.request.top_p
             top_k[r] = slot.request.top_k
             seeds[r] = slot.seed_row
-        dev = self.device
-
-        def put(a):
-            return torch.from_numpy(a).to(dev)
-
+        ops = self._prefill_ops[n_pad]
+        ops.upload(tokens, starts, last_rel, tables, seeds, temp, top_p, top_k)
         ps = cfg.page_size
-        toks_dev, self.paged = _prefill_fn(
-            self.params, self.model_cfg, self.paged,
-            put(tokens), put(starts), put(last_rel), put(tables), put(seeds),
-            put(temp), put(top_p), put(top_k),
-            greedy=bool(np.all(temp == 0.0)),
-            aligned=width % ps == 0 and not np.any(starts % ps),
+        toks_dev = self._graphs.run(
+            "prefill", width, n_pad, bool(np.all(temp == 0.0)),
+            width % ps == 0 and not np.any(starts % ps),
         )
-        return toks_dev
+        _, _, _, tables_dev, seeds_dev, *_ = ops.views(width)
+        return toks_dev, tables_dev, seeds_dev
+
+    def _prefill_body(self, width: int, n_pad: int, greedy: bool,
+                      aligned: bool) -> torch.Tensor:
+        """The body the prefill graphs capture: `_prefill_fn` over the
+        engine's weights, pools and the group pad's operand buffers. It
+        touches no lane state."""
+        token, self.paged = _prefill_fn(
+            self.params, self.model_cfg, self.paged,
+            *self._prefill_ops[n_pad].views(width), greedy=greedy, aligned=aligned,
+        )
+        return token
 
     def _dispatch_prefill_group(self, bucket: int, group: list) -> None:
         """One prefill dispatch for up to 8 same-bucket admissions, padded
-        to 1, 2, 4 or 8 rows; padded rows use the garbage page."""
+        to 1, 2, 4 or 8 rows; padded rows use the garbage page. Each lane
+        merges on the device; its first token is delivered later
+        (`_resolve_prefills`)."""
         n = len(group)
-        n_pad = 1 if n == 1 else 2 if n == 2 else 4 if n <= 4 else 8
+        n_pad = next(p for p in _GROUP_PADS if p >= n)
         rows = []
         for slot_idx in group:
             slot = self._slots[slot_idx]
             rows.append((slot, slot.prompt_ids, 0))
             slot.prompt_ids = None
         try:
-            toks_dev = self._run_prefill(rows, bucket, n_pad)
+            toks_dev, tables, seeds = self._run_prefill(rows, bucket, n_pad)
         except Exception as e:
             # Contain the failure to this group: every member is registered
             # and must be finished, or its pages leak and its client hangs.
@@ -800,20 +953,19 @@ class InferenceEngine:
             return
         self.metrics.on_padding_tokens(n_pad * bucket, sum(len(ids) for _, ids, _ in rows))
         for r, slot_idx in enumerate(group):
-            self._merge_slot(slot_idx, toks_dev, r)
-        first = toks_dev.cpu().numpy()
-        for r, slot_idx in enumerate(group):
-            self._resolve_slot(slot_idx, int(first[r]))
+            self._merge_slot(slot_idx, toks_dev, r, tables[r], seeds[r])
+        self._await_first_tokens(toks_dev, list(zip(group, range(n))))
 
-    def _merge_slot(self, slot_idx: int, toks_dev, row: int) -> None:
+    def _merge_slot(self, slot_idx: int, toks_dev, row: int, table_row, seed_row) -> None:
+        """Activate the slot's lane on the device from row `row` of the
+        sampled tokens; `table_row` and `seed_row` are the device copies
+        the dispatch read (no upload here)."""
         slot = self._slots[slot_idx]
         request = slot.request
         _merge_lane_fn(
             self._dev, slot_idx, toks_dev, row, slot.prompt_len + 1,
             slot.position_cap, float(request.temperature),
-            float(request.top_p), int(request.top_k),
-            torch.from_numpy(slot.table).to(self.device),
-            torch.from_numpy(slot.seed_row).to(self.device),
+            float(request.top_p), int(request.top_k), table_row, seed_row,
             eos_id=self.tokenizer.eos_id,
         )
         slot.merged = True
@@ -823,11 +975,45 @@ class InferenceEngine:
         self._active[slot_idx] = True
         self._temperature[slot_idx] = request.temperature
 
-    def _resolve_slot(self, slot_idx: int, token: int) -> None:
-        """Deliver the first token to the client."""
+    def _await_first_tokens(self, toks_dev: torch.Tensor, rows: list):
+        """Start the copy of merged lanes' sampled tokens to host memory
+        and give each (slot, row) of `rows` its handle; returns the copy's
+        (host tensor, event). In stream order right behind the merges and
+        before any other replay: the tokens may live in a graph's memory
+        (engine/graphs.py). Depth 1 reads them at once."""
+        host, event = self._copy_to_host(toks_dev)
+        for slot_idx, row in rows:
+            self._slots[slot_idx].first = _FirstToken(host, event, row, self._dispatch_seq)
+        if self._depth == 1:
+            self._resolve_prefills(block=True)
+        return host, event
+
+    def _resolve_prefills(self, block: bool = False, ahead_of: Optional[int] = None) -> None:
+        """Deliver the first tokens whose copies have landed: all of them
+        with `block`, and those queued ahead of block `ahead_of` (its
+        sequence number), which land no later than that block."""
+        for i, slot in enumerate(self._slots):
+            first = slot.first if slot is not None else None
+            if first is not None and (
+                    block or first.event is None or first.event.query()
+                    or (ahead_of is not None and first.seq < ahead_of)):
+                self._resolve_slot(i)
+
+    def _resolve_slot(self, slot_idx: int) -> None:
+        """Deliver the slot's first token to the client (waiting for its
+        copy if it has not landed) and finish the request if it is done
+        (EOS, or a budget of one token). A request cancelled since its
+        merge is finished instead."""
         slot = self._slots[slot_idx]
-        slot.generated = 1
+        first, slot.first = slot.first, None
         request = slot.request
+        if request.cancelled.is_set():
+            self._finish(slot_idx, error="cancelled")
+            return
+        if first.event is not None:
+            first.event.synchronize()
+        token = int(first.host[first.row])
+        slot.generated = 1
         request.timings.first_token = time.monotonic()
         slot.last_emit = request.timings.first_token
         request.out.put(("token", token))
@@ -856,9 +1042,10 @@ class InferenceEngine:
 
     def _prefill_one_chunk(self, slot_idx: int) -> int:
         """Prefill the next chunk of a long prompt at its offset through
-        _prefill_fn (N = 1); the final chunk samples the first token and
-        merges the lane. Returns the chunk width charged, 0 when the slot
-        ended without a dispatch (cancelled, expired, failed)."""
+        _prefill_fn (N = 1, the chunk width's graph); the final chunk
+        samples the first token and merges the lane; nothing is read.
+        Returns the chunk width charged, 0 when the slot ended without a
+        dispatch (cancelled, expired, failed)."""
         slot = self._slots[slot_idx]
         request = slot.request
         if request.cancelled.is_set():
@@ -873,14 +1060,14 @@ class InferenceEngine:
         ids = slot.pending[slot.filled:slot.filled + take]
         final = slot.filled + take >= len(slot.pending)
         try:
-            token_dev = self._run_prefill([(slot, ids, slot.filled)], C, 1)
+            token_dev, tables, seeds = self._run_prefill([(slot, ids, slot.filled)], C, 1)
         except Exception as e:
             self._finish(slot_idx, error=f"prefill failed: {e}")
             return 0
         self.metrics.on_padding_tokens(C, take)
         if final:
-            self._merge_slot(slot_idx, token_dev, 0)
-            self._resolve_slot(slot_idx, int(token_dev.cpu()[0]))
+            self._merge_slot(slot_idx, token_dev, 0, tables[0], seeds[0])
+            self._await_first_tokens(token_dev, [(slot_idx, 0)])
         else:
             slot.filled += take
         return C
@@ -954,13 +1141,13 @@ class InferenceEngine:
             off += take
         return ops, off
 
-    def _dispatch_ragged(self, ranges: list) -> bool:
+    def _dispatch_ragged(self, ranges: list) -> Optional[_InflightBlock]:
         """One flat mixed prefill+decode dispatch of `ranges` plus every
-        decode lane's single token, read back at once, with no block in
-        flight: final-range slots merge and take their first token, the
-        decode lanes' packed row is processed like a one-step block.
-        Returns False when the dispatch failed (its ranged slots are
-        finished, the lanes are untouched)."""
+        decode lane's single token, without waiting for it or for the
+        blocks in flight: final-range slots merge on the device and get
+        their first-token handles, and the decode lanes' packed [1, B] row
+        comes back as an in-flight block. Returns None when the dispatch
+        failed (its ranged slots are finished, the lanes are untouched)."""
         cfg = self.config
         W = self._ragged_width
         B = cfg.max_decode_slots
@@ -970,16 +1157,23 @@ class InferenceEngine:
         smp_temp = ops[11]
         greedy = bool(np.all(self._temperature[act] == 0.0)) and bool(
             np.all(smp_temp == 0.0))
-        # The kernel's work list from host values: decode lanes see
-        # max(seq_len, 1) keys (the host mirror is exact with no block in
-        # flight).
+        # The kernel's work list from host values. With blocks in flight
+        # the host's lengths lag the device's, so decode lanes count the
+        # steps in flight on top, capped at their caps: an estimate that
+        # sizes the splits and orders the CTAs; the kernel reads the true
+        # key counts on the device.
         mc = self.model_cfg
+        ahead = sum(blk.host.shape[0] for blk in self._inflight_q)
+        kv_est = np.where(act, np.minimum(self._seq_lens + ahead, self._caps),
+                          self._seq_lens)
         work = ragged_work(
             np.concatenate([np.arange(B), B + ops[4]]),
             np.concatenate([np.ones(B, np.int32), ops[5]]),
-            np.concatenate([np.maximum(self._seq_lens, 1), ops[6]]),
-            B + W, mc.num_heads // mc.num_kv_heads, mc.num_kv_heads, self.device,
+            np.concatenate([np.maximum(kv_est, 1), ops[6]]),
+            B + W, mc.num_heads // mc.num_kv_heads, mc.num_kv_heads, "cpu",
         )
+        *ops_dev, items = _to_device([*ops, work.items.numpy()], self.device)
+        work = dataclasses.replace(work, items=items)
         self._depth_target = self._depth
         self.metrics.on_dispatch(lanes, 1, slots=B)
         self.metrics.on_padding_tokens(W, useful)
@@ -990,8 +1184,7 @@ class InferenceEngine:
                 self.params, mc, self.paged,
                 dev["last_tokens"], dev["seq_lens"], dev["page_tables"],
                 dev["active"], dev["caps"], dev["seeds"], dev["temperature"],
-                dev["top_p"], dev["top_k"],
-                *(torch.from_numpy(a).to(self.device) for a in ops),
+                dev["top_p"], dev["top_k"], *ops_dev,
                 greedy=greedy, eos_id=self.tokenizer.eos_id, work=work,
             )
         except Exception as e:
@@ -1000,43 +1193,39 @@ class InferenceEngine:
             for i, s, _take in ranges:
                 if self._slots[i] is s:
                     self._finish(i, error=f"prefill failed: {e}")
-            return False
+            return None
         # In place: the decode graphs captured these buffers.
         dev["last_tokens"].copy_(last)
         dev["seq_lens"].copy_(seq)
         dev["active"].copy_(active)
+        self._ragged_dispatches += 1
+        self._ragged_behind += bool(self._inflight_q)
         self._dispatch_seq += 1
         reqs = self._snapshot_requests()
+        pre_tables, smp_seeds = ops_dev[3], ops_dev[10]
         finals = []
         for i, s, take in ranges:
             if s.filled + take >= len(s.pending):
-                self._merge_slot(i, first_dev, i)
+                self._merge_slot(i, first_dev, i, pre_tables[i], smp_seeds[i])
                 finals.append(i)
             else:
                 s.filled += take
-        # One device-to-host copy: the packed decode row, then the first
-        # tokens.
-        t_sync = time.monotonic()
-        host = torch.cat([packed_dev.reshape(-1), first_dev]).cpu().numpy()
-        self.metrics.on_process_block(0, (time.monotonic() - t_sync) * 1e3)
-        for i in finals:
-            if self._slots[i] is not None:
-                self._resolve_slot(i, int(host[B + i]))
-        self._emit_block(host[:B].reshape(1, B), reqs)
-        return True
+        # One copy to host memory: the packed decode row, then the first
+        # tokens (slot i's at B + i).
+        host, event = self._await_first_tokens(
+            torch.cat([packed_dev.reshape(-1), first_dev]), [(i, B + i) for i in finals])
+        return _InflightBlock(host[:B].view(1, B), event, reqs, self._dispatch_seq)
 
     def _dispatch_step(self) -> Optional[_InflightBlock]:
-        """Dispatch one decode block without waiting for it; returns its
-        in-flight record, or None when this iteration's work was a ragged
-        dispatch (read at once) or nothing. In ragged mode pending prefill
-        work first drains the pipeline and goes as one ragged dispatch."""
+        """Dispatch one decode block, or in ragged mode with pending
+        prefill work one ragged dispatch, without waiting for it or for
+        the blocks in flight; returns its in-flight record, or None when
+        there was nothing to dispatch."""
         if self._ragged and self._has_pending_prefill():
-            self._drain_inflight()
             ranges = self._build_ragged_batch()
-            if ranges and self._dispatch_ragged(ranges):
-                return None
-            if not self._active.any():
-                return None
+            block = self._dispatch_ragged(ranges) if ranges else None
+            if block is not None or not self._active.any():
+                return block
         act = self._active
         lanes = int(act.sum())
         # The greedy graph skips the sampler's sort and draws; host
@@ -1052,12 +1241,12 @@ class InferenceEngine:
             64, 1 + (self._depth - 1) * (self._block_steps // steps), blocks_needed,
         )
         self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
-        packed = self._graphs.run(greedy, steps)
+        packed = self._graphs.run("decode", greedy, steps)
         host, event = self._copy_to_host(packed)
         self._dispatch_seq += 1
         return _InflightBlock(host, event, self._snapshot_requests(), self._dispatch_seq)
 
-    def _decode_block(self, *, greedy: bool, steps: int) -> torch.Tensor:
+    def _decode_block(self, greedy: bool, steps: int) -> torch.Tensor:
         """The block body the decode graphs capture: `_decode_fn` over the
         engine's weights, pools and lane-state buffers."""
         dev = self._dev
@@ -1071,9 +1260,9 @@ class InferenceEngine:
 
     @staticmethod
     def _copy_to_host(packed: torch.Tensor):
-        """Start the packed tokens' copy to host memory; returns (host
-        tensor, CUDA event that fires when it has landed). On the CPU the
-        block's own tensor is the host copy and there is no event."""
+        """Start the tokens' copy to host memory (pinned, non-blocking);
+        returns (host tensor, CUDA event that fires when it has landed). On
+        the CPU the tensor itself is the host copy and there is no event."""
         if packed.device.type != "cuda":
             return packed, None
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -1114,16 +1303,14 @@ class InferenceEngine:
             self.metrics.on_process_block(lookahead, None)
             return
         t_sync = time.monotonic()
+        # First tokens queued ahead of this block land no later than it:
+        # deliver them before waiting for it, not after.
+        self._resolve_prefills(ahead_of=block.seq)
         if block.event is not None:
             block.event.synchronize()
         packed = block.host.numpy()
         self.metrics.on_process_block(lookahead, (time.monotonic() - t_sync) * 1e3)
         self._emit_block(packed, block.reqs)
-
-    def _drain_inflight(self) -> None:
-        """Process every in-flight block, oldest first."""
-        while self._inflight_q:
-            self._process_step(self._inflight_q.popleft())
 
     def _emit_block(self, packed: np.ndarray, reqs: list) -> None:
         """Emit a block's packed [K, B] tokens to the requests that held
@@ -1141,6 +1328,13 @@ class InferenceEngine:
                 self.metrics.on_deadline_expired("decode")
                 self._finish(i, error=f"{DEADLINE_MSG} mid-decode")
                 continue
+            if slot.first is not None:
+                # The first token precedes the block's tokens in the
+                # client's stream (its copy was queued no later than the
+                # block's).
+                self._resolve_slot(i)
+                if self._slots[i] is not slot:
+                    continue
             before = slot.generated
             for k in range(packed.shape[0]):
                 token = int(packed[k, i])
@@ -1177,6 +1371,7 @@ class InferenceEngine:
         if slot is None:
             return
         request = slot.request
+        slot.first = None     # an undelivered first token goes with its request
         request.timings.finished = time.monotonic()
         request.timings.completion_tokens = slot.generated
         self.allocator.release_all(slot.pages)

@@ -9,10 +9,13 @@ paged KV pool, and runs the engine's decode block (`engine._decode_fn`, the
 default 8 greedy steps) once to warm up, once on the host clock, and once
 under torch.profiler; the lanes go back to `context` before each run (the
 block advances them in place). With --graph it also captures the block as
-the engine does (engine/decode_graph.py: on idle lanes, then the lanes are
+the engine does (engine/graphs.py: on idle lanes, then the lanes are
 set live) and measures the eager block and the graph's replay in turns
 (eager, graph, graph, eager, ...), each line and summary labelled with its
-mode; its launches are the kernels the profiler saw the card run. With --ragged it runs one ragged dispatch instead
+mode; its launches are the kernels the profiler saw the card run; with
+--prefill as well it does the same for the prefill (captured over
+zeroed operand buffers, every table on the garbage page, as the engine
+captures). With --ragged it runs one ragged dispatch instead
 (`engine._ragged_fn`): the 16 lanes' single tokens plus the default
 1024-token prefill budget, as a first 512-token chunk (KV length 512) and a
 second one (KV length 1024). --kv-dtype int8 runs either over the int8 KV
@@ -63,14 +66,14 @@ def main() -> None:
                     metavar="T", help="profile one bucketed prefill of T tokens "
                     "(default 512) at positions context..context+T-1")
     ap.add_argument("--graph", action="store_true",
-                    help="measure the decode block eagerly and as a CUDA graph replay, "
-                    "in turns")
+                    help="measure the decode block (or with --prefill the prefill) "
+                    "eagerly and as a CUDA graph replay, in turns")
     ap.add_argument("--repeat", type=int, default=1, metavar="N",
                     help="measure N times and report the median and range")
     args = ap.parse_args()
-    if sum((args.ragged, args.prefill is not None, args.graph)) > 1:
-        raise SystemExit("profile_decode: --ragged, --prefill and --graph profile "
-                         "different dispatches")
+    if args.ragged and (args.prefill is not None or args.graph):
+        raise SystemExit("profile_decode: --ragged profiles its own dispatch, "
+                         "alone (--graph takes the block or --prefill)")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
 
@@ -97,7 +100,7 @@ def main() -> None:
     lane_args = [state[k] for k in LANES]
     eager, reset = decode_block(params, cfg, paged, state, steps)
     blocks = {"eager": lambda: eager().cpu()}
-    if args.graph:
+    if args.graph and args.prefill is None:
         graph, _ = decode_block(params, cfg, paged, state, steps, graph=True)
         blocks["graph"] = lambda: graph().cpu()
 
@@ -139,35 +142,20 @@ def main() -> None:
 
     if args.prefill is not None:
         T = args.prefill
-        need = -(-(args.context + T) // ps)
-        if need > P:
-            raise SystemExit(f"profile_decode: context {args.context} + {T} tokens need "
-                             f"{need} pages of a {P}-entry table")
-        # One prompt row, its context pages already in the pool (random
-        # data: the kernels' work does not depend on it), its chunk next.
-        ptable = torch.zeros((1, P), dtype=torch.int32, device=dev)
-        ptable[0, :need] = (1 + torch.arange(need, device=dev) % (econf.num_pages - 1)).to(
-            torch.int32)
-        tokens = torch.randint(3, 259, (1, T), generator=gen, device=dev, dtype=torch.int32)
-        start = torch.tensor([args.context], dtype=torch.int32, device=dev)
-        last_rel = torch.tensor([T - 1], dtype=torch.int32, device=dev)
-        aligned = args.context % ps == 0 and T % ps == 0
-        samp = (state["seeds"][:1], state["temperature"][:1], state["top_p"][:1],
-                state["top_k"][:1])
+        ops = prefill_inputs(econf, cfg, T, args.context, 1, gen)
+        runs = {"eager": prefill_block(params, cfg, paged, ops, T)}
+        if args.graph:
+            runs["graph"] = prefill_block(params, cfg, paged, ops, T, graph=True)
         steps = 1
-
-        def prefill():
-            token, _ = _prefill_fn(params, cfg, paged, tokens, start, last_rel, ptable,
-                                   *samp, greedy=True, aligned=aligned)
-            return token.cpu()
-
-        blocks = {"prefill": prefill}
+        blocks = {name: (lambda run=run: run().cpu()) for name, run in runs.items()}
 
     pool = "int8 KV" if int8 else "bf16 KV"
     if args.prefill is not None:
         where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one bucketed prefill "
                  f"of {args.prefill} tokens at positions {args.context}.."
-                 f"{args.context + args.prefill - 1}, greedy, on {card}")
+                 f"{args.context + args.prefill - 1}, greedy"
+                 f"{', eager and as its graph replay in turns' if args.graph else ''}, "
+                 f"on {card}")
     elif args.ragged:
         where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one ragged dispatch: "
                  f"B={B} decode lanes at context {args.context} + {W}-token prefill "
@@ -260,8 +248,8 @@ def decode_block(params, cfg, paged, state: dict, steps: int, graph: bool = Fals
     and returns its packed [steps, B] tokens on the device; `reset()` puts
     the lanes back where they were when this was called (a block advances
     them in place)."""
-    from ..engine.decode_graph import DecodeGraphs
     from ..engine.engine import _decode_fn
+    from ..engine.graphs import CudaGraphs
 
     live = {k: t.clone() for k, t in state.items()}
 
@@ -269,19 +257,76 @@ def decode_block(params, cfg, paged, state: dict, steps: int, graph: bool = Fals
         for k, t in live.items():
             state[k].copy_(t)
 
-    def body(*, greedy, steps):
+    def body(greedy, steps):
         return _decode_fn(params, cfg, paged, *(state[k] for k in LANES),
                           greedy=greedy, steps=steps, eos_id=-1)
 
     if not graph:
-        return (lambda: body(greedy=True, steps=steps)), reset
+        return (lambda: body(True, steps)), reset
     for k in ("last_tokens", "seq_lens", "page_tables", "active"):
         state[k].zero_()
-    graphs = DecodeGraphs(body, torch.device("cuda"), [(True, steps)])
+    graphs = CudaGraphs(torch.device("cuda"), {"decode": (body, [(True, steps)])})
     with torch.inference_mode():
         graphs.capture()
     reset()
-    return (lambda: graphs.run(True, steps)), reset
+    return (lambda: graphs.run("decode", True, steps)), reset
+
+
+def prefill_inputs(econf, cfg, T: int, context: int, n: int, gen: torch.Generator):
+    """The engine's prefill operand buffers for group pad `n`
+    (engine.PrefillOperands), holding n greedy prompt rows of T random
+    tokens at positions context..context+T-1, each row's table on pages of
+    its own (1, 2, ... in order; its context pages are whatever the pool
+    holds there)."""
+    from ..engine.engine import PrefillOperands
+
+    P, ps = econf.pages_per_seq, econf.page_size
+    need = -(-(context + T) // ps)
+    if need > P or n * need >= econf.num_pages:
+        raise SystemExit(f"profile_decode: {n} rows of context {context} + {T} tokens "
+                         f"need {need} pages each, of a {P}-entry table and "
+                         f"{econf.num_pages - 1} pages")
+    tables = np.zeros((n, P), np.int32)
+    tables[:, :need] = 1 + np.arange(n * need).reshape(n, need)
+    tokens = torch.randint(3, 259, (n, T), generator=gen, device=gen.device,
+                           dtype=torch.int32).cpu().numpy()
+    ops = PrefillOperands(n, T, P, torch.device("cuda"))
+    i32 = dict(dtype=np.int32)
+    ops.upload(tokens, np.full(n, context, **i32), np.full(n, T - 1, **i32), tables,
+               np.zeros((n, 2), **i32), np.zeros(n, np.float32), np.ones(n, np.float32),
+               np.zeros(n, **i32))
+    torch.cuda.synchronize()
+    return ops
+
+
+def prefill_block(params, cfg, paged, ops, T: int, graph: bool = False):
+    """`run()` dispatches one greedy prefill of width T over the rows in
+    `ops` (prefill_inputs) and returns its sampled tokens on the device:
+    eagerly (`engine._prefill_fn`) or, with `graph`, as the replay of a
+    CUDA graph captured here the engine's way (engine/graphs.py, with every
+    operand zeroed, so every table points at the garbage page, then the
+    rows put back)."""
+    from ..engine.engine import _prefill_fn
+    from ..engine.graphs import CudaGraphs
+
+    n, ps = ops.n, paged.k.shape[2]
+    start = ops.views(T)[1]
+    aligned = T % ps == 0 and not bool((start % ps).any())
+
+    def body(width, n_pad, greedy, aligned):
+        return _prefill_fn(params, cfg, paged, *ops.views(width), greedy=greedy,
+                           aligned=aligned)[0]
+
+    if not graph:
+        return lambda: body(T, n, True, aligned)
+    rows = ops.buf.clone()
+    ops.buf.zero_()
+    graphs = CudaGraphs(torch.device("cuda"),
+                        {"prefill": (body, [(T, n, True, aligned)])})
+    with torch.inference_mode():
+        graphs.capture()
+    ops.buf.copy_(rows)
+    return lambda: graphs.run("prefill", T, n, True, aligned)
 
 
 def device_kernels(prof) -> list:

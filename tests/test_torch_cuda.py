@@ -712,16 +712,17 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(gen):
         rk.ragged_attention_cuda(args[0], (kq, odd), (vq, vs), *args[3:], scale=0.1)
 
 
-# -- the decode block as CUDA graphs (engine/decode_graph.py) -----------------
+# -- the decode block as CUDA graphs (engine/graphs.py) -----------------------
 
 _LANES = ("last_tokens", "seq_lens", "page_tables", "active", "caps", "seeds",
           "temperature", "top_p", "top_k")
 
 
-def _graph_parts(gen, int8):
+def _graph_parts(gen, int8, pages=64, P=16):
     """A 2-layer model at head_dim 64 (2 query heads per kv head, so both
-    decode kernels take it), bf16 weights, pools of 64 pages of 16 rows
-    (int8 values with bf16 scales for `int8`), and 4 idle lanes."""
+    decode kernels take it), bf16 weights, pools of `pages` pages of 16 rows
+    (int8 values with bf16 scales for `int8`), and 4 idle lanes with tables
+    of P pages."""
     from dataclasses import replace
 
     from polykey_tpu_torch.engine.kv_cache import init_paged_kv
@@ -731,9 +732,9 @@ def _graph_parts(gen, int8):
     cfg = replace(get_config("tiny-llama"), hidden_size=256, intermediate_size=512,
                   head_dim=64)
     params = init_params(cfg, torch.bfloat16, "cuda", gen)
-    paged = init_paged_kv(cfg, 64, 16, torch.bfloat16, "cuda",
+    paged = init_paged_kv(cfg, pages, 16, torch.bfloat16, "cuda",
                           kv_dtype=torch.int8 if int8 else None)
-    B, P = 4, 16
+    B = 4
     i32 = dict(dtype=torch.int32, device="cuda")
     state = dict(
         last_tokens=torch.zeros(B, **i32), seq_lens=torch.zeros(B, **i32),
@@ -747,26 +748,24 @@ def _graph_parts(gen, int8):
 
 
 def _capture(cfg, params, paged, state, eos_id=2):
-    """DecodeGraphs over the parts, captured for steps 8 and 1 while every
-    lane is idle, as the engine captures."""
-    from polykey_tpu_torch.engine.decode_graph import DecodeGraphs
+    """CudaGraphs over the parts, the decode block captured for steps 8 and 1
+    while every lane is idle, as the engine captures."""
     from polykey_tpu_torch.engine.engine import _decode_fn
+    from polykey_tpu_torch.engine.graphs import CudaGraphs
 
-    def body(*, greedy, steps):
+    def body(greedy, steps):
         return _decode_fn(params, cfg, paged, *(state[k] for k in _LANES),
                           greedy=greedy, steps=steps, eos_id=eos_id)
 
-    graphs = DecodeGraphs(body, torch.device("cuda"),
-                          [(g, k) for g in (True, False) for k in (8, 1)])
+    graphs = CudaGraphs(torch.device("cuda"), {"decode": (
+        body, [(g, k) for g in (True, False) for k in (8, 1)])})
     with torch.inference_mode():
         graphs.capture()
     return graphs
 
 
-def _fill_lanes(gen, paged, state, sampled):
-    """Random KV in every pool; lanes 0-2 live at contexts 5, 40 and 100 on
-    pages of their own (lane 3 idle on the garbage page); sampled lanes at
-    temperatures 0.8 and 1.0 with top-p and top-k, one greedy."""
+def _fill_pools(gen, paged):
+    """Random KV in every pool (int8 values with small positive scales)."""
     for t in (paged.k, paged.v):
         if paged.quantized:
             t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda",
@@ -777,6 +776,13 @@ def _fill_lanes(gen, paged, state, sampled):
         if t is not None:
             t.copy_((torch.rand(t.shape, generator=gen, device="cuda") * 0.02
                      + 1e-3).to(torch.bfloat16))
+
+
+def _fill_lanes(gen, paged, state, sampled):
+    """Random KV in every pool; lanes 0-2 live at contexts 5, 40 and 100 on
+    pages of their own (lane 3 idle on the garbage page); sampled lanes at
+    temperatures 0.8 and 1.0 with top-p and top-k, one greedy."""
+    _fill_pools(gen, paged)
     P = state["page_tables"].shape[1]
     for b, n in enumerate((5, 40, 100)):
         state["page_tables"][b] = torch.arange(1 + P * b, 1 + P * (b + 1))
@@ -810,7 +816,7 @@ def _eager_and_replay(cfg, params, paged, state, graphs, greedy, steps, eos_id=2
                               for t in (paged.k, paged.v, paged.ks, paged.vs)))
         want = _decode_fn(params, cfg, ref_paged, *(ref[k] for k in _LANES),
                           greedy=greedy, steps=steps, eos_id=eos_id)
-        got = graphs.run(greedy, steps).clone()
+        got = graphs.run("decode", greedy, steps).clone()
     torch.cuda.synchronize()
     return want, got, ref, ref_paged
 
@@ -824,7 +830,7 @@ def test_decode_graph_replay_matches_eager(gen, int8, greedy, steps):
     bit; the capture's warm-up wrote only the garbage page."""
     cfg, params, paged, state = _graph_parts(gen, int8)
     graphs = _capture(cfg, params, paged, state)
-    assert graphs.captures == 4 and graphs.pool_bytes >= 0
+    assert graphs.captures["decode"] == 4 and graphs.pool_bytes >= 0
     assert all(not t[:, 1:].any() for t in _pools(paged)), "warm-up wrote past page 0"
     assert not state["active"].any() and not state["seq_lens"].any()
     _fill_lanes(gen, paged, state, sampled=not greedy)
@@ -836,7 +842,7 @@ def test_decode_graph_replay_matches_eager(gen, int8, greedy, steps):
         assert torch.equal(state[k], ref[k]), k
     for a, b in zip(_pools(paged), _pools(ref_paged)):
         assert torch.equal(a, b)
-    assert graphs.replays == 1
+    assert graphs.replays["decode"] == 1
 
 
 def test_decode_graph_serves_a_lane_merged_in_place(gen):
@@ -880,11 +886,205 @@ def test_decode_graph_counts_launches_and_resets_the_counters(gen, int8):
     with torch.inference_mode():
         for greedy, steps in ((True, 8), (False, 1), (False, 8), (True, 1)):
             n0, w0 = decode.launches, write.launches
-            graphs.run(greedy, steps)
+            graphs.run("decode", greedy, steps)
             assert decode.launches - n0 == L * steps
             assert write.launches - w0 == L * steps
     torch.cuda.synchronize()
-    assert graphs.replays == 4
+    assert graphs.replays["decode"] == 4
     for held in pak._ARRIVALS.values():
         for buf in held:
             assert not buf.any()
+
+
+# -- the prefill as CUDA graphs (engine/graphs.py, engine.PrefillOperands) ----
+
+def _prefill_graphs(cfg, params, paged, state, keys):
+    """CudaGraphs over the parts as the engine builds them: the decode block
+    (steps 8) and the prefill over fixed operand buffers per group pad,
+    captured into one pool with every buffer zeroed (every table on the
+    garbage page). Returns (graphs, operands by group pad)."""
+    from polykey_tpu_torch.engine.engine import PrefillOperands, _decode_fn, _prefill_fn
+    from polykey_tpu_torch.engine.graphs import CudaGraphs
+
+    P = state["page_tables"].shape[1]
+    ops = {n: PrefillOperands(n, max(k[0] for k in keys), P, "cuda")
+           for n in {k[1] for k in keys}}
+
+    def decode(greedy, steps):
+        return _decode_fn(params, cfg, paged, *(state[k] for k in _LANES),
+                          greedy=greedy, steps=steps, eos_id=2)
+
+    def prefill(width, n_pad, greedy, aligned):
+        return _prefill_fn(params, cfg, paged, *ops[n_pad].views(width),
+                           greedy=greedy, aligned=aligned)[0]
+
+    graphs = CudaGraphs(torch.device("cuda"), {
+        "decode": (decode, [(True, 8)]), "prefill": (prefill, keys)})
+    with torch.inference_mode():
+        graphs.capture()
+    return graphs, ops
+
+
+def _prefill_rows(gen, ops, width, start, greedy, first_page=1):
+    """Fill `ops` (group pad n) with n random prompts of `width` tokens at
+    `start`, each on consecutive pages of its own from `first_page`;
+    sampled rows (not `greedy`) at temperatures 0.8 / 1.0 with top-p and
+    top-k, the last row greedy."""
+    import numpy as np
+
+    n, (P,) = ops.n, ops.views(width)[3].shape[1:]
+    need = -(-(start + width) // 16)
+    tables = np.zeros((n, P), np.int32)
+    tables[:, :need] = first_page + np.arange(n * need).reshape(n, need)
+    rng = np.random.default_rng(width * 10 + n)
+    temp = np.zeros(n, np.float32)
+    top_p, top_k = np.ones(n, np.float32), np.zeros(n, np.int32)
+    if not greedy:
+        temp[:-1] = np.resize([0.8, 1.0], n - 1)
+        top_p[0], top_k[0] = 0.9, 20
+    ops.upload(rng.integers(3, 500, (n, width)).astype(np.int32),
+               np.full(n, start, np.int32), rng.integers(0, width, n).astype(np.int32),
+               tables, rng.integers(0, 1 << 30, (n, 2)).astype(np.int32), temp, top_p, top_k)
+
+
+def _eager_prefill_and_replay(cfg, params, paged, graphs, ops, key):
+    """The eager `_prefill_fn` on copies of the pools, then the replay of
+    `key` on the live ones; returns (eager tokens, replayed tokens, eager
+    pools)."""
+    from polykey_tpu_torch.engine.engine import _prefill_fn
+    from polykey_tpu_torch.engine.kv_cache import PagedKV
+
+    width, n, greedy, aligned = key
+    with torch.inference_mode():
+        ref_paged = PagedKV(*(t.clone() if t is not None else None
+                              for t in (paged.k, paged.v, paged.ks, paged.vs)))
+        want = _prefill_fn(params, cfg, ref_paged, *ops[n].views(width), greedy=greedy,
+                           aligned=aligned)[0]
+        got = graphs.run("prefill", *key).clone()
+    torch.cuda.synchronize()
+    return want, got, ref_paged
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_prefill_graph_replay_matches_eager_at_every_key(gen, int8):
+    """Every key of buckets (128,) and chunk 256 (widths 128 at group pads
+    1, 2, 4, 8 and 256 alone; greedy and sampled): captured over zeroed
+    operands (the warm-up writes only the garbage page), each replay gives
+    the eager prefill's tokens and pools bit for bit; each replay adds one
+    flash launch a layer and capture adds none."""
+    from polykey_tpu_torch.engine.engine import prefill_graph_keys
+    from polykey_tpu_torch.ops import flash_attention as fa
+
+    cfg, params, paged, state = _graph_parts(gen, int8, pages=80)
+    keys = prefill_graph_keys((128,), 256, 16)
+    assert len(keys) == 10 and all(k[3] for k in keys)
+    before = fa.KERNEL.launches
+    graphs, ops = _prefill_graphs(cfg, params, paged, state, keys)
+    assert fa.KERNEL.launches == before
+    assert graphs.captures["prefill"] == 10 and graphs.pool_bytes >= 0
+    assert all(not t[:, 1:].any() for t in _pools(paged)), "warm-up wrote past page 0"
+    _fill_pools(gen, paged)
+    for key in keys:
+        width, n, greedy, _ = key
+        _prefill_rows(gen, ops[n], width, 0, greedy)
+        n0 = fa.KERNEL.launches
+        want, got, ref_paged = _eager_prefill_and_replay(cfg, params, paged, graphs, ops, key)
+        assert fa.KERNEL.launches - n0 == 2 * cfg.num_layers, key   # eager + replay
+        assert got.shape == (n,) and torch.equal(got, want), key
+        for a, b in zip(_pools(paged), _pools(ref_paged)):
+            assert torch.equal(a, b), key
+    assert graphs.replays["prefill"] == 10 and graphs.eager["prefill"] == 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_prefill_chunk_at_an_offset_replays_its_width(gen, int8):
+    """A chunk at offset 512 (the third and fourth pages' worth of a
+    1024-position table) replays the (512, 1) graph, captured from position
+    0 on the garbage page: positions are operands. Tokens and pools as
+    eager, for a greedy and a sampled chunk."""
+    from polykey_tpu_torch.engine.engine import prefill_graph_keys
+
+    cfg, params, paged, state = _graph_parts(gen, int8, pages=80, P=64)
+    keys = [k for k in prefill_graph_keys((128, 512), 512, 16) if k[1] == 1]
+    graphs, ops = _prefill_graphs(cfg, params, paged, state, keys)
+    _fill_pools(gen, paged)
+    for greedy in (True, False):
+        _prefill_rows(gen, ops[1], 512, 512, greedy)
+        key = (512, 1, greedy, True)
+        want, got, ref_paged = _eager_prefill_and_replay(cfg, params, paged, graphs, ops, key)
+        assert torch.equal(got, want), greedy
+        for a, b in zip(_pools(paged), _pools(ref_paged)):
+            assert torch.equal(a, b), greedy
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_prefill_output_survives_a_decode_replay(gen, int8):
+    """The engine's order: replay prefill (128, 1), merge its token into a
+    lane and start its copy to host memory, replay a decode block (same
+    pool), then read the copy: it is the eager prefill's token, the lane
+    holds it, and the block served the merged lane as the eager block
+    does."""
+    from polykey_tpu_torch.engine.engine import (
+        InferenceEngine,
+        _decode_fn,
+        _merge_lane_fn,
+        _prefill_fn,
+        prefill_graph_keys,
+    )
+    from polykey_tpu_torch.engine.kv_cache import PagedKV
+
+    cfg, params, paged, state = _graph_parts(gen, int8, pages=80)
+    keys = prefill_graph_keys((128,), 128, 16)
+    graphs, ops = _prefill_graphs(cfg, params, paged, state, keys)
+    _fill_lanes(gen, paged, state, sampled=False)
+    _prefill_rows(gen, ops[1], 128, 0, True, first_page=64)
+    _, _, _, tables, seeds, *_ = ops[1].views(128)
+    with torch.inference_mode():
+        ref = {k: t.clone() for k, t in state.items()}
+        ref_paged = PagedKV(*(t.clone() if t is not None else None
+                              for t in (paged.k, paged.v, paged.ks, paged.vs)))
+        want_tok = _prefill_fn(params, cfg, ref_paged, *ops[1].views(128), greedy=True,
+                               aligned=True)[0]
+        _merge_lane_fn(ref, 3, want_tok, 0, 129, 200, 0.0, 1.0, 0, tables[0], seeds[0],
+                       eos_id=2)
+        want_packed = _decode_fn(params, cfg, ref_paged, *(ref[k] for k in _LANES),
+                                 greedy=True, steps=8, eos_id=2)
+        tok = graphs.run("prefill", 128, 1, True, True)
+        _merge_lane_fn(state, 3, tok, 0, 129, 200, 0.0, 1.0, 0, tables[0], seeds[0],
+                       eos_id=2)
+        host, event = InferenceEngine._copy_to_host(tok)
+        packed = graphs.run("decode", True, 8).clone()
+    event.synchronize()
+    torch.cuda.synchronize()
+    assert host.tolist() == want_tok.tolist()
+    assert torch.equal(packed, want_packed) and (packed[:, 3] >= 0).any()
+    for k in _LANES:
+        assert torch.equal(state[k], ref[k]), k
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_kernel_takes_a_work_list_from_short_lengths(gen, int8):
+    """The engine builds the ragged work list from the host's lengths while
+    blocks are in flight: the kernel, given a list built from decode
+    lengths 16 to 64 keys short (split counts change at 530 and 1040 keys),
+    stays within its tolerance of the plain version on the true lengths."""
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    lens = [1, 1, 1, 1, 1, 1, 37]
+    kvs = [70, 300, 530, 1040, 2000, 4096, 57]
+    case = _ragged_int8_case if int8 else _ragged_case
+    args, used = case(gen, 128, 16, 2, lens, kvs, P=512)
+    T = args[0].shape[0]
+    true = args[6].cpu()
+    short = true.clone()
+    for s, d in zip(range(6), (16, 32, 48, 64, 16, 32)):
+        short[s] = max(1, int(true[s]) - d)
+    work = rk.ragged_work(args[4].cpu(), args[5].cpu(), short, T, 8, 2, "cuda")
+    exact = rk.ragged_work(args[4].cpu(), args[5].cpu(), true, T, 8, 2, "cuda")
+    assert work.n_part != exact.n_part, "no split count changed"
+    out = rk.ragged_attention_cuda(*args, work=work, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[:used]).all()
+    ok = _ragged_within_tolerance(rk, out, args, scale=128 ** -0.5)
+    assert ok.all()
+    assert (out[used:] == 0).all()
