@@ -67,6 +67,25 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             as a replay of its graph, from the same pools: the sampled
             tokens and the KV pages of the rows must be identical; then
             both in turns, 3 runs each, each run's wall and idle share.
+10. prefix: the prefix cache and the host-KV tier on the same weights. A
+            1024-token shared header (64 pages) plus a ~100-token tail is
+            sent alone (a miss), then four requests with the same header
+            and other tails at once (hits: each prefills its suffix only),
+            32 greedy tokens each, on a bucketed bf16 engine (which also
+            holds a host tier), a bucketed int8 engine and a ragged bf16
+            engine, each beside an engine of the same mode with the cache
+            off: every text (token ids) must equal the uncached one. Each
+            prints the pages matched, the miss's and the hits' TTFT and
+            (bucketed) the prefill graph replays, none of them eager. Then
+            the host tier: a second header on the small bf16 pool spills
+            the first to host memory, and the first sent again faults its
+            pages back (restored in place: the pools keep their
+            addresses) to the uncached text; it prints the pages spilled
+            and restored, kv_restore_ms p50 / p95, the bytes of a restore
+            and the header's TTFT recomputed cold. Last, pages gathered to
+            a host pool and restored into other pages equal the originals
+            bit for bit (bf16, and int8 values with their scales), with
+            the restore's device time for 64 pages.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -88,6 +107,7 @@ import threading
 import time
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM: published HBM3 rate
@@ -1311,6 +1331,233 @@ def phase_prefill_graph(seed: int, params, card: str, turns: int = 3) -> None:
         torch.cuda.empty_cache()
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+# A 1024-token header with the byte tokenizer's BOS (64 pages of 16) and
+# ~100-token tails: the shared-system-prompt traffic of tool-calling callers.
+PREFIX_HEADER = ("You are the tool-calling assistant of a ticketing service. Answer "
+                 "with one JSON object naming the tool and its arguments. ") * 8
+PREFIX_HEADER = (PREFIX_HEADER * 2)[:1023]
+PREFIX_OTHER = ("You are the support assistant of a billing service. Quote the "
+                "invoice line you rely on, then answer in one short paragraph. ") * 20
+PREFIX_OTHER = PREFIX_OTHER[:1023]
+PREFIX_TAILS = [
+    f"Request {i}: the customer of order {1000 + 37 * i} asks whether it shipped and "
+    f"when it arrives. Reply with the tool call."
+    for i in range(10)
+]
+
+
+def _generate(engine, prompts: list, max_new: int = 32) -> list:
+    """Submit `prompts` together to the engine; returns (token ids, TTFT ms,
+    ms from submit to admission) for each, after all finished."""
+    from polykey_tpu_torch.engine.engine import GenRequest
+
+    reqs = [GenRequest(prompt=p, max_new_tokens=max_new) for p in prompts]
+    for r in reqs:
+        engine.submit(r)
+    out = []
+    for r in reqs:
+        toks = []
+        while True:
+            kind, value = r.out.get(timeout=600)
+            check(kind != "error", f"engine error: {value}")
+            if kind == "done":
+                break
+            toks.append(value)
+        check(len(toks) == max_new, f"{len(toks)} tokens, not {max_new}")
+        t = r.timings
+        out.append((toks, t.ttft_ms, (t.prefill_start - t.enqueued) * 1e3))
+    return out
+
+
+def _drain(engine) -> None:
+    """Wait until the engine has nothing queued or in flight and the card
+    has run everything enqueued: each measured step starts on an idle card
+    (a finished stream's last blocks may still be queued on it)."""
+    deadline = time.monotonic() + 60
+    while (engine.busy or engine._inflight_q) and time.monotonic() < deadline:
+        time.sleep(0.005)
+    check(not engine.busy, "the engine did not go idle")
+    sync()
+
+
+def phase_prefix(seed: int, params, card: str) -> dict:
+    """The prefix cache and the host tier at full width (module docstring,
+    phase 10). Returns the kernel launches made in it."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+    from polykey_tpu_torch.engine.kv_cache import host_kv_page_bytes
+    from polykey_tpu_torch.models.config import get_config
+
+    for k in KERNELS.values():
+        k.launches = 0
+    cfg = get_config("llama-3-8b")
+    ps = EngineConfig().page_size
+    page_bytes = host_kv_page_bytes(cfg, ps, torch.bfloat16)
+    miss = PREFIX_HEADER + PREFIX_TAILS[0]
+    # Four hits at once, four more at once, then one alone, each group
+    # from an idle card.
+    hits = [PREFIX_HEADER + t for t in PREFIX_TAILS[1:5]]
+    more = [PREFIX_HEADER + t for t in PREFIX_TAILS[5:9]]
+    lone = [PREFIX_HEADER + PREFIX_TAILS[9]]
+    # The bucketed bf16 engine holds the host tier too: 160 pages (73 a
+    # request) leave no room for a second header beside the first's cached
+    # pages, and 1 GiB of host memory holds 512 of them.
+    modes = [
+        ("bucketed bf16", dict(), dict(num_pages=160, prefix_cache_pages=1024,
+                                       host_kv_bytes=1 << 30)),
+        ("bucketed int8", dict(kv_dtype="int8"), dict()),
+        ("ragged bf16", dict(ragged_dispatch=True), dict()),
+    ]
+    for label, mode, extra in modes:
+        base = EngineConfig(model="llama-3-8b", **mode)
+        cold = InferenceEngine(base, params=params, device="cuda", seed=seed)
+        try:
+            want = []
+            for group in ([miss], hits, more, lone, [PREFIX_OTHER + PREFIX_TAILS[0]]):
+                _drain(cold)
+                want += _generate(cold, group)
+            cold_other = want.pop()
+        finally:
+            cold.shutdown()
+        del cold
+        engine = InferenceEngine(replace(base, prefix_cache=True, **extra), params=params,
+                                 device="cuda", seed=seed)
+        try:
+            ids = [engine.tokenizer.encode(p) for p in [miss] + hits + more + lone]
+            before = engine.stats()
+            got = _generate(engine, [miss])
+            after_miss = engine.stats()
+            _drain(engine)
+            cached = [engine._prefix.probe_tiered(np.asarray(i, np.int32))[0] // ps
+                      for i in ids[1:]]
+            blocks = []
+            for group in (hits, more, lone):
+                _drain(engine)
+                b0 = engine.stats()["blocks_dispatched"]
+                got += _generate(engine, group)
+                blocks.append(engine.stats()["blocks_dispatched"] - b0)
+            stats = engine.stats()
+            for n, ((toks, *_), (ref, *_)) in enumerate(zip(got, want)):
+                diff = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b), None)
+                check(diff is None, f"prefix {label}: request {n}'s text differs from "
+                      f"the uncached engine's from token {diff} on")
+            matched = stats["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+            check(matched == sum(cached) * ps and min(cached) >= 64,
+                  f"prefix {label}: {matched} tokens matched, pages cached {cached}")
+            def ms(rows):
+                return ", ".join(f"{r[1]:.1f}" for r in rows)
+
+            say("prefix", f"{label}: {len(got)} texts (token ids) equal to the uncached "
+                f"engine's. Miss: {len(ids[0])} tokens, TTFT {got[0][1]:.1f} ms (uncached "
+                f"{want[0][1]:.1f}), its lone stream {after_miss['blocks_dispatched'] - before['blocks_dispatched']} "
+                f"decode blocks for 31 decode steps. Hits of {len(ids[1])}-{max(map(len, ids))} "
+                f"tokens, pages matched {cached}: 4 at once TTFT {ms(got[1:5])} ms "
+                f"(uncached {ms(want[1:5])}; admitted after "
+                f"{', '.join(f'{r[2]:.1f}' for r in got[1:5])} ms); 4 more at once "
+                f"{ms(got[5:9])} (uncached {ms(want[5:9])}); one alone {ms(got[9:])} "
+                f"(uncached {ms(want[9:])}); decode blocks dispatched in each group "
+                f"{blocks}; each group from an idle card, on {card}")
+            if not mode.get("ragged_dispatch"):
+                replays = stats["prefill_graph_replays"] - before["prefill_graph_replays"]
+                eager = stats["prefill_eager"] - before["prefill_eager"]
+                check(replays > 0 and eager == 0,
+                      f"prefix {label}: {replays} prefill replays, {eager} eager")
+                say("prefix", f"{label}: {replays} prefill graph replays, {eager} eager "
+                    f"prefills; capture {stats['graph_capture_s']:.2f} s, pool "
+                    f"{stats['graph_pool_bytes'] / 2**20:.1f} MiB")
+            if extra.get("host_kv_bytes"):
+                _host_tier(engine, miss, want[0], cold_other, page_bytes, card)
+        finally:
+            engine.shutdown()
+    _round_trip(cfg, ps, card)
+    counts = {name: k.launches for name, k in KERNELS.items()}
+    say("prefix", f"kernel launches in this phase: {counts}")
+    return counts
+
+
+def _host_tier(engine, miss, cold_miss, cold_other, page_bytes, card) -> None:
+    """A second header spills the first to the host tier; the first again
+    faults its pages back, in place, to the uncached text."""
+    ptrs = [t.data_ptr() for t in engine.paged.pools]
+    _drain(engine)
+    before = engine.stats()
+    other = _generate(engine, [PREFIX_OTHER + PREFIX_TAILS[0]])
+    check(other[0][0] == cold_other[0], "the second header's text differs from "
+          "the uncached engine's")
+    ids = np.asarray(engine.tokenizer.encode(miss), np.int32)
+    dev, host = engine._prefix.probe_tiered(ids)
+    spilled = engine.stats()["kv_pages_evicted"] - before["kv_pages_evicted"]
+    check(spilled > 0 and host > 0, f"nothing spilled: {spilled} pages, header "
+          f"device {dev} / host {host} tokens")
+    _drain(engine)
+    again = _generate(engine, [miss])
+    stats = engine.stats()
+    restored = stats["kv_pages_restored"] - before["kv_pages_restored"]
+    check(again[0][0] == cold_miss[0], "the restored header's text differs from the "
+          "uncached engine's")
+    check(restored > 0, "no page was restored")
+    check([t.data_ptr() for t in engine.paged.pools] == ptrs,
+          "a restore moved the pools (the graphs read the captured addresses)")
+    say("prefix", f"host tier: {spilled} pages spilled ({stats['kv_host_capacity']} host "
+        f"pages of {page_bytes / 2**20:.2f} MiB), header then {dev // 16} pages on the "
+        f"device and {host // 16} in host memory; sent again: {restored} pages restored "
+        f"({restored * page_bytes / 2**20:.1f} MiB), kv_restore_ms p50 "
+        f"{stats['kv_restore_ms_p50']} p95 {stats['kv_restore_ms_p95']} (host wall of "
+        f"the issue), TTFT {again[0][1]:.1f} ms against {cold_miss[1]:.1f} ms recomputed "
+        f"cold; text equal to the uncached engine's; the pools kept their addresses; on "
+        f"{card}")
+
+
+def _round_trip(cfg, ps, card) -> None:
+    """64 pages gathered to a pinned host pool and restored into 64 others
+    equal the originals bit for bit, bf16 and int8 (values and scales);
+    the restore's device time from its issue (host wall apart)."""
+    from polykey_tpu_torch.engine.engine import gather_to_host, restore_from_host
+    from polykey_tpu_torch.engine.kv_cache import HostKVPool, init_paged_kv
+
+    n = 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for int8 in (False, True):
+        paged = init_paged_kv(cfg, 2 * n + 1, ps, torch.bfloat16, "cuda",
+                              kv_dtype=torch.int8 if int8 else None)
+        for t in paged.pools:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda",
+                                      dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype))
+        src, dst = list(range(1, n + 1)), list(range(n + 1, 2 * n + 1))
+        host = HostKVPool(cfg, n, ps, torch.bfloat16, int8, pin=True)
+        hosts = gather_to_host(paged, src)
+        for r in range(n):
+            host.write(r, *(h[:, r] for h in hosts), *([None] * (4 - len(hosts))))
+        ptrs = [t.data_ptr() for t in paged.pools]
+        times, walls = [], []
+        for _ in range(3):
+            sync()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            restore_from_host(paged, host, list(range(n)), dst)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            sync()
+            times.append(start.elapsed_time(end))
+        ok = all(torch.equal(t[:, dst], t[:, src]) for t in paged.pools)
+        check(ok, f"{'int8' if int8 else 'bf16'}: restored pages differ from the originals")
+        check([t.data_ptr() for t in paged.pools] == ptrs, "the restore moved the pools")
+        nbytes = sum(t[:, :n].numel() * t.element_size() for t in paged.pools)
+        say("prefix", f"round trip, {'int8 KV (values and scales)' if int8 else 'bf16 KV'}: "
+            f"{n} pages ({nbytes / 2**20:.1f} MiB) gathered to pinned host memory and "
+            f"restored into {n} other pages, bit-exact; restore device time "
+            f"{', '.join(f'{x:.3f}' for x in times)} ms (issue to done), host wall of "
+            f"the issue {', '.join(f'{x:.3f}' for x in walls)} ms; {nbytes / 1e9 / (statistics.median(times) / 1e3):.1f} GB/s; on {card}")
+        del paged, host, hosts
+        torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1439,6 +1686,8 @@ def main() -> int:
     phase_graph(args.seed, params, dev["smi"])
     sync()
     phase_prefill_graph(args.seed, params, dev["smi"])
+    sync()
+    phase_prefix(args.seed, params, dev["smi"])
     sync()
     del params
     for int8 in (False, True):

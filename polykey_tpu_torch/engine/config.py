@@ -3,13 +3,14 @@
 The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
-for them fails at startup instead of being served by something else: the
-prefix cache and host KV tier, speculative decoding, int8/int4 weights,
-the top-p prefilter, replica and disaggregated pools, checkpoints, and
-mesh axes above 1. Chunked prefill (`prefill_chunk`, `prefill_budget`),
-ragged dispatch (`ragged_dispatch`), the int8 KV cache
-(`kv_dtype="int8"`), the lookahead pipeline (`lookahead_blocks`) and the
-adaptive block (`adaptive_block`) are served.
+for them fails at startup instead of being served by something else:
+speculative decoding, int8/int4 weights, the top-p prefilter, replica and
+disaggregated pools, checkpoints, and mesh axes above 1. Chunked prefill
+(`prefill_chunk`, `prefill_budget`), ragged dispatch (`ragged_dispatch`),
+the int8 KV cache (`kv_dtype="int8"`), the lookahead pipeline
+(`lookahead_blocks`), the adaptive block (`adaptive_block`), and the
+prefix cache with its host-KV tier and durable state dir (`prefix_cache`,
+`host_kv_bytes`, `kv_state_dir`) are served.
 """
 
 from __future__ import annotations
@@ -60,9 +61,28 @@ class EngineConfig:
     prefill_budget: int = 0
 
     ragged_dispatch: bool = False
+    # Automatic prefix caching (engine/prefix_cache.py): requests sharing a
+    # page-aligned prompt prefix reuse its KV pages and prefill only the
+    # suffix. prefix_cache_pages caps the cache's own page references
+    # (LRU); 0 -> num_pages // 2.
     prefix_cache: bool = False
     prefix_cache_pages: int = 0
+    # Host-memory KV tier: > 0 adds a pool of that many bytes in pinned
+    # host RAM for cold prefix-cache pages, spilled from the device pool
+    # under pressure and copied back in place when a lookup hits them.
+    # Requires prefix_cache (from_env pairs them). 0 allocates nothing.
     host_kv_bytes: int = 0
+    # Resident working set: when a retiring request leaves fewer free
+    # device pages than this, LRU prefix pages spill to the host tier
+    # until the floor holds again. 0 -> num_pages // 8.
+    host_kv_resident_pages: int = 0
+    # Faulting slots whose host-to-device restore may be issued per engine
+    # loop iteration (at least one always is).
+    host_kv_restore_slots: int = 2
+    # Restart-durable prefix cache: spilled pages are also written here in
+    # the KV wire format, and a new engine reloads matching ones into its
+    # host tier at construction. "" disables it.
+    kv_state_dir: str = ""
 
     # Decode steps per dispatch: K steps run back to back on the device
     # with device-side EOS/cap stopping; their tokens come back as one
@@ -138,6 +158,13 @@ class EngineConfig:
                 "POLYKEY_PREFIX_CACHE_PAGES", cls.prefix_cache_pages
             ),
             host_kv_bytes=_env_int("POLYKEY_HOST_KV_BYTES", cls.host_kv_bytes),
+            host_kv_resident_pages=_env_int(
+                "POLYKEY_KV_RESIDENT_PAGES", cls.host_kv_resident_pages
+            ),
+            host_kv_restore_slots=_env_int(
+                "POLYKEY_KV_RESTORE_SLOTS", cls.host_kv_restore_slots
+            ),
+            kv_state_dir=os.environ.get("POLYKEY_KV_STATE_DIR", cls.kv_state_dir),
             decode_block_steps=_env_int("POLYKEY_DECODE_BLOCK", cls.decode_block_steps),
             # Default on; POLYKEY_ADAPTIVE_BLOCK=0 pins the static block.
             adaptive_block=os.environ.get(
@@ -198,9 +225,40 @@ class EngineConfig:
         for name in ("tp", "dp", "ep", "sp", "pp", "num_slices", "replicas"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
+        if self.prefix_cache_pages < 0:
+            raise ValueError(
+                "prefix_cache_pages must be >= 0 (0 → num_pages // 2); "
+                "negative would silently disable the LRU cap"
+            )
+        if self.host_kv_bytes < 0:
+            raise ValueError(
+                "host_kv_bytes must be >= 0 (0 disables the host KV tier)"
+            )
+        if self.host_kv_bytes > 0 and not self.prefix_cache:
+            raise ValueError(
+                "host_kv_bytes > 0 requires prefix_cache: the host tier's "
+                "only spill source is the prefix cache (from_env pairs "
+                "them automatically)"
+            )
+        if self.host_kv_resident_pages < 0:
+            raise ValueError(
+                "host_kv_resident_pages must be >= 0 (0 → num_pages // 8)"
+            )
+        if self.host_kv_bytes > 0 and \
+                self.host_kv_resident_pages >= self.num_pages - 1:
+            raise ValueError(
+                f"host_kv_resident_pages={self.host_kv_resident_pages} "
+                f"must stay below the usable device pool "
+                f"({self.num_pages - 1} pages): a floor the pool can "
+                "never satisfy turns every retire into a full cache "
+                "spill and every turn into wall-to-wall page faults"
+            )
+        if self.host_kv_restore_slots < 1:
+            raise ValueError(
+                "host_kv_restore_slots must be >= 1 (a restore budget of "
+                "0 would wedge every faulting lane forever)"
+            )
         unported = [
-            (self.prefix_cache or self.host_kv_bytes > 0,
-             "prefix_cache / host_kv_bytes", "prefix cache and host-KV tier"),
             (self.draft_model is not None, "draft_model",
              "speculative decoding"),
             (self.quantize, "quantize (POLYKEY_QUANTIZE)",

@@ -63,14 +63,33 @@ GPU (the reference's engine/engine.py, default path).
   dequantize as attention reads them, through the int8 kernels in both
   dispatch modes (flash still serves the bucketed prefill, over a window
   dequantized to bf16).
+- Prefix cache (`prefix_cache`, engine/prefix_cache.py): admission looks
+  the prompt's page-aligned prefix up, shares the cached pages and
+  prefills only the suffix: in its own bucket at `start` = the cached
+  length (the bucket's graph; positions are operands, and a page-aligned
+  start keeps the window aligned), in chunks from that offset, or in
+  ragged mode as ranges from it. In bucketed mode the match is cut so the
+  suffix's padded window ends within `max_seq_len` (`_fit_window`): a
+  position past the table would clamp onto the slot's last page. A
+  prompt's pages enter the cache when its first token is delivered, the
+  read that proves its prefill ran.
+- Host-KV tier (`host_kv_bytes`): cold cache pages spill to pinned host
+  pools (`_spill_for`: under admission pressure, and at retire below the
+  resident floor) and fault back through the restore frontier
+  (`_issue_restores`), which copies a faulting slot's pages in place into
+  the device pools, ahead of its prefill on the one stream: the graphs
+  captured the pools' addresses, so nothing rebinds them. With
+  `kv_state_dir` the spills are also written to disk in the reference's
+  wire format, and a new engine reloads them.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch, the prefix cache, speculative decoding.
+dispatch, speculative decoding, the disaggregated handoff.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import queue
 import threading
@@ -95,13 +114,24 @@ from ..ops import (
 from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
 from .config import EngineConfig
 from .graphs import CudaGraphs
-from .kv_cache import AllocationError, BlockAllocator, PagedKV, init_paged_kv
+from .kv_cache import (
+    AllocationError,
+    BlockAllocator,
+    HostKVPool,
+    PagedKV,
+    host_kv_page_bytes,
+    init_paged_kv,
+)
 from .metrics import EngineMetrics, RequestTimings
+from .prefix_cache import TIER_DEVICE, TIER_HOST, PrefixCache, PrefixStateStore
 from .sampling import sample_tail
 from .tokenizer import load_tokenizer
 
 _MAX_PREFILL_GROUP = 8   # burst admissions batched per prefill dispatch
 _GROUP_PADS = (1, 2, 4, 8)
+# prefix_warmth's weight of a host-resident token against a device one: a
+# restore stands between it and a dispatch.
+_HOST_WARMTH_WEIGHT = 0.5
 
 # Error-message prefix contract with the gateway: engine failures that
 # begin with this map to gRPC DEADLINE_EXCEEDED (torch_service).
@@ -155,11 +185,18 @@ class _Slot:
     seed_row: np.ndarray           # [2] int32 seed halves
     prompt_len: int
     position_cap: int              # absolute position limit
-    prompt_ids: Optional[np.ndarray] = None   # until the prefill dispatch
+    # A grouped prefill's ids from `filled` on, until the dispatch.
+    prompt_ids: Optional[np.ndarray] = None
     # Chunked / ragged prefill: the prompt's ids while any are left to
-    # prefill, and how many already are (`pending is None` once merged).
+    # prefill. `filled`: positions already in the slot's pages (a prefix
+    # cache hit, then the chunks); `pending is None` once merged.
     pending: Optional[np.ndarray] = None
     filled: int = 0
+    # The whole prompt, kept until its pages enter the prefix cache.
+    cache_ids: Optional[np.ndarray] = None
+    # A faulting slot's host pages, [(key, host page, chain index)], until
+    # the restore frontier issues their copy; it joins no prefill before.
+    restore_pages: Optional[list] = None
     generated: int = 0
     merged: bool = False           # device lane activated
     last_emit: float = 0.0
@@ -488,6 +525,64 @@ def _retire_lane_fn(state: dict, slot: int) -> None:
     state["caps"][slot] = 0
 
 
+def _kv_gather_fn(paged: PagedKV, idx: torch.Tensor) -> list:
+    """The pages `idx` (int64, on the pools' device) of every pool, for a
+    spill to the host tier: k and v, and for int8 KV the pair form, the
+    values with their bf16 scale pools. Read-only; each result is [L,
+    len(idx), ...]. The reference pads `idx` to pages_per_seq for one
+    static shape; eager, this takes exactly the pages named."""
+    return [torch.index_select(t, 1, idx) for t in paged.pools]
+
+
+def _kv_restore_fn(paged: PagedKV, idx: torch.Tensor, pages: list) -> None:
+    """Write page contents (`_kv_gather_fn`'s layout, on the pools' device)
+    into the pools at page ids `idx`, byte for byte (int8: values and
+    scales together). In place: the CUDA graphs read the pools at the
+    addresses they captured, so the pools are never rebuilt."""
+    for pool, src in zip(paged.pools, pages):
+        pool.index_copy_(1, idx, src)
+
+
+def _page_index(pages, device) -> torch.Tensor:
+    """Page ids as an int64 index on `device`, sent without a sync."""
+    return _to_device([np.asarray(pages, np.int32)], device)[0].long()
+
+
+def gather_to_host(paged: PagedKV, pages: list) -> list:
+    """The pools' pages `pages` in host memory: gathered on the device
+    (`_kv_gather_fn`), copied to pinned memory and waited for (a spill
+    blocks here, as the reference's does). On the CPU the gather itself."""
+    outs = _kv_gather_fn(paged, _page_index(pages, paged.k.device))
+    if paged.k.device.type != "cuda":
+        return outs
+    hosts = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
+    for h, o in zip(hosts, outs):
+        h.copy_(o, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return hosts
+
+
+def restore_from_host(paged: PagedKV, host: HostKVPool, rows: list, pages: list) -> None:
+    """Copy host pages `rows` into the pools' pages `pages` on the current
+    stream, without a sync: first into a fresh pinned staging buffer (never
+    a non-blocking copy from the host pool itself, whose pages the caller
+    may release and a later spill overwrite before the copy has run; the
+    pinned allocator keeps the buffer until the copy is done), then up to
+    the device and in place into the pools (`_kv_restore_fn`)."""
+    dev = paged.k.device
+    pin = dev.type == "cuda"
+    sel = torch.tensor(rows, dtype=torch.long)
+    staged = []
+    for src in host.pools:
+        buf = torch.empty((src.shape[0], len(rows), *src.shape[2:]), dtype=src.dtype,
+                          pin_memory=pin)
+        torch.index_select(src, 1, sel, out=buf)
+        staged.append(buf.to(dev, non_blocking=True))
+    _kv_restore_fn(paged, _page_index(pages, dev), staged)
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -512,17 +607,67 @@ class InferenceEngine:
         pool_dtype = _DTYPES.get(config.kv_dtype, self._dtype)
         self._seed_rng = np.random.default_rng(seed + 3)
 
+        self._params_explicit = params is not None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(self.model_cfg, self._dtype, self.device, gen)
         self.params = params
         B, P = config.max_decode_slots, config.pages_per_seq
+        kv_q = torch.int8 if config.kv_dtype == "int8" else None
         self.paged = init_paged_kv(
             self.model_cfg, config.num_pages, config.page_size,
-            pool_dtype, self.device,
-            kv_dtype=torch.int8 if config.kv_dtype == "int8" else None,
+            pool_dtype, self.device, kv_dtype=kv_q,
         )
         self.allocator = BlockAllocator(config.num_pages)
+        # Host-KV tier: cold prefix pages in pinned host pools. 0 bytes: no
+        # pool, no store.
+        self._host_kv: Optional[HostKVPool] = None
+        self._kv_state: Optional[PrefixStateStore] = None
+        self._kv_reloaded_pages = 0
+        if config.host_kv_bytes > 0:
+            page_b = host_kv_page_bytes(self.model_cfg, config.page_size, pool_dtype, kv_q)
+            capacity = config.host_kv_bytes // max(1, page_b)
+            if capacity < 1:
+                raise ValueError(
+                    f"POLYKEY_HOST_KV_BYTES={config.host_kv_bytes} is smaller "
+                    f"than one KV page ({page_b} bytes for {self.model_cfg.name} "
+                    f"at page_size {config.page_size})"
+                )
+            self._host_kv = HostKVPool(
+                self.model_cfg, capacity, config.page_size, pool_dtype,
+                kv_q is not None, pin=self.device.type == "cuda",
+            )
+        # _finish spills while fewer device pages than the resident floor
+        # are free; the restore frontier issues at most `_restore_slots`
+        # slots an iteration (a live knob: set_kv_restore_slots), and at
+        # least one.
+        self._resident_low = config.host_kv_resident_pages or config.num_pages // 8
+        self._restore_slots = max(1, config.host_kv_restore_slots)
+        self._restore_rr = _RRCursor()
+        # The durable store's gc lists and parses the whole dir: once every
+        # 16 spill batches.
+        self._kv_gc_countdown = 0
+        self._prefix: Optional[PrefixCache] = None
+        if config.prefix_cache:
+            self._prefix = PrefixCache(
+                self.allocator, config.page_size,
+                config.prefix_cache_pages or config.num_pages // 2,
+                host_pool=self._host_kv,
+            )
+        if self._host_kv is not None and config.kv_state_dir:
+            # Reload the pages an earlier engine on the same weights spilled
+            # (the params_key gate), into the host tier.
+            self._kv_state = PrefixStateStore(
+                config.kv_state_dir, self.model_cfg.name, config.page_size,
+                params_key=self._params_fingerprint(seed),
+                quantized=kv_q is not None, logger=logger,
+            )
+            mc = self.model_cfg
+            self._kv_reloaded_pages = self._kv_state.load_into(
+                self._prefix, self._host_kv,
+                expect_shape=(mc.num_layers, 0, config.page_size,
+                              mc.num_kv_heads, mc.head_dim),
+            )
 
         # Host mirrors of the per-slot state the host decides on (engine
         # thread only), and the device-resident lane state the decode
@@ -670,7 +815,34 @@ class InferenceEngine:
             snap["ragged_width"] = self._ragged_width
             snap["ragged_dispatches"] = self._ragged_dispatches
             snap["ragged_behind_inflight"] = self._ragged_behind
+        if self._prefix is not None:
+            snap.update(self._prefix.stats())
+        # The host tier's fields are always present (0 without a tier).
+        host = self._host_kv
+        snap["host_kv"] = host is not None
+        snap["kv_host_pages"] = host.used if host is not None else 0
+        snap["kv_host_capacity"] = host.capacity if host is not None else 0
+        # Device pages held by slots and the cache (page 0 excluded).
+        snap["kv_device_pages"] = self.config.num_pages - 1 - self.allocator.num_free
+        snap["kv_reloaded_pages"] = self._kv_reloaded_pages
         return snap
+
+    def prefix_warmth(self, ids) -> float:
+        """Fraction [0, 1] of the token ids `ids` whose KV this engine could
+        serve from its prefix cache, the routers' warmth signal. Read-only
+        (no retain, no LRU refresh, no hit accounting). Host-resident pages
+        count as warm at weight 0.5. 0.0 with the cache off or no ids."""
+        if self._prefix is None or len(ids) == 0:
+            return 0.0
+        dev, host = self._prefix.probe_tiered(np.asarray(ids, dtype=np.int32))
+        return (dev + _HOST_WARMTH_WEIGHT * host) / len(ids)
+
+    def set_kv_restore_slots(self, slots: int) -> int:
+        """Faulting slots whose restore may be issued per loop iteration
+        (POLYKEY_KV_RESTORE_SLOTS), clamped to 1..max_decode_slots; returns
+        the value applied."""
+        self._restore_slots = max(1, min(int(slots), self.config.max_decode_slots))
+        return self._restore_slots
 
     def set_lookahead(self, depth: int) -> int:
         """Pipeline depth (POLYKEY_DISPATCH_LOOKAHEAD), clamped to 1..64;
@@ -702,6 +874,22 @@ class InferenceEngine:
         self._wake.set()
         self._thread.join(timeout=timeout)
 
+    def _params_fingerprint(self, seed: int) -> str:
+        """Fingerprint of what decides KV content, the gate on durable
+        reloads. The basis is the reference's, so a state dir written on
+        explicit weights warms either package's engine on those weights.
+        Weights made from a seed here come from a torch.Generator, not
+        jax.random: the same seed gives other weights, so that basis adds
+        a term of its own and never matches the reference's."""
+        cfg = self.config
+        derived = not (self._params_explicit or cfg.checkpoint_path)
+        basis = (
+            cfg.model, cfg.dtype, cfg.kv_dtype, cfg.quantize, cfg.quantize_bits,
+            cfg.checkpoint_path or "", seed if derived else -1,
+            self._params_explicit, cfg.page_size,
+        ) + (("torch-init",) if derived else ())
+        return hashlib.blake2b(repr(basis).encode(), digest_size=8).hexdigest()
+
     # -- engine thread ------------------------------------------------------
 
     def _run(self) -> None:
@@ -716,6 +904,10 @@ class InferenceEngine:
                     decode_live = bool(self._active.any())
                     budget = self._prefill_budget if decode_live else None
                     worked, spent = self._admit(budget)
+                    # Restore frontier: faulting slots' host pages go back
+                    # to the device ahead of this iteration's dispatches.
+                    if self._host_kv is not None and self._issue_restores():
+                        worked = True
                     if not self._ragged:
                         remaining = None if budget is None else max(0, budget - spent)
                         chunked = self._advance_chunked_prefills(remaining)
@@ -839,10 +1031,12 @@ class InferenceEngine:
             self._submit.put(item)
 
     def _prepare_request(self, slot_idx: int, request: GenRequest):
-        """Tokenize, budget, allocate pages and register the slot; returns
-        (bucket, slot_idx) for a short prompt the caller prefills in a
-        group, or None for a prompt registered as pending (chunked
-        prefill, or any prompt in ragged mode)."""
+        """Tokenize, budget, match the prefix cache, allocate pages and
+        register the slot; returns (bucket, slot_idx) for a prompt (or a
+        cache hit's suffix) the caller prefills in a group, or None for one
+        registered as pending (chunked prefill, any prompt in ragged mode,
+        a slot faulting on host pages) or failed here. AllocationError: the
+        pool is full (the match is undone)."""
         cfg = self.config
         request.timings.prefill_start = time.monotonic()
         prompt_ids = self.tokenizer.encode(request.prompt)
@@ -856,7 +1050,47 @@ class InferenceEngine:
         prompt_len = len(prompt_ids)
         request.timings.prompt_tokens = prompt_len
         total_len = prompt_len + max_new
-        pages = self.allocator.alloc(-(-total_len // cfg.page_size))
+        ids = np.asarray(prompt_ids, dtype=np.int32)
+
+        # Prefix cache: the cached page-aligned prefix as a chain of (key,
+        # tier, page); device pages are retained for this slot. With the
+        # host tier, host entries are page faults: each takes a fresh
+        # device page here and is detached to this request before anything
+        # allocates (a spill into a full host tier drops LRU host entries,
+        # never one this restore needs); the restore frontier copies it in.
+        chain: list = []
+        if self._prefix is not None:
+            chain = self._fit_window(self._prefix.lookup_chain(ids)[0], prompt_len)
+        restore_items = [(key, self._prefix.detach_host(key), ci)
+                         for ci, (key, tier, _) in enumerate(chain) if tier == TIER_HOST]
+        need = -(-total_len // cfg.page_size) - (len(chain) - len(restore_items))
+        try:
+            try:
+                fresh = self.allocator.alloc(need)
+            except AllocationError:
+                if self._prefix is None:
+                    raise
+                # Pressure: offload cold cache pages to the host tier if
+                # there is one, drop them if not (or not enough), retry.
+                if self._host_kv is not None:
+                    self._spill_for(need)
+                if self.allocator.num_free < need:
+                    self._prefix.evict_for(need)
+                fresh = self.allocator.alloc(need)
+        except AllocationError:
+            self._undo_match(chain, restore_items)
+            raise
+        except Exception as e:
+            # A failed spill ends this request, never the engine.
+            self._undo_match(chain, restore_items)
+            self._fail_request(request, f"kv spill failed: {e}")
+            return None
+        # The table in chain order: device hits keep their shared pages,
+        # faults take fresh pages that the restore fills.
+        fresh_iter = iter(fresh)
+        pages = [page if tier == TIER_DEVICE else next(fresh_iter)
+                 for _, tier, page in chain]
+        pages += list(fresh_iter)
         table = np.zeros((cfg.pages_per_seq,), dtype=np.int32)
         table[: len(pages)] = pages
         seed = request.seed
@@ -869,20 +1103,70 @@ class InferenceEngine:
         slot = _Slot(
             request=request, pages=pages, table=table, seed_row=seed_row,
             prompt_len=prompt_len, position_cap=total_len,
+            filled=len(chain) * cfg.page_size,
+            cache_ids=ids if self._prefix is not None else None,
         )
         self._slots[slot_idx] = slot
-        ids = np.asarray(prompt_ids, dtype=np.int32)
-        bucket = self._bucket_for(prompt_len)
-        if self._ragged or bucket is None:
-            # Ragged mode: every prompt is token ranges of the next ragged
-            # dispatches. Bucketed mode: a prompt past the largest bucket
-            # prefills one chunk per iteration. Either way the slot's table
-            # stays off the device until its lane merges, so decode blocks
-            # keep writing this lane's garbage to page 0.
+        if restore_items:
+            # Faulting: the whole prompt pending from the chain's end; it
+            # joins no prefill until its restore is issued, so resident
+            # admissions dispatch ahead of it.
+            slot.restore_pages = restore_items
+            kind = "ctx" if prompt_len > max(cfg.prefill_buckets) else "prefix"
+            self.metrics.on_kv_fault(kind, len(restore_items))
             slot.pending = ids
             return None
-        slot.prompt_ids = ids
+        bucket = self._bucket_for(prompt_len - slot.filled)
+        if self._ragged or bucket is None:
+            # Ragged mode: every prompt is token ranges of the next ragged
+            # dispatches, from the cached offset. Bucketed mode: a prompt
+            # (or suffix) past the largest bucket prefills one chunk per
+            # iteration from it. Either way the slot's table stays off the
+            # device until its lane merges, so decode blocks keep writing
+            # this lane's garbage to page 0.
+            slot.pending = ids
+            return None
+        slot.prompt_ids = ids[slot.filled:]
         return bucket, slot_idx
+
+    def _fit_window(self, chain: list, prompt_len: int) -> list:
+        """Bucketed mode: drop matched pages from the end of `chain` until
+        the suffix's padded prefill window (its bucket, or whole chunks
+        from the cached offset, which a faulting slot always takes) ends
+        within max_seq_len. A position past the page table clamps onto the
+        slot's last page, so a padded row there would write over the
+        suffix's own KV in the same launch. Without a hit no window runs
+        past: buckets start at 0, chunks at multiples of the chunk. Dropped
+        device pages are released and their hit accounting taken back."""
+        if self._ragged:
+            return chain
+        ps, C = self.config.page_size, self._chunk
+        while chain:
+            filled = len(chain) * ps
+            n = prompt_len - filled
+            faulting = any(tier == TIER_HOST for _, tier, _ in chain)
+            bucket = None if faulting else self._bucket_for(n)
+            width = bucket if bucket is not None else -(-n // C) * C
+            if filled + width <= self.config.max_seq_len:
+                break
+            _, tier, page = chain.pop()
+            if tier == TIER_DEVICE:
+                self.allocator.release(page)
+                self._prefix.hit_tokens -= ps
+            else:
+                self._prefix.host_hit_tokens -= ps
+        return chain
+
+    def _undo_match(self, chain: list, restore_items: list) -> None:
+        """Give back an admission's match: the chain's device retains, and
+        its detached host pages to the cache (warmth survives a requeue; a
+        key cached meanwhile keeps its copy and ours frees)."""
+        if self._prefix is None:
+            return
+        self._prefix.release_chain(chain)
+        for key, host_page, _ci in restore_items:
+            if not self._prefix.adopt_host(key, host_page):
+                self._host_kv.release(host_page)
 
     def _run_prefill(self, rows: list, width: int, n_pad: int):
         """One _prefill_fn dispatch of `n_pad` windows of `width` tokens;
@@ -941,7 +1225,7 @@ class InferenceEngine:
         rows = []
         for slot_idx in group:
             slot = self._slots[slot_idx]
-            rows.append((slot, slot.prompt_ids, 0))
+            rows.append((slot, slot.prompt_ids, slot.filled))   # > 0: a cache hit's suffix
             slot.prompt_ids = None
         try:
             toks_dev, tables, seeds = self._run_prefill(rows, bucket, n_pad)
@@ -1013,6 +1297,12 @@ class InferenceEngine:
         if first.event is not None:
             first.event.synchronize()
         token = int(first.host[first.row])
+        if slot.cache_ids is not None:
+            # The token proves the prefill ran, so the prompt's pages hold
+            # its KV: publish them now, never at merge time. Any consumer's
+            # own prefill is dispatched after this, behind it on the stream.
+            self._prefix.insert(slot.cache_ids, slot.pages)
+            slot.cache_ids = None
         slot.generated = 1
         request.timings.first_token = time.monotonic()
         slot.last_emit = request.timings.first_token
@@ -1031,8 +1321,8 @@ class InferenceEngine:
         B = len(self._slots)
         for i in self._chunk_rr.scan(B):
             s = self._slots[i]
-            if s is None or s.pending is None:
-                continue
+            if s is None or s.pending is None or s.restore_pages is not None:
+                continue                 # a faulting slot waits for its restore
             if budget is not None and spent > 0 and spent >= budget:
                 self._chunk_rr.reanchor(i)      # starved: first next time
                 return spent
@@ -1086,8 +1376,8 @@ class InferenceEngine:
         starved = None
         for i in self._chunk_rr.scan(B):
             s = self._slots[i]
-            if s is None or s.pending is None:
-                continue
+            if s is None or s.pending is None or s.restore_pages is not None:
+                continue                 # a faulting slot waits for its restore
             if s.request.cancelled.is_set():
                 self._finish(i, error="cancelled")
                 continue
@@ -1374,6 +1664,11 @@ class InferenceEngine:
         slot.first = None     # an undelivered first token goes with its request
         request.timings.finished = time.monotonic()
         request.timings.completion_tokens = slot.generated
+        if slot.restore_pages:
+            # Ended before its restore was issued: its host pages go back
+            # to the cache, so the warmth outlives the slot.
+            self._undo_match([], slot.restore_pages)
+            slot.restore_pages = None
         self.allocator.release_all(slot.pages)
         self._slots[slot_idx] = None
         self._active[slot_idx] = False
@@ -1387,6 +1682,118 @@ class InferenceEngine:
         else:
             request.out.put(("done", request.timings))
             self.metrics.on_finish(request.timings)
+        if (self._host_kv is not None and self.dead is None and not self._stop.is_set()
+                and self.allocator.num_free < self._resident_low):
+            # Below the resident floor: spill cold cache pages now, off any
+            # admission's critical path (after the request's own end, so a
+            # failed gather cannot leave it unanswered).
+            self._spill_for(self._resident_low)
+
+    # -- host-KV tier ----------------------------------------------------------
+
+    def _issue_restores(self) -> int:
+        """The restore frontier: issue the host-to-device restore of up to
+        `_restore_slots` faulting slots, round-robin from the cursor, ahead
+        of this iteration's dispatches. The first always goes (the progress
+        floor). A faulting slot joins no prefill until its restore is
+        issued; after that, stream order puts the restored pages ahead of
+        every dispatch that reads them, with no host wait. Returns the
+        slots restored."""
+        issued = 0
+        B = len(self._slots)
+        for i in self._restore_rr.scan(B):
+            slot = self._slots[i]
+            if slot is None or slot.restore_pages is None:
+                continue
+            if issued >= self._restore_slots and issued > 0:
+                self._restore_rr.reanchor(i)     # starved: first next time
+                return issued
+            if slot.request.cancelled.is_set():
+                self._finish(i, error="cancelled")
+                continue
+            self._restore_slot_pages(i, slot)
+            issued += 1
+        self._restore_rr.advance(B)
+        return issued
+
+    def _restore_slot_pages(self, slot_idx: int, slot: _Slot) -> None:
+        """One faulting slot's restore (`restore_from_host`) into its own
+        device pages, on the current stream, the one every dispatch and
+        graph replay runs on; then its host pages are released and the
+        cache entries promoted to the device pages. A failure finishes the
+        slot with an error (its host pages go back to the cache) and is
+        never retried elsewhere."""
+        items = slot.restore_pages
+        t0 = time.monotonic()
+        host = self._host_kv
+        try:
+            restore_from_host(self.paged, host, [hp for _, hp, _ in items],
+                              [slot.pages[ci] for _, _, ci in items])
+        except Exception as e:
+            self._finish(slot_idx, error=f"kv restore failed: {e}")
+            return
+        for key, host_page, ci in items:
+            host.release(host_page)
+            # Promote under the slot's page; a key re-inserted meanwhile
+            # wins, and this slot's copy still serves it.
+            self._prefix.reinsert_device(key, slot.pages[ci])
+        slot.restore_pages = None
+        self.metrics.on_kv_restore(len(items), (time.monotonic() - t0) * 1e3)
+
+    def _spill_for(self, target_free: int) -> int:
+        """Spill LRU device-tier cache entries to the host tier until the
+        allocator has `target_free` free pages or nothing is left to spill.
+        A spilled page a live slot still holds frees only when the slot
+        retires, so the loop reads num_free again. Returns pages spilled."""
+        if self._host_kv is None or self._prefix is None:
+            return 0
+        spilled = 0
+        while self.allocator.num_free < target_free:
+            cands = self._prefix.spill_candidates(self.config.pages_per_seq)
+            if not cands:
+                break
+            spilled += self._spill_batch(cands)
+        return spilled
+
+    def _spill_batch(self, cands: list) -> int:
+        """Gather one batch of cold pages [(key, device page)] to host memory
+        (`gather_to_host`, which waits for the copy), then move each page
+        into the host pool (dropping the LRU host entry when it is full) and
+        write the batch to the durable store. The cache's device references
+        are released only after the copy; a later writer of a freed page is
+        queued behind the gather on the same stream anyway."""
+        hosts = gather_to_host(self.paged, [page for _, page in cands])
+        k, v, ks, vs = (hosts + [None, None])[:4]
+        moved: list[tuple[bytes, int]] = []       # (key, gather row)
+        for r, (key, _page) in enumerate(cands):
+            try:
+                host_page = self._host_kv.alloc()
+            except AllocationError:
+                # Host tier full: drop its LRU entry; none (the tier is
+                # smaller than this batch) drops this entry outright.
+                if self._prefix.pop_lru_host() is None:
+                    self._prefix.drop(key)
+                    continue
+                host_page = self._host_kv.alloc()
+            self._host_kv.write(host_page, k[:, r], v[:, r],
+                                ks[:, r] if ks is not None else None,
+                                vs[:, r] if vs is not None else None)
+            self._prefix.mark_host(key, host_page)
+            moved.append((key, r))
+        if moved:
+            self.metrics.on_kv_evict(len(moved))
+            if self._kv_state is not None:
+                rows = [r for _, r in moved]
+                self._kv_state.save_batch(
+                    [key for key, _ in moved], k[:, rows], v[:, rows],
+                    ks[:, rows] if ks is not None else None,
+                    vs[:, rows] if vs is not None else None,
+                )
+                self._kv_gc_countdown -= 1
+                if self._kv_gc_countdown <= 0:
+                    self._kv_state.gc(self._host_kv.capacity)
+                    self._kv_gc_countdown = 16
+        return len(moved)
 
     def _fail_pending(self, message: str) -> None:
         try:

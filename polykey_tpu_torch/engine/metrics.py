@@ -8,9 +8,11 @@ per-request Usage on the streaming RPC.
 TTFT and inter-token latency are histogram-backed (obs.histogram): fixed
 log-spaced buckets give O(1)-memory p50/p95/p99 over the full history.
 
-This covers what the port's engine paths record; the counters of
-speculative decoding, the host-KV tier and device-time attribution come
-with the slices that port those features.
+The host-KV tier's page faults, spills and restores (with the restore
+latency histogram) are always in the snapshot, 0 with the tier off. This
+covers what the port's engine paths record; the counters of speculative
+decoding and device-time attribution come with the slices that port those
+features.
 """
 
 from __future__ import annotations
@@ -106,6 +108,28 @@ class EngineMetrics:
         self.dispatch_gap_ms_total = 0.0
         self.dispatch_gaps = 0
         self._last_dispatch_t = 0.0
+        # Host-KV tier: host pages faulted at admission, by kind (a prompt
+        # past the largest bucket is "ctx"), pages spilled and restored,
+        # and the host wall of each restore.
+        self.kv_page_faults = {"prefix": 0, "ctx": 0}
+        self.kv_pages_evicted = 0
+        self.kv_pages_restored = 0
+        self.kv_restore_hist = Histogram()
+
+    def on_kv_fault(self, kind: str, pages: int) -> None:
+        """`pages` host-resident pages faulted for one admission (restored
+        before its suffix may prefill)."""
+        with self._lock:
+            self.kv_page_faults[kind] += pages
+
+    def on_kv_evict(self, pages: int) -> None:
+        with self._lock:
+            self.kv_pages_evicted += pages
+
+    def on_kv_restore(self, pages: int, ms: float) -> None:
+        with self._lock:
+            self.kv_pages_restored += pages
+        self.kv_restore_hist.observe(ms)
 
     def on_process_block(self, lookahead: int, stall_ms: Optional[float]) -> None:
         """One block processed with `lookahead` newer blocks already
@@ -237,6 +261,10 @@ class EngineMetrics:
                 self._window_start = time.monotonic()
                 self._window_tokens = 0
             snap = {
+                "kv_page_faults_prefix": self.kv_page_faults["prefix"],
+                "kv_page_faults_ctx": self.kv_page_faults["ctx"],
+                "kv_pages_evicted": self.kv_pages_evicted,
+                "kv_pages_restored": self.kv_pages_restored,
                 "requests_admitted": self.requests_admitted,
                 "requests_completed": self.requests_completed,
                 "requests_failed": self.requests_failed,
@@ -289,4 +317,8 @@ class EngineMetrics:
             p50, p95 = self.host_stall_hist.percentiles(50, 95)
             snap["host_stall_ms_p50"] = round(p50, 2)
             snap["host_stall_ms_p95"] = round(p95, 2)
+        if self.kv_restore_hist.count:
+            p50, p95 = self.kv_restore_hist.percentiles(50, 95)
+            snap["kv_restore_ms_p50"] = round(p50, 2)
+            snap["kv_restore_ms_p95"] = round(p95, 2)
         return snap

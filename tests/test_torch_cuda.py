@@ -1088,3 +1088,162 @@ def test_ragged_kernel_takes_a_work_list_from_short_lengths(gen, int8):
     ok = _ragged_within_tolerance(rk, out, args, scale=128 ** -0.5)
     assert ok.all()
     assert (out[used:] == 0).all()
+
+
+# -- the prefix cache and the host-KV tier on the card -------------------------
+
+def _spill_and_restore(paged, src, dst, host_pool):
+    """The engine's page movers end to end, in `_spill_batch`'s and
+    `_restore_slot_pages`' order: gather `src` to pinned memory, write each
+    page into the host pool, then restore them into `dst` from a fresh
+    pinned staging buffer, without a sync."""
+    from polykey_tpu_torch.engine.engine import gather_to_host, restore_from_host
+
+    hosts = gather_to_host(paged, src)
+    for r in range(len(src)):
+        host_pool.write(r, *(h[:, r] for h in hosts), *([None] * (4 - len(hosts))))
+    restore_from_host(paged, host_pool, list(range(len(src))), dst)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_kv_gather_restore_round_trip_is_bit_exact(gen, int8):
+    """Pages gathered to the host tier and restored into other device pages
+    equal the originals bit for bit (int8: values and scales), the pools
+    keep their addresses, and no other page changes."""
+    from polykey_tpu_torch.engine.kv_cache import HostKVPool
+
+    cfg, _, paged, _ = _graph_parts(gen, int8)
+    _fill_pools(gen, paged)
+    ptrs = [t.data_ptr() for t in _pools(paged)]
+    before = [t.clone() for t in _pools(paged)]
+    host = HostKVPool(cfg, 4, 16, torch.bfloat16, int8, pin=True)
+    src, dst = [3, 7, 11, 12], [40, 41, 50, 2]
+    _spill_and_restore(paged, src, dst, host)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in _pools(paged)] == ptrs
+    keep = [p for p in range(paged.num_pages) if p not in dst]
+    for t, b in zip(_pools(paged), before):
+        assert torch.equal(t[:, dst], b[:, src])
+        assert torch.equal(t[:, keep], b[:, keep])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_restore_ahead_of_a_prefill_replay_is_read_by_it(gen, int8):
+    """A cached prefix's pages are spilled, overwritten on the device, and
+    restored just before the suffix's prefill graph replays, with no sync in
+    between: stream order makes the replay read the restored pages, so its
+    token and pools equal the eager prefill's over the original pages."""
+    from polykey_tpu_torch.engine.engine import _prefill_fn, prefill_graph_keys
+    from polykey_tpu_torch.engine.kv_cache import HostKVPool, PagedKV
+
+    cfg, params, paged, state = _graph_parts(gen, int8, pages=80)
+    keys = [k for k in prefill_graph_keys((128,), 128, 16) if k[1] == 1]
+    graphs, ops = _prefill_graphs(cfg, params, paged, state, keys)
+    _fill_pools(gen, paged)
+    _prefill_rows(gen, ops[1], 128, 128, True)        # 8 cached pages, then the suffix
+    prefix = list(range(1, 9))
+    with torch.inference_mode():
+        ref_paged = PagedKV(*(t.clone() if t is not None else None
+                              for t in (paged.k, paged.v, paged.ks, paged.vs)))
+        want = _prefill_fn(params, cfg, ref_paged, *ops[1].views(128), greedy=True,
+                           aligned=True)[0]
+        host = HostKVPool(cfg, len(prefix), 16, torch.bfloat16, int8, pin=True)
+        # Spill the prefix out of spare pages holding its copy, clobber the
+        # table's pages, then restore and replay back to back.
+        spare = list(range(60, 68))
+        for t in _pools(paged):
+            t[:, spare] = t[:, prefix]
+            t[:, prefix] = 0
+        ptrs = [t.data_ptr() for t in _pools(paged)]
+        _spill_and_restore(paged, spare, prefix, host)
+        got = graphs.run("prefill", 128, 1, True, True).clone()
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in _pools(paged)] == ptrs
+    assert torch.equal(got, want)
+    for a, b in zip(_pools(paged), _pools(ref_paged)):
+        assert torch.equal(a[:, :60], b[:, :60])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_prefix_hit_suffix_replay_matches_eager(gen, int8):
+    """Two suffixes sharing cached pages, at page-aligned offsets 128 and 64
+    in one (128, 2) replay: tokens and pools as the eager body's, and the
+    shared pages untouched (a hit only reads them)."""
+    import numpy as np
+
+    from polykey_tpu_torch.engine.engine import prefill_graph_keys
+
+    cfg, params, paged, state = _graph_parts(gen, int8, pages=80)
+    keys = [k for k in prefill_graph_keys((128,), 128, 16) if k[1] == 2]
+    graphs, ops = _prefill_graphs(cfg, params, paged, state, keys)
+    _fill_pools(gen, paged)
+    rng = np.random.default_rng(1)
+    tables = np.zeros((2, 16), np.int32)
+    tables[0, :16] = np.arange(1, 17)                        # 8 shared + 8 own
+    tables[1, :12] = np.r_[np.arange(1, 5), np.arange(30, 38)]  # 4 shared + 8 own
+    ops[2].upload(rng.integers(3, 500, (2, 128)).astype(np.int32),
+                  np.array([128, 64], np.int32), np.array([100, 127], np.int32), tables,
+                  rng.integers(0, 1 << 30, (2, 2)).astype(np.int32),
+                  np.zeros(2, np.float32), np.ones(2, np.float32), np.zeros(2, np.int32))
+    shared = [t[:, 1:9].clone() for t in _pools(paged)]
+    want, got, ref_paged = _eager_prefill_and_replay(cfg, params, paged, graphs, ops,
+                                                     (128, 2, True, True))
+    assert torch.equal(got, want)
+    for a, b, s in zip(_pools(paged), _pools(ref_paged), shared):
+        assert torch.equal(a, b)
+        assert torch.equal(a[:, 1:9], s)                     # read, never written
+
+
+def test_engine_prefix_cache_and_host_tier_on_the_card(gen, monkeypatch):
+    """A 2-layer, head_dim 64 engine on the card with the prefix cache and a
+    host tier small enough that sticky sessions spill at retire and fault
+    back: its greedy streams equal the uncached engine's on the same
+    weights, every prefill is a graph replay, pages were restored, and the
+    pools kept their addresses through the restores."""
+    from dataclasses import replace
+
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import GenRequest, InferenceEngine
+    from polykey_tpu_torch.models import config as model_config
+
+    cfg = replace(model_config.get_config("tiny-llama"), name="tiny-llama-d64",
+                  hidden_size=256, intermediate_size=512, head_dim=64)
+    monkeypatch.setitem(model_config.MODEL_REGISTRY, cfg.name, cfg)
+    fields = dict(model=cfg.name, max_decode_slots=4, page_size=16, num_pages=40,
+                  max_seq_len=256, prefill_buckets=(32, 64), max_new_tokens_cap=16)
+    sessions = [f"session {i} " + "header text " * 8 for i in range(4)]
+    mix = sessions + [sessions[0], sessions[2], sessions[1], sessions[3]]
+
+    def serve(engine):
+        out = []
+        for p in mix:
+            r = GenRequest(prompt=p, max_new_tokens=12)
+            engine.submit(r)
+            toks = []
+            while True:
+                kind, value = r.out.get(timeout=120)
+                assert kind != "error", value
+                if kind == "done":
+                    break
+                toks.append(value)
+            out.append(toks)
+        return out
+
+    cold = InferenceEngine(EngineConfig(**fields), device="cuda", seed=3)
+    try:
+        want = serve(cold)
+    finally:
+        cold.shutdown()
+    eng = InferenceEngine(EngineConfig(**fields, prefix_cache=True, host_kv_bytes=16 << 20,
+                                       host_kv_resident_pages=20), device="cuda", seed=3)
+    try:
+        ptrs = [t.data_ptr() for t in eng.paged.pools]
+        got = serve(eng)
+        stats = eng.stats()
+        assert [t.data_ptr() for t in eng.paged.pools] == ptrs
+    finally:
+        eng.shutdown()
+    assert got == want
+    assert stats["kv_pages_evicted"] > 0 and stats["kv_pages_restored"] > 0
+    assert stats["prefix_hit_tokens"] + stats["prefix_host_hit_tokens"] > 0
+    assert stats["prefill_graph_replays"] > 0 and stats["prefill_eager"] == 0

@@ -170,11 +170,15 @@ def test_stats_report_kernel_launches(engines):
 
 
 def test_unported_knobs_refuse_to_start():
-    for knob in (dict(prefix_cache=True),
-                 dict(host_kv_bytes=1 << 20), dict(draft_model="tiny-llama"),
-                 dict(quantize=True), dict(tp=2)):
+    for knob in (dict(draft_model="tiny-llama"), dict(quantize=True), dict(tp=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()
+    # The prefix cache and the host tier are served now, and validate as
+    # the reference's: the tier needs the cache.
+    dataclasses.replace(TEST_CONFIG, prefix_cache=True, host_kv_bytes=1 << 20,
+                        kv_state_dir="state").validate()
+    with pytest.raises(ValueError, match="requires prefix_cache"):
+        dataclasses.replace(TEST_CONFIG, host_kv_bytes=1 << 20).validate()
 
 
 def test_pipeline_knobs_validate_with_the_reference_defaults():

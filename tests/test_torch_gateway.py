@@ -134,6 +134,37 @@ def test_engine_stats(stack):
         "paged_write_int8", "ragged_paged_attention_int8"}
 
 
+def test_engine_stats_carry_the_prefix_cache_and_host_tier(stack):
+    """engine_stats on an engine with the prefix cache and the host tier
+    carries their fields: host_kv, kv_host_pages, kv_host_capacity and the
+    cache's own, beside the tier's counters."""
+    _, _, service = stack
+    engine = InferenceEngine(dataclasses.replace(CONFIG, prefix_cache=True,
+                                                 host_kv_bytes=8 << 20), device="cpu")
+    try:
+        cached = TorchService(engine)
+        for _ in range(2):
+            cached.execute_tool("llm_generate", _llm("a header shared by turns").parameters,
+                                "", {})
+        resp = cached.execute_tool("engine_stats", struct_pb2.Struct(), "", {})
+        assert resp.status.code == 200
+        stats = dict(resp.struct_output)
+        assert stats["host_kv"] is True and stats["kv_host_capacity"] > 0
+        assert stats["prefix_hit_tokens"] > 0
+        for key in ("kv_host_pages", "prefix_cache_pages", "prefix_host_pages",
+                    "prefix_host_hit_tokens", "prefix_lookup_tokens", "kv_device_pages",
+                    "kv_reloaded_pages", "kv_pages_evicted", "kv_pages_restored",
+                    "kv_page_faults_prefix", "kv_page_faults_ctx"):
+            assert key in stats, key
+        cached.close()
+    finally:
+        engine.shutdown()
+    plain = service.execute_tool("engine_stats", struct_pb2.Struct(), "", {})
+    stats = dict(plain.struct_output)
+    assert stats["host_kv"] is False and stats["kv_host_capacity"] == 0
+    assert "prefix_hit_tokens" not in stats
+
+
 @pytest.mark.parametrize("tool", ["example_tool", "struct_tool", "file_tool", "nope"])
 def test_mock_tools_match_the_reference(stack, tool):
     """Every mock tool, and an unknown one (still status 200, 'Unknown
