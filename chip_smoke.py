@@ -20,7 +20,11 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             lanes and at a 1040-row ragged stream, exact, beside the
             launch floor (an empty kernel timed back to back). Then the
             int8-KV variants at the same shapes: decode and ragged over
-            int8 pools with bf16 scales.
+            int8 pools with bf16 scales. The speculative draft's shapes
+            (Llama-3.2-1B, D=64): decode (bf16 and int8) at contexts
+            1..4096 and at 16 lanes of 512, both writes at 16 lanes, and
+            flash at T=512, each against its plain version with its D=128
+            case's tolerance.
 4. slice:   a full-width, depth-2 Llama-3-8B runs prefill (bucket 128) and
             8 decode steps through forward_paged, once through the kernels
             and once through their plain versions; the logits must agree.
@@ -86,6 +90,26 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             a host pool and restored into other pages equal the originals
             bit for bit (bf16, and int8 values with their scales), with
             the restore's device time for 64 pages.
+11. spec:   speculative decoding on the same weights, over gRPC, each beside
+            the plain engine of its KV type on the same prompts (the serve
+            phases' five, all greedy, 32 tokens): (a) a Llama-3.2-1B draft
+            (random weights from seed + 2) at gamma 4 over bf16 KV with
+            top_p_candidates=64 and the prefix cache: the five, then four
+            sampled requests (temperature 0.8, top_p 0.9), then the first
+            prompt again (a prefix hit); (b) the target as its own draft
+            (its own tensors): the five, whose acceptance must be at least
+            0.9, then four sampled at top_p 0.7; (c) the 1B draft over
+            int8 KV: the five. Each greedy text must equal the plain
+            engine's, or differ first at a near-tie: both tokens' target
+            logits, on the plain eager path over the common prefix, within
+            0.12 of the top logit there (each such position is printed
+            with its margin); the prefix hit's text is held to its first
+            run's the same way. Every round must be a graph replay (none
+            eager), no prefill eager, the decode and write kernels must
+            launch and no ragged kernel; each prints the graph pool before
+            and after the spec keys, the draft pool, acceptance, rounds,
+            tokens a lane a round, and TTFT and tok/s against the plain
+            engine.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -228,14 +252,14 @@ def _write_case(label, B, err, kernel, plain, library, nbytes) -> dict:
 def kernel_write(gen) -> dict:
     """B = 16 lanes into [2048, 16, 8, 128] pools, lanes 13-15 inactive on
     the garbage page 0; then the 1040 rows of a ragged stream, the last 3
-    padding on page 0."""
+    padding on page 0; then 16 lanes at D=64 (the 1B draft's pools)."""
     from polykey_tpu_torch.ops import paged_write_kernel as pw
 
-    N, ps, Hk, D, P = 2048, 16, 8, 128, 256
-    k_pool = _randn((N, ps, Hk, D), gen)
-    v_pool = _randn((N, ps, Hk, D), gen)
+    N, ps, Hk, P = 2048, 16, 8, 256
     cases = []
-    for B in (16, 1040):
+    for B, D in ((16, 128), (1040, 128), (16, 64)):
+        k_pool = _randn((N, ps, Hk, D), gen)
+        v_pool = _randn((N, ps, Hk, D), gen)
         k_new = _randn((B, 1, Hk, D), gen)
         v_new = _randn((B, 1, Hk, D), gen)
         if B == 16:
@@ -274,26 +298,26 @@ def kernel_write(gen) -> dict:
 
         row = Hk * D * 2
         cases.append(_write_case(
-            "paged_write (library: index_put_ x2)", B, err,
+            f"paged_write D={D} (library: index_put_ x2)", B, err,
             lambda: pw.paged_write_decode_cuda(kk, vk, k_new, v_new, tables, positions),
             lambda: pw.paged_write_decode_plain(kp, vp, k_new, v_new, tables, positions),
             library,
             2 * 2 * B * row + 2 * B * 4))      # rows read + written; index reads
-    return {**cases[0], "stream": cases[1]}     # 16 lanes; the stream beside
+    return {**cases[0], "stream": cases[1], "d64": cases[2]}   # 16 lanes first
 
 
 def kernel_write_int8(gen) -> dict:
     """The quantizing write: 16 decode lanes (lanes 13-15 inactive on page 0)
     and the 1040 rows of a ragged stream (the last 3 padding on page 0),
-    into int8 [2048, 16, 8, 128] pools with bf16 scales; exact against its
-    plain version."""
+    into int8 [2048, 16, 8, 128] pools with bf16 scales, then 16 lanes at
+    D=64 (the 1B draft's pools); exact against its plain version."""
     from polykey_tpu_torch.ops import paged_write_kernel as pw
     from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
 
-    N, ps, Hk, D, P = 2048, 16, 8, 128, 256
-    pools = [quantize_kv_rows(_randn((N, ps, Hk, D), gen)) for _ in range(2)]
+    N, ps, Hk, P = 2048, 16, 8, 256
     cases = []
-    for B in (16, 1040):
+    for B, D in ((16, 128), (1040, 128), (16, 64)):
+        pools = [quantize_kv_rows(_randn((N, ps, Hk, D), gen)) for _ in range(2)]
         k_new, v_new = _randn((B, 1, Hk, D), gen), _randn((B, 1, Hk, D), gen)
         k_new[1] = 0.0                                   # an all-zero row
         positions, tables = _write_slots(gen, B, N, ps, P, 3)
@@ -305,7 +329,7 @@ def kernel_write_int8(gen) -> dict:
         diff = [int((a[1:].view(torch.int8) != b[1:].view(torch.int8)).sum())
                 for ka, kb in zip(kern, plain) for a, b in zip(ka, kb)]
         check(sum(diff) == 0, f"int8 write B={B} differs from plain in {diff} bytes")
-        say("kernels", f"paged_write_int8 B={B} bf16 rows into int8 pools [{N},{ps},"
+        say("kernels", f"paged_write_int8 B={B} D={D} bf16 rows into int8 pools [{N},{ps},"
             f"{Hk},{D}] + bf16 scales: bytes differing from plain {sum(diff)} "
             "(tolerance 0: the quantizer is exact)")
         page_ids, offsets = pw._slots(tables, positions, ps)
@@ -318,12 +342,12 @@ def kernel_write_int8(gen) -> dict:
                 scales.index_put_((page_ids, offsets), sc)
 
         cases.append(_write_case(
-            "paged_write_int8 (library: quantize + index_put_ x4)", B, 0.0,
+            f"paged_write_int8 D={D} (library: quantize + index_put_ x4)", B, 0.0,
             lambda: pw.paged_write_int8_cuda(*kern, k_new, v_new, tables, positions),
             lambda: pw.paged_write_int8_plain(*plain, k_new, v_new, tables, positions),
             library,
             2 * B * Hk * D * 2 + 2 * B * Hk * (D + 2) + 2 * B * 4))
-    return {**cases[0], "stream": cases[1]}     # 16 lanes; the stream beside
+    return {**cases[0], "stream": cases[1], "d64": cases[2]}   # 16 lanes first
 
 
 def _int8_pools(k_pool, v_pool, stale):
@@ -413,7 +437,9 @@ def kernel_decode(gen, int8: bool = False) -> dict:
         ("main", 128, 32, 8, ctx, None, None, None),
         ("softcap 50, window 4096", 128, 32, 8, ctx, 50.0, 4096, None),
         ("window 1000", 128, 32, 8, ctx, None, 1000, None),
-        ("D=64", 64, 32, 8, ctx, None, None, None),
+        ("D=64, the 1B draft's shape", 64, 32, 8, ctx, None, None, None),
+        ("D=64 serve: 16 lanes at context 512", 64, 32, 8, [512] * 16, None, None,
+         None),
         ("pages [3, 200)", 128, 32, 8, ctx, None, None, (3, 200)),
         ("serve: 16 lanes at context 512", 128, 32, 8, [512] * 16, None, None, None),
     ]
@@ -442,9 +468,12 @@ def kernel_decode(gen, int8: bool = False) -> dict:
             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
         if result is None:
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "d64": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
+        if D == 64:
+            result["d64"].append({"case": label, "ms": ms, "plain_ms": plain,
+                                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
     return result
 
 
@@ -496,7 +525,8 @@ def kernel_flash(gen) -> dict:
         ("main", 2, 512, 4096, 32, 8, 128, None, None, "mixed", False),
         ("T=128", 2, 128, 4096, 32, 8, 128, None, None, "mixed", False),
         ("softcap 50, window 1024", 2, 512, 4096, 32, 8, 128, 50.0, 1024, "mixed", False),
-        ("D=64", 2, 512, 4096, 32, 8, 64, None, None, "mixed", False),
+        ("D=64, the 1B draft's prefill", 2, 512, 4096, 32, 8, 64, None, None, "mixed",
+         False),
         ("D=256", 2, 512, 4096, 16, 8, 256, None, None, "mixed", False),
         ("document chunk 3, positions 1024..1535", 1, 512, 4096, 32, 8, 128, None,
          None, "chunk3", False),
@@ -567,9 +597,13 @@ def kernel_flash(gen) -> dict:
             f"{b_ms:.6f} ms ({b_by})")
         if result is None:
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by, "d64": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
+        if D == 64:
+            result["d64"].append({"case": label, "ms": ms, "plain_ms": plain,
+                                  "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                                  "max_abs_err": err})
     return result
 
 
@@ -1558,6 +1592,247 @@ def _round_trip(cfg, ps, card) -> None:
         torch.cuda.empty_cache()
 
 
+# -- phase 11 --------------------------------------------------------------
+
+SPEC_GREEDY = [SHORT[0], SHORT[1], LONG[0], LONG[1], LONG_DOC]
+SPEC_SAMPLED = [SHORT[1], LONG[0], LONG[1], SHORT[0]]
+NEAR_TIE = 0.12     # the slices' kernel-against-plain logit tolerance
+
+
+class _Tap(queue.Queue):
+    """A request's output queue that also keeps the token ids it carried
+    (the gRPC text of a random-weight model loses ids outside the byte
+    range)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ids = []
+
+    def put(self, item, *args, **kwargs):
+        if item[0] == "token":
+            self.ids.append(item[1])
+        super().put(item, *args, **kwargs)
+
+
+class _Grpc:
+    """The engine behind the port's gRPC server on a free local port; each
+    request the gateway submits keeps its token ids (`_Tap`)."""
+
+    def __init__(self, engine):
+        import grpc
+
+        from polykey_tpu_torch.gateway.jsonlog import Logger
+        from polykey_tpu_torch.gateway.server import build_server
+        from polykey_tpu_torch.gateway.torch_service import TorchService
+        from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
+        from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
+
+        self.engine, self.pk, self.submitted = engine, pk, []
+        submit = engine.submit
+
+        def tapped(request):
+            request.out = _Tap()
+            self.submitted.append(request)
+            submit(request)
+
+        engine.submit = tapped
+        logger = Logger(stream=sys.stderr, level="WARN")
+        self.service = TorchService(engine, logger=logger)
+        self.server, _health, port = build_server(self.service, logger,
+                                                  address="127.0.0.1:0")
+        self.server.start()
+        self.channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        self.stub = PolykeyServiceStub(self.channel)
+
+    def generate(self, prompts: list, max_new: int = 32, **extra) -> list:
+        """Send `prompts` at once (unary llm_generate); returns, in order,
+        (token ids, TTFT ms, tok/s) of each, all of `max_new` tokens."""
+        start = len(self.submitted)
+        errors: queue.Queue = queue.Queue()
+
+        def one(prompt):
+            try:
+                resp = self.stub.ExecuteTool(self.pk.ExecuteToolRequest(
+                    tool_name="llm_generate",
+                    parameters=_struct(prompt=prompt, max_tokens=max_new, **extra)),
+                    timeout=900)
+                check(resp.status.code == 200, f"status {resp.status}")
+            except BaseException as e:  # reported by the check below
+                errors.put(repr(e))
+
+        threads = [threading.Thread(target=one, args=(p,)) for p in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(errors.empty(), "request failed: " + "; ".join(list(errors.queue)))
+        by_prompt = {r.prompt: r for r in self.submitted[start:]}
+        out = []
+        for p in prompts:
+            r = by_prompt[p]
+            check(len(r.out.ids) == max_new, f"{len(r.out.ids)} tokens, not {max_new}")
+            out.append((r.out.ids, r.timings.ttft_ms, r.timings.tokens_per_sec))
+        return out
+
+    def close(self) -> None:
+        self.channel.close()
+        self.server.stop(grace=5).wait()
+        self.service.close()
+
+
+def _near_tie(params, cfg, prompt_ids: list, common: list, a: int, b: int) -> float:
+    """The target's logits on the plain eager path (the kill switches) over
+    prompt + `common`, at the next position: the larger of tokens a's and
+    b's distance below the top logit."""
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.transformer import forward_paged, unembed
+
+    ids = list(prompt_ids) + list(common)
+    L, ps = len(ids), PAGE_SIZE
+    npg = -(-L // ps)
+    with _PlainPath(), torch.inference_mode():
+        paged = init_paged_kv(cfg, npg + 1, ps, torch.bfloat16, "cuda")
+        table = torch.arange(1, npg + 1, dtype=torch.int32, device="cuda")[None]
+        tokens = torch.tensor([ids], dtype=torch.int32, device="cuda")
+        pos = torch.arange(L, dtype=torch.int32, device="cuda")[None]
+        hidden, _ = forward_paged(params, cfg, tokens, pos, paged, table)
+        logits = unembed(params, cfg, hidden[0, -1:])[0].float()
+    top = float(logits.max())
+    return max(top - float(logits[a]), top - float(logits[b]))
+
+
+def _hold_texts(label, params, cfg, tokenizer, prompts, got, want,
+                against: str = "the plain engine's") -> int:
+    """Each greedy text (ids) of `got` equal to `want`'s, or differing
+    first at a near-tie: both tokens' target logits within NEAR_TIE of the
+    top logit there, on the plain eager path. Returns the near-ties."""
+    ties = 0
+    for prompt, (ids, *_), (ref, *_) in zip(prompts, got, want):
+        i = next((j for j, (x, y) in enumerate(zip(ids, ref)) if x != y), None)
+        if i is None:
+            continue
+        margin = _near_tie(params, cfg, tokenizer.encode(prompt), ref[:i], ids[i], ref[i])
+        say("spec", f"{label}: text differs from {against} at generated "
+            f"token {i} ({ids[i]} against {ref[i]}): both within {margin:.4f} of the "
+            f"top logit on the plain path (near-tie limit {NEAR_TIE})")
+        check(margin <= NEAR_TIE, f"spec {label}: not a near-tie (margin {margin})")
+        ties += 1
+    return ties
+
+
+def phase_spec(seed: int, params, card: str) -> dict:
+    """Speculative decoding on the serve phases' weights over gRPC (module
+    docstring, phase 11): (a) a 1B draft over bf16 KV with the prefilter
+    and the prefix cache, (b) the target as its own draft, (c) the 1B draft
+    over int8 KV, each beside the plain engine of its KV type. Returns the
+    kernel launches of each sub-phase."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+    from polykey_tpu_torch.models.config import get_config
+
+    cfg = get_config("llama-3-8b")
+    plain_texts = {}
+    for kv in ("", "int8"):
+        eng = _Grpc(InferenceEngine(EngineConfig(model="llama-3-8b", kv_dtype=kv),
+                                    params=params, device="cuda", seed=seed))
+        try:
+            plain_texts[kv] = eng.generate(SPEC_GREEDY)
+        finally:
+            eng.close()
+    subs = [
+        ("(a) 1B draft, bf16 KV", "", dict(draft_model="llama-3.2-1b",
+                                            top_p_candidates=64, prefix_cache=True), None),
+        ("(b) self-draft, bf16 KV", "", dict(draft_model="llama-3-8b",
+                                              top_p_candidates=64), params),
+        ("(c) 1B draft, int8 KV", "int8", dict(draft_model="llama-3.2-1b"), None),
+    ]
+    launches = {}
+    for label, kv, extra, draft in subs:
+        config = EngineConfig(model="llama-3-8b", kv_dtype=kv, spec_gamma=4, **extra)
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.monotonic()
+        eng = _Grpc(InferenceEngine(config, params=params, device="cuda", seed=seed,
+                                    draft_params=draft))
+        try:
+            engine = eng.engine
+            st = engine.stats()
+            by = st["graph_pool_bytes_by_body"]
+            say("spec", f"{label}: engine up in {time.monotonic() - t0:.1f} s; graphs "
+                f"captured in {st['graph_capture_s']:.2f} s: {st['decode_graph_captures']} "
+                f"decode, {st['prefill_graph_captures']} prefill, "
+                f"{st['spec_graph_captures']} spec (rungs {engine._gamma_low}, "
+                f"{engine._gamma_max}); pool {by.get('prefill', 0) / 2**20:.1f} MiB "
+                f"before the spec keys, {st['graph_pool_bytes'] / 2**20:.1f} MiB after; "
+                f"KV pools {st['kv_pool_bytes'] / 2**30:.4f} GiB target, "
+                f"{st['draft_kv_pool_bytes'] / 2**30:.4f} GiB draft on {card}")
+            got = eng.generate(SPEC_GREEDY)
+            greedy = engine.stats()
+            ties = _hold_texts(label, params, cfg, engine.tokenizer, SPEC_GREEDY, got,
+                               plain_texts[kv])
+            acc = greedy.get("spec_acceptance", 0.0)
+            lanes = max(1, greedy["spec_lane_rounds"])
+            say("spec", f"{label}: 5 greedy texts equal to the plain engine's but at "
+                f"{ties} near-ties; acceptance {acc} ({greedy.get('drafts_accepted', 0)}"
+                f"/{greedy.get('drafts_proposed', 0)}), {greedy['spec_rounds']} rounds, "
+                f"{greedy['spec_tokens'] / lanes:.3f} tokens a lane a round; TTFT "
+                f"{', '.join(f'{r[1]:.1f}' for r in got)} ms (plain "
+                f"{', '.join(f'{r[1]:.1f}' for r in plain_texts[kv])}); tok/s "
+                f"{', '.join(f'{r[2]:.1f}' for r in got)} (plain "
+                f"{', '.join(f'{r[2]:.1f}' for r in plain_texts[kv])}) on {card}")
+            if draft is not None:
+                check(acc >= 0.9, f"spec {label}: self-draft greedy acceptance {acc} < 0.9")
+            if config.top_p_candidates:
+                top_p = 0.7 if draft is not None else 0.9
+                before = engine.metrics.snapshot()
+                sampled = eng.generate(SPEC_SAMPLED, temperature=0.8, top_p=top_p, seed=5)
+                after = engine.metrics.snapshot()
+                prop = after["drafts_proposed"] - before["drafts_proposed"]
+                acc_s = (after["drafts_accepted"] - before["drafts_accepted"]) / max(1, prop)
+                check(prop > 0, f"spec {label}: no sampled round proposed a draft")
+                say("spec", f"{label}: 4 sampled requests (temperature 0.8, top_p "
+                    f"{top_p}, candidates 64) done, acceptance {acc_s:.4f} over {prop} "
+                    f"drafts; tok/s {', '.join(f'{r[2]:.1f}' for r in sampled)}")
+            if config.prefix_cache:
+                hit0 = engine.stats()["prefix_hit_tokens"]
+                again = eng.generate(SPEC_GREEDY[:1])
+                hit = engine.stats()["prefix_hit_tokens"] - hit0
+                check(hit > 0, f"spec {label}: the repeated prompt matched no cached page")
+                # Its suffix's KV and first logits come from GEMMs of another
+                # row count than the first run's group prefill: held as the
+                # texts are, equal up to a near-tie.
+                tie = _hold_texts(f"{label}, prefix hit", params, cfg, engine.tokenizer,
+                                  SPEC_GREEDY[:1], again, got[:1], "its first run's")
+                say("spec", f"{label}: the first greedy prompt again: {hit} tokens "
+                    f"matched in the prefix cache, its 32 token ids equal to its first "
+                    f"run's up to {tie} near-ties, TTFT {again[0][1]:.1f} ms")
+            st = engine.stats()
+            counts = {name: k.launches for name, k in KERNELS.items()}
+            int8 = kv == "int8"
+            dec = "paged_attention_decode_int8" if int8 else "paged_attention_decode"
+            wr = "paged_write_int8" if int8 else "paged_write"
+            say("spec", f"{label}: kernel launches {counts}; spec graph replays "
+                f"{st['spec_graph_replays']}, eager rounds {st['spec_eager']}, prefill "
+                f"replays {st['prefill_graph_replays']}, eager prefills "
+                f"{st['prefill_eager']}; host stall p50 "
+                f"{st.get('host_stall_ms_p50', 'not measured')} ms, p95 "
+                f"{st.get('host_stall_ms_p95', 'not measured')} ms")
+            check(st["spec_graph_replays"] > 0 and st["spec_eager"] == 0,
+                  f"spec {label}: {st['spec_graph_replays']} round replays, "
+                  f"{st['spec_eager']} eager")
+            check(st["prefill_eager"] == 0, f"spec {label}: a prefill ran eagerly")
+            check(counts[dec] > 0 and counts[wr] > 0,
+                  f"spec {label}: the decode or write kernel did not launch: {counts}")
+            check(counts["ragged_paged_attention"] == 0
+                  and counts["ragged_paged_attention_int8"] == 0,
+                  f"spec {label}: a ragged kernel launched: {counts}")
+            launches[label] = counts
+        finally:
+            eng.close()
+        sync()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1688,6 +1963,8 @@ def main() -> int:
     phase_prefill_graph(args.seed, params, dev["smi"])
     sync()
     phase_prefix(args.seed, params, dev["smi"])
+    sync()
+    phase_spec(args.seed, params, dev["smi"])
     sync()
     del params
     for int8 in (False, True):

@@ -4,13 +4,16 @@ The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
 for them fails at startup instead of being served by something else:
-speculative decoding, int8/int4 weights, the top-p prefilter, replica and
-disaggregated pools, checkpoints, and mesh axes above 1. Chunked prefill
+int8/int4 weights, checkpoints (the target's and the draft's), replica
+and disaggregated pools, mesh axes above 1, the spec round on the ragged
+stream, and the reference's spec A/B instrumentation. Chunked prefill
 (`prefill_chunk`, `prefill_budget`), ragged dispatch (`ragged_dispatch`),
 the int8 KV cache (`kv_dtype="int8"`), the lookahead pipeline
 (`lookahead_blocks`), the adaptive block (`adaptive_block`), and the
 prefix cache with its host-KV tier and durable state dir (`prefix_cache`,
-`host_kv_bytes`, `kv_state_dir`) are served.
+`host_kv_bytes`, `kv_state_dir`), speculative decoding (`draft_model`,
+`spec_gamma`, `adaptive_gamma`) and the top-p candidate prefilter
+(`top_p_candidates`) are served.
 """
 
 from __future__ import annotations
@@ -100,9 +103,23 @@ class EngineConfig:
     # 1 = dispatch, then read (exactly synchronous).
     lookahead_blocks: int = 2
 
+    # Top-k prefilter of every sampled path: top-p / top-k within the
+    # top-C scaled logits, with full-vocabulary probabilities (no sort);
+    # a request's top_k clamps to C. Lets top_p < 1 rows speculate.
     top_p_candidates: int = 0
+    # Speculative decoding: a draft model of the same vocabulary proposes
+    # spec_gamma tokens a round in its own page pool; the target verifies
+    # them in one forward. Greedy streams stay the target's.
     draft_model: Optional[str] = None
+    draft_checkpoint_path: Optional[str] = None  # None → random init
     spec_gamma: int = 4
+    # Per-lane gamma dial on the ladder {max(1, spec_gamma // 2),
+    # spec_gamma}, driven by each lane's acceptance EWMA on the device;
+    # off pins spec_gamma. Page slack always reserves spec_gamma.
+    adaptive_gamma: bool = True
+    # The reference's A/B instrumentation (three synchronous readbacks a
+    # round); programmatic only, as there.
+    spec_host_sync: bool = False
 
     request_timeout_s: float = 300.0
     max_queue_depth: int = 256
@@ -180,7 +197,12 @@ class EngineConfig:
                 "POLYKEY_TOP_P_CANDIDATES", cls.top_p_candidates
             ),
             draft_model=os.environ.get("POLYKEY_DRAFT_MODEL") or None,
+            draft_checkpoint_path=os.environ.get("POLYKEY_DRAFT_CHECKPOINT") or None,
             spec_gamma=_env_int("POLYKEY_SPEC_GAMMA", cls.spec_gamma),
+            # Default on; POLYKEY_ADAPTIVE_GAMMA=0 pins spec_gamma.
+            adaptive_gamma=os.environ.get(
+                "POLYKEY_ADAPTIVE_GAMMA", "1"
+            ).lower() in ("1", "true"),
             request_timeout_s=_env_float(
                 "POLYKEY_REQUEST_TIMEOUT", cls.request_timeout_s
             ),
@@ -217,6 +239,10 @@ class EngineConfig:
             raise ValueError("prefill_budget must be >= 0 (0 → 2 x prefill chunk)")
         if self.max_queue_depth < 0:
             raise ValueError("max_queue_depth must be >= 0 (0 → unbounded)")
+        if self.draft_model is not None and self.spec_gamma < 1:
+            raise ValueError("spec_gamma must be >= 1")
+        if self.top_p_candidates < 0:
+            raise ValueError("top_p_candidates must be >= 0 (0 → exact)")
         if self.kv_dtype not in ("", "bfloat16", "float32", "int8"):
             raise ValueError(
                 "kv_dtype must be '', bfloat16, float32, or int8; "
@@ -259,16 +285,18 @@ class EngineConfig:
                 "0 would wedge every faulting lane forever)"
             )
         unported = [
-            (self.draft_model is not None, "draft_model",
-             "speculative decoding"),
             (self.quantize, "quantize (POLYKEY_QUANTIZE)",
-             "int8/int4 weights"),
-            (self.top_p_candidates > 0, "top_p_candidates",
-             "top-p candidate prefilter"),
+             "A.8, int8/int4 weights"),
             (self.replicas > 1 or bool(self.disagg), "replicas / disagg",
              "replica and disagg pools"),
             (self.checkpoint_path is not None, "checkpoint_path",
-             "checkpoint loading"),
+             "A.8, checkpoint loading"),
+            (self.draft_checkpoint_path is not None, "draft_checkpoint_path",
+             "A.8, checkpoint loading"),
+            (self.ragged_dispatch and self.draft_model is not None,
+             "ragged_dispatch with draft_model", "A.7 remainder: ragged × spec"),
+            (self.spec_host_sync, "spec_host_sync",
+             "scripts/occupancy_soak.py's A/B instrumentation"),
             (max(self.tp, self.dp, self.ep, self.sp, self.pp,
                  self.num_slices) > 1,
              "mesh axes above 1", "multi-GPU"),

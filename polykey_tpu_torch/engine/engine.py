@@ -81,9 +81,27 @@ GPU (the reference's engine/engine.py, default path).
   captured the pools' addresses, so nothing rebinds them. With
   `kv_state_dir` the spills are also written to disk in the reference's
   wire format, and a new engine reloads them.
+- Speculative decoding (`draft_model`, engine/spec_decode.py): a draft
+  model with its own page pools under the same page tables (random
+  weights from seed + 2, or `draft_params`, e.g. the target's own
+  tensors). Every prefill fills both pools (`spec_prefill_fn` in the
+  prefill graphs; a prefix hit shares both pools' pages). A block goes
+  out as one draft/verify round (`spec_decode_fn`), a replay of a CUDA
+  graph per (gamma rung, greedy, candidates), when every active row is
+  untruncated or `top_p_candidates` > 0, else as the plain decode block.
+  It rides the same pipeline and the one readback a block; each lane
+  carries an acceptance EWMA and a gamma dial on the device, and the host
+  picks the rung covering the widest live dial. A request reserves
+  `spec_gamma` positions of page slack. The host tier spills and restores
+  the target's pools only, as the reference does: a restored prefix's
+  draft KV is stale, greedy streams stay exact and acceptance drops.
+- Top-p candidates (`top_p_candidates` = C > 0): every sampled path keeps
+  top-p / top-k within the top-C logits, and a request's top_k clamps to
+  C at admission.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch, speculative decoding, the disaggregated handoff.
+dispatch, speculative rounds on the ragged stream, the disaggregated
+handoff.
 """
 
 from __future__ import annotations
@@ -125,6 +143,7 @@ from .kv_cache import (
 from .metrics import EngineMetrics, RequestTimings
 from .prefix_cache import TIER_DEVICE, TIER_HOST, PrefixCache, PrefixStateStore
 from .sampling import sample_tail
+from .spec_decode import GAMMA_EWMA_BETA, SPEC_STAT_COLS, spec_decode_fn, spec_prefill_fn
 from .tokenizer import load_tokenizer
 
 _MAX_PREFILL_GROUP = 8   # burst admissions batched per prefill dispatch
@@ -230,18 +249,21 @@ class _RRCursor:
 
 
 class _InflightBlock(NamedTuple):
-    """One dispatched-but-unprocessed decode block (or ragged dispatch) of
-    the lookahead pipeline: its packed [K, B] tokens on their way to host
-    memory (`host`, landed once `event` has fired; no event on the CPU,
-    where the block ran in the call), the request in each slot at dispatch time, and its
-    dispatch sequence number: at process time, the engine's
-    `_dispatch_seq - seq` is the OBSERVED lookahead, the blocks dispatched
-    after this one before its readback."""
+    """One dispatched-but-unprocessed decode block, ragged dispatch or
+    speculative round of the lookahead pipeline: its packed tokens on
+    their way to host memory (`host`, landed once `event` has fired; no
+    event on the CPU, where the block ran in the call), the request in
+    each slot at dispatch time, its dispatch sequence number (at process
+    time, the engine's `_dispatch_seq - seq` is the OBSERVED lookahead,
+    the blocks dispatched after this one before its readback) and its
+    kind: "decode" ([K, B] tokens) or "spec" (the round's packed
+    [B, gamma + 1 + SPEC_STAT_COLS] matrix)."""
 
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
     reqs: list
     seq: int
+    kind: str = "decode"
 
 
 class _FirstToken(NamedTuple):
@@ -271,7 +293,7 @@ class EngineOverloadedError(RuntimeError):
 def _prefill_fn(
     params, cfg: ModelConfig, paged: PagedKV,
     tokens, start, last_rel, page_table, seeds, temperature, top_p, top_k,
-    *, greedy: bool, aligned: bool,
+    *, greedy: bool, aligned: bool, candidates: int = 0,
 ):
     """Prefill N windows (tokens [N, T]) at absolute positions
     start[i]..start[i]+T-1 and sample from each hidden state at relative
@@ -290,7 +312,8 @@ def _prefill_fn(
     last = hidden[torch.arange(N, device=tokens.device), last_rel.long()]
     logits = unembed(params, cfg, last)
     token = sample_tail(
-        logits, seeds, start + last_rel + 1, temperature, top_p, top_k, greedy
+        logits, seeds, start + last_rel + 1, temperature, top_p, top_k, greedy,
+        candidates,
     )
     return token, paged
 
@@ -299,7 +322,7 @@ def _decode_fn(
     params, cfg: ModelConfig, paged: PagedKV,
     last_tokens, seq_lens, page_tables, active, caps, seeds, temperature,
     top_p, top_k,
-    *, greedy: bool, steps: int, eos_id: int,
+    *, greedy: bool, steps: int, eos_id: int, candidates: int = 0,
 ):
     """`steps` decode steps for the whole slot batch in one dispatch.
 
@@ -320,7 +343,8 @@ def _decode_fn(
             params, cfg, last[:, None], positions, paged, page_tables
         )
         logits = unembed(params, cfg, hidden[:, 0])
-        tokens = sample_tail(logits, seeds, seq, temperature, top_p, top_k, greedy)
+        tokens = sample_tail(logits, seeds, seq, temperature, top_p, top_k, greedy,
+                             candidates)
         tokens = torch.where(act, tokens, torch.zeros_like(tokens))
         new_seq = seq + act.to(torch.int32)
         cont = act & (tokens != eos_id) & (new_seq < caps)
@@ -340,7 +364,7 @@ def _ragged_fn(
     pre_range_start, pre_range_len, pre_range_kv, pre_range_table,
     pre_sample_idx, pre_sample_pos, pre_seeds, pre_temp, pre_top_p,
     pre_top_k,
-    *, greedy: bool, eos_id: int, work=None,
+    *, greedy: bool, eos_id: int, work=None, candidates: int = 0,
 ):
     """One flat mixed prefill+decode dispatch: every decode lane advances
     exactly one step and up to W prefill tokens (ranges appended by the
@@ -376,7 +400,8 @@ def _ragged_fn(
         rng_starts, rng_lens, rng_kv, seq_tables, work=work,
     )
     logits = unembed(params, cfg, hidden[:B])
-    dec = sample_tail(logits, seeds, seq_lens, temperature, top_p, top_k, greedy)
+    dec = sample_tail(logits, seeds, seq_lens, temperature, top_p, top_k, greedy,
+                      candidates)
     dec = torch.where(active, dec, torch.zeros_like(dec))
     new_seq = seq_lens + active.to(torch.int32)
     cont = active & (dec != eos_id) & (new_seq < caps)
@@ -384,7 +409,7 @@ def _ragged_fn(
     rows = hidden[B + torch.clamp(pre_sample_idx, 0, W - 1).long()]
     first = sample_tail(
         unembed(params, cfg, rows), pre_seeds, pre_sample_pos, pre_temp,
-        pre_top_p, pre_top_k, greedy,
+        pre_top_p, pre_top_k, greedy, candidates,
     )
     return packed, dec, new_seq, cont, first, paged
 
@@ -460,6 +485,15 @@ def prefill_graph_keys(buckets, chunk: int, page_size: int) -> list:
             for g in (True, False)]
 
 
+def spec_graph_keys(rungs, candidates: int) -> list:
+    """The spec round graphs' keys (gamma, greedy, candidates): every gamma
+    rung at each variant a batch can reach, (greedy, 0), (sampled, 0) and,
+    with the prefilter, (sampled, C). An all-greedy batch is all
+    untruncated, so it dispatches candidates 0."""
+    variants = [(True, 0), (False, 0)] + ([(False, candidates)] if candidates else [])
+    return [(g, greedy, c) for g in sorted(set(rungs)) for greedy, c in variants]
+
+
 class PrefillOperands:
     """`_prefill_fn`'s operands at group pad `n`, in fixed buffers (the
     addresses the prefill graphs capture), made as ordinary allocations
@@ -496,11 +530,15 @@ class PrefillOperands:
 def _merge_lane_fn(
     state: dict, slot: int, tokens_vec, row: int, seq_len: int, cap: int,
     temp: float, tp: float, tk: int, table_row, seed_row, *, eos_id: int,
+    gamma_reset: Optional[int] = None,
 ) -> None:
     """Activate ONE decode lane on the device, in place: splice the
     prefill's sampled token (still a device tensor) and the slot's
     geometry into the lane state. The lane is born live only if its first
-    token is not EOS and the position budget allows generation."""
+    token is not EOS and the position budget allows generation. A
+    speculative engine (`gamma_reset`, its gamma_max) also starts the
+    lane's acceptance EWMA at 1.0 and its dial at gamma_max: the dial is
+    the request's own evidence, never its slot's previous occupant's."""
     token = tokens_vec.reshape(-1)[row]
     live = (token != eos_id) & (seq_len < cap)
     state["last_tokens"][slot] = token
@@ -512,6 +550,9 @@ def _merge_lane_fn(
     state["top_p"][slot] = tp
     state["top_k"][slot] = tk
     state["seeds"][slot] = seed_row
+    if gamma_reset is not None:
+        state["accept_ewma"][slot] = 1.0
+        state["gamma_lane"][slot] = gamma_reset
 
 
 def _retire_lane_fn(state: dict, slot: int) -> None:
@@ -592,6 +633,7 @@ class InferenceEngine:
         health=None,
         logger=None,
         seed: int = 0,
+        draft_params: Optional[dict] = None,
     ):
         config.validate()
         self.config = config
@@ -618,6 +660,35 @@ class InferenceEngine:
             self.model_cfg, config.num_pages, config.page_size,
             pool_dtype, self.device, kv_dtype=kv_q,
         )
+        # Speculative decoding: the draft model and its own pools, indexed
+        # by the same page tables (position -> (page, offset) does not
+        # depend on the model). Lanes dial gamma on the ladder {gamma_low,
+        # gamma_max}; `_gamma` is the dispatch rung, under `_gamma_cap`
+        # (set_spec_gamma). Page slack always reserves gamma_max.
+        self._spec = config.draft_model is not None
+        self._gamma_max = config.spec_gamma if self._spec else 0
+        self._gamma = self._gamma_max
+        self._gamma_low = (max(1, config.spec_gamma // 2)
+                           if self._spec and config.adaptive_gamma else self._gamma_max)
+        self._gamma_cap = self._gamma_max
+        self._accept_ewma = 1.0     # batch aggregate, observability only
+        # Rounds processed, lanes that emitted in them, tokens emitted.
+        self._spec_rounds = self._spec_lane_rounds = self._spec_tokens = 0
+        if self._spec:
+            self.draft_cfg = get_config(config.draft_model)
+            if self.draft_cfg.vocab_size != self.model_cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {self.draft_cfg.vocab_size} != target vocab "
+                    f"{self.model_cfg.vocab_size}"
+                )
+            if draft_params is None:
+                gen = torch.Generator(device=self.device).manual_seed(seed + 2)
+                draft_params = init_params(self.draft_cfg, self._dtype, self.device, gen)
+            self.draft_params = draft_params
+            self.d_paged = init_paged_kv(
+                self.draft_cfg, config.num_pages, config.page_size,
+                pool_dtype, self.device, kv_dtype=kv_q,
+            )
         self.allocator = BlockAllocator(config.num_pages)
         # Host-KV tier: cold prefix pages in pinned host pools. 0 bytes: no
         # pool, no store.
@@ -676,6 +747,12 @@ class InferenceEngine:
         self._caps = np.zeros((B,), dtype=np.int32)
         self._active = np.zeros((B,), dtype=bool)
         self._temperature = np.zeros((B,), dtype=np.float32)
+        self._top_p = np.ones((B,), dtype=np.float32)
+        self._top_k = np.zeros((B,), dtype=np.int32)
+        # Per-lane dial mirrors (spec engines), refreshed from each
+        # processed round's stat columns; the device copy is the truth.
+        self._lane_ewma = np.ones((B,), dtype=np.float32)
+        self._lane_gamma = np.full((B,), max(self._gamma_max, 1), dtype=np.int32)
         dev = self.device
         self._dev = {
             "last_tokens": torch.zeros(B, dtype=torch.int32, device=dev),
@@ -688,6 +765,10 @@ class InferenceEngine:
             "top_k": torch.zeros(B, dtype=torch.int32, device=dev),
             "seeds": torch.zeros((B, 2), dtype=torch.int32, device=dev),
         }
+        if self._spec:
+            self._dev["accept_ewma"] = torch.ones(B, dtype=torch.float32, device=dev)
+            self._dev["gamma_lane"] = torch.full((B,), max(self._gamma_max, 1),
+                                                 dtype=torch.int32, device=dev)
         self._slots: list[Optional[_Slot]] = [None] * B
 
         # Block sizes: K, and with the adaptive block max(1, K // 8) for a
@@ -746,6 +827,9 @@ class InferenceEngine:
             self._prefill_ops = {n: PrefillOperands(n, widest, P, dev)
                                  for n in _GROUP_PADS}
             bodies["prefill"] = (self._prefill_body, keys)
+        if self._spec:
+            bodies["spec"] = (self._spec_round, spec_graph_keys(
+                (self._gamma_low, self._gamma_max), config.top_p_candidates))
         self._graphs = CudaGraphs(self.device, bodies)
 
         self._submit: queue.Queue[GenRequest] = queue.Queue()
@@ -800,6 +884,7 @@ class InferenceEngine:
             "prefill_eager": self._graphs.eager["prefill"],
             "graph_pool_bytes": self._graphs.pool_bytes,
             "graph_capture_s": round(self._graphs.capture_seconds, 3),
+            "graph_pool_bytes_by_body": dict(self._graphs.pool_bytes_after),
             "first_tokens_pending": sum(
                 s is not None and s.first is not None for s in self._slots),
             "prefill_budget": self._prefill_budget,
@@ -811,6 +896,8 @@ class InferenceEngine:
                 name: k.launches for name, k in KERNELS.items()
             },
         })
+        if self._spec:
+            snap.update(self._spec_stats())
         if self._ragged:
             snap["ragged_width"] = self._ragged_width
             snap["ragged_dispatches"] = self._ragged_dispatches
@@ -826,6 +913,53 @@ class InferenceEngine:
         snap["kv_device_pages"] = self.config.num_pages - 1 - self.allocator.num_free
         snap["kv_reloaded_pages"] = self._kv_reloaded_pages
         return snap
+
+    def _spec_stats(self) -> dict:
+        """The reference's spec keys: the dispatch rung and its cap, the
+        per-lane dials and EWMAs over occupied lanes (mean, min, max), the
+        batch-aggregate EWMA, and the round graphs' captures and replays."""
+        out = {
+            "spec_gamma": self._gamma,
+            "spec_gamma_cap": self._gamma_cap,
+            "spec_accept_ewma": round(self._accept_ewma, 4),
+            "spec_graph_captures": self._graphs.captures["spec"],
+            "spec_graph_replays": self._graphs.replays["spec"],
+            "spec_eager": self._graphs.eager["spec"],
+            "spec_rounds": self._spec_rounds,
+            "spec_lane_rounds": self._spec_lane_rounds,
+            "spec_tokens": self._spec_tokens,
+            "draft_kv_pool_bytes": self.d_paged.nbytes,
+        }
+        occ = [i for i, s in enumerate(self._slots) if s is not None]
+        if occ:
+            dials, ewmas = self._lane_gamma[occ], self._lane_ewma[occ]
+            out.update({
+                "spec_gamma_mean": round(float(dials.mean()), 4),
+                "spec_gamma_min": int(dials.min()),
+                "spec_gamma_max": int(dials.max()),
+                "spec_accept_ewma_mean": round(float(ewmas.mean()), 4),
+                "spec_accept_ewma_min": round(float(ewmas.min()), 4),
+                "spec_accept_ewma_max": round(float(ewmas.max()), 4),
+            })
+        else:
+            out.update({
+                "spec_gamma_mean": float(self._gamma), "spec_gamma_min": self._gamma,
+                "spec_gamma_max": self._gamma, "spec_accept_ewma_mean": 1.0,
+                "spec_accept_ewma_min": 1.0, "spec_accept_ewma_max": 1.0,
+            })
+        return out
+
+    def set_spec_gamma(self, gamma: int) -> int:
+        """Upper bound on the speculative dispatch width, snapped to a
+        ladder rung (each rung is its own graph): gamma_max if `gamma`
+        reaches it, else gamma_low. Lane dials keep adapting under it, so
+        lifting the cap restores the full rung within one round. Returns
+        the cap applied, 0 on a plain engine."""
+        if not self._spec:
+            return 0
+        self._gamma_cap = self._gamma_max if int(gamma) >= self._gamma_max else self._gamma_low
+        self._gamma = min(self._gamma, self._gamma_cap)
+        return self._gamma_cap
 
     def prefix_warmth(self, ids) -> float:
         """Fraction [0, 1] of the token ids `ids` whose KV this engine could
@@ -896,6 +1030,9 @@ class InferenceEngine:
         try:
             with torch.inference_mode():
                 self._graphs.capture()
+                # A graph's first launch costs about one decode block; pay
+                # it here, not in the first requests' TTFT.
+                self._graphs.warm()
                 self._started.set()
                 while not self._stop.is_set():
                     # With live decode lanes, admissions and chunks share
@@ -1040,11 +1177,14 @@ class InferenceEngine:
         cfg = self.config
         request.timings.prefill_start = time.monotonic()
         prompt_ids = self.tokenizer.encode(request.prompt)
+        # A speculative engine leaves gamma_max positions of slack, so the
+        # last verify window's overdraft lands in the request's own pages.
+        slack = self._gamma_max
         max_new = max(
             1, min(request.max_new_tokens, cfg.max_new_tokens_cap,
-                   cfg.max_seq_len - 1),
+                   cfg.max_seq_len - 1 - slack),
         )
-        max_prompt = cfg.max_seq_len - max_new
+        max_prompt = cfg.max_seq_len - max_new - slack
         if len(prompt_ids) > max_prompt:
             prompt_ids = prompt_ids[-max_prompt:]      # keep the prompt tail
         prompt_len = len(prompt_ids)
@@ -1063,7 +1203,7 @@ class InferenceEngine:
             chain = self._fit_window(self._prefix.lookup_chain(ids)[0], prompt_len)
         restore_items = [(key, self._prefix.detach_host(key), ci)
                          for ci, (key, tier, _) in enumerate(chain) if tier == TIER_HOST]
-        need = -(-total_len // cfg.page_size) - (len(chain) - len(restore_items))
+        need = -(-(total_len + slack) // cfg.page_size) - (len(chain) - len(restore_items))
         try:
             try:
                 fresh = self.allocator.alloc(need)
@@ -1137,7 +1277,11 @@ class InferenceEngine:
         slot's last page, so a padded row there would write over the
         suffix's own KV in the same launch. Without a hit no window runs
         past: buckets start at 0, chunks at multiples of the chunk. Dropped
-        device pages are released and their hit accounting taken back."""
+        device pages are released and their hit accounting taken back.
+        A speculative engine's slack needs no term here: the verify windows
+        run to at most prompt_len + max_new + gamma_max <= max_seq_len
+        (`_prepare_request`), inside the table, and the prefill window's
+        bound is the table's end either way."""
         if self._ragged:
             return chain
         ps, C = self.config.page_size, self._chunk
@@ -1192,7 +1336,7 @@ class InferenceEngine:
             tables[r] = slot.table
             temp[r] = slot.request.temperature
             top_p[r] = slot.request.top_p
-            top_k[r] = slot.request.top_k
+            top_k[r] = self._eff_top_k(slot.request)
             seeds[r] = slot.seed_row
         ops = self._prefill_ops[n_pad]
         ops.upload(tokens, starts, last_rel, tables, seeds, temp, top_p, top_k)
@@ -1208,10 +1352,20 @@ class InferenceEngine:
                       aligned: bool) -> torch.Tensor:
         """The body the prefill graphs capture: `_prefill_fn` over the
         engine's weights, pools and the group pad's operand buffers. It
-        touches no lane state."""
+        touches no lane state. A speculative engine fills the draft's pools
+        in the same body (`spec_prefill_fn`)."""
+        ops = self._prefill_ops[n_pad].views(width)
+        cand = self.config.top_p_candidates
+        if self._spec:
+            token, self.paged, self.d_paged = spec_prefill_fn(
+                self.params, self.draft_params, self.model_cfg, self.draft_cfg,
+                self.paged, self.d_paged, *ops, greedy=greedy, candidates=cand,
+                aligned=aligned,
+            )
+            return token
         token, self.paged = _prefill_fn(
-            self.params, self.model_cfg, self.paged,
-            *self._prefill_ops[n_pad].views(width), greedy=greedy, aligned=aligned,
+            self.params, self.model_cfg, self.paged, *ops, greedy=greedy,
+            aligned=aligned, candidates=cand,
         )
         return token
 
@@ -1246,11 +1400,13 @@ class InferenceEngine:
         the dispatch read (no upload here)."""
         slot = self._slots[slot_idx]
         request = slot.request
+        top_k = self._eff_top_k(request)
         _merge_lane_fn(
             self._dev, slot_idx, toks_dev, row, slot.prompt_len + 1,
             slot.position_cap, float(request.temperature),
-            float(request.top_p), int(request.top_k), table_row, seed_row,
+            float(request.top_p), top_k, table_row, seed_row,
             eos_id=self.tokenizer.eos_id,
+            gamma_reset=max(self._gamma_max, 1) if self._spec else None,
         )
         slot.merged = True
         slot.pending = None
@@ -1258,6 +1414,17 @@ class InferenceEngine:
         self._caps[slot_idx] = slot.position_cap
         self._active[slot_idx] = True
         self._temperature[slot_idx] = request.temperature
+        self._top_p[slot_idx] = request.top_p
+        self._top_k[slot_idx] = top_k
+        self._lane_ewma[slot_idx] = 1.0
+        self._lane_gamma[slot_idx] = max(self._gamma_max, 1)
+
+    def _eff_top_k(self, request: GenRequest) -> int:
+        """The request's top_k as every sampled path sees it: with the
+        prefilter on (top_p_candidates = C > 0) a wider top_k clamps to C,
+        at admission, as in the reference."""
+        k, C = int(request.top_k), self.config.top_p_candidates
+        return min(k, C) if (C > 0 and k > 0) else k
 
     def _await_first_tokens(self, toks_dev: torch.Tensor, rows: list):
         """Start the copy of merged lanes' sampled tokens to host memory
@@ -1427,7 +1594,7 @@ class InferenceEngine:
                 smp_seeds[i] = s.seed_row
                 smp_temp[i] = s.request.temperature
                 smp_top_p[i] = s.request.top_p
-                smp_top_k[i] = s.request.top_k
+                smp_top_k[i] = self._eff_top_k(s.request)
             off += take
         return ops, off
 
@@ -1476,6 +1643,7 @@ class InferenceEngine:
                 dev["active"], dev["caps"], dev["seeds"], dev["temperature"],
                 dev["top_p"], dev["top_k"], *ops_dev,
                 greedy=greedy, eos_id=self.tokenizer.eos_id, work=work,
+                candidates=cfg.top_p_candidates,
             )
         except Exception as e:
             # Contained to the ranged slots, as a failed prefill group is;
@@ -1517,6 +1685,17 @@ class InferenceEngine:
             if block is not None or not self._active.any():
                 return block
         act = self._active
+        if self._spec:
+            # The round's gate (the reference's): every active row
+            # untruncated (greedy rows count as such), or the prefilter on,
+            # which lets top_p < 1 rows speculate. Otherwise the plain block
+            # goes out; the draft's pools then miss its steps and
+            # acceptance drops, never correctness.
+            untruncated = bool(np.all(
+                ((self._top_p[act] >= 1.0) & (self._top_k[act] <= 0))
+                | (self._temperature[act] == 0.0)))
+            if untruncated or self.config.top_p_candidates > 0:
+                return self._dispatch_spec(act, untruncated)
         lanes = int(act.sum())
         # The greedy graph skips the sampler's sort and draws; host
         # `_active` covers every lane live on the device, so it is safe.
@@ -1546,6 +1725,41 @@ class InferenceEngine:
             dev["active"], dev["caps"], dev["seeds"], dev["temperature"],
             dev["top_p"], dev["top_k"],
             greedy=greedy, steps=steps, eos_id=self.tokenizer.eos_id,
+            candidates=self.config.top_p_candidates,
+        )
+
+    def _dispatch_spec(self, act, untruncated: bool) -> _InflightBlock:
+        """Dispatch one draft/verify round at the current rung, a replay of
+        the (gamma, greedy, candidates) graph: candidates 0 when every
+        active row is untruncated (the round then skips the truncation).
+        A round is gamma + 1 steps of the pipeline's accounting."""
+        lanes = int(act.sum())
+        greedy = bool(np.all(self._temperature[act] == 0.0))
+        cand = 0 if untruncated else self.config.top_p_candidates
+        gamma = self._gamma
+        steps = gamma + 1
+        blocks_needed = max(1, -(-self._remaining_budget(act) // steps))
+        self._depth_target = min(self._depth, blocks_needed)
+        self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
+        packed = self._graphs.run("spec", gamma, greedy, cand)
+        host, event = self._copy_to_host(packed)
+        self._dispatch_seq += 1
+        return _InflightBlock(host, event, self._snapshot_requests(), self._dispatch_seq,
+                              "spec")
+
+    def _spec_round(self, gamma: int, greedy: bool, candidates: int) -> torch.Tensor:
+        """The body the spec graphs capture: `spec_decode_fn` over both
+        models' weights and pools and the lane-state buffers, the dial
+        included."""
+        dev = self._dev
+        return spec_decode_fn(
+            self.params, self.draft_params, self.model_cfg, self.draft_cfg,
+            self.paged, self.d_paged,
+            dev["last_tokens"], dev["seq_lens"], dev["page_tables"], dev["active"],
+            dev["caps"], dev["seeds"], dev["temperature"], dev["top_p"], dev["top_k"],
+            dev["accept_ewma"], dev["gamma_lane"],
+            gamma=gamma, eos_id=self.tokenizer.eos_id, gamma_low=self._gamma_low,
+            gamma_max=self._gamma_max, candidates=candidates, greedy=greedy,
         )
 
     @staticmethod
@@ -1586,6 +1800,11 @@ class InferenceEngine:
         # Observed lookahead: blocks dispatched after this one, before its
         # readback (0 is the synchronous depth-1 shape).
         lookahead = self._dispatch_seq - block.seq
+        if block.kind == "spec":
+            # Spec rounds always sync: their stat columns feed the dial
+            # mirrors and the rung even when every occupant is gone.
+            self._process_spec(block, lookahead)
+            return
         if not any(s is not None and s.request is block.reqs[i]
                    for i, s in enumerate(self._slots)):
             # Dead block: every dispatch-time occupant is gone; nothing to
@@ -1601,6 +1820,40 @@ class InferenceEngine:
         packed = block.host.numpy()
         self.metrics.on_process_block(lookahead, (time.monotonic() - t_sync) * 1e3)
         self._emit_block(packed, block.reqs)
+
+    def _process_spec(self, block: _InflightBlock, lookahead: int) -> None:
+        """Read a round's packed matrix: emit each row's prefix (-1 padded,
+        truncated on the device), refresh the dial mirrors of the lanes
+        whose request still holds the slot from the stat columns, count
+        the drafts, then pick the next rung: gamma_max if any live dial
+        wants more than gamma_low, under the cap."""
+        t_sync = time.monotonic()
+        self._resolve_prefills(ahead_of=block.seq)
+        if block.event is not None:
+            block.event.synchronize()
+        packed = block.host.numpy()
+        self.metrics.on_process_block(lookahead, (time.monotonic() - t_sync) * 1e3)
+        g1 = packed.shape[1] - SPEC_STAT_COLS
+        acc_col, prop_col = packed[:, g1], packed[:, g1 + 1]
+        for i, slot in enumerate(self._slots):
+            # A stale round must not overwrite a re-admitted lane's fresh
+            # dial (the device copy is already right: the merge ran after).
+            if slot is not None and slot.request is block.reqs[i]:
+                self._lane_ewma[i] = packed[i, g1 + 2] / 1e6
+                self._lane_gamma[i] = packed[i, g1 + 3]
+        self._emit_block(np.ascontiguousarray(packed[:, :g1].T), block.reqs)
+        accepted, proposed = int(acc_col.sum()), int(prop_col.sum())
+        self.metrics.on_spec(accepted, proposed)
+        self._spec_rounds += 1
+        self._spec_lane_rounds += int((packed[:, 0] >= 0).sum())
+        self._spec_tokens += int((packed[:, :g1] >= 0).sum())
+        if proposed > 0:
+            self._accept_ewma = (GAMMA_EWMA_BETA * self._accept_ewma
+                                 + (1.0 - GAMMA_EWMA_BETA) * accepted / proposed)
+        live = [i for i, s in enumerate(self._slots) if s is not None and self._active[i]]
+        want = int(self._lane_gamma[live].max()) if live else self._gamma_max
+        rung = self._gamma_max if want > self._gamma_low else self._gamma_low
+        self._gamma = min(rung, self._gamma_cap)
 
     def _emit_block(self, packed: np.ndarray, reqs: list) -> None:
         """Emit a block's packed [K, B] tokens to the requests that held
@@ -1675,6 +1928,8 @@ class InferenceEngine:
         self._seq_lens[slot_idx] = 0
         self._caps[slot_idx] = 0
         self._temperature[slot_idx] = 0.0
+        self._top_p[slot_idx] = 1.0
+        self._top_k[slot_idx] = 0
         if slot.merged and self.dead is None:
             _retire_lane_fn(self._dev, slot_idx)
         if error is not None:

@@ -10,8 +10,10 @@ whose addresses never change (weights, KV pools, the lane-state buffers,
 the prefill's static operand buffers) and leaves its results in them in
 place, so a replay reads and writes the addresses the capture saw. Its one
 fresh output (the decode block's packed [steps, B] tokens, a prefill's
-sampled token vector) lives in the graph's memory. The engine's keys:
-"decode" (greedy, steps) and "prefill" (width, n_pad, greedy, aligned).
+sampled token vector, a speculative round's packed matrix) lives in the
+graph's memory. The engine's keys: "decode" (greedy, steps), "prefill"
+(width, n_pad, greedy, aligned) and, on a speculative engine, "spec"
+(gamma, greedy, candidates).
 
 - **When.** `capture` runs once, at engine start, while every lane is
   inactive and every table, the prefill's static ones too, points at the
@@ -43,7 +45,15 @@ sampled token vector) lives in the graph's memory. The engine's keys:
   replays any other graph: the decode block's tokens are copied to host
   memory, and a prefill's tokens merged into the lane state and copied to
   host memory, in stream order right after their replay. `pool_bytes` is
-  what the captures added to the device memory PyTorch holds.
+  what the captures added to the device memory PyTorch holds, and
+  `pool_bytes_after[name]` that amount once the bodies up to `name`
+  (in the order given) were captured.
+- **First replays.** `warm` replays every graph once, uncounted, right
+  after the capture and from the same idle state: a graph's first launch
+  costs about one 8-step decode block at the 8B shape
+  (tools/trace_first_group.py), which the first requests after start
+  would otherwise wait for; the warm-up run before each capture never
+  launched a graph.
 - **No fallback.** A failed capture, a missing key or a failed replay
   raises; nothing here runs a body eagerly on a CUDA device but the
   capture's warm-up. On CPU tensors `run` calls the body itself: that is
@@ -76,6 +86,7 @@ class CudaGraphs:
         self.replays: Counter = Counter()
         self.eager: Counter = Counter()
         self.pool_bytes = 0
+        self.pool_bytes_after: dict[str, int] = {}
         self.capture_seconds = 0.0
 
     def capture(self) -> None:
@@ -103,11 +114,22 @@ class CudaGraphs:
                         out = body(*key)
                 self._graphs[(name, key)] = (graph, out, made)
                 self.captures[name] += 1
+            torch.cuda.synchronize(dev)
+            self.pool_bytes_after[name] = torch.cuda.memory_reserved(dev) - reserved
         main.wait_stream(stream)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_seconds = time.monotonic() - t0
+
+    def warm(self) -> None:
+        """Replay every captured graph once, uncounted, and wait: call right
+        after `capture`, in the same idle state (no lane live, every static
+        table on the garbage page)."""
+        for graph, _, _ in self._graphs.values():
+            graph.replay()
+        if self._graphs:
+            torch.cuda.synchronize(self._device)
 
     def run(self, name: str, *key) -> torch.Tensor:
         """One dispatch: a graph replay on the current stream (CUDA), or the

@@ -9,10 +9,10 @@ TTFT and inter-token latency are histogram-backed (obs.histogram): fixed
 log-spaced buckets give O(1)-memory p50/p95/p99 over the full history.
 
 The host-KV tier's page faults, spills and restores (with the restore
-latency histogram) are always in the snapshot, 0 with the tier off. This
-covers what the port's engine paths record; the counters of speculative
-decoding and device-time attribution come with the slices that port those
-features.
+latency histogram) are always in the snapshot, 0 with the tier off.
+Speculative rounds add the drafts accepted and proposed and their ratio,
+`spec_acceptance`, once a round has proposed any. Device-time attribution
+comes with the slice that ports it.
 """
 
 from __future__ import annotations
@@ -115,6 +115,18 @@ class EngineMetrics:
         self.kv_pages_evicted = 0
         self.kv_pages_restored = 0
         self.kv_restore_hist = Histogram()
+        # Speculative decoding: drafts accepted and proposed, counted on the
+        # device per round (a round cut short by EOS or the cap counts only
+        # the drafts that could be emitted).
+        self.drafts_accepted = 0
+        self.drafts_proposed = 0
+
+    def on_spec(self, accepted: int, proposed: int) -> None:
+        """One processed speculative round's accepted and proposed drafts,
+        summed over its lanes; their ratio is the speed-up dial."""
+        with self._lock:
+            self.drafts_accepted += accepted
+            self.drafts_proposed += proposed
 
     def on_kv_fault(self, kind: str, pages: int) -> None:
         """`pages` host-resident pages faulted for one admission (restored
@@ -302,6 +314,12 @@ class EngineMetrics:
             if self.steps_dispatched:
                 snap["avg_lanes"] = round(
                     self.lane_steps / self.steps_dispatched, 2
+                )
+            if self.drafts_proposed:
+                snap["drafts_accepted"] = self.drafts_accepted
+                snap["drafts_proposed"] = self.drafts_proposed
+                snap["spec_acceptance"] = round(
+                    self.drafts_accepted / self.drafts_proposed, 3
                 )
         if self.ttft_hist.count:
             p50, p95, p99 = self.ttft_hist.percentiles(50, 95, 99)

@@ -1,7 +1,8 @@
 """Where a decode step's (or a ragged dispatch's, or a prefill's) time goes, on the GPU.
 
     python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0] [--ragged]
-        [--kv-dtype int8] [--prefill [T]] [--graph] [--repeat N]
+        [--kv-dtype int8] [--prefill [T]] [--spec [--gamma 4] [--draft MODEL]] [--graph]
+        [--repeat N]
 
 Builds the 32-layer Llama-3-8B with random bf16 weights, puts 16 live lanes
 (the default EngineConfig's slots) at `context` positions of the default
@@ -35,6 +36,16 @@ launches, the device time of decode attention (every kernel whose name
 holds "paged_decode"), of ragged attention (every kernel whose name
 holds "ragged") and of the paged write kernel (every kernel whose name
 holds "paged_write"), and the kernels that took the most device time.
+With --spec it runs one speculative draft/verify round instead
+(`engine.spec_decode.spec_decode_fn`, greedy, at --gamma, 4 by default)
+with the draft model --draft (llama-3.2-1b by default, random weights,
+its own pool under the same tables): 16 lanes at `context`, each lane's
+dial at gamma. Each run prints the round's tokens (emitted over all
+lanes) and its acceptance, from the packed stat columns; after each
+repeat it measures the round's split, each part a CUDA graph of its own
+timed by CUDA events (`spec_parts`): the draft steps, the verify forward
+(and within it one layer's window gather, and one layer's attention with
+its gather, each times the layers), the draft sync and the accept/merge.
 --repeat N measures N times in the process (wall and profile each time)
 and ends with the median and range of each number. Each line names the
 card and its power limit.
@@ -65,6 +76,10 @@ def main() -> None:
     ap.add_argument("--prefill", type=int, nargs="?", const=512, default=None,
                     metavar="T", help="profile one bucketed prefill of T tokens "
                     "(default 512) at positions context..context+T-1")
+    ap.add_argument("--spec", action="store_true",
+                    help="profile one speculative draft/verify round")
+    ap.add_argument("--gamma", type=int, default=4, help="the round's gamma (--spec)")
+    ap.add_argument("--draft", default="llama-3.2-1b", help="the draft model (--spec)")
     ap.add_argument("--graph", action="store_true",
                     help="measure the decode block (or with --prefill the prefill) "
                     "eagerly and as a CUDA graph replay, in turns")
@@ -74,6 +89,8 @@ def main() -> None:
     if args.ragged and (args.prefill is not None or args.graph):
         raise SystemExit("profile_decode: --ragged profiles its own dispatch, "
                          "alone (--graph takes the block or --prefill)")
+    if args.spec and (args.ragged or args.prefill is not None):
+        raise SystemExit("profile_decode: --spec profiles its own round, alone")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
 
@@ -100,7 +117,7 @@ def main() -> None:
     lane_args = [state[k] for k in LANES]
     eager, reset = decode_block(params, cfg, paged, state, steps)
     blocks = {"eager": lambda: eager().cpu()}
-    if args.graph and args.prefill is None:
+    if args.graph and args.prefill is None and not args.spec:
         graph, _ = decode_block(params, cfg, paged, state, steps, graph=True)
         blocks["graph"] = lambda: graph().cpu()
 
@@ -149,8 +166,19 @@ def main() -> None:
         steps = 1
         blocks = {name: (lambda run=run: run().cpu()) for name, run in runs.items()}
 
+    if args.spec:
+        blocks, reset, spec_split = spec_round(params, cfg, econf, paged, state, args,
+                                               gen, graph=args.graph)
+        steps = 1
+
     pool = "int8 KV" if int8 else "bf16 KV"
-    if args.prefill is not None:
+    if args.spec:
+        where = (f"{cfg.name} {cfg.num_layers} layers bf16 + draft {args.draft}, {pool}, "
+                 f"one speculative round: B={B} lanes at context {args.context}, "
+                 f"gamma {args.gamma}, greedy"
+                 f"{', eager and as its graph replay in turns' if args.graph else ''}, "
+                 f"on {card}")
+    elif args.prefill is not None:
         where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one bucketed prefill "
                  f"of {args.prefill} tokens at positions {args.context}.."
                  f"{args.context + args.prefill - 1}, greedy"
@@ -164,7 +192,8 @@ def main() -> None:
         where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, B={B}, context "
                  f"{args.context}, block of {steps} greedy steps, on {card}")
     print(f"[profile_decode] {where}")
-    unit = "prefill" if args.prefill is not None else "dispatch" if args.ragged else "step"
+    unit = ("prefill" if args.prefill is not None else "dispatch" if args.ragged
+            else "round" if args.spec else "step")
     labels = _labelled_ranges() if args.prefill is not None else contextlib.nullcontext()
     runs = collections.defaultdict(list)
     names = list(blocks)
@@ -187,12 +216,24 @@ def main() -> None:
                 acts = [torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]
                 with torch.profiler.profile(activities=acts) as prof:
-                    fn()
+                    out = fn()
                     torch.cuda.synchronize()
                 tag = f"{name} " if len(names) > 1 else ""
-                for key, value in _report(prof, wall_ms, steps, unit, args.prefill is not None,
-                                          rep == args.repeat - 1, tag).items():
+                numbers = _report(prof, wall_ms, steps, unit, args.prefill is not None,
+                                  rep == args.repeat - 1, tag)
+                if args.spec:
+                    g1 = args.gamma + 1
+                    tokens = int((out[:, :g1] >= 0).sum())
+                    print(f"[profile_decode] {tag}round: {tokens} tokens over {B} lanes, "
+                          f"acceptance {int(out[:, g1].sum())}/{int(out[:, g1 + 1].sum())}")
+                    numbers["tokens a round"] = tokens
+                for key, value in numbers.items():
                     runs[tag + key].append(value)
+            if args.spec:
+                for part, ms in spec_split().items():
+                    print(f"[profile_decode] round part {part}: {ms:.3f} ms (device, "
+                          f"its own CUDA graph) on {card}")
+                    runs[f"part {part} ms"].append(ms)
     if args.repeat > 1:
         for key, values in runs.items():
             print(f"[profile_decode] {key} over {args.repeat} runs: median "
@@ -202,6 +243,60 @@ def main() -> None:
 
 LANES = ("last_tokens", "seq_lens", "page_tables", "active", "caps", "seeds",
          "temperature", "top_p", "top_k")
+SPEC_LANES = LANES + ("accept_ewma", "gamma_lane")
+
+
+def spec_round(params, cfg, econf, paged, state: dict, args, gen, graph: bool = False):
+    """({"eager": run[, "graph": run]}, reset, parts) for one greedy
+    speculative round over the lanes of `state`, each lane's dial at
+    args.gamma: the draft (args.draft, random weights) gets a pool of its
+    own under the same tables. `run()` returns the packed matrix on the
+    host. The graph is captured the engine's way (idle lanes on the garbage
+    page, then put back); `reset()` puts the lanes, the dials included,
+    back where they were; `parts()` measures the round's split
+    (`spec_parts`)."""
+    from ..engine.graphs import CudaGraphs
+    from ..engine.kv_cache import init_paged_kv
+    from ..engine.spec_decode import spec_decode_fn
+    from ..models.config import get_config
+    from ..models.transformer import init_params
+
+    dev = torch.device("cuda")
+    d_cfg = get_config(args.draft)
+    d_params = init_params(d_cfg, torch.bfloat16, dev, gen)
+    d_paged = init_paged_kv(d_cfg, econf.num_pages, econf.page_size, torch.bfloat16, dev,
+                            kv_dtype=torch.int8 if paged.quantized else None)
+    B, g = econf.max_decode_slots, args.gamma
+    state["accept_ewma"] = torch.ones(B, device=dev)
+    state["gamma_lane"] = torch.full((B,), g, dtype=torch.int32, device=dev)
+    live = {k: t.clone() for k, t in state.items()}
+
+    def reset():
+        for k, t in live.items():
+            state[k].copy_(t)
+
+    def body(gamma, greedy, cand):
+        return spec_decode_fn(params, d_params, cfg, d_cfg, paged, d_paged,
+                              *(state[k] for k in SPEC_LANES), gamma=gamma, eos_id=-1,
+                              candidates=cand, greedy=greedy)
+
+    runs = {"eager": lambda: body(g, True, 0).cpu()}
+    if graph:
+        for k in ("last_tokens", "seq_lens", "page_tables", "active"):
+            state[k].zero_()
+        graphs = CudaGraphs(dev, {"spec": (body, [(g, True, 0)])})
+        with torch.inference_mode():
+            graphs.capture()
+        reset()
+        print(f"[profile_decode] spec graph: capture {graphs.capture_seconds:.3f} s, "
+              f"pool {graphs.pool_bytes / 2**20:.1f} MiB, draft pool "
+              f"{d_paged.nbytes / 2**30:.4f} GiB")
+        runs["graph"] = lambda: graphs.run("spec", g, True, 0).cpu()
+
+    def parts():
+        return spec_parts(params, cfg, paged, state, d_params, d_cfg, d_paged, g, reset)
+
+    return runs, reset, parts
 
 
 def decode_lanes(econf, cfg, context: int, gen: torch.Generator, int8: bool):
@@ -408,6 +503,106 @@ def _labelled_ranges():
     finally:
         for name, fn in saved.items():
             setattr(pa, name, fn)
+
+
+def _device_ms(fn, samples: int = 10) -> float:
+    """Median device time of one call of `fn` over `samples` pairs of CUDA
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(samples)]
+    for a, b in pairs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def spec_parts(params, cfg, paged, state: dict, d_params, d_cfg, d_paged, gamma: int,
+               reset) -> dict:
+    """Device ms of each part of one greedy round, each captured as a CUDA
+    graph of its own over the lanes of `state` and timed by CUDA events:
+    the draft steps (`_draft_scan`), the verify forward (the target over
+    the gamma + 1 window and its unembedding), within it one layer's window
+    gather and one layer's attention (gather included) times the layers,
+    the draft sync (the draft over the window) and the accept/merge. The
+    parts' inputs are what an eager round computes; no part writes the
+    lane state."""
+    from ..engine import spec_decode as sd
+    from ..engine.sampling import TaggedDraws
+    from ..models.transformer import forward_paged, unembed
+    from ..ops.paged_attention import paged_attention, paged_gather_kv
+
+    reset()
+    st = {k: state[k] for k in SPEC_LANES}
+    pos = torch.clamp(st["seq_lens"] - 1, min=0)
+    greedy_row = st["temperature"] == 0.0
+    temp = torch.clamp(st["temperature"], min=1e-6)
+    draws = TaggedDraws(st["seeds"])
+    dev = pos.device
+    w_pos = (pos[:, None] + torch.arange(gamma + 1, dtype=torch.int32, device=dev)).to(
+        torch.int32)
+    held: dict = {}
+
+    def draft():
+        held["drafts"], _ = sd._draft_scan(
+            d_params, d_cfg, d_paged, st["last_tokens"], pos, st["page_tables"],
+            greedy_row, temp, st["top_p"], st["top_k"], draws, gamma, 0, True)
+        held["window"] = torch.cat([st["last_tokens"][:, None], held["drafts"]], dim=1)
+
+    def verify():
+        hidden, _ = forward_paged(params, cfg, held["window"], w_pos, paged,
+                                  st["page_tables"], aligned=False)
+        held["t_logits"] = unembed(params, cfg, hidden)
+
+    def sync():
+        forward_paged(d_params, d_cfg, held["window"], w_pos, d_paged, st["page_tables"],
+                      aligned=False)
+
+    def merge():
+        sd._accept_merge(held["t_logits"], held["drafts"], None, st["last_tokens"],
+                         st["seq_lens"], st["active"], st["caps"], st["accept_ewma"],
+                         st["gamma_lane"], pos, greedy_row, temp, st["top_p"], st["top_k"],
+                         draws, gamma=gamma, gamma_low=gamma, gamma_max=gamma, eos_id=-1,
+                         candidates=0, greedy=True)
+
+    B, H = st["last_tokens"].shape[0], cfg.num_heads
+    q = torch.randn((B, gamma + 1, H, cfg.head_dim), device=dev).to(torch.bfloat16)
+    kc, vc = paged.layer(0)
+
+    def gather():
+        if paged.quantized:
+            paged_gather_kv(kc[0], vc[0], st["page_tables"])
+        else:
+            paged_gather_kv(kc, vc, st["page_tables"])
+
+    def attention():
+        paged_attention(q, kc, vc, st["page_tables"], w_pos, scale=cfg.q_scale)
+
+    out = {}
+    with torch.inference_mode():
+        for fn in (draft, verify, sync, merge):
+            fn()                                  # the eager inputs of the next part
+        for name, fn, times in (("draft steps", draft, 1), ("verify forward", verify, 1),
+                                ("verify: window gather (one layer x layers)", gather,
+                                 cfg.num_layers),
+                                ("verify: attention incl. gather (one layer x layers)",
+                                 attention, cfg.num_layers),
+                                ("draft sync", sync, 1), ("accept/merge", merge, 1)):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fn()
+            out[name] = times * _device_ms(graph.replay)
+            del graph
+    reset()
+    return out
 
 
 def _is_gemm(name: str) -> bool:

@@ -1247,3 +1247,119 @@ def test_engine_prefix_cache_and_host_tier_on_the_card(gen, monkeypatch):
     assert stats["kv_pages_evicted"] > 0 and stats["kv_pages_restored"] > 0
     assert stats["prefix_hit_tokens"] + stats["prefix_host_hit_tokens"] > 0
     assert stats["prefill_graph_replays"] > 0 and stats["prefill_eager"] == 0
+
+
+# -- the speculative round as CUDA graphs (engine/spec_decode.py) ------------
+
+_SPEC_LANES = _LANES + ("accept_ewma", "gamma_lane")
+
+
+def _spec_parts(gen, int8):
+    """`_graph_parts`' target with a 1-layer draft of the same vocabulary
+    (head_dim 64, its own pools under the same tables), and the lanes'
+    dials at gamma 4 with an EWMA of 1."""
+    from dataclasses import replace
+
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.transformer import init_params
+
+    cfg, params, paged, state = _graph_parts(gen, int8)
+    d_cfg = replace(cfg, name="tiny-draft", num_layers=1)
+    d_params = init_params(d_cfg, torch.bfloat16, "cuda", gen)
+    d_paged = init_paged_kv(d_cfg, paged.k.shape[1], 16, torch.bfloat16, "cuda",
+                            kv_dtype=torch.int8 if int8 else None)
+    B = state["active"].shape[0]
+    state["accept_ewma"] = torch.ones(B, device="cuda")
+    state["gamma_lane"] = torch.full((B,), 4, dtype=torch.int32, device="cuda")
+    return cfg, params, paged, d_cfg, d_params, d_paged, state
+
+
+def _spec_body(cfg, params, paged, d_cfg, d_params, d_paged, state):
+    from polykey_tpu_torch.engine.spec_decode import spec_decode_fn
+
+    def body(gamma, greedy, cand):
+        return spec_decode_fn(params, d_params, cfg, d_cfg, paged, d_paged,
+                              *(state[k] for k in _SPEC_LANES), gamma=gamma, eos_id=2,
+                              gamma_low=2, gamma_max=4, candidates=cand, greedy=greedy)
+    return body
+
+
+def _clone_paged(paged):
+    from polykey_tpu_torch.engine.kv_cache import PagedKV
+
+    return PagedKV(*(t.clone() if t is not None else None
+                     for t in (paged.k, paged.v, paged.ks, paged.vs)))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_spec_round_replay_matches_eager_at_every_key(gen, int8):
+    """Captured while every lane is idle (the warm-up writes only the
+    garbage page), each (gamma, greedy, candidates) key's replay from live
+    lanes gives the eager round's packed matrix, lane state (dial and EWMA
+    included) and both models' pools, bit for bit."""
+    from polykey_tpu_torch.engine.engine import spec_graph_keys
+    from polykey_tpu_torch.engine.graphs import CudaGraphs
+
+    cfg, params, paged, d_cfg, d_params, d_paged, state = _spec_parts(gen, int8)
+    keys = spec_graph_keys((2, 4), 32)
+    assert len(keys) == 6
+    graphs = CudaGraphs(torch.device("cuda"), {"spec": (
+        _spec_body(cfg, params, paged, d_cfg, d_params, d_paged, state), keys)})
+    with torch.inference_mode():
+        graphs.capture()
+    assert graphs.captures["spec"] == 6
+    assert all(not t[:, 1:].any() for t in _pools(paged) + _pools(d_paged))
+    for gamma, greedy, cand in keys:
+        _fill_lanes(gen, paged, state, sampled=not greedy)
+        _fill_pools(gen, d_paged)
+        state["gamma_lane"].copy_(torch.tensor([4, 2, 3, 4]))
+        with torch.inference_mode():
+            ref = {k: t.clone() for k, t in state.items()}
+            ref_t, ref_d = _clone_paged(paged), _clone_paged(d_paged)
+            want = _spec_body(cfg, params, ref_t, d_cfg, d_params, ref_d, ref)(
+                gamma, greedy, cand)
+            got = graphs.run("spec", gamma, greedy, cand).clone()
+        torch.cuda.synchronize()
+        assert got.shape == (4, gamma + 1 + 4)
+        assert torch.equal(got, want), (gamma, greedy, cand)
+        assert (got[:3, 0] >= 0).all() and (got[3, :gamma + 1] == -1).all()
+        for k in _SPEC_LANES:
+            assert torch.equal(state[k], ref[k]), (k, gamma, greedy, cand)
+        for a, b in zip(_pools(paged) + _pools(d_paged), _pools(ref_t) + _pools(ref_d)):
+            assert torch.equal(a, b)
+    assert graphs.replays["spec"] == 6
+
+
+@pytest.mark.parametrize("gamma", [2, 4])
+def test_spec_greedy_key_equals_sampled_key_on_a_greedy_batch(gen, gamma):
+    """On an all-greedy batch the greedy key (no distributions, no draws)
+    and the sampled key give the same packed matrix, lane state and pools."""
+    from polykey_tpu_torch.engine.graphs import CudaGraphs
+
+    cfg, params, paged, d_cfg, d_params, d_paged, state = _spec_parts(gen, False)
+    graphs = CudaGraphs(torch.device("cuda"), {"spec": (
+        _spec_body(cfg, params, paged, d_cfg, d_params, d_paged, state),
+        [(gamma, True, 0), (gamma, False, 0)])})
+    with torch.inference_mode():
+        graphs.capture()
+    _fill_lanes(gen, paged, state, sampled=False)
+    _fill_pools(gen, d_paged)
+    start = {k: t.clone() for k, t in state.items()}
+    pools = [t.clone() for t in _pools(paged) + _pools(d_paged)]
+    outs = []
+    for greedy in (True, False):
+        with torch.inference_mode():
+            for k, t in start.items():
+                state[k].copy_(t)
+            for t, p in zip(_pools(paged) + _pools(d_paged), pools):
+                t.copy_(p)
+            packed = graphs.run("spec", gamma, greedy, 0).clone()
+        torch.cuda.synchronize()
+        outs.append((packed, {k: t.clone() for k, t in state.items()},
+                     [t.clone() for t in _pools(paged) + _pools(d_paged)]))
+    (pa, sa, qa), (pb, sb, qb) = outs
+    assert torch.equal(pa, pb)
+    for k in _SPEC_LANES:
+        assert torch.equal(sa[k], sb[k]), k
+    for a, b in zip(qa, qb):
+        assert torch.equal(a, b)

@@ -170,9 +170,13 @@ def test_stats_report_kernel_launches(engines):
 
 
 def test_unported_knobs_refuse_to_start():
-    for knob in (dict(draft_model="tiny-llama"), dict(quantize=True), dict(tp=2)):
+    for knob in (dict(draft_model="tiny-llama", ragged_dispatch=True), dict(quantize=True),
+                 dict(tp=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()
+    # Speculative decoding and the top-p prefilter are served now
+    # (bucketed; ragged rounds are still refused, above).
+    dataclasses.replace(TEST_CONFIG, draft_model="tiny-llama", top_p_candidates=32).validate()
     # The prefix cache and the host tier are served now, and validate as
     # the reference's: the tier needs the cache.
     dataclasses.replace(TEST_CONFIG, prefix_cache=True, host_kv_bytes=1 << 20,

@@ -16,7 +16,7 @@ from google.protobuf import struct_pb2
 
 from polykey_tpu.gateway.mock_service import MockService as JMockService
 from polykey_tpu_torch.engine.config import EngineConfig
-from polykey_tpu_torch.engine.engine import InferenceEngine
+from polykey_tpu_torch.engine.engine import GenRequest, InferenceEngine
 from polykey_tpu_torch.gateway import server as gateway_server
 from polykey_tpu_torch.gateway.jsonlog import Logger
 from polykey_tpu_torch.gateway.torch_service import TorchService
@@ -240,3 +240,59 @@ def test_backend_selector(monkeypatch):
         assert service.engine.device.type == "cpu"
     finally:
         service.close()
+
+
+def test_spec_engine_streams_over_grpc_from_env(monkeypatch):
+    """The server's own path (`_default_service`: TorchService.from_env)
+    with a draft model, gamma, the prefilter and the dial from
+    POLYKEY_DRAFT_MODEL, POLYKEY_SPEC_GAMMA, POLYKEY_TOP_P_CANDIDATES and
+    POLYKEY_ADAPTIVE_GAMMA: a streamed llm_generate ends with status 200
+    and its usage, greedy text equal to the plain engine's on the same
+    weights, and engine_stats shows the rounds speculated."""
+    monkeypatch.setitem(model_config.MODEL_REGISTRY, "tiny-llama-ascii",
+                        dataclasses.replace(model_config.TINY_LLAMA,
+                                            name="tiny-llama-ascii", vocab_size=96))
+    env = dict(POLYKEY_BACKEND="engine", POLYKEY_MODEL="tiny-llama-ascii",
+               POLYKEY_DTYPE="float32", POLYKEY_MAX_DECODE_SLOTS="4",
+               POLYKEY_PAGE_SIZE="8", POLYKEY_NUM_PAGES="64", POLYKEY_MAX_SEQ_LEN="64",
+               POLYKEY_PREFILL_BUCKETS="16,32", POLYKEY_DRAFT_MODEL="tiny-llama-ascii",
+               POLYKEY_SPEC_GAMMA="3", POLYKEY_TOP_P_CANDIDATES="16",
+               POLYKEY_ADAPTIVE_GAMMA="1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    logger = Logger(stream=io.StringIO(), level="debug")
+    service = gateway_server._default_service(logger, None, device="cpu")
+    engine = service.engine
+    assert engine.config.draft_model == "tiny-llama-ascii" and engine._gamma_max == 3
+    server, _health, port = gateway_server.build_server(service, logger,
+                                                        address="127.0.0.1:0")
+    server.start()
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    plain = InferenceEngine(dataclasses.replace(CONFIG, model="tiny-llama-ascii"),
+                            params=engine.params, device="cpu")
+    try:
+        stub = PolykeyServiceStub(channel)
+        chunks = list(stub.ExecuteToolStream(_llm(prompt="stream spec", max_tokens=8),
+                                             timeout=60))
+        final = chunks[-1]
+        assert final.final and final.status.code == 200
+        assert final.usage.completion_tokens == 8
+        text = "".join(c.delta for c in chunks[:-1])
+        request = GenRequest(prompt="stream spec", max_new_tokens=8)
+        plain.submit(request)
+        ids = []
+        while (item := request.out.get(timeout=60))[0] == "token":
+            ids.append(item[1])
+        assert item[0] == "done" and text == plain.tokenizer.decode(ids)
+        sampled = list(stub.ExecuteToolStream(
+            _llm(prompt="stream spec", max_tokens=8, temperature=0.9, top_p=0.8),
+            timeout=60))
+        assert sampled[-1].status.code == 200
+        stats = dict(stub.ExecuteTool(pk.ExecuteToolRequest(tool_name="engine_stats"),
+                                      timeout=30).struct_output)
+        assert stats["drafts_proposed"] > 0 and stats["spec_gamma_cap"] == 3
+    finally:
+        channel.close()
+        server.stop(grace=None)
+        service.close()
+        plain.shutdown()

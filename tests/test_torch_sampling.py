@@ -119,3 +119,111 @@ def test_gumbel_noise_is_uniform_in_distribution():
     g = ts.gumbel_noise(_seeds([9]), torch.tensor([17]), 65536)[0].double()
     u = torch.exp(-torch.exp(-g)).numpy()
     assert stats.kstest(u, "uniform").pvalue > 1e-4
+
+
+# -- the top-k candidates prefilter and the speculative draws ----------------
+
+def _trunc_rows(B, seed=0):
+    rng = np.random.default_rng(seed)
+    temp = rng.uniform(0.5, 1.5, B).astype(np.float32)
+    top_p = np.array([0.1, 0.5, 0.9, 1.0, 0.7, 1.0, 0.0, 0.95][:B], np.float32)
+    top_k = np.array([0, 5, 1, 0, 40, 3, 0, 100][:B], np.int32)
+    return temp, top_p, top_k
+
+
+@pytest.mark.parametrize("candidates", [0, 32, 100])
+def test_truncated_dist_matches_the_reference(candidates):
+    """The truncated, renormalized distribution (prefiltered with 0 < C < V,
+    exact otherwise, untruncated rows the plain softmax) within 1e-6 of the
+    JAX package's on the same logits; also over a [B, G, V] block."""
+    V = 64
+    logits = _logits(8, V, seed=5)
+    temp, top_p, top_k = _trunc_rows(8)
+    got = ts.truncated_dist(logits, torch.from_numpy(temp), torch.from_numpy(top_p),
+                            torch.from_numpy(top_k), candidates)
+    want = js.truncated_dist(jnp.asarray(logits.numpy()), jnp.asarray(temp),
+                             jnp.asarray(top_p), jnp.asarray(top_k), candidates)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
+    block = logits.reshape(2, 4, V)
+    rs = [torch.from_numpy(a.reshape(2, 4)) for a in (temp, top_p, top_k)]
+    got3 = ts.truncated_dist(block, *rs, candidates)
+    want3 = js.truncated_dist(jnp.asarray(block.numpy()),
+                              *(jnp.asarray(r.numpy()) for r in rs), candidates)
+    np.testing.assert_allclose(got3.numpy(), np.asarray(want3), atol=1e-6, rtol=0)
+
+
+def test_candidates_keep_set_matches_the_reference():
+    """The prefilter keeps exactly the reference's candidates: the same
+    top-C indices in order and the same keep mask (top-p on full-vocab
+    probabilities, top-k by rank)."""
+    V, C = 300, 32
+    logits = _logits(8, V, seed=9)
+    temp, top_p, top_k = _trunc_rows(8)
+    scaled = logits / torch.from_numpy(temp)[:, None]
+    _, idx, keep, _ = ts._candidates_keep(scaled, torch.from_numpy(top_p),
+                                          torch.from_numpy(top_k), C)
+    _, masked, jidx, _ = js._masked_rows(
+        jnp.asarray(logits.numpy()), jnp.asarray(temp)[:, None], jnp.asarray(top_p),
+        jnp.asarray(top_k), C)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(keep.numpy(), np.isfinite(np.asarray(masked)))
+
+
+def test_candidates_draw_equals_the_exact_draw_when_the_set_fits():
+    """A candidate's noise is its vocab index's noise, so a row whose kept
+    set fits in C draws the same token on both paths; untruncated rows
+    draw from the whole vocabulary the same way too."""
+    V, C, n = 200, 32, 64
+    logits = _logits(n, V, seed=13)
+    seeds, pos = _seeds(range(100, 100 + n)), torch.arange(n)
+    temp = torch.full((n,), 0.9)
+    top_p = torch.where(torch.arange(n) % 4 == 0, 1.0, 0.6)
+    top_k = torch.where(torch.arange(n) % 3 == 0, 10, 0).to(torch.int32)
+    exact = ts.sample_tail(logits, seeds, pos, temp, top_p, top_k, greedy=False)
+    pre = ts.sample_tail(logits, seeds, pos, temp, top_p, top_k, greedy=False,
+                         candidates=C)
+    kept = (ts.truncated_dist(logits, temp, top_p, top_k, 0) > 0).sum(-1)
+    fits = (kept <= C) | ((top_p >= 1.0) & (top_k <= 0))
+    assert fits.sum() > n // 2
+    assert torch.equal(exact[fits], pre[fits])
+
+
+@pytest.mark.parametrize("temp,top_p,top_k", [(1.0, 0.8, 0), (0.7, 1.0, 3)])
+def test_candidates_draws_follow_the_kept_softmax_mass(temp, top_p, top_k):
+    """Chi-square of 20000 prefiltered draws against the truncated
+    distribution; significance 1e-4."""
+    V, n = 12, 20000
+    logits = _logits(1, V, seed=3, scale=1.0)
+    expected = ts.truncated_dist(logits, torch.tensor([temp]), torch.tensor([top_p]),
+                                 torch.tensor([top_k], dtype=torch.int32), 8)[0].double().numpy()
+    draws = ts.sample_tail(logits.expand(n, V), _seeds([42] * n), torch.arange(n),
+                           *_rows(n, temp, top_p, top_k), greedy=False,
+                           candidates=8).numpy()
+    counts = np.bincount(draws, minlength=V)
+    kept = expected > 0
+    expected /= expected[kept].sum()           # float64, so the sums agree
+    assert counts[~kept].sum() == 0
+    chi2, p = stats.chisquare(counts[kept], expected[kept] * n)
+    assert p > 1e-4, (counts, expected * n, chi2)
+
+
+def test_tagged_draws_are_uniform_and_independent_of_tag_and_batch():
+    """The speculative draws: uniforms pass Kolmogorov-Smirnov, each tag
+    is its own stream, and a row's draw depends only on (seed, position,
+    tag), not on its batch."""
+    n = 4096
+    d = ts.TaggedDraws(_seeds([77] * n))
+    pos = torch.arange(n)
+    u101, u102 = d.uniform(pos, ts.DRAFT_TAG), d.uniform(pos, ts.ACCEPT_TAG)
+    assert stats.kstest(u102.double().numpy(), "uniform").pvalue > 1e-4
+    assert abs(float(np.corrcoef(u101.numpy(), u102.numpy())[0, 1])) < 0.05
+    grid = ts.TaggedDraws(_seeds([77, 5])).uniform(torch.tensor([[3, 4], [3, 4]]),
+                                                   ts.ACCEPT_TAG)
+    alone = ts.TaggedDraws(_seeds([77])).uniform(torch.tensor([[3, 4]]), ts.ACCEPT_TAG)
+    assert torch.equal(grid[0], alone[0]) and not torch.equal(grid[0], grid[1])
+    logp = torch.log_softmax(_logits(1, 50, seed=2), -1).expand(3, 50)
+    a = ts.TaggedDraws(_seeds([1, 2, 3])).categorical(torch.tensor([9, 9, 9]),
+                                                     ts.EXTRA_TAG, logp)
+    b = ts.TaggedDraws(_seeds([2])).categorical(torch.tensor([9]), ts.EXTRA_TAG, logp[:1])
+    assert a[1] == b[0]
