@@ -32,6 +32,14 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             against plain and against forward_paged on the same tokens.
             Both again over int8 KV, kernels against plain, and the hidden
             states against the bf16-KV runs (the reference's 0.05 gate).
+            The bucketed slice with int8 and int4 weights (quantized as the
+            engine quantizes them) against bf16 weights, under the
+            reference's gates (mean |dh| / max(|h|, 1) under 0.05 and
+            0.35). Then a depth-2 mixtral-8x7b at its published widths (8
+            experts, top-2, the capacity-bucketed dispatch) in int8
+            weights, kernels against plain within 0.12 with the same argmax
+            on every row; it prints how many token routings the two runs
+            chose differently.
 5. serve:   the full 32-layer Llama-3-8B (random bf16 weights from --seed)
             behind the port's gRPC server on a free local port, with the
             default EngineConfig; 5 concurrent llm_generate requests, one of
@@ -110,6 +118,15 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and after the spec keys, the draft pool, acceptance, rounds,
             tokens a lane a round, and TTFT and tok/s against the plain
             engine.
+12. serve-mixtral: after the Llama weights are freed, the full 32-layer
+            mixtral-8x7b (46.7 B parameters, random weights from --seed,
+            drawn and quantized to int8 a layer at a time: 43.5 GiB) behind
+            the gRPC server, EngineConfig(model="mixtral-8x7b",
+            quantize=True), bf16 KV, the serve phase's requests and checks:
+            flash, the bf16 decode and the bf16 write kernels must launch
+            and no other; every decode block and prefill a graph replay.
+            The capacity-bucketed dispatch drops by position in the batch,
+            so the repeated greedy prompt is held to a solo run of it.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -121,6 +138,8 @@ the package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import queue
@@ -767,21 +786,11 @@ def _launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def phase_slice(seed: int) -> None:
-    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
-    from polykey_tpu_torch.models.config import get_config
-    from polykey_tpu_torch.models.transformer import (
-        forward_paged, init_params, unembed,
-    )
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    say("slice", "TF32 off for matmuls and cuDNN (allow_tf32 = False)")
-    cfg = replace(get_config("llama-3-8b"), num_layers=2)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(cfg, torch.bfloat16, "cuda", gen)
-    B, T, ps, P, steps = 2, 128, 16, 256, 8
-    prompt_lens = [100, 77]
+def _slice_inputs(cfg, gen, B=2, T=128, steps=8, ps=16, P=256):
+    """A right-padded prefill of B prompts (bucket T, prompts of 100 and 77
+    tokens), `steps` forced decode tokens, and tables of pages of their
+    own: (tokens, forced, tables, prompt_lens, pages per row)."""
+    prompt_lens = [100, 77][:B]
     tokens = torch.randint(3, 259, (B, T), generator=gen, device="cuda",
                            dtype=torch.int32)
     forced = torch.randint(3, 259, (steps, B), generator=gen, device="cuda",
@@ -790,59 +799,206 @@ def phase_slice(seed: int) -> None:
     per = -(-(T + steps) // ps)
     for b in range(B):
         tables[b, :per] = torch.arange(1 + b * per, 1 + (b + 1) * per)
+    return tokens, forced, tables, prompt_lens, per
 
-    def run(int8=False):
-        """Logits of the sampled rows and every hidden state of the run."""
-        paged = init_paged_kv(cfg, 1 + B * per, ps, torch.bfloat16, "cuda",
-                              kv_dtype=torch.int8 if int8 else None)
-        positions = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
-        hidden, paged = forward_paged(params, cfg, tokens, positions, paged, tables)
-        hiddens = [hidden.reshape(-1, hidden.shape[-1])]
-        rows = torch.tensor([n - 1 for n in prompt_lens], device="cuda")
-        logits = [unembed(params, cfg, hidden[torch.arange(B), rows])]
-        for i in range(steps):
-            pos = torch.tensor([[n + i] for n in prompt_lens], dtype=torch.int32,
-                               device="cuda")
-            hidden, paged = forward_paged(params, cfg, forced[i][:, None], pos,
-                                          paged, tables)
-            hiddens.append(hidden[:, 0])
-            logits.append(unembed(params, cfg, hidden[:, 0]))
-        sync()
-        return torch.stack(logits), torch.cat(hiddens).float()
 
-    bucketed = ("flash_attention", "paged_attention_decode", "paged_write")
-    bucketed8 = ("flash_attention", "paged_attention_decode_int8", "paged_write_int8")
+def _slice_run(cfg, params, inputs, int8=False):
+    """Prefill then the forced decode steps through forward_paged: (logits
+    of the sampled rows, every hidden state of the run)."""
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.transformer import forward_paged, unembed
+
+    tokens, forced, tables, prompt_lens, per = inputs
+    B, T = tokens.shape
+    paged = init_paged_kv(cfg, 1 + B * per, 16, torch.bfloat16, "cuda",
+                          kv_dtype=torch.int8 if int8 else None)
+    positions = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    hidden, paged = forward_paged(params, cfg, tokens, positions, paged, tables)
+    hiddens = [hidden.reshape(-1, hidden.shape[-1])]
+    rows = torch.tensor([n - 1 for n in prompt_lens], device="cuda")
+    logits = [unembed(params, cfg, hidden[torch.arange(B), rows])]
+    for i in range(forced.shape[0]):
+        pos = torch.tensor([[n + i] for n in prompt_lens], dtype=torch.int32,
+                           device="cuda")
+        hidden, paged = forward_paged(params, cfg, forced[i][:, None], pos,
+                                      paged, tables)
+        hiddens.append(hidden[:, 0])
+        logits.append(unembed(params, cfg, hidden[:, 0]))
+    sync()
+    return torch.stack(logits), torch.cat(hiddens).float()
+
+
+BUCKETED = ("flash_attention", "paged_attention_decode", "paged_write")
+BUCKETED_INT8 = ("flash_attention", "paged_attention_decode_int8", "paged_write_int8")
+
+
+def _kernels_vs_plain(label, cfg, params, inputs, int8=False, routing=None):
+    """The slice through the kernels and through their plain versions:
+    only the path's kernels launch, and only in the kernel run; the logits
+    within 0.12 with the same argmax on every row. `routing` (a MoE
+    model's _Routing) records the kernel run's experts and hands them to
+    the plain run. Returns the kernel run's hidden states."""
+    names = BUCKETED_INT8 if int8 else BUCKETED
+    kernel_ctx = routing.record() if routing else contextlib.nullcontext()
+    plain_ctx = routing.replay() if routing else contextlib.nullcontext()
+    before = _launches()
+    with kernel_ctx:
+        got, hidden = _slice_run(cfg, params, inputs, int8)
+    mid = _launches()
+    with _PlainPath(), plain_ctx:
+        want, _ = _slice_run(cfg, params, inputs, int8)
+    after = _launches()
+    if routing:
+        routing.check(label)
+    ran = {n: mid[n] - before[n] for n in mid if mid[n] > before[n]}
+    check(set(ran) == set(names),
+          f"the kernel run launched {ran}, not each of {names} alone")
+    check(after == mid, f"the plain run launched kernels: {mid} -> {after}")
+    check(bool(torch.isfinite(got).all()), "slice logits are not finite")
+    err = (got - want).abs().max().item()
+    rms = want.square().mean().sqrt().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    tokens, forced = inputs[0], inputs[1]
+    say("slice", f"{label}, {'int8' if int8 else 'bf16'} KV: prefill T={tokens.shape[1]} "
+        f"(prompts {inputs[3]}) + {forced.shape[0]} decode steps, kernels vs "
+        f"plain: max |dlogit| {err:.4f} over logits of RMS {rms:.3f} "
+        f"(tolerance 0.12, about twice the 0.055 measured on the H100 for "
+        f"bf16 KV: bf16 activations round differently once attention sums "
+        f"in another order); argmax agreement {agree:.3f} (must be 1); "
+        f"kernel launches in the kernel run {ran}")
+    check(err <= 0.12, f"{label}: slice logits differ by {err}")
+    check(agree == 1.0, f"{label}: slice argmax agrees on only {agree:.3f} of the rows")
+    return hidden
+
+
+def phase_slice(seed: int) -> None:
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("slice", "TF32 off for matmuls and cuDNN (allow_tf32 = False)")
+    cfg = replace(get_config("llama-3-8b"), num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen)
+    inputs = _slice_inputs(cfg, gen)
+    label = "llama-3-8b width, 2 layers, bf16 weights"
     with torch.inference_mode():
-        for int8, names in ((False, bucketed), (True, bucketed8)):
-            before = _launches()
-            got, hidden = run(int8)
-            mid = _launches()
-            with _PlainPath():
-                want, _ = run(int8)
-            after = _launches()
-            ran = {n: mid[n] - before[n] for n in mid if mid[n] > before[n]}
-            check(set(ran) == set(names),
-                  f"the kernel run launched {ran}, not each of {names} alone")
-            check(after == mid, f"the plain run launched kernels: {mid} -> {after}")
-            check(bool(torch.isfinite(got).all()), "slice logits are not finite")
-            err = (got - want).abs().max().item()
-            rms = want.square().mean().sqrt().item()
-            agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-            kv = "int8 KV" if int8 else "bf16 KV"
-            say("slice", f"llama-3-8b width, 2 layers, bf16 weights, {kv}: prefill "
-                f"T={T} (prompts {prompt_lens}) + {steps} decode steps, kernels vs "
-                f"plain: max |dlogit| {err:.4f} over logits of RMS {rms:.3f} "
-                f"(tolerance 0.12, about twice the 0.055 measured on the H100 for "
-                f"bf16 KV: bf16 activations round differently once attention sums "
-                f"in another order); argmax agreement {agree:.3f} (must be 1); "
-                f"kernel launches in the kernel run {ran}")
-            check(err <= 0.12, f"slice logits differ by {err}")
-            check(agree == 1.0, f"slice argmax agrees on only {agree:.3f} of the rows")
-            if int8:
-                _kv_gap("forward_paged", hidden, hidden_bf16)
-            else:
-                hidden_bf16 = hidden
+        hidden_bf16 = _kernels_vs_plain(label, cfg, params, inputs)
+        hidden_int8 = _kernels_vs_plain(label, cfg, params, inputs, int8=True)
+    _kv_gap("forward_paged", hidden_int8, hidden_bf16)
     _slice_ragged(cfg, params, gen)
+    _slice_quantized_weights(cfg, params, inputs, hidden_bf16)
+    del params
+    torch.cuda.empty_cache()
+    _slice_mixtral(seed)
+
+
+def _slice_quantized_weights(cfg, params, inputs, hidden_bf16) -> None:
+    """The same slice with the weights quantized as the engine quantizes
+    them (int8, and int4 in groups of 128), through the kernels, against
+    the bf16 weights' hidden states under the reference's gate
+    (tests/test_quant.py): the mean of |dh| / max(|h|, 1) under 0.05 for
+    int8 and 0.35 for int4."""
+    from polykey_tpu_torch.models.quant import params_bytes, quantize_params
+
+    for bits, gate in ((8, 0.05), (4, 0.35)):
+        qparams = quantize_params(params, cfg, bits=bits)
+        with torch.inference_mode():
+            before = _launches()
+            _, hidden = _slice_run(cfg, qparams, inputs)
+            after = _launches()
+        ran = {n: after[n] - before[n] for n in after if after[n] > before[n]}
+        check(set(ran) == set(BUCKETED), f"int{bits} weights: launched {ran}")
+        check(bool(torch.isfinite(hidden).all()), f"int{bits} hidden not finite")
+        rel = ((hidden - hidden_bf16).abs() / hidden_bf16.abs().clamp_min(1.0)).mean().item()
+        say("slice", f"llama-3-8b width, 2 layers, int{bits} weights "
+            f"({params_bytes(qparams) / 2**30:.3f} GiB against bf16 "
+            f"{params_bytes(params) / 2**30:.3f}), bf16 KV, kernels, the same tokens: "
+            f"mean |dh| / max(|h|, 1) against bf16 weights {rel:.5f} over "
+            f"{hidden.shape[0]} hidden rows (gate {gate}, the reference's "
+            f"int{bits} accuracy gate)")
+        check(rel < gate, f"int{bits} weights: hidden gap {rel} against bf16")
+        del qparams
+
+
+class _Routing:
+    """Top-k routing is a step function of the router logits: where two
+    experts' logits are within the attention's bf16 rounding of a tie, the
+    kernel and plain runs may pick different experts, and the token's MoE
+    output changes by a whole expert (the first H100 run of the depth-2
+    Mixtral slice: max |dlogit| 2.15, one argmax of 18 rows). So the plain
+    run takes the kernel run's experts, weighted by its own logits
+    (`replay`), and every token whose own top-k differs from them is a
+    flip, whose margin (its own k-th logit minus its logit for the least
+    of the recorded experts) must be a near-tie (NEAR_TIE, the spec
+    phase's rule)."""
+
+    def __init__(self):
+        from polykey_tpu_torch.ops import moe
+
+        self.moe, self.router = moe, moe._router_weights
+        self.routes: list = []
+        self.margins: list = []
+        self.tokens = 0
+
+    @contextlib.contextmanager
+    def _swap(self, fn):
+        self.moe._router_weights = fn
+        try:
+            yield
+        finally:
+            self.moe._router_weights = self.router
+
+    def record(self):
+        def recording(layer_params, h, cfg):
+            combine, idx = self.router(layer_params, h, cfg)
+            self.routes.append(idx)
+            return combine, idx
+        return self._swap(recording)
+
+    def replay(self):
+        recorded = iter(self.routes)
+
+        def replaying(layer_params, h, cfg):
+            idx = next(recorded)
+            logits = h.float() @ layer_params["router"].float()
+            kth = logits.topk(cfg.num_experts_per_tok, dim=-1).values[..., -1]
+            chosen = logits.gather(-1, idx)
+            margin = kth - chosen.min(-1).values        # > 0 where its own top-k differs
+            self.margins.append(margin[margin > 0])
+            self.tokens += idx.shape[0]
+            combine = torch.zeros_like(logits).scatter_(-1, idx, torch.softmax(chosen, -1))
+            return combine, idx
+        return self._swap(replaying)
+
+    def check(self, label: str) -> None:
+        margins = torch.cat(self.margins) if self.margins else torch.zeros(0)
+        worst = margins.max().item() if margins.numel() else 0.0
+        say("slice", f"{label}: {margins.numel()} of {self.tokens} token routings of the "
+            f"plain run differ from the kernel run's (held to the kernel run's); "
+            f"largest margin {worst:.4f} (near-tie limit {NEAR_TIE})")
+        check(worst <= NEAR_TIE, f"{label}: a routing flip with margin {worst}")
+
+
+def _slice_mixtral(seed: int) -> None:
+    """mixtral-8x7b at its published widths (8 experts, top-2, the
+    capacity-bucketed dispatch), 2 layers, int8 weights drawn and
+    quantized a layer at a time as the engine does: kernels against
+    plain, the plain run on the kernel run's experts (_Routing)."""
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.quant import params_bytes
+    from polykey_tpu_torch.models.transformer import init_params
+
+    cfg = replace(get_config("mixtral-8x7b"), num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen, quantize_bits=8)
+    inputs = _slice_inputs(cfg, gen)
+    label = (f"mixtral-8x7b width ({cfg.num_experts} experts, top-{cfg.num_experts_per_tok}"
+             f", dispatch), 2 layers, int8 weights {params_bytes(params) / 2**30:.3f} GiB")
+    routing = _Routing()
+    with torch.inference_mode():
+        _kernels_vs_plain(label, cfg, params, inputs, routing=routing)
     del params
     torch.cuda.empty_cache()
 
@@ -1066,10 +1222,11 @@ SERVE_KERNELS = {
 
 
 def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
-                int8: bool = False) -> dict:
-    """Serve through gRPC. Bucketed (default) or ragged dispatch, over bf16
-    or (`int8`) int8 KV; `params` reuses the weights of an earlier engine
-    (shut down first)."""
+                int8: bool = False, model: str = "llama-3-8b", quantize: bool = False,
+                phase: str = "") -> dict:
+    """Serve `model` through gRPC. Bucketed (default) or ragged dispatch,
+    over bf16 or (`int8`) int8 KV, with bf16 or (`quantize`) int8 weights;
+    `params` reuses the weights of an earlier engine (shut down first)."""
     import grpc
 
     from polykey_tpu_torch.engine.config import EngineConfig
@@ -1080,20 +1237,21 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
     from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
     from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
 
-    phase = ("ragged" if ragged else "serve") + ("-int8" if int8 else "")
-    config = EngineConfig(model="llama-3-8b", ragged_dispatch=ragged,
-                          kv_dtype="int8" if int8 else "")
+    phase = phase or ("ragged" if ragged else "serve") + ("-int8" if int8 else "")
+    config = EngineConfig(model=model, ragged_dispatch=ragged,
+                          kv_dtype="int8" if int8 else "", quantize=quantize)
     t0 = time.monotonic()
     engine = InferenceEngine(config, params=params, device="cuda", seed=seed)
     sync()
-    nbytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    nbytes = engine.stats()["weight_bytes"]
     kv = engine.paged.nbytes
     mode = (f"ragged dispatch, stream width {engine.stats()['ragged_width']} "
             f"(prefill budget {engine.stats()['prefill_budget']})" if ragged
             else f"buckets {config.prefill_buckets}, chunks of 512")
     say(phase, f"engine up in {time.monotonic() - t0:.1f} s: {config.model}, "
-        f"{len(engine.params['layers'])} layers, bf16 weights {nbytes / 2**30:.2f} "
-        f"GiB, KV pool {kv / 2**30:.4f} GiB ({engine.stats()['kv_dtype']}"
+        f"{len(engine.params['layers'])} layers, {'int8' if quantize else 'bf16'} weights "
+        f"{nbytes / 2**30:.2f} GiB (device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB), KV pool {kv / 2**30:.4f} GiB ({engine.stats()['kv_dtype']}"
         f"{', scales included' if int8 else ''}; {config.num_pages} pages x "
         f"{config.page_size}), {config.max_decode_slots} slots, {mode}, decode "
         f"block {config.decode_block_steps}")
@@ -1118,7 +1276,11 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         before = engine.stats()
         for k in KERNELS.values():
             k.launches = 0
-        results = _serve_requests(stub, pk, submitted)
+        # A capacity-bucketed MoE (dispatch) drops by position in the batch
+        # (GShard), so a request's tokens depend on what rides with it: its
+        # repeat is held to a solo run below, not to its concurrent run.
+        moe = engine.model_cfg.is_moe and engine.model_cfg.moe_dispatch
+        results = _serve_requests(stub, pk, submitted, batch_invariant=not moe)
         counts = {name: k.launches for name, k in KERNELS.items()}
         stats = engine.stats()
         sync()
@@ -1833,22 +1995,13 @@ def phase_spec(seed: int, params, card: str) -> dict:
     return launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _serve_requests(stub, pk, submitted: list) -> list[dict]:
+def _serve_requests(stub, pk, submitted: list, batch_invariant: bool = True) -> list[dict]:
     """After one warm-up request per bucket, 5 concurrent requests: two
     short prompts (bucket 128), two long (bucket 512), one ~1500-token
     document (chunked prefill); one streamed, the rest unary; then the
-    first greedy prompt again, which must return the same text."""
+    first greedy prompt again, which must return the same text where the
+    model is `batch_invariant` (otherwise it is sent twice alone, and the
+    two texts must agree)."""
     specs = [
         ("short greedy", SHORT[0], dict(), False),
         ("short sampled stream", SHORT[1], dict(temperature=0.8, top_p=0.9,
@@ -1918,11 +2071,15 @@ def _serve_requests(stub, pk, submitted: list) -> list[dict]:
         r.setdefault("tok_s", t.tokens_per_sec)
     stats = stub.ExecuteTool(pk.ExecuteToolRequest(tool_name="engine_stats"), timeout=60)
     check(stats.status.code == 200, "engine_stats failed")
-    again = stub.ExecuteTool(pk.ExecuteToolRequest(
-        tool_name="llm_generate",
-        parameters=_struct(prompt=SHORT[0], max_tokens=32)), timeout=900)
-    check(again.status.code == 200 and again.string_output == out[0]["text"],
-          "the repeated greedy prompt returned other text")
+    def again() -> str:
+        resp = stub.ExecuteTool(pk.ExecuteToolRequest(
+            tool_name="llm_generate",
+            parameters=_struct(prompt=SHORT[0], max_tokens=32)), timeout=900)
+        check(resp.status.code == 200, f"the repeated greedy prompt: {resp.status}")
+        return resp.string_output
+
+    want = out[0]["text"] if batch_invariant else again()
+    check(again() == want, "the repeated greedy prompt returned other text")
     return out
 
 
@@ -1967,6 +2124,13 @@ def main() -> int:
     phase_spec(args.seed, params, dev["smi"])
     sync()
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral = phase_serve(args.seed, dev["smi"], model="mixtral-8x7b", quantize=True,
+                          phase="serve-mixtral")
+    del mixtral["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
     for int8 in (False, True):
         kv = "int8 KV" if int8 else "bf16 KV"
         for bucketed, rag in zip(serves[(False, int8)]["requests"],
@@ -1977,6 +2141,8 @@ def main() -> int:
                 f"on {dev['smi']}")
     say("serve", f"KV pool: bf16 {serves[(False, False)]['kv_gib']:.4f} GiB, int8 "
         f"{serves[(False, True)]['kv_gib']:.4f} GiB (scales included)")
+    say("serve-mixtral", f"mixtral-8x7b, int8 weights, bf16 KV: kernel launches "
+        f"{mixtral['launches']}")
 
     from polykey_tpu_torch.engine.engine import KERNELS
 

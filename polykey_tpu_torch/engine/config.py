@@ -4,9 +4,10 @@ The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
 for them fails at startup instead of being served by something else:
-int8/int4 weights, checkpoints (the target's and the draft's), replica
-and disaggregated pools, mesh axes above 1, the spec round on the ragged
-stream, and the reference's spec A/B instrumentation. Chunked prefill
+checkpoints (the target's and the draft's), replica and disaggregated
+pools, mesh axes above 1, the spec round on the ragged stream, and the
+reference's spec A/B instrumentation. Weight-only int8/int4 (`quantize`,
+`quantize_bits`), chunked prefill
 (`prefill_chunk`, `prefill_budget`), ragged dispatch (`ragged_dispatch`),
 the int8 KV cache (`kv_dtype="int8"`), the lookahead pipeline
 (`lookahead_blocks`), the adaptive block (`adaptive_block`), and the
@@ -47,6 +48,9 @@ class EngineConfig:
     tokenizer: str = "byte"              # 'byte' or a local HF tokenizer path
     dtype: str = "bfloat16"
     checkpoint_path: Optional[str] = None  # None → random init from a seed
+    # Weight-only quantization (models/quant.py): int8 per-output-channel,
+    # or with quantize_bits=4 int4 group-wise block linears (embed and
+    # lm_head stay int8). POLYKEY_QUANTIZE=int8|int4.
     quantize: bool = False
     quantize_bits: int = 8
     kv_dtype: str = ""                   # "" → follow `dtype`
@@ -284,9 +288,9 @@ class EngineConfig:
                 "host_kv_restore_slots must be >= 1 (a restore budget of "
                 "0 would wedge every faulting lane forever)"
             )
+        if self.quantize_bits not in (4, 8):
+            raise ValueError("quantize_bits must be 4 or 8")
         unported = [
-            (self.quantize, "quantize (POLYKEY_QUANTIZE)",
-             "A.8, int8/int4 weights"),
             (self.replicas > 1 or bool(self.disagg), "replicas / disagg",
              "replica and disagg pools"),
             (self.checkpoint_path is not None, "checkpoint_path",

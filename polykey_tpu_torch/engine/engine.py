@@ -99,9 +99,15 @@ GPU (the reference's engine/engine.py, default path).
   top-p / top-k within the top-C logits, and a request's top_k clamps to
   C at admission.
 
+- Weights (`quantize`, POLYKEY_QUANTIZE=int8|int4; models/quant.py):
+  weight-only int8 or int4 for the target and the draft, dequantized in
+  plain PyTorch inside every product. MoE models (Mixtral; ops/moe.py) run
+  in every mode, the capacity-bucketed dispatch where the config asks for
+  it (`moe_dispatch`).
+
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
 dispatch, speculative rounds on the ragged stream, the disaggregated
-handoff.
+handoff, checkpoint loading, the replica pools, mesh axes above 1.
 """
 
 from __future__ import annotations
@@ -122,6 +128,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig, get_config
+from ..models.quant import params_bytes, quantize_params
 from ..models.transformer import forward_paged, forward_ragged, init_params, unembed
 from ..ops import (
     flash_attention,
@@ -650,10 +657,19 @@ class InferenceEngine:
         self._seed_rng = np.random.default_rng(seed + 3)
 
         self._params_explicit = params is not None
+        # Weight-only int8/int4 (models/quant.py), as the reference: passed
+        # weights are quantized whole; random ones a layer at a time as
+        # they are drawn, the same tree, so a model whose bf16 weights do
+        # not fit on the card (mixtral-8x7b) is never held in bf16.
+        bits = config.quantize_bits if config.quantize else None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(self.model_cfg, self._dtype, self.device, gen)
+            params = init_params(self.model_cfg, self._dtype, self.device, gen,
+                                 quantize_bits=bits)
+        elif bits is not None:
+            params = quantize_params(params, self.model_cfg, bits=bits)
         self.params = params
+        self._weight_bytes = params_bytes(params)
         B, P = config.max_decode_slots, config.pages_per_seq
         kv_q = torch.int8 if config.kv_dtype == "int8" else None
         self.paged = init_paged_kv(
@@ -681,9 +697,13 @@ class InferenceEngine:
                     f"draft vocab {self.draft_cfg.vocab_size} != target vocab "
                     f"{self.model_cfg.vocab_size}"
                 )
+            # The quantize knob covers the draft too, as in the reference.
             if draft_params is None:
                 gen = torch.Generator(device=self.device).manual_seed(seed + 2)
-                draft_params = init_params(self.draft_cfg, self._dtype, self.device, gen)
+                draft_params = init_params(self.draft_cfg, self._dtype, self.device, gen,
+                                           quantize_bits=bits)
+            elif bits is not None:
+                draft_params = quantize_params(draft_params, self.draft_cfg, bits=bits)
             self.draft_params = draft_params
             self.d_paged = init_paged_kv(
                 self.draft_cfg, config.num_pages, config.page_size,
@@ -892,6 +912,9 @@ class InferenceEngine:
             "kv_dtype": "int8" if self.paged.quantized else str(
                 self.paged.k.dtype).removeprefix("torch."),
             "kv_pool_bytes": self.paged.nbytes,
+            "weight_bytes": self._weight_bytes,
+            "quantize": self.config.quantize,
+            "quantize_bits": self.config.quantize_bits,
             "kernel_launches": {
                 name: k.launches for name, k in KERNELS.items()
             },

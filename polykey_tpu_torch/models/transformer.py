@@ -6,10 +6,10 @@ Parameters are a plain dict: "embed" [V, H], "final_norm" [H], optional
 wv, wo; "ln1", "ln2"; "mlp": gate, up, down; Gemma's "post_ln1/2"). The
 stack is a Python loop over that list — the reference's stacked [L, ...]
 arrays driven by lax.scan become one dict per layer. Weights keep the
-[in, out] layout (`x @ w`). models/interop.py converts the reference's
-stacked pytree into this form.
-
-Only dense models are ported: MoE layers (Mixtral) are a later slice.
+[in, out] layout (`x @ w`). A MoE layer (Mixtral) holds "router" [H, E]
+and "experts": gate, up, down stacked [E, in, out], in place of "mlp".
+Any linear may be a models.quant.QuantizedTensor. models/interop.py
+converts the reference's stacked pytree into this form.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ from typing import Optional
 
 import torch
 
+from ..ops.moe import moe_mlp, moe_mlp_dispatch
 from .config import ModelConfig
 from .layers import mlp, qkv_project, rms_norm, rope
-from .quant import embed_lookup, qdot, unembed_logits
+from .quant import embed_lookup, qdot, quantize, quantize_embed, quantize_tree, unembed_logits
 
 
 def _normal(shape, std, dtype, device, generator) -> torch.Tensor:
@@ -32,16 +33,19 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
     device="cpu",
     generator: Optional[torch.Generator] = None,
+    quantize_bits: Optional[int] = None,
 ) -> dict:
     """Random weights drawn like the reference's init_params: normal x
-    fan-in^-0.5 for every matrix, norm gains initialized so the effective
-    gain is 1. Drawn on `device` from `generator` (which must live on the
-    same device), in `dtype`."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE models are not ported to polykey_tpu_torch yet — "
-            "ROADMAP.md queue A, 'Gemma-2 and Mixtral families'"
-        )
+    fan-in^-0.5 for every matrix (a MoE router hidden^-0.5, the experts'
+    stacks like a dense MLP's matrices), norm gains initialized so the
+    effective gain is 1. Drawn on `device` from `generator` (which must
+    live on the same device), in `dtype`.
+
+    With `quantize_bits` (8 or 4) each layer is quantized as soon as it is
+    drawn, then the embedding and lm_head, so only one layer is ever held
+    in `dtype`: the same tree as `quantize_params(init_params(...))` from
+    the same generator, for a model whose `dtype` weights do not fit on
+    the card."""
     h, d, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
 
@@ -50,6 +54,11 @@ def init_params(
 
     def normal(shape, fan_in):
         return _normal(shape, fan_in ** -0.5, dtype, device, generator)
+
+    def mlp_params(*lead):
+        """gate, up, down, each stacked over `lead` (the experts)."""
+        return {"gate": normal((*lead, h, inter), h), "up": normal((*lead, h, inter), h),
+                "down": normal((*lead, inter, h), inter)}
 
     layers = []
     for _ in range(cfg.num_layers):
@@ -62,23 +71,27 @@ def init_params(
             },
             "ln1": norm_init(),
             "ln2": norm_init(),
-            "mlp": {
-                "gate": normal((h, inter), h),
-                "up": normal((h, inter), h),
-                "down": normal((inter, h), inter),
-            },
         }
+        if cfg.is_moe:
+            layer["router"] = normal((h, cfg.num_experts), h)
+            layer["experts"] = mlp_params(cfg.num_experts)
+        else:
+            layer["mlp"] = mlp_params()
         if cfg.use_post_norms:
             layer["post_ln1"] = norm_init()
             layer["post_ln2"] = norm_init()
+        if quantize_bits is not None:
+            layer = quantize_tree(layer, quantize_bits)
         layers.append(layer)
+    embed = normal((cfg.vocab_size, h), h)
     params = {
-        "embed": normal((cfg.vocab_size, h), h),
+        "embed": embed if quantize_bits is None else quantize_embed(embed),
         "layers": layers,
         "final_norm": norm_init(),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((h, cfg.vocab_size), h)
+        head = normal((h, cfg.vocab_size), h)
+        params["lm_head"] = head if quantize_bits is None else quantize(head, bits=8)
     return params
 
 
@@ -95,6 +108,12 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.
     if cfg.scale_embeddings:
         x = (x.float() * cfg.hidden_size ** 0.5).to(x.dtype)
     return x
+
+
+def _moe_mlp(layer_params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.moe_dispatch:
+        return moe_mlp_dispatch(layer_params, h, cfg)
+    return moe_mlp(layer_params, h, cfg)
 
 
 def apply_layer(layer_params: dict, layer_idx: int, x, positions, cfg: ModelConfig, attend):
@@ -118,7 +137,10 @@ def apply_layer(layer_params: dict, layer_idx: int, x, positions, cfg: ModelConf
     x = x + attn_out
 
     h = rms_norm(x, layer_params["ln2"], eps, norm_offset)
-    mlp_out = mlp(layer_params["mlp"], h, cfg.activation)
+    if cfg.is_moe:
+        mlp_out = _moe_mlp(layer_params, h, cfg)
+    else:
+        mlp_out = mlp(layer_params["mlp"], h, cfg.activation)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, layer_params["post_ln2"], eps, norm_offset)
     return x + mlp_out

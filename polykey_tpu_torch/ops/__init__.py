@@ -6,4 +6,7 @@ and its `KERNEL` launch counter:
 - flash_attention.py       — prefill attention (csrc/flash_attention.cu)
 - paged_attention_kernel.py — decode attention (csrc/paged_attention_decode.cu)
 - paged_write_kernel.py    — decode KV write (csrc/paged_write.cu)
+
+moe.py is the MoE layer (router, einsum-dense and capacity-bucketed
+dispatch), plain PyTorch.
 """

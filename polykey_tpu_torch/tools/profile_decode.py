@@ -1,11 +1,12 @@
 """Where a decode step's (or a ragged dispatch's, or a prefill's) time goes, on the GPU.
 
-    python -m polykey_tpu_torch.tools.profile_decode [--context 512] [--seed 0] [--ragged]
+    python -m polykey_tpu_torch.tools.profile_decode [--model M] [--quantize int8|int4]
+        [--context 512] [--seed 0] [--ragged]
         [--kv-dtype int8] [--prefill [T]] [--spec [--gamma 4] [--draft MODEL]] [--graph]
         [--repeat N]
 
-Builds the 32-layer Llama-3-8B with random bf16 weights, puts 16 live lanes
-(the default EngineConfig's slots) at `context` positions of the default
+Builds the 32-layer Llama-3-8B (or --model) with random bf16 weights, puts
+16 live lanes (the default EngineConfig's slots) at `context` positions of the default
 paged KV pool, and runs the engine's decode block (`engine._decode_fn`, the
 default 8 greedy steps) once to warm up, once on the host clock, and once
 under torch.profiler; the lanes go back to `context` before each run (the
@@ -25,17 +26,29 @@ rows quantize as they are written. With --prefill T (512 if T is left
 out) it runs one bucketed prefill instead (`engine._prefill_fn`, the
 engine's prefill entry: forward_paged over a [1, T] window at positions
 context..context+T-1, then the unembed and the sample), through the flash
-kernel over the gathered window, and splits its device time into flash,
-the window gather of `paged_gather_kv` (with the int8 dequantize; the
-scales' own small gather counts as the rest), the KV write, GEMMs and the
-rest (elementwise, norms, RoPE, copies). Prints, per
+kernel over the gathered window (the window gather is `paged_gather_kv`,
+with the int8 dequantize; the scales' own small gather counts as the
+rest). Prints, per
 step (per dispatch with --ragged, per prefill with --prefill):
 the wall time, the time the device spent in kernels (the sum of the CUDA
 kernel spans the profiler recorded), the device's idle share, the kernel
 launches, the device time of decode attention (every kernel whose name
 holds "paged_decode"), of ragged attention (every kernel whose name
 holds "ragged") and of the paged write kernel (every kernel whose name
-holds "paged_write"), and the kernels that took the most device time.
+holds "paged_write"), its split into parts, and the kernels that took the
+most device time. The parts: the attention kernels (flash, decode,
+ragged, by name); the attention projections' GEMMs, a dense MLP's GEMMs,
+the MoE expert einsums and the unembedding's GEMM; the dequantizing casts
+of int8/int4 weights; the MoE router and the dispatch's slots, scatter and
+gather; the window gather; the KV write; other GEMMs; the rest
+(elementwise, norms, RoPE, copies). An eager run finds them by
+record_function ranges around the functions that compute them; a graph
+replay, which has no host ranges, takes the parts of the eager run's
+kernels, matched in order by name (the same kernels in the same order
+but for a few).
+--model picks the model (llama-3-8b by default; mixtral-8x7b needs
+--quantize), --quantize int8|int4 quantizes its weights as the engine does
+(a layer at a time as they are drawn).
 With --spec it runs one speculative draft/verify round instead
 (`engine.spec_decode.spec_decode_fn`, greedy, at --gamma, 4 by default)
 with the draft model --draft (llama-3.2-1b by default, random weights,
@@ -67,6 +80,10 @@ import torch
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="llama-3-8b",
+                    help="the model (random weights): llama-3-8b, mixtral-8x7b, ...")
+    ap.add_argument("--quantize", choices=("int8", "int4"), default=None,
+                    help="weight-only int8 or int4 weights (EngineConfig.quantize)")
     ap.add_argument("--context", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ragged", action="store_true",
@@ -104,13 +121,19 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    econf = EngineConfig(model="llama-3-8b")
+    bits = {"int8": 8, "int4": 4}.get(args.quantize)
+    econf = EngineConfig(model=args.model, quantize=bits is not None,
+                         quantize_bits=bits or 8)
     cfg = get_config(econf.model)
     B, steps = econf.max_decode_slots, econf.decode_block_steps
     P, ps = econf.pages_per_seq, econf.page_size
     dev = torch.device("cuda")
+    if bits is None and 2 * cfg.num_params() > torch.cuda.get_device_properties(dev).total_memory:
+        raise SystemExit(f"profile_decode: {cfg.name} does not fit on the card in bf16 "
+                         f"({2 * cfg.num_params() / 1e9:.1f} GB): add --quantize int8")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = init_params(cfg, torch.bfloat16, dev, gen)
+    params = init_params(cfg, torch.bfloat16, dev, gen, quantize_bits=bits)
+    weights = f"{args.quantize} weights" if bits else "bf16"
     int8 = args.kv_dtype == "int8"
     paged, state = decode_lanes(econf, cfg, args.context, gen, int8)
     per = -(-(args.context + 3 * steps) // ps)
@@ -173,31 +196,33 @@ def main() -> None:
 
     pool = "int8 KV" if int8 else "bf16 KV"
     if args.spec:
-        where = (f"{cfg.name} {cfg.num_layers} layers bf16 + draft {args.draft}, {pool}, "
+        where = (f"{cfg.name} {cfg.num_layers} layers {weights} + draft {args.draft}, {pool}, "
                  f"one speculative round: B={B} lanes at context {args.context}, "
                  f"gamma {args.gamma}, greedy"
                  f"{', eager and as its graph replay in turns' if args.graph else ''}, "
                  f"on {card}")
     elif args.prefill is not None:
-        where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one bucketed prefill "
+        where = (f"{cfg.name} {cfg.num_layers} layers {weights}, {pool}, one bucketed prefill "
                  f"of {args.prefill} tokens at positions {args.context}.."
                  f"{args.context + args.prefill - 1}, greedy"
                  f"{', eager and as its graph replay in turns' if args.graph else ''}, "
                  f"on {card}")
     elif args.ragged:
-        where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, one ragged dispatch: "
+        where = (f"{cfg.name} {cfg.num_layers} layers {weights}, {pool}, one ragged dispatch: "
                  f"B={B} decode lanes at context {args.context} + {W}-token prefill "
                  f"stream (chunks at KV 512 and 1024), greedy, on {card}")
     else:
-        where = (f"{cfg.name} {cfg.num_layers} layers bf16, {pool}, B={B}, context "
+        where = (f"{cfg.name} {cfg.num_layers} layers {weights}, {pool}, B={B}, context "
                  f"{args.context}, block of {steps} greedy steps, on {card}")
     print(f"[profile_decode] {where}")
     unit = ("prefill" if args.prefill is not None else "dispatch" if args.ragged
             else "round" if args.spec else "step")
-    labels = _labelled_ranges() if args.prefill is not None else contextlib.nullcontext()
     runs = collections.defaultdict(list)
     names = list(blocks)
-    with labels, torch.inference_mode():
+    # The eager run's kernel names and parts: a graph replay launches the
+    # same kernels in the same order, without the host's ranges.
+    template: dict = {}
+    with torch.inference_mode():
         for fn in blocks.values():
             reset()
             fn()
@@ -215,12 +240,12 @@ def main() -> None:
                 reset()
                 acts = [torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]
-                with torch.profiler.profile(activities=acts) as prof:
+                with _labelled_ranges(), torch.profiler.profile(activities=acts) as prof:
                     out = fn()
                     torch.cuda.synchronize()
                 tag = f"{name} " if len(names) > 1 else ""
-                numbers = _report(prof, wall_ms, steps, unit, args.prefill is not None,
-                                  rep == args.repeat - 1, tag)
+                numbers = _report(prof, wall_ms, steps, unit, rep == args.repeat - 1, tag,
+                                  template)
                 if args.spec:
                     g1 = args.gamma + 1
                     tokens = int((out[:, :g1] >= 0).sum())
@@ -428,17 +453,18 @@ def device_kernels(prof) -> list:
     """The CUDA kernels a torch.profiler run recorded on the card (without
     the labelled ranges' annotation spans)."""
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _RANGES]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _PARTS]
 
 
-def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
-            top_kernels: bool, tag: str = "") -> dict:
-    """Print one measurement (labelled `tag`); returns its numbers per
-    `unit`."""
+def _report(prof, wall_ms: float, steps: int, unit: str, top_kernels: bool, tag: str,
+            template: dict) -> dict:
+    """Print one measurement (labelled `tag`) and its split by part
+    (`_parts`); returns its numbers per `unit`. `template` keeps the last
+    labelled run's kernel names and parts, for a run without ranges."""
     # A record_function range also shows on the device as an annotation
     # spanning its kernels (idle gaps included): kept apart, not a kernel.
     spans = [e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and e.name in _RANGES]
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.name in _PARTS]
     kernels = device_kernels(prof)
     by_name: dict = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
@@ -457,52 +483,144 @@ def _report(prof, wall_ms: float, steps: int, unit: str, prefill: bool,
           f"{len(kernels) / steps:.0f} kernel launches; decode attention "
           f"{decode_ms:.3f} ms; ragged attention {ragged_ms:.3f} ms; paged write "
           f"kernel {write_ms:.4f} ms")
+    numbers = {"wall ms": wall_ms, "device busy ms": busy_ms,
+               "idle share": 1 - busy_ms / wall_ms, "kernel launches": len(kernels) / steps,
+               "decode attention ms": decode_ms,
+               "ragged attention ms": ragged_ms, "paged write kernel ms": write_ms}
     if not kernels:
         print("[profile_decode] the profiler recorded no device kernels: "
               "device time not measured")
-    if prefill:
-        _print_breakdown(kernels, spans, busy_ms, unit)
+        return numbers
+    names = [e.name for e in kernels]
+    parts = None
+    if spans:
+        parts = _parts(kernels, spans)
+        template.update(names=names, parts=parts)
+        how = "by the host's ranges"
+    elif template:
+        parts, matched = _align(template["names"], template["parts"], kernels)
+        how = (f"from the eager run's ranges, {matched} of {len(names)} kernels matched "
+               f"in order by name, the rest by name alone")
+    else:
+        print("[profile_decode] no ranges and no eager run yet: parts not measured")
+    if parts is not None:
+        split: dict = {p: [0.0, 0] for p in PART_ORDER}
+        for e, part in zip(kernels, parts):
+            split[part][0] += e.time_range.elapsed_us() / 1e3 / steps
+            split[part][1] += 1
+        print(f"[profile_decode] {tag}parts, {how}:")
+        for part, (ms, n) in split.items():
+            print(f"[profile_decode]   {part:24s} {ms:8.3f} ms/{unit} "
+                  f"({ms / busy_ms:.3f} of device busy, {n / steps:.0f} launches)")
+            numbers[f"part {part} ms"] = ms
     if top_kernels:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         for name, (us, n) in top:
             print(f"[profile_decode]   {us / 1e3 / steps:8.3f} ms/{unit} "
                   f"{n / steps:6.0f} launches/{unit}  {name[:110]}")
-    return {"wall ms": wall_ms, "device busy ms": busy_ms,
-            "idle share": 1 - busy_ms / wall_ms, "kernel launches": len(kernels) / steps,
-            "decode attention ms": decode_ms,
-            "ragged attention ms": ragged_ms, "paged write kernel ms": write_ms}
+    return numbers
 
-# Functions whose kernels the prefill breakdown counts under their own
-# label: PyTorch's index kernels serve both the gather and the write, so
-# their names alone cannot tell the two apart.
+
+# The functions whose kernels count under a part of their own, by (module
+# of polykey_tpu_torch, attribute): each is wrapped in a record_function
+# range named after its part for a profiled run. The module is the one the
+# caller looks the name up in.
 _RANGES = {
-    "paged_gather_kv": "window gather",
-    "dequantize_kv": "window gather",
-    "paged_write": "KV write",
+    ("ops.paged_attention", "paged_gather_kv"): "window gather",
+    ("ops.paged_attention", "dequantize_kv"): "window gather",
+    ("ops.paged_attention", "paged_write"): "KV write",
+    ("models.transformer", "qkv_project"): "attention GEMMs",
+    ("models.transformer", "qdot"): "attention GEMMs",            # wo
+    ("models.transformer", "mlp"): "MLP GEMMs",
+    ("ops.moe", "qeinsum_expert"): "expert einsums",
+    ("ops.moe", "_router_weights"): "router and dispatch",
+    ("ops.moe", "_dispatch_slots"): "router and dispatch",
+    ("ops.moe", "_scatter"): "router and dispatch",
+    ("ops.moe", "_combine"): "router and dispatch",
+    ("models.quant", "_cast_q"): "dequantizing casts",
+    ("models.quant", "_deq_weight"): "dequantizing casts",
+    ("engine.engine", "unembed"): "unembed GEMM",
 }
+_PARTS = set(_RANGES.values())
+# Parts whose GEMM kernels count under them (their other kernels are
+# elementwise work); every kernel of the other ranged parts counts.
+_GEMM_PARTS = {"attention GEMMs", "MLP GEMMs", "expert einsums", "unembed GEMM"}
+PART_ORDER = ("attention kernels", "attention GEMMs", "MLP GEMMs", "expert einsums",
+              "dequantizing casts", "router and dispatch", "window gather", "KV write",
+              "unembed GEMM", "other GEMMs", "elementwise and other")
+
+
+def _parts(kernels: list, spans: list) -> list:
+    """Each kernel's part: the attention kernels by name, else the
+    innermost labelled range whose device span holds the kernel's start
+    (one stream runs them in order), GEMMs by name."""
+    out = []
+    for e in kernels:
+        t = e.time_range.start
+        holding = [s for s in spans if s.time_range.start <= t < s.time_range.end]
+        part = max(holding, key=lambda s: s.time_range.start).name if holding else None
+        if _is_attention(e.name) or part is None:
+            out.append(_by_name(e.name))
+        elif part in _GEMM_PARTS:
+            out.append(part if _is_gemm(e.name) else "elementwise and other")
+        else:
+            out.append(part)
+    return out
+
+
+def _is_attention(name: str) -> bool:
+    return any(k in name for k in ("flash_kernel", "paged_decode", "ragged_kernel"))
+
+
+def _by_name(name: str) -> str:
+    """A kernel's part from its name alone."""
+    if _is_attention(name):
+        return "attention kernels"
+    return "other GEMMs" if _is_gemm(name) else "elementwise and other"
+
+
+def _align(t_names: list, t_parts: list, kernels: list, window: int = 16) -> tuple:
+    """The parts of a run without ranges (a graph replay) from the eager
+    run's (`t_names`, `t_parts`): both launch the same kernels in the same
+    order but for a few (library calls may pick another kernel under
+    capture). Walks both in step, resyncing within `window` kernels; an
+    unmatched kernel takes its part by name alone. Returns (parts, number
+    matched)."""
+    out, i, matched = [], 0, 0
+    for e in kernels:
+        ahead = t_names[i:i + window]
+        if e.name in ahead:
+            i += ahead.index(e.name)
+            out.append(t_parts[i])
+            i += 1
+            matched += 1
+        else:
+            out.append(_by_name(e.name))
+    return out, matched
 
 
 @contextlib.contextmanager
 def _labelled_ranges():
-    """Wrap each of _RANGES' functions of ops.paged_attention in a
-    torch.profiler.record_function range named after it, for this run."""
-    from ..ops import paged_attention as pa
+    """Wrap each of _RANGES' functions in a torch.profiler.record_function
+    range named after its part, for one run."""
+    import importlib
 
-    saved = {name: getattr(pa, name) for name in _RANGES}
+    saved = []
+    for (mod_name, attr), part in _RANGES.items():
+        mod = importlib.import_module(f"polykey_tpu_torch.{mod_name}")
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
 
-    def wrap(name, fn):
-        def labelled(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return labelled
+        def labelled(*args, _fn=fn, _part=part, **kwargs):
+            with torch.profiler.record_function(_part):
+                return _fn(*args, **kwargs)
 
-    for name, fn in saved.items():
-        setattr(pa, name, wrap(name, fn))
+        setattr(mod, attr, labelled)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(pa, name, fn)
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def _device_ms(fn, samples: int = 10) -> float:
@@ -608,32 +726,6 @@ def spec_parts(params, cfg, paged, state: dict, d_params, d_cfg, d_paged, gamma:
 def _is_gemm(name: str) -> bool:
     n = name.lower()
     return any(tag in n for tag in ("gemm", "nvjet", "cutlass", "xmma", "cublas"))
-
-
-def _print_breakdown(kernels: list, spans: list, busy_ms: float, unit: str) -> None:
-    """Device ms of one prefill by part: flash and GEMMs by kernel name; the
-    gather and the write by the labelled range whose device span holds the
-    kernel's start (one stream runs them in order); the rest elementwise."""
-    parts = {p: [0.0, 0] for p in ("flash", "GEMMs", "window gather", "KV write",
-                                   "elementwise and other")}
-    for e in kernels:
-        t = e.time_range
-        if "flash_kernel" in e.name:
-            part = "flash"
-        elif _is_gemm(e.name):
-            part = "GEMMs"
-        else:
-            part = next((_RANGES[s.name] for s in spans
-                         if s.time_range.start <= t.start < s.time_range.end),
-                        "elementwise and other")
-        parts[part][0] += t.elapsed_us() / 1e3
-        parts[part][1] += 1
-    if not spans:
-        print("[profile_decode] the profiler recorded no labelled device ranges: "
-              "gather and write are counted under elementwise and other")
-    for part, (ms, n) in parts.items():
-        print(f"[profile_decode]   {part:22s} {ms:8.3f} ms/{unit} "
-              f"({ms / busy_ms:.3f} of device busy, {n} launches)")
 
 
 if __name__ == "__main__":

@@ -718,20 +718,24 @@ _LANES = ("last_tokens", "seq_lens", "page_tables", "active", "caps", "seeds",
           "temperature", "top_p", "top_k")
 
 
-def _graph_parts(gen, int8, pages=64, P=16):
+def _graph_parts(gen, int8, pages=64, P=16, model="tiny-llama", bits=None):
     """A 2-layer model at head_dim 64 (2 query heads per kv head, so both
-    decode kernels take it), bf16 weights, pools of `pages` pages of 16 rows
-    (int8 values with bf16 scales for `int8`), and 4 idle lanes with tables
-    of P pages."""
+    decode kernels take it), bf16 weights (int8 or int4 with `bits`), pools
+    of `pages` pages of 16 rows (int8 values with bf16 scales for `int8`),
+    and 4 idle lanes with tables of P pages. `model="tiny-mixtral"` makes
+    each MLP a MoE of 8 experts, top-2, with the capacity-bucketed
+    dispatch."""
     from dataclasses import replace
 
     from polykey_tpu_torch.engine.kv_cache import init_paged_kv
     from polykey_tpu_torch.models.config import get_config
     from polykey_tpu_torch.models.transformer import init_params
 
-    cfg = replace(get_config("tiny-llama"), hidden_size=256, intermediate_size=512,
+    cfg = replace(get_config(model), hidden_size=256, intermediate_size=512,
                   head_dim=64)
-    params = init_params(cfg, torch.bfloat16, "cuda", gen)
+    if cfg.is_moe:
+        cfg = replace(cfg, num_experts=8, moe_dispatch=True)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen, quantize_bits=bits)
     paged = init_paged_kv(cfg, pages, 16, torch.bfloat16, "cuda",
                           kv_dtype=torch.int8 if int8 else None)
     B = 4
@@ -1363,3 +1367,171 @@ def test_spec_greedy_key_equals_sampled_key_on_a_greedy_batch(gen, gamma):
         assert torch.equal(sa[k], sb[k]), k
     for a, b in zip(qa, qb):
         assert torch.equal(a, b)
+
+
+# -- MoE layers and quantized weights ------------------------------------------
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "int8", "int4"])
+def test_moe_dispatch_decode_graph_replay_matches_eager(gen, bits):
+    """A 2-layer MoE model (8 experts, top-2, the capacity-bucketed
+    dispatch: 4 lanes give a capacity of 1 a expert, so pairs drop) with
+    bf16, int8 or int4 weights: captured while every lane is idle, a
+    replay of each decode key from live lanes gives the eager block's
+    packed tokens, lane state and pools, bit for bit."""
+    cfg, params, paged, state = _graph_parts(gen, False, model="tiny-mixtral", bits=bits)
+    graphs = _capture(cfg, params, paged, state)
+    _fill_lanes(gen, paged, state, sampled=True)
+    start = {k: t.clone() for k, t in state.items()}
+    pools = [t.clone() for t in _pools(paged)]
+    for greedy, steps in ((True, 8), (False, 8), (True, 1)):
+        for k, t in start.items():
+            state[k].copy_(t)
+        for t, p in zip(_pools(paged), pools):
+            t.copy_(p)
+        want, got, ref, ref_paged = _eager_and_replay(cfg, params, paged, state, graphs,
+                                                      greedy, steps)
+        assert torch.equal(got, want), (greedy, steps)
+        for k in _LANES:
+            assert torch.equal(state[k], ref[k]), (k, greedy, steps)
+        for a, b in zip(_pools(paged), _pools(ref_paged)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [None, 8], ids=["bf16", "int8"])
+def test_moe_dispatch_layer_graph_replay_matches_eager(gen, bits):
+    """The dispatch layer alone at mixtral-8x7b's routing (8 experts,
+    top-2) on 4 x 128 rows whose router favours two experts (buckets
+    overflow): a graph replay on new rows equals the eager layer bit for
+    bit, and the scatter writes each kept slot once (no atomics)."""
+    from dataclasses import replace
+
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.quant import quantize
+    from polykey_tpu_torch.ops import moe
+
+    cfg = replace(get_config("mixtral-8x7b"), hidden_size=512, intermediate_size=1024)
+    H, I, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    router = _randn((H, E), gen) * H ** -0.5
+    router[:, :2] += 0.05
+    experts = {"gate": _randn((E, H, I), gen) * H ** -0.5,
+               "up": _randn((E, H, I), gen) * H ** -0.5,
+               "down": _randn((E, I, H), gen) * I ** -0.5}
+    if bits:
+        experts = {k: quantize(v, bits=bits) for k, v in experts.items()}
+    layer = {"router": router, "experts": experts}
+    h = _randn((4, 128, H), gen)
+    with torch.inference_mode():
+        moe.moe_mlp_dispatch(layer, h, cfg)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = moe.moe_mlp_dispatch(layer, h, cfg)
+        for _ in range(2):
+            h.copy_(_randn(h.shape, gen))
+            graph.replay()
+            want = moe.moe_mlp_dispatch(layer, h, cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+        _, idx = moe._router_weights(layer, h.reshape(-1, H), cfg)
+        capacity = int(4 * 128 * 2 / E * 1.25)
+        _, keep = moe._dispatch_slots(idx, E, capacity)
+    assert not keep.all(), "no bucket overflowed"
+
+
+def _slice(cfg, params, gen, steps=4):
+    """Prefill 2 prompts (bucket 128: 100 and 77 tokens) then `steps` forced
+    decode steps through forward_paged: (sampled rows' logits, hidden)."""
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.transformer import forward_paged, unembed
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, T, lens = 2, 128, [100, 77]
+    tokens = torch.randint(3, 259, (B, T), generator=g, device="cuda", dtype=torch.int32)
+    forced = torch.randint(3, 259, (steps, B), generator=g, device="cuda",
+                           dtype=torch.int32)
+    per = -(-(T + steps) // 16)
+    tables = torch.zeros((B, 256), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        tables[b, :per] = torch.arange(1 + b * per, 1 + (b + 1) * per)
+    paged = init_paged_kv(cfg, 1 + B * per, 16, torch.bfloat16, "cuda")
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    with torch.inference_mode():
+        hidden, _ = forward_paged(params, cfg, tokens, pos, paged, tables)
+        hiddens = [hidden.reshape(-1, hidden.shape[-1])]
+        logits = [unembed(params, cfg, hidden[torch.arange(B), torch.tensor(lens) - 1])]
+        for i in range(steps):
+            p = torch.tensor([[n + i] for n in lens], dtype=torch.int32, device="cuda")
+            hidden, _ = forward_paged(params, cfg, forced[i][:, None], p, paged, tables)
+            hiddens.append(hidden[:, 0])
+            logits.append(unembed(params, cfg, hidden[:, 0]))
+    torch.cuda.synchronize()
+    return torch.stack(logits), torch.cat(hiddens).float()
+
+
+_PLAIN = ("POLYKEY_DISABLE_FLASH", "POLYKEY_DISABLE_PAGED_KERNEL",
+          "POLYKEY_DISABLE_RAGGED_KERNEL", "POLYKEY_DISABLE_KV_KERNEL")
+
+
+def test_mixtral_width_slice_kernels_match_plain(gen, monkeypatch):
+    """mixtral-8x7b at its published widths, 2 layers, int8 weights drawn
+    and quantized a layer at a time: the kernels' logits within 0.12 of
+    the plain versions' with the same argmax on every row (chip_smoke.py's
+    slice tolerance). Top-2 routing is a step function, so the plain run
+    takes the kernel run's experts (weighted by its own router logits),
+    and any token whose own choice differs must be a near-tie: its k-th
+    logit within 0.12 of its logit for the least recorded expert
+    (chip_smoke.py's _Routing)."""
+    from dataclasses import replace
+
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.transformer import init_params
+    from polykey_tpu_torch.ops import moe
+
+    cfg = replace(get_config("mixtral-8x7b"), num_layers=2)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen, quantize_bits=8)
+    router, routes, margins = moe._router_weights, [], []
+
+    def recording(layer_params, h, c):
+        combine, idx = router(layer_params, h, c)
+        routes.append(idx)
+        return combine, idx
+
+    def replaying(layer_params, h, c):
+        idx = routes[len(margins)]
+        logits = h.float() @ layer_params["router"].float()
+        kth = logits.topk(c.num_experts_per_tok, dim=-1).values[..., -1]
+        chosen = logits.gather(-1, idx)
+        margins.append((kth - chosen.min(-1).values).max())
+        return torch.zeros_like(logits).scatter_(-1, idx, torch.softmax(chosen, -1)), idx
+
+    monkeypatch.setattr(moe, "_router_weights", recording)
+    got, _ = _slice(cfg, params, gen)
+    for name in _PLAIN:
+        monkeypatch.setenv(name, "1")
+    monkeypatch.setattr(moe, "_router_weights", replaying)
+    want, _ = _slice(cfg, params, gen)
+    assert len(margins) == len(routes) and max(m.item() for m in margins) <= 0.12
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 0.12
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("bits,gate", [(8, 0.05), (4, 0.35)])
+def test_quantized_weights_track_bf16_under_the_reference_gates(gen, bits, gate):
+    """llama-3-8b widths, 2 layers: int8 / int4 weights (quantized as the
+    engine does) against the bf16 weights on the same tokens, through the
+    kernels: the mean |dh| / max(|h|, 1) under the reference's gates
+    (tests/test_quant.py: 0.05 int8, 0.35 int4)."""
+    from dataclasses import replace
+
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.quant import quantize_params
+    from polykey_tpu_torch.models.transformer import init_params
+
+    cfg = replace(get_config("llama-3-8b"), num_layers=2)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen)
+    _, h_bf16 = _slice(cfg, params, gen)
+    _, h_q = _slice(cfg, quantize_params(params, cfg, bits=bits), gen)
+    assert torch.isfinite(h_q).all()
+    rel = ((h_q - h_bf16).abs() / h_bf16.abs().clamp_min(1.0)).mean().item()
+    assert rel < gate, rel

@@ -170,10 +170,16 @@ def test_stats_report_kernel_launches(engines):
 
 
 def test_unported_knobs_refuse_to_start():
-    for knob in (dict(draft_model="tiny-llama", ragged_dispatch=True), dict(quantize=True),
-                 dict(tp=2)):
+    for knob in (dict(draft_model="tiny-llama", ragged_dispatch=True), dict(tp=2),
+                 dict(replicas=2), dict(checkpoint_path="ckpt"),
+                 dict(spec_host_sync=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()
+    # Weight-only int8/int4 is served now, and validates its bit width as
+    # the reference's does.
+    dataclasses.replace(TEST_CONFIG, quantize=True, quantize_bits=4).validate()
+    with pytest.raises(ValueError, match="quantize_bits"):
+        dataclasses.replace(TEST_CONFIG, quantize=True, quantize_bits=3).validate()
     # Speculative decoding and the top-p prefilter are served now
     # (bucketed; ragged rounds are still refused, above).
     dataclasses.replace(TEST_CONFIG, draft_model="tiny-llama", top_p_candidates=32).validate()

@@ -1,5 +1,6 @@
 """The port stands alone: every module of polykey_tpu_torch (the prefix
-cache and the KV wire format among them), and chip_smoke.py, imports with
+cache, the KV wire format, quantized weights and the MoE layer among
+them), and chip_smoke.py, imports with
 JAX, Flax, ml_dtypes and the JAX package made unimportable (in a fresh interpreter, so this test process's own JAX
 imports cannot mask a leak)."""
 
@@ -27,8 +28,10 @@ names = [m.name for m in pkgutil.walk_packages(
     polykey_tpu_torch.__path__, "polykey_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# The prefix cache, the host tier and the wire format among them.
-assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_cache"} <= set(names)
+# The prefix cache, the host tier, the wire format, quantized weights and
+# the MoE layer among them.
+assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_cache",
+        "polykey_tpu_torch.models.quant", "polykey_tpu_torch.ops.moe"} <= set(names)
 import chip_smoke
 leaked = [m for m in sys.modules if m and any(
     m == b or m.startswith(b + ".") for b in BLOCKED) and sys.modules[m] is not None]

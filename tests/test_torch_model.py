@@ -23,7 +23,6 @@ from polykey_tpu.models import transformer as jt
 from polykey_tpu.models.config import get_config as j_get_config
 from polykey_tpu_torch.engine import kv_cache as tkv
 from polykey_tpu_torch.models import layers as tl
-from polykey_tpu_torch.models import quant as tq
 from polykey_tpu_torch.models import transformer as tt
 from polykey_tpu_torch.models.config import get_config
 from polykey_tpu_torch.models.interop import params_from_numpy, tensor_from_numpy
@@ -80,11 +79,6 @@ def test_qkv_project_matches():
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         _close(g, w)
-
-
-def test_quantized_weights_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="int8/int4 weights"):
-        tq.qdot(torch.zeros(1, 4), np.zeros((4, 4), np.int8))
 
 
 def _params(model: str, dtype=jnp.float32):

@@ -534,6 +534,9 @@ def test_round_robin_cursor():
 def test_config_accepts_ragged():
     EngineConfig(**FIELDS, ragged_dispatch=True).validate()
     EngineConfig(**FIELDS, ragged_dispatch=True, kv_dtype="int8").validate()
+    # Quantized weights ride the ragged stream too; a draft model does not.
+    dataclasses.replace(EngineConfig(**FIELDS, ragged_dispatch=True),
+                        quantize=True, quantize_bits=4).validate()
     with pytest.raises(NotImplementedError, match="not ported"):
         dataclasses.replace(EngineConfig(**FIELDS, ragged_dispatch=True),
-                            quantize=True).validate()
+                            draft_model="tiny-llama").validate()

@@ -473,11 +473,11 @@ def test_spec_stats_carry_the_reference_keys(port):
 
 @pytest.mark.parametrize("fields,item", [
     (dict(ragged_dispatch=True, draft_model="tiny-llama"), "A.7 remainder: ragged × spec"),
-    (dict(quantize=True), "A.8"),
+    (dict(draft_model="tiny-llama", replicas=2), "replica and disagg pools"),
     (dict(checkpoint_path="/nonexistent"), "A.8"),
     (dict(draft_model="tiny-llama", draft_checkpoint_path="/nonexistent"), "A.8"),
     (dict(draft_model="tiny-llama", spec_host_sync=True), "occupancy_soak"),
-], ids=["ragged-spec", "quantize", "checkpoint", "draft-checkpoint", "spec-host-sync"])
+], ids=["ragged-spec", "replicas", "checkpoint", "draft-checkpoint", "spec-host-sync"])
 def test_config_refuses_what_is_not_ported(fields, item):
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(**fields).validate()
