@@ -24,7 +24,10 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             (Llama-3.2-1B, D=64): decode (bf16 and int8) at contexts
             1..4096 and at 16 lanes of 512, both writes at 16 lanes, and
             flash at T=512, each against its plain version with its D=128
-            case's tolerance.
+            case's tolerance. The same at Gemma-2's geometries
+            (GEMMA_SHAPES: gemma-2-27b Hq 32, Hk 16, D 128, scale 144^-0.5;
+            gemma-2-2b Hq 8, Hk 4, D 256, scale 256^-0.5; soft-cap 50,
+            window 4096): bf16 decode, flash, both writes.
 4. slice:   a full-width, depth-2 Llama-3-8B runs prefill (bucket 128) and
             8 decode steps through forward_paged, once through the kernels
             and once through their plain versions; the logits must agree.
@@ -39,7 +42,11 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             experts, top-2, the capacity-bucketed dispatch) in int8
             weights, kernels against plain within 0.12 with the same argmax
             on every row; it prints how many token routings the two runs
-            chose differently.
+            chose differently. Last, a depth-2 gemma-2-27b at its published
+            widths (layer 0 windowed, layer 1 global) on tables of 8192
+            positions: 4096 positions of history, a 512-token bucket at
+            4096..4607 and 8 decode steps past the window, kernels against
+            plain within 0.12 with the same argmax on every row.
 5. serve:   the full 32-layer Llama-3-8B (random bf16 weights from --seed)
             behind the port's gRPC server on a free local port, with the
             default EngineConfig; 5 concurrent llm_generate requests, one of
@@ -127,6 +134,29 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and no other; every decode block and prefill a graph replay.
             The capacity-bucketed dispatch drops by position in the batch,
             so the repeated greedy prompt is held to a solo run of it.
+13. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
+            random bf16 weights from seed + 2) is written as an HF
+            safetensors checkpoint (two shards and an index, by this
+            script's own writer) in a temporary directory, removed at the
+            end. The full 46-layer gemma-2-27b (random bf16 weights from
+            --seed, 50.72 GiB) is served over gRPC by EngineConfig(model=
+            "gemma-2-27b"): the serve phase's requests and checks, then the
+            spec phase's five greedy prompts over ExecuteToolStream; only
+            flash, the bf16 decode and the bf16 write kernels launch, every
+            block and prefill a replay. That engine is shut down, then the
+            same target with the 2B draft loaded from its checkpoint
+            (draft_checkpoint_path, gamma 4, top_p_candidates 64): the
+            loaded draft must equal the one written bit for bit; the five
+            greedy streams are held to the plain engine's texts under the
+            spec phase's near-tie rule, then four sampled streams
+            (temperature 0.8, top_p 0.9); every round a replay, no prefill
+            eager, the decode and write kernels launched and no ragged
+            kernel. It prints, beside the card's name and power limit, the
+            weight bytes, both KV pools, the graph pool before and after
+            the spec keys, the memory allocated and its peak, the
+            checkpoint's bytes and load seconds, acceptance, rounds, tokens
+            a lane a round, each request's TTFT, first streamed chunk,
+            admission wait and tok/s against the plain engine.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -268,20 +298,47 @@ def _write_case(label, B, err, kernel, plain, library, nbytes) -> dict:
             "launch_floor_ms": floor}
 
 
+# The kernel cases at Gemma-2's geometry: (label, Hq, Hk, D, scale), beside
+# the D=64 draft lines; soft-cap 50 and window 4096 for both.
+GEMMA_SHAPES = (("gemma-2-27b", 32, 16, 128, 144.0 ** -0.5),
+                ("gemma-2-2b", 8, 4, 256, 256.0 ** -0.5))
+GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
+
+
+def _write_geometries():
+    """(B, Hk, D, key) of the write cases: 16 lanes, a 1040-row stream,
+    16 lanes of the 1B draft's pools (D=64) and of each Gemma pool."""
+    return ([(16, 8, 128, None), (1040, 8, 128, "stream"), (16, 8, 64, "d64")]
+            + [(16, hk, d, name) for name, _, hk, d, _ in GEMMA_SHAPES])
+
+
+def _write_result(cases: list) -> dict:
+    """The 16-lane case first, the others under their keys (the Gemma
+    geometries as a list under "gemma")."""
+    out = dict(cases[0][1])
+    for key, case in cases[1:]:
+        if key.startswith("gemma"):
+            out.setdefault("gemma", []).append({"case": key, **case})
+        else:
+            out[key] = case
+    return out
+
+
 def kernel_write(gen) -> dict:
     """B = 16 lanes into [2048, 16, 8, 128] pools, lanes 13-15 inactive on
     the garbage page 0; then the 1040 rows of a ragged stream, the last 3
-    padding on page 0; then 16 lanes at D=64 (the 1B draft's pools)."""
+    padding on page 0; then 16 lanes at D=64 (the 1B draft's pools) and at
+    each Gemma-2 pool geometry (Hk 16, D 128; Hk 4, D 256)."""
     from polykey_tpu_torch.ops import paged_write_kernel as pw
 
-    N, ps, Hk, P = 2048, 16, 8, 256
+    N, ps, P = 2048, 16, 256
     cases = []
-    for B, D in ((16, 128), (1040, 128), (16, 64)):
+    for B, Hk, D, key in _write_geometries():
         k_pool = _randn((N, ps, Hk, D), gen)
         v_pool = _randn((N, ps, Hk, D), gen)
         k_new = _randn((B, 1, Hk, D), gen)
         v_new = _randn((B, 1, Hk, D), gen)
-        if B == 16:
+        if B == 16 and D == 128 and Hk == 8:
             positions = torch.tensor(
                 [0, 15, 16, 17, 100, 255, 256, 1000, 2047, 2048, 3000, 4095, 7, 0, 0, 0],
                 dtype=torch.int32, device="cuda",
@@ -316,26 +373,28 @@ def kernel_write(gen) -> dict:
             vk.index_put_((page_ids, offsets), rows_v)
 
         row = Hk * D * 2
-        cases.append(_write_case(
-            f"paged_write D={D} (library: index_put_ x2)", B, err,
+        cases.append((key, _write_case(
+            f"paged_write Hk={Hk} D={D}{f' ({key})' if key else ''} (library: "
+            "index_put_ x2)", B, err,
             lambda: pw.paged_write_decode_cuda(kk, vk, k_new, v_new, tables, positions),
             lambda: pw.paged_write_decode_plain(kp, vp, k_new, v_new, tables, positions),
             library,
-            2 * 2 * B * row + 2 * B * 4))      # rows read + written; index reads
-    return {**cases[0], "stream": cases[1], "d64": cases[2]}   # 16 lanes first
+            2 * 2 * B * row + 2 * B * 4)))      # rows read + written; index reads
+    return _write_result(cases)
 
 
 def kernel_write_int8(gen) -> dict:
     """The quantizing write: 16 decode lanes (lanes 13-15 inactive on page 0)
     and the 1040 rows of a ragged stream (the last 3 padding on page 0),
     into int8 [2048, 16, 8, 128] pools with bf16 scales, then 16 lanes at
-    D=64 (the 1B draft's pools); exact against its plain version."""
+    D=64 (the 1B draft's pools) and at each Gemma-2 pool geometry; exact
+    against its plain version."""
     from polykey_tpu_torch.ops import paged_write_kernel as pw
     from polykey_tpu_torch.ops.paged_attention import quantize_kv_rows
 
-    N, ps, Hk, P = 2048, 16, 8, 256
+    N, ps, P = 2048, 16, 256
     cases = []
-    for B, D in ((16, 128), (1040, 128), (16, 64)):
+    for B, Hk, D, key in _write_geometries():
         pools = [quantize_kv_rows(_randn((N, ps, Hk, D), gen)) for _ in range(2)]
         k_new, v_new = _randn((B, 1, Hk, D), gen), _randn((B, 1, Hk, D), gen)
         k_new[1] = 0.0                                   # an all-zero row
@@ -360,13 +419,14 @@ def kernel_write_int8(gen) -> dict:
                 values.index_put_((page_ids, offsets), q8)
                 scales.index_put_((page_ids, offsets), sc)
 
-        cases.append(_write_case(
-            f"paged_write_int8 D={D} (library: quantize + index_put_ x4)", B, 0.0,
+        cases.append((key, _write_case(
+            f"paged_write_int8 Hk={Hk} D={D}{f' ({key})' if key else ''} (library: "
+            "quantize + index_put_ x4)", B, 0.0,
             lambda: pw.paged_write_int8_cuda(*kern, k_new, v_new, tables, positions),
             lambda: pw.paged_write_int8_plain(*plain, k_new, v_new, tables, positions),
             library,
-            2 * B * Hk * D * 2 + 2 * B * Hk * (D + 2) + 2 * B * 4))
-    return {**cases[0], "stream": cases[1], "d64": cases[2]}   # 16 lanes first
+            2 * B * Hk * D * 2 + 2 * B * Hk * (D + 2) + 2 * B * 4)))
+    return _write_result(cases)
 
 
 def _int8_pools(k_pool, v_pool, stale):
@@ -380,7 +440,8 @@ def _int8_pools(k_pool, v_pool, stale):
     return pairs
 
 
-def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8):
+def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8,
+                 scale=None):
     from polykey_tpu_torch.ops import paged_attention_kernel as pak
 
     ps, P = PAGE_SIZE, TABLE
@@ -405,7 +466,7 @@ def _decode_case(gen, D, Hq, Hk, ctx_lens, softcap, window, page_range, int8):
         k_pool, v_pool = _int8_pools(k_pool, v_pool, torch.isnan(v_pool).any(-1).any(-1))
     q = _randn((B, Hq, D), gen)
     pos = torch.tensor([n - 1 for n in ctx_lens], dtype=torch.int32, device="cuda")
-    kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window,
+    kw = dict(scale=scale or D ** -0.5, logit_softcap=softcap, window=window,
               page_range=page_range)
     acc, m, l = pak.paged_decode_cuda(q, k_pool, v_pool, tables, pos, **kw)
     acc_p, m_p, l_p = pak.paged_decode_plain(q, k_pool, v_pool, tables, pos, **kw)
@@ -462,10 +523,16 @@ def kernel_decode(gen, int8: bool = False) -> dict:
         ("pages [3, 200)", 128, 32, 8, ctx, None, None, (3, 200)),
         ("serve: 16 lanes at context 512", 128, 32, 8, [512] * 16, None, None, None),
     ]
+    # Gemma-2's geometries (bf16 KV only): group 2, its own query scale.
+    gemma = [] if int8 else [
+        (f"{name}, scale {scale:.5f}, softcap {GEMMA_CAP:g}, window {GEMMA_WINDOW}"
+         f"{suffix}", D, Hq, Hk, lens, GEMMA_CAP, GEMMA_WINDOW, None, scale)
+        for name, Hq, Hk, D, scale in GEMMA_SHAPES
+        for suffix, lens in (("", ctx), (" serve: 16 lanes at context 512", [512] * 16))]
     result = None
-    for label, D, Hq, Hk, lens, softcap, window, prange in cases:
+    for label, D, Hq, Hk, lens, softcap, window, prange, *scale in cases + gemma:
         args, (err, ratio), nbytes, flops, ctas = _decode_case(
-            gen, D, Hq, Hk, lens, softcap, window, prange, int8)
+            gen, D, Hq, Hk, lens, softcap, window, prange, int8, *scale)
         q, kp, vp, tables, pos, kw = args
         ms = device_time_ms(lambda: pak.paged_decode_cuda(q, kp, vp, tables, pos, **kw))
         plain = device_time_ms(
@@ -487,12 +554,14 @@ def kernel_decode(gen, int8: bool = False) -> dict:
             f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
         if result is None:
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "d64": []}
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "d64": [],
+                      "gemma": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
-        if D == 64:
-            result["d64"].append({"case": label, "ms": ms, "plain_ms": plain,
-                                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+        if D == 64 or scale:
+            result["gemma" if scale else "d64"].append(
+                {"case": label, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err, "err_over_tol": ratio})
     return result
 
 
@@ -552,14 +621,19 @@ def kernel_flash(gen) -> dict:
         ("short bucket", 4, 128, 4096, 32, 8, 128, None, None, "mixed", False),
         ("stale rows NaN, window 1024", 2, 512, 4096, 32, 8, 128, None, 1024, "mixed",
          True),
+    ] + [
+        (f"{name}, scale {scale:.5f}, softcap {GEMMA_CAP:g}, window {GEMMA_WINDOW}", 2,
+         512, 4096, Hq, Hk, D, GEMMA_CAP, GEMMA_WINDOW, "mixed", False, scale)
+        for name, Hq, Hk, D, scale in GEMMA_SHAPES
     ]
     result = None
-    for label, B, T, S, Hq, Hk, D, softcap, window, layout, stale in cases:
+    for label, B, T, S, Hq, Hk, D, softcap, window, layout, stale, *scale in cases:
         q = _randn((B, T, Hq, D), gen)
         k = _randn((B, S, Hk, D), gen)
         v = _randn((B, S, Hk, D), gen)
         qpos = _flash_positions(layout, B, T)
-        kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window)
+        scale = scale[0] if scale else None
+        kw = dict(scale=scale or D ** -0.5, logit_softcap=softcap, window=window)
         # The stale case feeds the kernel NaN where no query looks and
         # holds it to the plain version over the same window with 0 there.
         if stale:
@@ -588,7 +662,7 @@ def kernel_flash(gen) -> dict:
         ms = device_time_ms(lambda: fa.flash_attention_cuda(q, kk, vk, qpos, **kw))
         plain = device_time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, **kw),
                                reps=2)
-        lib = device_time_ms(_sdpa(q, k, v, qpos, S, D ** -0.5, window), reps=2)
+        lib = device_time_ms(_sdpa(q, k, v, qpos, S, kw["scale"], window), reps=2)
         # What this run's data needs: each query row sees keys [lo, p];
         # each batch row's K/V is read once over the union of those spans.
         p = qpos.long()
@@ -616,13 +690,15 @@ def kernel_flash(gen) -> dict:
             f"{b_ms:.6f} ms ({b_by})")
         if result is None:
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by, "d64": []}
+                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by, "d64": [],
+                      "gemma": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
-        if D == 64:
-            result["d64"].append({"case": label, "ms": ms, "plain_ms": plain,
-                                  "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                                  "max_abs_err": err})
+        if D == 64 or scale:
+            result["gemma" if scale else "d64"].append(
+                {"case": label, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                 "err_over_tol": max(ratio)})
     return result
 
 
@@ -786,36 +862,42 @@ def _launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def _slice_inputs(cfg, gen, B=2, T=128, steps=8, ps=16, P=256):
-    """A right-padded prefill of B prompts (bucket T, prompts of 100 and 77
-    tokens), `steps` forced decode tokens, and tables of pages of their
-    own: (tokens, forced, tables, prompt_lens, pages per row)."""
-    prompt_lens = [100, 77][:B]
-    tokens = torch.randint(3, 259, (B, T), generator=gen, device="cuda",
+def _slice_inputs(cfg, gen, B=2, T=128, steps=8, ps=16, P=256, lens=(100, 77),
+                  start=0):
+    """A right-padded prefill of B prompts (bucket T at positions start..,
+    prompts of `lens` tokens past `start`; the `start` positions before it
+    hold a history that prefills in chunks of T), `steps` forced decode
+    tokens, and tables of pages of their own: (tokens [B, start + T],
+    forced, tables, prompt lengths from position 0, pages per row, start)."""
+    prompt_lens = [start + n for n in lens[:B]]
+    tokens = torch.randint(3, 259, (B, start + T), generator=gen, device="cuda",
                            dtype=torch.int32)
     forced = torch.randint(3, 259, (steps, B), generator=gen, device="cuda",
                            dtype=torch.int32)
     tables = torch.zeros((B, P), dtype=torch.int32, device="cuda")
-    per = -(-(T + steps) // ps)
+    per = -(-(start + T + steps) // ps)
     for b in range(B):
         tables[b, :per] = torch.arange(1 + b * per, 1 + (b + 1) * per)
-    return tokens, forced, tables, prompt_lens, per
+    return tokens, forced, tables, prompt_lens, per, start
 
 
 def _slice_run(cfg, params, inputs, int8=False):
-    """Prefill then the forced decode steps through forward_paged: (logits
-    of the sampled rows, every hidden state of the run)."""
+    """Prefill (the history's chunks, then the bucket) then the forced
+    decode steps through forward_paged: (logits of the sampled rows, every
+    hidden state of the bucket and the steps)."""
     from polykey_tpu_torch.engine.kv_cache import init_paged_kv
     from polykey_tpu_torch.models.transformer import forward_paged, unembed
 
-    tokens, forced, tables, prompt_lens, per = inputs
-    B, T = tokens.shape
+    tokens, forced, tables, prompt_lens, per, start = inputs
+    B, T = tokens.shape[0], tokens.shape[1] - start
     paged = init_paged_kv(cfg, 1 + B * per, 16, torch.bfloat16, "cuda",
                           kv_dtype=torch.int8 if int8 else None)
-    positions = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
-    hidden, paged = forward_paged(params, cfg, tokens, positions, paged, tables)
+    for c in range(0, start + T, T):
+        positions = torch.arange(c, c + T, dtype=torch.int32, device="cuda")[None]
+        hidden, paged = forward_paged(params, cfg, tokens[:, c:c + T],
+                                      positions.repeat(B, 1), paged, tables)
     hiddens = [hidden.reshape(-1, hidden.shape[-1])]
-    rows = torch.tensor([n - 1 for n in prompt_lens], device="cuda")
+    rows = torch.tensor([n - 1 - start for n in prompt_lens], device="cuda")
     logits = [unembed(params, cfg, hidden[torch.arange(B), rows])]
     for i in range(forced.shape[0]):
         pos = torch.tensor([[n + i] for n in prompt_lens], dtype=torch.int32,
@@ -858,9 +940,11 @@ def _kernels_vs_plain(label, cfg, params, inputs, int8=False, routing=None):
     err = (got - want).abs().max().item()
     rms = want.square().mean().sqrt().item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    tokens, forced = inputs[0], inputs[1]
-    say("slice", f"{label}, {'int8' if int8 else 'bf16'} KV: prefill T={tokens.shape[1]} "
-        f"(prompts {inputs[3]}) + {forced.shape[0]} decode steps, kernels vs "
+    tokens, forced, start = inputs[0], inputs[1], inputs[5]
+    history = f"{start} positions of history in chunks, then " if start else ""
+    say("slice", f"{label}, {'int8' if int8 else 'bf16'} KV: {history}prefill "
+        f"T={tokens.shape[1] - start} (prompts {inputs[3]}) + {forced.shape[0]} "
+        f"decode steps, kernels vs "
         f"plain: max |dlogit| {err:.4f} over logits of RMS {rms:.3f} "
         f"(tolerance 0.12, about twice the 0.055 measured on the H100 for "
         f"bf16 KV: bf16 activations round differently once attention sums "
@@ -892,6 +976,7 @@ def phase_slice(seed: int) -> None:
     del params
     torch.cuda.empty_cache()
     _slice_mixtral(seed)
+    _slice_gemma(seed)
 
 
 def _slice_quantized_weights(cfg, params, inputs, hidden_bf16) -> None:
@@ -999,6 +1084,34 @@ def _slice_mixtral(seed: int) -> None:
     routing = _Routing()
     with torch.inference_mode():
         _kernels_vs_plain(label, cfg, params, inputs, routing=routing)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _slice_gemma(seed: int) -> None:
+    """gemma-2-27b at its published widths (Hq 32, Hk 16, D 128, query
+    scale 144^-0.5, soft-caps 50 and 30, window 4096), 2 layers: layer 0
+    windowed, layer 1 global. On tables of 512 pages (max_seq_len 8192)
+    positions 0..4095 prefill in eight 512-token chunks, then a 512-token
+    bucket at 4096..4607 (prompts ending at 4596 and 4473) and 8 decode
+    steps past it: the windowed layer's queries see only their last 4096
+    keys. This is where the window bites on the card; the served engine
+    (max_seq_len 4096) never gets there. Kernels against plain within 0.12
+    with the same argmax on every row."""
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.transformer import init_params
+
+    cfg = replace(get_config("gemma-2-27b"), num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen)
+    start = cfg.sliding_window
+    inputs = _slice_inputs(cfg, gen, T=512, P=8192 // PAGE_SIZE, lens=(500, 377),
+                           start=start)
+    label = (f"gemma-2-27b width (Hq {cfg.num_heads}, Hk {cfg.num_kv_heads}, D "
+             f"{cfg.head_dim}, scale {cfg.q_scale:.5f}, window {cfg.sliding_window} on "
+             f"layer 0), 2 layers, bf16 weights, past the window")
+    with torch.inference_mode():
+        _kernels_vs_plain(label, cfg, params, inputs)
     del params
     torch.cuda.empty_cache()
 
@@ -1223,19 +1336,14 @@ SERVE_KERNELS = {
 
 def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
                 int8: bool = False, model: str = "llama-3-8b", quantize: bool = False,
-                phase: str = "") -> dict:
+                phase: str = "", then=None) -> dict:
     """Serve `model` through gRPC. Bucketed (default) or ragged dispatch,
     over bf16 or (`int8`) int8 KV, with bf16 or (`quantize`) int8 weights;
-    `params` reuses the weights of an earlier engine (shut down first)."""
-    import grpc
-
+    `params` reuses the weights of an earlier engine (shut down first).
+    `then(grpc)` runs after the checks, before the server stops (its
+    result is returned under "then")."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, GenRequest, InferenceEngine
-    from polykey_tpu_torch.gateway.jsonlog import Logger
-    from polykey_tpu_torch.gateway.server import build_server
-    from polykey_tpu_torch.gateway.torch_service import TorchService
-    from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
-    from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
 
     phase = phase or ("ragged" if ragged else "serve") + ("-int8" if int8 else "")
     config = EngineConfig(model=model, ragged_dispatch=ragged,
@@ -1256,20 +1364,7 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         f"{config.page_size}), {config.max_decode_slots} slots, {mode}, decode "
         f"block {config.decode_block_steps}")
     # Keep each request the gateway submits, to read its timings after.
-    submitted: list = []
-    submit = engine.submit
-
-    def recording_submit(request):
-        submitted.append(request)
-        submit(request)
-
-    engine.submit = recording_submit
-    logger = Logger(stream=sys.stderr, level="WARN")
-    service = TorchService(engine, logger=logger)
-    server, _health, port = build_server(service, logger, address="127.0.0.1:0")
-    server.start()
-    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
-    stub = PolykeyServiceStub(channel)
+    grpc = _Grpc(engine)
     try:
         check(config.lookahead_blocks == 2 and config.adaptive_block,
               f"not the default pipeline: {config}")
@@ -1280,7 +1375,8 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         # (GShard), so a request's tokens depend on what rides with it: its
         # repeat is held to a solo run below, not to its concurrent run.
         moe = engine.model_cfg.is_moe and engine.model_cfg.moe_dispatch
-        results = _serve_requests(stub, pk, submitted, batch_invariant=not moe)
+        results = _serve_requests(grpc.stub, grpc.pk, grpc.submitted,
+                                  batch_invariant=not moe)
         counts = {name: k.launches for name, k in KERNELS.items()}
         stats = engine.stats()
         sync()
@@ -1355,13 +1451,12 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
                 f"{r['prompt_tokens']} tokens, {r['completion_tokens']} completion "
                 f"tokens, TTFT {r['ttft_ms']:.1f} ms, {r['tok_s']:.1f} tok/s "
                 f"(wall {r['wall_s']:.2f} s) on {card}")
+        after = then(grpc) if then else None
     finally:
-        channel.close()
-        server.stop(grace=5).wait()
-        service.close()
+        grpc.close()
     sync()
     return {"requests": results, "launches": counts, "params": engine.params,
-            "kv_gib": kv / 2**30}
+            "kv_gib": kv / 2**30, "then": after}
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -1806,19 +1901,35 @@ class _Grpc:
         self.channel = grpc.insecure_channel(f"127.0.0.1:{port}")
         self.stub = PolykeyServiceStub(self.channel)
 
-    def generate(self, prompts: list, max_new: int = 32, **extra) -> list:
-        """Send `prompts` at once (unary llm_generate); returns, in order,
-        (token ids, TTFT ms, tok/s) of each, all of `max_new` tokens."""
+    def generate(self, prompts: list, max_new: int = 32, stream: bool = False,
+                 **extra) -> list:
+        """Send `prompts` at once (unary llm_generate, or ExecuteToolStream
+        with `stream`); returns, in order, (token ids, TTFT ms, tok/s, ms
+        from submit to admission, ms to the first streamed chunk or None)
+        of each, all of `max_new` tokens. TTFT is the engine's (a streamed
+        request's final chunk carries it as usage); the first chunk is
+        timed on this client's clock from the call, and comes with the
+        first token that decodes to text (else it is the final one)."""
         start = len(self.submitted)
         errors: queue.Queue = queue.Queue()
+        first_ms: dict = {}
 
         def one(prompt):
             try:
-                resp = self.stub.ExecuteTool(self.pk.ExecuteToolRequest(
+                req = self.pk.ExecuteToolRequest(
                     tool_name="llm_generate",
-                    parameters=_struct(prompt=prompt, max_tokens=max_new, **extra)),
-                    timeout=900)
-                check(resp.status.code == 200, f"status {resp.status}")
+                    parameters=_struct(prompt=prompt, max_tokens=max_new, **extra))
+                if stream:
+                    t0, final = time.monotonic(), None
+                    for chunk in self.stub.ExecuteToolStream(req, timeout=900):
+                        first_ms.setdefault(prompt, (time.monotonic() - t0) * 1e3)
+                        final = chunk if chunk.final else final
+                    check(final is not None and final.status.code == 200,
+                          f"stream ended without a final chunk of status 200: {final}")
+                    check(final.usage.completion_tokens == max_new, f"usage {final.usage}")
+                else:
+                    resp = self.stub.ExecuteTool(req, timeout=900)
+                    check(resp.status.code == 200, f"status {resp.status}")
             except BaseException as e:  # reported by the check below
                 errors.put(repr(e))
 
@@ -1832,8 +1943,10 @@ class _Grpc:
         out = []
         for p in prompts:
             r = by_prompt[p]
+            t = r.timings
             check(len(r.out.ids) == max_new, f"{len(r.out.ids)} tokens, not {max_new}")
-            out.append((r.out.ids, r.timings.ttft_ms, r.timings.tokens_per_sec))
+            out.append((r.out.ids, t.ttft_ms, t.tokens_per_sec,
+                        (t.prefill_start - t.enqueued) * 1e3, first_ms.get(p)))
         return out
 
     def close(self) -> None:
@@ -1995,6 +2108,275 @@ def phase_spec(seed: int, params, card: str) -> dict:
     return launches
 
 
+# -- phase 13 --------------------------------------------------------------
+
+def _hf_tensors(params, cfg) -> list:
+    """(HF name, tensor, transpose) of each tensor of the port's tree, in
+    HF's names and order: the reverse of models/loader.py's map."""
+    from polykey_tpu_torch.models.loader import _hf_layer_map
+
+    out = [("model.embed_tokens.weight", params["embed"], False)]
+    layer_map = _hf_layer_map(cfg)
+    for i, layer in enumerate(params["layers"]):
+        for path, (pattern, transpose) in layer_map.items():
+            node = layer
+            for k in path:
+                node = node[k]
+            if "{e}" in pattern:
+                out += [(pattern.format(i=i, e=e), node[e], transpose)
+                        for e in range(cfg.num_experts)]
+            else:
+                out.append((pattern.format(i=i), node, transpose))
+    out.append(("model.norm.weight", params["final_norm"], False))
+    if not cfg.tie_embeddings:
+        out.append(("lm_head.weight", params["lm_head"], True))
+    return out
+
+
+def write_hf_checkpoint(params, cfg, directory: str, shards: int = 2) -> int:
+    """Write the port's parameter tree (fp tensors) as HF ships a
+    checkpoint: HF tensor names, linears [out, in], `shards` safetensors
+    files (model-0000i-of-0000n.safetensors, split by bytes) and
+    model.safetensors.index.json. Each tensor is transposed where it lies
+    and copied to the host alone. Returns the bytes of tensor data."""
+    import struct
+
+    from polykey_tpu_torch.models.loader import INDEX_FILE, SAFETENSORS_DTYPES
+
+    dtype_names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    entries = _hf_tensors(params, cfg)
+    sizes = [t.numel() * t.element_size() for _, t, _ in entries]
+    total = sum(sizes)
+    groups: list = [[] for _ in range(shards)]
+    done = 0
+    for entry, size in zip(entries, sizes):
+        groups[min(shards - 1, done * shards // max(1, total))].append(entry)
+        done += size
+    weight_map = {}
+    for n, group in enumerate(groups):
+        fname = f"model-{n + 1:05d}-of-{shards:05d}.safetensors"
+        header, offset = {}, 0
+        for name, t, transpose in group:
+            nbytes = t.numel() * t.element_size()
+            header[name] = {"dtype": dtype_names[t.dtype],
+                            "shape": list(t.shape[::-1] if transpose else t.shape),
+                            "data_offsets": [offset, offset + nbytes]}
+            offset += nbytes
+            weight_map[name] = fname
+        header["__metadata__"] = {"format": "pt"}
+        blob = json.dumps(header, separators=(",", ":")).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(os.path.join(directory, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(blob)))
+            f.write(blob)
+            for _, t, transpose in group:
+                t = (t.t() if transpose else t).contiguous().reshape(-1)
+                f.write(t.view(torch.uint8).cpu().numpy().data)
+    with open(os.path.join(directory, INDEX_FILE), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f,
+                  indent=2)
+    return total
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _bit_equal(loaded, host) -> tuple[int, int]:
+    """(tensors, bytes) of `loaded` (on the card) checked equal to `host`
+    bit for bit, each loaded tensor copied to the host alone (the card has
+    no room to spare beside a serving 27B engine)."""
+    if isinstance(loaded, dict):
+        check(set(loaded) == set(host), f"keys {sorted(loaded)} against {sorted(host)}")
+        parts = [_bit_equal(loaded[k], host[k]) for k in loaded]
+    elif isinstance(loaded, list):
+        check(len(loaded) == len(host), f"{len(loaded)} layers against {len(host)}")
+        parts = [_bit_equal(a, b) for a, b in zip(loaded, host)]
+    else:
+        check(loaded.dtype == host.dtype and loaded.shape == host.shape,
+              f"{loaded.dtype} {tuple(loaded.shape)} against {host.dtype} "
+              f"{tuple(host.shape)}")
+        check(torch.equal(loaded.cpu().view(torch.int16), host.view(torch.int16)),
+              f"a loaded tensor {tuple(loaded.shape)} differs from the one written")
+        return 1, loaded.numel() * loaded.element_size()
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
+def _gemma_texts(label: str, got: list, plain: list, card: str) -> None:
+    for name, rows in (("", got), ("plain ", plain)):
+        say("serve-gemma", f"{label}: {name}TTFT "
+            f"{', '.join(f'{r[1]:.1f}' for r in rows)} ms; first streamed chunk "
+            f"{', '.join('none' if r[4] is None else f'{r[4]:.1f}' for r in rows)} ms; "
+            f"admission waits {', '.join(f'{r[3]:.1f}' for r in rows)} ms; tok/s "
+            f"{', '.join(f'{r[2]:.1f}' for r in rows)} on {card}")
+    waits = [r[3] for r in got + plain if r[3] > 1000.0]
+    if waits:
+        say("serve-gemma", f"{label}: first waits over 1 s (ROADMAP C.3): {waits} ms")
+
+
+def phase_serve_gemma(seed: int, card: str) -> None:
+    """Gemma-2-27B in bf16 over streamed gRPC, plain and with a Gemma-2-2B
+    draft loaded from a safetensors checkpoint (module docstring, phase
+    13). The checkpoint's directory is removed at the end, whatever
+    happened."""
+    import shutil
+    import tempfile
+
+    from polykey_tpu_torch.engine import engine as engine_mod
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.quant import params_bytes
+    from polykey_tpu_torch.models.transformer import init_params
+
+    phase = "serve-gemma"
+    tcfg, dcfg = get_config("gemma-2-27b"), get_config("gemma-2-2b")
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.gettempdir()
+    need, free = dcfg.num_params() * 2, shutil.disk_usage(root).free
+    check(free > need + 2**30, f"{phase}: {free / 1e9:.2f} GB free under {root}; the "
+          f"gemma-2-2b checkpoint needs {need / 1e9:.2f} GB and 1 GiB to spare")
+    ckpt = tempfile.mkdtemp(prefix="polykey-gemma-2-2b-", dir=root)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        draft = init_params(dcfg, torch.bfloat16, "cuda", gen)
+        t0 = time.monotonic()
+        nbytes = write_hf_checkpoint(draft, dcfg, ckpt)
+        files = sorted(os.listdir(ckpt))
+        on_disk = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+        say(phase, f"gemma-2-2b ({dcfg.num_layers} layers, {dcfg.num_params() / 1e9:.3f} B "
+            f"parameters, random bf16 weights from seed + 2) written as an HF "
+            f"checkpoint in {time.monotonic() - t0:.1f} s: {files}, {nbytes} bytes of "
+            f"tensors, {on_disk} on disk under {root}")
+        host_draft = _tree_map(lambda t: t.cpu(), draft)
+        del draft
+        torch.cuda.empty_cache()
+        target = init_params(tcfg, torch.bfloat16, "cuda",
+                             torch.Generator(device="cuda").manual_seed(seed))
+        sync()
+        base = torch.cuda.memory_allocated()
+        say(phase, f"gemma-2-27b ({tcfg.num_layers} layers, "
+            f"{tcfg.num_params() / 1e9:.3f} B parameters) drawn on the card from the "
+            f"seed: {params_bytes(target)} bytes bf16 ({params_bytes(target) / 2**30:.2f} "
+            f"GiB)")
+
+        def plain_streams(grpc):
+            engine = grpc.engine
+            texts = grpc.generate(SPEC_GREEDY, stream=True)
+            counts = {name: k.launches for name, k in KERNELS.items()}
+            ran = {n for n, c in counts.items() if c}
+            check(ran == set(BUCKETED), f"{phase}: launched {counts}, not {BUCKETED} alone")
+            check(engine._graphs.eager["decode"] == 0 and engine.stats()["prefill_eager"] == 0,
+                  f"{phase}: an eager decode block or prefill: {dict(engine._graphs.eager)}")
+            return texts, engine.tokenizer
+
+        plain = phase_serve(seed, card, params=target, model="gemma-2-27b", phase=phase,
+                            then=plain_streams)
+        target = plain.pop("params")
+        plain_texts, tokenizer = plain["then"]
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base
+        say(phase, f"plain engine shut down: {left / 2**20:.1f} MiB more allocated than "
+            f"before it started (its pools freed before the next engine starts)")
+        check(left < 2**30, f"{phase}: the plain engine left {left} bytes allocated")
+
+        loads: list = []
+        real_load = engine_mod.load_checkpoint
+
+        def timed_load(*args, **kwargs):
+            t0 = time.monotonic()
+            out = real_load(*args, **kwargs)
+            sync()
+            loads.append(time.monotonic() - t0)
+            return out
+
+        config = EngineConfig(model="gemma-2-27b", draft_model="gemma-2-2b",
+                              draft_checkpoint_path=ckpt, spec_gamma=4,
+                              top_p_candidates=64)
+        for k in KERNELS.values():
+            k.launches = 0
+        engine_mod.load_checkpoint = timed_load
+        t0 = time.monotonic()
+        try:
+            grpc = _Grpc(InferenceEngine(config, params=target, device="cuda", seed=seed))
+        finally:
+            engine_mod.load_checkpoint = real_load
+        up = time.monotonic() - t0
+        label = "gemma-2-27b + gemma-2-2b draft from its checkpoint, gamma 4"
+        try:
+            engine = grpc.engine
+            st = engine.stats()
+            alloc = torch.cuda.memory_allocated()
+            n_t, n_b = _bit_equal(engine.draft_params, host_draft)
+            say(phase, f"{label}: the loaded draft equals the drawn one bit for bit "
+                f"({n_t} tensors, {n_b} bytes); checkpoint {on_disk} bytes loaded in "
+                f"{loads[0]:.2f} s ({on_disk / loads[0] / 1e9:.2f} GB/s) on {card}")
+            by = st["graph_pool_bytes_by_body"]
+            say(phase, f"{label}: engine up in {up:.1f} s (graphs captured in "
+                f"{st['graph_capture_s']:.2f} s: {st['decode_graph_captures']} decode, "
+                f"{st['prefill_graph_captures']} prefill, {st['spec_graph_captures']} spec); "
+                f"weights {st['weight_bytes']} bytes target, "
+                f"{params_bytes(engine.draft_params)} draft; KV pools "
+                f"{st['kv_pool_bytes'] / 2**30:.4f} GiB target, "
+                f"{st['draft_kv_pool_bytes'] / 2**30:.4f} GiB draft ({config.num_pages} "
+                f"pages); graph pool {by.get('prefill', 0) / 2**20:.1f} MiB before the "
+                f"spec keys, {st['graph_pool_bytes'] / 2**20:.1f} MiB after; allocated "
+                f"{alloc / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+                f"on {card}")
+            got = grpc.generate(SPEC_GREEDY, stream=True)
+            greedy = engine.stats()
+            acc = greedy.get("spec_acceptance", 0.0)
+            lanes = max(1, greedy["spec_lane_rounds"])
+            say(phase, f"{label}: 5 greedy streams; acceptance {acc} "
+                f"({greedy.get('drafts_accepted', 0)}/{greedy.get('drafts_proposed', 0)}), "
+                f"{greedy['spec_rounds']} rounds, {greedy['spec_tokens'] / lanes:.3f} tokens "
+                f"a lane a round on {card}")
+            _gemma_texts(label, got, plain_texts, card)
+            before = engine.metrics.snapshot()
+            sampled = grpc.generate(SPEC_SAMPLED, stream=True, temperature=0.8, top_p=0.9,
+                                    seed=5)
+            after = engine.metrics.snapshot()
+            prop = after["drafts_proposed"] - before["drafts_proposed"]
+            check(prop > 0, f"{phase}: no sampled round proposed a draft")
+            say(phase, f"{label}: 4 sampled streams (temperature 0.8, top_p 0.9, "
+                f"candidates 64): acceptance "
+                f"{(after['drafts_accepted'] - before['drafts_accepted']) / prop:.4f} over "
+                f"{prop} drafts; tok/s {', '.join(f'{r[2]:.1f}' for r in sampled)}")
+            st = engine.stats()
+            counts = {name: k.launches for name, k in KERNELS.items()}
+            say(phase, f"{label}: kernel launches {counts}; spec graph replays "
+                f"{st['spec_graph_replays']}, eager rounds {st['spec_eager']}, decode "
+                f"replays {st['decode_graph_replays']}, prefill replays "
+                f"{st['prefill_graph_replays']}, eager prefills {st['prefill_eager']}; "
+                f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+            check(st["spec_graph_replays"] > 0 and st["spec_eager"] == 0,
+                  f"{phase}: {st['spec_graph_replays']} round replays, "
+                  f"{st['spec_eager']} eager")
+            check(st["prefill_eager"] == 0 and engine._graphs.eager["decode"] == 0,
+                  f"{phase}: an eager prefill or block: {dict(engine._graphs.eager)}")
+            check(counts["paged_attention_decode"] > 0 and counts["paged_write"] > 0,
+                  f"{phase}: the decode or write kernel did not launch: {counts}")
+            check(not any(counts[n] for n in counts if n not in BUCKETED),
+                  f"{phase}: a kernel of another path launched: {counts}")
+        finally:
+            grpc.close()
+        del grpc, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        ties = _hold_texts(label, target, tcfg, tokenizer, SPEC_GREEDY, got, plain_texts)
+        say(phase, f"{label}: 5 greedy texts equal to the plain engine's but at {ties} "
+            f"near-ties")
+    finally:
+        shutil.rmtree(ckpt)
+
+
 def _serve_requests(stub, pk, submitted: list, batch_invariant: bool = True) -> list[dict]:
     """After one warm-up request per bucket, 5 concurrent requests: two
     short prompts (bucket 128), two long (bucket 512), one ~1500-token
@@ -2129,6 +2511,9 @@ def main() -> int:
     mixtral = phase_serve(args.seed, dev["smi"], model="mixtral-8x7b", quantize=True,
                           phase="serve-mixtral")
     del mixtral["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_gemma(args.seed, dev["smi"])
     gc.collect()
     torch.cuda.empty_cache()
     for int8 in (False, True):

@@ -4,9 +4,10 @@ The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
 for them fails at startup instead of being served by something else:
-checkpoints (the target's and the draft's), replica and disaggregated
-pools, mesh axes above 1, the spec round on the ragged stream, and the
-reference's spec A/B instrumentation. Weight-only int8/int4 (`quantize`,
+replica and disaggregated pools, mesh axes above 1, the spec round on the
+ragged stream, and the reference's spec A/B instrumentation. Local
+safetensors checkpoints (`checkpoint_path`, `draft_checkpoint_path`;
+models/loader.py), weight-only int8/int4 (`quantize`,
 `quantize_bits`), chunked prefill
 (`prefill_chunk`, `prefill_budget`), ragged dispatch (`ragged_dispatch`),
 the int8 KV cache (`kv_dtype="int8"`), the lookahead pipeline
@@ -293,10 +294,6 @@ class EngineConfig:
         unported = [
             (self.replicas > 1 or bool(self.disagg), "replicas / disagg",
              "replica and disagg pools"),
-            (self.checkpoint_path is not None, "checkpoint_path",
-             "A.8, checkpoint loading"),
-            (self.draft_checkpoint_path is not None, "draft_checkpoint_path",
-             "A.8, checkpoint loading"),
             (self.ragged_dispatch and self.draft_model is not None,
              "ragged_dispatch with draft_model", "A.7 remainder: ragged × spec"),
             (self.spec_host_sync, "spec_host_sync",

@@ -104,10 +104,16 @@ GPU (the reference's engine/engine.py, default path).
   plain PyTorch inside every product. MoE models (Mixtral; ops/moe.py) run
   in every mode, the capacity-bucketed dispatch where the config asks for
   it (`moe_dispatch`).
+- Checkpoints (`checkpoint_path`, `draft_checkpoint_path`; POLYKEY_CHECKPOINT,
+  POLYKEY_DRAFT_CHECKPOINT; models/loader.py): local HF safetensors for
+  the target and the draft, read onto the device a tensor at a time and
+  quantized on load under `quantize`; without a path, weights are drawn
+  from the seed. The reference's orbax format is refused (ROADMAP.md
+  A.14).
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
 dispatch, speculative rounds on the ragged stream, the disaggregated
-handoff, checkpoint loading, the replica pools, mesh axes above 1.
+handoff, the replica pools, mesh axes above 1.
 """
 
 from __future__ import annotations
@@ -128,6 +134,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig, get_config
+from ..models.loader import load_checkpoint
 from ..models.quant import params_bytes, quantize_params
 from ..models.transformer import forward_paged, forward_ragged, init_params, unembed
 from ..ops import (
@@ -662,7 +669,12 @@ class InferenceEngine:
         # they are drawn, the same tree, so a model whose bf16 weights do
         # not fit on the card (mixtral-8x7b) is never held in bf16.
         bits = config.quantize_bits if config.quantize else None
-        if params is None:
+        if params is None and config.checkpoint_path:
+            # A local checkpoint (models/loader.py), read onto the device a
+            # tensor at a time and quantized a layer at a time.
+            params = load_checkpoint(config.checkpoint_path, self.model_cfg, self._dtype,
+                                     self.device, quantize_bits=bits)
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(self.model_cfg, self._dtype, self.device, gen,
                                  quantize_bits=bits)
@@ -698,7 +710,11 @@ class InferenceEngine:
                     f"{self.model_cfg.vocab_size}"
                 )
             # The quantize knob covers the draft too, as in the reference.
-            if draft_params is None:
+            if draft_params is None and config.draft_checkpoint_path:
+                draft_params = load_checkpoint(
+                    config.draft_checkpoint_path, self.draft_cfg, self._dtype,
+                    self.device, quantize_bits=bits)
+            elif draft_params is None:
                 gen = torch.Generator(device=self.device).manual_seed(seed + 2)
                 draft_params = init_params(self.draft_cfg, self._dtype, self.device, gen,
                                            quantize_bits=bits)

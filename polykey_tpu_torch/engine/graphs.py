@@ -54,6 +54,12 @@ graph's memory. The engine's keys: "decode" (greedy, steps), "prefill"
   (tools/trace_first_group.py), which the first requests after start
   would otherwise wait for; the warm-up run before each capture never
   launched a graph.
+- **No collection while capturing.** Destroying a CUDA graph while a
+  stream captures invalidates the capture. An engine that was shut down
+  and dropped holds its graphs in reference cycles until Python's cycle
+  collector runs, which may be in the middle of a later engine's capture
+  (`torch.cuda.graph` no longer collects on entry). So `capture` collects
+  first and holds the automatic collector off until its last capture ends.
 - **No fallback.** A failed capture, a missing key or a failed replay
   raises; nothing here runs a body eagerly on a CUDA device but the
   capture's warm-up. On CPU tensors `run` calls the body itself: that is
@@ -62,6 +68,7 @@ graph's memory. The engine's keys: "decode" (greedy, steps), "prefill"
 
 from __future__ import annotations
 
+import gc
 import time
 from collections import Counter
 from typing import Callable, Iterable
@@ -101,21 +108,28 @@ class CudaGraphs:
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(main)
         pool = torch.cuda.graph_pool_handle()
+        gc.collect()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        for name, (body, keys) in self._bodies.items():
-            for key in keys:
-                with _build.uncounted(), torch.cuda.stream(stream):
-                    body(*key)
-                graph = torch.cuda.CUDAGraph()
-                with _build.uncounted() as made:
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        out = body(*key)
-                self._graphs[(name, key)] = (graph, out, made)
-                self.captures[name] += 1
-            torch.cuda.synchronize(dev)
-            self.pool_bytes_after[name] = torch.cuda.memory_reserved(dev) - reserved
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for name, (body, keys) in self._bodies.items():
+                for key in keys:
+                    with _build.uncounted(), torch.cuda.stream(stream):
+                        body(*key)
+                    graph = torch.cuda.CUDAGraph()
+                    with _build.uncounted() as made:
+                        with torch.cuda.graph(graph, pool=pool, stream=stream):
+                            out = body(*key)
+                    self._graphs[(name, key)] = (graph, out, made)
+                    self.captures[name] += 1
+                torch.cuda.synchronize(dev)
+                self.pool_bytes_after[name] = torch.cuda.memory_reserved(dev) - reserved
+        finally:
+            if collecting:
+                gc.enable()
         main.wait_stream(stream)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()

@@ -650,7 +650,7 @@ def spec_parts(params, cfg, paged, state: dict, d_params, d_cfg, d_paged, gamma:
     lane state."""
     from ..engine import spec_decode as sd
     from ..engine.sampling import TaggedDraws
-    from ..models.transformer import forward_paged, unembed
+    from ..models.transformer import forward_paged, layer_window, unembed
     from ..ops.paged_attention import paged_attention, paged_gather_kv
 
     reset()
@@ -697,7 +697,8 @@ def spec_parts(params, cfg, paged, state: dict, d_params, d_cfg, d_paged, gamma:
             paged_gather_kv(kc, vc, st["page_tables"])
 
     def attention():
-        paged_attention(q, kc, vc, st["page_tables"], w_pos, scale=cfg.q_scale)
+        paged_attention(q, kc, vc, st["page_tables"], w_pos, scale=cfg.q_scale,
+                        logit_softcap=cfg.attn_logit_softcap, window=layer_window(cfg, 0))
 
     out = {}
     with torch.inference_mode():

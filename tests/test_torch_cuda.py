@@ -1535,3 +1535,120 @@ def test_quantized_weights_track_bf16_under_the_reference_gates(gen, bits, gate)
     assert torch.isfinite(h_q).all()
     rel = ((h_q - h_bf16).abs() / h_bf16.abs().clamp_min(1.0)).mean().item()
     assert rel < gate, rel
+
+
+# Gemma-2's kernel geometries (chip_smoke.py's GEMMA_SHAPES): (Hq, Hk, D,
+# query scale), soft-cap 50 and window 4096.
+_GEMMA = [(32, 16, 128, 144.0 ** -0.5), (8, 4, 256, 256.0 ** -0.5)]
+
+
+@pytest.mark.parametrize("Hq,Hk,D,scale", _GEMMA, ids=["gemma-2-27b", "gemma-2-2b"])
+def test_gemma_geometry_kernels_match_plain(gen, Hq, Hk, D, scale):
+    """At Gemma-2's geometry (group 2, its query scale, soft-cap 50, window
+    4096): the bf16 decode kernel over contexts 1..4096 and 16 lanes at 512
+    within decode_error_bound and 2e-3; flash at T=512, S=4096 within 2^-7
+    (|ref| + sum p|v|) + 1e-4 per element; both paged writes at 16 lanes
+    exact."""
+    from polykey_tpu_torch.ops import flash_attention as fa
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+
+    kw = dict(scale=scale, logit_softcap=50.0, window=4096)
+    for ctx in ([1, 15, 16, 17, 255, 256, 257, 1000, 2049, 4095, 4096], [512] * 16):
+        args = _bf16_decode_inputs(gen, D, Hq // Hk, Hk, 16, 256, ctx)
+        _check_decode(pak, pak.paged_decode_cuda(*args, **kw), args, **kw)
+
+    B, T, S = 2, 512, 4096
+    q, k, v = (_randn((B, T, Hq, D), gen), _randn((B, S, Hk, D), gen),
+               _randn((B, S, Hk, D), gen))
+    qpos = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    qpos[1] += 1000
+    qpos[1, T - T // 4:] = -1
+    out = fa.flash_attention_cuda(q, k, v, qpos, **kw)
+    ref = fa.flash_attention_plain(q, k, v, qpos, **kw).float()
+    ref_abs = fa.flash_attention_plain(q, k, v.abs(), qpos, **kw).float()
+    assert torch.isfinite(out.float()).all()
+    assert ((out.float() - ref).abs() <= 2.0 ** -7 * (ref.abs() + ref_abs) + 1e-4).all()
+
+    N, P = 64, 256
+    kn, vn = _randn((16, 1, Hk, D), gen), _randn((16, 1, Hk, D), gen)
+    tables = torch.randperm(N - 1, generator=gen, device="cuda")[:16].to(torch.int32)
+    tables = (tables + 1)[:, None].repeat(1, P)
+    tables[13:] = 0                                       # inactive lanes
+    pos = torch.randint(0, 16, (16, 1), generator=gen, device="cuda", dtype=torch.int32)
+    kp, vp = _randn((N, 16, Hk, D), gen), _randn((N, 16, Hk, D), gen)
+    a = pw.paged_write_decode_cuda(kp.clone(), vp.clone(), kn, vn, tables, pos)
+    b = pw.paged_write_decode_plain(kp.clone(), vp.clone(), kn, vn, tables, pos)
+    assert torch.equal(a[0][1:], b[0][1:]) and torch.equal(a[1][1:], b[1][1:])
+    (kq, ks), (vq, vs) = _int8_pools(gen, N, 16, Hk, D)
+    a8 = (kq.clone(), ks.clone()), (vq.clone(), vs.clone())
+    b8 = (kq.clone(), ks.clone()), (vq.clone(), vs.clone())
+    pw.paged_write_int8_cuda(*a8, kn, vn, tables, pos)
+    pw.paged_write_int8_plain(*b8, kn, vn, tables, pos)
+    for x, y in zip((*a8[0], *a8[1]), (*b8[0], *b8[1])):
+        assert torch.equal(x[1:].view(torch.int8), y[1:].view(torch.int8))
+
+
+@pytest.mark.parametrize("model", ["tiny-mixtral", "tiny-gemma"])
+def test_a_bf16_checkpoint_loads_onto_the_card_as_on_the_cpu(gen, tmp_path, model):
+    """A bf16 HF checkpoint (chip_smoke.py's writer: two shards and an
+    index) read straight onto the card equals its read onto the CPU, and
+    the tree written, bit for bit."""
+    import chip_smoke
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.loader import load_checkpoint
+    from polykey_tpu_torch.models.transformer import init_params
+
+    cfg = get_config(model)
+    params = init_params(cfg, torch.bfloat16, "cpu", torch.Generator().manual_seed(4))
+    chip_smoke.write_hf_checkpoint(params, cfg, str(tmp_path))
+    on_card = load_checkpoint(str(tmp_path), cfg, torch.bfloat16, "cuda")
+    on_cpu = load_checkpoint(str(tmp_path), cfg, torch.bfloat16, "cpu")
+
+    def same(a, b):
+        if isinstance(b, dict):
+            assert set(a) == set(b)
+            return all(same(a[k], b[k]) for k in b)
+        if isinstance(b, list):
+            return all(same(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu().view(torch.int16), b.view(torch.int16)))
+
+    assert on_card["embed"].device.type == "cuda"
+    assert same(on_card, on_cpu) and same(on_cpu, params)
+
+
+def test_graph_capture_holds_the_cycle_collector_off(gen):
+    """A cycle collection during a capture may destroy the graphs of an
+    engine dropped earlier, which invalidates the capture (an engine
+    started after others were shut down crashed so on the card): the
+    capture collects first, and no automatic collection runs while a
+    stream captures, even with the collector's threshold at 1; the
+    collector is on again after it."""
+    import gc
+
+    from polykey_tpu_torch.engine.graphs import CudaGraphs
+
+    x = torch.ones(16, device="cuda")
+    capturing = []
+
+    def watch(phase, info):
+        if phase == "start":
+            capturing.append(torch.cuda.is_current_stream_capturing())
+
+    def body(k):
+        [[] for _ in range(100)]                # container allocations
+        return x * k
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(watch)
+    try:
+        graphs = CudaGraphs(torch.device("cuda"), {"b": (body, [(1,), (2,)])})
+        graphs.capture()
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*threshold)
+    assert capturing and not any(capturing)
+    assert gc.isenabled()
+    assert torch.equal(graphs.run("b", 2), x * 2)

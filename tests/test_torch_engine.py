@@ -171,10 +171,14 @@ def test_stats_report_kernel_launches(engines):
 
 def test_unported_knobs_refuse_to_start():
     for knob in (dict(draft_model="tiny-llama", ragged_dispatch=True), dict(tp=2),
-                 dict(replicas=2), dict(checkpoint_path="ckpt"),
-                 dict(spec_host_sync=True)):
+                 dict(replicas=2), dict(spec_host_sync=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()
+    # Checkpoints are loaded now (models/loader.py), the target's and the
+    # draft's.
+    dataclasses.replace(TEST_CONFIG, checkpoint_path="ckpt").validate()
+    dataclasses.replace(TEST_CONFIG, draft_model="tiny-llama",
+                        draft_checkpoint_path="ckpt").validate()
     # Weight-only int8/int4 is served now, and validates its bit width as
     # the reference's does.
     dataclasses.replace(TEST_CONFIG, quantize=True, quantize_bits=4).validate()

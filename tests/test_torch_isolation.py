@@ -1,7 +1,8 @@
 """The port stands alone: every module of polykey_tpu_torch (the prefix
-cache, the KV wire format, quantized weights and the MoE layer among
-them), and chip_smoke.py, imports with
-JAX, Flax, ml_dtypes and the JAX package made unimportable (in a fresh interpreter, so this test process's own JAX
+cache, the KV wire format, quantized weights, the MoE layer and the
+checkpoint loader among them), and chip_smoke.py, imports with
+JAX, Flax, ml_dtypes, the JAX package, safetensors and orbax made
+unimportable (in a fresh interpreter, so this test process's own JAX
 imports cannot mask a leak)."""
 
 import os
@@ -14,7 +15,7 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 
 sys.modules["jax"] = None
-BLOCKED = ("jax", "flax", "ml_dtypes", "polykey_tpu")
+BLOCKED = ("jax", "flax", "ml_dtypes", "polykey_tpu", "safetensors", "orbax")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -28,10 +29,11 @@ names = [m.name for m in pkgutil.walk_packages(
     polykey_tpu_torch.__path__, "polykey_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# The prefix cache, the host tier, the wire format, quantized weights and
-# the MoE layer among them.
+# The prefix cache, the host tier, the wire format, quantized weights, the
+# MoE layer and the checkpoint loader among them.
 assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_cache",
-        "polykey_tpu_torch.models.quant", "polykey_tpu_torch.ops.moe"} <= set(names)
+        "polykey_tpu_torch.models.quant", "polykey_tpu_torch.ops.moe",
+        "polykey_tpu_torch.models.loader"} <= set(names)
 import chip_smoke
 leaked = [m for m in sys.modules if m and any(
     m == b or m.startswith(b + ".") for b in BLOCKED) and sys.modules[m] is not None]
