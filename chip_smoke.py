@@ -114,18 +114,37 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             prompt again (a prefix hit); (b) the target as its own draft
             (its own tensors): the five, whose acceptance must be at least
             0.9, then four sampled at top_p 0.7; (c) the 1B draft over
-            int8 KV: the five. Each greedy text must equal the plain
+            int8 KV: the five; (d) and (e) the 1B draft with
+            ragged_dispatch over bf16 and int8 KV: the five, the ~1500-token
+            document sent once the other four have their first tokens, so
+            its chunks ride ragged spec dispatches (engine/spec_decode.py,
+            ragged_spec_fn) with their verify windows; pure-decode rounds
+            stay graph replays. Each greedy text must equal the plain
             engine's, or differ first at a near-tie: both tokens' target
             logits, on the plain eager path over the common prefix, within
             0.12 of the top logit there (each such position is printed
             with its margin); the prefix hit's text is held to its first
             run's the same way. Every round must be a graph replay (none
             eager), no prefill eager, the decode and write kernels must
-            launch and no ragged kernel; each prints the graph pool before
-            and after the spec keys, the draft pool, acceptance, rounds,
-            tokens a lane a round, and TTFT and tok/s against the plain
-            engine.
-12. serve-mixtral: after the Llama weights are freed, the full 32-layer
+            launch, and no ragged kernel in (a)-(c); in (d) and (e) the
+            ragged kernel of the KV type must launch and flash not, and a
+            ragged spec dispatch must carry verify windows. Each prints the
+            graph pool before and after the spec keys, the draft pool,
+            acceptance, rounds, tokens a lane a round, and TTFT and tok/s
+            against the plain engine; (d) and (e) also the ragged spec
+            dispatches, their lanes and prefill ranges, and their wall on
+            the card (CUDA events around each dispatch) beside the host's
+            time in the call.
+12. generate: offline generation over a contiguous KV cache
+            (models/generate.py) on the same weights: `generate` greedy, 32
+            tokens, of LONG's two ~390-token prompts right-padded into one
+            window, cache of 1024 positions; then `speculative_generate`
+            (gamma 4) with the 1B draft and with the target as its own
+            draft. generate's texts are held to the plain engine's of
+            phase 11 and speculative_generate's to generate's, each under
+            the near-tie rule; the flash kernel must launch (the prefill
+            window is >= 128 wide); it prints acceptance and tok/s.
+13. serve-mixtral: after the Llama weights are freed, the full 32-layer
             mixtral-8x7b (46.7 B parameters, random weights from --seed,
             drawn and quantized to int8 a layer at a time: 43.5 GiB) behind
             the gRPC server, EngineConfig(model="mixtral-8x7b",
@@ -134,7 +153,7 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and no other; every decode block and prefill a graph replay.
             The capacity-bucketed dispatch drops by position in the batch,
             so the repeated greedy prompt is held to a solo run of it.
-13. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
+14. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
             random bf16 weights from seed + 2) is written as an HF
             safetensors checkpoint (two shards and an index, by this
             script's own writer) in a temporary directory, removed at the
@@ -702,11 +721,11 @@ def kernel_flash(gen) -> dict:
     return result
 
 
-def _ragged_case(gen, lens, kvs, T, empty, int8):
+def _ragged_case(gen, lens, kvs, T, empty, int8, Hq=32, Hk=8, D=128):
     """Ranges from row 0 in order, `empty` unused ranges past the stream,
-    pools [2048, 16, 8, 128] bf16 with distinct pages per sequence and NaN
+    pools [2048, 16, Hk, D] bf16 with distinct pages per sequence and NaN
     in the unwritten V rows of each sequence's last page."""
-    N, ps, Hk, Hq, D = 2048, PAGE_SIZE, 8, 32, 128
+    N, ps = 2048, PAGE_SIZE
     starts = [sum(lens[:i]) for i in range(len(lens))] + [T] * empty
     lens, kvs = list(lens) + [0] * empty, list(kvs) + [0] * empty
     k_pool = _randn((N, ps, Hk, D), gen)
@@ -732,10 +751,15 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
     quantized from the same kind of data (stale scales NaN)."""
     from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
 
-    Hq, Hk, D = 32, 8, 128
     ctx = [1, 15, 16, 17, 31, 33, 255, 256, 257, 1000, 1024, 2047, 2049,
            3001, 4095, 4096]
     singles = [1] * len(ctx)
+    # A ragged spec dispatch's stream (gamma 4): 16 verify windows of 5
+    # rows, the last key of each at one of the contexts (at least 5), then
+    # a first chunk (kv 512) and a second (kv 1024): T = 16 x 5 + 1024,
+    # a multiple of the tile.
+    windows, window_kvs = [5] * len(ctx), [max(c, 5) for c in ctx]
+    spec = (windows + [512, 512], window_kvs + [512, 1024], 1104, 14, None, None)
     cases = [
         # 16 decode singles, a first chunk (kv 512), a second chunk (kv 1024).
         ("main", singles + [512, 512], ctx + [512, 1024], 1040, 14, None, None),
@@ -749,10 +773,18 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
          1040, 14, None, None),
         # The main case's singles alone: the byte-bound part of the stream.
         ("singles: the main case's 16 alone", singles, ctx, 16, 16, None, None),
+        # The spec stream through Llama-3-8B's layers, and through its
+        # Llama-3.2-1B draft's (D 64, same heads).
+        ("spec: 16 verify windows of 5 rows + two 512-row chunks", *spec),
+        ("spec D=64 (the 1B draft): 16 verify windows of 5 rows + two 512-row chunks",
+         *spec, 64),
     ]
+    Hq, Hk = 32, 8
     result = None
-    for label, lens, kvs, T, empty, softcap, window in cases:
-        args, (starts, lens_, kvs_) = _ragged_case(gen, lens, kvs, T, empty, int8)
+    for label, lens, kvs, T, empty, softcap, window, *d in cases:
+        D = d[0] if d else 128
+        args, (starts, lens_, kvs_) = _ragged_case(gen, lens, kvs, T, empty, int8,
+                                                   Hq, Hk, D)
         work = rk.ragged_work(starts, lens_, kvs_, T, Hq // Hk, Hk, "cuda")
         kw = dict(scale=D ** -0.5, logit_softcap=softcap, window=window)
         out = rk.ragged_attention_cuda(*args, work=work, **kw)
@@ -808,9 +840,14 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
             f"{b_ms:.6f} ms ({b_by})")
         if result is None:
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                      "spec": [], "d64": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
+        if label.startswith("spec"):
+            result["d64" if D == 64 else "spec"].append(
+                {"case": label, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err, "err_over_tol": ratio})
     return result
 
 
@@ -1902,14 +1939,15 @@ class _Grpc:
         self.stub = PolykeyServiceStub(self.channel)
 
     def generate(self, prompts: list, max_new: int = 32, stream: bool = False,
-                 **extra) -> list:
+                 late: int = 0, **extra) -> list:
         """Send `prompts` at once (unary llm_generate, or ExecuteToolStream
-        with `stream`); returns, in order, (token ids, TTFT ms, tok/s, ms
-        from submit to admission, ms to the first streamed chunk or None)
-        of each, all of `max_new` tokens. TTFT is the engine's (a streamed
-        request's final chunk carries it as usage); the first chunk is
-        timed on this client's clock from the call, and comes with the
-        first token that decodes to text (else it is the final one)."""
+        with `stream`), the last `late` of them only once every other one
+        has its first token; returns, in order, (token ids, TTFT ms, tok/s,
+        ms from submit to admission, ms to the first streamed chunk or
+        None) of each, all of `max_new` tokens. TTFT is the engine's (a
+        streamed request's final chunk carries it as usage); the first
+        chunk is timed on this client's clock from the call, and comes with
+        the first token that decodes to text (else it is the final one)."""
         start = len(self.submitted)
         errors: queue.Queue = queue.Queue()
         first_ms: dict = {}
@@ -1934,7 +1972,15 @@ class _Grpc:
                 errors.put(repr(e))
 
         threads = [threading.Thread(target=one, args=(p,)) for p in prompts]
-        for t in threads:
+        early = len(prompts) - late
+        for t in threads[:early]:
+            t.start()
+        deadline = time.monotonic() + 600
+        while late and time.monotonic() < deadline and errors.empty() and not (
+                len(self.submitted) - start >= early
+                and all(r.out.ids for r in self.submitted[start:start + early])):
+            time.sleep(0.002)
+        for t in threads[early:]:
             t.start()
         for t in threads:
             t.join()
@@ -1995,12 +2041,48 @@ def _hold_texts(label, params, cfg, tokenizer, prompts, got, want,
     return ties
 
 
+def _time_ragged(engine) -> list:
+    """Wrap the engine's ragged dispatch to record, for each call, (spec,
+    live lanes, prefill ranges, CUDA events around it, host ms of the
+    call): the events' span is the dispatch's wall on the card."""
+    real, marks = engine._dispatch_ragged, []
+
+    def timed(ranges, spec_candidates=None):
+        lanes = int(engine._active.sum())
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        block = real(ranges, spec_candidates)
+        b.record()
+        marks.append((spec_candidates is not None, lanes, len(ranges), a, b, (time.perf_counter() - t0) * 1e3))
+        return block
+
+    engine._dispatch_ragged = timed
+    return marks
+
+
+def _ragged_walls(label: str, marks: list, card: str) -> None:
+    """Print each ragged spec dispatch's live lanes, prefill ranges, wall on
+    the card (the span of its events) and the host's time in the call;
+    fails unless one carried verify lanes."""
+    sync()
+    spec = [m for m in marks if m[0]]
+    check(any(m[1] > 0 for m in spec),
+          f"spec {label}: no ragged spec dispatch carried a verify lane")
+    say("spec", f"{label}: ragged spec dispatches (verify lanes, prefill ranges, wall "
+        f"on the card ms, host ms of the call): "
+        + "; ".join(f"({lanes}, {n}, {a.elapsed_time(b):.3f}, {host:.3f})"
+                    for _, lanes, n, a, b, host in spec) + f" on {card}")
+
+
 def phase_spec(seed: int, params, card: str) -> dict:
     """Speculative decoding on the serve phases' weights over gRPC (module
     docstring, phase 11): (a) a 1B draft over bf16 KV with the prefilter
     and the prefix cache, (b) the target as its own draft, (c) the 1B draft
-    over int8 KV, each beside the plain engine of its KV type. Returns the
-    kernel launches of each sub-phase."""
+    over int8 KV, (d) and (e) the 1B draft in ragged mode over bf16 and
+    int8 KV, each beside the plain engine of its KV type. Returns the
+    plain engines' texts by KV type ("plain") and the kernel launches of
+    each sub-phase ("launches")."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
     from polykey_tpu_torch.models.config import get_config
@@ -2020,6 +2102,10 @@ def phase_spec(seed: int, params, card: str) -> dict:
         ("(b) self-draft, bf16 KV", "", dict(draft_model="llama-3-8b",
                                               top_p_candidates=64), params),
         ("(c) 1B draft, int8 KV", "int8", dict(draft_model="llama-3.2-1b"), None),
+        ("(d) 1B draft, ragged, bf16 KV", "", dict(draft_model="llama-3.2-1b",
+                                                    ragged_dispatch=True), None),
+        ("(e) 1B draft, ragged, int8 KV", "int8", dict(draft_model="llama-3.2-1b",
+                                                        ragged_dispatch=True), None),
     ]
     launches = {}
     for label, kv, extra, draft in subs:
@@ -2031,6 +2117,8 @@ def phase_spec(seed: int, params, card: str) -> dict:
                                     draft_params=draft))
         try:
             engine = eng.engine
+            ragged = config.ragged_dispatch
+            marks = _time_ragged(engine) if ragged else []
             st = engine.stats()
             by = st["graph_pool_bytes_by_body"]
             say("spec", f"{label}: engine up in {time.monotonic() - t0:.1f} s; graphs "
@@ -2040,8 +2128,11 @@ def phase_spec(seed: int, params, card: str) -> dict:
                 f"{engine._gamma_max}); pool {by.get('prefill', 0) / 2**20:.1f} MiB "
                 f"before the spec keys, {st['graph_pool_bytes'] / 2**20:.1f} MiB after; "
                 f"KV pools {st['kv_pool_bytes'] / 2**30:.4f} GiB target, "
-                f"{st['draft_kv_pool_bytes'] / 2**30:.4f} GiB draft on {card}")
-            got = eng.generate(SPEC_GREEDY)
+                f"{st['draft_kv_pool_bytes'] / 2**30:.4f} GiB draft on {card}"
+                + (f"; ragged spec stream widths {st['ragged_spec_width']}" if ragged else ""))
+            # Ragged: the document goes in once the other four have their
+            # first tokens, so its chunks ride with their verify windows.
+            got = eng.generate(SPEC_GREEDY, late=1 if ragged else 0)
             greedy = engine.stats()
             ties = _hold_texts(label, params, cfg, engine.tokenizer, SPEC_GREEDY, got,
                                plain_texts[kv])
@@ -2098,17 +2189,99 @@ def phase_spec(seed: int, params, card: str) -> dict:
             check(st["prefill_eager"] == 0, f"spec {label}: a prefill ran eagerly")
             check(counts[dec] > 0 and counts[wr] > 0,
                   f"spec {label}: the decode or write kernel did not launch: {counts}")
-            check(counts["ragged_paged_attention"] == 0
-                  and counts["ragged_paged_attention_int8"] == 0,
-                  f"spec {label}: a ragged kernel launched: {counts}")
+            rag = "ragged_paged_attention_int8" if int8 else "ragged_paged_attention"
+            if ragged:
+                say("spec", f"{label}: ragged dispatches {st['ragged_dispatches']}, of "
+                    f"them {st['ragged_spec_dispatches']} ragged spec dispatches carrying "
+                    f"{st['ragged_spec_verify_lanes']} verify windows in all; "
+                    f"{st['ragged_behind_inflight']} went out behind a block in flight")
+                _ragged_walls(label, marks, card)
+                check(counts[rag] > 0 and st["ragged_dispatches"] > 0,
+                      f"spec {label}: no ragged dispatch or kernel launch: {counts}")
+                check(st["ragged_spec_verify_lanes"] > 0,
+                      f"spec {label}: no verify window rode the ragged stream")
+                check(counts["flash_attention"] == 0,
+                      f"spec {label}: flash launched in ragged mode: {counts}")
+            else:
+                check(counts["ragged_paged_attention"] == 0
+                      and counts["ragged_paged_attention_int8"] == 0,
+                      f"spec {label}: a ragged kernel launched: {counts}")
             launches[label] = counts
         finally:
             eng.close()
         sync()
-    return launches
+    return {"plain": plain_texts, "launches": launches}
 
 
-# -- phase 13 --------------------------------------------------------------
+# -- phase 12 --------------------------------------------------------------
+
+def phase_generate(seed: int, params, card: str, plain: list) -> None:
+    """Offline generation over a contiguous cache on the serve weights
+    (module docstring, phase 12): `generate` greedy on LONG's two prompts,
+    held to the plain engine's texts (`plain`, SPEC_GREEDY's order) under
+    the near-tie rule; `speculative_generate` with the 1B draft and with
+    the target as its own draft, held to `generate`'s."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.sampling import SamplingParams
+    from polykey_tpu_torch.engine.tokenizer import load_tokenizer
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.generate import generate
+    from polykey_tpu_torch.models.speculative import speculative_generate
+    from polykey_tpu_torch.models.transformer import init_params
+    from polykey_tpu_torch.ops import flash_attention
+
+    cfg = get_config("llama-3-8b")
+    tokenizer = load_tokenizer(EngineConfig().tokenizer)
+    prompts = [LONG[0], LONG[1]]
+    want = [plain[SPEC_GREEDY.index(p)] for p in prompts]
+    ids = [tokenizer.encode(p) for p in prompts]
+    B, T, max_new, max_len = len(ids), max(len(x) for x in ids), 32, 1024
+    check(min(len(x) for x in ids) >= 128, f"prompts of {[len(x) for x in ids]} tokens")
+    tokens = torch.zeros((B, T), dtype=torch.int32)
+    for b, x in enumerate(ids):
+        tokens[b, :len(x)] = torch.tensor(x, dtype=torch.int32)
+    tokens = tokens.cuda()
+    lens = torch.tensor([len(x) for x in ids], dtype=torch.int32, device="cuda")
+    sampling = SamplingParams(max_new_tokens=max_new)
+
+    def timed(fn, *args, **kw):
+        flash_attention.KERNEL.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        return [x.cpu() for x in out], time.perf_counter() - t0, flash_attention.KERNEL.launches
+
+    (out, n), wall, flash = timed(generate, params, cfg, tokens, lens, seed, sampling, max_len)
+    check((n == max_new).all(), f"generate: num_generated {n.tolist()}")
+    check(flash > 0, "generate: the flash kernel did not launch")
+    rows = [(out[b].tolist(),) for b in range(B)]
+    ties = _hold_texts("generate", params, cfg, tokenizer, prompts, rows, want)
+    say("generate", f"generate: {B} prompts of {lens.tolist()} tokens (window {T}), "
+        f"{max_new} greedy tokens each, cache of {max_len} positions: texts equal to the "
+        f"plain engine's but at {ties} near-ties; flash launches {flash} "
+        f"({cfg.num_layers} layers x the prefill); {wall:.2f} s, {B * max_new / wall:.1f} "
+        f"tok/s over the batch ({max_new / wall:.1f} per row) on {card}")
+    d_cfg = get_config("llama-3.2-1b")
+    d_params = init_params(d_cfg, torch.bfloat16, "cuda",
+                           torch.Generator(device="cuda").manual_seed(seed + 2))
+    for label, dp, dc in (("1B draft", d_params, d_cfg), ("self-draft", params, cfg)):
+        (s_out, s_n, acc, prop), s_wall, s_flash = timed(
+            speculative_generate, params, cfg, dp, dc, tokens, lens, seed, sampling,
+            max_len, gamma=4, return_stats=True)
+        check((s_n == max_new).all(), f"speculative_generate {label}: {s_n.tolist()}")
+        check(s_flash > 0, f"speculative_generate {label}: the flash kernel did not launch")
+        s_rows = [(s_out[b].tolist(),) for b in range(B)]
+        ties = _hold_texts(f"speculative_generate, {label}", params, cfg, tokenizer,
+                           prompts, s_rows, rows, "generate's")
+        say("generate", f"speculative_generate, {label}, gamma 4, greedy: texts equal "
+            f"to generate's but at {ties} near-ties; acceptance {int(acc)}/{int(prop)} = "
+            f"{int(acc) / max(1, int(prop)):.4f}; flash launches {s_flash}; {s_wall:.2f} s, "
+            f"{B * max_new / s_wall:.1f} tok/s over the batch on {card}")
+    del d_params
+
+
+# -- phase 14 --------------------------------------------------------------
 
 def _hf_tensors(params, cfg) -> list:
     """(HF name, tensor, transpose) of each tensor of the port's tree, in
@@ -2503,7 +2676,9 @@ def main() -> int:
     sync()
     phase_prefix(args.seed, params, dev["smi"])
     sync()
-    phase_spec(args.seed, params, dev["smi"])
+    spec = phase_spec(args.seed, params, dev["smi"])
+    sync()
+    phase_generate(args.seed, params, dev["smi"], spec["plain"][""])
     sync()
     del params
     gc.collect()

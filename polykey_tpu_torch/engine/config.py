@@ -4,8 +4,8 @@ The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
 for them fails at startup instead of being served by something else:
-replica and disaggregated pools, mesh axes above 1, the spec round on the
-ragged stream, and the reference's spec A/B instrumentation. Local
+replica and disaggregated pools, mesh axes above 1, and the reference's
+spec A/B instrumentation. Local
 safetensors checkpoints (`checkpoint_path`, `draft_checkpoint_path`;
 models/loader.py), weight-only int8/int4 (`quantize`,
 `quantize_bits`), chunked prefill
@@ -14,8 +14,8 @@ the int8 KV cache (`kv_dtype="int8"`), the lookahead pipeline
 (`lookahead_blocks`), the adaptive block (`adaptive_block`), and the
 prefix cache with its host-KV tier and durable state dir (`prefix_cache`,
 `host_kv_bytes`, `kv_state_dir`), speculative decoding (`draft_model`,
-`spec_gamma`, `adaptive_gamma`) and the top-p candidate prefilter
-(`top_p_candidates`) are served.
+`spec_gamma`, `adaptive_gamma`; in either dispatch mode) and the top-p
+candidate prefilter (`top_p_candidates`) are served.
 """
 
 from __future__ import annotations
@@ -294,8 +294,6 @@ class EngineConfig:
         unported = [
             (self.replicas > 1 or bool(self.disagg), "replicas / disagg",
              "replica and disagg pools"),
-            (self.ragged_dispatch and self.draft_model is not None,
-             "ragged_dispatch with draft_model", "A.7 remainder: ragged × spec"),
             (self.spec_host_sync, "spec_host_sync",
              "scripts/occupancy_soak.py's A/B instrumentation"),
             (max(self.tp, self.dp, self.ep, self.sp, self.pp,

@@ -55,7 +55,11 @@ GPU (the reference's engine/engine.py, default path).
   as an in-flight block like a decode block; pure-decode iterations
   replay the K-step block. Its kernel work list is built from the host's
   lengths plus the steps in flight, an estimate: the kernel reads the
-  true key counts on the device.
+  true key counts on the device. A speculative engine's iterations with
+  prefill work run the round on the same stream (`ragged_spec_fn`): each
+  live lane's verify window is a ragged range beside the prompts' ranges,
+  one eager dispatch returned as an in-flight round; pure-decode
+  iterations replay the round's graph.
 - RNG: every sampled draw is keyed by (request seed, token position)
   (engine/sampling.py), so a seeded stream does not depend on the batch.
 - int8 KV (`kv_dtype="int8"`, POLYKEY_KV_DTYPE=int8): int8 value pools
@@ -112,8 +116,7 @@ GPU (the reference's engine/engine.py, default path).
   A.14).
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch, speculative rounds on the ragged stream, the disaggregated
-handoff, the replica pools, mesh axes above 1.
+dispatch, the disaggregated handoff, the replica pools, mesh axes above 1.
 """
 
 from __future__ import annotations
@@ -157,7 +160,13 @@ from .kv_cache import (
 from .metrics import EngineMetrics, RequestTimings
 from .prefix_cache import TIER_DEVICE, TIER_HOST, PrefixCache, PrefixStateStore
 from .sampling import sample_tail
-from .spec_decode import GAMMA_EWMA_BETA, SPEC_STAT_COLS, spec_decode_fn, spec_prefill_fn
+from .spec_decode import (
+    GAMMA_EWMA_BETA,
+    SPEC_STAT_COLS,
+    ragged_spec_fn,
+    spec_decode_fn,
+    spec_prefill_fn,
+)
 from .tokenizer import load_tokenizer
 
 _MAX_PREFILL_GROUP = 8   # burst admissions batched per prefill dispatch
@@ -843,11 +852,19 @@ class InferenceEngine:
             "POLYKEY_DISABLE_RAGGED", ""
         ).lower() not in ("1", "true")
         # Prefill stream width: the budget, floored at one chunk and padded
-        # so the whole stream (B + W rows) is a multiple of TOKEN_TILE.
+        # so the whole stream (B + W rows) is a multiple of TOKEN_TILE. A
+        # speculative engine's stream holds B (gamma + 1) verify rows first,
+        # so its width is per gamma rung.
         W = max(self._prefill_budget, self._chunk)
         self._ragged_width = W + (-(B + W)) % TOKEN_TILE
+        self._ragged_spec_width = {
+            g: W + (-(B * (g + 1) + W)) % TOKEN_TILE
+            for g in sorted({self._gamma_low, self._gamma_max})
+        } if self._spec else {}
         self._ragged_dispatches = 0
         self._ragged_behind = 0      # dispatched with a block in flight
+        # Ragged spec dispatches, and the verify lanes they carried.
+        self._ragged_spec_dispatches = self._ragged_spec_lanes = 0
 
         # CUDA graphs, captured on the engine thread before it serves: one
         # decode block per (greedy, steps), and in bucketed mode one
@@ -941,6 +958,10 @@ class InferenceEngine:
             snap["ragged_width"] = self._ragged_width
             snap["ragged_dispatches"] = self._ragged_dispatches
             snap["ragged_behind_inflight"] = self._ragged_behind
+            if self._spec:
+                snap["ragged_spec_width"] = dict(self._ragged_spec_width)
+                snap["ragged_spec_dispatches"] = self._ragged_spec_dispatches
+                snap["ragged_spec_verify_lanes"] = self._ragged_spec_lanes
         if self._prefix is not None:
             snap.update(self._prefix.stats())
         # The host tier's fields are always present (0 without a tier).
@@ -1572,9 +1593,11 @@ class InferenceEngine:
         """The next ragged dispatch's token ranges: round-robin from the
         cursor over slots with pending prompt tokens, one range of up to a
         chunk per slot, until the budget (while decode lanes are live) or
-        the stream width is spent; the first range always goes. Returns
+        the stream width is spent; the first range always goes. A
+        speculative engine builds to its narrowest rung's width, so the
+        batch fits whichever dispatch the round's gate picks. Returns
         [(slot_idx, slot, take)]."""
-        W = self._ragged_width
+        W = min([self._ragged_width, *self._ragged_spec_width.values()])
         budget = min(self._prefill_budget, W) if self._active.any() else W
         ranges: list = []
         spent = 0
@@ -1637,53 +1660,91 @@ class InferenceEngine:
             off += take
         return ops, off
 
-    def _dispatch_ragged(self, ranges: list) -> Optional[_InflightBlock]:
-        """One flat mixed prefill+decode dispatch of `ranges` plus every
-        decode lane's single token, without waiting for it or for the
-        blocks in flight: final-range slots merge on the device and get
-        their first-token handles, and the decode lanes' packed [1, B] row
-        comes back as an in-flight block. Returns None when the dispatch
-        failed (its ranged slots are finished, the lanes are untouched)."""
+    def _steps_in_flight(self) -> int:
+        """Decode steps of the blocks in flight, by the host's count: K for
+        a decode block, 1 for a ragged dispatch, gamma + 1 for a spec round
+        (its host copy is the packed [B, gamma + 1 + SPEC_STAT_COLS]
+        matrix), however many a lane really takes."""
+        return sum(blk.host.shape[0] if blk.kind == "decode"
+                   else blk.host.shape[1] - SPEC_STAT_COLS for blk in self._inflight_q)
+
+    def _ragged_work_lists(self, ops, W: int, G1: int, models) -> list:
+        """The ragged kernel's work list for each model config of `models`
+        (it depends on the heads) over a stream of B lanes of G1 rows each
+        (1: the decode lanes' single tokens; gamma + 1: the verify windows)
+        and the W prefill rows of `ops`. From host values: with blocks in
+        flight the host's lengths lag the device's, so live lanes count the
+        steps in flight on top, capped at their caps, an estimate that
+        sizes the splits and orders the CTAs; the kernel reads the true key
+        counts on the device."""
+        B = self.config.max_decode_slots
+        act = self._active
+        kv_est = np.where(act, np.minimum(self._seq_lens + self._steps_in_flight(),
+                                          self._caps), self._seq_lens)
+        starts = np.concatenate([np.arange(B) * G1, B * G1 + ops[4]])
+        lens = np.concatenate([np.full(B, G1, np.int32), ops[5]])
+        kvs = np.concatenate([np.maximum(kv_est, 1) + G1 - 1, ops[6]])
+        return [ragged_work(starts, lens, kvs, B * G1 + W, mc.num_heads // mc.num_kv_heads,
+                            mc.num_kv_heads, "cpu") for mc in models]
+
+    def _dispatch_ragged(self, ranges: list,
+                         spec_candidates: Optional[int] = None) -> Optional[_InflightBlock]:
+        """One flat mixed dispatch of `ranges` plus every decode lane,
+        without waiting for it or for the blocks in flight: final-range
+        slots merge on the device and get their first-token handles. Plain
+        (`_ragged_fn`): each lane's single token, the packed [1, B] row
+        back as an in-flight block. With `spec_candidates` (the round's
+        candidates count, `ragged_spec_fn` at the current rung): each lane's
+        verify window, the round's packed matrix back as an in-flight round;
+        a round is gamma + 1 steps of the pipeline's accounting, and the
+        padding counts the prefill rows only. Returns
+        None when the dispatch failed (its ranged slots are finished, the
+        lanes are untouched)."""
         cfg = self.config
-        W = self._ragged_width
         B = cfg.max_decode_slots
+        spec = spec_candidates is not None
+        gamma = self._gamma
+        G1 = gamma + 1 if spec else 1
+        W = self._ragged_spec_width[gamma] if spec else self._ragged_width
         ops, useful = self._ragged_prefill_operands(ranges, W)
         act = self._active
         lanes = int(act.sum())
         smp_temp = ops[11]
         greedy = bool(np.all(self._temperature[act] == 0.0)) and bool(
             np.all(smp_temp == 0.0))
-        # The kernel's work list from host values. With blocks in flight
-        # the host's lengths lag the device's, so decode lanes count the
-        # steps in flight on top, capped at their caps: an estimate that
-        # sizes the splits and orders the CTAs; the kernel reads the true
-        # key counts on the device.
-        mc = self.model_cfg
-        ahead = sum(blk.host.shape[0] for blk in self._inflight_q)
-        kv_est = np.where(act, np.minimum(self._seq_lens + ahead, self._caps),
-                          self._seq_lens)
-        work = ragged_work(
-            np.concatenate([np.arange(B), B + ops[4]]),
-            np.concatenate([np.ones(B, np.int32), ops[5]]),
-            np.concatenate([np.maximum(kv_est, 1), ops[6]]),
-            B + W, mc.num_heads // mc.num_kv_heads, mc.num_kv_heads, "cpu",
-        )
-        *ops_dev, items = _to_device([*ops, work.items.numpy()], self.device)
-        work = dataclasses.replace(work, items=items)
-        self._depth_target = self._depth
-        self.metrics.on_dispatch(lanes, 1, slots=B)
+        models = (self.model_cfg, self.draft_cfg) if spec else (self.model_cfg,)
+        works = self._ragged_work_lists(ops, W, G1, models)
+        on_dev = _to_device([*ops, *(w.items.numpy() for w in works)], self.device)
+        ops_dev = on_dev[:len(ops)]
+        works = [dataclasses.replace(w, items=items)
+                 for w, items in zip(works, on_dev[len(ops):])]
+        if spec:
+            self._depth_target = min(
+                self._depth, max(1, -(-self._remaining_budget(act) // G1)))
+        else:
+            self._depth_target = self._depth
+        self.metrics.on_dispatch(lanes, G1, slots=B)
         self.metrics.on_padding_tokens(W, useful)
         self.metrics.on_prefill_interleave(useful, lanes > 0)
         dev = self._dev
+        lane_state = [dev[k] for k in ("last_tokens", "seq_lens", "page_tables", "active",
+                                       "caps", "seeds", "temperature", "top_p", "top_k")]
         try:
-            packed_dev, last, seq, active, first_dev, self.paged = _ragged_fn(
-                self.params, mc, self.paged,
-                dev["last_tokens"], dev["seq_lens"], dev["page_tables"],
-                dev["active"], dev["caps"], dev["seeds"], dev["temperature"],
-                dev["top_p"], dev["top_k"], *ops_dev,
-                greedy=greedy, eos_id=self.tokenizer.eos_id, work=work,
-                candidates=cfg.top_p_candidates,
-            )
+            if spec:
+                packed_dev, first_dev = ragged_spec_fn(
+                    self.params, self.draft_params, self.model_cfg, self.draft_cfg,
+                    self.paged, self.d_paged, *lane_state, dev["accept_ewma"],
+                    dev["gamma_lane"], *ops_dev,
+                    gamma=gamma, eos_id=self.tokenizer.eos_id, gamma_low=self._gamma_low,
+                    gamma_max=self._gamma_max, greedy=greedy,
+                    candidates=spec_candidates, t_work=works[0], d_work=works[1],
+                )
+            else:
+                packed_dev, *lane, first_dev, self.paged = _ragged_fn(
+                    self.params, self.model_cfg, self.paged, *lane_state, *ops_dev,
+                    greedy=greedy, eos_id=self.tokenizer.eos_id, work=works[0],
+                    candidates=cfg.top_p_candidates,
+                )
         except Exception as e:
             # Contained to the ranged slots, as a failed prefill group is;
             # the decode lanes' state was not advanced.
@@ -1691,12 +1752,15 @@ class InferenceEngine:
                 if self._slots[i] is s:
                     self._finish(i, error=f"prefill failed: {e}")
             return None
-        # In place: the decode graphs captured these buffers.
-        dev["last_tokens"].copy_(last)
-        dev["seq_lens"].copy_(seq)
-        dev["active"].copy_(active)
+        if not spec:
+            # In place: the decode graphs captured these buffers.
+            for name, t in zip(("last_tokens", "seq_lens", "active"), lane):
+                dev[name].copy_(t)
         self._ragged_dispatches += 1
         self._ragged_behind += bool(self._inflight_q)
+        if spec:
+            self._ragged_spec_dispatches += 1
+            self._ragged_spec_lanes += lanes
         self._dispatch_seq += 1
         reqs = self._snapshot_requests()
         pre_tables, smp_seeds = ops_dev[3], ops_dev[10]
@@ -1707,34 +1771,45 @@ class InferenceEngine:
                 finals.append(i)
             else:
                 s.filled += take
-        # One copy to host memory: the packed decode row, then the first
-        # tokens (slot i's at B + i).
+        # One copy to host memory: the packed tokens, then the first tokens
+        # (slot i's at n + i).
+        n = packed_dev.numel()
         host, event = self._await_first_tokens(
-            torch.cat([packed_dev.reshape(-1), first_dev]), [(i, B + i) for i in finals])
-        return _InflightBlock(host[:B].view(1, B), event, reqs, self._dispatch_seq)
+            torch.cat([packed_dev.reshape(-1), first_dev]), [(i, n + i) for i in finals])
+        return _InflightBlock(host[:n].view(packed_dev.shape), event, reqs,
+                              self._dispatch_seq, "spec" if spec else "decode")
 
     def _dispatch_step(self) -> Optional[_InflightBlock]:
-        """Dispatch one decode block, or in ragged mode with pending
-        prefill work one ragged dispatch, without waiting for it or for
-        the blocks in flight; returns its in-flight record, or None when
-        there was nothing to dispatch."""
-        if self._ragged and self._has_pending_prefill():
-            ranges = self._build_ragged_batch()
-            block = self._dispatch_ragged(ranges) if ranges else None
-            if block is not None or not self._active.any():
-                return block
+        """Dispatch one decode block, spec round or, in ragged mode with
+        pending prefill work, one ragged dispatch (a spec engine's carries
+        the round when its gate is on), without waiting for it or for the
+        blocks in flight; returns its in-flight record, or None when there
+        was nothing to dispatch."""
         act = self._active
+        # The round's gate (the reference's): every active row untruncated
+        # (greedy rows count as such; the round then skips the truncation,
+        # candidates 0), or the prefilter on, which lets top_p < 1 rows
+        # speculate. Otherwise the plain block (or ragged dispatch) goes
+        # out; the draft's pools then miss its steps and acceptance drops,
+        # never correctness. None: the gate is off.
+        spec_cand = None
         if self._spec:
-            # The round's gate (the reference's): every active row
-            # untruncated (greedy rows count as such), or the prefilter on,
-            # which lets top_p < 1 rows speculate. Otherwise the plain block
-            # goes out; the draft's pools then miss its steps and
-            # acceptance drops, never correctness.
             untruncated = bool(np.all(
                 ((self._top_p[act] >= 1.0) & (self._top_k[act] <= 0))
                 | (self._temperature[act] == 0.0)))
             if untruncated or self.config.top_p_candidates > 0:
-                return self._dispatch_spec(act, untruncated)
+                spec_cand = 0 if untruncated else self.config.top_p_candidates
+        if self._ragged and self._has_pending_prefill():
+            ranges = self._build_ragged_batch()
+            block = None
+            if ranges:
+                block = (self._dispatch_ragged(ranges) if spec_cand is None
+                         else self._dispatch_ragged(ranges, spec_cand))
+            if block is not None or not self._active.any():
+                return block
+            act = self._active
+        if spec_cand is not None:
+            return self._dispatch_spec(act, spec_cand)
         lanes = int(act.sum())
         # The greedy graph skips the sampler's sort and draws; host
         # `_active` covers every lane live on the device, so it is safe.
@@ -1767,14 +1842,12 @@ class InferenceEngine:
             candidates=self.config.top_p_candidates,
         )
 
-    def _dispatch_spec(self, act, untruncated: bool) -> _InflightBlock:
+    def _dispatch_spec(self, act, cand: int) -> _InflightBlock:
         """Dispatch one draft/verify round at the current rung, a replay of
-        the (gamma, greedy, candidates) graph: candidates 0 when every
-        active row is untruncated (the round then skips the truncation).
-        A round is gamma + 1 steps of the pipeline's accounting."""
+        the (gamma, greedy, candidates `cand`) graph. A round is gamma + 1
+        steps of the pipeline's accounting."""
         lanes = int(act.sum())
         greedy = bool(np.all(self._temperature[act] == 0.0))
-        cand = 0 if untruncated else self.config.top_p_candidates
         gamma = self._gamma
         steps = gamma + 1
         blocks_needed = max(1, -(-self._remaining_budget(act) // steps))

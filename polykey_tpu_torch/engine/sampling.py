@@ -14,10 +14,14 @@ the top-p / top-k set within them, with probabilities normalized by the
 full-vocabulary logsumexp, so the keep rule is the exact path's whenever
 the kept set fits in C. A candidate's noise is the noise of its vocab
 index, so such a row draws the same token on either path.
+
+The offline generation path takes a static `SamplingParams` through
+`sample`, with the same keyed draws.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -30,6 +34,21 @@ _M32 = 0xFFFFFFFF
 DRAFT_TAG = 101
 ACCEPT_TAG = 102
 EXTRA_TAG = 103
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Static sampling configuration of the offline generation path
+    (models/generate.py, models/speculative.py)."""
+
+    temperature: float = 0.0   # 0 -> greedy
+    top_k: int = 0             # 0 -> disabled
+    top_p: float = 1.0         # 1.0 -> disabled
+    max_new_tokens: int = 128
+
+    @property
+    def is_greedy(self) -> bool:
+        return self.temperature == 0.0
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -210,3 +229,28 @@ def sample_tail(logits, seeds, positions, temperature, top_p, top_k, greedy: boo
         noise = gumbel_noise(seeds, positions, V)
         sampled = torch.argmax(masked + noise, dim=-1).to(torch.int32)
     return torch.where(temperature == 0.0, greedy_tok, sampled)
+
+
+def sample(logits: torch.Tensor, seeds: torch.Tensor, positions: torch.Tensor,
+           sampling: SamplingParams) -> torch.Tensor:
+    """Token ids [B] from logits [B, V] under the static `sampling`, as the
+    reference's `sample`: greedy takes the argmax; otherwise the logits at
+    the temperature are cut to the top k (ties at the k-th value kept),
+    then to the top-p set of what is left (renormalized, the shared keep
+    rule), and each row draws by Gumbel-max keyed by (its seed `seeds[row]`
+    [B, 2], `positions[row]`) with the port's bits."""
+    if sampling.is_greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    B, V = logits.shape
+    scaled = logits / sampling.temperature
+    neg = torch.full_like(scaled, float("-inf"))
+    if sampling.top_k > 0:
+        kth = torch.topk(scaled, min(sampling.top_k, V), dim=-1).values[..., -1:]
+        scaled = torch.where(scaled < kth, neg, scaled)
+    if sampling.top_p < 1.0:
+        top_p = torch.full((B,), sampling.top_p, device=logits.device)
+        no_k = torch.zeros((B,), dtype=torch.int32, device=logits.device)
+        thr_p, _ = truncation_thresholds(scaled, top_p, no_k)
+        scaled = torch.where(scaled < thr_p, neg, scaled)
+    noise = gumbel_noise(seeds, positions, V)
+    return torch.argmax(scaled + noise, dim=-1).to(torch.int32)

@@ -32,6 +32,12 @@ token is the bonus draw from the target's distribution at the frontier.
 `greedy=True` (an all-greedy batch) skips the distributions, the draws
 and the truncation: its packed output equals the sampled body's on such a
 batch. Draws are `sampling.TaggedDraws`, keyed by (seed, position, tag).
+
+`ragged_spec_fn` is the same round on the ragged stream (the reference's
+ragged x spec dispatch): the verify windows ride one flat stream with the
+prefill ranges of prompts being admitted, through one `forward_ragged`
+per model (the ragged attention kernel), so admissions do not wait for a
+round of their own.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.speculative import rejection_accept, residual_extra_dist
-from ..models.transformer import forward_paged, unembed
+from ..models.transformer import forward_paged, forward_ragged, unembed
 from .sampling import (
     ACCEPT_TAG,
     DRAFT_TAG,
@@ -255,3 +261,90 @@ def spec_decode_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
     accept_ewma.copy_(new_ewma)
     gamma_lane.copy_(new_gamma)
     return packed
+
+
+def ragged_spec_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
+                   t_paged, d_paged, last_tokens, seq_lens, page_tables, active, caps,
+                   seeds, temperature, top_p, top_k, accept_ewma, gamma_lane,
+                   pre_tokens, pre_pos, pre_table_idx, pre_tables,
+                   pre_range_start, pre_range_len, pre_range_kv, pre_range_table,
+                   pre_sample_idx, pre_sample_pos, pre_seeds, pre_temp, pre_top_p,
+                   pre_top_k, *, gamma: int, eos_id: int, gamma_low: Optional[int] = None,
+                   gamma_max: Optional[int] = None, greedy: bool = False,
+                   candidates: int = 0, t_work=None, d_work=None,
+                   draws: Optional[TaggedDraws] = None):
+    """One ragged dispatch of mixed prefill and speculative verify: every
+    decode lane runs a whole draft/verify round and up to W prefill tokens
+    advance, in one flat `forward_ragged` per model.
+
+    The flat stream: rows [0, B (gamma + 1)) are the verify windows [prev,
+    drafts], lane-major (lane b's window at rows b (gamma + 1)..), then the
+    W-row prefill stream with the engine's `_ragged_fn` operand contract
+    (`pre_table_idx` B: the all-garbage table row; unused ranges sit past
+    the stream's end). The B verify ranges (start b (gamma + 1), length
+    gamma + 1, KV max(seq_lens, 1) + gamma) come before the prefill ranges.
+    The draft's forward runs over the same stream: its verify rows rewrite
+    the draft's pools over the window (the bucketed round's sync) and its
+    prompt rows prefill them (the bucketed prefill's second forward).
+    Inactive lanes carry position 0 and all-garbage tables, so their
+    windows write only page 0.
+
+    The drafts come from `_draft_scan` and the acceptance from
+    `_accept_merge`, as in `spec_decode_fn`; slot b's first token is drawn
+    from prefill row `pre_sample_idx[b]` at position key
+    `pre_sample_pos[b]`, as in `_ragged_fn` (the host reads only final
+    ranges' draws). `t_work` and `d_work` are each model's ragged kernel
+    work list (`ragged_work` depends on the heads). The lane state advances
+    IN PLACE; returns (packed [B, gamma + 1 + SPEC_STAT_COLS], first [B])."""
+    gamma_low = gamma if gamma_low is None else gamma_low
+    gamma_max = gamma if gamma_max is None else gamma_max
+    B = last_tokens.shape[0]
+    W = pre_tokens.shape[0]
+    G1 = gamma + 1
+    dev = last_tokens.device
+    i32 = torch.int32
+    pos = torch.clamp(seq_lens - 1, min=0)
+    greedy_row = temperature == 0.0
+    temp = torch.clamp(temperature, min=1e-6)
+    draws = TaggedDraws(seeds) if draws is None else draws
+    eff_top_p = torch.where(greedy_row, torch.ones_like(top_p), top_p)
+    eff_top_k = torch.where(greedy_row, torch.zeros_like(top_k), top_k)
+
+    drafts, d_dists = _draft_scan(
+        d_params, d_cfg, d_paged, last_tokens, pos, page_tables, greedy_row, temp,
+        eff_top_p, eff_top_k, draws, gamma, candidates, greedy,
+    )
+    window = torch.cat([last_tokens[:, None], drafts], dim=1)
+    w_pos = pos[:, None] + torch.arange(G1, dtype=i32, device=dev)[None, :]
+    tokens = torch.cat([window.reshape(-1), pre_tokens])
+    positions = torch.cat([w_pos.reshape(-1), pre_pos]).to(i32)
+    tables_ext = torch.cat([pre_tables, torch.zeros_like(pre_tables[:1])])
+    token_tables = torch.cat([page_tables.repeat_interleave(G1, dim=0),
+                              tables_ext[pre_table_idx.long()]])
+    rng_starts = torch.cat([torch.arange(B, dtype=i32, device=dev) * G1,
+                            B * G1 + pre_range_start])
+    rng_lens = torch.cat([torch.full((B,), G1, dtype=i32, device=dev), pre_range_len])
+    rng_kv = torch.cat([torch.clamp(seq_lens, min=1) + gamma, pre_range_kv])
+    seq_tables = torch.cat([page_tables, tables_ext[pre_range_table.long()]])
+    ranges = (rng_starts, rng_lens, rng_kv, seq_tables)
+    hidden, t_paged = forward_ragged(t_params, t_cfg, tokens, positions, t_paged,
+                                     token_tables, *ranges, work=t_work)
+    t_logits = unembed(t_params, t_cfg, hidden[:B * G1].reshape(B, G1, -1))
+    forward_ragged(d_params, d_cfg, tokens, positions, d_paged, token_tables, *ranges,
+                   work=d_work)
+
+    packed, new_last, new_seq, new_active, new_ewma, new_gamma = _accept_merge(
+        t_logits, drafts, d_dists, last_tokens, seq_lens, active, caps, accept_ewma,
+        gamma_lane, pos, greedy_row, temp, eff_top_p, eff_top_k, draws,
+        gamma=gamma, gamma_low=gamma_low, gamma_max=gamma_max, eos_id=eos_id,
+        candidates=candidates, greedy=greedy,
+    )
+    rows = hidden[B * G1 + torch.clamp(pre_sample_idx, 0, W - 1).long()]
+    first = sample_tail(unembed(t_params, t_cfg, rows), pre_seeds, pre_sample_pos,
+                        pre_temp, pre_top_p, pre_top_k, greedy, candidates)
+    last_tokens.copy_(new_last)
+    seq_lens.copy_(new_seq)
+    active.copy_(new_active)
+    accept_ewma.copy_(new_ewma)
+    gamma_lane.copy_(new_gamma)
+    return packed, first

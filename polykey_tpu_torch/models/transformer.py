@@ -1,5 +1,6 @@
-"""Config-driven transformer over the paged KV cache (the reference's
-models/transformer.py, serving path).
+"""Config-driven transformer (the reference's models/transformer.py): the
+serving path over the paged KV cache, and `forward` over a contiguous
+cache (offline generation, models/generate.py) or none (scoring).
 
 Parameters are a plain dict: "embed" [V, H], "final_norm" [H], optional
 "lm_head" [H, V], and "layers", a LIST of per-layer dicts ("attn": wq, wk,
@@ -14,14 +15,38 @@ converts the reference's stacked pytree into this form.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
+from ..ops.attention import attention
 from ..ops.moe import moe_mlp, moe_mlp_dispatch
 from .config import ModelConfig
 from .layers import mlp, qkv_project, rms_norm, rope
 from .quant import embed_lookup, qdot, quantize, quantize_embed, quantize_tree, unembed_logits
+
+
+@dataclass
+class KVCache:
+    """Contiguous per-layer KV cache, [num_layers, B, S, num_kv_heads,
+    head_dim]: slot s of a row holds the token at position s. The simple
+    generation path (a fixed batch to a fixed length); the engine serves
+    from the paged cache (engine/kv_cache.py)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def num_slots(self) -> int:
+        return self.k.shape[2]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device="cpu") -> KVCache:
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _normal(shape, std, dtype, device, generator) -> torch.Tensor:
@@ -144,6 +169,75 @@ def apply_layer(layer_params: dict, layer_idx: int, x, positions, cfg: ModelConf
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, layer_params["post_ln2"], eps, norm_offset)
     return x + mlp_out
+
+
+def make_causal_attend(cfg: ModelConfig, positions: torch.Tensor):
+    """No-cache causal attention over `positions` [B, T]: each query sees
+    the current tokens at or before its position (inside the layer's
+    window for Gemma's sliding layers), through the plain attention."""
+    q_pos = positions[:, :, None]
+    kv_pos = positions[:, None, :]
+
+    def attend(layer_idx, q, k, v):
+        mask = kv_pos <= q_pos
+        window = layer_window(cfg, layer_idx)
+        if window is not None:
+            mask = mask & (kv_pos > q_pos - window)
+        return attention(q, k, v, mask, scale=cfg.q_scale,
+                         logit_softcap=cfg.attn_logit_softcap)
+
+    return attend
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [B, T] int, right-padded
+    positions: torch.Tensor,     # [B, T] int32 absolute positions
+    cache: Optional[KVCache] = None,
+    attn_override=None,          # (layer_idx, q, k, v) -> ctx; no-cache only
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the stack; returns (hidden [B, T, H], cache).
+
+    With a cache: each layer writes its new K/V at their positions (in
+    place, `index_put_`; every position must lie inside the cache, which
+    raises on one that does not) and attends over the whole cache through
+    `ops.flash_attention.flash_attention` with the layer's window and the
+    soft-cap (the flash kernel on the card where its geometry gate holds,
+    T >= 128 and S >= 128; the plain attention otherwise): prefill and
+    decode share this path. Without one (scoring): causal attention over
+    the current tokens (`make_causal_attend`), or `attn_override`."""
+    if cache is not None and attn_override is not None:
+        raise ValueError(
+            "attn_override applies to the no-cache path only (the cached "
+            "path would silently ignore it and run full attention over the "
+            "gathered cache, defeating the override's purpose)"
+        )
+    if cache is not None:
+        from ..ops.flash_attention import flash_attention
+
+        rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+        idx = (rows.expand_as(positions), positions.long())
+
+        def attend(layer_idx, q, k, v):
+            kc, vc = cache.k[layer_idx], cache.v[layer_idx]
+            kc.index_put_(idx, k.to(kc.dtype))
+            vc.index_put_(idx, v.to(vc.dtype))
+            return flash_attention(
+                q, kc, vc, positions,
+                scale=cfg.q_scale,
+                logit_softcap=cfg.attn_logit_softcap,
+                window=layer_window(cfg, layer_idx),
+            )
+    else:
+        attend = attn_override or make_causal_attend(cfg, positions)
+
+    x = embed_tokens(params, cfg, tokens)
+    for i, layer in enumerate(params["layers"]):
+        x = apply_layer(layer, i, x, positions, cfg, attend)
+    norm_offset = 1.0 if cfg.scale_embeddings else 0.0
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, norm_offset)
+    return x, cache
 
 
 def forward_paged(

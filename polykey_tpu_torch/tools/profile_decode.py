@@ -1,7 +1,7 @@
 """Where a decode step's (or a ragged dispatch's, or a prefill's) time goes, on the GPU.
 
     python -m polykey_tpu_torch.tools.profile_decode [--model M] [--quantize int8|int4]
-        [--context 512] [--seed 0] [--ragged]
+        [--context 512] [--seed 0] [--ragged [--spec]]
         [--kv-dtype int8] [--prefill [T]] [--spec [--gamma 4] [--draft MODEL]] [--graph]
         [--repeat N]
 
@@ -53,7 +53,12 @@ With --spec it runs one speculative draft/verify round instead
 (`engine.spec_decode.spec_decode_fn`, greedy, at --gamma, 4 by default)
 with the draft model --draft (llama-3.2-1b by default, random weights,
 its own pool under the same tables): 16 lanes at `context`, each lane's
-dial at gamma. Each run prints the round's tokens (emitted over all
+dial at gamma. --ragged --spec runs one ragged spec dispatch instead
+(`engine.spec_decode.ragged_spec_fn`, the engine's dispatch of an
+iteration that admits prompts while lanes speculate): the 16 lanes'
+verify windows (gamma + 1 rows each, after the draft's gamma steps) and
+the --ragged prefill stream, through both models' ragged forwards; its
+ragged attention sums both models' ragged kernels. Each run prints the round's tokens (emitted over all
 lanes) and its acceptance, from the packed stat columns; after each
 repeat it measures the round's split, each part a CUDA graph of its own
 timed by CUDA events (`spec_parts`): the draft steps, the verify forward
@@ -106,7 +111,7 @@ def main() -> None:
     if args.ragged and (args.prefill is not None or args.graph):
         raise SystemExit("profile_decode: --ragged profiles its own dispatch, "
                          "alone (--graph takes the block or --prefill)")
-    if args.spec and (args.ragged or args.prefill is not None):
+    if args.spec and args.prefill is not None:
         raise SystemExit("profile_decode: --spec profiles its own round, alone")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
@@ -144,13 +149,16 @@ def main() -> None:
         graph, _ = decode_block(params, cfg, paged, state, steps, graph=True)
         blocks["graph"] = lambda: graph().cpu()
 
+    spec_split = None
     if args.ragged:
         # The engine's stream: W = the default 1024-token budget, padded so
-        # B + W is a multiple of TOKEN_TILE. Two prompts on fresh pages: X
-        # prefills its first chunk (positions 0..511), Y its second
+        # B G1 + W is a multiple of TOKEN_TILE (G1 rows a lane: 1, or a
+        # spec engine's gamma + 1 verify rows). Two prompts on fresh pages:
+        # X prefills its first chunk (positions 0..511), Y its second
         # (512..1023, the final one, which samples Y's first token).
         chunk = max(econf.prefill_buckets)
-        W = 2 * chunk + (-(B + 2 * chunk)) % TOKEN_TILE
+        G1 = args.gamma + 1 if args.spec else 1
+        W = 2 * chunk + (-(B * G1 + 2 * chunk)) % TOKEN_TILE
         pre = ragged_zero_operands(B, W, P)
         (tokens, pos, tidx, ptables, r_start, r_len, r_kv, r_tidx,
          s_idx, s_pos) = pre[:10]
@@ -162,23 +170,45 @@ def main() -> None:
         tidx[: 2 * chunk] = np.repeat([0, 1], chunk)
         r_start[:2], r_len[:2], r_kv[:2], r_tidx[:2] = [0, chunk], chunk, [chunk, 2 * chunk], [0, 1]
         s_idx[1], s_pos[1] = 2 * chunk - 1, 2 * chunk
-        work = ragged_work(
-            np.concatenate([np.arange(B), B + r_start]),
-            np.concatenate([np.ones(B, np.int32), r_len]),
-            np.concatenate([np.full(B, args.context), r_kv]),
-            B + W, cfg.num_heads // cfg.num_kv_heads, cfg.num_kv_heads, dev,
-        )
+
+        def work(mc):
+            return ragged_work(
+                np.concatenate([np.arange(B) * G1, B * G1 + r_start]),
+                np.concatenate([np.full(B, G1, np.int32), r_len]),
+                np.concatenate([np.full(B, args.context + G1 - 1), r_kv]),
+                B * G1 + W, mc.num_heads // mc.num_kv_heads, mc.num_kv_heads, dev,
+            )
+
         pre_dev = [torch.from_numpy(a).to(dev) for a in pre]
         steps = 1
 
         def ragged():
             packed, *_, first, _ = _ragged_fn(
                 params, cfg, paged, *lane_args, *pre_dev, greedy=True, eos_id=-1,
-                work=work,
+                work=work(cfg),
             )
             return torch.cat([packed.reshape(-1), first]).cpu()
 
         blocks = {"ragged": ragged}
+        if args.spec:
+            from ..engine.spec_decode import ragged_spec_fn
+
+            d_cfg, d_params, d_paged = draft_parts(args, econf, paged, state, gen)
+            t_work, d_work = work(cfg), work(d_cfg)
+            live = {k: t.clone() for k, t in state.items()}
+
+            def reset():
+                for k, t in live.items():
+                    state[k].copy_(t)
+
+            def ragged_spec():
+                packed, _first = ragged_spec_fn(
+                    params, d_params, cfg, d_cfg, paged, d_paged,
+                    *(state[k] for k in SPEC_LANES), *pre_dev, gamma=args.gamma,
+                    eos_id=-1, greedy=True, t_work=t_work, d_work=d_work)
+                return packed.cpu()
+
+            blocks = {"ragged spec": ragged_spec}
 
     if args.prefill is not None:
         T = args.prefill
@@ -189,13 +219,18 @@ def main() -> None:
         steps = 1
         blocks = {name: (lambda run=run: run().cpu()) for name, run in runs.items()}
 
-    if args.spec:
+    if args.spec and not args.ragged:
         blocks, reset, spec_split = spec_round(params, cfg, econf, paged, state, args,
                                                gen, graph=args.graph)
         steps = 1
 
     pool = "int8 KV" if int8 else "bf16 KV"
-    if args.spec:
+    if args.spec and args.ragged:
+        where = (f"{cfg.name} {cfg.num_layers} layers {weights} + draft {args.draft}, {pool}, "
+                 f"one ragged spec dispatch: B={B} verify windows of {G1} rows at context "
+                 f"{args.context} + {W}-token prefill stream (chunks at KV 512 and 1024), "
+                 f"gamma {args.gamma}, greedy, on {card}")
+    elif args.spec:
         where = (f"{cfg.name} {cfg.num_layers} layers {weights} + draft {args.draft}, {pool}, "
                  f"one speculative round: B={B} lanes at context {args.context}, "
                  f"gamma {args.gamma}, greedy"
@@ -254,7 +289,7 @@ def main() -> None:
                     numbers["tokens a round"] = tokens
                 for key, value in numbers.items():
                     runs[tag + key].append(value)
-            if args.spec:
+            if spec_split is not None:
                 for part, ms in spec_split().items():
                     print(f"[profile_decode] round part {part}: {ms:.3f} ms (device, "
                           f"its own CUDA graph) on {card}")
@@ -281,19 +316,11 @@ def spec_round(params, cfg, econf, paged, state: dict, args, gen, graph: bool = 
     back where they were; `parts()` measures the round's split
     (`spec_parts`)."""
     from ..engine.graphs import CudaGraphs
-    from ..engine.kv_cache import init_paged_kv
     from ..engine.spec_decode import spec_decode_fn
-    from ..models.config import get_config
-    from ..models.transformer import init_params
 
     dev = torch.device("cuda")
-    d_cfg = get_config(args.draft)
-    d_params = init_params(d_cfg, torch.bfloat16, dev, gen)
-    d_paged = init_paged_kv(d_cfg, econf.num_pages, econf.page_size, torch.bfloat16, dev,
-                            kv_dtype=torch.int8 if paged.quantized else None)
-    B, g = econf.max_decode_slots, args.gamma
-    state["accept_ewma"] = torch.ones(B, device=dev)
-    state["gamma_lane"] = torch.full((B,), g, dtype=torch.int32, device=dev)
+    d_cfg, d_params, d_paged = draft_parts(args, econf, paged, state, gen)
+    g = args.gamma
     live = {k: t.clone() for k, t in state.items()}
 
     def reset():
@@ -322,6 +349,26 @@ def spec_round(params, cfg, econf, paged, state: dict, args, gen, graph: bool = 
         return spec_parts(params, cfg, paged, state, d_params, d_cfg, d_paged, g, reset)
 
     return runs, reset, parts
+
+
+def draft_parts(args, econf, paged, state: dict, gen):
+    """(d_cfg, d_params, d_paged): the draft args.draft with random weights
+    and a pool of its own (the target pool's KV type) under the same
+    tables; each lane of `state` gets its dial at args.gamma and an EWMA
+    of 1."""
+    from ..engine.kv_cache import init_paged_kv
+    from ..models.config import get_config
+    from ..models.transformer import init_params
+
+    dev = torch.device("cuda")
+    d_cfg = get_config(args.draft)
+    d_params = init_params(d_cfg, torch.bfloat16, dev, gen)
+    d_paged = init_paged_kv(d_cfg, econf.num_pages, econf.page_size, torch.bfloat16, dev,
+                            kv_dtype=torch.int8 if paged.quantized else None)
+    B = econf.max_decode_slots
+    state["accept_ewma"] = torch.ones(B, device=dev)
+    state["gamma_lane"] = torch.full((B,), args.gamma, dtype=torch.int32, device=dev)
+    return d_cfg, d_params, d_paged
 
 
 def decode_lanes(econf, cfg, context: int, gen: torch.Generator, int8: bool):

@@ -1652,3 +1652,163 @@ def test_graph_capture_holds_the_cycle_collector_off(gen):
     assert capturing and not any(capturing)
     assert gc.isenabled()
     assert torch.equal(graphs.run("b", 2), x * 2)
+
+
+# -- the spec round on the ragged stream (engine/spec_decode.ragged_spec_fn) ----
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_spec_dispatch_kernels_match_plain(gen, monkeypatch, int8):
+    """One ragged spec dispatch at depth 2 (a 2-layer target and a 2-layer
+    draft at head_dim 64): three live lanes' verify windows (gamma 4) and
+    a 40-token prompt's final range, through the kernels (the draft's
+    decode steps, both models' ragged attention and writes), then through
+    the plain versions given the kernel run's drafts: the live lanes'
+    window logits and the prompt's first-token logits within 0.12, and
+    every row whose argmax differs a near-tie (the kernel run's choice
+    within 0.12 of the top logit of the plain run, chip_smoke.py's rule);
+    where no row a lane emits from differs, the packed rows and the first
+    token are equal. Each model's ragged kernel launches once a layer.
+    (The idle lane's window reads the garbage page, which its own rows and
+    the stream's padding rows write in the same launch: its logits are
+    garbage, and its packed row is -1.)"""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from polykey_tpu_torch.engine import spec_decode as sd
+    from polykey_tpu_torch.engine.engine import ragged_zero_operands
+    from polykey_tpu_torch.engine.kv_cache import init_paged_kv
+    from polykey_tpu_torch.models.transformer import init_params
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    cfg, params, paged, state = _graph_parts(gen, int8)
+    d_cfg = replace(cfg, name="tiny-draft", num_layers=2, hidden_size=128,
+                    intermediate_size=256)
+    d_params = init_params(d_cfg, torch.bfloat16, "cuda", gen)
+    d_paged = init_paged_kv(d_cfg, paged.k.shape[1], 16, torch.bfloat16, "cuda",
+                            kv_dtype=torch.int8 if int8 else None)
+    _fill_lanes(gen, paged, state, sampled=False)
+    _fill_pools(gen, d_paged)
+    B, P, gamma = 4, state["page_tables"].shape[1], 4
+    G1 = gamma + 1
+    state["accept_ewma"] = torch.ones(B, device="cuda")
+    state["gamma_lane"] = torch.full((B,), gamma, dtype=torch.int32, device="cuda")
+    W = 44                                               # 4 x 5 + 44 = 64 rows
+    pre = ragged_zero_operands(B, W, P)
+    pre[0][:40] = np.random.default_rng(3).integers(3, 500, 40)
+    pre[1][:40] = range(40)
+    pre[2][:40] = 3
+    pre[3][3, :3] = [49, 50, 51]
+    pre[4][0], pre[5][0], pre[6][0], pre[7][0] = 0, 40, 40, 3
+    pre[8][3], pre[9][3] = 39, 40
+    starts = np.concatenate([np.arange(B) * G1, B * G1 + pre[4]])
+    lens = np.concatenate([np.full(B, G1), pre[5]])
+    kvs = np.concatenate([np.maximum(state["seq_lens"].cpu().numpy(), 1) + gamma, pre[6]])
+    works = [rk.ragged_work(starts, lens, kvs, B * G1 + W, c.num_heads // c.num_kv_heads,
+                            c.num_kv_heads, "cuda") for c in (cfg, d_cfg)]
+    pre_dev = [torch.from_numpy(a).cuda() for a in pre]
+    real_scan, real_unembed = sd._draft_scan, sd.unembed
+    drafts, logits = [], []
+
+    def recording_scan(*a, **k):
+        out = real_scan(*a, **k)
+        drafts.append(out)
+        return out
+
+    def recording_unembed(*a, **k):
+        out = real_unembed(*a, **k)
+        logits.append(out)
+        return out
+
+    def run():
+        st = {k: t.clone() for k, t in state.items()}
+        t_p, d_p = _clone_paged(paged), _clone_paged(d_paged)
+        with torch.inference_mode():
+            packed, first = sd.ragged_spec_fn(
+                params, d_params, cfg, d_cfg, t_p, d_p, *(st[k] for k in _SPEC_LANES),
+                *pre_dev, gamma=gamma, eos_id=2, greedy=True, t_work=works[0],
+                d_work=works[1])
+        torch.cuda.synchronize()
+        return packed, first, logits[-2][:3].float(), logits[-1][3:].float()
+
+    monkeypatch.setattr(sd, "_draft_scan", recording_scan)
+    monkeypatch.setattr(sd, "unembed", recording_unembed)
+    rag = rk.KERNEL_INT8 if int8 else rk.KERNEL
+    dec = pak.KERNEL_INT8 if int8 else pak.KERNEL
+    rag.launches = dec.launches = 0
+    got = run()
+    assert rag.launches == cfg.num_layers + d_cfg.num_layers
+    assert dec.launches == gamma * d_cfg.num_layers
+    for name in _PLAIN:
+        monkeypatch.setenv(name, "1")
+    monkeypatch.setattr(sd, "_draft_scan", lambda *a, **k: drafts[0])
+    want = run()
+    assert rag.launches == cfg.num_layers + d_cfg.num_layers
+    flips = []
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 0.12
+        choice = g.argmax(-1, keepdim=True)
+        margin = w.max(-1, keepdim=True).values - w.gather(-1, choice)
+        flip = choice != w.argmax(-1, keepdim=True)
+        assert (margin[flip] <= 0.12).all()
+        flips.append(flip[..., 0])
+    # A lane emits from rows 0..n_acc of its window (n_acc: the accepted
+    # count, the first stat column).
+    n_acc = got[0][:3, G1].long()
+    emits = torch.arange(G1, device="cuda")[None, :] <= n_acc[:, None]
+    for b in range(3):
+        if not (flips[0][b] & emits[b]).any():
+            assert torch.equal(got[0][b], want[0][b])
+    if not flips[1].any():
+        assert torch.equal(got[1][3], want[1][3])
+    assert (got[0][:3, 0] >= 0).all() and (got[0][3, :G1] == -1).all()
+
+
+def test_cache_forward_flash_matches_plain(gen, monkeypatch):
+    """`forward` over a contiguous cache at Llama-3-8B's widths, 2 layers:
+    a right-padded prefill of 150- and 200-token prompts (window 200, cache
+    512) launches flash once a layer; then 4 forced decode steps (the
+    plain attention, T = 1). The last rows' logits against the plain run
+    (POLYKEY_DISABLE_FLASH) within 0.12 with the same argmax on every row,
+    and the cache the kernel run wrote within 0.12 of the plain run's."""
+    from dataclasses import replace
+
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.generate import decode_step, prefill
+    from polykey_tpu_torch.models.transformer import init_cache, init_params
+    from polykey_tpu_torch.ops import flash_attention
+
+    cfg = replace(get_config("llama-3-8b"), num_layers=2)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, T, S, steps = 2, 200, 512, 4
+    tokens = torch.randint(3, 259, (B, T), generator=g, device="cuda", dtype=torch.int32)
+    tokens[0, 150:] = 0
+    lens = torch.tensor([150, 200], dtype=torch.int32, device="cuda")
+    forced = torch.randint(3, 259, (steps, B), generator=g, device="cuda",
+                           dtype=torch.int32)
+
+    def run():
+        cache = init_cache(cfg, B, S, torch.bfloat16, "cuda")
+        with torch.inference_mode():
+            out, cache = prefill(params, cfg, tokens, lens, cache)
+            rows = [out]
+            for i in range(steps):
+                out, cache = decode_step(params, cfg, forced[i], lens + i, cache)
+                rows.append(out)
+        torch.cuda.synchronize()
+        return torch.stack(rows).float(), cache
+
+    flash_attention.KERNEL.launches = 0
+    got, got_cache = run()
+    assert flash_attention.KERNEL.launches == cfg.num_layers
+    monkeypatch.setenv("POLYKEY_DISABLE_FLASH", "1")
+    want, want_cache = run()
+    assert flash_attention.KERNEL.launches == cfg.num_layers
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 0.12
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    for a, b in ((got_cache.k, want_cache.k), (got_cache.v, want_cache.v)):
+        assert (a.float() - b.float()).abs().max().item() <= 0.12

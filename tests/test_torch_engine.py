@@ -170,10 +170,13 @@ def test_stats_report_kernel_launches(engines):
 
 
 def test_unported_knobs_refuse_to_start():
-    for knob in (dict(draft_model="tiny-llama", ragged_dispatch=True), dict(tp=2),
-                 dict(replicas=2), dict(spec_host_sync=True)):
+    for knob in (dict(tp=2), dict(replicas=2), dict(spec_host_sync=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()
+    # Speculation rides the ragged stream now (engine/spec_decode.py,
+    # ragged_spec_fn).
+    dataclasses.replace(TEST_CONFIG, draft_model="tiny-llama",
+                        ragged_dispatch=True).validate()
     # Checkpoints are loaded now (models/loader.py), the target's and the
     # draft's.
     dataclasses.replace(TEST_CONFIG, checkpoint_path="ckpt").validate()

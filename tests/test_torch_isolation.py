@@ -1,6 +1,7 @@
 """The port stands alone: every module of polykey_tpu_torch (the prefix
-cache, the KV wire format, quantized weights, the MoE layer and the
-checkpoint loader among them), and chip_smoke.py, imports with
+cache, the KV wire format, quantized weights, the MoE layer, the
+checkpoint loader, the speculative round and offline generation among
+them), and chip_smoke.py, imports with
 JAX, Flax, ml_dtypes, the JAX package, safetensors and orbax made
 unimportable (in a fresh interpreter, so this test process's own JAX
 imports cannot mask a leak)."""
@@ -30,10 +31,13 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 # The prefix cache, the host tier, the wire format, quantized weights, the
-# MoE layer and the checkpoint loader among them.
+# MoE layer, the checkpoint loader, the speculative round (ragged too) and
+# offline generation among them.
 assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_cache",
         "polykey_tpu_torch.models.quant", "polykey_tpu_torch.ops.moe",
-        "polykey_tpu_torch.models.loader"} <= set(names)
+        "polykey_tpu_torch.models.loader", "polykey_tpu_torch.engine.spec_decode",
+        "polykey_tpu_torch.models.generate",
+        "polykey_tpu_torch.models.speculative"} <= set(names)
 import chip_smoke
 leaked = [m for m in sys.modules if m and any(
     m == b or m.startswith(b + ".") for b in BLOCKED) and sys.modules[m] is not None]

@@ -256,8 +256,13 @@ def test_one_token_budget_finishes_at_resolve(port, solo, mode):
     eng.submit(r)
     tokens, done, error = _collect(r)
     assert error is None and tokens == solo("short one", 1)
-    assert done.completion_tokens == 1 and finished_at == [True]
     assert _drained(eng)
+    # The engine thread records after `_resolve_slot` returns, which can be
+    # after the request's "done" has reached this thread: wait for it.
+    deadline = time.monotonic() + 10
+    while not finished_at and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert done.completion_tokens == 1 and finished_at == [True]
 
 
 def test_cancel_before_the_first_token_never_leaks_to_the_readmitted_slot(port, solo):

@@ -534,9 +534,8 @@ def test_round_robin_cursor():
 def test_config_accepts_ragged():
     EngineConfig(**FIELDS, ragged_dispatch=True).validate()
     EngineConfig(**FIELDS, ragged_dispatch=True, kv_dtype="int8").validate()
-    # Quantized weights ride the ragged stream too; a draft model does not.
+    # Quantized weights and a draft model ride the ragged stream too.
     dataclasses.replace(EngineConfig(**FIELDS, ragged_dispatch=True),
                         quantize=True, quantize_bits=4).validate()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dataclasses.replace(EngineConfig(**FIELDS, ragged_dispatch=True),
-                            draft_model="tiny-llama").validate()
+    dataclasses.replace(EngineConfig(**FIELDS, ragged_dispatch=True),
+                        draft_model="tiny-llama").validate()

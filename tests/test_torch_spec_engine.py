@@ -472,8 +472,6 @@ def test_spec_stats_carry_the_reference_keys(port):
 
 
 @pytest.mark.parametrize("fields,error,item", [
-    (dict(ragged_dispatch=True, draft_model="tiny-llama"), NotImplementedError,
-     "A.7 remainder: ragged × spec"),
     (dict(draft_model="tiny-llama", replicas=2), NotImplementedError,
      "replica and disagg pools"),
     (dict(checkpoint_path="/nonexistent"), FileNotFoundError, "/nonexistent"),
@@ -481,7 +479,7 @@ def test_spec_stats_carry_the_reference_keys(port):
      FileNotFoundError, "/nonexistent"),
     (dict(draft_model="tiny-llama", spec_host_sync=True), NotImplementedError,
      "occupancy_soak"),
-], ids=["ragged-spec", "replicas", "checkpoint", "draft-checkpoint", "spec-host-sync"])
+], ids=["replicas", "checkpoint", "draft-checkpoint", "spec-host-sync"])
 def test_config_refuses_what_is_not_ported(fields, error, item):
     """What is not ported is refused at validation, naming its ROADMAP.md
     item; checkpoints are loaded now (tests/test_torch_loader.py), so a
