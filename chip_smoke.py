@@ -144,7 +144,31 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             phase 11 and speculative_generate's to generate's, each under
             the near-tie rule; the flash kernel must launch (the prefill
             window is >= 128 wide); it prints acceptance and tok/s.
-13. serve-mixtral: after the Llama weights are freed, the full 32-layer
+13. shell: the serving shell around a Llama-3-8B engine on the same
+            weights (bucketed, default EngineConfig but a 5 s watchdog
+            window), served by build_server with an Observability bundle
+            over TorchService.create (watchdog and supervisor), /metrics
+            on an ephemeral port and POLYKEY_DEBUG_ENDPOINTS=1. (1) The
+            five greedy prompts as the first concurrent group, each with an
+            x-trace-id: the echo, each span tree (queue_wait, prefill ending
+            at the first token's read, decode, detokenize; their durations
+            printed), /metrics' TTFT count 5, reflection's four services,
+            a /debug/profile capture (torch.profiler) during one request
+            whose trace holds CUDA kernel activity. (2) A step-stall past
+            the window plus the supervisor's 5 s join, timed to end inside
+            the fresh engine's graph capture: the request in flight fails
+            UNAVAILABLE, health (Watch) goes NOT_SERVING then SERVING,
+            /metrics counts one stall and one restart, the flight recorder
+            holds watchdog_stall and engine_restart, the fresh timeline
+            opens with the restart note, the old thread's exit falls
+            inside the capture window, memory allocated after the wedged
+            engine's release is within 1 GiB of the first engine's, and
+            the five texts equal the first engine's under the near-tie rule
+            with flash, paged decode and paged write (bf16) launched. (3)
+            prefill-error@1 fails one request, the next four complete, no
+            restart. Faults are installed on the live engine
+            (polykey_tpu_torch/faults.py).
+14. serve-mixtral: after the Llama weights are freed, the full 32-layer
             mixtral-8x7b (46.7 B parameters, random weights from --seed,
             drawn and quantized to int8 a layer at a time: 43.5 GiB) behind
             the gRPC server, EngineConfig(model="mixtral-8x7b",
@@ -153,7 +177,7 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and no other; every decode block and prefill a graph replay.
             The capacity-bucketed dispatch drops by position in the batch,
             so the repeated greedy prompt is held to a solo run of it.
-14. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
+15. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
             random bf16 weights from seed + 2) is written as an HF
             safetensors checkpoint (two shards and an index, by this
             script's own writer) in a temporary directory, removed at the
@@ -175,7 +199,13 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             the spec keys, the memory allocated and its peak, the
             checkpoint's bytes and load seconds, acceptance, rounds, tokens
             a lane a round, each request's TTFT, first streamed chunk,
-            admission wait and tok/s against the plain engine.
+            admission wait and tok/s against the plain engine. Before the
+            plain engine stops, one supervised step-stall restart with its
+            thread not wedged (a 2 s window, a 4 s stall): the dead
+            engine's pools and graphs must be freed before the fresh one
+            allocates its own (a second set does not fit beside 27B
+            weights), the fresh engine serves on the same weight tensors,
+            and the peak memory allocated during the restart is printed.
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -1373,18 +1403,19 @@ SERVE_KERNELS = {
 
 def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
                 int8: bool = False, model: str = "llama-3-8b", quantize: bool = False,
-                phase: str = "", then=None) -> dict:
+                phase: str = "", then=None, **config_kw) -> dict:
     """Serve `model` through gRPC. Bucketed (default) or ragged dispatch,
     over bf16 or (`int8`) int8 KV, with bf16 or (`quantize`) int8 weights;
     `params` reuses the weights of an earlier engine (shut down first).
     `then(grpc)` runs after the checks, before the server stops (its
-    result is returned under "then")."""
+    result is returned under "then"); `config_kw` are more EngineConfig
+    fields."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, GenRequest, InferenceEngine
 
     phase = phase or ("ragged" if ragged else "serve") + ("-int8" if int8 else "")
     config = EngineConfig(model=model, ragged_dispatch=ragged,
-                          kv_dtype="int8" if int8 else "", quantize=quantize)
+                          kv_dtype="int8" if int8 else "", quantize=quantize, **config_kw)
     t0 = time.monotonic()
     engine = InferenceEngine(config, params=params, device="cuda", seed=seed)
     sync()
@@ -2281,6 +2312,415 @@ def phase_generate(seed: int, params, card: str, plain: list) -> None:
     del d_params
 
 
+# -- phase 13: the serving shell --------------------------------------------
+
+SHELL_WATCHDOG_S = 5.0   # the shell phase's watchdog window (a few seconds)
+
+
+class _ShellClient:
+    """The shell phase's gRPC client: the port's server built by
+    build_server over TorchService.create (watchdog and supervisor) with
+    an Observability bundle, the /metrics sidecar on an ephemeral port and
+    the /debug surface on. Every engine the supervisor brings up is tapped
+    (`_Tap`), so each submitted request keeps its token ids."""
+
+    def __init__(self, engine, health, logger):
+        import grpc
+
+        from polykey_tpu_torch.gateway.server import build_server, start_metrics_server
+        from polykey_tpu_torch.gateway.torch_service import TorchService
+        from polykey_tpu_torch.obs import Observability
+        from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
+        from polykey_tpu_torch.proto.health_v1_grpc import HealthStub
+        from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
+
+        self.pk, self.submitted = pk, []
+        self.obs = Observability()
+        self._tap(engine)
+        self.service = TorchService.create(engine, health=health, logger=logger,
+                                           obs=self.obs)
+        self.service.supervisor.add_restart_listener(self._tap)
+        self.server, self.health, port = build_server(
+            self.service, logger, address="127.0.0.1:0", health=health, obs=self.obs)
+        self.server.start()
+        self.sidecar = start_metrics_server(self.obs, logger, service=self.service, port=0)
+        check(self.sidecar is not None, "shell: the /metrics sidecar did not start")
+        self.base = f"http://127.0.0.1:{self.sidecar.port}"
+        self.channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        self.stub = PolykeyServiceStub(self.channel)
+        self.health_stub = HealthStub(self.channel)
+
+    def _tap(self, engine) -> None:
+        submit = engine.submit
+
+        def tapped(request):
+            request.out = _Tap()
+            self.submitted.append(request)
+            submit(request)
+
+        engine.submit = tapped
+
+    def get(self, path: str):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.base + path, timeout=120) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def generate(self, prompts: list, trace_ids=None, max_new: int = 32) -> list:
+        """Send `prompts` at once (unary llm_generate, greedy); returns, in
+        order, (status code or None, details, trailers, the engine request)."""
+        import grpc
+
+        out: list = [None] * len(prompts)
+        start = len(self.submitted)
+
+        def one(i, prompt):
+            req = self.pk.ExecuteToolRequest(
+                tool_name="llm_generate",
+                parameters=_struct(prompt=prompt, max_tokens=max_new))
+            meta = (("x-trace-id", trace_ids[i]),) if trace_ids else ()
+            try:
+                resp, call = self.stub.ExecuteTool.with_call(req, timeout=900,
+                                                             metadata=meta)
+                out[i] = (resp.status.code, "", dict(call.trailing_metadata()))
+            except grpc.RpcError as e:
+                out[i] = (e.code(), e.details(), dict(e.trailing_metadata() or ()))
+
+        threads = [threading.Thread(target=one, args=(i, p)) for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        by_prompt = {r.prompt: r for r in self.submitted[start:]}
+        return [(*o, by_prompt.get(p)) for o, p in zip(out, prompts)]
+
+    def close(self) -> None:
+        self.channel.close()
+        self.sidecar.stop()
+        self.server.stop(grace=5).wait()
+        self.service.close()
+
+
+def _span_children(tree: dict) -> dict:
+    return {c["name"]: c for c in tree.get("children", [])}
+
+
+def _profile_during_request(client, prompt: str, card: str) -> dict:
+    """A /debug/profile capture (torch.profiler, CPU and CUDA activity)
+    while one request is served; returns what its trace holds."""
+    result: dict = {}
+
+    def capture():
+        result["status"], result["body"] = client.get("/debug/profile?seconds=1.5")
+
+    thread = threading.Thread(target=capture)
+    thread.start()
+    time.sleep(0.3)
+    (status, _details, _tr, _req), = client.generate([prompt])
+    thread.join()
+    check(status == 200, f"shell: the request during the capture: {status}")
+    check(result["status"] == 200, f"shell: /debug/profile answered {result['status']}")
+    info = json.loads(result["body"])
+    with open(info["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "GraphLaunch" in e.get("name", "")]
+    cats: dict = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    # The port's __global__ kernels (csrc/*.cu), by name.
+    ours = {frag: sum(frag in e["name"] for e in kernels) for frag in (
+        "flash_kernel", "paged_decode_kernel", "paged_write_kernel", "ragged_kernel")}
+    arg_keys = sorted(kernels[0].get("args", {})) if kernels else []
+    say("shell", f"/debug/profile (torch.profiler, 1.5 s, CPU and CUDA) during one "
+        f"request: {len(events)} trace events by category {dict(sorted(cats.items(), key=str))}; "
+        f"{len(kernels)} CUDA kernel events ({len({e['name'] for e in kernels})} kernel "
+        f"names; the port's own {ours}), {len(launches)} cudaGraphLaunch calls; a kernel "
+        f"event's args {arg_keys}; {os.path.getsize(info['trace'])} bytes on {card}")
+    check(kernels, "shell: the profiler trace holds no CUDA kernel activity")
+    return {"kernel_events": len(kernels), "graph_launches": len(launches), "ours": ours}
+
+
+def phase_shell(seed: int, params, card: str) -> dict:
+    """Llama-3-8B behind the full serving shell (module docstring, phase
+    13): tracing, /metrics, reflection and the profiler before a fault;
+    a step-stall that trips the watchdog and outlasts the supervisor's
+    join window, so the old engine thread wakes while the fresh engine
+    captures its graphs; the restarted engine's texts and kernels; then a
+    prefill-error that fails one request and restarts nothing."""
+    import tempfile
+
+    import grpc
+
+    from polykey_tpu_torch import faults
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+    from polykey_tpu_torch.gateway.health import HealthService
+    from polykey_tpu_torch.gateway.jsonlog import Logger
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.proto import health_v1_pb2 as health_pb
+    from polykey_tpu_torch.proto import reflection_v1alpha_pb2 as refl_pb
+
+    phase = "shell"
+    cfg = get_config("llama-3-8b")
+    config = EngineConfig(model="llama-3-8b", watchdog_timeout_s=SHELL_WATCHDOG_S)
+    saved = {k: os.environ.get(k) for k in ("POLYKEY_DEBUG_ENDPOINTS", "POLYKEY_PROFILE_DIR")}
+    profile_dir = tempfile.mkdtemp(prefix="polykey-profile-")
+    os.environ["POLYKEY_DEBUG_ENDPOINTS"] = "1"
+    os.environ["POLYKEY_PROFILE_DIR"] = profile_dir
+    health = HealthService()
+    t0 = time.monotonic()
+    engine = InferenceEngine(config, params=params, device="cuda", seed=seed, health=health)
+    sync()
+    alloc0 = torch.cuda.memory_allocated()
+    capture_s = engine.stats()["graph_capture_s"]
+    say(phase, f"engine up in {time.monotonic() - t0:.1f} s (graphs captured in "
+        f"{capture_s:.2f} s), {alloc0 / 2**30:.2f} GiB allocated; watchdog window "
+        f"{SHELL_WATCHDOG_S} s on {card}")
+    client = _ShellClient(engine, health, Logger(stream=sys.stderr, level="WARN"))
+    service, supervisor, obs = client.service, client.service.supervisor, client.obs
+    service.watchdog.check_interval_s = 0.1
+    supervisor.check_interval_s = 0.1
+    tokenizer = engine.tokenizer
+    try:
+        # 1. Before any fault: the serve prompts, traced, as the first
+        # concurrent group after the engine started.
+        ids = [f"shell-{i}" for i in range(len(SPEC_GREEDY))]
+        first = client.generate(SPEC_GREEDY, trace_ids=ids)
+        for (status, details, trailers, _req), tid in zip(first, ids):
+            check(status == 200, f"{phase}: {status} {details}")
+            check(trailers.get("x-trace-id") == tid, f"{phase}: trace id echo {trailers}")
+        traces = {t["trace_id"]: t for t in obs.recorder.traces()}
+        starts = {e["trace_id"]: e["t"] for e in engine.timeline.events()
+                  if e["kind"] == "slot_start"}
+        for (_s, _d, _t, req), tid, prompt in zip(first, ids, SPEC_GREEDY):
+            tree = traces[tid]
+            kids = _span_children(tree)
+            check(list(kids) == ["queue_wait", "prefill", "decode", "detokenize"],
+                  f"{phase}: span tree {list(kids)}")
+            t = req.timings
+            # The prefill span ends when the lazily read first token
+            # reached the host (the resolve), not at its dispatch.
+            check(abs(kids["prefill"]["duration_ms"]
+                      - (t.first_token - t.prefill_start) * 1e3) < 0.01
+                  and abs(starts[tid] - t.first_token) < 0.01,
+                  f"{phase}: the prefill span does not end at the first token's read")
+            blocks = kids["decode"].get("children", [])
+            say(phase, f"{tid} ({t.prompt_tokens} prompt tokens): span ms queue_wait "
+                f"{kids['queue_wait']['duration_ms']:.3f}, prefill "
+                f"{kids['prefill']['duration_ms']:.3f}, decode "
+                f"{kids['decode']['duration_ms']:.3f} ({len(blocks)} blocks), "
+                f"detokenize {kids['detokenize']['duration_ms']:.3f}; root "
+                f"{tree['duration_ms']:.3f} on {card}")
+        status, page = client.get("/metrics")
+        check(status == 200 and b"polykey_ttft_ms_count 5\n" in page,
+              f"{phase}: /metrics TTFT count is not 5 ({status})")
+        call = client.channel.stream_stream(
+            "/grpc.reflection.v1.ServerReflection/ServerReflectionInfo",
+            request_serializer=refl_pb.ServerReflectionRequest.SerializeToString,
+            response_deserializer=refl_pb.ServerReflectionResponse.FromString)
+        (resp,) = list(call(iter([refl_pb.ServerReflectionRequest(list_services="")]),
+                            timeout=60))
+        listed = [s.name for s in resp.list_services_response.service]
+        check(len(listed) == 4, f"{phase}: reflection lists {listed}")
+        say(phase, f"x-trace-id echoed on all 5; /metrics polykey_ttft_ms_count 5; "
+            f"reflection lists {listed}")
+        profile = _profile_during_request(client, SHORT[0], card)
+        before = [r[3].out.ids for r in first]
+
+        # 2. A step-stall past the watchdog window and the supervisor's
+        # join window: the old thread wakes while the fresh engine captures.
+        join_s = supervisor.join_timeout_s
+        # Trip after the window, the join window after it, then the fresh
+        # engine's start; wake a few seconds into its capture (6-10 s).
+        stall_s = round(SHELL_WATCHDOG_S + join_s + 0.5 + min(2.5, capture_s / 3), 1)
+        watch: list = []
+
+        def watch_health():
+            try:
+                for r in client.health_stub.Watch(
+                        health_pb.HealthCheckRequest(service=""), timeout=300):
+                    watch.append((time.monotonic(), r.status))
+                    if len(watch) >= 3:
+                        return
+            except grpc.RpcError:
+                pass
+
+        watcher = threading.Thread(target=watch_health, daemon=True)
+        watcher.start()
+        old = service.engine
+        exited: list = []
+
+        def watch_thread():
+            old._thread.join()
+            exited.append(time.monotonic())
+
+        threading.Thread(target=watch_thread, daemon=True).start()
+        old._faults = faults.install(f"step-stall={stall_s}@1")
+        t_fault = time.monotonic()
+        (status, details, trailers, _req), = client.generate([SHORT[1]])
+        failed_after = time.monotonic() - t_fault
+        check(status == grpc.StatusCode.UNAVAILABLE,
+              f"{phase}: the request in flight ended {status}: {details}")
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and not (
+                supervisor.restarts == 1 and not supervisor.orphans and exited):
+            time.sleep(0.05)
+        watcher.join(timeout=60)
+        fresh = service.engine
+        check(supervisor.restarts == 1 and fresh is not old,
+              f"{phase}: {supervisor.restarts} restarts")
+        check(not supervisor.orphans and old.paged is None,
+              f"{phase}: the wedged engine's device state was not released")
+        sync()
+        alloc1 = torch.cuda.memory_allocated()
+        c0, c1 = fresh._graphs.capture_window
+        check(c0 <= exited[0] <= c1,
+              f"{phase}: the old thread exited at {exited[0] - t_fault:.2f} s, outside "
+              f"the fresh capture ({c0 - t_fault:.2f}-{c1 - t_fault:.2f} s)")
+        states = [s for _, s in watch]
+        check(states == [health_pb.HealthCheckResponse.SERVING,
+                         health_pb.HealthCheckResponse.NOT_SERVING,
+                         health_pb.HealthCheckResponse.SERVING],
+              f"{phase}: health over Watch went {states}")
+        status, page = client.get("/metrics")
+        check(b"polykey_watchdog_stalls_total 1\n" in page
+              and b"polykey_engine_restarts_total 1\n" in page,
+              f"{phase}: /metrics stall or restart counter is not 1")
+        kinds = [e["kind"] for e in obs.recorder.events()]
+        check("watchdog_stall" in kinds and "engine_restart" in kinds,
+              f"{phase}: flight recorder events {kinds}")
+        note = fresh.timeline.events()[0]
+        check(note["kind"] == "note" and note["note_kind"] == "engine_restart",
+              f"{phase}: the fresh timeline opens with {note}")
+        check(abs(alloc1 - alloc0) < 2**30,
+              f"{phase}: {alloc1 / 2**30:.2f} GiB allocated after the restart, "
+              f"{alloc0 / 2**30:.2f} before")
+        trip = watch[1][0] - t_fault
+        serving = watch[2][0] - watch[1][0]
+        say(phase, f"step-stall {stall_s} s (window {SHELL_WATCHDOG_S} s, join "
+            f"{join_s} s): in-flight request UNAVAILABLE after {failed_after:.2f} s "
+            f"({details!r}); NOT_SERVING at {trip:.2f} s, SERVING {serving:.2f} s later "
+            f"(trip to SERVING); the old thread woke at {exited[0] - t_fault:.2f} s, "
+            f"inside the fresh capture {c0 - t_fault:.2f}-{c1 - t_fault:.2f} s "
+            f"({fresh.stats()['graph_capture_s']:.2f} s); /metrics stalls 1, restarts 1; "
+            f"allocated {alloc1 / 2**30:.2f} GiB after, {alloc0 / 2**30:.2f} before on "
+            f"{card}")
+        faults.clear()
+
+        # The restarted engine: the same texts, through the same kernels.
+        for k in KERNELS.values():
+            k.launches = 0
+        after = client.generate(SPEC_GREEDY)
+        counts = {name: k.launches for name, k in KERNELS.items()}
+        check(all(r[0] == 200 for r in after), f"{phase}: after the restart: {after}")
+        check(all(counts[n] > 0 for n in BUCKETED)
+              and not any(counts[n] for n in counts if n not in BUCKETED),
+              f"{phase}: the fresh engine's launches {counts}")
+        ties = _hold_texts(phase, params, cfg, tokenizer, SPEC_GREEDY,
+                           [(r[3].out.ids,) for r in after], [(b,) for b in before],
+                           "the first engine's")
+        say(phase, f"restarted engine: 5 greedy texts equal to the first engine's but at "
+            f"{ties} near-ties; kernel launches {counts}")
+
+        # 3. prefill-error: one request fails, the others complete.
+        fresh._faults = faults.install("prefill-error@1")
+        (status, details, _tr, _req), = client.generate([SHORT[0]])
+        check(status == grpc.StatusCode.UNKNOWN and "prefill failed" in details,
+              f"{phase}: the prefill-error request ended {status}: {details}")
+        rest = client.generate(SPEC_GREEDY[1:])
+        check(all(r[0] == 200 for r in rest), f"{phase}: after the prefill error: {rest}")
+        check(supervisor.restarts == 1 and fresh.dead is None and service.engine is fresh,
+              f"{phase}: the prefill error restarted the engine")
+        say(phase, f"prefill-error@1: one request failed ({details!r}), the next 4 "
+            f"completed, no restart (restarts {supervisor.restarts})")
+        return {"launches": counts, "profile": profile, "trip_s": trip,
+                "to_serving_s": serving, "capture_s": fresh.stats()["graph_capture_s"]}
+    finally:
+        faults.clear()
+        client.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        import shutil
+
+        shutil.rmtree(profile_dir, ignore_errors=True)
+
+
+def _gemma_restart(grpc_client, params, cfg, tokenizer, want: list, card: str) -> None:
+    """One supervised step-stall restart of the served gemma-2-27b engine,
+    shorter than the join window: its thread exits, so its pools and
+    graphs must be freed before the fresh engine allocates (a second set
+    does not fit). The fresh engine's greedy text of SPEC_GREEDY[0] is held
+    to `want` under the near-tie rule."""
+    from polykey_tpu_torch import faults
+    from polykey_tpu_torch.engine.engine import GenRequest
+    from polykey_tpu_torch.gateway.health import SERVING, HealthService
+    from polykey_tpu_torch.gateway.jsonlog import Logger
+    from polykey_tpu_torch.gateway.torch_service import TorchService
+    from polykey_tpu_torch.obs import Observability
+
+    phase = "serve-gemma"
+    old = grpc_client.engine
+    health = HealthService()
+    health.set_serving_status("", SERVING)
+    service = TorchService.create(old, health=health, obs=Observability(),
+                                  logger=Logger(stream=sys.stderr, level="WARN"))
+    service.watchdog.check_interval_s = 0.1
+    service.supervisor.check_interval_s = 0.1
+    try:
+        window = old.config.watchdog_timeout_s
+        stall_s = window + 2.0
+        check(stall_s < service.supervisor.join_timeout_s, "the stall must end in the join")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_allocated()
+        old._faults = faults.install(f"step-stall={stall_s}@1")
+        t0 = time.monotonic()
+        victim = GenRequest(prompt=SPEC_GREEDY[0], max_new_tokens=32)
+        old.submit(victim)
+        while (item := victim.out.get(timeout=300))[0] == "token":
+            pass
+        check(item[0] == "error" and item[1].startswith("engine"),
+              f"{phase}: the stalled request ended {item}")
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and service.supervisor.restarts < 1:
+            time.sleep(0.05)
+        up = time.monotonic() - t0
+        fresh = service.engine
+        check(service.supervisor.restarts == 1 and not service.supervisor.orphans
+              and old.paged is None and fresh.params is old.params,
+              f"{phase}: the restart did not go through the released path")
+        sync()
+        peak, alloc1 = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        faults.clear()
+        request = GenRequest(prompt=SPEC_GREEDY[0], max_new_tokens=32)
+        fresh.submit(request)
+        ids = []
+        while (item := request.out.get(timeout=300))[0] == "token":
+            ids.append(item[1])
+        check(item[0] == "done" and len(ids) == 32, f"{phase}: after the restart {item}")
+        ties = _hold_texts(phase, params, cfg, tokenizer, SPEC_GREEDY[:1], [(ids,)],
+                           want[:1], "the plain engine's")
+        say(phase, f"supervised restart (step-stall {stall_s} s, window {window} s, thread "
+            f"not wedged): fresh engine serving {up:.2f} s after the stall began "
+            f"(capture {fresh.stats()['graph_capture_s']:.2f} s), the dead engine's pools "
+            f"freed first; allocated {alloc0 / 2**30:.2f} GiB before, {alloc1 / 2**30:.2f} "
+            f"after, peak during the restart {peak / 2**30:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; greedy text "
+            f"equal to the plain engine's but at {ties} near-ties on {card}")
+    finally:
+        faults.clear()
+        service.close()
+
+
 # -- phase 14 --------------------------------------------------------------
 
 def _hf_tensors(params, cfg) -> list:
@@ -2445,10 +2885,11 @@ def phase_serve_gemma(seed: int, card: str) -> None:
             check(ran == set(BUCKETED), f"{phase}: launched {counts}, not {BUCKETED} alone")
             check(engine._graphs.eager["decode"] == 0 and engine.stats()["prefill_eager"] == 0,
                   f"{phase}: an eager decode block or prefill: {dict(engine._graphs.eager)}")
+            _gemma_restart(grpc, engine.params, tcfg, engine.tokenizer, texts, card)
             return texts, engine.tokenizer
 
         plain = phase_serve(seed, card, params=target, model="gemma-2-27b", phase=phase,
-                            then=plain_streams)
+                            then=plain_streams, watchdog_timeout_s=2.0)
         target = plain.pop("params")
         plain_texts, tokenizer = plain["then"]
         del plain
@@ -2680,6 +3121,8 @@ def main() -> int:
     sync()
     phase_generate(args.seed, params, dev["smi"], spec["plain"][""])
     sync()
+    shell = phase_shell(args.seed, params, dev["smi"])
+    sync()
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2703,6 +3146,9 @@ def main() -> int:
         f"{serves[(False, True)]['kv_gib']:.4f} GiB (scales included)")
     say("serve-mixtral", f"mixtral-8x7b, int8 weights, bf16 KV: kernel launches "
         f"{mixtral['launches']}")
+    say("shell", f"restarted engine's kernel launches {shell['launches']}; trip to "
+        f"SERVING {shell['to_serving_s']:.2f} s, fresh capture {shell['capture_s']:.2f} s "
+        f"on {dev['smi']}")
 
     from polykey_tpu_torch.engine.engine import KERNELS
 

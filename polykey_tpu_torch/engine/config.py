@@ -15,7 +15,10 @@ the int8 KV cache (`kv_dtype="int8"`), the lookahead pipeline
 prefix cache with its host-KV tier and durable state dir (`prefix_cache`,
 `host_kv_bytes`, `kv_state_dir`), speculative decoding (`draft_model`,
 `spec_gamma`, `adaptive_gamma`; in either dispatch mode) and the top-p
-candidate prefilter (`top_p_candidates`) are served.
+candidate prefilter (`top_p_candidates`) are served, and so is the
+serving shell's liveness: the watchdog window (`watchdog_timeout_s`),
+supervised in-process restarts (`supervise`, `max_engine_restarts`,
+`restart_window_s`) and the engine timeline (`timeline_capacity`).
 """
 
 from __future__ import annotations
@@ -126,8 +129,25 @@ class EngineConfig:
     # round); programmatic only, as there.
     spec_host_sync: bool = False
 
+    # Flight-deck timeline (obs/timeline.py): a bounded ring of engine
+    # events exported as Perfetto JSON (/debug/timeline). 0 disables it:
+    # no ring, every emission site one `is None` branch.
+    timeline_capacity: int = 4096
+
+    # Liveness: the watchdog trips when the engine makes no progress for
+    # this long with work pending. It must comfortably exceed the longest
+    # legitimate step (an engine's graph capture happens before it serves).
+    watchdog_timeout_s: float = 300.0
     request_timeout_s: float = 300.0
     max_queue_depth: int = 256
+    # Supervised restarts (engine/supervisor.py): a watchdog trip or an
+    # engine-loop crash triggers an in-process restart — fresh engine on
+    # the same weights, re-armed watchdog, health back to SERVING — up to
+    # `max_engine_restarts` times within `restart_window_s`, after which
+    # the process stays NOT_SERVING for the platform to recycle.
+    supervise: bool = True
+    max_engine_restarts: int = 3
+    restart_window_s: float = 600.0
 
     tp: int = 1
     dp: int = 1
@@ -208,10 +228,27 @@ class EngineConfig:
             adaptive_gamma=os.environ.get(
                 "POLYKEY_ADAPTIVE_GAMMA", "1"
             ).lower() in ("1", "true"),
+            timeline_capacity=_env_int(
+                "POLYKEY_TIMELINE_CAPACITY", cls.timeline_capacity
+            ),
+            watchdog_timeout_s=_env_float(
+                "POLYKEY_WATCHDOG_TIMEOUT", cls.watchdog_timeout_s
+            ),
             request_timeout_s=_env_float(
                 "POLYKEY_REQUEST_TIMEOUT", cls.request_timeout_s
             ),
             max_queue_depth=_env_int("POLYKEY_MAX_QUEUE", cls.max_queue_depth),
+            # Default on; POLYKEY_SUPERVISE=0 pins the one-shot behavior
+            # (process restart is then the only recovery path).
+            supervise=os.environ.get(
+                "POLYKEY_SUPERVISE", "1"
+            ).lower() in ("1", "true"),
+            max_engine_restarts=_env_int(
+                "POLYKEY_MAX_RESTARTS", cls.max_engine_restarts
+            ),
+            restart_window_s=_env_float(
+                "POLYKEY_RESTART_WINDOW", cls.restart_window_s
+            ),
             tp=_env_int("POLYKEY_TP", cls.tp),
             dp=_env_int("POLYKEY_DP", cls.dp),
             ep=_env_int("POLYKEY_EP", cls.ep),
@@ -242,8 +279,16 @@ class EngineConfig:
             raise ValueError("prefill_chunk must be >= 0 (0 → max bucket)")
         if self.prefill_budget < 0:
             raise ValueError("prefill_budget must be >= 0 (0 → 2 x prefill chunk)")
+        if self.timeline_capacity < 0:
+            raise ValueError(
+                "timeline_capacity must be >= 0 (0 disables the ring)"
+            )
         if self.max_queue_depth < 0:
             raise ValueError("max_queue_depth must be >= 0 (0 → unbounded)")
+        if self.max_engine_restarts < 0:
+            raise ValueError("max_engine_restarts must be >= 0")
+        if self.restart_window_s <= 0:
+            raise ValueError("restart_window_s must be > 0")
         if self.draft_model is not None and self.spec_gamma < 1:
             raise ValueError("spec_gamma must be >= 1")
         if self.top_p_candidates < 0:

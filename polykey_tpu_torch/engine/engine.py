@@ -115,6 +115,28 @@ GPU (the reference's engine/engine.py, default path).
   from the seed. The reference's orbax format is refused (ROADMAP.md
   A.14).
 
+- Serving shell (the reference's): admission sheds on queue depth and on
+  an estimated queue delay that already overruns a request's deadline,
+  with a retry hint sized from the service-time EWMA; fault points
+  (faults.py: step-stall, slow-step, alloc-fail, prefill-error,
+  tokenizer-error); `last_progress`, stamped by the engine thread only,
+  which the watchdog reads (engine/watchdog.py); a traced request
+  (`GenRequest.trace`, the gateway's root span) gets `queue_wait`,
+  `prefill` and `decode` children, with a `decode_block` child per
+  processed block; the timeline ring (obs/timeline.py) records
+  admissions, prefills, dispatches, readbacks, first tokens, retirements,
+  expiries and notes. `stats()` reads host state only (no `.item()`, no
+  event wait, no synchronize), so a watchdog trip or a scrape never waits
+  on a wedged device call. A dead engine's thread touches the device no
+  more: after a fault's sleep, before each of a loop iteration's
+  dispatching phases and before a prefill group, it checks `dead` (and
+  its stop flag) first. The supervisor
+  (engine/supervisor.py) builds a fresh engine on the same weights
+  (`reuse`: no second copy, no second checkpoint read, no second
+  quantization, the same `_params_fingerprint`) after
+  `release_device_state` has freed the dead one's pools, graphs and
+  pinned buffers.
+
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
 dispatch, the disaggregated handoff, the replica pools, mesh axes above 1.
 """
@@ -130,15 +152,17 @@ import time
 import traceback
 from collections import deque
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..faults import get_injector
 from ..models.config import ModelConfig, get_config
 from ..models.loader import load_checkpoint
 from ..models.quant import params_bytes, quantize_params
+from ..obs.timeline import TimelineRecorder
 from ..models.transformer import forward_paged, forward_ragged, init_params, unembed
 from ..ops import (
     flash_attention,
@@ -168,6 +192,9 @@ from .spec_decode import (
     spec_prefill_fn,
 )
 from .tokenizer import load_tokenizer
+
+if TYPE_CHECKING:
+    from ..obs.trace import Span
 
 _MAX_PREFILL_GROUP = 8   # burst admissions batched per prefill dispatch
 _GROUP_PADS = (1, 2, 4, 8)
@@ -217,6 +244,11 @@ class GenRequest:
     out: queue.Queue = field(default_factory=queue.Queue)
     cancelled: threading.Event = field(default_factory=threading.Event)
     timings: RequestTimings = field(default_factory=RequestTimings)
+    # Root span attached by the gateway; None means the request is
+    # untraced and the engine records no spans for it. The engine appends
+    # queue_wait / prefill / decode children; decode gets a decode_block
+    # child per processed block.
+    trace: Optional["Span"] = None
 
 
 @dataclass
@@ -245,6 +277,8 @@ class _Slot:
     # The merged prefill's first token on its way to host memory, until
     # delivered.
     first: Optional["_FirstToken"] = None
+    # The traced request's decode span, open from its first token.
+    decode_span: Optional["Span"] = None
 
 
 class _RRCursor:
@@ -278,15 +312,19 @@ class _InflightBlock(NamedTuple):
     event on the CPU, where the block ran in the call), the request in
     each slot at dispatch time, its dispatch sequence number (at process
     time, the engine's `_dispatch_seq - seq` is the OBSERVED lookahead,
-    the blocks dispatched after this one before its readback) and its
+    the blocks dispatched after this one before its readback), its
     kind: "decode" ([K, B] tokens) or "spec" (the round's packed
-    [B, gamma + 1 + SPEC_STAT_COLS] matrix)."""
+    [B, gamma + 1 + SPEC_STAT_COLS] matrix), the host gap before its
+    dispatch (ms, the device-time attribution window) and the lanes live
+    at dispatch."""
 
     host: torch.Tensor
     event: Optional[torch.cuda.Event]
     reqs: list
     seq: int
     kind: str = "decode"
+    gap_ms: float = 0.0
+    live: tuple = ()
 
 
 class _FirstToken(NamedTuple):
@@ -306,7 +344,9 @@ class EngineDeadError(RuntimeError):
 
 
 class EngineOverloadedError(RuntimeError):
-    """Admission shed this request (queue bound)."""
+    """Admission shed this request (queue bound or estimated-delay
+    check). `retry_after_ms` is the engine's best guess at when a retry
+    could be admitted — the gateway ships it as trailing metadata."""
 
     def __init__(self, message: str, retry_after_ms: int = 100):
         super().__init__(message)
@@ -657,7 +697,13 @@ class InferenceEngine:
         logger=None,
         seed: int = 0,
         draft_params: Optional[dict] = None,
+        reuse: Optional[dict] = None,
     ):
+        """`reuse` is another engine's `_ctor_args` (a supervised restart on
+        the same config): its weights serve this engine as they are, with
+        no checkpoint read, no quantization and no copy, and its seed and
+        fingerprint basis are kept, so a durable prefix store warms the
+        fresh engine as it did the old one."""
         config.validate()
         self.config = config
         self.device = resolve_device(device)
@@ -666,19 +712,35 @@ class InferenceEngine:
         self.metrics = EngineMetrics()
         self.health = health
         self.logger = logger
+        # Fault injection (faults.py): None unless POLYKEY_FAULTS is set or
+        # a test installed one, so every injection point is one `is None`.
+        self._faults = get_injector()
+        # Identity for ":replica=N" fault targeting: a lone engine is 0.
+        self.replica_id = 0
+        # Flight-deck timeline; timeline_capacity=0 allocates no ring.
+        self.timeline: Optional[TimelineRecorder] = (
+            TimelineRecorder(config.timeline_capacity)
+            if config.timeline_capacity > 0 else None
+        )
         if config.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self._dtype = _DTYPES[config.dtype]
         pool_dtype = _DTYPES.get(config.kv_dtype, self._dtype)
+        if reuse is not None:
+            seed = reuse["seed"]
+            params, draft_params = reuse["params"], reuse["draft_params"]
         self._seed_rng = np.random.default_rng(seed + 3)
 
-        self._params_explicit = params is not None
+        self._params_explicit = (reuse["explicit"] if reuse is not None
+                                 else params is not None)
         # Weight-only int8/int4 (models/quant.py), as the reference: passed
         # weights are quantized whole; random ones a layer at a time as
         # they are drawn, the same tree, so a model whose bf16 weights do
         # not fit on the card (mixtral-8x7b) is never held in bf16.
         bits = config.quantize_bits if config.quantize else None
-        if params is None and config.checkpoint_path:
+        if reuse is not None:
+            pass                # the replaced engine's tree, as it holds it
+        elif params is None and config.checkpoint_path:
             # A local checkpoint (models/loader.py), read onto the device a
             # tensor at a time and quantized a layer at a time.
             params = load_checkpoint(config.checkpoint_path, self.model_cfg, self._dtype,
@@ -719,7 +781,9 @@ class InferenceEngine:
                     f"{self.model_cfg.vocab_size}"
                 )
             # The quantize knob covers the draft too, as in the reference.
-            if draft_params is None and config.draft_checkpoint_path:
+            if reuse is not None:
+                pass
+            elif draft_params is None and config.draft_checkpoint_path:
                 draft_params = load_checkpoint(
                     config.draft_checkpoint_path, self.draft_cfg, self._dtype,
                     self.device, quantize_bits=bits)
@@ -734,6 +798,20 @@ class InferenceEngine:
                 self.draft_cfg, config.num_pages, config.page_size,
                 pool_dtype, self.device, kv_dtype=kv_q,
             )
+        # The weights as this engine holds them (on the device, quantized):
+        # the supervisor's factory builds a replacement on them (`reuse`).
+        self._ctor_args = {
+            "params": self.params,
+            "draft_params": self.draft_params if self._spec else None,
+            "seed": seed,
+            "explicit": self._params_explicit,
+        }
+        # Pool facts stats() reports, kept on the host: stats() must not
+        # touch the pools, which `release_device_state` drops.
+        self._kv_pool_bytes = self.paged.nbytes
+        self._kv_dtype_name = "int8" if self.paged.quantized else str(
+            self.paged.k.dtype).removeprefix("torch.")
+        self._draft_kv_pool_bytes = self.d_paged.nbytes if self._spec else 0
         self.allocator = BlockAllocator(config.num_pages)
         # Host-KV tier: cold prefix pages in pinned host pools. 0 bytes: no
         # pool, no store.
@@ -889,6 +967,12 @@ class InferenceEngine:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.dead: Optional[str] = None
+        # The watchdog's no-progress clock; only the engine thread stamps
+        # it (a submit() reset would let steady traffic hide a hang).
+        self.last_progress = time.monotonic()
+        # `_fail_all` may run on the supervisor's thread (a wedged engine
+        # thread) and on the engine thread once it wakes: one at a time.
+        self._fail_lock = threading.Lock()
         self._started = threading.Event()
         self._thread = threading.Thread(
             target=self._run, name="polykey-engine", daemon=True
@@ -907,17 +991,58 @@ class InferenceEngine:
             raise EngineDeadError(self.dead)
         if self._stop.is_set():
             raise EngineDeadError("engine is shut down")
+        # Bounded admission: over-limit submissions fail in O(1) with a
+        # retry hint instead of queueing into unbounded latency.
         limit = self.config.max_queue_depth
         if limit > 0 and self._submit.qsize() >= limit:
             self.metrics.on_shed()
-            raise EngineOverloadedError(f"submit queue full ({limit} waiting)")
+            raise EngineOverloadedError(
+                f"submit queue full ({limit} waiting)",
+                retry_after_ms=self._retry_after_ms(),
+            )
+        if request.deadline is not None:
+            # Deadline-aware admission: if the estimated queue delay
+            # already blows the request's budget, shed now rather than
+            # burn a slot on work the client will throw away. The estimate
+            # is 0 until the first completed request (cold engines never
+            # shed on it).
+            est = self._estimated_queue_delay_s()
+            if est > 0.0 and time.monotonic() + est >= request.deadline:
+                self.metrics.on_shed()
+                raise EngineOverloadedError(
+                    f"estimated queue delay {est:.2f}s exceeds request "
+                    "deadline",
+                    retry_after_ms=self._retry_after_ms(),
+                )
         self.metrics.on_admit()
         self._submit.put(request)
         self._wake.set()
         if self.dead is not None or self._stop.is_set():
             self._fail_pending(self.dead or "engine is shut down")
 
+    def _estimated_queue_delay_s(self) -> float:
+        """Expected wait before a newly queued request is admitted: with S
+        slots draining in parallel and an EWMA per-request service time,
+        the queue drains at roughly S requests per EWMA."""
+        ewma = self.metrics.service_time_ewma_s()
+        if ewma <= 0.0:
+            return 0.0
+        slots = max(1, self.config.max_decode_slots)
+        return self._submit.qsize() * ewma / slots
+
+    def _retry_after_ms(self) -> int:
+        """Shed hint: about one slot-drain interval, floored at 50 ms so
+        clients never busy-spin, 100 ms on a cold engine."""
+        ewma = self.metrics.service_time_ewma_s()
+        if ewma <= 0.0:
+            return 100
+        slots = max(1, self.config.max_decode_slots)
+        return max(50, int(1000.0 * ewma / slots))
+
     def stats(self) -> dict:
+        """A snapshot of host state only (counters, host mirrors, queue
+        sizes): no device read, no event wait, so the watchdog may call
+        it while the engine thread is wedged in a device call."""
         snap = self.metrics.snapshot()
         snap.update({
             "model": self.model_cfg.name,
@@ -942,9 +1067,8 @@ class InferenceEngine:
                 s is not None and s.first is not None for s in self._slots),
             "prefill_budget": self._prefill_budget,
             "ragged": self._ragged,
-            "kv_dtype": "int8" if self.paged.quantized else str(
-                self.paged.k.dtype).removeprefix("torch."),
-            "kv_pool_bytes": self.paged.nbytes,
+            "kv_dtype": self._kv_dtype_name,
+            "kv_pool_bytes": self._kv_pool_bytes,
             "weight_bytes": self._weight_bytes,
             "quantize": self.config.quantize,
             "quantize_bits": self.config.quantize_bits,
@@ -988,7 +1112,7 @@ class InferenceEngine:
             "spec_rounds": self._spec_rounds,
             "spec_lane_rounds": self._spec_lane_rounds,
             "spec_tokens": self._spec_tokens,
-            "draft_kv_pool_bytes": self.d_paged.nbytes,
+            "draft_kv_pool_bytes": self._draft_kv_pool_bytes,
         }
         occ = [i for i, s in enumerate(self._slots) if s is not None]
         if occ:
@@ -1068,6 +1192,33 @@ class InferenceEngine:
         self._wake.set()
         self._thread.join(timeout=timeout)
 
+    def release_device_state(self) -> None:
+        """Free this dead engine's device state before a replacement
+        allocates its own: the KV pools, the CUDA graphs and their pool,
+        the lane-state buffers, the pinned prefill operands and in-flight
+        copies, and the host tier. The weights stay (`_ctor_args`), for
+        the replacement to serve. Explicit, not left to the cycle
+        collector: `CudaGraphs.capture` holds the collector off, and the
+        engine's graphs and bound bodies form a cycle. Only once the
+        engine thread has exited, since nothing here may race it, and while
+        no other engine captures; stats() keeps working on host values."""
+        if self._thread.is_alive():
+            raise RuntimeError("the engine thread is still running")
+        self._inflight_q.clear()
+        self._slots = [None] * len(self._slots)
+        self._graphs.release()
+        self.paged = None
+        self.d_paged = None
+        self._dev = {}
+        self._prefill_ops = {}
+        self._prefix = None
+        self._host_kv = None
+        if self.device.type == "cuda":
+            # Back to the card, not only to PyTorch's cache: the graph
+            # pool's blocks are reused by no one else. Not while another
+            # engine captures (the supervisor builds one after this).
+            torch.cuda.empty_cache()
+
     def _params_fingerprint(self, seed: int) -> str:
         """Fingerprint of what decides KV content, the gate on durable
         reloads. The basis is the reference's, so a state dir written on
@@ -1093,14 +1244,19 @@ class InferenceEngine:
                 # A graph's first launch costs about one decode block; pay
                 # it here, not in the first requests' TTFT.
                 self._graphs.warm()
+                self.last_progress = time.monotonic()
                 self._started.set()
                 while not self._stop.is_set():
+                    if self.dead is not None:
+                        break       # the watchdog tripped while we were out
                     # With live decode lanes, admissions and chunks share
                     # the per-iteration prefill budget; with none there is
                     # no stream to stall and the budget is waived.
                     decode_live = bool(self._active.any())
                     budget = self._prefill_budget if decode_live else None
                     worked, spent = self._admit(budget)
+                    if self.dead is not None:
+                        break       # tripped while this iteration ran
                     # Restore frontier: faulting slots' host pages go back
                     # to the device ahead of this iteration's dispatches.
                     if self._host_kv is not None and self._issue_restores():
@@ -1110,6 +1266,8 @@ class InferenceEngine:
                         chunked = self._advance_chunked_prefills(remaining)
                         worked = worked or chunked > 0
                         self.metrics.on_prefill_interleave(spent + chunked, decode_live)
+                    if self.dead is not None:
+                        break
                     # Dispatch frontier: keep up to `_depth_target` blocks
                     # in flight, the one dispatched now included.
                     dispatched = False
@@ -1117,10 +1275,15 @@ class InferenceEngine:
                         self._ragged and self._has_pending_prefill()
                     ):
                         block = self._dispatch_step()
+                        if self.dead is not None or self._stop.is_set():
+                            # Woke from a fault's sleep into a dead or
+                            # stopped engine: touch the device no more.
+                            break
                         worked = True
                         if block is not None:
                             self._inflight_q.append(block)
                             dispatched = True
+                        del block
                     # First tokens whose copies have landed, after the
                     # dispatch: the prefill's device time overlaps the
                     # block's, and its read never blocks the loop.
@@ -1144,7 +1307,12 @@ class InferenceEngine:
                         self._resolve_prefills(block=True)
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
-            self._fail_all("engine is shut down")
+                    # Idle time is not a stall: both kinds of iteration
+                    # stamp the watchdog's clock.
+                    self.last_progress = time.monotonic()
+            # A dead engine fails its work on the host alone (`_finish`
+            # retires no lane once `dead` is set).
+            self._fail_all(self.dead or "engine is shut down")
         except Exception as e:  # engine thread must never die silently
             self.dead = f"engine loop crashed: {e}"
             if self.logger is not None:
@@ -1153,7 +1321,9 @@ class InferenceEngine:
                     traceback=traceback.format_exc(),
                 )
             self._fail_all(self.dead)
-            if self.health is not None:
+            # An engine already stopped (replaced by the supervisor) must
+            # not flip the health its replacement serves under.
+            if self.health is not None and not self._stop.is_set():
                 self.health.shutdown()
         finally:
             self._started.set()     # also when the capture failed
@@ -1168,9 +1338,24 @@ class InferenceEngine:
     def _deadline_expired(request: GenRequest) -> bool:
         return request.deadline is not None and time.monotonic() >= request.deadline
 
+    @staticmethod
+    def _trace_id_of(request: Optional[GenRequest]) -> Optional[str]:
+        if request is None or request.trace is None:
+            return None
+        return request.trace.trace_id
+
     def _fail_request(self, request: GenRequest, message: str) -> None:
         request.out.put(("error", message))
-        self.metrics.on_finish(request.timings, failed=True)
+        self.metrics.on_finish(request.timings, failed=True,
+                               trace_id=self._trace_id_of(request))
+
+    def _expire(self, request: GenRequest, phase: str) -> None:
+        """Fail an expired request that holds no slot (slot-holding
+        expiries go through _finish)."""
+        self.metrics.on_deadline_expired(phase)
+        if self.timeline is not None:
+            self.timeline.expire(phase, self._trace_id_of(request))
+        self._fail_request(request, f"{DEADLINE_MSG} while {phase}")
 
     def _admit(self, budget: Optional[int] = None) -> tuple[bool, int]:
         """Admit waiting requests into free slots; prefill short prompts
@@ -1195,8 +1380,8 @@ class InferenceEngine:
                 if request.cancelled.is_set():
                     continue
                 if self._deadline_expired(request):
-                    self.metrics.on_deadline_expired("queued")
-                    self._fail_request(request, f"{DEADLINE_MSG} while queued")
+                    # Dropped at dequeue: never tokenized, never on the card.
+                    self._expire(request, "queued")
                     continue
                 try:
                     prep = self._prepare_request(free[0], request)
@@ -1205,6 +1390,16 @@ class InferenceEngine:
                     # running requests release pages (FIFO fairness).
                     self._requeue_front(request)
                     return admitted, spent
+                except Exception as e:
+                    # A request that cannot be admitted (a failed
+                    # tokenization) fails alone; the engine serves on.
+                    self._fail_request(request, f"admission failed: {e}")
+                    continue
+                slot = self._slots[free[0]]
+                if (self.timeline is not None and slot is not None
+                        and slot.request is request):
+                    self.timeline.admit(free[0], self._trace_id_of(request),
+                                        request.timings.prompt_tokens)
                 if prep is None:
                     continue
                 bucket = prep[0]
@@ -1236,6 +1431,8 @@ class InferenceEngine:
         pool is full (the match is undone)."""
         cfg = self.config
         request.timings.prefill_start = time.monotonic()
+        if self._faults is not None:
+            self._faults.maybe_raise("tokenizer-error", replica=self.replica_id)
         prompt_ids = self.tokenizer.encode(request.prompt)
         # A speculative engine leaves gamma_max positions of slack, so the
         # last verify window's overdraft lands in the request's own pages.
@@ -1265,6 +1462,11 @@ class InferenceEngine:
                          for ci, (key, tier, _) in enumerate(chain) if tier == TIER_HOST]
         need = -(-(total_len + slack) // cfg.page_size) - (len(chain) - len(restore_items))
         try:
+            if self._faults is not None:
+                # Inside the try: the undo below must still give back the
+                # prefix lookup's pages.
+                self._faults.maybe_raise("alloc-fail", AllocationError,
+                                         replica=self.replica_id)
             try:
                 fresh = self.allocator.alloc(need)
             except AllocationError:
@@ -1291,6 +1493,12 @@ class InferenceEngine:
         pages = [page if tier == TIER_DEVICE else next(fresh_iter)
                  for _, tier, page in chain]
         pages += list(fresh_iter)
+        if request.trace is not None:
+            # Only after the allocation succeeded: a requeued request comes
+            # back here, and its tree holds one queue_wait over the whole
+            # wait.
+            request.trace.child("queue_wait", start=request.timings.enqueued,
+                                end=request.timings.prefill_start)
         table = np.zeros((cfg.pages_per_seq,), dtype=np.int32)
         table[: len(pages)] = pages
         seed = request.seed
@@ -1398,6 +1606,8 @@ class InferenceEngine:
             top_p[r] = slot.request.top_p
             top_k[r] = self._eff_top_k(slot.request)
             seeds[r] = slot.seed_row
+        if self._faults is not None:
+            self._faults.maybe_raise("prefill-error", replica=self.replica_id)
         ops = self._prefill_ops[n_pad]
         ops.upload(tokens, starts, last_rel, tables, seeds, temp, top_p, top_k)
         ps = cfg.page_size
@@ -1434,6 +1644,11 @@ class InferenceEngine:
         to 1, 2, 4 or 8 rows; padded rows use the garbage page. Each lane
         merges on the device; its first token is delivered later
         (`_resolve_prefills`)."""
+        if self.dead is not None:
+            # Tripped while admitting: a dead engine launches nothing.
+            for slot_idx in group:
+                self._finish(slot_idx, error=self.dead)
+            return
         n = len(group)
         n_pad = next(p for p in _GROUP_PADS if p >= n)
         rows = []
@@ -1451,6 +1666,8 @@ class InferenceEngine:
             return
         self.metrics.on_padding_tokens(n_pad * bucket, sum(len(ids) for _, ids, _ in rows))
         for r, slot_idx in enumerate(group):
+            if self.timeline is not None:
+                self.timeline.prefill(slot_idx, bucket, True)
             self._merge_slot(slot_idx, toks_dev, r, tables[r], seeds[r])
         self._await_first_tokens(toks_dev, list(zip(group, range(n))))
 
@@ -1533,6 +1750,18 @@ class InferenceEngine:
         slot.generated = 1
         request.timings.first_token = time.monotonic()
         slot.last_emit = request.timings.first_token
+        if self.timeline is not None:
+            self.timeline.slot_start(slot_idx, self._trace_id_of(request))
+        if request.trace is not None:
+            # Prefill phase: admission through the first token's arrival on
+            # the host (bucketed, grouped, chunked and ragged prefills all
+            # end in this resolve).
+            request.trace.child(
+                "prefill", start=request.timings.prefill_start,
+                end=request.timings.first_token, prompt_tokens=slot.prompt_len,
+            )
+            slot.decode_span = request.trace.child(
+                "decode", start=request.timings.first_token)
         request.out.put(("token", token))
         self._maybe_finish(slot_idx, token)
 
@@ -1581,6 +1810,8 @@ class InferenceEngine:
         except Exception as e:
             self._finish(slot_idx, error=f"prefill failed: {e}")
             return 0
+        if self.timeline is not None:
+            self.timeline.prefill(slot_idx, take, final)
         self.metrics.on_padding_tokens(C, take)
         if final:
             self._merge_slot(slot_idx, token_dev, 0, tables[0], seeds[0])
@@ -1723,13 +1954,16 @@ class InferenceEngine:
                 self._depth, max(1, -(-self._remaining_budget(act) // G1)))
         else:
             self._depth_target = self._depth
-        self.metrics.on_dispatch(lanes, G1, slots=B)
+        gap_ms = self.metrics.on_dispatch(lanes, G1, slots=B)
+        live = tuple(int(i) for i in np.flatnonzero(act))
         self.metrics.on_padding_tokens(W, useful)
         self.metrics.on_prefill_interleave(useful, lanes > 0)
         dev = self._dev
         lane_state = [dev[k] for k in ("last_tokens", "seq_lens", "page_tables", "active",
                                        "caps", "seeds", "temperature", "top_p", "top_k")]
         try:
+            if self._faults is not None:
+                self._faults.maybe_raise("prefill-error", replica=self.replica_id)
             if spec:
                 packed_dev, first_dev = ragged_spec_fn(
                     self.params, self.draft_params, self.model_cfg, self.draft_cfg,
@@ -1762,10 +1996,15 @@ class InferenceEngine:
             self._ragged_spec_dispatches += 1
             self._ragged_spec_lanes += lanes
         self._dispatch_seq += 1
+        if self.timeline is not None:
+            self.timeline.dispatch(self._dispatch_seq, "spec" if spec else "ragged",
+                                   lanes, G1, gap_ms)
         reqs = self._snapshot_requests()
         pre_tables, smp_seeds = ops_dev[3], ops_dev[10]
         finals = []
         for i, s, take in ranges:
+            if self.timeline is not None:
+                self.timeline.prefill(i, take, s.filled + take >= len(s.pending))
             if s.filled + take >= len(s.pending):
                 self._merge_slot(i, first_dev, i, pre_tables[i], smp_seeds[i])
                 finals.append(i)
@@ -1777,7 +2016,8 @@ class InferenceEngine:
         host, event = self._await_first_tokens(
             torch.cat([packed_dev.reshape(-1), first_dev]), [(i, n + i) for i in finals])
         return _InflightBlock(host[:n].view(packed_dev.shape), event, reqs,
-                              self._dispatch_seq, "spec" if spec else "decode")
+                              self._dispatch_seq, "spec" if spec else "decode",
+                              gap_ms, live)
 
     def _dispatch_step(self) -> Optional[_InflightBlock]:
         """Dispatch one decode block, spec round or, in ragged mode with
@@ -1785,6 +2025,15 @@ class InferenceEngine:
         the round when its gate is on), without waiting for it or for the
         blocks in flight; returns its in-flight record, or None when there
         was nothing to dispatch."""
+        if self._faults is not None:
+            # Stand-ins for a wedged (step-stall) or degraded (slow-step)
+            # device call, where the real dispatch would block. A thread
+            # that wakes into a dead or stopped engine dispatches nothing:
+            # the engine replacing it may be capturing its graphs.
+            self._faults.maybe_sleep("step-stall", replica=self.replica_id)
+            self._faults.maybe_sleep("slow-step", replica=self.replica_id)
+            if self.dead is not None or self._stop.is_set():
+                return None
         act = self._active
         # The round's gate (the reference's): every active row untruncated
         # (greedy rows count as such; the round then skips the truncation,
@@ -1823,11 +2072,15 @@ class InferenceEngine:
         self._depth_target = min(
             64, 1 + (self._depth - 1) * (self._block_steps // steps), blocks_needed,
         )
-        self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
+        gap_ms = self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
+        live = tuple(int(i) for i in np.flatnonzero(act))
         packed = self._graphs.run("decode", greedy, steps)
         host, event = self._copy_to_host(packed)
         self._dispatch_seq += 1
-        return _InflightBlock(host, event, self._snapshot_requests(), self._dispatch_seq)
+        if self.timeline is not None:
+            self.timeline.dispatch(self._dispatch_seq, "plain", lanes, steps, gap_ms)
+        return _InflightBlock(host, event, self._snapshot_requests(), self._dispatch_seq,
+                              "decode", gap_ms, live)
 
     def _decode_block(self, greedy: bool, steps: int) -> torch.Tensor:
         """The block body the decode graphs capture: `_decode_fn` over the
@@ -1852,12 +2105,15 @@ class InferenceEngine:
         steps = gamma + 1
         blocks_needed = max(1, -(-self._remaining_budget(act) // steps))
         self._depth_target = min(self._depth, blocks_needed)
-        self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
+        gap_ms = self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
+        live = tuple(int(i) for i in np.flatnonzero(act))
         packed = self._graphs.run("spec", gamma, greedy, cand)
         host, event = self._copy_to_host(packed)
         self._dispatch_seq += 1
+        if self.timeline is not None:
+            self.timeline.dispatch(self._dispatch_seq, "spec", lanes, steps, gap_ms)
         return _InflightBlock(host, event, self._snapshot_requests(), self._dispatch_seq,
-                              "spec")
+                              "spec", gap_ms, live)
 
     def _spec_round(self, gamma: int, greedy: bool, candidates: int) -> torch.Tensor:
         """The body the spec graphs capture: `spec_decode_fn` over both
@@ -1912,16 +2168,21 @@ class InferenceEngine:
         # Observed lookahead: blocks dispatched after this one, before its
         # readback (0 is the synchronous depth-1 shape).
         lookahead = self._dispatch_seq - block.seq
+        queued_after = len(self._inflight_q)
         if block.kind == "spec":
             # Spec rounds always sync: their stat columns feed the dial
             # mirrors and the rung even when every occupant is gone.
-            self._process_spec(block, lookahead)
+            self._process_spec(block, lookahead, queued_after)
             return
         if not any(s is not None and s.request is block.reqs[i]
                    for i, s in enumerate(self._slots)):
             # Dead block: every dispatch-time occupant is gone; nothing to
-            # emit, so nothing is read (no stall).
+            # emit, so nothing is read (no stall, no device time charged).
             self.metrics.on_process_block(lookahead, None)
+            if self.timeline is not None:
+                now = time.monotonic()
+                self.timeline.process(block.seq, now, now, None, lookahead,
+                                      queued_after, 0.0)
             return
         t_sync = time.monotonic()
         # First tokens queued ahead of this block land no later than it:
@@ -1930,10 +2191,46 @@ class InferenceEngine:
         if block.event is not None:
             block.event.synchronize()
         packed = block.host.numpy()
-        self.metrics.on_process_block(lookahead, (time.monotonic() - t_sync) * 1e3)
-        self._emit_block(packed, block.reqs)
+        stall_ms = (time.monotonic() - t_sync) * 1e3
+        self.metrics.on_process_block(lookahead, stall_ms,
+                                      trace_id=self._block_trace_id(block))
+        busy_ms = self._attribute_device_time(block, stall_ms)
+        self._emit_block(packed, block.reqs, t_sync, steps=int(packed.shape[0]))
+        if self.timeline is not None:
+            self.timeline.process(block.seq, t_sync, time.monotonic(), stall_ms,
+                                  lookahead, queued_after, busy_ms)
 
-    def _process_spec(self, block: _InflightBlock, lookahead: int) -> None:
+    def _block_trace_id(self, block: _InflightBlock) -> Optional[str]:
+        """A trace id to exemplar block-level observations with: the first
+        traced request live in the block."""
+        for i in block.live:
+            trace_id = self._trace_id_of(block.reqs[i])
+            if trace_id is not None:
+                return trace_id
+        return None
+
+    def _attribute_device_time(self, block: _InflightBlock, stall_ms: float) -> float:
+        """Charge the block's device-busy window — the host gap before its
+        dispatch minus the host stall its readback cost — equally to the
+        lanes live at dispatch, into each request's timings.device_ms (the
+        reference's attribution: dispatches serialize on the stream, so at
+        steady state consecutive dispatches tile the device's schedule).
+        Returns the busy ms charged (0.0 when nothing was)."""
+        if not block.live or block.gap_ms <= 0.0:
+            return 0.0
+        busy = block.gap_ms - max(0.0, stall_ms)
+        if busy <= 0.0:
+            return 0.0
+        self.metrics.on_device_busy(busy)
+        share = busy / len(block.live)
+        for i in block.live:
+            request = block.reqs[i]
+            if request is not None:
+                request.timings.device_ms += share
+        return busy
+
+    def _process_spec(self, block: _InflightBlock, lookahead: int,
+                      queued_after: int) -> None:
         """Read a round's packed matrix: emit each row's prefix (-1 padded,
         truncated on the device), refresh the dial mirrors of the lanes
         whose request still holds the slot from the stat columns, count
@@ -1944,7 +2241,10 @@ class InferenceEngine:
         if block.event is not None:
             block.event.synchronize()
         packed = block.host.numpy()
-        self.metrics.on_process_block(lookahead, (time.monotonic() - t_sync) * 1e3)
+        stall_ms = (time.monotonic() - t_sync) * 1e3
+        self.metrics.on_process_block(lookahead, stall_ms,
+                                      trace_id=self._block_trace_id(block))
+        busy_ms = self._attribute_device_time(block, stall_ms)
         g1 = packed.shape[1] - SPEC_STAT_COLS
         acc_col, prop_col = packed[:, g1], packed[:, g1 + 1]
         for i, slot in enumerate(self._slots):
@@ -1953,7 +2253,11 @@ class InferenceEngine:
             if slot is not None and slot.request is block.reqs[i]:
                 self._lane_ewma[i] = packed[i, g1 + 2] / 1e6
                 self._lane_gamma[i] = packed[i, g1 + 3]
-        self._emit_block(np.ascontiguousarray(packed[:, :g1].T), block.reqs)
+        self._emit_block(np.ascontiguousarray(packed[:, :g1].T), block.reqs, t_sync,
+                         spec_round=True)
+        if self.timeline is not None:
+            self.timeline.process(block.seq, t_sync, time.monotonic(), stall_ms,
+                                  lookahead, queued_after, busy_ms)
         accepted, proposed = int(acc_col.sum()), int(prop_col.sum())
         self.metrics.on_spec(accepted, proposed)
         self._spec_rounds += 1
@@ -1967,11 +2271,13 @@ class InferenceEngine:
         rung = self._gamma_max if want > self._gamma_low else self._gamma_low
         self._gamma = min(rung, self._gamma_cap)
 
-    def _emit_block(self, packed: np.ndarray, reqs: list) -> None:
+    def _emit_block(self, packed: np.ndarray, reqs: list, t_sync: float,
+                    **span_attrs) -> None:
         """Emit a block's packed [K, B] tokens to the requests that held
         their slots at dispatch (`reqs`) and finish streams on the host.
         The block's own K, not the configured one: the adaptive block
-        varies it."""
+        varies it. A traced slot's decode span gets a decode_block child
+        (`span_attrs`) opened at the block's sync start `t_sync`."""
         emitted = 0
         for i, slot in enumerate(self._slots):
             if slot is None or not self._active[i] or slot.request is not reqs[i]:
@@ -1991,12 +2297,15 @@ class InferenceEngine:
                 if self._slots[i] is not slot:
                     continue
             before = slot.generated
+            block_span = None
             for k in range(packed.shape[0]):
                 token = int(packed[k, i])
                 if token < 0:
                     break
                 slot.generated += 1
                 self._seq_lens[i] += 1
+                block_span = self._note_block_token(slot, block_span, before, t_sync,
+                                                    span_attrs)
                 slot.request.out.put(("token", token))
                 emitted += 1
                 self._maybe_finish(i, token)
@@ -2005,9 +2314,27 @@ class InferenceEngine:
             n = slot.generated - before
             if n > 0:
                 now = time.monotonic()
-                self.metrics.on_itl((now - slot.last_emit) * 1e3 / n, n)
+                self.metrics.on_itl((now - slot.last_emit) * 1e3 / n, n,
+                                    trace_id=self._trace_id_of(slot.request))
                 slot.last_emit = now
         self.metrics.on_step(emitted)
+
+    @staticmethod
+    def _note_block_token(slot: _Slot, block_span, before: int, t_sync: float,
+                          attrs: dict):
+        """Per-token upkeep of a traced slot's decode_block span: opened on
+        the block's first token (no earlier than the decode span), its
+        token count and end kept current BEFORE the token reaches the
+        client — the gateway may freeze the tree the moment the stream
+        ends."""
+        if slot.decode_span is None:
+            return None
+        if block_span is None:
+            block_span = slot.decode_span.child(
+                "decode_block", start=max(t_sync, slot.decode_span.start), **attrs)
+        block_span.set(tokens=slot.generated - before)
+        block_span.end = time.monotonic()
+        return block_span
 
     def _maybe_finish(self, slot_idx: int, token: int) -> None:
         slot = self._slots[slot_idx]
@@ -2029,6 +2356,25 @@ class InferenceEngine:
         slot.first = None     # an undelivered first token goes with its request
         request.timings.finished = time.monotonic()
         request.timings.completion_tokens = slot.generated
+        if self.timeline is not None:
+            self.timeline.slot_end(
+                slot_idx,
+                "cancelled" if error == "cancelled"
+                else ("error" if error is not None else "done"),
+                slot.generated,
+            )
+        if slot.decode_span is not None:
+            slot.decode_span.set(tokens=slot.generated)
+            slot.decode_span.finish(end=request.timings.finished)
+        if request.trace is not None:
+            if request.timings.device_ms > 0:
+                request.trace.set(device_ms=round(request.timings.device_ms, 3))
+            # A cancellation (stop sequence, client gone) is the expected
+            # end of those RPCs, not a failure label.
+            if error == "cancelled":
+                request.trace.set(cancelled=True)
+            elif error is not None:
+                request.trace.set(error=error)
         if slot.restore_pages:
             # Ended before its restore was issued: its host pages go back
             # to the cache, so the warmth outlives the slot.
@@ -2048,7 +2394,7 @@ class InferenceEngine:
             self._fail_request(request, error)
         else:
             request.out.put(("done", request.timings))
-            self.metrics.on_finish(request.timings)
+            self.metrics.on_finish(request.timings, trace_id=self._trace_id_of(request))
         if (self._host_kv is not None and self.dead is None and not self._stop.is_set()
                 and self.allocator.num_free < self._resident_low):
             # Below the resident floor: spill cold cache pages now, off any
@@ -2105,7 +2451,12 @@ class InferenceEngine:
             # wins, and this slot's copy still serves it.
             self._prefix.reinsert_device(key, slot.pages[ci])
         slot.restore_pages = None
-        self.metrics.on_kv_restore(len(items), (time.monotonic() - t0) * 1e3)
+        ms = (time.monotonic() - t0) * 1e3
+        trace_id = self._trace_id_of(slot.request)
+        self.metrics.on_kv_restore(len(items), ms, trace_id=trace_id)
+        if self.timeline is not None:
+            self.timeline.note("kv_restore", slot=slot_idx, pages=len(items),
+                               ms=round(ms, 3), trace=trace_id)
 
     def _spill_for(self, target_free: int) -> int:
         """Spill LRU device-tier cache entries to the host tier until the
@@ -2149,6 +2500,8 @@ class InferenceEngine:
             moved.append((key, r))
         if moved:
             self.metrics.on_kv_evict(len(moved))
+            if self.timeline is not None:
+                self.timeline.note("kv_evict", pages=len(moved))
             if self._kv_state is not None:
                 rows = [r for _, r in moved]
                 self._kv_state.save_batch(
@@ -2170,8 +2523,9 @@ class InferenceEngine:
             pass
 
     def _fail_all(self, message: str) -> None:
-        self._inflight_q.clear()   # unprocessed blocks: their streams fail
-        for i, slot in enumerate(self._slots):
-            if slot is not None:
-                self._finish(i, error=message)
-        self._fail_pending(message)
+        with self._fail_lock:
+            self._inflight_q.clear()   # unprocessed blocks: their streams fail
+            for i, slot in enumerate(self._slots):
+                if slot is not None:
+                    self._finish(i, error=message)
+            self._fail_pending(message)

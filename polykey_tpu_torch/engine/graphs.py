@@ -60,6 +60,15 @@ graph's memory. The engine's keys: "decode" (greedy, steps), "prefill"
   collector runs, which may be in the middle of a later engine's capture
   (`torch.cuda.graph` no longer collects on entry). So `capture` collects
   first and holds the automatic collector off until its last capture ends.
+- **Other threads.** A capture's error mode is thread-local: only
+  this thread's unsafe calls fail it. A supervised restart captures a
+  fresh engine's graphs while the thread of the engine it replaces may
+  still wake from a wedged call; that thread touches the device no more
+  (engine/engine.py), but freeing its last pinned copies or events must
+  not invalidate this capture as a global-mode capture would.
+- **Release.** `release` destroys every graph and drops its output, so a
+  dead engine's pool goes back to PyTorch's cache before its replacement
+  captures (engine/supervisor.py).
 - **No fallback.** A failed capture, a missing key or a failed replay
   raises; nothing here runs a body eagerly on a CUDA device but the
   capture's warm-up. On CPU tensors `run` calls the body itself: that is
@@ -95,6 +104,8 @@ class CudaGraphs:
         self.pool_bytes = 0
         self.pool_bytes_after: dict[str, int] = {}
         self.capture_seconds = 0.0
+        # Monotonic start and end of the capture (0.0 until it ran).
+        self.capture_window = (0.0, 0.0)
 
     def capture(self) -> None:
         """Warm up and capture every key of every body (CUDA only; on the
@@ -121,7 +132,8 @@ class CudaGraphs:
                         body(*key)
                     graph = torch.cuda.CUDAGraph()
                     with _build.uncounted() as made:
-                        with torch.cuda.graph(graph, pool=pool, stream=stream):
+                        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                              capture_error_mode="thread_local"):
                             out = body(*key)
                     self._graphs[(name, key)] = (graph, out, made)
                     self.captures[name] += 1
@@ -134,7 +146,17 @@ class CudaGraphs:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_seconds = time.monotonic() - t0
+        t1 = time.monotonic()
+        self.capture_seconds = t1 - t0
+        self.capture_window = (t0, t1)
+
+    def release(self) -> None:
+        """Destroy every graph and drop its output: once no graph uses the
+        pool, its memory is PyTorch's to reuse (`torch.cuda.empty_cache`
+        returns it to the card). Counters stay."""
+        for graph, _, _ in self._graphs.values():
+            graph.reset()
+        self._graphs.clear()
 
     def warm(self) -> None:
         """Replay every captured graph once, uncounted, and wait: call right

@@ -11,8 +11,15 @@ log-spaced buckets give O(1)-memory p50/p95/p99 over the full history.
 The host-KV tier's page faults, spills and restores (with the restore
 latency histogram) are always in the snapshot, 0 with the tier off.
 Speculative rounds add the drafts accepted and proposed and their ratio,
-`spec_acceptance`, once a round has proposed any. Device-time attribution
-comes with the slice that ports it.
+`spec_acceptance`, once a round has proposed any.
+
+Device-time attribution (the reference's): each processed block's
+device-busy window, the host gap before its dispatch minus the host stall
+its readback cost, is split across the lanes live at dispatch into each
+request's `device_ms`. An EWMA of per-request service time (admission to
+finish) sizes the admission's estimated queue delay and the shed's
+retry hint. Histogram observations carry the request's trace id as the
+bucket's exemplar (obs/histogram.py).
 """
 
 from __future__ import annotations
@@ -24,6 +31,11 @@ from typing import Optional
 
 from ..obs.histogram import Histogram
 
+# Bucket bounds for the live-lanes-per-block histogram: lane counts are
+# small integers bounded by max_decode_slots (the reference's ladder).
+LANE_BUCKETS = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256,
+                384, 512)
+
 
 @dataclass
 class RequestTimings:
@@ -33,6 +45,9 @@ class RequestTimings:
     finished: float = 0.0
     prompt_tokens: int = 0
     completion_tokens: int = 0
+    # The request's share of every decode block's device-busy window
+    # (engine thread only).
+    device_ms: float = 0.0
 
     @property
     def ttft_ms(self) -> float:
@@ -68,6 +83,11 @@ class EngineMetrics:
         # Overload accounting: sheds at admission, deadline expiries by phase.
         self.requests_shed = 0
         self.deadline_expired = {"queued": 0, "prefill": 0, "decode": 0}
+        # EWMA of per-request service time (admission → finish), the input
+        # to the estimated-queue-delay admission check: with S slots
+        # draining in parallel, one queued request waits roughly
+        # qsize × ewma / S. 0.0 until the first finish.
+        self._service_ewma_s = 0.0
         self._window_start = time.monotonic()
         self._window_tokens = 0
         self.tokens_per_sec = 0.0
@@ -84,6 +104,7 @@ class EngineMetrics:
         self.lane_steps = 0
         self.steps_dispatched = 0
         self._lanes_ewma = 0.0
+        self.lanes_hist = Histogram(bounds=LANE_BUCKETS)
         # Padding waste: token rows the device computed vs rows that were
         # useful work (decode: slots × steps vs lanes × steps; prefill: the
         # padded group width vs the real prompt tokens).
@@ -108,6 +129,10 @@ class EngineMetrics:
         self.dispatch_gap_ms_total = 0.0
         self.dispatch_gaps = 0
         self._last_dispatch_t = 0.0
+        # Device-busy ms charged across blocks (gap − stall, clamped ≥ 0)
+        # and the per-request distribution of that charge.
+        self.device_busy_ms_total = 0.0
+        self.device_ms_hist = Histogram()
         # Host-KV tier: host pages faulted at admission, by kind (a prompt
         # past the largest bucket is "ctx"), pages spilled and restored,
         # and the host wall of each restore.
@@ -138,15 +163,18 @@ class EngineMetrics:
         with self._lock:
             self.kv_pages_evicted += pages
 
-    def on_kv_restore(self, pages: int, ms: float) -> None:
+    def on_kv_restore(self, pages: int, ms: float,
+                      trace_id: Optional[str] = None) -> None:
         with self._lock:
             self.kv_pages_restored += pages
-        self.kv_restore_hist.observe(ms)
+        self.kv_restore_hist.observe(ms, trace_id=trace_id)
 
-    def on_process_block(self, lookahead: int, stall_ms: Optional[float]) -> None:
+    def on_process_block(self, lookahead: int, stall_ms: Optional[float],
+                         trace_id: Optional[str] = None) -> None:
         """One block processed with `lookahead` newer blocks already
         dispatched; `stall_ms` is the blocking-readback wall time (None
-        for a dead block, whose read was skipped)."""
+        for a dead block, whose read was skipped). `trace_id` exemplars
+        the stall bucket with a request live in the block."""
         with self._lock:
             self.blocks_processed += 1
             self.blocks_overlapped += lookahead > 0
@@ -157,7 +185,12 @@ class EngineMetrics:
                 self.blocks_synced += 1
                 self.host_stall_ms_total += stall_ms
         if stall_ms is not None:
-            self.host_stall_hist.observe(stall_ms)
+            self.host_stall_hist.observe(stall_ms, trace_id=trace_id)
+
+    def on_device_busy(self, busy_ms: float) -> None:
+        """Device-busy ms attributed to one processed block."""
+        with self._lock:
+            self.device_busy_ms_total += busy_ms
 
     def on_dispatch_idle(self) -> None:
         """The engine went idle: reset the dispatch-gap clock so the first
@@ -208,6 +241,7 @@ class EngineMetrics:
                 float(lanes) if self.blocks_dispatched == 1
                 else 0.9 * self._lanes_ewma + 0.1 * lanes
             )
+        self.lanes_hist.observe(float(lanes))
         return counted_gap
 
     def on_admit(self) -> None:
@@ -222,6 +256,10 @@ class EngineMetrics:
         with self._lock:
             self.deadline_expired[phase] += 1
 
+    def service_time_ewma_s(self) -> float:
+        with self._lock:
+            return self._service_ewma_s
+
     def on_step(self, num_tokens: int) -> None:
         with self._lock:
             self.decode_steps += 1
@@ -234,25 +272,36 @@ class EngineMetrics:
                 self._window_start = now
                 self._window_tokens = 0
 
-    def on_itl(self, gap_ms: float, count: int = 1) -> None:
+    def on_itl(self, gap_ms: float, count: int = 1,
+               trace_id: Optional[str] = None) -> None:
         """Record `count` tokens delivered with a per-token gap of `gap_ms`
         (one decode block's inter-emit window amortized over its tokens),
         so a stall between blocks shows in the tail."""
         if gap_ms > 0:
-            self.itl_hist.observe(gap_ms, count)
+            self.itl_hist.observe(gap_ms, count, trace_id=trace_id)
 
-    def on_finish(self, timings: RequestTimings, failed: bool = False) -> None:
+    def on_finish(self, timings: RequestTimings, failed: bool = False,
+                  trace_id: Optional[str] = None) -> None:
         ttft = timings.ttft_ms
         with self._lock:
             if failed:
                 self.requests_failed += 1
             else:
                 self.requests_completed += 1
+                if timings.finished and timings.prefill_start:
+                    dur = timings.finished - timings.prefill_start
+                    if dur > 0:
+                        self._service_ewma_s = (
+                            dur if self._service_ewma_s == 0.0
+                            else 0.8 * self._service_ewma_s + 0.2 * dur
+                        )
             if ttft > 0:
                 self.ttft_ms_sum += ttft
                 self.ttft_ms_count += 1
         if ttft > 0:
-            self.ttft_hist.observe(ttft)
+            self.ttft_hist.observe(ttft, trace_id=trace_id)
+        if timings.device_ms > 0:
+            self.device_ms_hist.observe(timings.device_ms, trace_id=trace_id)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -310,6 +359,14 @@ class EngineMetrics:
                 ),
                 "host_stall_ms_total": round(self.host_stall_ms_total, 2),
                 "dispatch_gap_ms_total": round(self.dispatch_gap_ms_total, 2),
+                "device_busy_ms_total": round(self.device_busy_ms_total, 2),
+                # Device-busy share of inter-dispatch wall time (busy = gap
+                # − stall): how device-bound the recorded schedule is.
+                "device_busy_fraction": (
+                    round(self.device_busy_ms_total
+                          / self.dispatch_gap_ms_total, 4)
+                    if self.dispatch_gap_ms_total else 0.0
+                ),
             }
             if self.steps_dispatched:
                 snap["avg_lanes"] = round(
@@ -335,6 +392,10 @@ class EngineMetrics:
             p50, p95 = self.host_stall_hist.percentiles(50, 95)
             snap["host_stall_ms_p50"] = round(p50, 2)
             snap["host_stall_ms_p95"] = round(p95, 2)
+        if self.device_ms_hist.count:
+            p50, p95 = self.device_ms_hist.percentiles(50, 95)
+            snap["request_device_ms_p50"] = round(p50, 2)
+            snap["request_device_ms_p95"] = round(p95, 2)
         if self.kv_restore_hist.count:
             p50, p95 = self.kv_restore_hist.percentiles(50, 95)
             snap["kv_restore_ms_p50"] = round(p50, 2)

@@ -6,10 +6,12 @@ on SIGTERM (main.go:118): per-service serving status, NOT_FOUND on Check for
 unknown services, streaming Watch with SERVICE_UNKNOWN for unregistered names,
 and Shutdown() forcing every current and future status to NOT_SERVING.
 
-The server flips every status to NOT_SERVING on shutdown, and the engine
-marks the health service down when its loop crashes — the serving-tier
-liveness story the reference delegates to container healthchecks
-(compose.yml:17-22).
+The server flips every status to NOT_SERVING on shutdown, the engine
+marks the health service down when its loop crashes, and the watchdog
+(engine/watchdog.py) when its step loop stalls; the supervisor
+(engine/supervisor.py) resumes SERVING once a fresh engine is up — the
+serving-tier liveness story the reference delegates to container
+healthchecks (compose.yml:17-22).
 """
 
 from __future__ import annotations

@@ -1,10 +1,15 @@
-"""gRPC server wiring (the reference's gateway/server.py, without the
-metrics sidecar and reflection, which are later slices of the port).
+"""gRPC server wiring (the reference's gateway/server.py).
 
 - listen address from ``LISTEN_ADDR``, default ``:50051``;
 - keepalive: MaxConnectionIdle 5m, Time 2h, Timeout 20s;
-- unary + streaming logging interceptor that skips health checks;
-- health service with SERVING for ``polykey.v2.PolykeyService`` and ``""``;
+- unary + streaming logging and tracing interceptor that skips health
+  checks (root spans and RPC counters with an `Observability` bundle);
+- health service with SERVING for ``polykey.v2.PolykeyService`` and
+  ``""``, plus server reflection (v1 and v1alpha);
+- the Prometheus sidecar: ``/metrics`` on ``POLYKEY_METRICS_PORT``
+  (default 9464; 0 disables it), with the ``/debug/*`` surface beside it
+  (a 404 unless ``POLYKEY_DEBUG_ENDPOINTS=1``) following
+  ``service.engine`` across supervised restarts;
 - graceful drain on SIGINT/SIGTERM: health shutdown first, then stop.
 
 The backend is selected as in the reference: ``POLYKEY_BACKEND=engine``
@@ -34,10 +39,14 @@ from ..proto.polykey_v2_grpc import (
     PolykeyServiceServicer,
     add_PolykeyServiceServicer_to_server,
 )
+from ..obs import DebugSurface, MetricsHTTPServer, Observability
 from . import errors
 from .health import HealthService
 from .interceptor import LoggingInterceptor
 from .jsonlog import Logger
+from .reflection import SERVICE_NAME as REFLECTION_SERVICE_NAME
+from .reflection import SERVICE_NAME_V1 as REFLECTION_SERVICE_NAME_V1
+from .reflection import ReflectionService, add_reflection_to_server
 from .service import Service
 
 _KEEPALIVE_OPTIONS = [
@@ -126,14 +135,19 @@ def build_server(
     address: str = ":50051",
     max_workers: int = 32,
     health: Optional[HealthService] = None,
+    obs: Optional[Observability] = None,
 ):
-    """Assemble the gRPC server; returns (server, health, port)."""
+    """Assemble the gRPC server; returns (server, health, port). A
+    HealthService built before the server lets the backend's watchdog and
+    supervisor flip serving status. An `Observability` bundle turns on
+    request tracing and RPC counters; share it with the backend and the
+    /metrics sidecar so all three see one registry and one recorder."""
     logger = logger or Logger()
     server = grpc.server(
         futures.ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="polykey-rpc"
         ),
-        interceptors=[LoggingInterceptor(logger)],
+        interceptors=[LoggingInterceptor(logger, obs=obs)],
         options=_KEEPALIVE_OPTIONS,
     )
     add_PolykeyServiceServicer_to_server(PolykeyServer(service, logger), server)
@@ -142,6 +156,7 @@ def build_server(
     add_HealthServicer_to_server(health, server)
     health.set_serving_status(SERVICE_NAME, health_pb.HealthCheckResponse.SERVING)
     health.set_serving_status("", health_pb.HealthCheckResponse.SERVING)
+    add_reflection_to_server(ReflectionService(), server)
     try:
         port = server.add_insecure_port(normalize_address(address))
     except RuntimeError as e:               # grpc raises on bind failure
@@ -154,19 +169,55 @@ def build_server(
 _SERVICE_TABLE = {
     SERVICE_NAME: ["ExecuteTool", "ExecuteToolStream"],
     HEALTH_SERVICE_NAME: ["Check", "Watch"],
+    REFLECTION_SERVICE_NAME_V1: ["ServerReflectionInfo"],
+    REFLECTION_SERVICE_NAME: ["ServerReflectionInfo"],
 }
 
 
-def _default_service(logger: Logger, health: HealthService, device=None) -> Service:
-    """TorchService for POLYKEY_BACKEND=engine|tpu, the mock otherwise."""
+def _default_service(logger: Logger, health: Optional[HealthService], device=None,
+                     obs: Optional[Observability] = None) -> Service:
+    """TorchService for POLYKEY_BACKEND=engine|tpu (with its watchdog and
+    supervisor), the mock otherwise."""
     backend = os.environ.get("POLYKEY_BACKEND", "mock").lower()
     if backend in ("tpu", "engine"):
         from .torch_service import TorchService
 
-        return TorchService.from_env(health=health, logger=logger, device=device)
+        return TorchService.from_env(health=health, logger=logger, obs=obs,
+                                     device=device)
     from .mock_service import MockService
 
     return MockService()
+
+
+def start_metrics_server(obs: Observability, logger: Logger, service=None,
+                         port: Optional[int] = None) -> Optional[MetricsHTTPServer]:
+    """The Prometheus sidecar thread. `port` None reads
+    POLYKEY_METRICS_PORT (default 9464); 0 there disables it (as an
+    argument, 0 binds an ephemeral port). A bind failure degrades to no
+    endpoint rather than killing the gateway — the gRPC metrics_text view
+    still works. An engine-shaped backend gets the /debug surface beside
+    /metrics, following `service.engine` across restarts."""
+    if port is None:
+        raw = os.environ.get("POLYKEY_METRICS_PORT", "9464")
+        try:
+            port = int(raw)
+        except ValueError:
+            logger.warn("invalid POLYKEY_METRICS_PORT; metrics disabled", value=raw)
+            return None
+        if port <= 0:
+            return None
+    debug = None
+    if service is not None and hasattr(service, "engine"):
+        debug = DebugSurface(engine_provider=lambda: service.engine, obs=obs,
+                             profiler=getattr(service, "profiler", None))
+    try:
+        metrics_server = MetricsHTTPServer(obs.registry, port=port, debug=debug).start()
+    except OSError as e:
+        logger.warn("metrics endpoint failed to bind; continuing without",
+                    port=port, error=str(e))
+        return None
+    logger.info("metrics endpoint listening", port=metrics_server.port, path="/metrics")
+    return metrics_server
 
 
 def serve(service: Optional[Service] = None, address: Optional[str] = None) -> None:
@@ -174,21 +225,26 @@ def serve(service: Optional[Service] = None, address: Optional[str] = None) -> N
     logger = Logger(level=os.environ.get("POLYKEY_LOG_LEVEL", "info"))
     if address is None:
         address = os.environ.get("LISTEN_ADDR") or ":50051"
+    obs = Observability()
     health = HealthService()
     if service is None:
         try:
-            service = _default_service(logger, health)
+            service = _default_service(logger, health, obs=obs)
         except Exception as e:
             logger.error("failed to initialize backend", error=str(e))
             raise SystemExit(1)
     try:
-        server, health, _ = build_server(service, logger, address, health=health)
+        server, health, _ = build_server(service, logger, address, health=health,
+                                         obs=obs)
     except OSError as e:
         logger.error("failed to listen", error=str(e))
         raise SystemExit(1)
+    metrics_server = start_metrics_server(obs, logger, service=service)
     logger.info("Registered services:")
     for name, methods in _SERVICE_TABLE.items():
         logger.info("Service registered", name=name, methods=len(methods))
+        for method in methods:
+            logger.info("Method available", service=name, method=method)
 
     quit_event = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -202,6 +258,8 @@ def serve(service: Optional[Service] = None, address: Optional[str] = None) -> N
     close = getattr(service, "close", None)
     if close is not None:
         close()
+    if metrics_server is not None:
+        metrics_server.stop()
     logger.info("server stopped")
 
 

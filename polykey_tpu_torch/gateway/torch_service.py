@@ -11,9 +11,21 @@ oneof output out). Tools:
   completion as string_output; the streaming RPC emits UTF-8-safe deltas
   and a terminal chunk with Usage (tokens, TTFT, tok/s).
 - ``engine_stats`` — struct_output snapshot of engine metrics, pool state
-  and kernel launch counts.
+  and kernel launch counts, the supervisor's restart count and the most
+  recent traced request's span tree. ``view: "metrics_text"`` returns
+  the Prometheus page as string_output (the bytes of /metrics);
+  ``view: "trace"`` the flight recorder's span trees and events.
+- ``engine_profile`` — action start | stop | status on the shared
+  single-flight torch.profiler capture (obs/profiler.py), the one
+  /debug/profile also uses.
 - the reference's mock tools (example_tool / struct_tool / file_tool)
   through MockService, including the unknown-tool-is-success contract.
+
+`create` wires the watchdog and, under `supervise` (the default), the
+supervisor that restarts a dead engine in the process on the same
+weights; `secret_id` resolves through the encrypted store
+(gateway/security.py) when POLYKEY_SECRET_KEY is set, and never fails a
+request.
 """
 
 from __future__ import annotations
@@ -21,7 +33,8 @@ from __future__ import annotations
 import collections.abc
 import math
 import queue
-from typing import Iterator
+import time
+from typing import Iterator, Optional
 
 from google.protobuf import struct_pb2
 
@@ -33,7 +46,11 @@ from ..engine.engine import (
     GenRequest,
     InferenceEngine,
 )
+from ..engine.supervisor import EngineSupervisor
 from ..engine.tokenizer import ByteTokenizer, IncrementalDetokenizer
+from ..engine.watchdog import Watchdog
+from ..obs import Counter, Gauge, Observability, current_span, engine_collector
+from ..obs.profiler import ProfilerCapture
 from ..proto import common_v2_pb2 as cmn
 from ..proto import polykey_v2_pb2 as pk
 from . import errors
@@ -48,24 +65,126 @@ def _ok() -> cmn.Status:
 
 
 class TorchService(Service):
-    def __init__(self, engine: InferenceEngine, logger=None):
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        watchdog: Optional[Watchdog] = None,
+        secrets=None,
+        logger=None,
+        obs: Optional[Observability] = None,
+    ):
         self.engine = engine
+        self.watchdog = watchdog
+        # Set by create() under supervision; the supervisor swaps
+        # `self.engine` to the fresh instance after every restart.
+        self.supervisor: Optional[EngineSupervisor] = None
+        self.secrets = secrets      # gateway.security.SecretStore or None
         self.logger = logger
+        self.obs = obs
+        self.stall_counter = None
+        self.restart_counter = None
         self._mock = MockService()
+        # One single-flight profiler for the engine_profile tool and the
+        # /debug/profile trigger: torch.profiler is process-global.
+        self.profiler = ProfilerCapture(
+            recorder=obs.recorder if obs is not None else None
+        )
+        if obs is not None:
+            # A registry holds ONE engine's families (the names carry no
+            # engine label): the first service to register wins. The scrape
+            # reads `self.engine`, not the constructor argument, so it
+            # follows a supervised restart to the live engine.
+            _up, created = obs.registry.get_or_create(
+                Gauge, "polykey_engine_up", "1 while the engine thread is alive.",
+                fn=lambda: 0.0 if self.engine.dead else 1.0,
+            )
+            if created:
+                obs.registry.register_collector(engine_collector(lambda: self.engine))
+            self.stall_counter, _ = obs.registry.get_or_create(
+                Counter, "polykey_watchdog_stalls_total",
+                "Watchdog trips on a wedged engine step loop.",
+            )
+            self.restart_counter, _ = obs.registry.get_or_create(
+                Counter, "polykey_engine_restarts_total",
+                "Supervised in-process engine restarts.",
+            )
 
     @classmethod
-    def from_env(cls, health=None, logger=None, device=None) -> "TorchService":
+    def create(cls, engine: InferenceEngine, health=None, logger=None, secrets=None,
+               obs: Optional[Observability] = None, engine_factory=None) -> "TorchService":
+        """A service with its watchdog and, when `engine.config.supervise`
+        (the default), its supervisor, wired to the shared observability
+        bundle (flight-recorder events, stall and restart counters). The
+        default factory builds the replacement on the dead engine's own
+        weights (`InferenceEngine(..., reuse=dead._ctor_args)`): no second
+        copy on the card, no second checkpoint read. `engine_factory`
+        overrides it."""
+        service = cls(engine, None, secrets=secrets, logger=logger, obs=obs)
+        config = engine.config
+        recorder = obs.recorder if obs is not None else None
+        watchdog = Watchdog(
+            engine, health=health, logger=logger, recorder=recorder,
+            stall_counter=service.stall_counter,
+            # The reference's 5 s tick at the default 300 s window; a
+            # shorter window is checked four times over.
+            check_interval_s=min(5.0, config.watchdog_timeout_s / 4),
+        )
+        watchdog.start()
+        service.watchdog = watchdog
+        if config.supervise:
+            device = engine.device
+            factory = engine_factory or (
+                lambda: InferenceEngine(config, device=device, health=health,
+                                        logger=logger,
+                                        reuse=service.engine._ctor_args)
+            )
+            supervisor = EngineSupervisor(
+                engine, factory, watchdog=watchdog, health=health, logger=logger,
+                recorder=recorder, restart_counter=service.restart_counter,
+                max_restarts=config.max_engine_restarts,
+                restart_window_s=config.restart_window_s,
+            )
+            supervisor.add_restart_listener(
+                lambda fresh: setattr(service, "engine", fresh))
+            supervisor.start()
+            service.supervisor = supervisor
+        return service
+
+    @classmethod
+    def from_env(cls, health=None, logger=None, obs: Optional[Observability] = None,
+                 device=None) -> "TorchService":
+        from .security import SecretStore
+
         config = EngineConfig.from_env()
         engine = InferenceEngine(config, device=device, health=health, logger=logger)
+        service = cls.create(engine, health=health, logger=logger,
+                             secrets=SecretStore.from_env(logger), obs=obs)
         if logger is not None:
             logger.info(
                 "engine initialized", model=config.model,
                 device=str(engine.device), slots=config.max_decode_slots,
                 pages=config.num_pages, page_size=config.page_size,
+                supervise=config.supervise,
             )
-        return cls(engine, logger=logger)
+        return service
+
+    def _resolve_secret(self, secret_id) -> None:
+        """Resolve `secret_id` through the encrypted store. Unknown ids are
+        not errors — the reference ignores secret_id entirely, so
+        resolution only adds observability, never failure."""
+        if not secret_id or self.secrets is None:
+            return
+        resolved = self.secrets.resolve(secret_id) is not None
+        if self.logger is not None:
+            self.logger.info("secret resolved" if resolved else "secret unknown",
+                             secret_id=secret_id)
 
     def close(self) -> None:
+        # Supervisor and watchdog first: no restart may race the teardown.
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        if self.watchdog is not None:
+            self.watchdog.stop()
         self.engine.shutdown()
 
     # -- request plumbing ---------------------------------------------------
@@ -172,12 +291,15 @@ class TorchService(Service):
         buf = ""
         stopped = False
         timings = None
+        detok_s = 0.0     # cumulative detokenize wall time (trace span)
         for kind, value in self._drain(request):
             if kind == "token":
+                t0 = time.monotonic()
                 if incremental:
                     delta, utf8_tail = tokenizer.decode_incremental([value], utf8_tail)
                 else:
                     delta = detok.push(value)
+                detok_s += time.monotonic() - t0
                 if not delta:
                     continue
                 if not stops:
@@ -216,7 +338,9 @@ class TorchService(Service):
                 pass
             timings = request.timings
         else:
+            t0 = time.monotonic()
             buf += detok.flush() if detok is not None else ""
+            detok_s += time.monotonic() - t0
             if buf:
                 cut = min((i for i in (buf.find(s) for s in stops) if i >= 0),
                           default=-1)
@@ -224,22 +348,83 @@ class TorchService(Service):
                     buf = buf[:cut]
                 if buf:
                     yield "delta", buf
+        if request.trace is not None and detok_s > 0:
+            # Detokenizing interleaves with decode: one span of its
+            # cumulative duration, anchored at the stream's end.
+            end = time.monotonic()
+            request.trace.child("detokenize", start=end - detok_s, end=end,
+                                cumulative=True)
         yield "done", timings
 
     # -- Service interface --------------------------------------------------
 
-    def _engine_stats(self) -> pk.ExecuteToolResponse:
+    def _engine_profile(self, parameters) -> pk.ExecuteToolResponse:
+        """torch.profiler capture: action = start | stop | status; log_dir
+        (start only). A capture started here makes /debug/profile answer
+        409 (and vice versa); ProfilerBusyError is a ValueError."""
+        params = dict(parameters) if parameters is not None else {}
+        action = params.get("action", "status")
+        if action == "start":
+            log_dir = params.get("log_dir")
+            self.profiler.start(str(log_dir) if log_dir else None)
+        elif action == "stop":
+            self.profiler.stop()
+            if self.logger is not None:
+                self.logger.info("profiler trace captured")
+        elif action != "status":
+            raise ValueError(f"unknown profiler action {action!r}; use start/stop/status")
         response = pk.ExecuteToolResponse(status=_ok())
-        response.struct_output.update(self.engine.stats())
+        status = self.profiler.status()
+        response.struct_output.update({"profiling": status["profiling"],
+                                       "log_dir": status["log_dir"]})
+        return response
+
+    def _engine_stats(self, parameters) -> pk.ExecuteToolResponse:
+        """Views: `stats` (default: counters, percentiles, the supervisor's
+        restarts, the last traced llm request's span tree), `metrics_text`
+        (the Prometheus page), `trace` (the flight recorder)."""
+        params = dict(parameters) if parameters is not None else {}
+        view = params.get("view", "stats")
+        response = pk.ExecuteToolResponse(status=_ok())
+        if view in ("metrics_text", "prometheus", "trace") and self.obs is None:
+            raise ValueError(f"the {view} view needs observability wiring (serve via "
+                             "gateway.server or pass obs= to TorchService)")
+        if view in ("metrics_text", "prometheus"):
+            response.string_output = self.obs.registry.render()
+            return response
+        if view == "trace":
+            response.struct_output.update({"traces": self.obs.recorder.traces(),
+                                           "events": self.obs.recorder.events()})
+            return response
+        if view != "stats":
+            raise ValueError(f"unknown engine_stats view {view!r}; "
+                             "use stats, metrics_text, or trace")
+        stats = self.engine.stats()
+        if self.supervisor is not None:
+            stats["engine_restarts"] = self.supervisor.restarts
+            stats["supervisor_gave_up"] = self.supervisor.gave_up
+        if self.obs is not None:
+            last = self.obs.recorder.last(
+                lambda t: t.get("attrs", {}).get("tool") in _LLM_TOOLS)
+            if last is not None:
+                stats["last_trace"] = last
+        response.struct_output.update(stats)
         return response
 
     def execute_tool(self, tool_name, parameters, secret_id, metadata):
+        self._resolve_secret(secret_id)
+        span = current_span()
+        if span is not None:
+            span.set(tool=tool_name)
+        if tool_name == "engine_profile":
+            return self._engine_profile(parameters)
         if tool_name == "engine_stats":
-            return self._engine_stats()
+            return self._engine_stats(parameters)
         if tool_name not in _LLM_TOOLS:
             return self._mock.execute_tool(tool_name, parameters, secret_id, metadata)
         params = dict(parameters) if parameters is not None else {}
         request = self._build_request(params)
+        request.trace = span
         stops = self._parse_stops(params)
         self._submit(request)
         if not stops:
@@ -249,7 +434,11 @@ class TorchService(Service):
                     token_ids.append(value)
                 elif kind == "error":
                     raise self._engine_error(value)
+            t0 = time.monotonic()
             text = self.engine.tokenizer.decode(token_ids)
+            if request.trace is not None:
+                request.trace.child("detokenize", start=t0, end=time.monotonic(),
+                                    tokens=len(token_ids))
         else:
             text = "".join(
                 v for k, v in self._text_events(request, stops) if k == "delta"
@@ -259,6 +448,10 @@ class TorchService(Service):
     def execute_tool_stream(
         self, tool_name, parameters, secret_id, metadata
     ) -> Iterator[pk.ExecuteToolStreamChunk]:
+        self._resolve_secret(secret_id)
+        span = current_span()
+        if span is not None:
+            span.set(tool=tool_name)
         if tool_name not in _LLM_TOOLS:
             yield from self._mock.execute_tool_stream(
                 tool_name, parameters, secret_id, metadata
@@ -266,6 +459,7 @@ class TorchService(Service):
             return
         params = dict(parameters) if parameters is not None else {}
         request = self._build_request(params)
+        request.trace = span
         stops = self._parse_stops(params)
         self._submit(request)
         timings = None
@@ -277,6 +471,10 @@ class TorchService(Service):
                     timings = value
         except GeneratorExit:
             request.cancelled.set()          # client went away mid-stream
+            if span is not None:
+                # Stamped now: the interceptor freezes the tree the moment
+                # this unwinds, before the engine finishes the slot.
+                span.set(client_disconnected=True)
             raise
         final = pk.ExecuteToolStreamChunk(final=True, status=_ok())
         if timings is not None:

@@ -18,6 +18,7 @@ from polykey_tpu.gateway.mock_service import MockService as JMockService
 from polykey_tpu_torch.engine.config import EngineConfig
 from polykey_tpu_torch.engine.engine import GenRequest, InferenceEngine
 from polykey_tpu_torch.gateway import server as gateway_server
+from polykey_tpu_torch.gateway.health import HealthService
 from polykey_tpu_torch.gateway.jsonlog import Logger
 from polykey_tpu_torch.gateway.torch_service import TorchService
 from polykey_tpu_torch.models import config as model_config
@@ -48,11 +49,16 @@ def stack():
         mp.setitem(model_config.MODEL_REGISTRY, "tiny-llama-ascii",
                    dataclasses.replace(model_config.TINY_LLAMA,
                                        name="tiny-llama-ascii", vocab_size=96))
-        engine = InferenceEngine(CONFIG, device="cpu")
-        service = TorchService(engine)
+        # The server's default path: TorchService.create, with the
+        # watchdog and the supervisor (build_server starts no /metrics
+        # sidecar, so no POLYKEY_METRICS_PORT is needed here).
+        health = HealthService()
+        engine = InferenceEngine(CONFIG, device="cpu", health=health)
         logger = Logger(stream=io.StringIO(), level="debug")
+        service = TorchService.create(engine, health=health, logger=logger)
+        assert service.supervisor is not None and service.watchdog is not None
         server, _health, port = gateway_server.build_server(
-            service, logger, address="127.0.0.1:0"
+            service, logger, address="127.0.0.1:0", health=health
         )
         server.start()
         channel = grpc.insecure_channel(f"127.0.0.1:{port}")

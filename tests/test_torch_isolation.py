@@ -1,7 +1,9 @@
 """The port stands alone: every module of polykey_tpu_torch (the prefix
 cache, the KV wire format, quantized weights, the MoE layer, the
-checkpoint loader, the speculative round and offline generation among
-them), and chip_smoke.py, imports with
+checkpoint loader, the speculative round, offline generation and the
+serving shell — faults, the watchdog, the supervisor, obs/*, the secret
+store, reflection and its protos — among them), and chip_smoke.py with
+its shell phase, imports with
 JAX, Flax, ml_dtypes, the JAX package, safetensors and orbax made
 unimportable (in a fresh interpreter, so this test process's own JAX
 imports cannot mask a leak)."""
@@ -16,7 +18,8 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 
 sys.modules["jax"] = None
-BLOCKED = ("jax", "flax", "ml_dtypes", "polykey_tpu", "safetensors", "orbax")
+BLOCKED = ("jax", "flax", "ml_dtypes", "polykey_tpu", "safetensors", "orbax",
+           "cryptography")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -37,8 +40,16 @@ assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_ca
         "polykey_tpu_torch.models.quant", "polykey_tpu_torch.ops.moe",
         "polykey_tpu_torch.models.loader", "polykey_tpu_torch.engine.spec_decode",
         "polykey_tpu_torch.models.generate",
-        "polykey_tpu_torch.models.speculative"} <= set(names)
+        "polykey_tpu_torch.models.speculative",
+        "polykey_tpu_torch.faults", "polykey_tpu_torch.engine.watchdog",
+        "polykey_tpu_torch.engine.supervisor", "polykey_tpu_torch.obs.trace",
+        "polykey_tpu_torch.obs.prometheus", "polykey_tpu_torch.obs.timeline",
+        "polykey_tpu_torch.obs.exposition", "polykey_tpu_torch.obs.profiler",
+        "polykey_tpu_torch.gateway.security", "polykey_tpu_torch.gateway.reflection",
+        "polykey_tpu_torch.proto.reflection_v1_pb2",
+        "polykey_tpu_torch.proto.reflection_v1alpha_pb2"} <= set(names)
 import chip_smoke
+assert callable(chip_smoke.phase_shell)
 leaked = [m for m in sys.modules if m and any(
     m == b or m.startswith(b + ".") for b in BLOCKED) and sys.modules[m] is not None]
 assert not leaked, leaked
