@@ -7,7 +7,7 @@ CXX ?= g++
 CXXFLAGS ?= -O2 -std=c++17 -Wall -Wextra
 BUILD_DIR := build
 
-.PHONY: help run run-client test test-models native protos clean bench dryrun \
+.PHONY: help run run-client run-client-torch test test-models native protos clean bench dryrun \
 	kernel-check tunnel-probe bench-tokenizer tpu-watch metrics-smoke \
 	obs-smoke chaos-smoke print-chaos occupancy-smoke occupancy-soak \
 	failover-smoke failover-soak timeline-capture perf-gate \
@@ -26,6 +26,9 @@ run: ## Start the gRPC gateway (mock backend; POLYKEY_BACKEND=tpu for engine)
 
 run-client: ## Run the dev client smoke test against a running server
 	$(PYTHON) -m polykey_tpu.gateway.client
+
+run-client-torch: ## The port's dev client against a running server (either package's)
+	$(PYTHON) -m polykey_tpu_torch.gateway.client
 
 test: ## Run the full test suite (CPU, simulated 8-device mesh)
 	$(PYTHON) -m pytest tests/ -x -q
@@ -292,7 +295,7 @@ multiproc-demo: ## 2-process jax.distributed train+serve on localhost CPU
 	bash scripts/run_multiproc_demo.sh
 
 # -- local CI reproduction (reference Makefile:217-308 scan/ci-check family) --
-.PHONY: lint polylint graphlint racelint memlint schedlint native-asan scan ci-check
+.PHONY: lint polylint graphlint racelint memlint schedlint port-lint native-asan scan ci-check
 
 lint: ## Lint: ruff (pinned ruff.toml, same config as CI) + polylint
 	@if command -v ruff >/dev/null 2>&1; then \
@@ -342,6 +345,15 @@ memlint: ## Memory & capacity contract analysis (stdlib-only)
 # occupancy-smoke, disagg-smoke, and autopilot-smoke.
 schedlint: ## Scheduler liveness & fairness contract analysis (stdlib-only)
 	$(PYTHON) -m polykey_tpu.analysis sched
+
+# The four stdlib-only analyzer tiers over the PyTorch/CUDA port, with no
+# baseline: every finding is fixed or carries a line-comment suppression
+# with its reason, so the gate is zero blocking findings.
+port-lint: ## polylint, racelint, memlint and schedlint over polykey_tpu_torch
+	$(PYTHON) -m polykey_tpu.analysis polykey_tpu_torch --no-baseline
+	$(PYTHON) -m polykey_tpu.analysis race polykey_tpu_torch --no-baseline
+	$(PYTHON) -m polykey_tpu.analysis mem polykey_tpu_torch --no-baseline
+	$(PYTHON) -m polykey_tpu.analysis sched polykey_tpu_torch --no-baseline
 
 ASAN_FLAGS := -g -O1 -fsanitize=address,undefined -fno-omit-frame-pointer
 

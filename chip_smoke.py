@@ -168,7 +168,32 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             prefill-error@1 fails one request, the next four complete, no
             restart. Faults are installed on the live engine
             (polykey_tpu_torch/faults.py).
-14. serve-mixtral: after the Llama weights are freed, the full 32-layer
+14. replicas: two Llama-3-8B replicas on the same weight tensors behind
+            ReplicaPool.create (prefix cache on, bf16 KV, a 2 s watchdog
+            window, the signal plane at 0.5 s with the default SLO policy),
+            lookahead 3 set through the pool's apply_engine_knobs, then the
+            autopilot armed over the pool; served by build_server over
+            TorchService.create with /metrics and /debug on. It prints each
+            replica's capture seconds and the memory allocated. (b) The
+            port's dev client (python -m polykey_tpu_torch.gateway.client):
+            its four checks, then each of the spec phase's five greedy
+            prompts with --stream; the token ids are held to the plain
+            engine's under the near-tie rule. A 1023-token shared header
+            with two tails: the second request must route prefix-hit to
+            the replica holding the header (its `replica` trailer and
+            polykey_router_decisions_total{reason="prefix-hit"}). (c) A
+            greedy stream paced by slow-step; after its fourth token a
+            step-stall of 3 s on its replica (":replica=" scope): the same
+            RPC completes on the other replica with trailers `replica` and
+            `restarted: 1` and the uninterrupted run's ids (near-tie rule);
+            the stalled replica restarts to SERVING on the shared weights
+            with the memory allocated within 0.1 GiB of before; it prints
+            the trip-to-SERVING seconds. (d) /metrics carries the pool, SLO
+            and autopilot families, /debug/slo a snapshot, and the fresh
+            replica's lookahead is the autopilot's setpoint (3 or more; it
+            boots with 2). Only flash, the bf16 decode and the bf16 write
+            kernels launch; it prints each replica's ITL p50 / p95.
+15. serve-mixtral: after the Llama weights are freed, the full 32-layer
             mixtral-8x7b (46.7 B parameters, random weights from --seed,
             drawn and quantized to int8 a layer at a time: 43.5 GiB) behind
             the gRPC server, EngineConfig(model="mixtral-8x7b",
@@ -177,7 +202,7 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and no other; every decode block and prefill a graph replay.
             The capacity-bucketed dispatch drops by position in the batch,
             so the repeated greedy prompt is held to a solo run of it.
-15. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
+16. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
             random bf16 weights from seed + 2) is written as an HF
             safetensors checkpoint (two shards and an index, by this
             script's own writer) in a temporary directory, removed at the
@@ -2654,6 +2679,313 @@ def phase_shell(seed: int, params, card: str) -> dict:
         shutil.rmtree(profile_dir, ignore_errors=True)
 
 
+REPLICA_WATCHDOG_S = 2.0   # the replicas phase's watchdog window
+REPLICA_STALL_S = 3.0      # its step-stall: past the window, inside the join
+
+
+def _dev_client(argv: list) -> tuple[int, list, str]:
+    """The port's dev client (python -m polykey_tpu_torch.gateway.client)
+    with --raw-logs: (exit code, its JSON log lines, the Jest report the
+    same lines render to)."""
+    import contextlib
+    import io
+
+    from polykey_tpu_torch.gateway import client as dev_client
+    from polykey_tpu_torch.gateway.beautify import print_jest_report
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = dev_client.main([*argv, "--raw-logs"])
+    lines = out.getvalue().splitlines()
+    report = io.StringIO()
+    print_jest_report(lines, out=report)
+    return rc, [json.loads(line) for line in lines if line.startswith("{")], report.getvalue()
+
+
+def phase_replicas(seed: int, params, card: str, plain=None) -> dict:
+    """Two Llama-3-8B replicas on one set of weight tensors behind the
+    replica pool, the port's gRPC server and /metrics, with the signal
+    plane and the autopilot (module docstring, phase 14). `plain` is the
+    plain engine's SPEC_GREEDY texts (phase_spec's); None serves them here
+    first on a single engine."""
+    import grpc
+
+    from polykey_tpu_torch import faults
+    from polykey_tpu_torch.engine.autopilot import Autopilot, AutopilotConfig
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, GenRequest, InferenceEngine
+    from polykey_tpu_torch.engine.replica_pool import SERVING, ReplicaPool
+    from polykey_tpu_torch.gateway.client import trailers_from
+    from polykey_tpu_torch.gateway.health import HealthService
+    from polykey_tpu_torch.gateway.jsonlog import Logger
+    from polykey_tpu_torch.gateway.server import build_server, start_metrics_server
+    from polykey_tpu_torch.gateway.torch_service import TorchService
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.obs import Observability
+    from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
+    from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
+
+    phase = "replicas"
+    cfg = get_config("llama-3-8b")
+    if plain is None:
+        eng = _Grpc(InferenceEngine(EngineConfig(model="llama-3-8b"), params=params,
+                                    device="cuda", seed=seed))
+        try:
+            plain = eng.generate(SPEC_GREEDY)
+        finally:
+            eng.close()
+        del eng
+    config = EngineConfig(model="llama-3-8b", replicas=2, prefix_cache=True,
+                          watchdog_timeout_s=REPLICA_WATCHDOG_S, signals_interval_s=0.5,
+                          slo_policy="default", default_max_new_tokens=32)
+    saved = os.environ.get("POLYKEY_DEBUG_ENDPOINTS")
+    os.environ["POLYKEY_DEBUG_ENDPOINTS"] = "1"
+    # Engines shut down by earlier phases are freed now, not in the first
+    # capture's collection, so the memory the pool adds is measured.
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    base_alloc = torch.cuda.memory_allocated()
+    obs, health = Observability(), HealthService()
+    logger = Logger(stream=sys.stderr, level="WARN")
+    t0 = time.monotonic()
+    # (a) Start: the engines one after the other, each capturing its graphs.
+    pool = ReplicaPool.create(config, params=params, device="cuda", seed=seed,
+                              health=health, logger=logger, obs=obs,
+                              watchdog_interval_s=0.1, supervisor_interval_s=0.1)
+    sync()
+    up_s = time.monotonic() - t0
+    alloc0 = torch.cuda.memory_allocated()
+    engines = [rep.engine for rep in pool.replicas]
+    check(all(e.params is params for e in engines),
+          f"{phase}: the replicas do not serve the one set of weight tensors")
+    captures = [e.stats()["graph_capture_s"] for e in engines]
+    say(phase, f"2 replicas up in {up_s:.1f} s (graph captures {captures[0]:.2f} s, "
+        f"{captures[1]:.2f} s), {alloc0 / 2**30:.2f} GiB allocated, "
+        f"{(alloc0 - base_alloc) / 2**30:.2f} GiB of it the pool's ({base_alloc / 2**30:.2f} "
+        f"GiB before: the shared weights); KV pool {engines[0].stats()['kv_pool_bytes'] / 2**30:.3f} "
+        f"GiB and graph pool {engines[0].stats()['graph_pool_bytes'] / 2**30:.3f} GiB a replica "
+        f"on {card}")
+    # A knob set through the pool before the autopilot is armed: the
+    # autopilot's setpoints start from it, and its restart listener must
+    # re-apply it to a fresh replica (which boots with the config's 2).
+    applied = pool.apply_engine_knobs({"lookahead": 3})
+    check(applied == {"lookahead": 3} and all(e.knob_setpoints()["lookahead"] == 3
+                                              for e in engines),
+          f"{phase}: apply_engine_knobs applied {applied}")
+    autopilot = Autopilot(pool, config=AutopilotConfig(interval_s=0.5), obs=obs,
+                          logger=logger).start()
+    service = TorchService.create(pool, health=health, logger=logger, obs=obs)
+    service.autopilot = autopilot
+    submitted: list = []
+    submit = pool.submit
+
+    def tapped(request):
+        request.out = _Tap()
+        submitted.append(request)
+        submit(request)
+
+    pool.submit = tapped
+    server, health, port = build_server(service, logger, address="127.0.0.1:0",
+                                        health=health, obs=obs)
+    server.start()
+    sidecar = start_metrics_server(obs, logger, service=service, port=0)
+    check(sidecar is not None, f"{phase}: the /metrics sidecar did not start")
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    stub = PolykeyServiceStub(channel)
+    addr = f"127.0.0.1:{port}"
+
+    def get(path: str):
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{sidecar.port}{path}",
+                                    timeout=60) as resp:
+            return resp.status, resp.read()
+
+    def by_prompt(prompt, start):
+        return [r for r in submitted[start:] if r.prompt == prompt][-1]
+
+    try:
+        for k in KERNELS.values():
+            k.launches = 0
+        # (b) The dev client: its four checks on the mock tool, then each
+        # greedy prompt streamed through llm_generate.
+        rc, logs, report = _dev_client(["--server", addr])
+        check(rc == 0 and "All 4 checks passed" in report,
+              f"{phase}: the dev client's checks: rc {rc}\n{report}")
+        start = len(submitted)
+        served = []
+        for prompt in SPEC_GREEDY:
+            rc, logs, report = _dev_client(["--server", addr, "--tool", "llm_generate",
+                                            "--prompt", prompt, "--stream"])
+            check(rc == 0 and "All 4 checks passed" in report,
+                  f"{phase}: dev client --stream: rc {rc}\n{report}")
+            rep = [e for e in logs if e.get("msg") == "Served by replica"]
+            done = [e for e in logs if e.get("msg") == "Streaming completed"]
+            check(rep and done and done[0]["completion_tokens"] == 32,
+                  f"{phase}: the dev client logged {logs}")
+            served.append(rep[0]["replica"])
+        got = [(by_prompt(p, start).out.ids,) for p in SPEC_GREEDY]
+        check(all(len(ids) == 32 for (ids,) in got), f"{phase}: stream lengths")
+        ties = _hold_texts(phase, params, cfg, engines[0].tokenizer, SPEC_GREEDY, got,
+                           plain, "the plain engine's")
+        say(phase, f"dev client: 4 checks passed, then 5 greedy streams (replicas "
+            f"{served}) equal to the plain engine's but at {ties} near-ties")
+        # A ~1024-token shared header, twice: the second request routes to
+        # the replica that holds its pages.
+        hits0 = pool.stats()["router_decisions"]["prefix-hit"]
+        header_replicas = []
+        for tail in PREFIX_TAILS[:2]:
+            req = pk.ExecuteToolRequest(tool_name="llm_generate", parameters=_struct(
+                prompt=PREFIX_HEADER + tail, max_tokens=16))
+            resp, call = stub.ExecuteTool.with_call(req, timeout=300)
+            check(resp.status.code == 200, f"{phase}: header request {resp.status}")
+            header_replicas.append(trailers_from(call).get("replica"))
+        hits = pool.stats()["router_decisions"]["prefix-hit"] - hits0
+        _status, page = get("/metrics")
+        line = [ln for ln in page.decode().splitlines()
+                if ln.startswith('polykey_router_decisions_total{reason="prefix-hit"}')]
+        check(hits == 1 and header_replicas[0] == header_replicas[1] and line,
+              f"{phase}: header routes {header_replicas}, prefix hits {hits}, {line}")
+        warmth = pool.replicas[int(header_replicas[0])].engine.prefix_warmth(
+            engines[0].tokenizer.encode(PREFIX_HEADER + PREFIX_TAILS[2]))
+        say(phase, f"shared 1023-token header: both requests on replica "
+            f"{header_replicas[0]} (trailer), the second routed prefix-hit ({line[0]}); "
+            f"that replica's warmth for a third tail {warmth:.3f}")
+
+        # (c) Failover mid-stream: the replica streaming a greedy prompt
+        # stalls past the watchdog window; the same RPC completes on the
+        # other replica with the delivered tokens suppressed.
+        victim_prompt = SPEC_GREEDY[2]
+        ref_ids = got[2][0]
+        sync()
+        alloc1 = torch.cuda.memory_allocated()
+        target = pool._route(GenRequest(prompt=victim_prompt), set())[0].index
+        other = 1 - target
+        other_engine = pool.replicas[other].engine
+        pool.replicas[target].engine._faults = faults.install(
+            f"slow-step=0.05:replica={target}")
+        result: dict = {}
+
+        def stream():
+            req = pk.ExecuteToolRequest(tool_name="llm_generate", parameters=_struct(
+                prompt=victim_prompt, max_tokens=32))
+            call = stub.ExecuteToolStream(req, timeout=300)
+            try:
+                result["chunks"] = list(call)
+                result["trailers"] = trailers_from(call)
+            except grpc.RpcError as e:
+                result["error"] = (e.code(), e.details())
+
+        start = len(submitted)
+        thread = threading.Thread(target=stream)
+        thread.start()
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not (
+                len(submitted) > start and len(submitted[start].out.ids) >= 4):
+            time.sleep(0.002)
+        victim = submitted[start]
+        delivered = len(victim.out.ids)
+        t_arm = time.monotonic()
+        pool.replicas[target].engine._faults = faults.install(
+            f"slow-step=0.05:replica={target},step-stall={REPLICA_STALL_S}@1:replica={target}")
+        thread.join(timeout=300)
+        check("chunks" in result, f"{phase}: the stream failed: {result.get('error')}")
+        trailers = result["trailers"]
+        check(trailers.get("replica") == str(other) and trailers.get("restarted") == "1",
+              f"{phase}: failover trailers {trailers}")
+        faults.clear()
+        ids = victim.out.ids
+        check(len(ids) == 32, f"{phase}: {len(ids)} tokens after the failover")
+        ties_c = _hold_texts(phase, params, cfg, engines[0].tokenizer, [victim_prompt],
+                             [(ids,)], [(ref_ids,)], "the uninterrupted run's")
+        supervisor = pool.replicas[target].supervisor
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not (
+                supervisor.restarts == 1 and pool.replicas[target].state == SERVING
+                and not autopilot.paused):
+            time.sleep(0.01)
+        fresh = pool.replicas[target].engine
+        check(supervisor.restarts == 1 and pool.replicas[target].state == SERVING
+              and fresh is not engines[target] and fresh.params is params,
+              f"{phase}: replica {target} did not restart onto the shared weights")
+        check(engines[target].paged is None, f"{phase}: the dead replica kept its pools")
+        sync()
+        alloc2 = torch.cuda.memory_allocated()
+        check(abs(alloc2 - alloc1) < 0.1 * 2**30,
+              f"{phase}: {alloc2 / 2**30:.3f} GiB allocated after the restart, "
+              f"{alloc1 / 2**30:.3f} before")
+        events = [e for e in obs.recorder.events() if e["kind"] == "replica_state"
+                  and e.get("replica") == target]
+        t_drain = next(e["monotonic"] for e in events if e["state"] == "DRAINING")
+        t_serving = [e["monotonic"] for e in events if e["state"] == SERVING][-1]
+        stats = pool.stats()
+        check(stats["streams_resumed"] == 1 and stats["requests_rerouted"] >= 1,
+              f"{phase}: pool stats {stats['streams_resumed']} resumed")
+        say(phase, f"failover: step-stall {REPLICA_STALL_S} s on replica {target} (window "
+            f"{REPLICA_WATCHDOG_S} s) after {delivered} streamed tokens; the RPC completed on "
+            f"replica {other} (trailers replica={trailers['replica']}, restarted="
+            f"{trailers['restarted']}), 32 token ids equal to the uninterrupted run's but "
+            f"at {ties_c} near-ties; replica {target} DRAINING at {t_drain - t_arm:.2f} s, "
+            f"SERVING {t_serving - t_drain:.2f} s later (trip to SERVING; fresh capture "
+            f"{fresh.stats()['graph_capture_s']:.2f} s); allocated {alloc2 / 2**30:.3f} GiB "
+            f"after, {alloc1 / 2**30:.3f} GiB before on {card}")
+
+        # (d) Signals, metrics and the autopilot.
+        knobs = fresh.knob_setpoints()
+        setpoints = autopilot.snapshot()["setpoints"]
+        check(knobs["lookahead"] == setpoints["lookahead"] >= 3,
+              f"{phase}: the fresh replica's knobs {knobs}, autopilot setpoints {setpoints}")
+        _status, page = get("/metrics")
+        text = page.decode()
+        for family in ("polykey_replica_state", "polykey_replicas_serving",
+                       "polykey_router_decisions_total", "polykey_slo_budget_remaining_ratio",
+                       "polykey_slo_burn_rate", "polykey_slo_breaches_total",
+                       "polykey_autopilot_decisions_total", "polykey_autopilot_setpoint",
+                       "polykey_autopilot_paused"):
+            check(f"# TYPE {family} " in text, f"{phase}: /metrics lacks {family}")
+        check('polykey_replicas_serving 2' in text
+              and 'polykey_streams_resumed_total 1' in text,
+              f"{phase}: /metrics pool families")
+        status, body = get("/debug/slo")
+        slo = json.loads(body)
+        check(status == 200 and set(slo["replicas"]) == {"0", "1"}
+              and "aggregate" in slo and "autopilot" in slo,
+              f"{phase}: /debug/slo {sorted(slo)}")
+        launches = _launches()
+        check(all(launches[n] > 0 for n in BUCKETED)
+              and not any(launches[n] for n in launches if n not in BUCKETED),
+              f"{phase}: kernel launches {launches}")
+        itl = {i: rep.engine.metrics.itl_hist.percentiles(50, 95)
+               for i, rep in enumerate(pool.replicas)}
+        agg = slo["aggregate"]
+        freshest = next((agg[w] for w in ("1m", "5m", "1h") if agg.get(w)), {})
+        say(phase, f"/metrics: pool, SLO and autopilot families present; /debug/slo "
+            f"aggregate {sorted(agg)} (1m: {freshest.get('requests_completed')} completed, "
+            f"ttft p95 {freshest.get('ttft_ms_p95')} ms); slo "
+            f"{ {k: v['burn_rate'] for k, v in slo['replicas'][str(other)]['slo'].items()} }; "
+            f"autopilot setpoints {setpoints}, decisions "
+            f"{autopilot.snapshot()['decisions_total']}; fresh replica's lookahead "
+            f"{knobs['lookahead']} (re-applied; the config says 2)")
+        say(phase, f"ITL p50/p95 ms per replica {itl} (replica {other} served on "
+            f"through the restart); kernel launches {launches} on {card}")
+        return {"launches": launches, "trip_to_serving_s": t_serving - t_drain,
+                "capture_s": captures, "alloc_gib": (alloc0 / 2**30, alloc2 / 2**30)}
+    finally:
+        faults.clear()
+        channel.close()
+        sidecar.stop()
+        server.stop(grace=5).wait()
+        service.close()
+        for rep in pool.replicas:
+            if not rep.engine._thread.is_alive():
+                rep.engine.release_device_state()
+        if saved is None:
+            os.environ.pop("POLYKEY_DEBUG_ENDPOINTS", None)
+        else:
+            os.environ["POLYKEY_DEBUG_ENDPOINTS"] = saved
+
+
 def _gemma_restart(grpc_client, params, cfg, tokenizer, want: list, card: str) -> None:
     """One supervised step-stall restart of the served gemma-2-27b engine,
     shorter than the join window: its thread exits, so its pools and
@@ -3097,6 +3429,8 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
 
+    from polykey_tpu_torch.engine.engine import KERNELS
+
     dev = phase_device()
     sync()
     phase_build()
@@ -3123,6 +3457,10 @@ def main() -> int:
     sync()
     shell = phase_shell(args.seed, params, dev["smi"])
     sync()
+    replicas = phase_replicas(args.seed, params, dev["smi"], spec["plain"][""])
+    sync()
+    gc.collect()
+    torch.cuda.empty_cache()
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3149,8 +3487,10 @@ def main() -> int:
     say("shell", f"restarted engine's kernel launches {shell['launches']}; trip to "
         f"SERVING {shell['to_serving_s']:.2f} s, fresh capture {shell['capture_s']:.2f} s "
         f"on {dev['smi']}")
-
-    from polykey_tpu_torch.engine.engine import KERNELS
+    say("replicas", f"kernel launches {replicas['launches']}; trip to SERVING "
+        f"{replicas['trip_to_serving_s']:.2f} s; allocated with both replicas "
+        f"{replicas['alloc_gib'][0]:.3f} GiB, after the restart "
+        f"{replicas['alloc_gib'][1]:.3f} GiB on {dev['smi']}")
 
     # Each kernel's launches come from the serve phase that runs it (the
     # first of SERVE_KERNELS' phases naming it).

@@ -20,6 +20,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     """`device` if given, else $POLYKEY_DEVICE, else "cuda". Raises when
     the result is a CUDA device and CUDA is unavailable."""
     if device is None:
+        # polylint: disable=ML003(the port's device switch, documented in README.md's port section and the verify skill; DEPLOY.md's knob tables cover the JAX package's deployment)
         device = os.environ.get(DEVICE_ENV, "").strip() or "cuda"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -4,8 +4,8 @@ The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
 for them fails at startup instead of being served by something else:
-replica and disaggregated pools, mesh axes above 1, and the reference's
-spec A/B instrumentation. Local
+the disaggregated pool, mesh axes above 1, and the reference's spec A/B
+instrumentation. Local
 safetensors checkpoints (`checkpoint_path`, `draft_checkpoint_path`;
 models/loader.py), weight-only int8/int4 (`quantize`,
 `quantize_bits`), chunked prefill
@@ -18,7 +18,10 @@ prefix cache with its host-KV tier and durable state dir (`prefix_cache`,
 candidate prefilter (`top_p_candidates`) are served, and so is the
 serving shell's liveness: the watchdog window (`watchdog_timeout_s`),
 supervised in-process restarts (`supervise`, `max_engine_restarts`,
-`restart_window_s`) and the engine timeline (`timeline_capacity`).
+`restart_window_s`), the engine timeline (`timeline_capacity`), the SLO
+signal plane (`signals_interval_s`, `signals_windows`, `slo_policy`) and
+the replica pool (`replicas`, `route_prefix_weight`, `route_delay_weight`,
+`max_reroutes`).
 """
 
 from __future__ import annotations
@@ -134,6 +137,17 @@ class EngineConfig:
     # no ring, every emission site one `is None` branch.
     timeline_capacity: int = 4096
 
+    # SLO signal plane (obs/signals.py): seconds between ring samples of
+    # the engine's host counters and histograms, sampled at block
+    # boundaries and on the idle tick. 0 disables the plane:
+    # `metrics.signals is None`, one `is None` branch in the loop.
+    # POLYKEY_SIGNALS_INTERVAL. The window widths (comma-separated seconds)
+    # and the SLO policy spec (inline JSON, "@/path.json" or "default");
+    # "" reads POLYKEY_SIGNALS_WINDOWS / POLYKEY_SLO at construction.
+    signals_interval_s: float = 5.0
+    signals_windows: str = ""
+    slo_policy: str = ""
+
     # Liveness: the watchdog trips when the engine makes no progress for
     # this long with work pending. It must comfortably exceed the longest
     # legitimate step (an engine's graph capture happens before it serves).
@@ -155,7 +169,22 @@ class EngineConfig:
     sp: int = 1
     pp: int = 1
     num_slices: int = 1
+    # Replica tier (engine/replica_pool.py): POLYKEY_REPLICAS > 1 serves
+    # through a pool of independently supervised engines on one set of
+    # weights behind a health- and load-aware router; 1 keeps the single
+    # engine. `replica` is this engine's index in its pool (set by the
+    # pool; fault targeting and metric labels key on it).
     replicas: int = 1
+    replica: int = 0
+    # Router score = prefix_weight x (cached-prefix fraction)
+    #              - delay_weight x (estimated queue delay, s);
+    # ties break on the lowest replica index.
+    route_prefix_weight: float = 1.0
+    route_delay_weight: float = 1.0
+    # Re-routes one request may take after engine-lifecycle failures
+    # (queued requests move losslessly; streams resume with the delivered
+    # tokens suppressed). 0 disables failover.
+    max_reroutes: int = 3
     disagg: str = ""
 
     @property
@@ -231,6 +260,13 @@ class EngineConfig:
             timeline_capacity=_env_int(
                 "POLYKEY_TIMELINE_CAPACITY", cls.timeline_capacity
             ),
+            signals_interval_s=_env_float(
+                "POLYKEY_SIGNALS_INTERVAL", cls.signals_interval_s
+            ),
+            signals_windows=os.environ.get(
+                "POLYKEY_SIGNALS_WINDOWS", cls.signals_windows
+            ),
+            slo_policy=os.environ.get("POLYKEY_SLO", cls.slo_policy),
             watchdog_timeout_s=_env_float(
                 "POLYKEY_WATCHDOG_TIMEOUT", cls.watchdog_timeout_s
             ),
@@ -256,6 +292,13 @@ class EngineConfig:
             pp=_env_int("POLYKEY_PP", cls.pp),
             num_slices=_env_int("POLYKEY_NUM_SLICES", cls.num_slices),
             replicas=_env_int("POLYKEY_REPLICAS", cls.replicas),
+            route_prefix_weight=_env_float(
+                "POLYKEY_ROUTE_W_PREFIX", cls.route_prefix_weight
+            ),
+            route_delay_weight=_env_float(
+                "POLYKEY_ROUTE_W_DELAY", cls.route_delay_weight
+            ),
+            max_reroutes=_env_int("POLYKEY_MAX_REROUTES", cls.max_reroutes),
             disagg=os.environ.get("POLYKEY_DISAGG", cls.disagg),
         )
 
@@ -283,6 +326,10 @@ class EngineConfig:
             raise ValueError(
                 "timeline_capacity must be >= 0 (0 disables the ring)"
             )
+        if self.signals_interval_s < 0:
+            raise ValueError(
+                "signals_interval_s must be >= 0 (0 disables the plane)"
+            )
         if self.max_queue_depth < 0:
             raise ValueError("max_queue_depth must be >= 0 (0 → unbounded)")
         if self.max_engine_restarts < 0:
@@ -301,6 +348,12 @@ class EngineConfig:
         for name in ("tp", "dp", "ep", "sp", "pp", "num_slices", "replicas"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
+        if self.replica < 0:
+            raise ValueError("replica index must be >= 0")
+        if self.max_reroutes < 0:
+            raise ValueError("max_reroutes must be >= 0 (0 → no failover)")
+        if self.route_prefix_weight < 0 or self.route_delay_weight < 0:
+            raise ValueError("routing weights must be >= 0")
         if self.prefix_cache_pages < 0:
             raise ValueError(
                 "prefix_cache_pages must be >= 0 (0 → num_pages // 2); "
@@ -337,8 +390,8 @@ class EngineConfig:
         if self.quantize_bits not in (4, 8):
             raise ValueError("quantize_bits must be 4 or 8")
         unported = [
-            (self.replicas > 1 or bool(self.disagg), "replicas / disagg",
-             "replica and disagg pools"),
+            (bool(self.disagg), "disagg",
+             "the disaggregated pool"),
             (self.spec_host_sync, "spec_host_sync",
              "scripts/occupancy_soak.py's A/B instrumentation"),
             (max(self.tp, self.dp, self.ep, self.sp, self.pp,

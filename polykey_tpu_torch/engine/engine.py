@@ -137,8 +137,17 @@ GPU (the reference's engine/engine.py, default path).
   `release_device_state` has freed the dead one's pools, graphs and
   pinned buffers.
 
+- Replica tier and control (the reference's): `queue_delay_estimate_s`,
+  `load_fraction` and `prefix_warmth` are the replica pool's routing
+  signals (engine/replica_pool.py); the live setters (`set_lookahead`,
+  `set_prefill_budget`, `set_kv_restore_slots`, `set_resident_floor`,
+  `set_spec_gamma`) and `knob_setpoints` are the autopilot's
+  (engine/autopilot.py); the SLO signal plane (obs/signals.py) samples
+  host counters at block boundaries and on the idle tick, and
+  `stats()` carries its windowed keys.
+
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch, the disaggregated handoff, the replica pools, mesh axes above 1.
+dispatch, the disaggregated pool and its handoff, mesh axes above 1.
 """
 
 from __future__ import annotations
@@ -162,6 +171,13 @@ from ..faults import get_injector
 from ..models.config import ModelConfig, get_config
 from ..models.loader import load_checkpoint
 from ..models.quant import params_bytes, quantize_params
+from ..obs.signals import (
+    ENV_POLICY,
+    ENV_WINDOWS,
+    SignalPlane,
+    SloPolicy,
+    windows_from_spec,
+)
 from ..obs.timeline import TimelineRecorder
 from ..models.transformer import forward_paged, forward_ragged, init_params, unembed
 from ..ops import (
@@ -172,7 +188,7 @@ from ..ops import (
 )
 from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
 from .config import EngineConfig
-from .graphs import CudaGraphs
+from .graphs import CAPTURE_LOCK, CudaGraphs
 from .kv_cache import (
     AllocationError,
     BlockAllocator,
@@ -340,7 +356,14 @@ class _FirstToken(NamedTuple):
 
 
 class EngineDeadError(RuntimeError):
-    """The engine cannot take work."""
+    """The engine (or a replica pool) cannot take work. `retry_after_ms`,
+    where the raiser can estimate it (a pool with a supervised restart in
+    flight), is the recovery hint the gateway ships as the
+    `retry-after-ms` trailer on the UNAVAILABLE it maps to."""
+
+    def __init__(self, message: str, retry_after_ms: Optional[int] = None):
+        super().__init__(message)
+        self.retry_after_ms = retry_after_ms
 
 
 class EngineOverloadedError(RuntimeError):
@@ -715,13 +738,30 @@ class InferenceEngine:
         # Fault injection (faults.py): None unless POLYKEY_FAULTS is set or
         # a test installed one, so every injection point is one `is None`.
         self._faults = get_injector()
-        # Identity for ":replica=N" fault targeting: a lone engine is 0.
-        self.replica_id = 0
+        # Identity within a replica pool (engine/replica_pool.py): fault
+        # targeting (":replica=N") and per-replica metric labels key on it.
+        # A lone engine is 0.
+        self.replica_id = config.replica
         # Flight-deck timeline; timeline_capacity=0 allocates no ring.
         self.timeline: Optional[TimelineRecorder] = (
             TimelineRecorder(config.timeline_capacity)
             if config.timeline_capacity > 0 else None
         )
+        # SLO signal plane (obs/signals.py): windowed rates and
+        # delta-quantiles over a ring of host-counter samples, and the
+        # POLYKEY_SLO objectives' burn rates. It rides the metrics object,
+        # which a supervised restart hands on; signals_interval_s=0
+        # allocates nothing. Config first, the env for empty specs.
+        if config.signals_interval_s > 0:
+            self.metrics.signals = SignalPlane(
+                self.metrics,
+                windows=windows_from_spec(
+                    config.signals_windows or os.environ.get(ENV_WINDOWS, "")),
+                interval_s=config.signals_interval_s,
+                policy=SloPolicy.from_spec(
+                    config.slo_policy or os.environ.get(ENV_POLICY, "")),
+                timeline=self.timeline,
+            )
         if config.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
         self._dtype = _DTYPES[config.dtype]
@@ -1006,7 +1046,7 @@ class InferenceEngine:
             # burn a slot on work the client will throw away. The estimate
             # is 0 until the first completed request (cold engines never
             # shed on it).
-            est = self._estimated_queue_delay_s()
+            est = self.queue_delay_estimate_s()
             if est > 0.0 and time.monotonic() + est >= request.deadline:
                 self.metrics.on_shed()
                 raise EngineOverloadedError(
@@ -1020,15 +1060,24 @@ class InferenceEngine:
         if self.dead is not None or self._stop.is_set():
             self._fail_pending(self.dead or "engine is shut down")
 
-    def _estimated_queue_delay_s(self) -> float:
+    def queue_delay_estimate_s(self) -> float:
         """Expected wait before a newly queued request is admitted: with S
         slots draining in parallel and an EWMA per-request service time,
-        the queue drains at roughly S requests per EWMA."""
+        the queue drains at roughly S requests per EWMA. The deadline-aware
+        admission sheds on it and the replica pool routes on it."""
         ewma = self.metrics.service_time_ewma_s()
         if ewma <= 0.0:
             return 0.0
         slots = max(1, self.config.max_decode_slots)
         return self._submit.qsize() * ewma / slots
+
+    def load_fraction(self) -> float:
+        """Instantaneous load for routing: (busy slots + queued) over
+        slots. The delay estimate is 0 until a first request completes, so
+        this term spreads a cold pool's concurrent traffic."""
+        slots = max(1, self.config.max_decode_slots)
+        busy = sum(s is not None for s in self._slots)
+        return (busy + self._submit.qsize()) / slots
 
     def _retry_after_ms(self) -> int:
         """Shed hint: about one slot-drain interval, floored at 50 ms so
@@ -1046,6 +1095,7 @@ class InferenceEngine:
         snap = self.metrics.snapshot()
         snap.update({
             "model": self.model_cfg.name,
+            "replica": self.replica_id,
             "device": str(self.device),
             "slots_busy": sum(s is not None for s in self._slots),
             "slots_total": self.config.max_decode_slots,
@@ -1076,6 +1126,11 @@ class InferenceEngine:
                 name: k.launches for name, k in KERNELS.items()
             },
         })
+        signals = self.metrics.signals
+        if signals is not None:
+            # Windowed quantiles beside the lifetime ones (ttft_ms_p95_5m
+            # and the like cover the last minutes, not the uptime).
+            snap.update(signals.stats_fields())
         if self._spec:
             snap.update(self._spec_stats())
         if self._ragged:
@@ -1142,6 +1197,7 @@ class InferenceEngine:
         if not self._spec:
             return 0
         self._gamma_cap = self._gamma_max if int(gamma) >= self._gamma_max else self._gamma_low
+        # polylint: disable=CL002(a GIL-atomic int publish; the engine thread recomputes the rung under the new cap at its next round, so a stale read costs one round at the old rung)
         self._gamma = min(self._gamma, self._gamma_cap)
         return self._gamma_cap
 
@@ -1178,6 +1234,28 @@ class InferenceEngine:
             tokens = min(tokens, self._ragged_width)
         self._prefill_budget = tokens
         return tokens
+
+    def set_resident_floor(self, pages: int) -> int:
+        """Host-KV resident floor (POLYKEY_KV_RESIDENT_PAGES): `_finish`
+        spills cold pages while a retirement leaves fewer free device
+        pages than this. Clamped to 0..num_pages; returns the value
+        applied."""
+        self._resident_low = max(0, min(int(pages), self.config.num_pages))
+        return self._resident_low
+
+    def knob_setpoints(self) -> dict:
+        """The live value of every knob the autopilot actuates: what the
+        loop reads on its next iteration, not what the config said."""
+        out = {
+            "lookahead": self._depth,
+            "prefill_budget": self._prefill_budget,
+        }
+        if self._host_kv is not None:
+            out["restore_slots"] = self._restore_slots
+            out["resident_floor"] = self._resident_low
+        if self._spec:
+            out["spec_gamma"] = self._gamma_cap
+        return out
 
     @property
     def busy(self) -> bool:
@@ -1216,8 +1294,9 @@ class InferenceEngine:
         if self.device.type == "cuda":
             # Back to the card, not only to PyTorch's cache: the graph
             # pool's blocks are reused by no one else. Not while another
-            # engine captures (the supervisor builds one after this).
-            torch.cuda.empty_cache()
+            # engine captures (a replica pool's other engines may).
+            with CAPTURE_LOCK:
+                torch.cuda.empty_cache()
 
     def _params_fingerprint(self, seed: int) -> str:
         """Fingerprint of what decides KV content, the gate on durable
@@ -1302,6 +1381,12 @@ class InferenceEngine:
                     ):
                         self._process_step(self._inflight_q.popleft())
                         worked = True
+                    # A signal-plane sample at the block boundary (idle
+                    # iterations reach here too, at the idle tick's rate):
+                    # time-gated, host counters only, never a device read.
+                    signals = self.metrics.signals
+                    if signals is not None:
+                        signals.maybe_sample()
                     if not worked:
                         self.metrics.on_dispatch_idle()
                         self._resolve_prefills(block=True)
@@ -1869,7 +1954,7 @@ class InferenceEngine:
         (pre_tokens, pre_pos, pre_tidx, pre_tables, rng_start, rng_len, rng_kv,
          rng_tidx, smp_idx, smp_pos, smp_seeds, smp_temp, smp_top_p,
          smp_top_k) = ops
-        off = 0
+        off = useful = 0
         for r, (i, s, take) in enumerate(ranges):
             pre_tokens[off:off + take] = s.pending[s.filled:s.filled + take]
             pre_pos[off:off + take] = np.arange(s.filled, s.filled + take)
@@ -1889,7 +1974,8 @@ class InferenceEngine:
                 smp_top_p[i] = s.request.top_p
                 smp_top_k[i] = self._eff_top_k(s.request)
             off += take
-        return ops, off
+            useful += take
+        return ops, useful
 
     def _steps_in_flight(self) -> int:
         """Decode steps of the blocks in flight, by the host's count: K for
@@ -2527,5 +2613,6 @@ class InferenceEngine:
             self._inflight_q.clear()   # unprocessed blocks: their streams fail
             for i, slot in enumerate(self._slots):
                 if slot is not None:
+                    # polylint: disable=CL004(the lock only serializes the engine and supervisor threads failing the same slots; requests' out queues are unbounded, so put never waits, and the spill's os.path.join computes a path)
                     self._finish(i, error=message)
             self._fail_pending(message)

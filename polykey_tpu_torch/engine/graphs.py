@@ -69,6 +69,11 @@ graph's memory. The engine's keys: "decode" (greedy, steps), "prefill"
 - **Release.** `release` destroys every graph and drops its output, so a
   dead engine's pool goes back to PyTorch's cache before its replacement
   captures (engine/supervisor.py).
+- **Several engines in one process.** A replica pool's engines each hold
+  their own graphs, pool and capture stream; they replay on the calling
+  engine thread's current stream. Captures take `CAPTURE_LOCK`, one at a
+  time in the process, and so does a dead engine's `empty_cache`, which
+  PyTorch refuses while any stream captures.
 - **No fallback.** A failed capture, a missing key or a failed replay
   raises; nothing here runs a body eagerly on a CUDA device but the
   capture's warm-up. On CPU tensors `run` calls the body itself: that is
@@ -78,6 +83,7 @@ graph's memory. The engine's keys: "decode" (greedy, steps), "prefill"
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from collections import Counter
 from typing import Callable, Iterable
@@ -85,6 +91,12 @@ from typing import Callable, Iterable
 import torch
 
 from ..ops import _build
+
+# Held through every capture in the process, and by a dead engine's
+# release around its `empty_cache` (engine/engine.py): PyTorch's allocator
+# may not empty its cache while any stream captures, and in a replica pool
+# one engine's restart releases while another engine may capture.
+CAPTURE_LOCK = threading.Lock()
 
 
 class CudaGraphs:
@@ -113,6 +125,10 @@ class CudaGraphs:
         and every static table points at the garbage page."""
         if self._device.type != "cuda":
             return
+        with CAPTURE_LOCK:
+            self._capture()
+
+    def _capture(self) -> None:
         t0 = time.monotonic()
         dev = self._device
         main = torch.cuda.current_stream(dev)

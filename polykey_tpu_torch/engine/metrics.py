@@ -145,6 +145,11 @@ class EngineMetrics:
         # the drafts that could be emitted).
         self.drafts_accepted = 0
         self.drafts_proposed = 0
+        # SLO signal plane (obs/signals.py), attached by the engine when
+        # signals are on, else None. It lives here, not on the engine: the
+        # supervisor hands this object to the fresh engine on restart, so
+        # the windows and the budget state survive it.
+        self.signals = None
 
     def on_spec(self, accepted: int, proposed: int) -> None:
         """One processed speculative round's accepted and proposed drafts,
@@ -243,6 +248,44 @@ class EngineMetrics:
             )
         self.lanes_hist.observe(float(lanes))
         return counted_gap
+
+    def counter_sample(self) -> dict:
+        """Every monotone counter in one locked read: the signal plane's
+        ring entry. Host values only (no device read): rates, availability
+        and delta-quantiles are computed on the read side from two
+        samples."""
+        with self._lock:
+            return {
+                "requests_admitted": self.requests_admitted,
+                "requests_completed": self.requests_completed,
+                "requests_failed": self.requests_failed,
+                "requests_shed": self.requests_shed,
+                "deadline_expired_queued": self.deadline_expired["queued"],
+                "deadline_expired_prefill": self.deadline_expired["prefill"],
+                "deadline_expired_decode": self.deadline_expired["decode"],
+                "tokens_generated": self.tokens_generated,
+                "decode_steps": self.decode_steps,
+                "blocks_dispatched": self.blocks_dispatched,
+                "lanes_dispatched": self.lanes_dispatched,
+                "lane_steps": self.lane_steps,
+                "steps_dispatched": self.steps_dispatched,
+                "prefill_tokens_total": self.prefill_tokens_total,
+                "tokens_dispatched_total": self.tokens_dispatched_total,
+                "tokens_useful_total": self.tokens_useful_total,
+                "blocks_processed": self.blocks_processed,
+                "blocks_synced": self.blocks_synced,
+                "lookahead_sum": self.lookahead_sum,
+                "host_stall_ms_total": self.host_stall_ms_total,
+                "dispatch_gap_ms_total": self.dispatch_gap_ms_total,
+                "dispatch_gaps": self.dispatch_gaps,
+                "device_busy_ms_total": self.device_busy_ms_total,
+                "drafts_accepted": self.drafts_accepted,
+                "drafts_proposed": self.drafts_proposed,
+                "kv_page_faults_prefix": self.kv_page_faults["prefix"],
+                "kv_page_faults_ctx": self.kv_page_faults["ctx"],
+                "kv_pages_evicted": self.kv_pages_evicted,
+                "kv_pages_restored": self.kv_pages_restored,
+            }
 
     def on_admit(self) -> None:
         with self._lock:

@@ -75,6 +75,8 @@ class EngineSupervisor:
         self.orphans: list = []
         self._restart_times: deque[float] = deque()
         self._listeners: list[Callable[[object], None]] = []
+        self._giveup_listeners: list[Callable[[str], None]] = []
+        self._trip_listeners: list[Callable[[object, str], None]] = []
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._run, name="polykey-supervisor", daemon=True
@@ -84,6 +86,19 @@ class EngineSupervisor:
         """Called with the fresh engine after every successful restart
         (from the supervisor thread)."""
         self._listeners.append(callback)
+
+    def add_giveup_listener(self, callback: Callable[[str], None]) -> None:
+        """Called with the failure reason when the restart budget is spent
+        and this supervisor stops trying (from the supervisor thread): the
+        replica pool marks that replica DEAD and keeps serving on the
+        others."""
+        self._giveup_listeners.append(callback)
+
+    def add_trip_listener(self, callback: Callable[[object, str], None]) -> None:
+        """Called with (dead engine, reason) as soon as the supervisor sees
+        a dead engine, before it restarts or gives up (the autopilot
+        pauses here)."""
+        self._trip_listeners.append(callback)
 
     def start(self) -> "EngineSupervisor":
         self._thread.start()
@@ -107,6 +122,13 @@ class EngineSupervisor:
             engine = self.engine
             if engine.dead is None:
                 continue
+            for callback in self._trip_listeners:
+                try:
+                    callback(engine, engine.dead or "engine dead")
+                except Exception as e:  # a listener must not stop supervision
+                    if self.logger is not None:
+                        self.logger.error("supervisor trip listener failed",
+                                          error=str(e))
             if not self._budget_ok():
                 self._give_up(engine.dead)
                 return
@@ -142,6 +164,8 @@ class EngineSupervisor:
             )
         # Health stays NOT_SERVING (the watchdog/crash path already
         # flipped it); the platform's restart policy takes over.
+        for callback in self._giveup_listeners:
+            callback(reason)
 
     def _restart(self, old) -> None:
         reason = old.dead or "engine dead"
@@ -192,6 +216,14 @@ class EngineSupervisor:
             # device call ever returns it would count its own failures
             # into the live engine's counters.
             fresh.metrics = old.metrics
+        # The signal plane rides the adopted metrics, so its windows and
+        # budget state survive; its timeline is the dead engine's ring, so
+        # breach notes go to the fresh one from now on.
+        signals = getattr(fresh.metrics, "signals", None)
+        if signals is not None:
+            signals.timeline = getattr(fresh, "timeline", None)
+            if signals.recorder is None:
+                signals.recorder = self.recorder
         self.restarts += 1
         self.engine = fresh
         for callback in self._listeners:

@@ -97,11 +97,22 @@ class PolykeyServer(PolykeyServiceServicer):
             context.set_trailing_metadata(metadata)
         context.abort(e.code, str(e))
 
+    @staticmethod
+    def _flush_trailers(context) -> None:
+        """Success-path trailing metadata the backend stashed through
+        errors.add_rpc_trailers (device-ms, replica, restarted), merged by
+        the interceptor's recording context with the x-trace-id echo."""
+        trailers = errors.pop_rpc_trailers()
+        if trailers:
+            context.set_trailing_metadata(trailers)
+
     def ExecuteTool(self, request, context):
         self._log_call("ExecuteTool", request)
         errors.set_rpc_deadline(errors.deadline_from_context(context))
         try:
-            return self.service.execute_tool(*self._unpack(request))
+            response = self.service.execute_tool(*self._unpack(request))
+            self._flush_trailers(context)
+            return response
         except errors.RpcStatusError as e:
             self._abort_status("ExecuteTool", context, e)
         except Exception as e:
@@ -109,12 +120,14 @@ class PolykeyServer(PolykeyServiceServicer):
             context.abort(grpc.StatusCode.UNKNOWN, str(e))
         finally:
             errors.set_rpc_deadline(None)       # handler threads are pooled
+            errors.pop_rpc_trailers()           # drop a stash an abort left
 
     def ExecuteToolStream(self, request, context):
         self._log_call("ExecuteToolStream", request)
         errors.set_rpc_deadline(errors.deadline_from_context(context))
         try:
             yield from self.service.execute_tool_stream(*self._unpack(request))
+            self._flush_trailers(context)
         except errors.RpcStatusError as e:
             self._abort_status("ExecuteToolStream", context, e)
         except Exception as e:
@@ -122,6 +135,7 @@ class PolykeyServer(PolykeyServiceServicer):
             context.abort(grpc.StatusCode.UNKNOWN, str(e))
         finally:
             errors.set_rpc_deadline(None)
+            errors.pop_rpc_trailers()
 
 
 def normalize_address(addr: str) -> str:

@@ -23,7 +23,11 @@ oneof output out). Tools:
 
 `create` wires the watchdog and, under `supervise` (the default), the
 supervisor that restarts a dead engine in the process on the same
-weights; `secret_id` resolves through the encrypted store
+weights; a `ReplicaPool` (engine/replica_pool.py, POLYKEY_REPLICAS > 1)
+passes through as it is, since it owns a watchdog and a supervisor per
+replica. `from_env` arms the autopilot (engine/autopilot.py) when
+POLYKEY_AUTOPILOT=1. Successful RPCs carry the `device-ms`, `replica` and
+`restarted` trailers. `secret_id` resolves through the encrypted store
 (gateway/security.py) when POLYKEY_SECRET_KEY is set, and never fails a
 request.
 """
@@ -46,6 +50,7 @@ from ..engine.engine import (
     GenRequest,
     InferenceEngine,
 )
+from ..engine.replica_pool import ReplicaPool
 from ..engine.supervisor import EngineSupervisor
 from ..engine.tokenizer import ByteTokenizer, IncrementalDetokenizer
 from ..engine.watchdog import Watchdog
@@ -78,6 +83,9 @@ class TorchService(Service):
         # Set by create() under supervision; the supervisor swaps
         # `self.engine` to the fresh instance after every restart.
         self.supervisor: Optional[EngineSupervisor] = None
+        # Set by from_env() under POLYKEY_AUTOPILOT=1; close() stops it
+        # before the engine, so no actuation races the teardown.
+        self.autopilot = None
         self.secrets = secrets      # gateway.security.SecretStore or None
         self.logger = logger
         self.obs = obs
@@ -90,6 +98,11 @@ class TorchService(Service):
             recorder=obs.recorder if obs is not None else None
         )
         if obs is not None:
+            # SLO breach events land in the flight recorder beside the
+            # watchdog trips: every replica's signal plane gets it.
+            from ..obs.signals import bind_recorder
+
+            bind_recorder(engine, obs.recorder)
             # A registry holds ONE engine's families (the names carry no
             # engine label): the first service to register wins. The scrape
             # reads `self.engine`, not the constructor argument, so it
@@ -118,8 +131,12 @@ class TorchService(Service):
         default factory builds the replacement on the dead engine's own
         weights (`InferenceEngine(..., reuse=dead._ctor_args)`): no second
         copy on the card, no second checkpoint read. `engine_factory`
-        overrides it."""
+        overrides it. A `ReplicaPool` passes through as it is: it owns a
+        watchdog and a supervisor per replica (one watchdog cannot watch N
+        engines)."""
         service = cls(engine, None, secrets=secrets, logger=logger, obs=obs)
+        if isinstance(engine, ReplicaPool):
+            return service
         config = engine.config
         recorder = obs.recorder if obs is not None else None
         watchdog = Watchdog(
@@ -156,13 +173,29 @@ class TorchService(Service):
         from .security import SecretStore
 
         config = EngineConfig.from_env()
-        engine = InferenceEngine(config, device=device, health=health, logger=logger)
+        if config.replicas > 1:
+            # POLYKEY_REPLICAS engines on one set of weights behind the
+            # routing pool; 1 (the default) keeps the single engine.
+            engine = ReplicaPool.create(config, health=health, logger=logger,
+                                        obs=obs, device=device)
+        else:
+            engine = InferenceEngine(config, device=device, health=health,
+                                     logger=logger)
         service = cls.create(engine, health=health, logger=logger,
                              secrets=SecretStore.from_env(logger), obs=obs)
+        # POLYKEY_AUTOPILOT=1 arms the controller over whatever this
+        # process serves; unset, nothing is constructed. A refusal (the
+        # signal plane is off) fails the boot.
+        from ..engine.autopilot import maybe_start
+
+        service.autopilot = maybe_start(service.engine, supervisor=service.supervisor,
+                                        obs=obs, logger=logger)
         if logger is not None:
+            first = engine.replicas[0].engine if config.replicas > 1 else engine
             logger.info(
                 "engine initialized", model=config.model,
-                device=str(engine.device), slots=config.max_decode_slots,
+                device=str(first.device),
+                replicas=config.replicas, slots=config.max_decode_slots,
                 pages=config.num_pages, page_size=config.page_size,
                 supervise=config.supervise,
             )
@@ -180,7 +213,10 @@ class TorchService(Service):
                              secret_id=secret_id)
 
     def close(self) -> None:
-        # Supervisor and watchdog first: no restart may race the teardown.
+        # Autopilot, supervisor and watchdog first: no actuation or
+        # restart may race the teardown.
+        if self.autopilot is not None:
+            self.autopilot.stop()
         if self.supervisor is not None:
             self.supervisor.stop()
         if self.watchdog is not None:
@@ -254,7 +290,30 @@ class TorchService(Service):
                 str(e), retry_after_ms=e.retry_after_ms
             ) from e
         except EngineDeadError as e:
-            raise errors.UnavailableError(str(e)) from e
+            # A pool with no serving replica estimates its recovery: the
+            # hint rides the UNAVAILABLE as `retry-after-ms`.
+            trailers: tuple = ()
+            if e.retry_after_ms is not None:
+                trailers = ((errors.RETRY_AFTER_MS_KEY, str(int(e.retry_after_ms))),)
+            raise errors.UnavailableError(str(e), trailers=trailers) from e
+
+    @staticmethod
+    def _stamp_serving_trailers(request: GenRequest) -> None:
+        """Success-path trailers: the request's attributed device time
+        (`device-ms`) and, behind a replica pool, which replica served
+        (`replica`) and whether the stream resumed on another one
+        (`restarted`)."""
+        trailers = []
+        device_ms = request.timings.device_ms
+        if device_ms > 0:
+            trailers.append((errors.DEVICE_MS_KEY, f"{device_ms:.2f}"))
+        replica = getattr(request, "replica", None)
+        if replica is not None:
+            trailers.append((errors.REPLICA_KEY, str(replica)))
+            if getattr(request, "restarted", False):
+                trailers.append((errors.RESTARTED_KEY, "1"))
+        if trailers:
+            errors.add_rpc_trailers(*trailers)
 
     @staticmethod
     def _engine_error(message: str) -> Exception:
@@ -443,6 +502,7 @@ class TorchService(Service):
             text = "".join(
                 v for k, v in self._text_events(request, stops) if k == "delta"
             )
+        self._stamp_serving_trailers(request)
         return pk.ExecuteToolResponse(status=_ok(), string_output=text)
 
     def execute_tool_stream(
@@ -476,6 +536,7 @@ class TorchService(Service):
                 # this unwinds, before the engine finishes the slot.
                 span.set(client_disconnected=True)
             raise
+        self._stamp_serving_trailers(request)
         final = pk.ExecuteToolStreamChunk(final=True, status=_ok())
         if timings is not None:
             final.usage.prompt_tokens = timings.prompt_tokens

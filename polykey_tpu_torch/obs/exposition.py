@@ -19,8 +19,12 @@ A stdlib ``http.server`` thread on the gateway serving:
 The engine collector snapshots `InferenceEngine` state at scrape time —
 no background sampler, no per-step bookkeeping beyond what
 `EngineMetrics` already does; `stats()` reads host state only, so a
-scrape never waits on the device. The replica-pool, disaggregated-pool,
-SLO and autopilot families come with those modules (ROADMAP.md A.9, A.10).
+scrape never waits on the device. Behind a replica pool every engine
+family renders once per replica with a ``replica`` label, beside the pool
+families (replica states, reroutes, resumed streams, router decisions);
+the SLO families render from each signal plane's cached evaluation and
+the autopilot's from its snapshot. The disaggregated pool's families come
+with that pool (ROADMAP.md A.10).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from .prometheus import (
     CONTENT_TYPE_OPENMETRICS,
     Registry,
     render_counter,
+    render_gauge,
     render_header,
     render_histogram_samples,
     render_sample,
@@ -161,51 +166,214 @@ _SPEC_FAMILIES: tuple = (
 )
 
 
-def engine_collector(engine_or_provider):
-    """Scrape-time collector over a live InferenceEngine: counters and
-    gauges come from `stats()` snapshots (the public surface, so a rename
-    of engine internals can't 500 the scrape); the latency families read
-    the EngineMetrics histograms directly — part of its public contract.
+def _pool_lines(pool, members: list) -> list[str]:
+    """Pool-tier families: replica lifecycle states and the
+    failover/router counters. `members` is [(labels, engine, snap)]."""
+    from ..engine.replica_pool import STATES  # lazy: obs must not import engine at module load
 
-    Accepts either the engine or a zero-arg provider returning one — a
+    stats = pool.stats()
+    lines = render_header(
+        "polykey_replica_state",
+        "Replica lifecycle (1 for the replica's current state; states: "
+        + ", ".join(STATES) + ").",
+        "gauge",
+    )
+    states = stats.get("replica_states", {})
+    for index in sorted(states, key=int):
+        for state in STATES:
+            lines.append(render_sample(
+                "polykey_replica_state",
+                {"replica": index, "state": state},
+                1 if states[index] == state else 0,
+            ))
+    lines += render_gauge(
+        "polykey_replicas_serving",
+        "Replicas currently in SERVING state.",
+        stats.get("replicas_serving", 0),
+    )
+    lines += render_counter(
+        "polykey_requests_rerouted_total",
+        "Requests moved to another replica after an engine-lifecycle "
+        "failure (queued moves are lossless; mid-stream moves resume).",
+        stats.get("requests_rerouted", 0),
+    )
+    lines += render_counter(
+        "polykey_streams_resumed_total",
+        "Mid-stream requests resumed on another replica with "
+        "already-emitted tokens suppressed.",
+        stats.get("streams_resumed", 0),
+    )
+    lines += render_header(
+        "polykey_router_decisions_total",
+        "Routing decisions by dominant reason (prefix-hit / least-delay "
+        "/ headroom).",
+        "counter",
+    )
+    for reason, count in sorted(stats.get("router_decisions", {}).items()):
+        lines.append(render_sample(
+            "polykey_router_decisions_total", {"reason": reason}, count
+        ))
+    return lines
+
+
+def _slo_lines(members: list) -> list[str]:
+    """SLO signal-plane families, rendered from each
+    engine's cached last evaluation (`SignalPlane.slo_state()` — the
+    scrape never recomputes window math). Headers render whenever any
+    member carries a plane, so dashboards and the exposition-under-
+    churn gate see the families even before a policy is loaded; samples
+    appear per objective once a policy evaluates."""
+    states = []
+    for labels, engine, _snap in members:
+        plane = getattr(engine.metrics, "signals", None)
+        if plane is not None:
+            states.append((labels, plane.slo_state()))
+    if not states:
+        return []
+    lines = render_header(
+        "polykey_slo_budget_remaining_ratio",
+        "Error budget remaining over the longest window, per objective "
+        "(1 = untouched, 0 = exhausted).",
+        "gauge",
+    )
+    for labels, state in states:
+        for name in sorted(state):
+            lines.append(render_sample(
+                "polykey_slo_budget_remaining_ratio",
+                {**labels, "objective": name},
+                state[name]["budget_remaining"],
+            ))
+    lines += render_header(
+        "polykey_slo_burn_rate",
+        "Error-budget burn rate per objective and window (1 = burning "
+        "exactly at the objective's allowance; >1 exhausts early).",
+        "gauge",
+    )
+    for labels, state in states:
+        for name in sorted(state):
+            for window, burn in sorted(state[name]["burn_rate"].items()):
+                if burn is None:
+                    continue    # window carried no evidence: no sample
+                lines.append(render_sample(
+                    "polykey_slo_burn_rate",
+                    {**labels, "objective": name, "window": window},
+                    burn,
+                ))
+    lines += render_header(
+        "polykey_slo_breaches_total",
+        "Burn-threshold crossings per objective (breach events; each "
+        "also lands on the timeline and flight recorder).",
+        "counter",
+    )
+    for labels, state in states:
+        for name in sorted(state):
+            lines.append(render_sample(
+                "polykey_slo_breaches_total",
+                {**labels, "objective": name},
+                state[name]["breaches"],
+            ))
+    return lines
+
+
+def _autopilot_lines(target) -> list[str]:
+    """Controller families: empty when no autopilot is
+    attached, so POLYKEY_AUTOPILOT unset leaves the page byte-identical."""
+    autopilot = getattr(target, "autopilot", None)
+    if autopilot is None:
+        return []
+    snap = autopilot.snapshot()
+    lines = render_header(
+        "polykey_autopilot_decisions_total",
+        "Autopilot actuations by action and direction", "counter",
+    )
+    for key, count in snap["decisions_total"].items():
+        action, _, direction = key.partition(":")
+        lines.append(render_sample(
+            "polykey_autopilot_decisions_total",
+            {"action": action, "direction": direction}, count,
+        ))
+    lines += render_header(
+        "polykey_autopilot_setpoint",
+        "Current autopilot-managed knob setpoints", "gauge",
+    )
+    for name, value in sorted(snap["setpoints"].items()):
+        lines.append(render_sample(
+            "polykey_autopilot_setpoint", {"name": name}, value,
+        ))
+    lines += render_header(
+        "polykey_autopilot_paused",
+        "1 while the autopilot is paused for a supervised restart",
+        "gauge",
+    )
+    lines.append(render_sample(
+        "polykey_autopilot_paused", {}, int(snap["paused"]),
+    ))
+    return lines
+
+
+def engine_collector(engine_or_provider):
+    """Scrape-time collector over a live InferenceEngine OR a ReplicaPool:
+    counters and gauges come from `stats()` snapshots (the public surface,
+    so a rename of engine internals can't 500 the scrape); the latency
+    families read the EngineMetrics histograms directly — part of its
+    public contract. A pool renders every engine family once per replica
+    with a ``replica`` label plus the pool-tier families (replica_state,
+    rerouted/resumed, router decisions); a bare engine renders the
+    unlabeled page. The SLO and autopilot families follow.
+
+    Accepts either the object or a zero-arg provider returning one — a
     supervised restart (engine/supervisor.py) swaps the live engine out
     from under the registry, and the scrape must follow to the fresh
     instance instead of reading the corpse forever."""
 
     def collect() -> list[str]:
-        engine = (
+        target = (
             engine_or_provider()
             if callable(engine_or_provider) else engine_or_provider
         )
-        snap = engine.stats()
+        pool = target if hasattr(target, "replicas") else None
+        if pool is not None:
+            members = [
+                ({"replica": str(rep.index)}, rep.engine, rep.engine.stats())
+                for rep in pool.replicas
+            ]
+        else:
+            members = [({}, target, target.stats())]
         lines: list[str] = []
         for kind, name, help_text, key in _ENGINE_FAMILIES:
             if kind == "phases":
                 lines += render_header(name, help_text, "counter")
-                for phase in ("queued", "prefill", "decode"):
-                    lines.append(render_sample(
-                        name, {"phase": phase},
-                        snap[f"deadline_expired_{phase}"],
-                    ))
+                for labels, _engine, snap in members:
+                    for phase in ("queued", "prefill", "decode"):
+                        lines.append(render_sample(
+                            name, {**labels, "phase": phase},
+                            snap[f"deadline_expired_{phase}"],
+                        ))
             elif kind == "kvfaults":
                 lines += render_header(name, help_text, "counter")
-                for fault_kind in ("prefix", "ctx"):
-                    lines.append(render_sample(
-                        name, {"kind": fault_kind},
-                        snap.get(f"kv_page_faults_{fault_kind}", 0),
-                    ))
+                for labels, _engine, snap in members:
+                    for fault_kind in ("prefix", "ctx"):
+                        lines.append(render_sample(
+                            name, {**labels, "kind": fault_kind},
+                            snap.get(f"kv_page_faults_{fault_kind}", 0),
+                        ))
             elif kind == "hist":
                 lines += render_header(name, help_text, "histogram")
-                lines += render_histogram_samples(
-                    name, {}, getattr(engine.metrics, key)
-                )
+                for labels, engine, _snap in members:
+                    lines += render_histogram_samples(
+                        name, labels, getattr(engine.metrics, key)
+                    )
             else:
                 lines += render_header(name, help_text, kind)
-                lines.append(render_sample(name, {}, snap[key]))
-        if snap.get("drafts_proposed"):
+                for labels, _engine, snap in members:
+                    lines.append(render_sample(name, labels, snap[key]))
+        if any(snap.get("drafts_proposed") for _, _, snap in members):
             for name, help_text, key in _SPEC_FAMILIES:
-                lines += render_counter(name, help_text, snap[key])
-        if snap.get("spec_gamma") is not None:
+                lines += render_header(name, help_text, "counter")
+                for labels, _engine, snap in members:
+                    if snap.get("drafts_proposed"):
+                        lines.append(render_sample(name, labels, snap[key]))
+        if any(snap.get("spec_gamma") is not None for _, _, snap in members):
             # Per-lane dial aggregates: the families carry a `stat` label
             # (mean/min/max over occupied lanes). Present whenever spec is
             # configured — operators watch the dial before traffic
@@ -220,10 +388,18 @@ def engine_collector(engine_or_provider):
                  "spec_accept_ewma"),
             ):
                 lines += render_header(name, help_text, "gauge")
-                for stat in ("mean", "min", "max"):
-                    lines.append(render_sample(
-                        name, {"stat": stat}, snap[f"{prefix}_{stat}"],
-                    ))
+                for labels, _engine, snap in members:
+                    if snap.get("spec_gamma") is None:
+                        continue
+                    for stat in ("mean", "min", "max"):
+                        lines.append(render_sample(
+                            name, {**labels, "stat": stat},
+                            snap[f"{prefix}_{stat}"],
+                        ))
+        if pool is not None:
+            lines += _pool_lines(pool, members)
+        lines += _slo_lines(members)
+        lines += _autopilot_lines(target)
         return lines
 
     return collect
@@ -234,6 +410,8 @@ class DebugSurface:
     metrics HTTP server and gated by ``POLYKEY_DEBUG_ENDPOINTS=1``:
 
     - ``/debug/engine``        — engine_stats snapshot as JSON
+    - ``/debug/slo``           — windowed signal-plane snapshot + SLO
+      burn/budget state (obs.signals.signals_snapshot)
     - ``/debug/timeline``      — Perfetto/Chrome-trace export of the
       engine timeline
     - ``/debug/flight``        — flight-recorder span trees + events
@@ -293,6 +471,16 @@ class DebugSurface:
                 meta={"source": "polykey /debug/timeline"},
             )
             return 200, "application/json", _json_bytes(trace)
+        if path == "/debug/slo":
+            engine = self._engine()
+            if engine is None:
+                return 404, "text/plain", b"no engine wired\n"
+            from .signals import signals_snapshot
+
+            registry = self.obs.registry if self.obs is not None else None
+            return 200, "application/json", _json_bytes(
+                signals_snapshot(engine, registry=registry)
+            )
         if path == "/debug/flight":
             if self.obs is None:
                 return 404, "text/plain", b"no recorder wired\n"

@@ -137,6 +137,7 @@ class ProfilerCapture:
             target, self._dir = self._dir, None
             prof, self._prof = self._prof, None
             prof.stop()
+            # polylint: disable=PL004(os.path.join computes a path, it waits on nothing; the export itself is the capture's single-flight section)
             prof.export_chrome_trace(os.path.join(target, TRACE_FILE))
         if self.recorder is not None:
             self.recorder.event(

@@ -139,11 +139,21 @@ class TimelineRecorder:
         return out
 
 
-def engine_timelines(engine) -> list[tuple[int, str, list[dict]]]:
-    """Exporter input for one engine: ``[(0, "engine", events)]``. An
-    engine with the timeline disabled contributes an empty event list (the
-    export stays valid, just blank)."""
-    timeline = getattr(engine, "timeline", None)
+def engine_timelines(engine_or_pool) -> list[tuple[int, str, list[dict]]]:
+    """Exporter input: ``[(0, "engine", events)]`` for one engine, and for
+    a replica pool one Perfetto process per replica, pid = replica index.
+    An engine with the timeline disabled contributes an empty event list
+    (the export stays valid, just blank)."""
+    if hasattr(engine_or_pool, "replicas"):
+        out = []
+        for rep in engine_or_pool.replicas:
+            timeline = getattr(rep.engine, "timeline", None)
+            out.append((
+                rep.index, f"replica {rep.index}",
+                timeline.events() if timeline is not None else [],
+            ))
+        return out
+    timeline = getattr(engine_or_pool, "timeline", None)
     return [(0, "engine",
              timeline.events() if timeline is not None else [])]
 

@@ -1812,3 +1812,84 @@ def test_cache_forward_flash_matches_plain(gen, monkeypatch):
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     for a, b in ((got_cache.k, want_cache.k), (got_cache.v, want_cache.v)):
         assert (a.float() - b.float()).abs().max().item() <= 0.12
+
+
+# -- the replica pool (engine/replica_pool.py) ---------------------------------
+
+def test_replica_restart_beside_a_live_replica_keeps_both_streams(gen, monkeypatch):
+    """Two replicas of a 2-layer, head_dim 64 model on one set of weights:
+    replica 0 is stalled past its watchdog window and restarted by its
+    supervisor (the fresh engine captures its graphs) while replica 1
+    replays its decode graph for a paced 180-token stream. Replica 1's
+    stream is bit-identical to its run without the restart, and the fresh
+    replica 0's stream to its first engine's."""
+    import time
+    from dataclasses import replace
+
+    from polykey_tpu_torch import faults
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import GenRequest
+    from polykey_tpu_torch.engine.replica_pool import SERVING, ReplicaPool
+    from polykey_tpu_torch.models import config as model_config
+
+    cfg = replace(model_config.get_config("tiny-llama"), name="tiny-llama-d64",
+                  hidden_size=256, intermediate_size=512, head_dim=64)
+    monkeypatch.setitem(model_config.MODEL_REGISTRY, cfg.name, cfg)
+    config = EngineConfig(model=cfg.name, max_decode_slots=4, page_size=16,
+                          num_pages=64, max_seq_len=256, prefill_buckets=(32, 64),
+                          max_new_tokens_cap=192, watchdog_timeout_s=1.0, replicas=2)
+    prompts = ["the first replica's prompt", "the second replica's prompt"]
+
+    def stream(engine, prompt, n):
+        r = GenRequest(prompt=prompt, max_new_tokens=n)
+        engine.submit(r)
+        toks, first = [], None
+        while True:
+            kind, value = r.out.get(timeout=120)
+            assert kind != "error", value
+            if kind == "done":
+                return toks, first, time.monotonic()
+            first = first or time.monotonic()
+            toks.append(value)
+
+    faults.clear()
+    pool = ReplicaPool.create(config, device="cuda", seed=5, watchdog_interval_s=0.05,
+                              supervisor_interval_s=0.05)
+    try:
+        engines = [rep.engine for rep in pool.replicas]
+        assert engines[0].params is engines[1].params
+        want0 = stream(engines[0], prompts[0], 24)[0]
+        want1 = stream(engines[1], prompts[1], 180)[0]
+        injector = faults.install("slow-step=0.03:replica=1,step-stall=2.0@1:replica=0")
+        for engine in engines:
+            engine._faults = injector
+        live: dict = {}
+
+        import threading
+
+        thread = threading.Thread(target=lambda: live.setdefault(
+            "out", stream(engines[1], prompts[1], 180)))
+        thread.start()
+        replays0 = engines[1].stats()["decode_graph_replays"]
+        victim = GenRequest(prompt=prompts[0], max_new_tokens=24)
+        engines[0].submit(victim)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not (
+                pool.replicas[0].supervisor.restarts == 1
+                and pool.replicas[0].state == SERVING):
+            time.sleep(0.01)
+        thread.join(timeout=120)
+        faults.clear()
+        fresh = pool.replicas[0].engine
+        assert fresh is not engines[0] and fresh.params is engines[1].params
+        assert engines[0].paged is None
+        toks1, first1, end1 = live["out"]
+        c0, c1 = fresh._graphs.capture_window
+        assert first1 < c0 and c1 < end1, "the capture did not overlap the live stream"
+        assert engines[1].stats()["decode_graph_replays"] > replays0
+        assert toks1 == want1
+        fresh._faults = None
+        assert stream(fresh, prompts[0], 24)[0] == want0
+    finally:
+        faults.clear()
+        pool.shutdown()

@@ -70,13 +70,8 @@ FIELDS = dict(
 PROMPTS = ["hello", "a prompt that is longer than the largest bucket"]
 
 # Families of the JAX package's page whose module the port has not yet:
-# the SLO signal plane (obs/signals.py) comes with ROADMAP.md A.9's rest,
-# beside A.10's autopilot.
-UNPORTED_FAMILIES = {
-    "polykey_slo_budget_remaining_ratio": "obs/signals.py",
-    "polykey_slo_burn_rate": "obs/signals.py",
-    "polykey_slo_breaches_total": "obs/signals.py",
-}
+# none (the SLO families came with obs/signals.py).
+UNPORTED_FAMILIES: dict = {}
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +201,63 @@ def test_metrics_page_families_match_the_jax_package(engines):
         want.pop(name)
     assert got == want
     assert "polykey_ttft_ms" in got and got["polykey_ttft_ms"][0] == "histogram"
+
+
+def _stand_in_pool(module, config_cls, engine, autopilot_module):
+    """A pool of two replicas over one live engine (the families depend on
+    the pool's shape, not on distinct engines), its router counters and
+    states set, with an autopilot's state attached (no thread)."""
+    pool = module.ReplicaPool(config_cls(**FIELDS, replicas=2))
+    pool.replicas.extend(
+        module._Replica(index=i, engine=engine, watchdog=None, supervisor=None,
+                        state=state)
+        for i, state in enumerate(("SERVING", "RESTARTING")))
+    pool.router_decisions["prefix-hit"] = 2
+    pool.requests_rerouted = pool.streams_resumed = 1
+    pilot = autopilot_module.Autopilot(pool, config=autopilot_module.AutopilotConfig())
+    pilot.state = pilot._build_state()
+    pilot.decisions_total[("lookahead", "up")] = 1
+    pool.autopilot = pilot
+    return pool
+
+
+def test_pool_slo_and_autopilot_families_match_the_jax_package(engines):
+    """Behind a replica pool with an autopilot and an SLO policy: every
+    engine family once per replica (a `replica` label), the pool families,
+    the SLO families per objective and the autopilot's, with the JAX
+    package's names, types and label sets."""
+    from polykey_tpu.engine import autopilot as jautopilot
+    from polykey_tpu.engine import replica_pool as jpool
+    from polykey_tpu.obs.signals import SloPolicy as JSloPolicy
+    from polykey_tpu_torch.engine import autopilot, replica_pool
+    from polykey_tpu_torch.obs.signals import SloPolicy
+
+    jeng, teng = engines
+    jeng.metrics.signals.set_policy(JSloPolicy.from_spec("default"))
+    teng.metrics.signals.set_policy(SloPolicy.from_spec("default"))
+    try:
+        for eng in (jeng, teng):          # one windowed TTFT: burn-rate samples
+            eng.metrics.signals.sample_now()
+            eng.metrics.ttft_hist.observe(10.0)
+            eng.metrics.signals.sample_now()
+        jobs, obs = JObservability(), Observability()
+        TpuService.create(_stand_in_pool(jpool, JEngineConfig, jeng, jautopilot), obs=jobs)
+        TorchService.create(_stand_in_pool(replica_pool, EngineConfig, teng, autopilot),
+                            obs=obs)
+        want, got = _families(jobs.registry.render()), _families(obs.registry.render())
+        assert got == want
+        for family in ("polykey_replica_state", "polykey_replicas_serving",
+                       "polykey_router_decisions_total", "polykey_slo_burn_rate",
+                       "polykey_slo_budget_remaining_ratio", "polykey_slo_breaches_total",
+                       "polykey_autopilot_decisions_total", "polykey_autopilot_setpoint",
+                       "polykey_autopilot_paused"):
+            assert family in got, family
+        assert got["polykey_replica_state"][1] == {frozenset({"replica", "state"})}
+        assert frozenset({"objective", "replica", "window"}) in \
+            got["polykey_slo_burn_rate"][1]
+    finally:
+        jeng.metrics.signals.set_policy(None)
+        teng.metrics.signals.set_policy(None)
 
 
 def _JLogger():

@@ -472,8 +472,8 @@ def test_spec_stats_carry_the_reference_keys(port):
 
 
 @pytest.mark.parametrize("fields,error,item", [
-    (dict(draft_model="tiny-llama", replicas=2), NotImplementedError,
-     "replica and disagg pools"),
+    (dict(draft_model="tiny-llama", replicas=2, disagg="1x1"), NotImplementedError,
+     "the disaggregated pool"),
     (dict(checkpoint_path="/nonexistent"), FileNotFoundError, "/nonexistent"),
     (dict(draft_model="tiny-llama", draft_checkpoint_path="/nonexistent"),
      FileNotFoundError, "/nonexistent"),
