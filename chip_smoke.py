@@ -193,7 +193,38 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             replica's lookahead is the autopilot's setpoint (3 or more; it
             boots with 2). Only flash, the bf16 decode and the bf16 write
             kernels launch; it prints each replica's ITL p50 / p95.
-15. serve-mixtral: after the Llama weights are freed, the full 32-layer
+15. disagg: after the Llama weights are freed (their fingerprint taken
+            first), a 1x1 disaggregated pool (DisaggPool.create,
+            POLYKEY_DISAGG="1x1", engine/disagg_pool.py): a prefill worker
+            and a decode worker, each a real process
+            (python -m polykey_tpu_torch.engine.worker) holding its own
+            32-layer Llama-3-8B drawn from --seed (the stats reply's weight
+            fingerprint must be the parent's), 4.00 GiB of KV and its graphs,
+            both started at once. Served by build_server over
+            TorchService.create with /metrics: (b) the five greedy prompts,
+            streamed one at a time, their ids held to the plain engine's
+            (phase 11) under the near-tie rule, each with the `tier` trailer
+            "prefill=0,decode=0"; each prints its blob's bytes and its
+            handoff by part (gather, serialize, the socket hops, deserialize,
+            the decode worker's import on the card). (c) A lone greedy
+            stream of 320 tokens with the 1509-token document sent after
+            its 24th token: the stream's inter-token gaps before, while the
+            prefill worker prefills the document, while its blob travels and
+            is imported, and after. (d) The decode
+            worker is armed (the arm_faults op) to call os._exit after 8
+            forwarded tokens of the next stream: the pool must start a new
+            decode process and re-ship the retained blob (the prefill
+            worker's admissions +1, handoffs retried +1), the stream must
+            complete with trailers `tier` and `restarted: 1` and the
+            uninterrupted run's ids (near-tie rule), /metrics must carry the
+            tier-labelled families. (e) The merged Perfetto timeline must
+            hold three process rows and a handoff arc; each worker's kernel
+            launches come from its stats reply (flash in the prefill worker,
+            the decode kernel and the write in both decode workers). Every
+            worker process must be gone at the end (their process groups
+            are killed in any case). A text that differs is held to the
+            near-tie rule on the weights drawn again in this process.
+16. serve-mixtral: after the Llama weights are freed, the full 32-layer
             mixtral-8x7b (46.7 B parameters, random weights from --seed,
             drawn and quantized to int8 a layer at a time: 43.5 GiB) behind
             the gRPC server, EngineConfig(model="mixtral-8x7b",
@@ -202,7 +233,7 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and no other; every decode block and prefill a graph replay.
             The capacity-bucketed dispatch drops by position in the batch,
             so the repeated greedy prompt is held to a solo run of it.
-16. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
+17. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
             random bf16 weights from seed + 2) is written as an HF
             safetensors checkpoint (two shards and an index, by this
             script's own writer) in a temporary directory, removed at the
@@ -2986,6 +3017,395 @@ def phase_replicas(seed: int, params, card: str, plain=None) -> dict:
             os.environ["POLYKEY_DEBUG_ENDPOINTS"] = saved
 
 
+# -- phase 15 --------------------------------------------------------------
+
+DISAGG_KILL_AFTER = 8      # decode tokens the worker forwards before it dies
+DISAGG_ITL_TOKENS = 320    # the stream decoded across the document's handoff
+
+
+class _TimedTap(_Tap):
+    """A `_Tap` that also stamps each token's arrival (monotonic)."""
+
+    def __init__(self):
+        super().__init__()
+        self.times = []
+
+    def put(self, item, *args, **kwargs):
+        if item[0] == "token":
+            self.times.append(time.monotonic())
+        super().put(item, *args, **kwargs)
+
+
+def _span_named(span, name: str):
+    """The first span called `name` in `span`'s tree (depth first), or None."""
+    if span.name == name:
+        return span
+    for child in list(span.children):
+        found = _span_named(child, name)
+        if found is not None:
+            return found
+    return None
+
+
+def _handoff_split(request) -> dict:
+    """One request's handoff, from its span tree (the coordinator's spans
+    and the workers' grafted subtrees): gather and serialize on the
+    prefill worker, the fetch socket hop to the coordinator, the ship
+    socket hop to the decode worker (its deserialize apart), ms; bytes."""
+    trace = request.trace
+    ser = _span_named(trace, "handoff_serialize")
+    fetch = _span_named(trace, "handoff_fetch")
+    ship = [c for c in trace.children if c.name == "handoff_ship"]
+    deser = _span_named(trace, "handoff_deserialize")
+    check(ser is not None and fetch is not None and ship and deser is not None,
+          f"disagg: the handoff spans are missing from {trace.to_dict()}")
+    ship = ship[-1]
+    deser_ms = deser.duration_ms
+    return {"bytes": int(fetch.attrs["bytes"]), "gather_ms": float(ser.attrs["gather_ms"]),
+            "serialize_ms": ser.duration_ms, "fetch_ms": fetch.duration_ms,
+            "ship_ms": ship.duration_ms - deser_ms, "deserialize_ms": deser_ms}
+
+
+def _http_get(port: int, path: str) -> tuple:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        return resp.status, resp.read()
+
+
+def _itl(times: list, lo: float, hi: float) -> tuple:
+    """p50 and p95 (ms) of the gaps between tokens that arrived in [lo, hi],
+    and how many gaps."""
+    gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:]) if lo <= a and b <= hi]
+    if not gaps:
+        return float("nan"), float("nan"), 0
+    return (float(np.percentile(gaps, 50)), float(np.percentile(gaps, 95)), len(gaps))
+
+
+def phase_disagg(seed: int, card: str, fingerprint=None, plain=None) -> dict:
+    """The disaggregated tiers on the card (module docstring, phase 15): a
+    1x1 Llama-3-8B pool, each worker a real process holding its own
+    weights drawn from `seed` (`fingerprint`: the parent's, taken before it
+    freed them), served over gRPC. `plain` is the plain engine's
+    SPEC_GREEDY token ids (phase_spec's). Without them (the phase run
+    alone) the weights are drawn here, the five served on a plain engine
+    and freed first."""
+    import shutil
+    import signal
+    import tempfile
+
+    import grpc
+
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.disagg_pool import DECODE, PREFILL, DisaggPool
+    from polykey_tpu_torch.engine.replica_pool import SERVING
+    from polykey_tpu_torch.engine.worker import WorkerConn
+    from polykey_tpu_torch.gateway.client import trailers_from
+    from polykey_tpu_torch.gateway.health import HealthService
+    from polykey_tpu_torch.gateway.jsonlog import Logger
+    from polykey_tpu_torch.gateway.server import build_server, start_metrics_server
+    from polykey_tpu_torch.gateway.torch_service import TorchService
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.transformer import init_params
+    from polykey_tpu_torch.obs import Observability
+    from polykey_tpu_torch.proto import polykey_v2_pb2 as pk
+    from polykey_tpu_torch.proto.polykey_v2_grpc import PolykeyServiceStub
+
+    phase = "disagg"
+    cfg = get_config("llama-3-8b")
+    t_phase = time.monotonic()
+    if fingerprint is None or plain is None:
+        from polykey_tpu_torch.engine.engine import InferenceEngine
+        from polykey_tpu_torch.engine.worker import params_fingerprint
+
+        params = init_params(cfg, torch.bfloat16, "cuda",
+                             torch.Generator(device="cuda").manual_seed(seed))
+        fingerprint = params_fingerprint(params)
+        eng = _Grpc(InferenceEngine(EngineConfig(model="llama-3-8b"), params=params,
+                                    device="cuda", seed=seed))
+        try:
+            plain = eng.generate(SPEC_GREEDY)
+        finally:
+            eng.close()
+        eng.engine.release_device_state()
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    state_dir = tempfile.mkdtemp(prefix="polykey-disagg-")
+    # A worker restart (a process start: imports, weights, capture) takes
+    # tens of seconds: re-routes wait for it.
+    config = EngineConfig(model="llama-3-8b", disagg="1x1", default_max_new_tokens=32,
+                          disagg_heartbeat_s=0.25, disagg_recovery_wait_s=300.0,
+                          request_timeout_s=600.0)
+    saved = {k: os.environ.pop(k, None) for k in ("POLYKEY_FAULTS", "POLYKEY_DEVICE")}
+    obs, health = Observability(), HealthService()
+    logger = Logger(stream=sys.stderr, level="WARN")
+    pool = service = server = channel = sidecar = None
+    procs: list = []
+    free0, total = torch.cuda.mem_get_info()
+    try:
+        t0 = time.monotonic()
+        # (a) Start: both workers spawned at once, each drawing its weights
+        # and capturing its graphs in its own process.
+        pool = DisaggPool.create(config, health=health, logger=logger, obs=obs, seed=seed,
+                                 state_dir=state_dir, device="cuda", ready_timeout_s=400.0)
+        up_s = time.monotonic() - t0
+        procs = [w.proc for w in pool.workers]
+        prefill_w = next(w for w in pool.workers if w.tier == PREFILL)
+        decode_w = next(w for w in pool.workers if w.tier == DECODE)
+        stats0 = {w.tier: pool._worker_stats(w) for w in pool.workers}
+        for tier, st in stats0.items():
+            check(st.get("weights_fingerprint") == fingerprint,
+                  f"{phase}: the {tier} worker's weights {st.get('weights_fingerprint')} "
+                  f"are not the parent's {fingerprint}")
+            check(st.get("device", "").startswith("cuda") and st["pid"] != os.getpid(),
+                  f"{phase}: the {tier} worker runs on {st.get('device')} in pid {st.get('pid')}")
+        free1, _ = torch.cuda.mem_get_info()
+        say(phase, f"1x1 pool up in {up_s:.1f} s: prefill worker (pid {stats0[PREFILL]['pid']}) "
+            f"ready in {prefill_w.boot_s[0]:.1f} s, decode worker (pid {stats0[DECODE]['pid']}) "
+            f"in {decode_w.boot_s[0]:.1f} s; each drew the parent's weights (fingerprint "
+            f"{fingerprint}); per worker allocated / reserved GiB: "
+            + ", ".join(f"{t} {st['cuda_allocated_bytes'] / 2**30:.2f} / "
+                        f"{st['cuda_reserved_bytes'] / 2**30:.2f} (weights "
+                        f"{st['weight_bytes'] / 2**30:.2f}, KV {st['kv_pool_bytes'] / 2**30:.2f}, "
+                        f"graphs {st['graph_pool_bytes'] / 2**30:.2f}, capture "
+                        f"{st['graph_capture_s']:.2f} s)" for t, st in stats0.items())
+            + f"; the card's used memory {(total - free0) / 2**30:.2f} -> "
+            f"{(total - free1) / 2**30:.2f} GiB on {card}")
+
+        service = TorchService.create(pool, health=health, logger=logger, obs=obs)
+        submitted: list = []
+        submit = pool.submit
+
+        def tapped(request):
+            request.out = _TimedTap()
+            submitted.append(request)
+            submit(request)
+
+        pool.submit = tapped
+        server, health, port = build_server(service, logger, address="127.0.0.1:0",
+                                            health=health, obs=obs)
+        server.start()
+        sidecar = start_metrics_server(obs, logger, service=service, port=0)
+        check(sidecar is not None, f"{phase}: the /metrics sidecar did not start")
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        stub = PolykeyServiceStub(channel)
+
+        def stream(prompt: str, max_tokens: int = 32) -> tuple:
+            req = pk.ExecuteToolRequest(tool_name="llm_generate", parameters=_struct(
+                prompt=prompt, max_tokens=max_tokens))
+            call = stub.ExecuteToolStream(req, timeout=900)
+            chunks = list(call)
+            check(chunks and chunks[-1].final and chunks[-1].status.code == 200,
+                  f"{phase}: stream of {prompt[:30]!r} ended {chunks[-1] if chunks else None}")
+            return [r for r in submitted if r.prompt == prompt][-1], trailers_from(call)
+
+        # (b) The five greedy prompts, one at a time (~100, ~100, ~390, ~390
+        # and 1509 tokens): ids against the plain engine's, each handoff's
+        # bytes and time by part.
+        got, splits = [], []
+        for prompt in SPEC_GREEDY:
+            request, trailers = stream(prompt)
+            check(trailers.get("tier") == "prefill=0,decode=0"
+                  and trailers.get("replica") == "0" and "restarted" not in trailers,
+                  f"{phase}: trailers {trailers}")
+            check(len(request.out.ids) == 32, f"{phase}: {len(request.out.ids)} tokens")
+            got.append(request.out.ids)
+            splits.append(_handoff_split(request))
+        imports = pool._worker_stats(decode_w)["handoff_import_ms"]
+        check(len(imports) == len(SPEC_GREEDY), f"{phase}: imports {imports}")
+        page_bytes = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2 * PAGE_SIZE
+        for prompt, split, imp, request in zip(SPEC_GREEDY, splits, imports, submitted[-5:]):
+            n = request.timings.prompt_tokens
+            check(split["bytes"] > -(-n // PAGE_SIZE) * page_bytes,
+                  f"{phase}: a {n}-token blob of {split['bytes']} bytes")
+            say(phase, f"{n}-token prompt: blob {split['bytes']} B ({-(-n // PAGE_SIZE)} pages); "
+                f"handoff ms: gather {split['gather_ms']:.2f}, serialize "
+                f"{split['serialize_ms']:.2f}, socket to the coordinator "
+                f"{split['fetch_ms']:.2f}, to the decode worker {split['ship_ms']:.2f}, "
+                f"deserialize {split['deserialize_ms']:.2f}, import {imp:.3f} (device); "
+                f"TTFT {request.timings.ttft_ms:.1f} ms on {card}")
+
+        # (c) Decode ITL while the prefill worker prefills the document and
+        # while its blob travels and is imported: a lone greedy stream, the
+        # document sent once the stream has 24 tokens.
+        sent: dict = {}
+
+        def doc() -> None:
+            sent["t"] = time.monotonic()
+            sent["request"], _ = stream(LONG_DOC, max_tokens=4)
+
+        def long_stream() -> None:
+            sent["long"], _ = stream(SHORT[0], max_tokens=DISAGG_ITL_TOKENS)
+
+        runner = threading.Thread(target=long_stream)
+        runner.start()
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and not (
+                submitted and submitted[-1].prompt == SHORT[0]
+                and len(submitted[-1].out.times) >= 24):
+            time.sleep(0.002)
+        sender = threading.Thread(target=doc)
+        sender.start()
+        sender.join()
+        runner.join()
+        times = sent["long"].out.times
+        doc_req = sent["request"]
+        serialize = _span_named(doc_req.trace, "handoff_serialize")
+        check(serialize is not None and len(times) == DISAGG_ITL_TOKENS
+              and times[-1] > doc_req.timings.first_token,
+              f"{phase}: the stream ({len(times)} tokens) did not outlast the document's "
+              "handoff")
+        # Windows on the coordinator's clock: the prefill (with its queue
+        # and the gather) ends where the worker's serialize starts; the
+        # handoff (serialize, both socket hops, deserialize and the import
+        # on the decode worker) ends at the document's first token.
+        t_prefill = serialize.start
+        windows = {"before": _itl(times, times[0], sent["t"]),
+                   "prefill": _itl(times, sent["t"], t_prefill),
+                   "handoff": _itl(times, t_prefill, doc_req.timings.first_token),
+                   "after": _itl(times, doc_req.timings.first_token, times[-1])}
+        spans = {"prefill": (t_prefill - sent["t"]) * 1e3,
+                 "handoff": (doc_req.timings.first_token - t_prefill) * 1e3}
+        say(phase, "decode ITL p50 / p95 ms of a lone stream around the 1509-token "
+            "document: " + "; ".join(
+                f"{name} {w[0]:.2f} / {w[1]:.2f} ({w[2]} gaps"
+                + (f", {spans[name]:.1f} ms" if name in spans else "") + ")"
+                for name, w in windows.items())
+            + f"; the prefill and decode workers share the card by time-slicing on {card}")
+
+        # (d) A real kill: the decode worker calls os._exit after forwarding
+        # DISAGG_KILL_AFTER tokens; the pool restarts the process and
+        # re-ships the retained blob.
+        victim_prompt, ref_ids = SPEC_GREEDY[2], got[2]
+        admitted0 = pool._worker_stats(prefill_w)["requests_admitted"]
+        handoffs0 = dict(pool.handoffs)
+        old_pid = decode_w.proc.pid
+        launches_dead = pool._worker_stats(decode_w)["kernel_launches"]
+        with WorkerConn(decode_w.addr, timeout=10.0) as conn:
+            reply, _ = conn.request({"op": "arm_faults", "spec":
+                                     f"worker-exit={DISAGG_KILL_AFTER}@1:tier=decode"},
+                                    timeout=10.0)
+        check(reply.get("ok"), f"{phase}: arm_faults {reply}")
+        t_kill = time.monotonic()
+        request, trailers = stream(victim_prompt)
+        resumed_s = time.monotonic() - t_kill
+        check(decode_w.proc.pid != old_pid and decode_w.state == SERVING
+              and len(decode_w.boot_s) == 2 and decode_w.restarts == 1,
+              f"{phase}: the decode worker was not restarted (pid {decode_w.proc.pid}, "
+              f"state {decode_w.state}, boots {decode_w.boot_s})")
+        check(trailers.get("tier") == "prefill=0,decode=0" and trailers.get("restarted") == "1",
+              f"{phase}: trailers after the kill {trailers}")
+        admitted1 = pool._worker_stats(prefill_w)["requests_admitted"]
+        check(admitted1 == admitted0 + 1, f"{phase}: the prefill worker admitted "
+              f"{admitted1 - admitted0} requests for the killed stream (a re-prefill)")
+        handoffs1 = dict(pool.handoffs)
+        check(handoffs1["retried"] == handoffs0["retried"] + 1
+              and handoffs1["ok"] == handoffs0["ok"] + 1 and pool.streams_resumed == 1,
+              f"{phase}: handoffs {handoffs0} -> {handoffs1}, resumed {pool.streams_resumed}")
+        ids = request.out.ids
+        check(len(ids) == 32, f"{phase}: {len(ids)} tokens after the kill")
+        say(phase, f"decode worker killed (os._exit after {DISAGG_KILL_AFTER} streamed tokens, "
+            f"pid {old_pid}); restarted as pid {decode_w.proc.pid} in {decode_w.boot_s[1]:.1f} s; "
+            f"the retained blob re-shipped (prefill admissions +1, handoffs retried "
+            f"+1); the stream completed {resumed_s:.1f} s after the kill with trailers "
+            f"tier={trailers['tier']}, restarted={trailers['restarted']}")
+        status, page = _http_get(sidecar.port, "/metrics")
+        text = page.decode()
+        for line in ('polykey_replica_state{replica="0",state="SERVING",tier="decode"} 1',
+                     'polykey_replica_state{replica="0",state="SERVING",tier="prefill"} 1',
+                     'polykey_replicas_serving{tier="decode"} 1',
+                     'polykey_handoffs_total{outcome="retried"} 1',
+                     'polykey_streams_resumed_total 1'):
+            check(line in text, f"{phase}: /metrics lacks {line!r}")
+        check('polykey_requests_completed_total{replica="0",tier="prefill"}' in text
+              and 'polykey_ttft_ms_count{replica="0",tier="decode"}' in text,
+              f"{phase}: /metrics lacks the tier-labelled engine families")
+
+        # (e) The merged timeline: three process rows and a handoff arc.
+        trace = pool.merged_perfetto()
+        rows = {e["args"]["name"] for e in trace["traceEvents"]
+                if e.get("ph") == "M" and e.get("name") == "process_name"}
+        starts = {e["id"] for e in trace["traceEvents"] if e.get("ph") == "s"}
+        ends = {e["id"] for e in trace["traceEvents"] if e.get("ph") == "f"}
+        check(rows == {"polykey coordinator", "polykey prefill-0", "polykey decode-0"},
+              f"{phase}: merged timeline rows {rows}")
+        check(starts & ends, f"{phase}: no handoff arc in the merged timeline")
+        offsets = pool.clock_offsets()
+        launches = {w.tier: pool._worker_stats(w)["kernel_launches"] for w in pool.workers}
+        check(launches[PREFILL]["flash_attention"] > 0
+              and all(launches_dead[n] > 0 and launches[DECODE][n] > 0
+                      for n in ("paged_attention_decode", "paged_write")),
+              f"{phase}: worker launches {launches}, the killed decode worker's {launches_dead}")
+        say(phase, f"merged timeline: rows {sorted(rows)}, {len(starts & ends)} handoff arcs; "
+            f"clock offsets (s) " + ", ".join(
+                f"{r} {o['offset_s']:.6f} +- {o['uncertainty_s']:.6f}"
+                for r, o in offsets.items() if o["offset_s"] is not None))
+        say(phase, f"kernel launches in the workers (their stats replies): prefill "
+            f"{launches[PREFILL]}, the killed decode worker {launches_dead}, the restarted "
+            f"one {launches[DECODE]} on {card}")
+        result = {"launches": {"prefill": launches[PREFILL], "decode": launches_dead,
+                               "decode_restarted": launches[DECODE]},
+                  "boot_s": {"prefill": list(prefill_w.boot_s), "decode": list(decode_w.boot_s)},
+                  "splits": splits, "itl": windows, "up_s": up_s}
+    finally:
+        if channel is not None:
+            channel.close()
+        if sidecar is not None:
+            sidecar.stop()
+        if server is not None:
+            server.stop(grace=5).wait()
+        if service is not None:
+            service.close()
+        elif pool is not None:
+            pool.shutdown()
+        # Every worker process this phase started (restarts included) is
+        # gone, its process group killed whatever the outcome.
+        if pool is not None:
+            procs += [w.proc for w in pool.workers if w.proc not in procs]
+        for proc in procs:
+            if proc is not None and proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                proc.wait(timeout=30)
+        for name in sorted(os.listdir(state_dir)) if os.path.isdir(state_dir) else ():
+            if name.endswith(".log") and sys.exc_info()[0] is not None:
+                with open(os.path.join(state_dir, name), errors="replace") as f:
+                    tail = f.read()[-4000:]
+                print(f"chip_smoke: {name}:\n{tail}", file=sys.stderr)
+        shutil.rmtree(state_dir, ignore_errors=True)
+        for key, value in saved.items():
+            if value is not None:
+                os.environ[key] = value
+    alive = [p.pid for p in procs if p is not None and p.poll() is None]
+    check(not alive and len(procs) == 3, f"{phase}: worker processes left {alive} of "
+          f"{[p.pid for p in procs]}")
+    # Held to the plain engine's ids; a difference must be a near-tie, read
+    # from the same weights drawn again here (the workers are gone).
+    ties = 0
+    if any(a != b[0] for a, b in zip(got, plain)) or ids != ref_ids:
+        params = init_params(cfg, torch.bfloat16, "cuda",
+                             torch.Generator(device="cuda").manual_seed(seed))
+        from polykey_tpu_torch.engine.tokenizer import load_tokenizer
+
+        tokenizer = load_tokenizer("byte")
+        ties = _hold_texts(phase, params, cfg, tokenizer, SPEC_GREEDY,
+                           [(g,) for g in got], plain, "the plain engine's")
+        ties += _hold_texts(phase, params, cfg, tokenizer, [victim_prompt], [(ids,)],
+                            [(ref_ids,)], "the uninterrupted run's")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["wall_s"] = time.monotonic() - t_phase
+    say(phase, f"5 greedy streams through the pool equal to the plain engine's and the "
+        f"resumed stream to the uninterrupted one but at {ties} near-ties; all "
+        f"{len(procs)} worker processes gone; the phase took {result['wall_s']:.1f} s "
+        f"on {card}")
+    return result
+
+
 def _gemma_restart(grpc_client, params, cfg, tokenizer, want: list, card: str) -> None:
     """One supervised step-stall restart of the served gemma-2-27b engine,
     shorter than the join window: its thread exits, so its pools and
@@ -3053,7 +3473,7 @@ def _gemma_restart(grpc_client, params, cfg, tokenizer, want: list, card: str) -
         service.close()
 
 
-# -- phase 14 --------------------------------------------------------------
+# -- phase 17 --------------------------------------------------------------
 
 def _hf_tensors(params, cfg) -> list:
     """(HF name, tensor, transpose) of each tensor of the port's tree, in
@@ -3459,11 +3879,16 @@ def main() -> int:
     sync()
     replicas = phase_replicas(args.seed, params, dev["smi"], spec["plain"][""])
     sync()
+    from polykey_tpu_torch.engine.worker import params_fingerprint
+
+    fingerprint = params_fingerprint(params)
     gc.collect()
     torch.cuda.empty_cache()
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    disagg = phase_disagg(args.seed, dev["smi"], fingerprint, spec["plain"][""])
+    sync()
     mixtral = phase_serve(args.seed, dev["smi"], model="mixtral-8x7b", quantize=True,
                           phase="serve-mixtral")
     del mixtral["params"]
@@ -3487,6 +3912,8 @@ def main() -> int:
     say("shell", f"restarted engine's kernel launches {shell['launches']}; trip to "
         f"SERVING {shell['to_serving_s']:.2f} s, fresh capture {shell['capture_s']:.2f} s "
         f"on {dev['smi']}")
+    say("disagg", f"worker kernel launches {disagg['launches']}; starts (s) "
+        f"{disagg['boot_s']} (the decode worker's second: its restart) on {dev['smi']}")
     say("replicas", f"kernel launches {replicas['launches']}; trip to SERVING "
         f"{replicas['trip_to_serving_s']:.2f} s; allocated with both replicas "
         f"{replicas['alloc_gib'][0]:.3f} GiB, after the restart "

@@ -11,13 +11,17 @@ bounded, hysteretic, cooldown-rate-limited actuations:
   the speculative gamma cap from windowed draft acceptance, the router's
   delay weight from per-replica TTFT skew;
 - **capacity** — `decide_scale` sizes the disaggregated pool's tiers from
-  per-tier queue delay. That pool is not ported yet (ROADMAP.md A.10):
-  without ``tiers`` in the snapshot it decides nothing.
+  per-tier queue delay, through `DisaggPool.scale_up` / `scale_down`
+  (engine/disagg_pool.py; a scale-down drains before it kills). Over a
+  disaggregated pool the knobs go to every worker through the control
+  plane (`DisaggPool.apply_knobs`); without ``tiers`` in the snapshot no
+  capacity decision is made.
 
 `evaluate()` and the `decide_*` functions are PURE — (snapshot, state,
 config, now) in, decisions out, no I/O. The `Autopilot` thread owns the
 impure edge: reading the snapshot, applying decisions through the
-target's live setters (engine/engine.py, engine/replica_pool.py), and
+target's live setters (engine/engine.py, engine/replica_pool.py,
+engine/disagg_pool.py), and
 recording evidence (timeline ``autopilot_decision`` notes, the decision
 ring `/debug/slo` serves, the Prometheus families obs/exposition.py
 renders). Every read is host state: nothing here touches the device.
@@ -62,7 +66,7 @@ class AutopilotUnavailableError(RuntimeError):
 
 
 # Actions. Knob actions actuate through engine/pool setters; scale
-# actions through the disaggregated pool's tier resize (not ported yet).
+# actions through the disaggregated pool's tier resize.
 LOOKAHEAD = "lookahead"
 PREFILL_BUDGET = "prefill_budget"
 RESTORE_SLOTS = "restore_slots"
@@ -651,6 +655,8 @@ class Autopilot:
     # -- target shape --------------------------------------------------------
 
     def _engines(self) -> list:
+        if hasattr(self.target, "workers"):
+            return []  # disaggregated: the engines live in worker processes
         replicas = getattr(self.target, "replicas", None)
         if replicas is not None:
             return [rep.engine for rep in replicas]
@@ -664,7 +670,19 @@ class Autopilot:
         state = ControllerState()
         chunk = config.prefill_chunk or max(config.prefill_buckets)
         engines = self._engines()
-        knobs = engines[0].knob_setpoints()
+        if engines:
+            knobs = engines[0].knob_setpoints()
+        else:
+            # Disaggregated: the coordinator holds no engine; the boot
+            # setpoints are the config every worker was spawned with.
+            knobs = {
+                "lookahead": max(1, config.lookahead_blocks),
+                "prefill_budget": max(config.prefill_budget or 2 * chunk, chunk),
+            }
+            if config.host_kv_bytes > 0:
+                knobs["restore_slots"] = config.host_kv_restore_slots
+                knobs["resident_floor"] = (
+                    config.host_kv_resident_pages or config.num_pages // 8)
         state.setpoints[LOOKAHEAD] = knobs["lookahead"]
         state.baselines[LOOKAHEAD] = knobs["lookahead"]
         state.bounds[LOOKAHEAD] = (
@@ -805,6 +823,9 @@ class Autopilot:
         """Route one decision to the target's actuation surface.
         Returns the applied value, or None when the actuator refused."""
         target = self.target
+        if decision.action in (SCALE_PREFILL, SCALE_DECODE):
+            return self._scale(
+                "prefill" if decision.action == SCALE_PREFILL else "decode", decision)
         if decision.action == ROUTE_DELAY_WEIGHT:
             setter = getattr(target, "set_route_weights", None)
             if setter is None:
@@ -812,11 +833,22 @@ class Autopilot:
             _prefix, delay = setter(delay=decision.new)
             return delay
         knobs = {decision.action: decision.new}
-        if hasattr(target, "apply_engine_knobs"):  # replica pool
+        if hasattr(target, "workers"):           # disaggregated: control plane
+            applied = target.apply_knobs(knobs)
+        elif hasattr(target, "apply_engine_knobs"):  # replica pool
             applied = target.apply_engine_knobs(knobs)
         else:                                    # bare engine
             applied = apply_engine_knobs(target, knobs)
         return applied.get(decision.action)
+
+    def _scale(self, tier: str, decision: Decision):
+        """A tier resize: the pool's scale_up / scale_down (None when the
+        target has none or refused: one serving worker left, no spawner)."""
+        name = "scale_up" if decision.direction == UP else "scale_down"
+        scale = getattr(self.target, name, None)
+        if scale is None:
+            return None
+        return decision.new if scale(tier) is not None else None
 
     # -- observability -------------------------------------------------------
 

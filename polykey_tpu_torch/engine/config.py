@@ -4,8 +4,7 @@ The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
 for them fails at startup instead of being served by something else:
-the disaggregated pool, mesh axes above 1, and the reference's spec A/B
-instrumentation. Local
+mesh axes above 1 and the reference's spec A/B instrumentation. Local
 safetensors checkpoints (`checkpoint_path`, `draft_checkpoint_path`;
 models/loader.py), weight-only int8/int4 (`quantize`,
 `quantize_bits`), chunked prefill
@@ -21,7 +20,9 @@ supervised in-process restarts (`supervise`, `max_engine_restarts`,
 `restart_window_s`), the engine timeline (`timeline_capacity`), the SLO
 signal plane (`signals_interval_s`, `signals_windows`, `slo_policy`) and
 the replica pool (`replicas`, `route_prefix_weight`, `route_delay_weight`,
-`max_reroutes`).
+`max_reroutes`), and the disaggregated prefill/decode tiers (`disagg`,
+`disagg_tier`, `disagg_heartbeat_s`, `disagg_miss`,
+`disagg_recovery_wait_s`, `blackbox_every`; engine/disagg_pool.py).
 """
 
 from __future__ import annotations
@@ -136,6 +137,13 @@ class EngineConfig:
     # events exported as Perfetto JSON (/debug/timeline). 0 disables it:
     # no ring, every emission site one `is None` branch.
     timeline_capacity: int = 4096
+    # Black-box checkpoint cadence (obs/postmortem.py): a disaggregated
+    # pool member with a state dir flushes its timeline and flight-recorder
+    # rings to `blackbox-<role>.json` every this many timeline appends
+    # (plus forced flushes at control-plane op intake and on the
+    # supervisor's trip path). 0 disables black boxes even when a state
+    # dir exists. POLYKEY_BLACKBOX_EVERY.
+    blackbox_every: int = 64
 
     # SLO signal plane (obs/signals.py): seconds between ring samples of
     # the engine's host counters and histograms, sampled at block
@@ -185,7 +193,26 @@ class EngineConfig:
     # (queued requests move losslessly; streams resume with the delivered
     # tokens suppressed). 0 disables failover.
     max_reroutes: int = 3
+    # Disaggregated prefill/decode tiers (engine/disagg_pool.py):
+    # POLYKEY_DISAGG="PxD" (e.g. "1x1") or "prefill=P,decode=D" serves
+    # through P prefill-tier and D decode-tier worker PROCESSES on
+    # localhost (engine/worker.py), each a supervised engine behind a
+    # socket control plane; a finished prefill's KV ships to a decode
+    # worker in the kv_cache wire format. "" builds no process and no
+    # pool. Excludes POLYKEY_REPLICAS > 1 and a draft model.
     disagg: str = ""
+    # This engine's tier inside a worker ("prefill" / "decode"; set by
+    # engine/worker.py, not an env knob): scopes ":tier=" fault targeting.
+    disagg_tier: str = ""
+    # Worker liveness: the coordinator pings every worker's control plane
+    # at this interval and declares death after `disagg_miss` misses in a
+    # row (a process exit is seen at once). POLYKEY_DISAGG_HEARTBEAT /
+    # POLYKEY_DISAGG_MISS.
+    disagg_heartbeat_s: float = 0.5
+    disagg_miss: int = 3
+    # How long a re-route waits for a tier to regain a SERVING worker (a
+    # worker process restart takes seconds). POLYKEY_DISAGG_RECOVERY_WAIT.
+    disagg_recovery_wait_s: float = 30.0
 
     @property
     def pages_per_seq(self) -> int:
@@ -260,6 +287,9 @@ class EngineConfig:
             timeline_capacity=_env_int(
                 "POLYKEY_TIMELINE_CAPACITY", cls.timeline_capacity
             ),
+            blackbox_every=_env_int(
+                "POLYKEY_BLACKBOX_EVERY", cls.blackbox_every
+            ),
             signals_interval_s=_env_float(
                 "POLYKEY_SIGNALS_INTERVAL", cls.signals_interval_s
             ),
@@ -300,7 +330,45 @@ class EngineConfig:
             ),
             max_reroutes=_env_int("POLYKEY_MAX_REROUTES", cls.max_reroutes),
             disagg=os.environ.get("POLYKEY_DISAGG", cls.disagg),
+            disagg_heartbeat_s=_env_float(
+                "POLYKEY_DISAGG_HEARTBEAT", cls.disagg_heartbeat_s
+            ),
+            disagg_miss=_env_int("POLYKEY_DISAGG_MISS", cls.disagg_miss),
+            disagg_recovery_wait_s=_env_float(
+                "POLYKEY_DISAGG_RECOVERY_WAIT", cls.disagg_recovery_wait_s
+            ),
         )
+
+    def disagg_tiers(self) -> Optional[tuple[int, int]]:
+        """Parse the `disagg` spec into (prefill_workers, decode_workers),
+        or None when unset. Accepts "PxD" ("2x2") and "prefill=P,decode=D"
+        (any order). Raises ValueError on a malformed spec: a typo must
+        not silently serve single-process."""
+        spec = self.disagg.strip().lower()
+        if not spec:
+            return None
+        try:
+            if "x" in spec and "=" not in spec:
+                p_s, d_s = spec.split("x", 1)
+                tiers = {"prefill": int(p_s), "decode": int(d_s)}
+            else:
+                tiers = {}
+                for part in spec.split(","):
+                    key, _, value = part.strip().partition("=")
+                    tiers[key.strip()] = int(value)
+                if set(tiers) != {"prefill", "decode"}:
+                    raise ValueError(f"tiers {sorted(tiers)}")
+        except (ValueError, TypeError) as e:
+            raise ValueError(
+                f"malformed POLYKEY_DISAGG spec {self.disagg!r}: expected "
+                f"'PxD' or 'prefill=P,decode=D' ({e})"
+            ) from None
+        if tiers["prefill"] < 1 or tiers["decode"] < 1:
+            raise ValueError(
+                "POLYKEY_DISAGG needs >= 1 worker per tier, got "
+                f"{self.disagg!r}"
+            )
+        return tiers["prefill"], tiers["decode"]
 
     def validate(self) -> None:
         if self.max_seq_len % self.page_size != 0:
@@ -325,6 +393,10 @@ class EngineConfig:
         if self.timeline_capacity < 0:
             raise ValueError(
                 "timeline_capacity must be >= 0 (0 disables the ring)"
+            )
+        if self.blackbox_every < 0:
+            raise ValueError(
+                "blackbox_every must be >= 0 (0 disables black boxes)"
             )
         if self.signals_interval_s < 0:
             raise ValueError(
@@ -389,9 +461,32 @@ class EngineConfig:
             )
         if self.quantize_bits not in (4, 8):
             raise ValueError("quantize_bits must be 4 or 8")
+        self.disagg_tiers()      # raises on a malformed spec
+        if self.disagg and self.replicas > 1:
+            raise ValueError(
+                "POLYKEY_DISAGG and POLYKEY_REPLICAS>1 are mutually "
+                "exclusive: the disaggregated tier replaces the "
+                "in-process replica pool (each tier already scales by "
+                "worker count)"
+            )
+        if self.disagg and self.draft_model is not None:
+            raise ValueError(
+                "disaggregated tiers have no speculative formulation yet "
+                "(the KV handoff ships one pool; the draft pool would "
+                "need its own) — unset POLYKEY_DISAGG or the draft model"
+            )
+        if self.disagg_tier not in ("", "prefill", "decode"):
+            raise ValueError(
+                f"disagg_tier must be '', 'prefill', or 'decode'; got "
+                f"{self.disagg_tier!r}"
+            )
+        if self.disagg_heartbeat_s <= 0:
+            raise ValueError("disagg_heartbeat_s must be > 0")
+        if self.disagg_miss < 1:
+            raise ValueError("disagg_miss must be >= 1")
+        if self.disagg_recovery_wait_s < 0:
+            raise ValueError("disagg_recovery_wait_s must be >= 0")
         unported = [
-            (bool(self.disagg), "disagg",
-             "the disaggregated pool"),
             (self.spec_host_sync, "spec_host_sync",
              "scripts/occupancy_soak.py's A/B instrumentation"),
             (max(self.tp, self.dp, self.ep, self.sp, self.pp,

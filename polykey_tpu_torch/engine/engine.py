@@ -145,9 +145,22 @@ GPU (the reference's engine/engine.py, default path).
   (engine/autopilot.py); the SLO signal plane (obs/signals.py) samples
   host counters at block boundaries and on the idle tick, and
   `stats()` carries its windowed keys.
+- Disaggregated tiers (the reference's handoff halves; engine/worker.py,
+  engine/disagg_pool.py): a `prefill_only` request prefills as any other,
+  but its lane never activates; once its first token is on the host the
+  slot's prompt pages are gathered to pinned host memory in table order
+  (`_export_handoff`) and the engine emits ("handoff", KVHandoffState)
+  and then ("done", timings). A `resume_state` request skips tokenize
+  and prefill (`_admit_resume`): the state is validated before any pool
+  write, its pages are copied into freshly allocated pages on the
+  engine's stream (behind every block already queued, ahead of every
+  later dispatch), and the lane is spliced at seq_len = prompt_len + 1
+  through the same fixed buffers the decode graphs read; its first token
+  is delivered through the lazy first-token path. `config.disagg_tier`
+  scopes ":tier=" faults.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch, the disaggregated pool and its handoff, mesh axes above 1.
+dispatch, mesh axes above 1.
 """
 
 from __future__ import annotations
@@ -193,6 +206,8 @@ from .kv_cache import (
     AllocationError,
     BlockAllocator,
     HostKVPool,
+    KVHandoffState,
+    KVWireError,
     PagedKV,
     host_kv_page_bytes,
     init_paged_kv,
@@ -265,6 +280,14 @@ class GenRequest:
     # queue_wait / prefill / decode children; decode gets a decode_block
     # child per processed block.
     trace: Optional["Span"] = None
+    # Disaggregated tiers. `prefill_only`: prefill, then emit ("handoff",
+    # KVHandoffState) and ("done", ...) instead of decoding (the prefill
+    # worker's mode). `resume_state`: a deserialized KVHandoffState; the
+    # engine skips tokenize and prefill, copies the shipped pages into its
+    # own pool and resumes decode at seq_len = prompt_len + 1 (the decode
+    # worker's mode). Both off on every other path.
+    prefill_only: bool = False
+    resume_state: Optional[KVHandoffState] = None
 
 
 @dataclass
@@ -284,6 +307,8 @@ class _Slot:
     filled: int = 0
     # The whole prompt, kept until its pages enter the prefix cache.
     cache_ids: Optional[np.ndarray] = None
+    # A prefill_only request's whole prompt, for its handoff state.
+    handoff_ids: Optional[np.ndarray] = None
     # A faulting slot's host pages, [(key, host page, chain index)], until
     # the restore frontier issues their copy; it joins no prefill before.
     restore_pages: Optional[list] = None
@@ -710,6 +735,39 @@ def restore_from_host(paged: PagedKV, host: HostKVPool, rows: list, pages: list)
     _kv_restore_fn(paged, _page_index(pages, dev), staged)
 
 
+def import_handoff(paged: PagedKV, lanes: dict, slot: int, state: KVHandoffState,
+                   pages: list, table, seed_row, cap: int, temp: float, top_p: float,
+                   top_k: int, *, eos_id: int, gamma_reset: Optional[int] = None,
+                   start: Optional[torch.cuda.Event] = None) -> None:
+    """The decode tier's import of a handoff, on the current stream and
+    without a sync: the state's page arrays through fresh pinned buffers
+    (a copy from pageable memory would wait for the work in flight) into
+    the pools' pages `pages` in table order, in place (`_kv_restore_fn`),
+    then lane `slot` spliced at seq_len = prompt_len + 1 with the state's
+    first token, its table `table` ([P] int32) and seed halves `seed_row`,
+    in the buffers `lanes` the decode graphs read (`_merge_lane_fn`).
+    `start`, if given, is recorded once everything is staged and allocated,
+    right ahead of the copies."""
+    dev = paged.k.device
+    cuda = dev.type == "cuda"
+    pinned = []
+    for src in state.pools:
+        buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=cuda)
+        buf.copy_(src)
+        pinned.append(buf)
+    idx = _page_index(pages[:state.num_pages], dev)
+    token, table_dev, seed_dev = _to_device(
+        [np.array([state.first_token], dtype=np.int32), table, seed_row], dev)
+    staged = [torch.empty(buf.shape, dtype=buf.dtype, device=dev) for buf in pinned]
+    if start is not None:
+        start.record()
+    for dst, buf in zip(staged, pinned):
+        dst.copy_(buf, non_blocking=True)
+    _kv_restore_fn(paged, idx, staged)
+    _merge_lane_fn(lanes, slot, token, 0, state.prompt_len + 1, cap, temp, top_p, top_k,
+                   table_dev, seed_dev, eos_id=eos_id, gamma_reset=gamma_reset)
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -742,6 +800,9 @@ class InferenceEngine:
         # targeting (":replica=N") and per-replica metric labels key on it.
         # A lone engine is 0.
         self.replica_id = config.replica
+        # Tier identity inside a disaggregated worker (":tier=" targeting);
+        # None for every other engine.
+        self._tier = config.disagg_tier or None
         # Flight-deck timeline; timeline_capacity=0 allocates no ring.
         self.timeline: Optional[TimelineRecorder] = (
             TimelineRecorder(config.timeline_capacity)
@@ -981,6 +1042,10 @@ class InferenceEngine:
         } if self._spec else {}
         self._ragged_dispatches = 0
         self._ragged_behind = 0      # dispatched with a block in flight
+        # Disaggregated handoffs: exports made, imports made, and the recent
+        # imports' (host ms, CUDA events around the copy and the splice).
+        self._handoff_exports = self._handoff_imported = 0
+        self._handoff_imports: deque = deque(maxlen=32)
         # Ragged spec dispatches, and the verify lanes they carried.
         self._ragged_spec_dispatches = self._ragged_spec_lanes = 0
 
@@ -1126,6 +1191,11 @@ class InferenceEngine:
                 name: k.launches for name, k in KERNELS.items()
             },
         })
+        if self._tier is not None:
+            snap["disagg_tier"] = self._tier
+            snap["handoff_exports"] = self._handoff_exports
+            snap["handoff_imports"] = self._handoff_imported
+            snap["handoff_import_ms"] = self._handoff_import_ms()
         signals = self.metrics.signals
         if signals is not None:
             # Windowed quantiles beside the lifetime ones (ttft_ms_p95_5m
@@ -1470,9 +1540,11 @@ class InferenceEngine:
                     continue
                 try:
                     prep = self._prepare_request(free[0], request)
-                except AllocationError:
+                except (AllocationError, EngineDeadError):
                     # Pool exhausted: back to the front of the queue until
-                    # running requests release pages (FIFO fairness).
+                    # running requests release pages (FIFO fairness). A
+                    # resume that found the engine dead waits there too:
+                    # the loop fails the queue with the engine's message.
                     self._requeue_front(request)
                     return admitted, spent
                 except Exception as e:
@@ -1515,9 +1587,14 @@ class InferenceEngine:
         a slot faulting on host pages) or failed here. AllocationError: the
         pool is full (the match is undone)."""
         cfg = self.config
+        if request.resume_state is not None:
+            # Decode-tier resume: the prompt's KV arrives with the request;
+            # nothing tokenizes or prefills here.
+            return self._admit_resume(slot_idx, request)
         request.timings.prefill_start = time.monotonic()
         if self._faults is not None:
-            self._faults.maybe_raise("tokenizer-error", replica=self.replica_id)
+            self._faults.maybe_raise("tokenizer-error", replica=self.replica_id,
+                                     tier=self._tier)
         prompt_ids = self.tokenizer.encode(request.prompt)
         # A speculative engine leaves gamma_max positions of slack, so the
         # last verify window's overdraft lands in the request's own pages.
@@ -1551,7 +1628,7 @@ class InferenceEngine:
                 # Inside the try: the undo below must still give back the
                 # prefix lookup's pages.
                 self._faults.maybe_raise("alloc-fail", AllocationError,
-                                         replica=self.replica_id)
+                                         replica=self.replica_id, tier=self._tier)
             try:
                 fresh = self.allocator.alloc(need)
             except AllocationError:
@@ -1598,6 +1675,7 @@ class InferenceEngine:
             prompt_len=prompt_len, position_cap=total_len,
             filled=len(chain) * cfg.page_size,
             cache_ids=ids if self._prefix is not None else None,
+            handoff_ids=ids if request.prefill_only else None,
         )
         self._slots[slot_idx] = slot
         if restore_items:
@@ -1692,7 +1770,8 @@ class InferenceEngine:
             top_k[r] = self._eff_top_k(slot.request)
             seeds[r] = slot.seed_row
         if self._faults is not None:
-            self._faults.maybe_raise("prefill-error", replica=self.replica_id)
+            self._faults.maybe_raise("prefill-error", replica=self.replica_id,
+                                     tier=self._tier)
         ops = self._prefill_ops[n_pad]
         ops.upload(tokens, starts, last_rel, tables, seeds, temp, top_p, top_k)
         ps = cfg.page_size
@@ -1762,6 +1841,12 @@ class InferenceEngine:
         the dispatch read (no upload here)."""
         slot = self._slots[slot_idx]
         request = slot.request
+        if request.prefill_only:
+            # Prefill tier: the lane never activates; the sampled token and
+            # the written pages are this request's product, exported once
+            # the token is on the host (`_resolve_slot`).
+            slot.pending = None
+            return
         top_k = self._eff_top_k(request)
         _merge_lane_fn(
             self._dev, slot_idx, toks_dev, row, slot.prompt_len + 1,
@@ -1833,6 +1918,9 @@ class InferenceEngine:
             self._prefix.insert(slot.cache_ids, slot.pages)
             slot.cache_ids = None
         slot.generated = 1
+        if request.prefill_only:
+            self._export_handoff(slot_idx, slot, token)
+            return
         request.timings.first_token = time.monotonic()
         slot.last_emit = request.timings.first_token
         if self.timeline is not None:
@@ -1844,11 +1932,164 @@ class InferenceEngine:
             request.trace.child(
                 "prefill", start=request.timings.prefill_start,
                 end=request.timings.first_token, prompt_tokens=slot.prompt_len,
+                **({"handoff": True} if request.resume_state is not None else {}),
             )
             slot.decode_span = request.trace.child(
                 "decode", start=request.timings.first_token)
         request.out.put(("token", token))
         self._maybe_finish(slot_idx, token)
+
+    def _export_handoff(self, slot_idx: int, slot: _Slot, token: int) -> None:
+        """Prefill-tier export: gather the slot's prompt pages to pinned host
+        memory in table order (`gather_to_host`, which waits for them),
+        emit ("handoff", KVHandoffState) and then ("done", timings), and
+        release the slot. The target maps the pages to its own ids in the
+        same order, with no index translation."""
+        request = slot.request
+        n_kv = -(-slot.prompt_len // self.config.page_size)
+        t0 = time.monotonic()
+        try:
+            pools = gather_to_host(self.paged, slot.pages[:n_kv])
+        except Exception as e:
+            self._finish(slot_idx, error=f"handoff export failed: {e}")
+            return
+        gather_ms = (time.monotonic() - t0) * 1e3
+        k, v, ks, vs = (pools + [None, None])[:4]
+        halves = slot.seed_row.view(np.uint32).astype(np.uint64)
+        seed = int((halves[0] << np.uint64(32)) | halves[1])
+        state = KVHandoffState(
+            model=self.model_cfg.name, page_size=self.config.page_size,
+            prompt_len=slot.prompt_len, first_token=int(token), seed=seed,
+            prompt_ids=torch.from_numpy(np.asarray(slot.handoff_ids, dtype=np.int32)),
+            k=k, v=v, ks=ks, vs=vs, gather_ms=gather_ms,
+        )
+        slot.handoff_ids = None
+        request.timings.first_token = time.monotonic()
+        self._handoff_exports += 1
+        if self.timeline is not None:
+            self.timeline.note("handoff_export", slot=slot_idx,
+                               prompt_tokens=slot.prompt_len, pages=n_kv,
+                               gather_ms=round(gather_ms, 3))
+        request.out.put(("handoff", state))
+        self._finish(slot_idx)
+
+    def _admit_resume(self, slot_idx: int, request: GenRequest) -> None:
+        """Decode-tier admission: validate the handed-off state against this
+        pool (geometry and dtypes, before any pool write: a mismatch raises
+        as "kv-handoff rejected: ..."), allocate the request's pages (an
+        AllocationError requeues it, the state riding the request), copy
+        the prompt's pages into them and splice the lane at seq_len =
+        prompt_len + 1, as a single-process run would hold it after its
+        prefill. Greedy continuation is then the uninterrupted run's.
+
+        The copy and the splice (`import_handoff`) run on this engine
+        thread's stream, where every dispatch and graph replay runs: behind
+        every block already queued (none of which reads the fresh pages:
+        this slot's lane was inactive, its table on the garbage page) and
+        ahead of every later dispatch. The lane state is written in place,
+        in the buffers the decode graphs captured. The work holds
+        `CAPTURE_LOCK`, so no import runs while an engine of this process
+        captures (a supervised replacement), and an engine found dead under
+        it writes nothing (EngineDeadError: the request is requeued and the
+        loop fails the queue). The first token goes out through the lazy
+        first-token path (`_resolve_slot`), ahead of the lane's block
+        tokens."""
+        cfg = self.config
+        state = request.resume_state
+        request.timings.prefill_start = time.monotonic()
+        try:
+            state.validate_for(self.model_cfg, cfg.page_size, self.paged.quantized)
+            for got, pool in zip(state.pools, self.paged.pools):
+                if got.dtype != pool.dtype:
+                    raise KVWireError(
+                        f"kv-handoff pool dtype mismatch: blob {got.dtype}, "
+                        f"target {pool.dtype}")
+        except KVWireError as e:
+            # _admit wraps it as "admission failed: kv-handoff ..."; the
+            # coordinator matches the marker and re-runs the prefill.
+            raise RuntimeError(f"kv-handoff rejected: {e}") from e
+        prompt_len = state.prompt_len
+        request.timings.prompt_tokens = prompt_len
+        slack = self._gamma_max
+        max_new = max(1, min(request.max_new_tokens, cfg.max_new_tokens_cap,
+                             cfg.max_seq_len - 1 - slack))
+        total_len = prompt_len + max_new
+        if total_len + slack > cfg.max_seq_len:
+            raise RuntimeError(
+                f"kv-handoff rejected: prompt_len {prompt_len} + max_new "
+                f"{max_new} exceeds this worker's position budget "
+                f"({cfg.max_seq_len})")
+        if self._faults is not None:
+            self._faults.maybe_raise("alloc-fail", AllocationError,
+                                     replica=self.replica_id, tier=self._tier)
+        pages = self.allocator.alloc(-(-(total_len + slack) // cfg.page_size))
+        n_kv = state.num_pages
+        table = np.zeros((cfg.pages_per_seq,), dtype=np.int32)
+        table[:len(pages)] = pages
+        seed = state.seed & 0xFFFFFFFFFFFFFFFF
+        seed_row = np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                            np.uint32).view(np.int32)
+        token = int(state.first_token)
+        top_k = self._eff_top_k(request)
+        t0 = time.monotonic()
+        events = None
+        try:
+            with CAPTURE_LOCK:
+                if self.dead is not None or self._stop.is_set():
+                    raise EngineDeadError(self.dead or "engine is shut down")
+                if self.device.type == "cuda":
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                import_handoff(
+                    self.paged, self._dev, slot_idx, state, pages, table, seed_row,
+                    total_len, float(request.temperature), float(request.top_p), top_k,
+                    eos_id=self.tokenizer.eos_id,
+                    gamma_reset=max(self._gamma_max, 1) if self._spec else None,
+                    start=events[0] if events is not None else None,
+                )
+                if events is not None:
+                    events[1].record()
+        except EngineDeadError:
+            self.allocator.release_all(pages)
+            raise
+        except Exception as e:
+            self.allocator.release_all(pages)
+            raise RuntimeError(f"kv-handoff restore failed: {e}") from e
+        host_ms = (time.monotonic() - t0) * 1e3
+        self._handoff_imports.append((host_ms, events))
+        self._handoff_imported += 1
+        if request.trace is not None:
+            request.trace.child("queue_wait", start=request.timings.enqueued,
+                                end=request.timings.prefill_start)
+        slot = _Slot(request=request, pages=pages, table=table, seed_row=seed_row,
+                     prompt_len=prompt_len, position_cap=total_len, merged=True)
+        self._slots[slot_idx] = slot
+        self._seq_lens[slot_idx] = prompt_len + 1
+        self._caps[slot_idx] = total_len
+        self._active[slot_idx] = True
+        self._temperature[slot_idx] = request.temperature
+        self._top_p[slot_idx] = request.top_p
+        self._top_k[slot_idx] = top_k
+        self._lane_ewma[slot_idx] = 1.0
+        self._lane_gamma[slot_idx] = max(self._gamma_max, 1)
+        slot.first = _FirstToken(torch.tensor([token], dtype=torch.int32), None, 0,
+                                 self._dispatch_seq)
+        if self.timeline is not None:
+            self.timeline.note("handoff_restore", slot=slot_idx, pages=n_kv,
+                               seq_len=prompt_len + 1, host_ms=round(host_ms, 3))
+        return None
+
+    def _handoff_import_ms(self) -> list:
+        """Device ms of the recent imports whose work has run (the copies
+        up, the page scatter and the lane splice, between two CUDA events),
+        host ms on the CPU; an import still queued is left out. No wait."""
+        out = []
+        for host_ms, events in list(self._handoff_imports):   # a snapshot
+            if events is None:
+                out.append(round(host_ms, 3))
+            elif events[1].query():
+                out.append(round(events[0].elapsed_time(events[1]), 3))
+        return out
 
     def _has_pending_prefill(self) -> bool:
         return any(s is not None and s.pending is not None for s in self._slots)
@@ -2049,7 +2290,8 @@ class InferenceEngine:
                                        "caps", "seeds", "temperature", "top_p", "top_k")]
         try:
             if self._faults is not None:
-                self._faults.maybe_raise("prefill-error", replica=self.replica_id)
+                self._faults.maybe_raise("prefill-error", replica=self.replica_id,
+                                         tier=self._tier)
             if spec:
                 packed_dev, first_dev = ragged_spec_fn(
                     self.params, self.draft_params, self.model_cfg, self.draft_cfg,
@@ -2116,8 +2358,10 @@ class InferenceEngine:
             # device call, where the real dispatch would block. A thread
             # that wakes into a dead or stopped engine dispatches nothing:
             # the engine replacing it may be capturing its graphs.
-            self._faults.maybe_sleep("step-stall", replica=self.replica_id)
-            self._faults.maybe_sleep("slow-step", replica=self.replica_id)
+            self._faults.maybe_sleep("step-stall", replica=self.replica_id,
+                                     tier=self._tier)
+            self._faults.maybe_sleep("slow-step", replica=self.replica_id,
+                                     tier=self._tier)
             if self.dead is not None or self._stop.is_set():
                 return None
         act = self._active

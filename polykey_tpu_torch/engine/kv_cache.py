@@ -290,6 +290,8 @@ class KVHandoffState:
     v: torch.Tensor
     ks: Optional[torch.Tensor] = None
     vs: Optional[torch.Tensor] = None
+    # Host wall of the exporting engine's gather, ms (not on the wire).
+    gather_ms: float = 0.0
 
     @property
     def num_pages(self) -> int:
@@ -298,6 +300,11 @@ class KVHandoffState:
     @property
     def quantized(self) -> bool:
         return self.ks is not None
+
+    @property
+    def pools(self) -> list:
+        """The page arrays in the pools' order: k, v (and ks, vs)."""
+        return [self.k, self.v] + ([self.ks, self.vs] if self.quantized else [])
 
     def validate_for(self, cfg: ModelConfig, page_size: int, quantized: bool) -> None:
         """Raise KVWireError unless this state fits the target pool's

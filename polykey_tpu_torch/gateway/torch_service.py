@@ -25,9 +25,12 @@ oneof output out). Tools:
 supervisor that restarts a dead engine in the process on the same
 weights; a `ReplicaPool` (engine/replica_pool.py, POLYKEY_REPLICAS > 1)
 passes through as it is, since it owns a watchdog and a supervisor per
-replica. `from_env` arms the autopilot (engine/autopilot.py) when
-POLYKEY_AUTOPILOT=1. Successful RPCs carry the `device-ms`, `replica` and
-`restarted` trailers. `secret_id` resolves through the encrypted store
+replica, and so does a `DisaggPool` (engine/disagg_pool.py,
+POLYKEY_DISAGG="PxD"), whose supervision lives in each worker process and
+whose liveness in the coordinator's heartbeat. `from_env` arms the
+autopilot (engine/autopilot.py) when POLYKEY_AUTOPILOT=1. Successful RPCs
+carry the `device-ms`, `replica` and `restarted` trailers, and behind a
+disaggregated pool the `tier` breadcrumb ("prefill=P,decode=D"). `secret_id` resolves through the encrypted store
 (gateway/security.py) when POLYKEY_SECRET_KEY is set, and never fails a
 request.
 """
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import collections.abc
 import math
+import os
 import queue
 import time
 from typing import Iterator, Optional
@@ -50,6 +54,7 @@ from ..engine.engine import (
     GenRequest,
     InferenceEngine,
 )
+from ..engine.disagg_pool import DisaggPool
 from ..engine.replica_pool import ReplicaPool
 from ..engine.supervisor import EngineSupervisor
 from ..engine.tokenizer import ByteTokenizer, IncrementalDetokenizer
@@ -133,9 +138,10 @@ class TorchService(Service):
         copy on the card, no second checkpoint read. `engine_factory`
         overrides it. A `ReplicaPool` passes through as it is: it owns a
         watchdog and a supervisor per replica (one watchdog cannot watch N
-        engines)."""
+        engines); a `DisaggPool` too: its engines are supervised in their
+        worker processes and watched by its heartbeat."""
         service = cls(engine, None, secrets=secrets, logger=logger, obs=obs)
-        if isinstance(engine, ReplicaPool):
+        if isinstance(engine, (ReplicaPool, DisaggPool)):
             return service
         config = engine.config
         recorder = obs.recorder if obs is not None else None
@@ -173,7 +179,14 @@ class TorchService(Service):
         from .security import SecretStore
 
         config = EngineConfig.from_env()
-        if config.replicas > 1:
+        if config.disagg:
+            # POLYKEY_DISAGG="PxD": prefill and decode worker PROCESSES
+            # behind the coordinator; unset, no process and no pool.
+            engine = DisaggPool.create(
+                config, health=health, logger=logger, obs=obs, device=device,
+                state_dir=os.environ.get("POLYKEY_DISAGG_STATE_DIR") or None,
+            )
+        elif config.replicas > 1:
             # POLYKEY_REPLICAS engines on one set of weights behind the
             # routing pool; 1 (the default) keeps the single engine.
             engine = ReplicaPool.create(config, health=health, logger=logger,
@@ -194,8 +207,9 @@ class TorchService(Service):
             first = engine.replicas[0].engine if config.replicas > 1 else engine
             logger.info(
                 "engine initialized", model=config.model,
-                device=str(first.device),
-                replicas=config.replicas, slots=config.max_decode_slots,
+                device=str(getattr(first, "device", "worker processes")),
+                replicas=config.replicas, disagg=config.disagg,
+                slots=config.max_decode_slots,
                 pages=config.num_pages, page_size=config.page_size,
                 supervise=config.supervise,
             )
@@ -302,7 +316,8 @@ class TorchService(Service):
         """Success-path trailers: the request's attributed device time
         (`device-ms`) and, behind a replica pool, which replica served
         (`replica`) and whether the stream resumed on another one
-        (`restarted`)."""
+        (`restarted`); behind a disaggregated pool the prefill/decode
+        worker pair that served it (`tier`)."""
         trailers = []
         device_ms = request.timings.device_ms
         if device_ms > 0:
@@ -312,6 +327,9 @@ class TorchService(Service):
             trailers.append((errors.REPLICA_KEY, str(replica)))
             if getattr(request, "restarted", False):
                 trailers.append((errors.RESTARTED_KEY, "1"))
+        tier = getattr(request, "tier", None)
+        if tier is not None:
+            trailers.append((errors.TIER_KEY, str(tier)))
         if trailers:
             errors.add_rpc_trailers(*trailers)
 

@@ -11,12 +11,16 @@ Every serving component reports into one `Observability` bundle —
   flight recorder for postmortems.
 
 Everything here is host-side Python and cheap enough to stay on in
-production. The signal plane, clock sync and black boxes of the
-reference's obs/ come with the rest of ROADMAP.md A.9.
+production. The disaggregated pool adds cross-process clock alignment
+(`ClockSync`), the merged timeline (`merge_timelines`) and crash-durable
+black boxes with their postmortem (`BlackBox`, `load_blackboxes`,
+`merged_perfetto`; ``python -m polykey_tpu_torch.obs.postmortem``).
 """
 
+from .clocks import ClockSync
 from .exposition import DebugSurface, MetricsHTTPServer, engine_collector
 from .histogram import DEFAULT_MS_BUCKETS, Histogram, log_buckets
+from .postmortem import BlackBox, load_blackboxes, merged_perfetto
 from .profiler import ProfilerBusyError, ProfilerCapture
 from .prometheus import (
     CONTENT_TYPE,
@@ -29,7 +33,12 @@ from .prometheus import (
     render_gauge,
     render_histogram,
 )
-from .timeline import TimelineRecorder, engine_timelines, to_perfetto
+from .timeline import (
+    TimelineRecorder,
+    engine_timelines,
+    merge_timelines,
+    to_perfetto,
+)
 from .trace import (
     FlightRecorder,
     Span,
@@ -50,8 +59,10 @@ class Observability:
 
 
 __all__ = [
+    "BlackBox",
     "CONTENT_TYPE",
     "CONTENT_TYPE_OPENMETRICS",
+    "ClockSync",
     "Counter",
     "DEFAULT_MS_BUCKETS",
     "DebugSurface",
@@ -70,7 +81,10 @@ __all__ = [
     "current_span",
     "engine_collector",
     "engine_timelines",
+    "load_blackboxes",
     "log_buckets",
+    "merge_timelines",
+    "merged_perfetto",
     "new_trace_id",
     "render_counter",
     "render_gauge",

@@ -23,8 +23,10 @@ scrape never waits on the device. Behind a replica pool every engine
 family renders once per replica with a ``replica`` label, beside the pool
 families (replica states, reroutes, resumed streams, router decisions);
 the SLO families render from each signal plane's cached evaluation and
-the autopilot's from its snapshot. The disaggregated pool's families come
-with that pool (ROADMAP.md A.10).
+the autopilot's from its snapshot. Behind a disaggregated pool every
+engine family renders once per worker with ``tier`` and ``replica``
+labels, from the workers' stats replies, beside the coordinator's handoff
+families (`_disagg_lines`).
 """
 
 from __future__ import annotations
@@ -275,6 +277,145 @@ def _slo_lines(members: list) -> list[str]:
     return lines
 
 
+class _WireHist:
+    """Histogram stand-in over bucket counts shipped from a worker process
+    (the pool's per-worker `_hists` entries): render-compatible with
+    `render_histogram_samples` without a live Histogram in this process.
+    Exemplars do not cross the control plane (None)."""
+
+    def __init__(self, spec: dict):
+        self._bounds = list(spec.get("bounds", ()))
+        self._counts = list(spec.get("counts", ()))
+        self._sum = float(spec.get("sum", 0.0))
+
+    def snapshot(self) -> dict:
+        cumulative = []
+        running = 0
+        for bound, count in zip(self._bounds, self._counts[:-1]):
+            running += count
+            cumulative.append((bound, running))
+        total = running + (self._counts[-1] if self._counts else 0)
+        return {"buckets": cumulative, "inf": total, "sum": self._sum,
+                "count": total}
+
+    def exemplars(self):
+        return None
+
+
+# Worker-histogram keys shipped over the control plane → the engine
+# family they render as.
+_DISAGG_HISTS = {"polykey_ttft_ms": "ttft_ms", "polykey_itl_ms": "itl_ms"}
+
+
+def _disagg_lines(pool) -> list[str]:
+    """Exposition for a DisaggPool: every engine family rendered once per
+    WORKER with {tier, replica} labels, the replica-state machine keyed
+    by tier, and the coordinator's handoff families. Worker snapshots come
+    from the pool's cached control-plane stats — a dead worker's last
+    snapshot keeps rendering (counters are monotonic), its state gauge
+    tells the truth."""
+    from ..engine.replica_pool import STATES  # lazy: obs must not import engine at load
+
+    stats = pool.stats()
+    members = [
+        ({"tier": snap.get("tier", "?"),
+          "replica": str(snap.get("replica", i))}, snap)
+        for i, snap in enumerate(stats.get("per_worker", ()))
+    ]
+    lines: list[str] = []
+    for kind, name, help_text, key in _ENGINE_FAMILIES:
+        if kind == "phases":
+            lines += render_header(name, help_text, "counter")
+            for labels, snap in members:
+                for phase in ("queued", "prefill", "decode"):
+                    lines.append(render_sample(
+                        name, {**labels, "phase": phase},
+                        snap.get(f"deadline_expired_{phase}", 0),
+                    ))
+        elif kind == "kvfaults":
+            lines += render_header(name, help_text, "counter")
+            for labels, snap in members:
+                for fault_kind in ("prefix", "ctx"):
+                    lines.append(render_sample(
+                        name, {**labels, "kind": fault_kind},
+                        snap.get(f"kv_page_faults_{fault_kind}", 0),
+                    ))
+        elif kind == "hist":
+            if name not in _DISAGG_HISTS:
+                continue    # bucket counts for these do not cross the wire
+            lines += render_header(name, help_text, "histogram")
+            for labels, snap in members:
+                spec = (snap.get("_hists") or {}).get(_DISAGG_HISTS[name])
+                if spec:
+                    lines += render_histogram_samples(name, labels, _WireHist(spec))
+        else:
+            lines += render_header(name, help_text, kind)
+            for labels, snap in members:
+                lines.append(render_sample(name, labels, snap.get(key, 0) or 0))
+    # Worker lifecycle, tier-labeled (the replica pool's state machine).
+    lines += render_header(
+        "polykey_replica_state",
+        "Worker lifecycle (1 for the worker's current state; states: "
+        + ", ".join(STATES) + ").",
+        "gauge",
+    )
+    for name_key, state in sorted(stats.get("tier_states", {}).items()):
+        tier, _, index = name_key.partition("/")
+        for candidate in STATES:
+            lines.append(render_sample(
+                "polykey_replica_state",
+                {"tier": tier, "replica": index, "state": candidate},
+                1 if state == candidate else 0,
+            ))
+    lines += render_header(
+        "polykey_replicas_serving",
+        "Workers currently in SERVING state, per tier.",
+        "gauge",
+    )
+    for tier, counts in sorted(stats.get("tiers", {}).items()):
+        lines.append(render_sample(
+            "polykey_replicas_serving", {"tier": tier}, counts.get("serving", 0),
+        ))
+    lines += render_counter(
+        "polykey_requests_rerouted_total",
+        "Requests re-routed to other workers after a worker failure "
+        "(any handoff phase; the re-run replays with delivered tokens "
+        "suppressed).",
+        stats.get("requests_rerouted", 0),
+    )
+    lines += render_counter(
+        "polykey_streams_resumed_total",
+        "Mid-stream requests resumed on another worker with "
+        "already-delivered tokens suppressed.",
+        stats.get("streams_resumed", 0),
+    )
+    lines += render_header(
+        "polykey_handoffs_total",
+        "KV handoffs by outcome: ok (decode completed), retried (one "
+        "attempt re-routed), aborted (re-route budget exhausted).",
+        "counter",
+    )
+    for outcome, count in sorted(stats.get("handoffs", {}).items()):
+        lines.append(render_sample(
+            "polykey_handoffs_total", {"outcome": outcome}, count,
+        ))
+    lines += render_counter(
+        "polykey_handoff_bytes_total",
+        "Serialized KV bytes fetched from the prefill tier (wire-format "
+        "blobs; each decode ship re-counts nothing — this is the fetch "
+        "side).",
+        stats.get("handoff_bytes", 0),
+    )
+    lines += render_header(
+        "polykey_handoff_ms",
+        "End-to-end handoff latency, ms: prefill-side fetch start to "
+        "decode-side accept.",
+        "histogram",
+    )
+    lines += render_histogram_samples("polykey_handoff_ms", {}, pool.handoff_ms)
+    return lines
+
+
 def _autopilot_lines(target) -> list[str]:
     """Controller families: empty when no autopilot is
     attached, so POLYKEY_AUTOPILOT unset leaves the page byte-identical."""
@@ -331,6 +472,10 @@ def engine_collector(engine_or_provider):
             engine_or_provider()
             if callable(engine_or_provider) else engine_or_provider
         )
+        if hasattr(target, "workers"):
+            # Disaggregated pool: per-worker snapshots ride the control
+            # plane; the families render {tier, replica}-labeled.
+            return _disagg_lines(target) + _autopilot_lines(target)
         pool = target if hasattr(target, "replicas") else None
         if pool is not None:
             members = [

@@ -38,8 +38,10 @@ is the read side the autopilot (engine/autopilot.py) consumes:
 The knobs: ``POLYKEY_SIGNALS_INTERVAL`` (seconds between ring samples; 0
 disables the plane), ``POLYKEY_SIGNALS_WINDOWS`` (comma-separated window
 seconds, default "60,300,3600"), ``POLYKEY_SLO`` (inline policy JSON,
-``@/path/to/policy.json``, or ``default``). The disaggregated pool is not
-ported yet (ROADMAP.md A.10): its branches raise NotImplementedError.
+``@/path/to/policy.json``, or ``default``). Over a disaggregated pool the
+engines live in worker processes: `signals_snapshot` carries the pool's
+heartbeat-fed windows (``pool``, ``pool_now``, ``tiers``,
+``clock_offsets``) instead of per-replica planes.
 """
 
 from __future__ import annotations
@@ -744,10 +746,11 @@ class SignalPlane:
 
 def _engines_of(engine_or_pool) -> list[tuple[int, object]]:
     if hasattr(engine_or_pool, "workers"):
-        raise NotImplementedError(
-            "the disaggregated pool is not ported to polykey_tpu_torch yet "
-            "(ROADMAP.md queue A: A.10)"
-        )
+        # Disaggregated pool: the engines live in worker processes, with
+        # no plane here to read or bind. The snapshot carries the pool's
+        # own heartbeat-fed windows instead (`signal_windows`); per-worker
+        # windowed stats ride the workers' stats replies.
+        return []
     if hasattr(engine_or_pool, "replicas"):
         return [(rep.index, rep.engine) for rep in engine_or_pool.replicas]
     return [(getattr(engine_or_pool, "replica_id", 0), engine_or_pool)]
@@ -778,7 +781,7 @@ def signals_snapshot(engine_or_pool, registry=None) -> dict:
       provided — the accounting layer above the engine, where sheds and
       aborts that never reached a slot still count against the service.
     """
-    members = _engines_of(engine_or_pool)     # refuses a disaggregated pool
+    members = _engines_of(engine_or_pool)
     replicas: dict = {}
     planes = []
     for index, engine in members:
@@ -807,6 +810,27 @@ def signals_snapshot(engine_or_pool, registry=None) -> dict:
             )
             for w in windows
         }
+    pool_windows = getattr(engine_or_pool, "signal_windows", None)
+    if callable(pool_windows):
+        # Disaggregated pool: the coordinator keeps its OWN windowed ring
+        # of cross-tier handoff signals — wire bandwidth, handoff-latency
+        # delta-quantiles, per-tier fault/restore rates — sampled on the
+        # heartbeat. The autopilot reads tier pressure here.
+        out["pool"] = pool_windows()
+        now_fn = getattr(engine_or_pool, "handoff_now", None)
+        if callable(now_fn):
+            out["pool_now"] = now_fn()
+        offsets = getattr(engine_or_pool, "clock_offsets", None)
+        if callable(offsets):
+            out["clock_offsets"] = offsets()
+        tiers_fn = getattr(engine_or_pool, "tier_now", None)
+        if callable(tiers_fn):
+            # Per-tier live pressure: serving/total counts plus the
+            # heartbeat-fed queue-delay and load means — the tier-scaling
+            # controller's reading. queue_delay_s is None while no serving
+            # worker has answered a ping (no evidence: the controller
+            # holds).
+            out["tiers"] = tiers_fn()
     autopilot = getattr(engine_or_pool, "autopilot", None)
     if autopilot is not None:
         # Closed-loop controller state: current setpoints,
@@ -823,7 +847,13 @@ def signals_available(engine_or_pool) -> bool:
     controller may act on — the autopilot's refuse-to-start gate
     (POLYKEY_SIGNALS_INTERVAL=0 allocates no plane, and a control loop
     reading permanently-absent windows would hold forever while
-    claiming to supervise)."""
+    claiming to supervise). A disaggregated pool's coordinator ring
+    samples on the heartbeat and its workers inherit the config's
+    signals_interval_s, so the config gates both."""
+    if hasattr(engine_or_pool, "workers"):
+        config = getattr(engine_or_pool, "config", None)
+        return bool(config is not None
+                    and getattr(config, "signals_interval_s", 0) > 0)
     return any(
         getattr(engine.metrics, "signals", None) is not None
         for _index, engine in _engines_of(engine_or_pool)

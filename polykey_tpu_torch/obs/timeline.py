@@ -15,6 +15,11 @@
   processed frontier actually blocked), an engine-events row (expiries,
   supervisor restarts) and one row per decode slot showing each
   request's residency with its trace id.
+- `merge_timelines` — several processes' rings on ONE clock (a
+  disaggregated pool's coordinator and workers, each worker's stamps
+  shifted by its `obs.clocks.ClockSync` offset); `to_perfetto` then
+  renders a handoff as one flow arc from the prefill worker's
+  `handoff_serialize` note to the decode worker's `handoff_scatter`.
 
 The events are host-side stamps of the engine loop: on the GPU a
 "dispatch" is the host's enqueue of a graph replay, and its slice spans
@@ -77,11 +82,16 @@ class TimelineRecorder:
             )
         self.capacity = capacity
         self._ring: deque = deque(maxlen=capacity)
+        # Lifetime append count (not the ring's length): black boxes flush
+        # every K appends, so they need a count that grows after the ring
+        # wraps. A racing += from a note() thread only delays a flush.
+        self.appended = 0
 
     # -- emission (engine thread; notes may come from other threads) ---------
 
     def _append(self, entry: tuple) -> None:
         self._ring.append(entry)
+        self.appended += 1
 
     def dispatch(self, seq: int, block_kind: str, lanes: int, steps: int,
                  gap_ms: float) -> None:
@@ -143,7 +153,12 @@ def engine_timelines(engine_or_pool) -> list[tuple[int, str, list[dict]]]:
     """Exporter input: ``[(0, "engine", events)]`` for one engine, and for
     a replica pool one Perfetto process per replica, pid = replica index.
     An engine with the timeline disabled contributes an empty event list
-    (the export stays valid, just blank)."""
+    (the export stays valid, just blank). A disaggregated pool brings its
+    own clock-aligned merge (`DisaggPool.merged_timelines`): one process
+    per worker plus the coordinator, on the coordinator's clock."""
+    merged = getattr(engine_or_pool, "merged_timelines", None)
+    if callable(merged):
+        return merged()
     if hasattr(engine_or_pool, "replicas"):
         out = []
         for rep in engine_or_pool.replicas:
@@ -156,6 +171,34 @@ def engine_timelines(engine_or_pool) -> list[tuple[int, str, list[dict]]]:
     timeline = getattr(engine_or_pool, "timeline", None)
     return [(0, "engine",
              timeline.events() if timeline is not None else [])]
+
+
+def merge_timelines(
+    groups: Iterable[tuple[int, str, list[dict], float]],
+) -> list[tuple[int, str, list[dict]]]:
+    """Map N processes' timelines onto ONE clock for a merged export.
+
+    ``groups`` is ``[(pid, label, events, offset_s)]`` where ``offset_s``
+    translates that process's monotonic timestamps onto the reference
+    (coordinator) clock — ``local = remote + offset`` as estimated by
+    `obs.clocks.ClockSync` (the coordinator itself rides with offset 0).
+    Returns exporter input (``[(pid, label, events)]``) with every
+    timestamp field shifted; input event dicts are not mutated.
+    """
+    out = []
+    for pid, label, events, offset in groups:
+        if offset:
+            shifted = []
+            for event in events:
+                event = dict(event)
+                event["t"] = event["t"] + offset
+                end = event.get("end")
+                if isinstance(end, (int, float)):
+                    event["end"] = end + offset
+                shifted.append(event)
+            events = shifted
+        out.append((pid, label, list(events)))
+    return out
 
 
 # Track (Perfetto tid) layout within one engine's process. Slot rows
@@ -216,6 +259,12 @@ def to_perfetto(
         return int(round((t - t0) * 1e6))
 
     trace_events: list[dict] = []
+    # Handoff arcs (merged disaggregated exports): the prefill worker's
+    # `handoff_serialize` note marks serialize end, the decode worker's
+    # `handoff_scatter` note marks scatter start; matching handoff_ids
+    # become a Perfetto flow pair, one arc across process rows.
+    arc_starts: dict[str, tuple[int, int]] = {}
+    arc_ends: dict[str, tuple[int, int]] = {}
     for pid, label, events in named:
         if not events:
             continue        # disabled/empty timeline: no tracks to draw
@@ -312,9 +361,16 @@ def to_perfetto(
                     us(event["t"]), args={"trace_id": event["trace_id"]},
                 ))
             elif kind == "note":
+                note_kind = event["note_kind"]
+                attrs = dict(event["attrs"])
+                handoff_id = attrs.get("handoff_id")
+                if handoff_id is not None:
+                    if note_kind == "handoff_serialize":
+                        arc_starts[str(handoff_id)] = (pid, us(event["t"]))
+                    elif note_kind == "handoff_scatter":
+                        arc_ends[str(handoff_id)] = (pid, us(event["t"]))
                 trace_events.append(_instant(
-                    pid, _TID_ENGINE, event["note_kind"], us(event["t"]),
-                    args=dict(event["attrs"]),
+                    pid, _TID_ENGINE, note_kind, us(event["t"]), args=attrs,
                 ))
         # Requests still resident when the ring was exported: open tail
         # slices to the export horizon, marked open (frontier state is
@@ -332,6 +388,22 @@ def to_perfetto(
             trace_events.append(_thread_meta(
                 pid, _TID_SLOT0 + slot, f"slot {slot}"
             ))
+
+    for handoff_id, (start_pid, start_ts) in arc_starts.items():
+        end = arc_ends.get(handoff_id)
+        if end is None:
+            continue            # one-sided (aborted mid-wire): no arc
+        end_pid, end_ts = end
+        trace_events.append({
+            "ph": "s", "id": handoff_id, "pid": start_pid,
+            "tid": _TID_ENGINE, "ts": start_ts,
+            "name": "handoff", "cat": "handoff",
+        })
+        trace_events.append({
+            "ph": "f", "bp": "e", "id": handoff_id, "pid": end_pid,
+            "tid": _TID_ENGINE, "ts": end_ts,
+            "name": "handoff", "cat": "handoff",
+        })
 
     out = {"traceEvents": trace_events, "displayTimeUnit": "ms"}
     if meta:

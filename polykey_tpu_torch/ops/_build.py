@@ -8,6 +8,13 @@ source that includes PyTorch's headers. Each source compiles in its own
 The build happens on first use, never at import (the CPU tests import
 every module and have no `nvcc`), into `build/kernels/` at the repository
 root, and is redone whenever a source's content hash or the flags change.
+Several processes may start at once (the disaggregated pool's workers on a
+fresh tree): the freshness check, the build and the stamp all run under an
+exclusive `flock` on `build/kernels/.lock`, and the check is made again
+once the lock is held, so the first process builds and the others load
+what it built. Objects are compiled to per-process names and the library
+is renamed into place before the stamp is written, in the same locked
+section.
 
 Every kernel is a `Kernel`: its C symbol and argument types, and a
 `launches` count that goes up by one at each launch and nowhere else, so
@@ -21,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -77,7 +85,7 @@ def _build(sources: list[Path], out: Path) -> str:
     """Compile every source in parallel, link into `out`; returns the
     compilers' combined stderr (the -Xptxas -v report)."""
     nvcc = _nvcc()
-    objs = [out.parent / (src.stem + ".o") for src in sources]
+    objs = [out.parent / f"{src.stem}.{os.getpid()}.o" for src in sources]
     procs = [
         subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
@@ -102,10 +110,24 @@ def _build(sources: list[Path], out: Path) -> str:
          *map(str, objs), "-o", str(tmp)],
         capture_output=True, text=True,
     )
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, out)
     return "\n".join(logs)
+
+
+@contextlib.contextmanager
+def _build_lock(directory: Path):
+    """An exclusive advisory lock on `directory`/.lock, across processes
+    (the thread lock `_lock` covers the threads of one)."""
+    with open(directory / ".lock", "a+") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def load_library() -> ctypes.CDLL:
@@ -120,24 +142,26 @@ def load_library() -> ctypes.CDLL:
             raise _failed
         sources = _sources()
         digest = _digest(sources)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / LIB_NAME
-        stamp = BUILD_DIR / "digest"
-        fresh = (
-            lib_path.exists() and stamp.exists()
-            and stamp.read_text().strip() == digest
-        )
-        if not fresh:
-            t0 = time.monotonic()
-            try:
-                # polylint: disable=CL004(deliberate: one nvcc build per process, and every caller needs the built library before it can launch, so they wait on the lock)
-                build_log = _build(sources, lib_path)
-            except RuntimeError as e:
-                _failed = e
-                raise
-            build_seconds = time.monotonic() - t0
-            stamp.write_text(digest + "\n")
-        _lib = ctypes.CDLL(str(lib_path))
+        build_dir = BUILD_DIR
+        build_dir.mkdir(parents=True, exist_ok=True)
+        lib_path = build_dir / LIB_NAME
+        stamp = build_dir / "digest"
+        with _build_lock(build_dir):
+            fresh = (
+                lib_path.exists() and stamp.exists()
+                and stamp.read_text().strip() == digest
+            )
+            if not fresh:
+                t0 = time.monotonic()
+                try:
+                    # polylint: disable=CL004(deliberate: one nvcc build per tree, and every thread and process needs the built library before it can launch, so they wait on the locks)
+                    build_log = _build(sources, lib_path)
+                except RuntimeError as e:
+                    _failed = e
+                    raise
+                build_seconds = time.monotonic() - t0
+                stamp.write_text(digest + "\n")
+            _lib = ctypes.CDLL(str(lib_path))
         return _lib
 
 

@@ -872,6 +872,55 @@ def test_decode_graph_serves_a_lane_merged_in_place(gen):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_resume_import_behind_a_replay_is_served_as_eager(gen, int8):
+    """The decode tier's import (`import_handoff`): a live lane's pages,
+    gathered to host memory and through the KV wire format, are copied into
+    fresh pages and an idle lane is spliced at seq_len = prompt_len + 1, in
+    place, right behind a replay still in flight and with no sync between.
+    The imported pages equal the shipped ones, and the next replay serves
+    the resumed lane as the eager block does, bit for bit."""
+    import numpy as np
+
+    from polykey_tpu_torch.engine.engine import gather_to_host, import_handoff
+    from polykey_tpu_torch.engine.kv_cache import (
+        KVHandoffState,
+        deserialize_kv_state,
+        serialize_kv_state,
+    )
+
+    cfg, params, paged, state = _graph_parts(gen, int8)
+    graphs = _capture(cfg, params, paged, state)
+    _fill_lanes(gen, paged, state, sampled=False)
+    src = state["page_tables"][1, :3].tolist()        # lane 1: 40 positions
+    k, v, *scales = gather_to_host(paged, src)
+    blob = serialize_kv_state(KVHandoffState(
+        model=cfg.name, page_size=16, prompt_len=40, first_token=321, seed=(5 << 32) | 6,
+        prompt_ids=torch.arange(40, dtype=torch.int32), k=k, v=v,
+        ks=scales[0] if scales else None, vs=scales[1] if scales else None))
+    shipped = deserialize_kv_state(blob)
+    dst = list(range(49, 64))
+    table = np.zeros(16, np.int32)
+    table[:15] = dst
+    ptrs = {k: t.data_ptr() for k, t in state.items()}
+    with torch.inference_mode():
+        graphs.run("decode", True, 8)                 # in flight; lane 3 idle
+        import_handoff(paged, state, 3, shipped, dst, table,
+                       np.array([5, 6], np.int32), 200, 0.0, 1.0, 0, eos_id=2)
+    torch.cuda.synchronize()
+    for pool, sent in zip(_pools(paged), shipped.pools):
+        assert torch.equal(pool[:, dst[:3]].cpu(), sent)
+    assert state["seq_lens"][3].item() == 41 and state["last_tokens"][3].item() == 321
+    assert bool(state["active"][3]) and state["caps"][3].item() == 200
+    want, got, ref, ref_paged = _eager_and_replay(cfg, params, paged, state, graphs, True, 8)
+    assert {k: t.data_ptr() for k, t in state.items()} == ptrs
+    assert (got[:, 3] >= 0).all() and torch.equal(got, want)
+    for k in _LANES:
+        assert torch.equal(state[k], ref[k]), k
+    for a, b in zip(_pools(paged), _pools(ref_paged)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_decode_graph_counts_launches_and_resets_the_counters(gen, int8):
     """Capture and warm-up count no launch; each replay adds the launches its
     capture made (one decode and one write kernel a layer a step); every

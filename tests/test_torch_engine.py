@@ -170,9 +170,11 @@ def test_stats_report_kernel_launches(engines):
 
 
 def test_unported_knobs_refuse_to_start():
-    for knob in (dict(tp=2), dict(disagg="1x1"), dict(spec_host_sync=True)):
+    for knob in (dict(tp=2), dict(spec_host_sync=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(TEST_CONFIG, **knob).validate()
+    # The disaggregated pool is served now (engine/disagg_pool.py).
+    dataclasses.replace(TEST_CONFIG, disagg="1x1").validate()
     # The replica pool is served now (engine/replica_pool.py).
     dataclasses.replace(TEST_CONFIG, replicas=2).validate()
     # Speculation rides the ragged stream now (engine/spec_decode.py,

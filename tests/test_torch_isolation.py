@@ -2,9 +2,11 @@
 cache, the KV wire format, quantized weights, the MoE layer, the
 checkpoint loader, the speculative round, offline generation and the
 serving shell — faults, the watchdog, the supervisor, obs/*, the secret
-store, reflection and its protos — and the replica tier — the signal
-plane, the replica pool, the autopilot and the dev client — among them),
-and chip_smoke.py with its shell and replicas phases, imports with
+store, reflection and its protos —, the replica tier — the signal
+plane, the replica pool, the autopilot and the dev client — and the
+disaggregated tiers — the worker, the pool, clock sync and the black
+boxes — among them), and chip_smoke.py with its shell, replicas and
+disagg phases, imports with
 JAX, Flax, ml_dtypes, the JAX package, safetensors and orbax made
 unimportable (in a fresh interpreter, so this test process's own JAX
 imports cannot mask a leak)."""
@@ -52,9 +54,12 @@ assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_ca
         "polykey_tpu_torch.obs.signals", "polykey_tpu_torch.engine.replica_pool",
         "polykey_tpu_torch.engine.autopilot", "polykey_tpu_torch.gateway.client",
         "polykey_tpu_torch.gateway.config", "polykey_tpu_torch.gateway.beautify",
-        "polykey_tpu_torch.gateway.log_beautifier"} <= set(names)
+        "polykey_tpu_torch.gateway.log_beautifier",
+        "polykey_tpu_torch.engine.worker", "polykey_tpu_torch.engine.disagg_pool",
+        "polykey_tpu_torch.obs.clocks", "polykey_tpu_torch.obs.postmortem"} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.phase_shell) and callable(chip_smoke.phase_replicas)
+assert callable(chip_smoke.phase_disagg)
 leaked = [m for m in sys.modules if m and any(
     m == b or m.startswith(b + ".") for b in BLOCKED) and sys.modules[m] is not None]
 assert not leaked, leaked

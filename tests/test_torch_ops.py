@@ -312,3 +312,79 @@ def test_a_failed_kernel_build_is_not_redone(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             _build.load_library()
     assert len(calls) == 1
+
+
+_STUB_NVCC = """#!{python}
+import os, sys, time
+out = sys.argv[sys.argv.index("-o") + 1]
+with open(os.environ["STUB_NVCC_LOG"], "a") as f:
+    f.write(("link " if "-shared" in sys.argv else "compile ") + out + "\\n")
+time.sleep(0.3)                       # widen the window two builds would race in
+with open(out, "wb") as f:
+    f.write(b"stub object " + out.encode())
+"""
+
+_LOADER = r"""
+import json, os, sys, time
+from pathlib import Path
+from polykey_tpu_torch.ops import _build
+
+_build.BUILD_DIR = Path(sys.argv[1])
+loads = []
+
+def load(path):
+    loads.append([path, os.stat(path).st_ino])
+    return object()
+
+_build.ctypes.CDLL = load
+print("ready", flush=True)
+while not os.path.exists(sys.argv[2]):
+    time.sleep(0.001)
+_build.load_library()
+print(json.dumps({"loads": loads, "build_seconds": _build.build_seconds}), flush=True)
+"""
+
+
+def test_two_processes_building_at_once_build_once_and_load_the_same_file(tmp_path):
+    """Two processes call load_library together on a fresh build dir, with a
+    stub nvcc on PATH that logs each call and writes its output: one build
+    (a compile per source and one link), both processes load the one
+    library file, the stamp is written and no object file is left."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from polykey_tpu_torch.ops import _build
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(_STUB_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    log, go, build_dir = tmp_path / "nvcc.log", tmp_path / "go", tmp_path / "kernels"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}",
+               STUB_NVCC_LOG=str(log), PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _LOADER, str(build_dir), str(go)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    try:
+        for proc in procs:
+            assert proc.stdout.readline().strip() == "ready"
+        go.write_text("")
+        outs = [proc.communicate(timeout=120) for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+    assert all(proc.returncode == 0 for proc in procs), [err for _, err in outs]
+    results = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    calls = log.read_text().splitlines()
+    sources = _build._sources()
+    assert sorted(c.split()[0] for c in calls) == ["compile"] * len(sources) + ["link"]
+    lib = str(build_dir / _build.LIB_NAME)
+    assert [r["loads"] for r in results] == [[[lib, os.stat(lib).st_ino]]] * 2
+    assert sorted(r["build_seconds"] > 0 for r in results) == [False, True]
+    assert (build_dir / "digest").read_text().strip() == _build._digest(sources)
+    assert sorted(p.name for p in build_dir.iterdir()) == sorted(
+        [".lock", _build.LIB_NAME, "digest"])

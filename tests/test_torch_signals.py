@@ -337,8 +337,33 @@ def test_disabled_plane_allocates_nothing():
 
 
 def test_a_disaggregated_target_is_refused_by_name():
+    """The disaggregated pool is served now: a target with `workers` is no
+    longer refused. Its engines live in other processes, so the snapshot
+    holds no replica plane but the pool's own windows, tiers, handoff
+    signals and clock offsets, as the reference's does for the same target
+    (tests/test_torch_disagg.py drives a live pool)."""
+    import types
+
     class Disagg:
         workers = ()
+        config = types.SimpleNamespace(signals_interval_s=0.0)
 
-    with pytest.raises(NotImplementedError, match="disaggregated pool.*A.10"):
-        signals.signals_snapshot(Disagg())
+        def signal_windows(self):
+            return {"1m": {"covered_s": 1.0}}
+
+        def handoff_now(self):
+            return {"wire_bw_ewma_bytes_per_s": {"decode-0": 1e9}}
+
+        def clock_offsets(self):
+            return {"decode-0": {"offset_s": 0.5}}
+
+        def tier_now(self):
+            return {"prefill": {"serving": 1}, "decode": {"serving": 0}}
+
+    snap = signals.signals_snapshot(Disagg())
+    assert snap == jsignals.signals_snapshot(Disagg())
+    assert snap["replicas"] == {} and "aggregate" not in snap
+    assert snap["pool"] == {"1m": {"covered_s": 1.0}}
+    assert snap["tiers"]["decode"]["serving"] == 0
+    signals.bind_recorder(Disagg(), FlightRecorder())   # nothing in process to bind
+    assert not signals.signals_available(Disagg())      # the config's interval is 0

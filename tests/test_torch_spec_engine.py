@@ -472,8 +472,8 @@ def test_spec_stats_carry_the_reference_keys(port):
 
 
 @pytest.mark.parametrize("fields,error,item", [
-    (dict(draft_model="tiny-llama", replicas=2, disagg="1x1"), NotImplementedError,
-     "the disaggregated pool"),
+    (dict(draft_model="tiny-llama", replicas=2, disagg="1x1"), ValueError,
+     "mutually exclusive"),
     (dict(checkpoint_path="/nonexistent"), FileNotFoundError, "/nonexistent"),
     (dict(draft_model="tiny-llama", draft_checkpoint_path="/nonexistent"),
      FileNotFoundError, "/nonexistent"),
@@ -483,9 +483,11 @@ def test_spec_stats_carry_the_reference_keys(port):
 def test_config_refuses_what_is_not_ported(fields, error, item):
     """What is not ported is refused at validation, naming its ROADMAP.md
     item; checkpoints are loaded now (tests/test_torch_loader.py), so a
-    path that does not exist is refused by name when the engine starts."""
-    if error is NotImplementedError:
-        with pytest.raises(NotImplementedError, match=item):
+    path that does not exist is refused by name when the engine starts.
+    The disaggregated pool is served now: with replicas and a draft it is
+    refused as the reference refuses it (both exclusive with it)."""
+    if error in (NotImplementedError, ValueError):
+        with pytest.raises(error, match=item):
             EngineConfig(**fields).validate()
     else:
         EngineConfig(**fields).validate()
