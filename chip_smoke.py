@@ -8,6 +8,27 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
 
 1. device:  the card's name, compute capability and power limit.
 2. build:   nvcc builds the CUDA kernels from polykey_tpu_torch/csrc.
+2a. train:  the training path (polykey_tpu_torch.train) on the full
+            32-layer Llama-3-8B at its published widths, bf16 weights drawn
+            on the card from --seed, with nothing else on the card:
+            initialize_from_env over a one-rank NCCL group
+            (POLYKEY_COORDINATOR=127.0.0.1:<free port>, one process),
+            mesh_from_env, make_train_step (the whole forward checkpointed,
+            fused AdamW(1e-4, weight decay 0.01), moments in bf16; every
+            collective issued over its group of one), 6 steps on one fixed
+            batch of 2 x 512 tokens. Every loss finite, the first within 1.0
+            of ln(128256) = 11.76, the last below the first (the batch is
+            memorised). It prints the losses, the first step's wall, the
+            later steps' median and range, tokens/s, the peak memory
+            allocated and the model-FLOP utilisation against the dense bf16
+            peak (8 x parameters x tokens a step: forward, backward and the
+            recomputed forward), one more step's device time under
+            torch.profiler by part (GEMMs, optimizer, collectives, softmax,
+            the rest) with its 8 costliest kernels, and each kernel's
+            launches in the phase
+            (all 0: the reference's training runs no Pallas kernel). The
+            group is destroyed and the memory allocated must fall back
+            under 1 GiB.
 3. kernels: each kernel against its plain PyTorch version on the card, at
             Llama-3-8B shapes in bf16: largest error against the stated
             tolerance, kernel / plain / library-call times (CUDA events) and
@@ -361,6 +382,158 @@ def phase_build() -> None:
         if (any(w in line for w in ("Compiling entry", "registers", "spill", "wgmma"))
                 or line.startswith("==")):
             print(f"  ptxas {line.strip()}", file=sys.stderr)
+
+
+# -- phase 2a: training -----------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 2, 512
+
+
+def phase_train(seed: int, card: str) -> dict:
+    """Train steps of the full Llama-3-8B through the port's training path
+    over a one-rank NCCL group (module docstring, phase 2a). Returns the
+    kernels' launches in the phase."""
+    import math
+    import socket
+
+    import torch.distributed as dist
+
+    from polykey_tpu_torch.engine.engine import KERNELS
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.quant import params_bytes
+    from polykey_tpu_torch.models.transformer import init_params
+    from polykey_tpu_torch.parallel.distributed import initialize_from_env, mesh_from_env
+    from polykey_tpu_torch.train import make_train_step
+
+    phase = "train"
+    cfg = get_config("llama-3-8b")
+    check(torch.cuda.memory_allocated() < 2**30,
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB already allocated")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"POLYKEY_COORDINATOR": f"127.0.0.1:{port}", "POLYKEY_NUM_PROCESSES": "1",
+           "POLYKEY_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    state = None
+    try:
+        check(initialize_from_env(device="cuda"), "initialize_from_env brought nothing up")
+        mesh = mesh_from_env(device="cuda")
+        say(phase, f"process group: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}, coordinator {env['POLYKEY_COORDINATOR']}; mesh "
+            f"{mesh.shape} on {mesh.device}")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.monotonic()
+        params = init_params(cfg, torch.bfloat16, "cuda", gen)
+        n_params = params_bytes(params) // 2
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        targets = torch.roll(tokens, -1, dims=1)
+        targets[:, -1] = -1
+        positions = torch.arange(TRAIN_SEQ, dtype=torch.int32,
+                                 device="cuda").expand(TRAIN_BATCH, -1).contiguous()
+        init_state, train_step, shard_batch = make_train_step(cfg, mesh)
+        state = init_state(params)
+        del params
+        batch = shard_batch(tokens, targets, positions)
+        sync()
+        say(phase, f"llama-3-8b, {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters "
+            f"in bf16 ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) drawn in "
+            f"{time.monotonic() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ}; optimizer "
+            f"{type(state.optimizer).__name__} fused={state.optimizer.defaults['fused']}")
+        for k in KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for _ in range(TRAIN_STEPS):
+            sync()
+            t0 = time.monotonic()
+            state, loss = train_step(state, *batch)
+            losses.append(float(loss))
+            sync()
+            walls.append(time.monotonic() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        profile = _train_profile(train_step, state, batch)
+        counts = {name: k.launches for name, k in KERNELS.items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        state = None
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    later = walls[1:]
+    med = statistics.median(later)
+    flops = 8 * cfg.num_params() * tokens_step
+    say(phase, f"losses {[round(x, 4) for x in losses]} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f})")
+    say(phase, f"step wall: first {walls[0] * 1e3:.1f} ms; steps 2-{TRAIN_STEPS} median "
+        f"{med * 1e3:.1f} ms (range {min(later) * 1e3:.1f}-{max(later) * 1e3:.1f}); "
+        f"{tokens_step / med:.0f} tokens/s; peak allocated {peak / 2**30:.2f} GiB; "
+        f"model FLOPs {flops:.3e} a step, utilisation {flops / med / BF16_FLOPS_PER_S * 100:.1f}% "
+        f"of the 989 TFLOP/s dense bf16 peak, on {card}")
+    busy = sum(profile["parts"].values())
+    say(phase, f"one more step under torch.profiler: {profile['kernels']} kernels, device "
+        f"busy {busy:.1f} ms against the unprofiled median wall {med * 1e3:.1f} ms (idle "
+        f"share {1 - busy / (med * 1e3):.3f}); by part (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in profile["parts"].items()) + f" on {card}")
+    for name, ms, n in profile["top"]:
+        say(phase, f"  {ms:8.2f} ms  {n:5d} x  {name[:90]}")
+    say(phase, f"kernel launches in this phase: {counts}")
+    check(all(math.isfinite(x) for x in losses), f"a loss is not finite: {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"first loss {losses[0]:.4f} is not within 1.0 of ln(V)")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(n == 0 for n in counts.values()), f"a kernel launched in training: {counts}")
+    left = torch.cuda.memory_allocated()
+    say(phase, f"after the phase: {left / 2**30:.3f} GiB allocated, process group "
+        f"destroyed")
+    check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated after the train phase")
+    return {"launches": counts, "step_ms": med * 1e3, "losses": losses, "peak_gib": peak / 2**30}
+
+
+TRAIN_PARTS = (                  # by kernel name, first match wins
+    ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("optimizer", ("adam",)),
+    ("collectives", ("nccl",)),
+    ("softmax", ("softmax",)),
+)
+
+
+def _train_profile(train_step, state, batch) -> dict:
+    """The device time of one train step by part (TRAIN_PARTS, the rest as
+    "elementwise and other"), the kernel count and the 8 costliest
+    kernels (name, ms, launches)."""
+    import collections
+
+    from polykey_tpu_torch.tools.profile_decode import device_kernels
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sync()
+    with torch.profiler.profile(activities=acts) as prof:
+        train_step(state, *batch)
+        sync()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in device_kernels(prof):
+        if getattr(e, "is_user_annotation", False):
+            continue          # a range on the device's row (Optimizer.step), not a kernel
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    parts = {name: 0.0 for name, _ in TRAIN_PARTS}
+    parts["elementwise and other"] = 0.0
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        part = next((p for p, keys in TRAIN_PARTS if any(k in low for k in keys)),
+                    "elementwise and other")
+        parts[part] += ms
+    top = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda t: -t[1])[:8]
+    return {"parts": parts, "top": top, "kernels": sum(c for _, c in by_name.values())}
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -1486,7 +1659,9 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB), KV pool {kv / 2**30:.4f} GiB ({engine.stats()['kv_dtype']}"
         f"{', scales included' if int8 else ''}; {config.num_pages} pages x "
         f"{config.page_size}), {config.max_decode_slots} slots, {mode}, decode "
-        f"block {config.decode_block_steps}")
+        f"block {config.decode_block_steps}; native block allocator "
+        f"{engine.allocator.is_native}")
+    check(engine.allocator.is_native, "the engine is not on the native block allocator")
     # Keep each request the gateway submits, to read its timings after.
     grpc = _Grpc(engine)
     try:
@@ -3855,6 +4030,7 @@ def main() -> int:
     sync()
     phase_build()
     sync()
+    train = phase_train(args.seed, dev["smi"])
     kernels = phase_kernels(args.seed)
     phase_slice(args.seed)
     sync()
@@ -3914,6 +4090,8 @@ def main() -> int:
         f"on {dev['smi']}")
     say("disagg", f"worker kernel launches {disagg['launches']}; starts (s) "
         f"{disagg['boot_s']} (the decode worker's second: its restart) on {dev['smi']}")
+    say("train", f"kernel launches {train['launches']}; step {train['step_ms']:.1f} ms "
+        f"(median), peak {train['peak_gib']:.2f} GiB on {dev['smi']}")
     say("replicas", f"kernel launches {replicas['launches']}; trip to SERVING "
         f"{replicas['trip_to_serving_s']:.2f} s; allocated with both replicas "
         f"{replicas['alloc_gib'][0]:.3f} GiB, after the restart "

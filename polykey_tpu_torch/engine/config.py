@@ -491,7 +491,7 @@ class EngineConfig:
              "scripts/occupancy_soak.py's A/B instrumentation"),
             (max(self.tp, self.dp, self.ep, self.sp, self.pp,
                  self.num_slices) > 1,
-             "mesh axes above 1", "multi-GPU"),
+             "mesh axes above 1", "A.16, serving over a mesh"),
         ]
         for refused, knob, item in unported:
             if refused:

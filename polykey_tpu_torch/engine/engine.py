@@ -160,7 +160,9 @@ GPU (the reference's engine/engine.py, default path).
   scopes ":tier=" faults.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch, mesh axes above 1.
+dispatch; serving over a mesh (A.16: the engine's tp/dp/ep/sp/pp and
+num_slices across processes, lock-step scheduling), so mesh axes above 1
+are refused.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ point their tables at it so masked lanes always have a safe write target.
 int8 KV adds bf16 scale pools [num_layers, num_pages, page_size,
 num_kv_heads] beside int8 value pools.
 
-The allocator is the reference's pure-Python one (the native ctypes
-allocator is a later slice).
+The allocator is the native one (csrc/block_allocator.cc through ctypes,
+as the reference loads native/block_allocator.cc), with the pure-Python
+allocator of the same behaviour as its plain version.
 
 The host tier (`HostKVPool`: cold prefix-cache pages in pinned host
 memory) and the KV wire format (`serialize_kv_state`, the byte layout the
@@ -20,6 +21,7 @@ prints for an ml_dtypes array, and come back through a uint16 view.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import struct as _struct
 import zlib
@@ -37,22 +39,55 @@ class AllocationError(RuntimeError):
 
 
 class BlockAllocator:
-    """Refcounted free-list page allocator; page 0 is reserved."""
+    """Refcounted free-list page allocator; page 0 is reserved.
 
-    def __init__(self, num_pages: int):
+    With `prefer_native` (the default) the bookkeeping lives in the native
+    library (csrc/block_allocator.cc, built on first use by
+    ops._build.load_allocator; a build that fails raises here), whose
+    every entry point takes its own mutex. `prefer_native=False` is the
+    plain version: the same free list and refcounts in Python. Both hand
+    out the lowest free page first and reuse released pages last in,
+    first out, so a sequence of calls gives the same pages either way."""
+
+    def __init__(self, num_pages: int, prefer_native: bool = True):
         if num_pages < 2:
             raise ValueError("need at least 2 pages (page 0 is reserved)")
         self.num_pages = num_pages
-        self._free = list(range(num_pages - 1, 0, -1))
-        self._refcount = [0] * num_pages
-        self._refcount[0] = 1
+        self._lib = None
+        if prefer_native:
+            from ..ops._build import load_allocator
+
+            self._lib = load_allocator()
+            self._handle = self._lib.pk_allocator_new(num_pages)
+        else:
+            self._free = list(range(num_pages - 1, 0, -1))
+            self._refcount = [0] * num_pages
+            self._refcount[0] = 1
+        self.is_native = self._lib is not None
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is not None:
+            lib.pk_allocator_free(self._handle)
+            self._lib = None
 
     @property
     def num_free(self) -> int:
+        if self._lib is not None:
+            return self._lib.pk_num_free(self._handle)
         return len(self._free)
 
     def alloc(self, count: int) -> list[int]:
         """Allocate `count` pages; all-or-nothing."""
+        if count == 0:
+            return []
+        if self._lib is not None:
+            out = (ctypes.c_int32 * count)()
+            if not self._lib.pk_alloc(self._handle, count, out):
+                raise AllocationError(
+                    f"requested {count} pages, {self.num_free} free"
+                )
+            return list(out)
         if len(self._free) < count:
             raise AllocationError(
                 f"requested {count} pages, {len(self._free)} free"
@@ -63,11 +98,19 @@ class BlockAllocator:
         return pages
 
     def retain(self, page: int) -> None:
+        if self._lib is not None:
+            if self._lib.pk_retain(self._handle, page) < 0:
+                raise ValueError(f"retain of unallocated page {page}")
+            return
         if page <= 0 or page >= self.num_pages or self._refcount[page] == 0:
             raise ValueError(f"retain of unallocated page {page}")
         self._refcount[page] += 1
 
     def release(self, page: int) -> None:
+        if self._lib is not None:
+            if self._lib.pk_release(self._handle, page) < 0:
+                raise ValueError(f"release of unallocated page {page}")
+            return
         if page <= 0 or page >= self.num_pages or self._refcount[page] == 0:
             raise ValueError(f"release of unallocated page {page}")
         self._refcount[page] -= 1

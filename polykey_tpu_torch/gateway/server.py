@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import os
 import signal
-import threading
+import time
 from concurrent import futures
 from typing import Optional
 
@@ -194,6 +194,12 @@ def _default_service(logger: Logger, health: Optional[HealthService], device=Non
     supervisor), the mock otherwise."""
     backend = os.environ.get("POLYKEY_BACKEND", "mock").lower()
     if backend in ("tpu", "engine"):
+        # The multi-process bootstrap before the engine touches the device
+        # (POLYKEY_COORDINATOR / NUM_PROCESSES / PROCESS_ID; a no-op
+        # without them), as the reference's server does.
+        from ..parallel.distributed import initialize_from_env
+
+        initialize_from_env(logger, device)
         from .torch_service import TorchService
 
         return TorchService.from_env(health=health, logger=logger, obs=obs,
@@ -260,12 +266,21 @@ def serve(service: Optional[Service] = None, address: Optional[str] = None) -> N
         for method in methods:
             logger.info("Method available", service=name, method=method)
 
-    quit_event = threading.Event()
+    # The handler only sets a flag. It runs on the main thread between
+    # bytecodes, possibly while that thread is inside a lock (an Event's
+    # wait holds its condition's), so it must take none itself: a second
+    # signal landing in Event.set() there would deadlock.
+    stop = {"signal": None}
+
+    def _on_signal(signum, _frame):
+        stop["signal"] = signum
+
     for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: quit_event.set())
+        signal.signal(sig, _on_signal)
     server.start()
     logger.info("server starting", address=address)
-    quit_event.wait()
+    while stop["signal"] is None:
+        time.sleep(0.1)
     logger.info("server shutting down")
     health.shutdown()
     server.stop(grace=10).wait()

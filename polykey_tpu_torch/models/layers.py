@@ -58,8 +58,10 @@ def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
 def qkv_project(
     p: dict, x: torch.Tensor, cfg: ModelConfig
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q [B, T, Hq, D], k and v [B, T, Hk, D]; the head counts are the
+    weights' (a tensor-parallel rank's local heads)."""
     B, T, _ = x.shape
-    q = qdot(x, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = qdot(x, p["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = qdot(x, p["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = qdot(x, p["wq"]).reshape(B, T, -1, cfg.head_dim)
+    k = qdot(x, p["wk"]).reshape(B, T, -1, cfg.head_dim)
+    v = qdot(x, p["wv"]).reshape(B, T, -1, cfg.head_dim)
     return q, k, v

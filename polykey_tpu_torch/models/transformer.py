@@ -11,6 +11,16 @@ arrays driven by lax.scan become one dict per layer. Weights keep the
 and "experts": gate, up, down stacked [E, in, out], in place of "mlp".
 Any linear may be a models.quant.QuantizedTensor. models/interop.py
 converts the reference's stacked pytree into this form.
+
+Over a mesh (`mesh=` on `embed_tokens`, `apply_layer`, `forward` and
+`unembed`; parallel/mesh.py) the parameters are a rank's local shards
+(parallel/sharding.shard_params) and the collectives are placed here, as
+the reference's GSPMD places them: each rank runs its local heads and MLP
+columns, the row-parallel wo/down outputs are summed over tp, the
+vocabulary-split embedding is looked up locally and summed over tp, and
+the logits are gathered over tp (parallel/collectives.py gives each its
+gradient). Sequence parallelism mounts through `make_sp_override`. The
+serving paths (`forward_paged`, `forward_ragged`) stay single-device.
 """
 
 from __future__ import annotations
@@ -21,7 +31,8 @@ from typing import Optional
 import torch
 
 from ..ops.attention import attention
-from ..ops.moe import moe_mlp, moe_mlp_dispatch
+from ..ops.moe import moe_mlp, moe_mlp_dispatch, moe_mlp_sharded
+from ..parallel.collectives import copy_to, gather_from, reduce_from
 from .config import ModelConfig
 from .layers import mlp, qkv_project, rms_norm, rope
 from .quant import embed_lookup, qdot, quantize, quantize_embed, quantize_tree, unembed_logits
@@ -127,43 +138,65 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> Optional[int]:
     return cfg.sliding_window if layer_idx % 2 == 0 else cfg.max_seq_len
 
 
-def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup (+ Gemma's sqrt(H) scaling)."""
-    x = embed_lookup(params["embed"], tokens)
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Token embedding lookup (+ Gemma's sqrt(H) scaling). Over a mesh the
+    embedding is this rank's vocabulary rows: ids outside them read 0, and
+    the lookups are summed over tp (ids past the vocabulary clamp to its
+    last row first, as on one device)."""
+    if mesh is None:
+        x = embed_lookup(params["embed"], tokens)
+    else:
+        rows = params["embed"].shape[0]
+        ids = tokens.clamp(0, rows * mesh.shape["tp"] - 1) - mesh.coord("tp") * rows
+        mine = (ids >= 0) & (ids < rows)
+        x = embed_lookup(params["embed"], ids.clamp(0, rows - 1))
+        x = reduce_from(torch.where(mine[..., None], x, torch.zeros_like(x)), mesh, "tp")
     if cfg.scale_embeddings:
         x = (x.float() * cfg.hidden_size ** 0.5).to(x.dtype)
     return x
 
 
-def _moe_mlp(layer_params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    if mesh is not None:
+        return moe_mlp_sharded(layer_params, h, cfg, mesh)
     if cfg.moe_dispatch:
         return moe_mlp_dispatch(layer_params, h, cfg)
     return moe_mlp(layer_params, h, cfg)
 
 
-def apply_layer(layer_params: dict, layer_idx: int, x, positions, cfg: ModelConfig, attend):
-    """One transformer block. The KV mechanics are injected via
-    `attend(layer_idx, q, k, v) -> ctx` [B, T, Hq, D]."""
+def apply_layer(layer_params: dict, layer_idx: int, x, positions, cfg: ModelConfig, attend,
+                mesh=None):
+    """One transformer block at global layer index `layer_idx`. The KV
+    mechanics are injected via `attend(layer_idx, q, k, v) -> ctx`
+    [B, T, Hq, D]. Over a mesh: local heads and MLP columns, the
+    row-parallel outputs summed over tp before Gemma's post-norms."""
     B, T = x.shape[:2]
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
     eps = cfg.rms_norm_eps
 
     h = rms_norm(x, layer_params["ln1"], eps, norm_offset)
+    if mesh is not None:
+        h = copy_to(h, mesh, "tp")
     q, k, v = qkv_project(layer_params["attn"], h, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
     ctx = attend(layer_idx, q, k, v)
 
-    attn_out = qdot(ctx.reshape(B, T, cfg.num_heads * cfg.head_dim),
-                    layer_params["attn"]["wo"])
+    attn_out = qdot(ctx.reshape(B, T, -1), layer_params["attn"]["wo"])
+    if mesh is not None:
+        attn_out = reduce_from(attn_out, mesh, "tp")
     if cfg.use_post_norms:
         attn_out = rms_norm(attn_out, layer_params["post_ln1"], eps, norm_offset)
     x = x + attn_out
 
     h = rms_norm(x, layer_params["ln2"], eps, norm_offset)
     if cfg.is_moe:
-        mlp_out = _moe_mlp(layer_params, h, cfg)
+        mlp_out = _moe_mlp(layer_params, h, cfg, mesh)
+    elif mesh is not None:
+        mlp_out = reduce_from(mlp(layer_params["mlp"], copy_to(h, mesh, "tp"), cfg.activation),
+                              mesh, "tp")
     else:
         mlp_out = mlp(layer_params["mlp"], h, cfg.activation)
     if cfg.use_post_norms:
@@ -196,6 +229,7 @@ def forward(
     positions: torch.Tensor,     # [B, T] int32 absolute positions
     cache: Optional[KVCache] = None,
     attn_override=None,          # (layer_idx, q, k, v) -> ctx; no-cache only
+    mesh=None,                   # local shards over a mesh; no-cache only
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run the stack; returns (hidden [B, T, H], cache).
 
@@ -206,7 +240,17 @@ def forward(
     soft-cap (the flash kernel on the card where its geometry gate holds,
     T >= 128 and S >= 128; the plain attention otherwise): prefill and
     decode share this path. Without one (scoring): causal attention over
-    the current tokens (`make_causal_attend`), or `attn_override`."""
+    the current tokens (`make_causal_attend`), or `attn_override`.
+
+    With `mesh`: `params` are this rank's shards (its tp heads and
+    columns, its ep experts) and tokens its batch rows (and, with an sp
+    override, its columns); the stack is the whole model's, so pp must be
+    1 here (parallel/pipeline.py runs pp > 1)."""
+    if mesh is not None and (cache is not None or mesh.shape["pp"] > 1):
+        raise ValueError(
+            "a sharded forward runs without a cache and with pp == 1 "
+            "(parallel.pipeline.pipeline_forward runs pp > 1)"
+        )
     if cache is not None and attn_override is not None:
         raise ValueError(
             "attn_override applies to the no-cache path only (the cached "
@@ -232,9 +276,9 @@ def forward(
     else:
         attend = attn_override or make_causal_attend(cfg, positions)
 
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, mesh)
     for i, layer in enumerate(params["layers"]):
-        x = apply_layer(layer, i, x, positions, cfg, attend)
+        x = apply_layer(layer, i, x, positions, cfg, attend, mesh)
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, norm_offset)
     return x, cache
@@ -339,13 +383,52 @@ def forward_ragged(
     return x[0], paged
 
 
-def unembed(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+def make_sp_override(cfg: ModelConfig, mesh, positions: torch.Tensor, impl: str = "ring"):
+    """An attn_override that runs attention sequence-parallel over the
+    mesh's sp axis: ``impl="ring"`` rotates K/V around the sp ring
+    (ops/ring_attention.py: any head count, sp - 1 hops), ``"ulysses"``
+    re-splits heads with all-to-all (ops/ulysses_attention.py: two
+    exchanges, per-rank head counts divisible by sp). `positions` are this
+    rank's [B, T / sp] columns. The scale, soft-cap and each layer's window
+    are wired here, beside the dense attend. None when sp is 1."""
+    if mesh is None or mesh.shape.get("sp", 1) <= 1:
+        return None
+    if impl == "ring":
+        from ..ops.ring_attention import ring_attention_spmd as sp_attention
+    elif impl == "ulysses":
+        from ..ops.ulysses_attention import ulysses_attention_spmd as sp_attention
+    else:
+        raise ValueError(f"unknown sp attention impl {impl!r}")
+
+    def override(layer_idx, q, k, v):
+        return sp_attention(
+            q, k, v, positions, positions, mesh,
+            scale=cfg.q_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+            window=layer_window(cfg, layer_idx),
+        )
+
+    return override
+
+
+def make_ring_override(cfg: ModelConfig, mesh, positions: torch.Tensor):
+    """make_sp_override with impl="ring" (the reference keeps this name)."""
+    return make_sp_override(cfg, mesh, positions, impl="ring")
+
+
+def unembed(params: dict, cfg: ModelConfig, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
     """Project hidden states to fp32 vocab logits, applying Gemma's final
-    soft-cap. Callers gather the rows they need first."""
+    soft-cap. Callers gather the rows they need first. Over a mesh each tp
+    rank projects onto its vocabulary columns (a tied embedding's rows) and
+    the logits are gathered over tp, so every rank holds all of them."""
+    if mesh is not None:
+        hidden = copy_to(hidden, mesh, "tp")
     if cfg.tie_embeddings:
         logits = unembed_logits(hidden, params["embed"], tied=True)
     else:
         logits = unembed_logits(hidden, params["lm_head"], tied=False)
+    if mesh is not None:
+        logits = gather_from(logits, mesh, "tp", dim=-1)
     if cfg.final_logit_softcap is not None:
         logits = cfg.final_logit_softcap * torch.tanh(
             logits / cfg.final_logit_softcap

@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu), and the
+native block allocator (csrc/block_allocator.cc, `load_allocator`).
 
 Route: `nvcc` for `sm_90a` into ONE shared library with a plain C
 interface, loaded with `ctypes` — seconds to build, against minutes for a
@@ -22,6 +23,10 @@ a run can show which kernels its main path went through. A CUDA graph
 replays its kernels without a call: `uncounted` takes a capture's launches
 back out of the counts and records them, and `count_replay` adds them
 again for each replay, so the counts stay the launches the card ran.
+
+The allocator is host code: the host C++ compiler builds it into
+`build/allocator/` with its own library and stamp, under the same flock
+scheme, so engines and worker processes starting together build it once.
 """
 
 from __future__ import annotations
@@ -130,39 +135,122 @@ def _build_lock(directory: Path):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
+def _fresh_library(build_dir: Path, lib_name: str, digest: str, build) -> tuple:
+    """`build_dir`/`lib_name` loaded with ctypes, built first by
+    `build(path)` unless the stamp beside it (`digest`) matches: the check,
+    the build, the stamp and the load all under the directory's flock.
+    Returns (library, seconds the build took, 0.0 when it was fresh)."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = build_dir / lib_name
+    stamp = build_dir / "digest"
+    seconds = 0.0
+    with _build_lock(build_dir):
+        fresh = (
+            lib_path.exists() and stamp.exists()
+            and stamp.read_text().strip() == digest
+        )
+        if not fresh:
+            t0 = time.monotonic()
+            build(lib_path)
+            seconds = time.monotonic() - t0
+            stamp.write_text(digest + "\n")
+        return ctypes.CDLL(str(lib_path)), seconds
+
+
+def _build_kernels(lib_path: Path) -> None:
+    global build_log
+    build_log = _build(_sources(), lib_path)
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built first if it is missing or stale. A build
     that fails is not tried again in this process: every later call raises
     its error at once."""
-    global _lib, _failed, build_log, build_seconds
+    global _lib, _failed, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
         if _failed is not None:
             raise _failed
-        sources = _sources()
-        digest = _digest(sources)
-        build_dir = BUILD_DIR
-        build_dir.mkdir(parents=True, exist_ok=True)
-        lib_path = build_dir / LIB_NAME
-        stamp = build_dir / "digest"
-        with _build_lock(build_dir):
-            fresh = (
-                lib_path.exists() and stamp.exists()
-                and stamp.read_text().strip() == digest
-            )
-            if not fresh:
-                t0 = time.monotonic()
-                try:
-                    # polylint: disable=CL004(deliberate: one nvcc build per tree, and every thread and process needs the built library before it can launch, so they wait on the locks)
-                    build_log = _build(sources, lib_path)
-                except RuntimeError as e:
-                    _failed = e
-                    raise
-                build_seconds = time.monotonic() - t0
-                stamp.write_text(digest + "\n")
-            _lib = ctypes.CDLL(str(lib_path))
+        try:
+            _lib, seconds = _fresh_library(BUILD_DIR, LIB_NAME, _digest(_sources()),
+                                           _build_kernels)
+        except RuntimeError as e:
+            _failed = e
+            raise
+        if seconds:
+            build_seconds = seconds
         return _lib
+
+
+# -- the native block allocator (host C++, engine/kv_cache.py) --------------
+
+ALLOCATOR_DIR = _ROOT / "build" / "allocator"
+ALLOCATOR_SOURCE = CSRC / "block_allocator.cc"
+ALLOCATOR_LIB = "libblock_allocator.so"
+CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+
+_allocator: Optional[ctypes.CDLL] = None
+_allocator_failed: Optional[RuntimeError] = None
+
+
+def _cxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no host C++ compiler (g++ or c++ on PATH): the native block "
+        "allocator is built from csrc/block_allocator.cc on first use"
+    )
+
+
+def _build_allocator(out: Path) -> None:
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_cxx(), *CXX_FLAGS, str(ALLOCATOR_SOURCE), "-o", str(tmp)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building {ALLOCATOR_SOURCE.name} failed:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+
+
+def load_allocator() -> ctypes.CDLL:
+    """The native block allocator's library (`pk_*` entry points), built
+    with the host C++ compiler into `build/allocator/` on first use and
+    whenever its source or flags change, under the same kind of flock as
+    the kernels. A failed build raises, now and on every later call."""
+    global _allocator, _allocator_failed
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(ALLOCATOR_SOURCE.read_bytes())
+    with _lock:
+        if _allocator is not None:
+            return _allocator
+        if _allocator_failed is not None:
+            raise _allocator_failed
+        try:
+            lib, _ = _fresh_library(ALLOCATOR_DIR, ALLOCATOR_LIB,
+                                    h.hexdigest()[:16], _build_allocator)
+        except RuntimeError as e:
+            _allocator_failed = e
+            raise
+        i32, ptr = ctypes.c_int32, ctypes.c_void_p
+        for name, restype, argtypes in (
+            ("pk_allocator_new", ptr, [i32]),
+            ("pk_allocator_free", None, [ptr]),
+            ("pk_num_free", i32, [ptr]),
+            ("pk_alloc", i32, [ptr, i32, ctypes.POINTER(i32)]),
+            ("pk_retain", i32, [ptr, i32]),
+            ("pk_release", i32, [ptr, i32]),
+        ):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _allocator = lib
+        return lib
 
 
 P = ctypes.c_void_p

@@ -16,6 +16,11 @@ and the combine weights renormalized over the selected k by a softmax.
 Both forms go through `qeinsum_expert`, so fp, int8 and int4 experts share
 one body. Static shapes and no host read: the layer runs inside the
 engine's CUDA graphs.
+
+`moe_mlp_sharded` is the reference's expert-parallel layout over a mesh
+("expert-replicated compute"): the router runs on every rank, each ep rank
+computes its local experts' contributions over its tp columns, and the
+combine is summed over ep and tp. No token moves between ranks.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.layers import _activate
 from ..models.quant import qeinsum_expert
+from ..parallel.collectives import copy_to, reduce_from
 
 
 def _router_weights(layer_params: dict, h: torch.Tensor, cfg: ModelConfig):
@@ -103,3 +109,41 @@ def moe_mlp_dispatch(layer_params: dict, h: torch.Tensor, cfg: ModelConfig,
                      cfg.activation)
     out = qeinsum_expert("eci,eih->ech", gate * up, experts["down"], e_axis=0)
     return _combine(out, combine, idx, slot, keep).reshape(B, T, H).to(h.dtype)
+
+
+def moe_mlp_sharded(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """Either form over a mesh: `layer_params` holds this rank's experts
+    (a contiguous run of E / ep, each with its tp columns) and the whole
+    router. Routing, capacity and drops are the single-device ones; the
+    fp32 partial sums of the combine are reduced over (ep, tp) before the
+    cast, and the router and the experts' input take the gradients of
+    every rank's share back."""
+    axes = ("ep", "tp")
+    B, T, H = h.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    experts = layer_params["experts"]
+    e = experts["gate"].shape[0]
+    e0 = mesh.coord("ep") * e
+    combine, idx = _router_weights(layer_params, h, cfg)
+    combine = copy_to(combine, mesh, axes)[..., e0:e0 + e]
+    x = copy_to(h, mesh, axes)
+    if cfg.moe_dispatch:
+        N = B * T
+        capacity = max(1, int(N * k / E * 1.25))
+        idx = idx.reshape(N, k)
+        slot, keep = _dispatch_slots(idx, E, capacity)
+        keep = keep & (idx >= e0) & (idx < e0 + e)
+        local = (idx - e0).clamp(0, e - 1)
+        buckets = _scatter(x.reshape(N, H), local, slot, keep, e, capacity)
+        up = qeinsum_expert("ech,ehi->eci", buckets, experts["up"], e_axis=0)
+        gate = _activate(qeinsum_expert("ech,ehi->eci", buckets, experts["gate"], e_axis=0),
+                         cfg.activation)
+        out = qeinsum_expert("eci,eih->ech", gate * up, experts["down"], e_axis=0)
+        y = _combine(out, combine.reshape(N, e), local, slot, keep).reshape(B, T, H)
+    else:
+        up = qeinsum_expert("bth,ehi->beti", x, experts["up"], e_axis=1)
+        gate = _activate(qeinsum_expert("bth,ehi->beti", x, experts["gate"], e_axis=1),
+                         cfg.activation)
+        out = qeinsum_expert("beti,eih->beth", gate * up, experts["down"], e_axis=1)
+        y = torch.einsum("beth,bte->bth", out.float(), combine)
+    return reduce_from(y, mesh, axes).to(h.dtype)

@@ -302,3 +302,48 @@ def test_spec_engine_streams_over_grpc_from_env(monkeypatch):
         server.stop(grace=None)
         service.close()
         plain.shutdown()
+
+
+def test_two_sigterms_in_a_row_stop_the_server():
+    """The signal handler only sets a flag the main thread polls: a second
+    SIGTERM arriving while the first is handled can no longer deadlock the
+    server, which logs `server stopped` and exits at once."""
+    import os
+    import queue
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, LISTEN_ADDR=f"127.0.0.1:{port}",
+               POLYKEY_BACKEND="mock", POLYKEY_METRICS_PORT="0")
+    proc = subprocess.Popen([sys.executable, "-m", "polykey_tpu_torch.gateway.server"],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout],
+                              daemon=True)
+    reader.start()
+    seen = []
+    try:
+        deadline = time.monotonic() + 60
+        while not any("server starting" in line for line in seen):
+            seen.append(lines.get(timeout=max(0.1, deadline - time.monotonic())))
+        proc.send_signal(signal.SIGTERM)
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.monotonic()
+        assert proc.wait(timeout=10) == 0
+        stopped_s = time.monotonic() - t0
+    finally:
+        proc.kill()
+        proc.wait(10)
+    reader.join(10)
+    while not lines.empty():
+        seen.append(lines.get())
+    assert any("server stopped" in line for line in seen), seen
+    assert stopped_s < 5.0
