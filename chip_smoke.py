@@ -95,6 +95,33 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             graphs were, no prefill ran eagerly and every flash launch came
             from a prefill replay, or (ragged) unless a ragged dispatch
             went out with another block in flight.
+7a. mesh:   serving over a mesh (engine/lockstep.py) on the serve phases'
+            weights: initialize_from_env over a one-rank NCCL group
+            (POLYKEY_COORDINATOR=127.0.0.1:<free port>, one process), then
+            the default EngineConfig's Llama-3-8B, which takes the mesh
+            path because the group is up (its collectives, a group of one's
+            copies, captured in the CUDA graphs), bf16 KV and then int8
+            KV. MESH_PROMPTS (the serve phase's five prompts) over streamed
+            gRPC, greedy, 32 tokens, one at a time: every stream must be
+            token for token the one the serve phase of the same KV type
+            served the same way just before (a group of one computes
+            exactly what one card does), every decode block and prefill a
+            graph replay (none eager), flash and the KV type's decode and
+            write kernels launched, no weight copied, and every collective
+            of the 34 captured forwards issued inside a capture (2244). It
+            prints the NCCL version, the capture seconds against the serve
+            phase's, the 8-step decode block's and the 512-token prefill's
+            replay walls at idle in turns against the serve phase's engine
+            of the same KV type (shut down, its graphs kept for this; the
+            cost of the captured collectives over a group of one), and one
+            decode replay's device activities under torch.profiler. The
+            group is destroyed at the end. The kernels phase holds the kernels at a mesh
+            rank's shard shapes too: decode (bf16 and int8) at Llama-3-8B
+            tp=2 (Hq 16, Hk 4) and tp=4 (Hq 8, Hk 2) at contexts 1..4096
+            and 16 lanes of 512, and Gemma-2-27B tp=2 (Hq 16, Hk 8); the
+            sp=2 decode's two page-range halves merged against the whole
+            range; flash at tp=4's heads and on sp=2's second query block
+            against the whole window; both writes at Hk 4 and 2.
 8. graph:   the full-depth Llama-3-8B decode block (16 greedy lanes at
             context 512, as profile_decode sets it up; bf16 and int8 KV),
             eager and as a replay of its graph, from the same lane state:
@@ -581,22 +608,31 @@ def _write_case(label, B, err, kernel, plain, library, nbytes) -> dict:
 GEMMA_SHAPES = (("gemma-2-27b", 32, 16, 128, 144.0 ** -0.5),
                 ("gemma-2-2b", 8, 4, 256, 256.0 ** -0.5))
 GEMMA_CAP, GEMMA_WINDOW = 50.0, 4096
+# A serving mesh's tp ranks (the mesh phase's kernel cases): (model, tp,
+# local Hq, local Hk, soft-cap, window, (scale,) or ()), D 128.
+MESH_SHAPES = (("llama-3-8b", 2, 16, 4, None, None, ()),
+               ("llama-3-8b", 4, 8, 2, None, None, ()),
+               ("gemma-2-27b", 2, 16, 8, GEMMA_CAP, GEMMA_WINDOW, (144.0 ** -0.5,)))
 
 
 def _write_geometries():
     """(B, Hk, D, key) of the write cases: 16 lanes, a 1040-row stream,
-    16 lanes of the 1B draft's pools (D=64) and of each Gemma pool."""
+    16 lanes of the 1B draft's pools (D=64) and of each Gemma pool, and 16
+    lanes (a dp gather's whole batch) at a Llama-3-8B tp rank's kv heads."""
     return ([(16, 8, 128, None), (1040, 8, 128, "stream"), (16, 8, 64, "d64")]
-            + [(16, hk, d, name) for name, _, hk, d, _ in GEMMA_SHAPES])
+            + [(16, hk, d, name) for name, _, hk, d, _ in GEMMA_SHAPES]
+            + [(16, 8 // tp, 128, f"mesh llama-3-8b tp={tp}") for tp in (2, 4)])
 
 
 def _write_result(cases: list) -> dict:
-    """The 16-lane case first, the others under their keys (the Gemma
-    geometries as a list under "gemma")."""
+    """The 16-lane case first, the others under their keys (the Gemma and
+    the mesh geometries as lists under "gemma" and "mesh")."""
     out = dict(cases[0][1])
     for key, case in cases[1:]:
-        if key.startswith("gemma"):
-            out.setdefault("gemma", []).append({"case": key, **case})
+        group = key.split()[0] if key.startswith(("gemma", "mesh")) else None
+        if group is not None:
+            out.setdefault("gemma" if group.startswith("gemma") else "mesh", []).append(
+                {"case": key, **case})
         else:
             out[key] = case
     return out
@@ -807,8 +843,14 @@ def kernel_decode(gen, int8: bool = False) -> dict:
          f"{suffix}", D, Hq, Hk, lens, GEMMA_CAP, GEMMA_WINDOW, None, scale)
         for name, Hq, Hk, D, scale in GEMMA_SHAPES
         for suffix, lens in (("", ctx), (" serve: 16 lanes at context 512", [512] * 16))]
+    # A serving mesh's tp ranks: their local heads (MESH_SHAPES).
+    mesh = [(f"mesh {name} tp={tp} (Hq {Hq}, Hk {Hk}){suffix}", 128, Hq, Hk, lens, cap,
+             win, None, *sc)
+            for name, tp, Hq, Hk, cap, win, sc in MESH_SHAPES
+            for suffix, lens in (("", ctx), (" serve: 16 lanes at context 512", [512] * 16))
+            if lens is ctx or name == "llama-3-8b"]
     result = None
-    for label, D, Hq, Hk, lens, softcap, window, prange, *scale in cases + gemma:
+    for label, D, Hq, Hk, lens, softcap, window, prange, *scale in cases + gemma + mesh:
         args, (err, ratio), nbytes, flops, ctas = _decode_case(
             gen, D, Hq, Hk, lens, softcap, window, prange, int8, *scale)
         q, kp, vp, tables, pos, kw = args
@@ -836,11 +878,55 @@ def kernel_decode(gen, int8: bool = False) -> dict:
                       "gemma": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
-        if D == 64 or scale:
-            result["gemma" if scale else "d64"].append(
+        group = ("mesh" if label.startswith("mesh") else "gemma" if scale
+                 else "d64" if D == 64 else None)
+        if group is not None:
+            result.setdefault(group, []).append(
                 {"case": label, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                  "bound_by": b_by, "max_abs_err": err, "err_over_tol": ratio})
+    result["mesh"].append(_decode_sp2(gen, ctx, int8))
     return result
+
+
+def _decode_sp2(gen, ctx, int8: bool) -> dict:
+    """sp=2 decode as a mesh runs it: each half of the page table
+    (sp_page_range) through the kernel, the two states merged
+    (merge_split_states), against the plain version over the whole table
+    under decode_error_bound and 2e-3; the lanes of up to 2048 rows leave
+    the second half empty. The time is both halves' launches and the
+    merge; the bound is the whole range's."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+
+    name = "paged_attention_decode_int8" if int8 else "paged_attention_decode"
+    args, _, nbytes, flops, _ = _decode_case(gen, 128, 32, 8, ctx, None, None, None, int8)
+    q, kp, vp, tables, pos, kw = args
+    halves = [pak.sp_page_range(TABLE, 2, s) for s in (0, 1)]
+
+    def split_merged():
+        return pak.merge_split_states(
+            [pak.paged_decode_cuda(q, kp, vp, tables, pos, **dict(kw, page_range=r))
+             for r in halves])
+
+    acc, m, l = split_merged()
+    acc_p, m_p, l_p = pak.paged_decode_plain(q, kp, vp, tables, pos, **kw)
+    tol = pak.decode_error_bound(q, kp, vp, tables, pos, **kw)
+    diff = (acc / torch.clamp(l, min=1e-9) - acc_p / torch.clamp(l_p, min=1e-9)).abs()
+    err, ratio = diff.max().item(), (diff / tol).max().item()
+    empty = sum(n <= halves[1][0] * PAGE_SIZE for n in ctx)
+    check(ratio <= 1.0 and err <= 2e-3 and (m - m_p).abs().max().item() <= 1e-3,
+          f"{name} sp=2 merge differs from the whole range: {err} (err/tol {ratio})")
+    ms = device_time_ms(split_merged)
+    plain = device_time_ms(lambda: pak.paged_decode_plain(q, kp, vp, tables, pos, **kw),
+                           reps=2)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    say("kernels", f"{name} [mesh sp=2: pages {halves[0]} and {halves[1]} merged] "
+        f"B={len(ctx)} Hq=32 Hk=8 D=128, ctx {min(ctx)}..{max(ctx)} ({empty} lanes with "
+        f"an empty second half): max |err| {err:.3e}, largest err/tol {ratio:.3f} "
+        f"(decode_error_bound and 2e-3 flat, 1e-3 on m, against the whole range); "
+        f"two launches + merge {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by})")
+    return {"case": "mesh sp=2 merge", "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "err_over_tol": ratio}
 
 
 def _sdpa(q, k, v, qpos, S, scale, window):
@@ -863,10 +949,13 @@ def _flash_positions(layout: str, B: int, T: int):
     """"mixed": row 0 prefills positions 0..T-1; row 1 a prompt that starts
     mid-window at 1000 and whose last quarter is padding (position -1).
     "chunk3": every row a 512-token chunk at positions 1024..1535, the
-    third chunk of the serve's document."""
+    third chunk of the serve's document. "sp2": every row the second of
+    two sp ranks' query blocks of a 2T-token prefill, positions T..2T-1."""
     qpos = torch.arange(T, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
     if layout == "chunk3":
         return qpos + 1024
+    if layout == "sp2":
+        return qpos + T
     qpos[1] += 1000
     qpos[1, T - T // 4:] = -1
     return qpos
@@ -903,6 +992,12 @@ def kernel_flash(gen) -> dict:
         (f"{name}, scale {scale:.5f}, softcap {GEMMA_CAP:g}, window {GEMMA_WINDOW}", 2,
          512, 4096, Hq, Hk, D, GEMMA_CAP, GEMMA_WINDOW, "mixed", False, scale)
         for name, Hq, Hk, D, scale in GEMMA_SHAPES
+    ] + [
+        ("mesh llama-3-8b tp=4 heads (Hq 8, Hk 2)", 2, 512, 4096, 8, 2, 128, None, None,
+         "mixed", False),
+        ("mesh sp=2: the second query block (positions 256..511) of a 512-token "
+         "prefill against the whole window", 2, 256, 4096, 32, 8, 128, None, None,
+         "sp2", False),
     ]
     result = None
     for label, B, T, S, Hq, Hk, D, softcap, window, layout, stale, *scale in cases:
@@ -972,8 +1067,10 @@ def kernel_flash(gen) -> dict:
                       "gemma": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
-        if D == 64 or scale:
-            result["gemma" if scale else "d64"].append(
+        group = ("mesh" if label.startswith("mesh") else "gemma" if scale
+                 else "d64" if D == 64 else None)
+        if group is not None:
+            result.setdefault(group, []).append(
                 {"case": label, "ms": ms, "plain_ms": plain, "library_ms": lib,
                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                  "err_over_tol": max(ratio)})
@@ -1751,11 +1848,234 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
                 f"tokens, TTFT {r['ttft_ms']:.1f} ms, {r['tok_s']:.1f} tok/s "
                 f"(wall {r['wall_s']:.2f} s) on {card}")
         after = then(grpc) if then else None
+        # The mesh phase's reference: the same streams, one at a time.
+        mesh_ref = (_mesh_reference(grpc, engine) if phase in ("serve", "serve-int8")
+                    else None)
     finally:
         grpc.close()
     sync()
     return {"requests": results, "launches": counts, "params": engine.params,
-            "kv_gib": kv / 2**30, "then": after}
+            "kv_gib": kv / 2**30, "then": after, "mesh_ref": mesh_ref}
+
+
+# -- phase 7a ---------------------------------------------------------------
+
+MESH_PROMPTS = [SHORT[0], SHORT[1], LONG[0], LONG[1], LONG_DOC]
+
+
+def _mesh_reference(grpc, engine) -> dict:
+    """MESH_PROMPTS over streamed gRPC, greedy, 32 tokens, one request at a
+    time (so every prefill runs alone: the same group pads, the same
+    products, run after run): their token ids, the capture seconds, and
+    the engine itself, whose graphs the mesh phase replays beside its own
+    once this phase has shut the engine down."""
+    ids = [grpc.generate([p], stream=True)[0][0] for p in MESH_PROMPTS]
+    return {"ids": ids, "capture_s": engine.stats()["graph_capture_s"], "engine": engine}
+
+
+def _replay_walls(engine, turns: int = 5) -> dict:
+    """The median wall (CUDA events) of `turns` replays, after two untimed
+    ones, of the 8-step greedy decode block's graph and of the 512-token
+    prefill's (group pad 1, greedy, aligned), while the engine idles: every
+    lane inactive, the prefill's fixed operands first set to the garbage
+    page."""
+    P = engine.config.pages_per_seq
+    i32, f32 = np.int32, np.float32
+    engine._prefill_ops[1].upload(
+        np.zeros((1, 512), i32), np.zeros(1, i32), np.zeros(1, i32), np.zeros((1, P), i32),
+        np.zeros((1, 2), i32), np.zeros(1, f32), np.ones(1, f32), np.zeros(1, i32))
+    out = {}
+    for key, graph in (("block_ms", ("decode", True, 8)),
+                       ("prefill_ms", ("prefill", 512, 1, True, True))):
+        walls = []
+        for _ in range(2):
+            engine._graphs.run(*graph)
+        sync()
+        for _ in range(turns):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            engine._graphs.run(*graph)
+            b.record()
+            b.synchronize()
+            walls.append(a.elapsed_time(b))
+        out[key] = statistics.median(walls)
+    return out
+
+
+def _replay_profile(engine) -> tuple:
+    """One idle 8-step decode replay under torch.profiler: its device
+    activities, and the copies among them (NCCL runs a one-rank collective
+    as a copy, or as nothing when it is in place)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine._graphs.run("decode", True, 8)
+        sync()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    return len(names), sum("memcpy" in n.lower() for n in names)
+
+
+def _walls_in_turns(single, mesh, rounds: int = 3) -> dict:
+    """`_replay_walls` of the single-card engine and the mesh engine in
+    turns (single, mesh, mesh, single, `rounds` times): {"single": [...],
+    "mesh": [...]}, one result a turn."""
+    out = {"single": [], "mesh": []}
+    for _ in range(rounds):
+        for name in ("single", "mesh", "mesh", "single"):
+            out[name].append(_replay_walls(single if name == "single" else mesh))
+    return out
+
+
+@contextlib.contextmanager
+def _count_captured_collectives():
+    """Count the torch.distributed collectives issued while a stream
+    captures (each one a node of the graph being captured)."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    saved = {name: getattr(dist, name) for name in counts}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def phase_mesh(seed: int, params, card: str, refs: dict) -> dict:
+    """The mesh engine on the serve phases' weights over a one-rank NCCL
+    group (module docstring, phase 7a); `refs[int8]` is the single-card
+    serve's `_mesh_reference`, its engine shut down but holding its graphs
+    (for the walls in turns; its device state is released here). Returns
+    the kernels' launches in the phase."""
+    import socket
+
+    import torch.distributed as dist
+
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+    from polykey_tpu_torch.parallel.distributed import initialize_from_env
+
+    phase = "mesh"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"POLYKEY_COORDINATOR": f"127.0.0.1:{port}", "POLYKEY_NUM_PROCESSES": "1",
+           "POLYKEY_PROCESS_ID": "0"}
+    singles = {int8: refs[int8].pop("engine") for int8 in (False, True)}
+    check(all(e.mesh is None for e in singles.values()), "a serve engine took a mesh")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    launches = {}
+    try:
+        check(initialize_from_env(device="cuda"), "initialize_from_env brought nothing up")
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        say(phase, f"process group: backend nccl {nccl}, world {dist.get_world_size()}, "
+            f"coordinator {env['POLYKEY_COORDINATOR']}")
+        for int8 in (False, True):
+            kv = "int8 KV" if int8 else "bf16 KV"
+            ref = refs[int8]
+            t0 = time.monotonic()
+            with _count_captured_collectives() as captured:
+                engine = InferenceEngine(EngineConfig(model="llama-3-8b",
+                                                      kv_dtype="int8" if int8 else ""),
+                                         params=params, device="cuda", seed=seed)
+            up = time.monotonic() - t0
+            stats = engine.stats()
+            check(engine.mesh is not None and stats["mesh"]["world"] == 1
+                  and stats["mesh"]["role"] == "leader",
+                  f"the engine did not take the mesh path: {stats.get('mesh')}")
+            check(engine.params["embed"] is params["embed"],
+                  "a group of one copied the weights")
+            say(phase, f"{kv}: mesh engine up in {up:.1f} s over {stats['mesh']}, "
+                f"the serve phase's weight tensors (no copy), KV pool "
+                f"{stats['kv_pool_bytes'] / 2**30:.4f} GiB; graphs captured in "
+                f"{stats['graph_capture_s']:.2f} s ({stats['decode_graph_captures']} decode, "
+                f"{stats['prefill_graph_captures']} prefill; the serve phase's capture "
+                f"{ref['capture_s']:.2f} s), pool {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
+                f"on {card}")
+            grpc = _Grpc(engine)
+            try:
+                for k in KERNELS.values():
+                    k.launches = 0
+                ids = [grpc.generate([p], stream=True)[0][0] for p in MESH_PROMPTS]
+                counts = {name: k.launches for name, k in KERNELS.items()}
+                after = engine.stats()
+                turns = _walls_in_turns(singles[int8], engine)
+                profiles = [_replay_profile(e) for e in (engine, singles[int8])]
+            finally:
+                grpc.close()
+                singles.pop(int8).release_device_state()
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            say(phase, f"{kv}: kernel launches {counts}")
+            say(phase, f"{kv}: decode graph replays {after['decode_graph_replays']}, prefill "
+                f"graph replays {after['prefill_graph_replays']}, prefills run eagerly "
+                f"{after['prefill_eager']}")
+            for key, label in (("block_ms", "8-step decode block"),
+                               ("prefill_ms", "512-token prefill")):
+                a = [t[key] for t in turns["mesh"]]
+                b = [t[key] for t in turns["single"]]
+                ma, mb = statistics.median(a), statistics.median(b)
+                say(phase, f"{kv}: {label} replay wall at idle, in turns (single, mesh, "
+                    f"mesh, single) x 3, each turn the median of 5 replays: mesh "
+                    f"{ma:.3f} ms (turns {min(a):.3f}-{max(a):.3f}), single-card engine "
+                    f"{mb:.3f} ms ({min(b):.3f}-{max(b):.3f}): {(ma / mb - 1) * 100:+.2f}%, "
+                    f"the captured collectives over a group of one, on {card}")
+            # Per step: the embedding's sum, two sums a layer, the logits'
+            # gather; the decode keys run 2 x (8 + 1) steps, each of the 16
+            # prefill keys one forward.
+            layers = engine.model_cfg.num_layers
+            want_calls = (2 * (8 + 1) + 16) * (2 + 2 * layers)
+            say(phase, f"{kv}: collectives issued inside the graph captures: "
+                f"{captured['all_reduce']} all-reduces, {captured['all_gather']} all-gathers "
+                f"({want_calls} expected: {2 + 2 * layers} a forward over 34 forwards); one "
+                f"decode replay under torch.profiler: {profiles[0][0]} device "
+                f"activities, {profiles[0][1]} of them copies (the single-card "
+                f"engine's: {profiles[1][0]}, {profiles[1][1]})")
+            for prompt, got, want in zip(MESH_PROMPTS, ids, ref["ids"]):
+                check(got == want, f"{kv}: the mesh stream of a {len(prompt)}-character "
+                      f"prompt differs from the serve phase's: {got} against {want}")
+            say(phase, f"{kv}: all {len(ids)} greedy streams token for token the serve "
+                f"phase's ({sum(len(i) for i in ids)} tokens)")
+            check(after["decode_graph_replays"] > 0 and after["prefill_graph_replays"] > 0
+                  and after["prefill_eager"] == 0,
+                  f"{kv}: decode or prefill not all graph replays: {after}")
+            check(captured["all_reduce"] + captured["all_gather"] == want_calls,
+                  f"{kv}: {captured} collectives captured, not {want_calls}")
+            want = ("flash_attention",) + (("paged_attention_decode_int8", "paged_write_int8")
+                                           if int8 else ("paged_attention_decode",
+                                                         "paged_write"))
+            check(all(counts[n] > 0 for n in want), f"{kv}: a kernel was not launched: "
+                  f"{counts}")
+            del engine, grpc
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for engine in singles.values():
+            engine.release_device_state()
+        singles.clear()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(phase, "process group destroyed")
+    return {"launches": launches}
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -4041,6 +4361,9 @@ def main() -> int:
                           int8=int8)
         params = out.pop("params")
         serves[(ragged, int8)] = out
+    mesh = phase_mesh(args.seed, params, dev["smi"],
+                      {int8: serves[(False, int8)]["mesh_ref"] for int8 in (False, True)})
+    sync()
     phase_graph(args.seed, params, dev["smi"])
     sync()
     phase_prefill_graph(args.seed, params, dev["smi"])
@@ -4090,6 +4413,7 @@ def main() -> int:
         f"on {dev['smi']}")
     say("disagg", f"worker kernel launches {disagg['launches']}; starts (s) "
         f"{disagg['boot_s']} (the decode worker's second: its restart) on {dev['smi']}")
+    say("mesh", f"kernel launches {mesh['launches']} on {dev['smi']}")
     say("train", f"kernel launches {train['launches']}; step {train['step_ms']:.1f} ms "
         f"(median), peak {train['peak_gib']:.2f} GiB on {dev['smi']}")
     say("replicas", f"kernel launches {replicas['launches']}; trip to SERVING "

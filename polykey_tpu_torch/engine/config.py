@@ -3,8 +3,12 @@
 The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
-for them fails at startup instead of being served by something else:
-mesh axes above 1 and the reference's spec A/B instrumentation. Local
+for them fails at startup instead of being served by something else: pp
+above 1, a mesh with the ragged dispatch, a draft model, the prefix cache
+or host tier, disaggregated tiers or replicas (`refuse_on_mesh`, A.17),
+and the reference's spec A/B instrumentation. The mesh axes tp, dp, ep,
+sp and num_slices are served (engine/lockstep.py), with the reference's
+geometry checks here and in the engine. Local
 safetensors checkpoints (`checkpoint_path`, `draft_checkpoint_path`;
 models/loader.py), weight-only int8/int4 (`quantize`,
 `quantize_bits`), chunked prefill
@@ -30,6 +34,10 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Optional
+
+
+# The ROADMAP.md item that the mesh engine's refusals name.
+MESH_ITEM = "A.17, the rest of serving over a mesh"
 
 
 def _env_int(name: str, default: int) -> int:
@@ -420,6 +428,14 @@ class EngineConfig:
         for name in ("tp", "dp", "ep", "sp", "pp", "num_slices", "replicas"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
+        if self.sp > 1:
+            chunk = self.prefill_chunk or max(self.prefill_buckets)
+            for b in (*self.prefill_buckets, chunk):
+                if b % self.sp != 0:
+                    raise ValueError(
+                        f"sp={self.sp} must divide every prefill bucket "
+                        f"and the prefill chunk (got {b})"
+                    )
         if self.replica < 0:
             raise ValueError("replica index must be >= 0")
         if self.max_reroutes < 0:
@@ -489,13 +505,33 @@ class EngineConfig:
         unported = [
             (self.spec_host_sync, "spec_host_sync",
              "scripts/occupancy_soak.py's A/B instrumentation"),
-            (max(self.tp, self.dp, self.ep, self.sp, self.pp,
-                 self.num_slices) > 1,
-             "mesh axes above 1", "A.16, serving over a mesh"),
+            (self.pp > 1, "pp above 1 in serving", MESH_ITEM),
         ]
         for refused, knob, item in unported:
             if refused:
                 raise NotImplementedError(
                     f"{knob} is not ported to polykey_tpu_torch yet "
                     f"(ROADMAP.md queue A: {item})"
+                )
+        if max(self.tp, self.dp, self.ep, self.sp, self.num_slices) > 1:
+            self.refuse_on_mesh()
+
+    def refuse_on_mesh(self) -> None:
+        """Raise NotImplementedError, naming ROADMAP.md A.17, for a knob the
+        mesh engine does not serve yet. `validate` calls it when an axis is
+        above 1, and the engine again whenever it takes the mesh path (a
+        process group is up, a group of one included)."""
+        unported = [
+            (self.ragged_dispatch, "ragged_dispatch"),
+            (self.draft_model is not None, "a draft model"),
+            (self.prefix_cache or self.host_kv_bytes > 0,
+             "the prefix cache and the host KV tier"),
+            (bool(self.disagg) or bool(self.disagg_tier), "disaggregated tiers"),
+            (self.replicas > 1, "more than one replica"),
+        ]
+        for refused, knob in unported:
+            if refused:
+                raise NotImplementedError(
+                    f"{knob} over a serving mesh is not ported to "
+                    f"polykey_tpu_torch yet (ROADMAP.md queue A: {MESH_ITEM})"
                 )

@@ -159,10 +159,27 @@ GPU (the reference's engine/engine.py, default path).
   is delivered through the lazy first-token path. `config.disagg_tier`
   scopes ":tier=" faults.
 
+- Serving over a mesh (tp, dp, ep, sp, num_slices; engine/lockstep.py):
+  whenever a torch.distributed process group is up (a group of one
+  included), or a mesh is passed, the engine serves over a mesh of one
+  process per card. It checks the reference's geometry (device count,
+  num_kv_heads % tp, slots % (dp x num_slices), ep only for MoE and
+  dividing num_experts, num_layers % pp), shards the weights as it draws or
+  reads them (parallel/sharding.py) and holds its tp shard of the pools.
+  The mesh's first rank leads: it schedules as above and sends a record of
+  each device dispatch (a prefill with its operands, a lane merge or
+  retire, a decode block) to the followers, which replay them in order on
+  their shards through the same functions and graphs, the collectives
+  captured in them. Decode splits the lanes over dp and gathers the
+  sampled tokens, so every rank's lane state stays the same; a prefill's
+  columns split over sp (models/transformer.forward_paged). Without a
+  group the engine is the single-card one, with no collective.
+
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch; serving over a mesh (A.16: the engine's tp/dp/ep/sp/pp and
-num_slices across processes, lock-step scheduling), so mesh axes above 1
-are refused.
+dispatch; over a mesh (A.17): pp above 1, the ragged dispatch, a draft
+model, the prefix cache and host tier, the disaggregated tiers, replicas,
+a capacity-bucketed MoE under dp or sp, and the supervisor's restart of
+a mesh engine (its factory raises).
 """
 
 from __future__ import annotations
@@ -195,6 +212,8 @@ from ..obs.signals import (
 )
 from ..obs.timeline import TimelineRecorder
 from ..models.transformer import forward_paged, forward_ragged, init_params, unembed
+from ..parallel.collectives import gather_from
+from ..parallel.sharding import shard_params
 from ..ops import (
     flash_attention,
     paged_attention_kernel,
@@ -202,7 +221,8 @@ from ..ops import (
     ragged_paged_attention_kernel,
 )
 from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
-from .config import EngineConfig
+from .config import MESH_ITEM, EngineConfig
+from . import lockstep
 from .graphs import CAPTURE_LOCK, CudaGraphs
 from .kv_cache import (
     AllocationError,
@@ -403,10 +423,15 @@ class EngineOverloadedError(RuntimeError):
         self.retry_after_ms = retry_after_ms
 
 
+class LockstepError(RuntimeError):
+    """A dispatch over a mesh failed after its record went out: the ranks
+    may be out of step, so the engine dies with it (engine/lockstep.py)."""
+
+
 def _prefill_fn(
     params, cfg: ModelConfig, paged: PagedKV,
     tokens, start, last_rel, page_table, seeds, temperature, top_p, top_k,
-    *, greedy: bool, aligned: bool, candidates: int = 0,
+    *, greedy: bool, aligned: bool, candidates: int = 0, mesh=None,
 ):
     """Prefill N windows (tokens [N, T]) at absolute positions
     start[i]..start[i]+T-1 and sample from each hidden state at relative
@@ -414,16 +439,18 @@ def _prefill_fn(
     Padded tail positions write KV that is masked or later overwritten;
     padded group rows point their whole table at the garbage page.
     `aligned` is the caller's host-side knowledge that every start and T
-    are multiples of the page size (the page-granular KV write)."""
+    are multiples of the page size (the page-granular KV write). Over a
+    `mesh` every rank computes every row (T split over sp inside
+    forward_paged) and samples the same tokens."""
     N, T = tokens.shape
     positions = (
         start[:, None] + torch.arange(T, dtype=torch.int32, device=tokens.device)
     ).to(torch.int32)
     hidden, paged = forward_paged(
-        params, cfg, tokens, positions, paged, page_table, aligned=aligned
+        params, cfg, tokens, positions, paged, page_table, aligned=aligned, mesh=mesh
     )
     last = hidden[torch.arange(N, device=tokens.device), last_rel.long()]
-    logits = unembed(params, cfg, last)
+    logits = unembed(params, cfg, last, mesh)
     token = sample_tail(
         logits, seeds, start + last_rel + 1, temperature, top_p, top_k, greedy,
         candidates,
@@ -435,7 +462,7 @@ def _decode_fn(
     params, cfg: ModelConfig, paged: PagedKV,
     last_tokens, seq_lens, page_tables, active, caps, seeds, temperature,
     top_p, top_k,
-    *, greedy: bool, steps: int, eos_id: int, candidates: int = 0,
+    *, greedy: bool, steps: int, eos_id: int, candidates: int = 0, mesh=None,
 ):
     """`steps` decode steps for the whole slot batch in one dispatch.
 
@@ -447,17 +474,29 @@ def _decode_fn(
     reference returns it and donates the old buffers), so a CUDA graph of
     this block reads and writes fixed addresses. Returns the packed
     [steps, B] int32 tokens, -1 where a lane emitted nothing.
+
+    Over a `mesh` each rank computes its dp share of the lanes (a
+    contiguous run, in dp order) and the sampled tokens are all-gathered
+    over dp, so every rank advances the whole lane state the same way.
     """
     last, seq, act = last_tokens, seq_lens, active
+    lanes = slice(None)
+    dp = mesh.shape["dp"] if mesh is not None else 1
+    if dp > 1:
+        b = last_tokens.shape[0] // dp
+        lanes = slice(mesh.coord("dp") * b, (mesh.coord("dp") + 1) * b)
     packed = []
     for _ in range(steps):
         positions = torch.clamp(seq - 1, min=0)[:, None]
         hidden, paged = forward_paged(
-            params, cfg, last[:, None], positions, paged, page_tables
+            params, cfg, last[lanes, None], positions[lanes], paged, page_tables[lanes],
+            mesh=mesh,
         )
-        logits = unembed(params, cfg, hidden[:, 0])
-        tokens = sample_tail(logits, seeds, seq, temperature, top_p, top_k, greedy,
-                             candidates)
+        logits = unembed(params, cfg, hidden[:, 0], mesh)
+        tokens = sample_tail(logits, seeds[lanes], seq[lanes], temperature[lanes],
+                             top_p[lanes], top_k[lanes], greedy, candidates)
+        if dp > 1:
+            tokens = gather_from(tokens, mesh, "dp", 0)
         tokens = torch.where(act, tokens, torch.zeros_like(tokens))
         new_seq = seq + act.to(torch.int32)
         cont = act & (tokens != eos_id) & (new_seq < caps)
@@ -781,16 +820,36 @@ class InferenceEngine:
         seed: int = 0,
         draft_params: Optional[dict] = None,
         reuse: Optional[dict] = None,
+        mesh=None,
     ):
         """`reuse` is another engine's `_ctor_args` (a supervised restart on
         the same config): its weights serve this engine as they are, with
         no checkpoint read, no quantization and no copy, and its seed and
         fingerprint basis are kept, so a durable prefix store warms the
-        fresh engine as it did the old one."""
+        fresh engine as it did the old one. `mesh` is a serving mesh built
+        by `lockstep.serving_mesh` on every rank (a test's ranks build
+        several side by side); None builds it over the whole process group
+        when one is up. `params` are the whole model's on every rank."""
         config.validate()
         self.config = config
         self.device = resolve_device(device)
         self.model_cfg = get_config(config.model)
+        # Serving over a mesh (engine/lockstep.py): the geometry is checked
+        # before any group is made, as the reference checks it.
+        self.mesh = self._serving_mesh(config, mesh)
+        self._leader: Optional[lockstep.Leader] = None
+        self._digest: Optional[lockstep.TokenDigest] = None
+        self.is_follower = False
+        if self.mesh is not None:
+            if self.mesh.rank == lockstep.leader_rank(self.mesh):
+                self._leader = lockstep.Leader(self.mesh)
+            else:
+                self.is_follower = True
+            if lockstep.world(self.mesh) > 1:
+                self._digest = lockstep.TokenDigest()
+        # The last prefill's (tokens, page tables, seeds) on the device, the
+        # operands of the lane merges that follow it.
+        self._last_prefill: Optional[tuple] = None
         self.tokenizer = load_tokenizer(config.tokenizer)
         self.metrics = EngineMetrics()
         self.health = health
@@ -848,12 +907,19 @@ class InferenceEngine:
             # tensor at a time and quantized a layer at a time.
             params = load_checkpoint(config.checkpoint_path, self.model_cfg, self._dtype,
                                      self.device, quantize_bits=bits)
+            if self.mesh is not None:
+                params = shard_params(params, self.model_cfg, self.mesh)
         elif params is None:
+            # Over a mesh each layer is cut to this rank's shard as it is
+            # drawn (the same draws on every rank).
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(self.model_cfg, self._dtype, self.device, gen,
-                                 quantize_bits=bits)
-        elif bits is not None:
-            params = quantize_params(params, self.model_cfg, bits=bits)
+                                 quantize_bits=bits, mesh=self.mesh)
+        else:
+            if bits is not None:
+                params = quantize_params(params, self.model_cfg, bits=bits)
+            if self.mesh is not None:
+                params = shard_params(params, self.model_cfg, self.mesh)
         self.params = params
         self._weight_bytes = params_bytes(params)
         B, P = config.max_decode_slots, config.pages_per_seq
@@ -861,6 +927,7 @@ class InferenceEngine:
         self.paged = init_paged_kv(
             self.model_cfg, config.num_pages, config.page_size,
             pool_dtype, self.device, kv_dtype=kv_q,
+            tp=self.mesh.shape["tp"] if self.mesh is not None else 1,
         )
         # Speculative decoding: the draft model and its own pools, indexed
         # by the same page tables (position -> (page, offset) does not
@@ -1091,9 +1158,86 @@ class InferenceEngine:
         if self.dead is not None:
             raise EngineDeadError(self.dead)
 
+    def _serving_mesh(self, config: EngineConfig, mesh):
+        """The mesh this engine serves over, or None for the single-card
+        engine (no group up, no mesh passed). Checks the reference's
+        geometry in its order before any group is made, then refuses what
+        the mesh engine does not serve yet (A.17)."""
+        import torch.distributed as dist
+
+        group_up = dist.is_available() and dist.is_initialized()
+        n = (config.tp * config.dp * config.ep * config.sp * config.pp
+             * config.num_slices)
+        have = (int(mesh.devices.size) if mesh is not None
+                else dist.get_world_size() if group_up else 1)
+        if n > have:
+            raise ValueError(
+                f"tp={config.tp} x dp={config.dp} x ep={config.ep} x "
+                f"sp={config.sp} x pp={config.pp} x slices={config.num_slices} "
+                f"needs {n} devices, have {have}"
+            )
+        mc = self.model_cfg
+        if mc.num_kv_heads % config.tp != 0:
+            raise ValueError(
+                f"tp={config.tp} must divide num_kv_heads={mc.num_kv_heads} ({mc.name})"
+            )
+        total_dp = config.dp * config.num_slices
+        if config.max_decode_slots % total_dp != 0:
+            raise ValueError(
+                f"dp={config.dp} x num_slices={config.num_slices} must divide "
+                f"max_decode_slots={config.max_decode_slots}"
+            )
+        if config.ep > 1:
+            if not mc.is_moe:
+                raise ValueError(
+                    f"ep={config.ep} requires an MoE model ({mc.name} has no experts)"
+                )
+            if mc.num_experts % config.ep != 0:
+                raise ValueError(
+                    f"ep={config.ep} must divide num_experts={mc.num_experts}"
+                )
+        if mc.num_layers % config.pp != 0:
+            raise ValueError(
+                f"pp={config.pp} must divide num_layers={mc.num_layers}"
+            )
+        if mesh is None and not group_up:
+            return None
+        config.refuse_on_mesh()
+        if mc.is_moe and mc.moe_dispatch and (total_dp > 1 or config.sp > 1):
+            # The capacity-bucketed dispatch drops by position in the whole
+            # batch; a rank's share of it would drop other tokens.
+            raise NotImplementedError(
+                f"{mc.name}'s capacity-bucketed MoE under dp or sp is not ported "
+                f"to polykey_tpu_torch yet (ROADMAP.md queue A: {MESH_ITEM})"
+            )
+        if mesh is None:
+            if n != have:
+                raise ValueError(
+                    f"the mesh spans {n} processes but the group has {have}: "
+                    "serving runs one process per card, every one in the mesh"
+                )
+            mesh = lockstep.serving_mesh(config, device=self.device)
+        want = {"dp": total_dp, "pp": config.pp, "sp": config.sp, "ep": config.ep,
+                "tp": config.tp}
+        if mesh.shape != want:
+            raise ValueError(f"mesh {mesh.shape} is not the config's {want}")
+        if mesh.control is None:
+            raise ValueError("a serving mesh needs its control group "
+                             "(engine/lockstep.serving_mesh)")
+        return mesh
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the engine thread to end (on a follower, the leader's
+        shutdown record or a failure ends it); True once it has."""
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
     # -- public API (any thread) -------------------------------------------
 
     def submit(self, request: GenRequest) -> None:
+        if self.is_follower:
+            raise EngineDeadError("a follower rank of the mesh takes no requests: "
+                                  "its leader (the mesh's first rank) serves them")
         if self.dead is not None:
             raise EngineDeadError(self.dead)
         if self._stop.is_set():
@@ -1193,6 +1337,8 @@ class InferenceEngine:
                 name: k.launches for name, k in KERNELS.items()
             },
         })
+        if self.mesh is not None:
+            snap["mesh"] = self._mesh_stats()
         if self._tier is not None:
             snap["disagg_tier"] = self._tier
             snap["handoff_exports"] = self._handoff_exports
@@ -1224,6 +1370,25 @@ class InferenceEngine:
         snap["kv_device_pages"] = self.config.num_pages - 1 - self.allocator.num_free
         snap["kv_reloaded_pages"] = self._kv_reloaded_pages
         return snap
+
+    def _mesh_stats(self) -> dict:
+        """The mesh this engine serves over and this rank's place in it;
+        `kv_pool_bytes` beside it is this rank's shard of the pools."""
+        leader = self._leader
+        out = {
+            "axes": dict(self.mesh.shape),
+            "rank": self.mesh.rank,
+            "world": lockstep.world(self.mesh),
+            "role": "follower" if self.is_follower else "leader",
+        }
+        if leader is not None:
+            out["records_sent"] = leader.records
+            out["record_messages"] = leader.messages
+            out["heartbeats"] = leader.heartbeats
+        if self._digest is not None:
+            out["decode_blocks_hashed"] = self._digest.blocks
+            out["tokens_digest"] = self._digest.hexdigest
+        return out
 
     def _spec_stats(self) -> dict:
         """The reference's spec keys: the dispatch rung and its cap, the
@@ -1397,76 +1562,12 @@ class InferenceEngine:
                 self._graphs.warm()
                 self.last_progress = time.monotonic()
                 self._started.set()
-                while not self._stop.is_set():
-                    if self.dead is not None:
-                        break       # the watchdog tripped while we were out
-                    # With live decode lanes, admissions and chunks share
-                    # the per-iteration prefill budget; with none there is
-                    # no stream to stall and the budget is waived.
-                    decode_live = bool(self._active.any())
-                    budget = self._prefill_budget if decode_live else None
-                    worked, spent = self._admit(budget)
-                    if self.dead is not None:
-                        break       # tripped while this iteration ran
-                    # Restore frontier: faulting slots' host pages go back
-                    # to the device ahead of this iteration's dispatches.
-                    if self._host_kv is not None and self._issue_restores():
-                        worked = True
-                    if not self._ragged:
-                        remaining = None if budget is None else max(0, budget - spent)
-                        chunked = self._advance_chunked_prefills(remaining)
-                        worked = worked or chunked > 0
-                        self.metrics.on_prefill_interleave(spent + chunked, decode_live)
-                    if self.dead is not None:
-                        break
-                    # Dispatch frontier: keep up to `_depth_target` blocks
-                    # in flight, the one dispatched now included.
-                    dispatched = False
-                    if self._active.any() or (
-                        self._ragged and self._has_pending_prefill()
-                    ):
-                        block = self._dispatch_step()
-                        if self.dead is not None or self._stop.is_set():
-                            # Woke from a fault's sleep into a dead or
-                            # stopped engine: touch the device no more.
-                            break
-                        worked = True
-                        if block is not None:
-                            self._inflight_q.append(block)
-                            dispatched = True
-                        del block
-                    # First tokens whose copies have landed, after the
-                    # dispatch: the prefill's device time overlaps the
-                    # block's, and its read never blocks the loop.
-                    self._resolve_prefills()
-                    # Processed frontier: process down to `_depth_target -
-                    # 1` queued blocks, and any older block whose copy has
-                    # landed, but keep the freshest in flight at depth > 1:
-                    # block N is read after block N + 1 is dispatched.
-                    # Iterations that dispatched nothing drain it all.
-                    target = max(0, self._depth_target - 1) if dispatched else 0
-                    floor = 1 if (dispatched and self._depth > 1) else 0
-                    while self._inflight_q and (
-                        len(self._inflight_q) > target
-                        or (len(self._inflight_q) > floor
-                            and self._block_ready(self._inflight_q[0]))
-                    ):
-                        self._process_step(self._inflight_q.popleft())
-                        worked = True
-                    # A signal-plane sample at the block boundary (idle
-                    # iterations reach here too, at the idle tick's rate):
-                    # time-gated, host counters only, never a device read.
-                    signals = self.metrics.signals
-                    if signals is not None:
-                        signals.maybe_sample()
-                    if not worked:
-                        self.metrics.on_dispatch_idle()
-                        self._resolve_prefills(block=True)
-                        self._wake.wait(timeout=0.05)
-                        self._wake.clear()
-                    # Idle time is not a stall: both kinds of iteration
-                    # stamp the watchdog's clock.
-                    self.last_progress = time.monotonic()
+                if self.is_follower:
+                    lockstep.follow(self)   # until the leader's "shutdown"
+                else:
+                    self._serve()
+                if self._digest is not None:
+                    self._digest.drain(block=True)
             # A dead engine fails its work on the host alone (`_finish`
             # retires no lane once `dead` is set).
             self._fail_all(self.dead or "engine is shut down")
@@ -1483,7 +1584,86 @@ class InferenceEngine:
             if self.health is not None and not self._stop.is_set():
                 self.health.shutdown()
         finally:
+            if self._leader is not None:
+                self._leader.close()    # the followers stop with the leader
             self._started.set()     # also when the capture failed
+
+    def _serve(self) -> None:
+        """The engine loop (the leader's, over a mesh)."""
+        while not self._stop.is_set():
+            if self.dead is not None:
+                break       # the watchdog tripped while we were out
+            # With live decode lanes, admissions and chunks share
+            # the per-iteration prefill budget; with none there is
+            # no stream to stall and the budget is waived.
+            decode_live = bool(self._active.any())
+            budget = self._prefill_budget if decode_live else None
+            worked, spent = self._admit(budget)
+            if self.dead is not None:
+                break       # tripped while this iteration ran
+            # Restore frontier: faulting slots' host pages go back
+            # to the device ahead of this iteration's dispatches.
+            if self._host_kv is not None and self._issue_restores():
+                worked = True
+            if not self._ragged:
+                remaining = None if budget is None else max(0, budget - spent)
+                chunked = self._advance_chunked_prefills(remaining)
+                worked = worked or chunked > 0
+                self.metrics.on_prefill_interleave(spent + chunked, decode_live)
+            if self.dead is not None:
+                break
+            # Dispatch frontier: keep up to `_depth_target` blocks
+            # in flight, the one dispatched now included.
+            dispatched = False
+            if self._active.any() or (
+                self._ragged and self._has_pending_prefill()
+            ):
+                block = self._dispatch_step()
+                if self.dead is not None or self._stop.is_set():
+                    # Woke from a fault's sleep into a dead or
+                    # stopped engine: touch the device no more.
+                    break
+                worked = True
+                if block is not None:
+                    self._inflight_q.append(block)
+                    dispatched = True
+                del block
+            # First tokens whose copies have landed, after the
+            # dispatch: the prefill's device time overlaps the
+            # block's, and its read never blocks the loop.
+            self._resolve_prefills()
+            # Processed frontier: process down to `_depth_target -
+            # 1` queued blocks, and any older block whose copy has
+            # landed, but keep the freshest in flight at depth > 1:
+            # block N is read after block N + 1 is dispatched.
+            # Iterations that dispatched nothing drain it all.
+            target = max(0, self._depth_target - 1) if dispatched else 0
+            floor = 1 if (dispatched and self._depth > 1) else 0
+            while self._inflight_q and (
+                len(self._inflight_q) > target
+                or (len(self._inflight_q) > floor
+                    and self._block_ready(self._inflight_q[0]))
+            ):
+                self._process_step(self._inflight_q.popleft())
+                worked = True
+            if self._digest is not None:
+                self._digest.drain()
+            # A signal-plane sample at the block boundary (idle
+            # iterations reach here too, at the idle tick's rate):
+            # time-gated, host counters only, never a device read.
+            signals = self.metrics.signals
+            if signals is not None:
+                signals.maybe_sample()
+            if not worked:
+                self.metrics.on_dispatch_idle()
+                self._resolve_prefills(block=True)
+                if self._leader is not None:
+                    self._leader.heartbeat()
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+            # Idle time is not a stall: both kinds of iteration
+            # stamp the watchdog's clock.
+            self.last_progress = time.monotonic()
 
     def _bucket_for(self, length: int) -> Optional[int]:
         for b in self.config.prefill_buckets:
@@ -1774,15 +1954,31 @@ class InferenceEngine:
         if self._faults is not None:
             self._faults.maybe_raise("prefill-error", replica=self.replica_id,
                                      tier=self._tier)
-        ops = self._prefill_ops[n_pad]
-        ops.upload(tokens, starts, last_rel, tables, seeds, temp, top_p, top_k)
         ps = cfg.page_size
-        toks_dev = self._graphs.run(
-            "prefill", width, n_pad, bool(np.all(temp == 0.0)),
-            width % ps == 0 and not np.any(starts % ps),
-        )
+        args = (width, n_pad, bool(np.all(temp == 0.0)),
+                width % ps == 0 and not np.any(starts % ps),
+                (tokens, starts, last_rel, tables, seeds, temp, top_p, top_k))
+        if self._leader is None:
+            return self._prefill_dispatch(*args)
+        try:
+            self._leader.send(lockstep.Record("prefill", args))
+            return self._prefill_dispatch(*args)
+        except Exception as e:
+            raise LockstepError(f"mesh prefill failed: {e}") from e
+
+    def _prefill_dispatch(self, width: int, n_pad: int, greedy: bool, aligned: bool,
+                          arrays: tuple):
+        """Upload a prefill's operand `arrays` (`PrefillOperands.upload`'s
+        order) into the group pad's fixed buffers and replay the graph of
+        (width, n_pad, greedy, aligned); a follower replays a prefill
+        record here. Returns (and keeps, for the merges after it) the
+        sampled tokens and the device tables and seeds the dispatch read."""
+        ops = self._prefill_ops[n_pad]
+        ops.upload(*arrays)
+        toks_dev = self._graphs.run("prefill", width, n_pad, greedy, aligned)
         _, _, _, tables_dev, seeds_dev, *_ = ops.views(width)
-        return toks_dev, tables_dev, seeds_dev
+        self._last_prefill = (toks_dev, tables_dev, seeds_dev)
+        return self._last_prefill
 
     def _prefill_body(self, width: int, n_pad: int, greedy: bool,
                       aligned: bool) -> torch.Tensor:
@@ -1801,7 +1997,7 @@ class InferenceEngine:
             return token
         token, self.paged = _prefill_fn(
             self.params, self.model_cfg, self.paged, *ops, greedy=greedy,
-            aligned=aligned, candidates=cand,
+            aligned=aligned, candidates=cand, mesh=self.mesh,
         )
         return token
 
@@ -1824,6 +2020,10 @@ class InferenceEngine:
             slot.prompt_ids = None
         try:
             toks_dev, tables, seeds = self._run_prefill(rows, bucket, n_pad)
+        except LockstepError as e:
+            for slot_idx in group:
+                self._finish(slot_idx, error=str(e))
+            raise
         except Exception as e:
             # Contain the failure to this group: every member is registered
             # and must be finished, or its pages leak and its client hangs.
@@ -1850,10 +2050,12 @@ class InferenceEngine:
             slot.pending = None
             return
         top_k = self._eff_top_k(request)
+        merge = (slot_idx, row, slot.prompt_len + 1, slot.position_cap,
+                 float(request.temperature), float(request.top_p), top_k)
+        if self._leader is not None:
+            self._leader.queue(lockstep.Record("merge", merge))
         _merge_lane_fn(
-            self._dev, slot_idx, toks_dev, row, slot.prompt_len + 1,
-            slot.position_cap, float(request.temperature),
-            float(request.top_p), top_k, table_row, seed_row,
+            self._dev, slot_idx, toks_dev, row, *merge[2:], table_row, seed_row,
             eos_id=self.tokenizer.eos_id,
             gamma_reset=max(self._gamma_max, 1) if self._spec else None,
         )
@@ -2135,6 +2337,9 @@ class InferenceEngine:
         final = slot.filled + take >= len(slot.pending)
         try:
             token_dev, tables, seeds = self._run_prefill([(slot, ids, slot.filled)], C, 1)
+        except LockstepError as e:
+            self._finish(slot_idx, error=str(e))
+            raise
         except Exception as e:
             self._finish(slot_idx, error=f"prefill failed: {e}")
             return 0
@@ -2406,8 +2611,12 @@ class InferenceEngine:
         )
         gap_ms = self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
         live = tuple(int(i) for i in np.flatnonzero(act))
+        if self._leader is not None:
+            self._leader.send(lockstep.Record("decode", (greedy, steps)))
         packed = self._graphs.run("decode", greedy, steps)
         host, event = self._copy_to_host(packed)
+        if self._digest is not None:
+            self._digest.add(host, event)
         self._dispatch_seq += 1
         if self.timeline is not None:
             self.timeline.dispatch(self._dispatch_seq, "plain", lanes, steps, gap_ms)
@@ -2424,8 +2633,29 @@ class InferenceEngine:
             dev["active"], dev["caps"], dev["seeds"], dev["temperature"],
             dev["top_p"], dev["top_k"],
             greedy=greedy, steps=steps, eos_id=self.tokenizer.eos_id,
-            candidates=self.config.top_p_candidates,
+            candidates=self.config.top_p_candidates, mesh=self.mesh,
         )
+
+    def _replay(self, record: lockstep.Record) -> None:
+        """A follower's application of one of the leader's records, through
+        the functions and graphs the leader ran (engine/lockstep.py)."""
+        kind, args = record
+        if kind == "prefill":
+            self._prefill_dispatch(*args)
+        elif kind == "merge":
+            toks, tables, seeds = self._last_prefill
+            slot, row = args[:2]
+            _merge_lane_fn(self._dev, slot, toks, row, *args[2:], tables[row], seeds[row],
+                           eos_id=self.tokenizer.eos_id)
+        elif kind == "retire":
+            _retire_lane_fn(self._dev, *args)
+        elif kind == "decode":
+            # Copied out like the leader's block before any other replay
+            # (engine/graphs.py), and hashed.
+            self._digest.add(*self._copy_to_host(self._graphs.run("decode", *args)))
+        elif kind != "heartbeat":
+            raise ValueError(f"unknown lock-step record {kind!r}")
+        self.last_progress = time.monotonic()
 
     def _dispatch_spec(self, act, cand: int) -> _InflightBlock:
         """Dispatch one draft/verify round at the current rung, a replay of
@@ -2721,6 +2951,8 @@ class InferenceEngine:
         self._top_p[slot_idx] = 1.0
         self._top_k[slot_idx] = 0
         if slot.merged and self.dead is None:
+            if self._leader is not None:
+                self._leader.queue(lockstep.Record("retire", (slot_idx,)))
             _retire_lane_fn(self._dev, slot_idx)
         if error is not None:
             self._fail_request(request, error)

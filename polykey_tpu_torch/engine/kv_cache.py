@@ -169,11 +169,16 @@ class PagedKV:
 def init_paged_kv(
     cfg: ModelConfig, num_pages: int, page_size: int,
     dtype: torch.dtype = torch.bfloat16, device="cpu",
-    kv_dtype: Optional[torch.dtype] = None,
+    kv_dtype: Optional[torch.dtype] = None, tp: int = 1,
 ) -> PagedKV:
     """`kv_dtype=torch.int8` builds quantized pools (+ bf16 scale pools);
-    None keeps the full-precision layout in `dtype`."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    None keeps the full-precision layout in `dtype`. Over a serving mesh
+    the pools are one tp rank's shard (parallel/sharding.paged_kv_spec and
+    paged_kv_scale_spec): its num_kv_heads / `tp` heads, the scale pools
+    split on their last dimension; they are replicated over dp and sp."""
+    if cfg.num_kv_heads % tp:
+        raise ValueError(f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads}")
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
     if kv_dtype == torch.int8:
         return PagedKV(
             k=torch.zeros(shape, dtype=torch.int8, device=device),

@@ -17,6 +17,14 @@ The backend is selected as in the reference: ``POLYKEY_BACKEND=engine``
 (gateway/torch_service.py); the default stays the dependency-free mock.
 The engine runs on the GPU unless ``POLYKEY_DEVICE=cpu`` asks for the CPU.
 
+Serving over a mesh: every rank starts this entry point with
+``POLYKEY_COORDINATOR`` (host:port of rank 0), ``POLYKEY_NUM_PROCESSES``
+and ``POLYKEY_PROCESS_ID`` set, and the axes in ``POLYKEY_TP`` /
+``POLYKEY_DP`` / ``POLYKEY_EP`` / ``POLYKEY_SP`` / ``POLYKEY_NUM_SLICES``;
+each binds ``cuda:<rank % device_count>``. Rank 0 serves gRPC; every other
+rank replays rank 0's dispatches (engine/lockstep.py), binds no port and
+exits when rank 0 stops.
+
 Run: ``POLYKEY_BACKEND=engine python -m polykey_tpu_torch.gateway.server``
 """
 
@@ -240,6 +248,28 @@ def start_metrics_server(obs: Observability, logger: Logger, service=None,
     return metrics_server
 
 
+def follow(service, engine, logger: Logger) -> int:
+    """A follower rank's life (engine/lockstep.py): no gRPC port, no
+    metrics endpoint; the engine thread replays the leader's records until
+    the leader's shutdown record, or until a signal here. Returns the
+    process's exit code: 1 when the engine failed."""
+    stop = {"signal": None}
+
+    def _on_signal(signum, _frame):
+        stop["signal"] = signum
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, _on_signal)
+    logger.info("mesh follower replaying the leader's dispatches",
+                **engine.stats()["mesh"])
+    while stop["signal"] is None and not engine.join(0.1):
+        pass
+    dead = engine.dead
+    service.close()
+    logger.info("mesh follower stopped", error=dead or "")
+    return 1 if dead else 0
+
+
 def serve(service: Optional[Service] = None, address: Optional[str] = None) -> None:
     """Process entry point: serve until SIGINT/SIGTERM."""
     logger = Logger(level=os.environ.get("POLYKEY_LOG_LEVEL", "info"))
@@ -253,6 +283,9 @@ def serve(service: Optional[Service] = None, address: Optional[str] = None) -> N
         except Exception as e:
             logger.error("failed to initialize backend", error=str(e))
             raise SystemExit(1)
+    engine = getattr(service, "engine", None)
+    if getattr(engine, "is_follower", False):
+        raise SystemExit(follow(service, engine, logger))
     try:
         server, health, _ = build_server(service, logger, address, health=health,
                                          obs=obs)

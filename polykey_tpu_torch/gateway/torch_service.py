@@ -46,7 +46,7 @@ from typing import Iterator, Optional
 
 from google.protobuf import struct_pb2
 
-from ..engine.config import EngineConfig
+from ..engine.config import MESH_ITEM, EngineConfig
 from ..engine.engine import (
     DEADLINE_MSG,
     EngineDeadError,
@@ -156,11 +156,18 @@ class TorchService(Service):
         service.watchdog = watchdog
         if config.supervise:
             device = engine.device
-            factory = engine_factory or (
-                lambda: InferenceEngine(config, device=device, health=health,
-                                        logger=logger,
-                                        reuse=service.engine._ctor_args)
-            )
+
+            def restart():
+                if engine.mesh is not None:
+                    # Every rank would have to rebuild in step; the mesh
+                    # goes NOT_SERVING and the platform restarts it.
+                    raise NotImplementedError(
+                        "the in-process restart of a mesh engine is not ported to "
+                        f"polykey_tpu_torch yet (ROADMAP.md queue A: {MESH_ITEM})")
+                return InferenceEngine(config, device=device, health=health, logger=logger,
+                                       reuse=service.engine._ctor_args)
+
+            factory = engine_factory or restart
             supervisor = EngineSupervisor(
                 engine, factory, watchdog=watchdog, health=health, logger=logger,
                 recorder=recorder, restart_counter=service.restart_counter,
@@ -212,6 +219,8 @@ class TorchService(Service):
                 slots=config.max_decode_slots,
                 pages=config.num_pages, page_size=config.page_size,
                 supervise=config.supervise,
+                mesh=(engine.stats()["mesh"]
+                      if getattr(engine, "mesh", None) is not None else None),
             )
         return service
 

@@ -19,8 +19,10 @@ the reference's GSPMD places them: each rank runs its local heads and MLP
 columns, the row-parallel wo/down outputs are summed over tp, the
 vocabulary-split embedding is looked up locally and summed over tp, and
 the logits are gathered over tp (parallel/collectives.py gives each its
-gradient). Sequence parallelism mounts through `make_sp_override`. The
-serving paths (`forward_paged`, `forward_ragged`) stay single-device.
+gradient). Sequence parallelism mounts through `make_sp_override`.
+`forward_paged` serves over a mesh too (the reference's shard_mapped
+kernels): tp's local heads, a decode batch's dp lanes, a prefill window's
+sp columns. `forward_ragged` stays single-device.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ def init_params(
     device="cpu",
     generator: Optional[torch.Generator] = None,
     quantize_bits: Optional[int] = None,
+    mesh=None,
 ) -> dict:
     """Random weights drawn like the reference's init_params: normal x
     fan-in^-0.5 for every matrix (a MoE router hidden^-0.5, the experts'
@@ -81,7 +84,20 @@ def init_params(
     drawn, then the embedding and lm_head, so only one layer is ever held
     in `dtype`: the same tree as `quantize_params(init_params(...))` from
     the same generator, for a model whose `dtype` weights do not fit on
-    the card."""
+    the card.
+
+    With `mesh` (a serving mesh, pp == 1) each layer, then the embedding
+    and lm_head, is cut to this rank's tp/ep shard as soon as it is drawn
+    (and quantized): `shard_params(init_params(...), cfg, mesh)` from the
+    same generator, holding one whole layer at a time."""
+    if mesh is not None:
+        from ..parallel.sharding import shard_tree
+
+        def shard(name, node):
+            return shard_tree({name: node}, mesh)[name]
+    else:
+        def shard(name, node):
+            return node
     h, d, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
 
@@ -118,16 +134,17 @@ def init_params(
             layer["post_ln2"] = norm_init()
         if quantize_bits is not None:
             layer = quantize_tree(layer, quantize_bits)
-        layers.append(layer)
+        layers.append(shard("layers", [layer])[0])
     embed = normal((cfg.vocab_size, h), h)
     params = {
-        "embed": embed if quantize_bits is None else quantize_embed(embed),
+        "embed": shard("embed", embed if quantize_bits is None else quantize_embed(embed)),
         "layers": layers,
         "final_norm": norm_init(),
     }
     if not cfg.tie_embeddings:
         head = normal((h, cfg.vocab_size), h)
-        params["lm_head"] = head if quantize_bits is None else quantize(head, bits=8)
+        params["lm_head"] = shard(
+            "lm_head", head if quantize_bits is None else quantize(head, bits=8))
     return params
 
 
@@ -293,6 +310,7 @@ def forward_paged(
     page_tables: torch.Tensor,   # [B, P] int32
     *,
     aligned: Optional[bool] = None,
+    mesh=None,                   # serving mesh (parallel/mesh.py), pp == 1
 ):
     """Forward pass over the paged KV cache; returns (hidden [B, T, H],
     paged). New K/V are written into the pools in place before attention
@@ -301,7 +319,20 @@ def forward_paged(
     `aligned` (see ops.paged_attention.paged_write) is decided once for
     all layers: by the caller on the host, or here from `positions`. With
     int8 pools (`paged.quantized`) each layer's cache operands are
-    (values, scales) pairs, on which the write and read ops dispatch."""
+    (values, scales) pairs, on which the write and read ops dispatch.
+
+    Over a mesh, as the reference shards it: `params` and the pools are
+    this rank's tp shards (its local heads; the same kernels run on
+    them). A decode batch is this rank's dp share of the lanes: its new
+    K/V rows, page tables and positions are all-gathered over dp before
+    the write, since every replica of the pools holds every lane; under
+    sp each rank reads a page sub-range and the states merge over sp
+    (ops.paged_attention_kernel.paged_attention_decode). A prefill batch
+    is whole on every rank and its T columns split over sp: each rank
+    computes its T / sp columns, K and V are all-gathered over sp before
+    the write, flash runs the rank's query block against the whole window
+    from the pools, and the hidden states are gathered back, so the result
+    is [B, T, H] on every rank."""
     from ..ops.paged_attention import paged_attention, paged_write, positions_aligned
     from ..ops.paged_attention_kernel import paged_attention_decode
 
@@ -310,22 +341,43 @@ def forward_paged(
     op = paged_attention_decode if decode else paged_attention
     if aligned is None and not decode and T % ps == 0:
         aligned = positions_aligned(positions, ps)
+    shape = mesh.shape if mesh is not None else {}
+    gather_dp = decode and shape.get("dp", 1) > 1        # KV rows over dp
+    split_sp = not decode and shape.get("sp", 1) > 1     # columns over sp
+    write_tables, write_pos = page_tables, positions
+    if gather_dp:
+        write_tables = gather_from(page_tables, mesh, "dp", 0)
+        write_pos = gather_from(positions, mesh, "dp", 0)
+    if split_sp:
+        n = T // shape["sp"]
+        cols = slice(mesh.coord("sp") * n, (mesh.coord("sp") + 1) * n)
+        tokens, positions = tokens[:, cols], positions[:, cols]
+    # The decode op splits its pages over sp; flash decides on the whole
+    # window's T, as the reference's shard_map does, not on the block's.
+    kw = {"mesh": mesh} if decode else {"dispatch_T": T}
 
     def attend(layer_idx, q, k, v):
         kc, vc = paged.layer(layer_idx)
-        paged_write(kc, vc, k, v, page_tables, positions, aligned=aligned)
+        if gather_dp or split_sp:
+            kv = gather_from(torch.cat([k, v], dim=-1), mesh,
+                             "dp" if gather_dp else "sp", 0 if gather_dp else 1)
+            k, v = (t.contiguous() for t in kv.split(k.shape[-1], dim=-1))
+        paged_write(kc, vc, k, v, write_tables, write_pos, aligned=aligned)
         return op(
             q, kc, vc, page_tables, positions,
             scale=cfg.q_scale,
             logit_softcap=cfg.attn_logit_softcap,
             window=layer_window(cfg, layer_idx),
+            **kw,
         )
 
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, mesh)
     for i, layer in enumerate(params["layers"]):
-        x = apply_layer(layer, i, x, positions, cfg, attend)
+        x = apply_layer(layer, i, x, positions, cfg, attend, mesh)
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, norm_offset)
+    if split_sp:
+        x = gather_from(x, mesh, "sp", 1)
     return x, paged
 
 

@@ -113,10 +113,14 @@ def flash_attention(
     scale: float,
     logit_softcap: Optional[float] = None,
     window=None,
+    dispatch_T: Optional[int] = None,
 ) -> torch.Tensor:
-    """Blockwise attention; returns [B, T, Hq, D] in q's dtype."""
+    """Blockwise attention; returns [B, T, Hq, D] in q's dtype.
+    `dispatch_T` is the T the gate decides on, when q is one sp rank's
+    block of a longer query (the reference's shard_map decides on the
+    whole window's T and then forces the kernel on each block)."""
     T, S, D = q.shape[1], k.shape[1], q.shape[3]
-    if q.device.type == "cuda" and use_flash(T, S, D):
+    if q.device.type == "cuda" and use_flash(dispatch_T or T, S, D):
         return flash_attention_cuda(
             q, k, v, q_positions.to(torch.int32).contiguous(),
             scale=scale, logit_softcap=logit_softcap, window=window,

@@ -47,12 +47,14 @@ def paged_attention(
     scale: float,
     logit_softcap: Optional[float] = None,
     window=None,
+    dispatch_T: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over paged KV; returns [B, T, Hq, D]. Slot j of the
     gathered window holds position j, so the absolute-position mask hides
     unwritten slots and garbage-page tails, and the window is a valid
     input for the flash kernel at prefill widths. int8 pools (pairs) are
-    gathered with their scales and dequantized into q's dtype."""
+    gathered with their scales and dequantized into q's dtype.
+    `dispatch_T`: as in flash_attention (an sp rank's query block)."""
     if isinstance(k_pages, tuple):
         (kq, ks_pool), (vq, vs_pool) = k_pages, v_pages
         k, v = paged_gather_kv(kq, vq, page_tables)
@@ -65,7 +67,7 @@ def paged_attention(
         k, v = paged_gather_kv(k_pages, v_pages, page_tables)
     return flash_attention(
         q, k, v, q_positions,
-        scale=scale, logit_softcap=logit_softcap, window=window,
+        scale=scale, logit_softcap=logit_softcap, window=window, dispatch_T=dispatch_T,
     )
 
 

@@ -291,6 +291,39 @@ def use_quantized_paged_kernel() -> bool:
     return use_paged_kernel()
 
 
+def sp_page_range(num_pages: int, sp: int, s: int) -> tuple[int, int]:
+    """Rank `s`'s page sub-range of a table of `num_pages` pages split over
+    `sp` ranks, as the reference splits it: [s * c, min(P, (s + 1) * c))
+    with c = ceil(P / sp), empty (clipped to P) past the table's end."""
+    chunk = -(-num_pages // sp)
+    lo = min(num_pages, s * chunk)
+    return lo, min(num_pages, lo + chunk)
+
+
+def merge_split_states(states) -> tuple:
+    """The state (acc, m, l) of the softmax over the union of the page
+    sub-ranges whose unnormalized states are `states` [(acc, m, l)]: the
+    largest m, then each part's l and acc rescaled by exp(m - m_max) and
+    summed. A part with no rows (m = -1e30, l = 0, acc = 0) adds nothing."""
+    m_g = torch.stack([m for _, m, _ in states]).amax(dim=0)
+    acc = sum(a * torch.exp(m - m_g) for a, m, _ in states)
+    l = sum(l_ * torch.exp(m - m_g) for _, m, l_ in states)
+    return acc, m_g, l
+
+
+def _merge_over_sp(acc, m, l, mesh) -> tuple:
+    """merge_split_states over the mesh's sp axis: all-reduce MAX of m,
+    then one all-reduce SUM of the rescaled (acc, l)."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import all_reduce
+
+    m_g = all_reduce(m, mesh, "sp", op=dist.ReduceOp.MAX)
+    corr = torch.exp(m - m_g)
+    both = all_reduce(torch.cat([acc * corr, l * corr], dim=-1), mesh, "sp")
+    return both[..., :-1], both[..., -1:]
+
+
 def paged_attention_decode(
     q: torch.Tensor,             # [B, 1, Hq, D]
     k_pages,                     # [N, ps, Hk, D], or an int8 (values, scales) pair
@@ -301,8 +334,14 @@ def paged_attention_decode(
     scale: float,
     logit_softcap: Optional[float] = None,
     window=None,
+    mesh=None,
 ) -> torch.Tensor:
-    """Decode-step paged attention; returns [B, 1, Hq, D]."""
+    """Decode-step paged attention; returns [B, 1, Hq, D]. Over a serving
+    mesh whose sp axis is above 1 (the reference's context-parallel
+    decode) each sp rank reads its page sub-range (`sp_page_range`) and
+    the partial states merge over sp (`_merge_over_sp`); the pools are
+    replicated over sp, so the split shares out the reads. Heads and lanes
+    are the caller's local ones (tp, dp)."""
     gate = use_quantized_paged_kernel if isinstance(k_pages, tuple) else use_paged_kernel
     if not gate():
         from .paged_attention import paged_attention
@@ -312,12 +351,18 @@ def paged_attention_decode(
             scale=scale, logit_softcap=logit_softcap, window=window,
         )
     B = q.shape[0]
+    sp = mesh.shape["sp"] if mesh is not None else 1
+    page_range = (sp_page_range(page_tables.shape[1], sp, mesh.coord("sp"))
+                  if sp > 1 else None)
     op = paged_decode_cuda if q.device.type == "cuda" else paged_decode_plain
-    acc, _, l = op(
+    acc, m, l = op(
         q[:, 0].contiguous(), k_pages, v_pages,
         page_tables.to(torch.int32).contiguous(),
         q_positions.reshape(B).to(torch.int32).contiguous(),
         scale=scale, logit_softcap=logit_softcap, window=window,
+        page_range=page_range,
     )
+    if sp > 1:
+        acc, l = _merge_over_sp(acc, m, l, mesh)
     out = acc / torch.clamp(l, min=1e-9)
     return out.to(q.dtype)[:, None]

@@ -19,7 +19,8 @@ whose backward is the collective's transpose:
 
 Every call communicates, over a group of one too. Axes may be one name or
 a tuple of names (reduced one after another). `all_reduce` is the plain
-sum with no gradient, for counts and reported losses.
+sum (or another reduction) with no gradient, for counts, reported losses
+and the serving path's split-softmax merge.
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ def _axes(axes: Axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
-    """Sum of `x` over `axes` (a new tensor; no gradient)."""
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum (or `op`, e.g. ReduceOp.MAX) of `x` over `axes` (a new tensor; no
+    gradient)."""
     y = x.detach().clone()
     for axis in _axes(axes):
-        dist.all_reduce(y, group=mesh.group(axis))
+        dist.all_reduce(y, op=op, group=mesh.group(axis))
     return y
 
 

@@ -55,13 +55,16 @@ class Mesh:
     """This rank's view of the mesh: `devices`, the global ranks laid out
     over AXIS_NAMES; `rank`, this process's global rank; `device`, where
     its tensors live; `groups`, its process group on each axis (empty for
-    a layout-only mesh, which can place shards but not communicate)."""
+    a layout-only mesh, which can place shards but not communicate);
+    `control`, a serving mesh's gloo group over all its ranks, which
+    carries the lock-step records (engine/lockstep.py)."""
 
     devices: np.ndarray
     rank: int
     device: torch.device = torch.device("cpu")
     groups: dict = field(default_factory=dict)
     axis_names: tuple = AXIS_NAMES
+    control: Optional[object] = None
 
     @property
     def shape(self) -> dict:

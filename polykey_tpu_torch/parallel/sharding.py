@@ -152,16 +152,23 @@ def shard_params(params: dict, cfg: ModelConfig, mesh: Mesh) -> dict:
         raise ValueError(f"pp={pp} must divide num_layers={cfg.num_layers}")
     run = cfg.num_layers // pp
     start = mesh.coord("pp") * run
+    local = dict(params)
+    local["layers"] = params["layers"][start:start + run]
+    return shard_tree(local, mesh)
 
+
+def shard_tree(tree: dict, mesh: Mesh) -> dict:
+    """Every leaf of `tree` (keyed as the parameter tree is: "embed",
+    "lm_head", "layers" a list of layer dicts, ...) sliced to this rank's
+    share over tp and ep; the layers list is taken as it is (pp's run is
+    `shard_params`' choice). For weights drawn or read a part at a time."""
     def place(path, leaf):
         spec = _spec_for_path(path, leaf, mesh)
         if path[0] == "layers":
-            spec = spec[1:]                       # the pp entry: the run above
+            spec = spec[1:]                       # the pp entry: the caller's run
         return local_slice(leaf, spec, mesh)
 
-    local = dict(params)
-    local["layers"] = params["layers"][start:start + run]
-    return _map(place, local)
+    return _map(place, tree)
 
 
 def replicated_over(path: tuple[str, ...], axis: str) -> bool:

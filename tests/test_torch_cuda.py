@@ -1942,3 +1942,93 @@ def test_replica_restart_beside_a_live_replica_keeps_both_streams(gen, monkeypat
     finally:
         faults.clear()
         pool.shutdown()
+
+
+# -- a mesh rank's shards (serving over a mesh, engine/lockstep.py) -----------
+
+# (groups, Hk) of a tp rank's local heads: Llama-3-8B (Hq 32, Hk 8) at tp=2
+# and tp=4, Gemma-2-27B (Hq 32, Hk 16) at tp=2; D 128, pages of 16, P 256.
+_SHARDS = {"llama-3-8b-tp2": (4, 4), "llama-3-8b-tp4": (4, 2), "gemma-2-27b-tp2": (2, 8)}
+_SHARD_CTX = [[512] * 16, [1, 15, 16, 17, 255, 256, 257, 1023, 1024, 1025, 2049, 4096]]
+
+
+@pytest.mark.parametrize("ctx", _SHARD_CTX, ids=["16x512", "1-4096"])
+@pytest.mark.parametrize("shard", list(_SHARDS))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_at_shard_heads(gen, monkeypatch, int8, shard, ctx):
+    """Both decode kernels at a tp rank's local heads, as
+    test_decode_kernel_serve_geometries holds them."""
+    groups, Hk = _SHARDS[shard]
+    _decode_repeat_and_poison(gen, monkeypatch,
+                              _int8_decode_inputs if int8 else _bf16_decode_inputs,
+                              128, groups, Hk, 16, 256, ctx)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_sp2_merge_matches_the_whole_range(gen, int8):
+    """sp=2 decode: each half of the page table through the kernel
+    (sp_page_range), the two states merged (merge_split_states) against
+    the plain version over the whole range, within decode_error_bound and
+    2e-3. Lanes of up to 128 pages leave the second half (pages 128..255)
+    without rows."""
+    from polykey_tpu_torch.ops import paged_attention_kernel as pak
+
+    ctx = [1, 16, 17, 2047, 2048, 2049, 3000, 4096]
+    inputs = _int8_decode_inputs if int8 else _bf16_decode_inputs
+    args = inputs(gen, 128, 4, 4, 16, 256, ctx)
+    parts = [pak.paged_decode_cuda(*args, scale=128 ** -0.5,
+                                   page_range=pak.sp_page_range(256, 2, s)) for s in (0, 1)]
+    assert (parts[1][2][:4] == 0).all() and (parts[1][1][:4] == -1e30).all()
+    _check_decode(pak, pak.merge_split_states(parts), args, scale=128 ** -0.5)
+
+
+@pytest.mark.parametrize("case", ["tp4-heads", "sp2-second-half"])
+def test_flash_kernel_at_shard_shapes(gen, case):
+    """Flash at Llama-3-8B tp=4's heads (Hq 8, Hk 2) over 512 tokens, and
+    sp=2's second query block (rows 256..511 of a 512-token prefill)
+    against the whole 512-row window; per element 2^-7 (|ref| + sum p|v|)
+    + 1e-4 against the plain version."""
+    from polykey_tpu_torch.ops import flash_attention as fa
+
+    B, S, D = 2, 512, 128
+    Hq, Hk = (8, 2) if case == "tp4-heads" else (32, 8)
+    T = S if case == "tp4-heads" else S // 2
+    q = _randn((B, T, Hq, D), gen)
+    k, v = _randn((B, S, Hk, D), gen), _randn((B, S, Hk, D), gen)
+    qpos = torch.arange(S - T, S, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    out = fa.flash_attention_cuda(q, k, v, qpos, scale=D ** -0.5)
+    ref = fa.flash_attention_plain(q, k, v, qpos, scale=D ** -0.5).float()
+    ref_abs = fa.flash_attention_plain(q, k, v.abs(), qpos, scale=D ** -0.5).float()
+    err = (out.float() - ref).abs()
+    assert (err <= 2.0 ** -7 * (ref.abs() + ref_abs) + 1e-4).all()
+
+
+@pytest.mark.parametrize("Hk", [2, 4])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_write_kernels_at_shard_heads(gen, int8, Hk):
+    """Both writes at a Llama-3-8B tp rank's kv heads (4 at tp=2, 2 at
+    tp=4): 16 lanes (a dp gather's whole batch) into pages of 16, exact
+    against the plain version; one launch a call."""
+    from polykey_tpu_torch.ops import paged_write_kernel as pw
+
+    N, ps, D, B, P = 300, 16, 128, 16, 256
+    tables = torch.arange(1, 1 + B * 16, dtype=torch.int32, device="cuda").reshape(B, 16)
+    tables = torch.nn.functional.pad(tables, (0, P - 16))
+    pos = torch.randint(0, 16 * ps, (B, 1), generator=gen, device="cuda").to(torch.int32)
+    kn, vn = _randn((B, 1, Hk, D), gen), _randn((B, 1, Hk, D), gen)
+    if int8:
+        pools = _int8_pools(gen, N, ps, Hk, D)
+        a = tuple((x.clone(), s.clone()) for x, s in pools)
+        b = tuple((x.clone(), s.clone()) for x, s in pools)
+        kernel, plain, count = pw.paged_write_int8_cuda, pw.paged_write_int8_plain, pw.KERNEL_INT8
+    else:
+        pools = _randn((N, ps, Hk, D), gen), _randn((N, ps, Hk, D), gen)
+        a = tuple(p.clone() for p in pools)
+        b = tuple(p.clone() for p in pools)
+        kernel, plain, count = pw.paged_write_decode_cuda, pw.paged_write_decode_plain, pw.KERNEL
+    before = count.launches
+    kernel(*a, kn, vn, tables, pos)
+    assert count.launches == before + 1
+    plain(*b, kn, vn, tables, pos)
+    for x, y in zip(_leaves(a), _leaves(b)):
+        assert torch.equal(x.view(torch.int8), y.view(torch.int8))

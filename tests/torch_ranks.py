@@ -91,6 +91,11 @@ def config_fields(cfg) -> dict:
 def _mesh_for(job):
     from polykey_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 
+    if job["kind"] in ("engine", "supervise"):
+        from polykey_tpu_torch.engine.config import EngineConfig
+        from polykey_tpu_torch.engine.lockstep import serving_mesh
+
+        return serving_mesh(EngineConfig(**job["config"]), job["devices"])
     return create_mesh(MeshConfig(**job["mesh"]), job["devices"])
 
 
@@ -242,6 +247,160 @@ def job_train(job, mesh):
     return out
 
 
+def _engine(job, mesh, **kw):
+    """The port's InferenceEngine of `job` over `mesh` on the CPU, its
+    model registered from the job's fields first (a test model need not be
+    in the registry), on the whole model's parameters."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import InferenceEngine
+    from polykey_tpu_torch.models.config import MODEL_REGISTRY
+    from polykey_tpu_torch.models.interop import params_from_numpy
+
+    cfg = model_config(job["model"])
+    MODEL_REGISTRY[cfg.name] = cfg
+    config = EngineConfig(**job["config"])
+    params = params_from_numpy(load_tree(job["params"]))
+    return InferenceEngine(config, params=params, device="cpu", mesh=mesh, **kw)
+
+
+def _collect(request, timeout):
+    tokens, error = [], ""
+    deadline = time.monotonic() + timeout
+    while True:
+        kind, value = request.out.get(timeout=max(0.0, deadline - time.monotonic()))
+        if kind == "token":
+            tokens.append(value)
+        elif kind == "done":
+            return tokens, ""
+        else:
+            return tokens, str(value)
+
+
+def job_engine(job, mesh):
+    """Serve `prompts` (greedy, `max_new` tokens each, submitted at once)
+    on the mesh's leader; followers replay until the leader shuts down.
+    `kill_after` (a follower's rank and a count of decode records) makes
+    that follower exit at once on its Nth decode record, mid-stream;
+    `heartbeat_s` sets the idle leader's heartbeat interval and `idle_s`
+    idles the leader that long before it shuts down.
+    Every rank returns its decode tokens' digest and its pools' (every
+    page but the garbage page); the leader also each stream (-1 padded)
+    and its error."""
+    import hashlib
+    import queue
+
+    import torch
+
+    from polykey_tpu_torch.engine import lockstep
+    from polykey_tpu_torch.engine.engine import GenRequest
+
+    if job.get("heartbeat_s"):
+        lockstep.HEARTBEAT_S = job["heartbeat_s"]
+    engine = _engine(job, mesh)
+    if engine.is_follower:
+        kill = job.get("kill_after")
+        if kill is not None and kill[0] == mesh.rank:
+            replay, seen = engine._replay, [0]
+
+            def dying(record):
+                seen[0] += record.kind == "decode"
+                if seen[0] >= kill[1]:
+                    os._exit(3)
+                replay(record)
+
+            engine._replay = dying
+        if not engine.join(job.get("timeout", 120)):
+            raise RuntimeError("the follower was not shut down by its leader")
+        out = {"error": np.asarray(engine.dead or "")}
+    else:
+        requests = [GenRequest(prompt=p, max_new_tokens=job["max_new"])
+                    for p in job["prompts"]]
+        for r in requests:
+            engine.submit(r)
+        streams, errors = [], []
+        for r in requests:
+            try:
+                tokens, error = _collect(r, job.get("timeout", 120))
+            except queue.Empty:
+                tokens, error = [], "timed out"
+            streams.append(tokens + [-1] * (job["max_new"] - len(tokens)))
+            errors.append(error)
+        time.sleep(job.get("idle_s", 0.0))      # heartbeats while idle
+        engine.shutdown()
+        out = {"tokens": np.asarray(streams), "errors": np.asarray(errors),
+               "dead": np.asarray(engine.dead or "")}
+    stats = engine.stats()["mesh"]
+    pools = hashlib.blake2b(digest_size=16)       # every page but the garbage page 0
+    for pool in engine.paged.pools:
+        pools.update(pool[:, 1:].contiguous().view(torch.uint8).numpy().tobytes())
+    out.update(pools=np.asarray(pools.hexdigest()),
+               heartbeats=np.asarray(stats.get("heartbeats", -1)),
+               digest=np.asarray(stats.get("tokens_digest", "")),
+               blocks=np.asarray(stats.get("decode_blocks_hashed", 0)),
+               role=np.asarray(stats["role"]), kv_pool_bytes=np.asarray(
+                   engine.stats()["kv_pool_bytes"]))
+    return out
+
+
+def job_supervise(job, mesh):
+    """A mesh engine behind TorchService.create: the supervisor's factory
+    must refuse (A.17); after a crash of the engine loop the supervisor
+    gives up and health stays NOT_SERVING."""
+    from polykey_tpu_torch.gateway import health as hs
+    from polykey_tpu_torch.gateway.torch_service import TorchService
+
+    health = hs.HealthService()
+    health.set_serving_status("", hs.SERVING)
+    engine = _engine(job, mesh, health=health)
+    service = TorchService.create(engine, health=health)
+    try:
+        try:
+            service.supervisor._factory()
+            refusal = ""
+        except NotImplementedError as e:
+            refusal = str(e)
+
+        def crash():
+            raise RuntimeError("injected dispatch failure")
+
+        engine._dispatch_step = crash
+        from polykey_tpu_torch.engine.engine import GenRequest
+
+        request = GenRequest(prompt="crash", max_new_tokens=4)
+        engine.submit(request)
+        _, error = _collect(request, 30)
+        deadline = time.monotonic() + 30
+        while not service.supervisor.gave_up and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return {"refusal": np.asarray(refusal), "error": np.asarray(error),
+                "gave_up": np.asarray(service.supervisor.gave_up),
+                "restarts": np.asarray(service.supervisor.restarts),
+                "status": np.asarray(health._statuses[""])}
+    finally:
+        service.close()
+
+
+def job_refusals(job, mesh):
+    """Construct an engine of each of `cases` ({name: EngineConfig fields})
+    and report the error each raised: "<type>: <message>", or "" when one
+    started (it is shut down at once)."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import InferenceEngine
+    from polykey_tpu_torch.models.config import MODEL_REGISTRY
+
+    for fields in job.get("models", []):
+        cfg = model_config(fields)
+        MODEL_REGISTRY[cfg.name] = cfg
+    out = {}
+    for name, fields in job["cases"].items():
+        try:
+            InferenceEngine(EngineConfig(**fields), device="cpu").shutdown()
+            out[name] = np.asarray("")
+        except Exception as e:
+            out[name] = np.asarray(f"{type(e).__name__}: {e}")
+    return out
+
+
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
@@ -262,17 +421,20 @@ def _grad_tree(node):
 
 
 JOBS = {"bootstrap": job_bootstrap, "forward": job_forward, "attention": job_attention,
-        "pipeline": job_pipeline, "train": job_train}
+        "pipeline": job_pipeline, "train": job_train, "engine": job_engine,
+        "supervise": job_supervise, "refusals": job_refusals}
 
 
 # -- processes ---------------------------------------------------------------
 
 
-def _main(rank: int, world: int, workdir: str, jobs: list) -> None:
+def _main(rank: int, world: int, workdir: str, jobs: list, nice: int = 0) -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
+    if nice:
+        os.nice(nice)
     workdir = Path(workdir)
     try:
         dist.init_process_group("gloo", init_method=f"file://{workdir / 'rendezvous'}",
@@ -293,16 +455,20 @@ def _main(rank: int, world: int, workdir: str, jobs: list) -> None:
         raise
 
 
-def run(world: int, jobs: list, workdir, timeout: float = 240.0) -> dict:
+def run(world: int, jobs: list, workdir, timeout: float = 240.0, may_exit=(),
+        nice: int = 0) -> dict:
     """Run `jobs` on `world` gloo ranks; returns {rank: {key: array}} with
     keys "<job name>/<result>". Raises with the ranks' tracebacks when a
-    rank fails or does not finish within `timeout` seconds."""
+    rank fails or does not finish within `timeout` seconds; the ranks in
+    `may_exit` may end early with any exit code, leaving no results.
+    `nice` lowers the ranks' scheduling priority (os.nice), for light jobs
+    whose eight processes should not starve a busy machine's other tests."""
     import multiprocessing
 
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_main, args=(r, world, str(workdir), jobs), daemon=True)
+    procs = [ctx.Process(target=_main, args=(r, world, str(workdir), jobs, nice), daemon=True)
              for r in range(world)]
     for proc in procs:
         proc.start()
@@ -316,7 +482,7 @@ def run(world: int, jobs: list, workdir, timeout: float = 240.0) -> dict:
             proc.join(10)
     errors = {r: (workdir / f"rank{r}.err").read_text()
               for r in range(world) if (workdir / f"rank{r}.err").exists()}
-    failed = [r for r, proc in enumerate(procs) if proc.exitcode != 0]
+    failed = [r for r, proc in enumerate(procs) if proc.exitcode != 0 and r not in may_exit]
     if hung or failed or errors:
         raise RuntimeError(
             f"ranks hung {hung}, failed {failed} (exit codes "
@@ -325,6 +491,8 @@ def run(world: int, jobs: list, workdir, timeout: float = 240.0) -> dict:
         )
     out = {}
     for r in range(world):
+        if r in may_exit and not (workdir / f"rank{r}.npz").exists():
+            continue
         with np.load(workdir / f"rank{r}.npz") as data:
             out[r] = {k: data[k] for k in data.files}
     return out
