@@ -121,7 +121,13 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and 16 lanes of 512, and Gemma-2-27B tp=2 (Hq 16, Hk 8); the
             sp=2 decode's two page-range halves merged against the whole
             range; flash at tp=4's heads and on sp=2's second query block
-            against the whole window; both writes at Hk 4 and 2.
+            against the whole window; both writes at Hk 4 and 2; both
+            ragged kernels at Llama-3-8B tp=2 and tp=4's heads, at the
+            serve case and the spec stream, each cut into work items for
+            those heads; the 1B draft's D=64 decode (bf16 and int8) at
+            tp=2's heads (Hq 16, Hk 4). Phase 11a runs the engine's own
+            features on the mesh engine. pp needs a second rank: it runs
+            on the CPU only (tests/test_torch_engine_mesh_features.py).
 8. graph:   the full-depth Llama-3-8B decode block (16 greedy lanes at
             context 512, as profile_decode sets it up; bf16 and int8 KV),
             eager and as a replay of its graph, from the same lane state:
@@ -182,7 +188,25 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             against the plain engine; (d) and (e) also the ragged spec
             dispatches, their lanes and prefill ranges, and their wall on
             the card (CUDA events around each dispatch) beside the host's
-            time in the call.
+            time in the call. (c) and (d) then serve the five once more,
+            one at a time: phase 11a's reference.
+11a. mesh (features): the engine's own features on the mesh engine over
+            a one-rank NCCL group brought up as in phase 7a, each held
+            token for token to the single-card phase that ran it one
+            request at a time: ragged_dispatch over bf16 and int8 KV
+            (MESH_PROMPTS against phases 6 and 7's streams; the KV type's
+            ragged kernel launched on the mesh engine, flash not); the 1B
+            draft at gamma 4 as in phase 11's (c) (bucketed, int8 KV) and
+            (d) (ragged x spec, bf16 KV): the five greedy prompts, every
+            round a graph replay with its collectives captured; the prefix
+            cache with phase 10's host tier (160 pages, 1 GiB of host
+            memory): the header's miss, four hits, four more, one alone,
+            the second header (which spills the first) and the first again
+            (restored): the ids and the pages matched, spilled and restored
+            equal to phase 10's host-tier engine's, and the lone hit's TTFT
+            not above the miss's. Each sub-phase prints its seconds, its
+            engine's capture and its kernel launches; the group is
+            destroyed at the end.
 12. generate: offline generation over a contiguous KV cache
             (models/generate.py) on the same weights: `generate` greedy, 32
             tokens, of LONG's two ~390-token prompts right-padded into one
@@ -849,6 +873,10 @@ def kernel_decode(gen, int8: bool = False) -> dict:
             for name, tp, Hq, Hk, cap, win, sc in MESH_SHAPES
             for suffix, lens in (("", ctx), (" serve: 16 lanes at context 512", [512] * 16))
             if lens is ctx or name == "llama-3-8b"]
+    # The 1B draft's decode (D=64) at a tp=2 rank's heads.
+    mesh += [(f"mesh llama-3.2-1b (the draft, D=64) tp=2 (Hq 16, Hk 4){suffix}", 64, 16, 4,
+              lens, None, None, None)
+             for suffix, lens in (("", ctx), (" serve: 16 lanes at context 512", [512] * 16))]
     result = None
     for label, D, Hq, Hk, lens, softcap, window, prange, *scale in cases + gemma + mesh:
         args, (err, ratio), nbytes, flops, ctas = _decode_case(
@@ -1116,6 +1144,7 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
     # a multiple of the tile.
     windows, window_kvs = [5] * len(ctx), [max(c, 5) for c in ctx]
     spec = (windows + [512, 512], window_kvs + [512, 1024], 1104, 14, None, None)
+    serve = (singles + [512, 512], [512] * 16 + [512, 1024], 1040, 14, None, None)
     cases = [
         # 16 decode singles, a first chunk (kv 512), a second chunk (kv 1024).
         ("main", singles + [512, 512], ctx + [512, 1024], 1040, 14, None, None),
@@ -1125,8 +1154,7 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
         ("tail + padding", singles + [300], ctx + [1800], 1040, 15, None, None),
         # profile_decode --ragged's dispatch: 16 lanes at context 512, a
         # first chunk (kv 512) and a second (kv 1024).
-        ("serve: 16 lanes at context 512", singles + [512, 512], [512] * 16 + [512, 1024],
-         1040, 14, None, None),
+        ("serve: 16 lanes at context 512", *serve),
         # The main case's singles alone: the byte-bound part of the stream.
         ("singles: the main case's 16 alone", singles, ctx, 16, 16, None, None),
         # The spec stream through Llama-3-8B's layers, and through its
@@ -1135,10 +1163,16 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
         ("spec D=64 (the 1B draft): 16 verify windows of 5 rows + two 512-row chunks",
          *spec, 64),
     ]
-    Hq, Hk = 32, 8
+    # A serving mesh's tp ranks (the mesh engine's ragged dispatches): the
+    # serve case and the spec stream at a Llama-3-8B rank's local heads,
+    # each cut into work items for those heads.
+    cases += [(f"mesh llama-3-8b tp={tp} (Hq {32 // tp}, Hk {8 // tp}) {what}", *case, 128,
+               32 // tp, 8 // tp)
+              for tp in (2, 4) for what, case in (("serve: 16 lanes at context 512", serve),
+                                                  ("spec stream", spec))]
     result = None
-    for label, lens, kvs, T, empty, softcap, window, *d in cases:
-        D = d[0] if d else 128
+    for label, lens, kvs, T, empty, softcap, window, *shape in cases:
+        D, Hq, Hk = list(shape) + [128, 32, 8][len(shape):]     # defaults: Llama-3-8B
         args, (starts, lens_, kvs_) = _ragged_case(gen, lens, kvs, T, empty, int8,
                                                    Hq, Hk, D)
         work = rk.ragged_work(starts, lens_, kvs_, T, Hq // Hk, Hk, "cuda")
@@ -1197,11 +1231,12 @@ def kernel_ragged(gen, int8: bool = False) -> dict:
         if result is None:
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                       "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-                      "spec": [], "d64": []}
+                      "spec": [], "d64": [], "mesh": []}
         else:
             result["max_abs_err"] = max(result["max_abs_err"], err)
-        if label.startswith("spec"):
-            result["d64" if D == 64 else "spec"].append(
+        if label.startswith(("spec", "mesh")):
+            group = "mesh" if label.startswith("mesh") else "d64" if D == 64 else "spec"
+            result[group].append(
                 {"case": label, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                  "bound_by": b_by, "max_abs_err": err, "err_over_tol": ratio})
     return result
@@ -1848,9 +1883,13 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
                 f"tokens, TTFT {r['ttft_ms']:.1f} ms, {r['tok_s']:.1f} tok/s "
                 f"(wall {r['wall_s']:.2f} s) on {card}")
         after = then(grpc) if then else None
-        # The mesh phase's reference: the same streams, one at a time.
-        mesh_ref = (_mesh_reference(grpc, engine) if phase in ("serve", "serve-int8")
-                    else None)
+        # The mesh phases' reference: the same streams, one at a time (the
+        # ragged modes' without their engine, which nothing replays after).
+        mesh_ref = None
+        if phase in ("serve", "serve-int8"):
+            mesh_ref = _mesh_reference(grpc, engine)
+        elif phase in ("ragged", "ragged-int8"):
+            mesh_ref = {"ids": _mesh_reference(grpc, engine)["ids"]}
     finally:
         grpc.close()
     sync()
@@ -1951,120 +1990,33 @@ def _count_captured_collectives():
             setattr(dist, name, fn)
 
 
-def phase_mesh(seed: int, params, card: str, refs: dict) -> dict:
-    """The mesh engine on the serve phases' weights over a one-rank NCCL
-    group (module docstring, phase 7a); `refs[int8]` is the single-card
-    serve's `_mesh_reference`, its engine shut down but holding its graphs
-    (for the walls in turns; its device state is released here). Returns
-    the kernels' launches in the phase."""
+@contextlib.contextmanager
+def _one_rank_nccl(phase: str):
+    """A one-rank NCCL group brought up by initialize_from_env from the
+    bootstrap variables (a free local port, one process), so the engines
+    built inside take the mesh path; on the way out the variables are
+    restored and the group destroyed, so the next engine finds none."""
     import socket
 
     import torch.distributed as dist
 
-    from polykey_tpu_torch.engine.config import EngineConfig
-    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
     from polykey_tpu_torch.parallel.distributed import initialize_from_env
 
-    phase = "mesh"
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     env = {"POLYKEY_COORDINATOR": f"127.0.0.1:{port}", "POLYKEY_NUM_PROCESSES": "1",
            "POLYKEY_PROCESS_ID": "0"}
-    singles = {int8: refs[int8].pop("engine") for int8 in (False, True)}
-    check(all(e.mesh is None for e in singles.values()), "a serve engine took a mesh")
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    launches = {}
     try:
         check(initialize_from_env(device="cuda"), "initialize_from_env brought nothing up")
         check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
         nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
         say(phase, f"process group: backend nccl {nccl}, world {dist.get_world_size()}, "
             f"coordinator {env['POLYKEY_COORDINATOR']}")
-        for int8 in (False, True):
-            kv = "int8 KV" if int8 else "bf16 KV"
-            ref = refs[int8]
-            t0 = time.monotonic()
-            with _count_captured_collectives() as captured:
-                engine = InferenceEngine(EngineConfig(model="llama-3-8b",
-                                                      kv_dtype="int8" if int8 else ""),
-                                         params=params, device="cuda", seed=seed)
-            up = time.monotonic() - t0
-            stats = engine.stats()
-            check(engine.mesh is not None and stats["mesh"]["world"] == 1
-                  and stats["mesh"]["role"] == "leader",
-                  f"the engine did not take the mesh path: {stats.get('mesh')}")
-            check(engine.params["embed"] is params["embed"],
-                  "a group of one copied the weights")
-            say(phase, f"{kv}: mesh engine up in {up:.1f} s over {stats['mesh']}, "
-                f"the serve phase's weight tensors (no copy), KV pool "
-                f"{stats['kv_pool_bytes'] / 2**30:.4f} GiB; graphs captured in "
-                f"{stats['graph_capture_s']:.2f} s ({stats['decode_graph_captures']} decode, "
-                f"{stats['prefill_graph_captures']} prefill; the serve phase's capture "
-                f"{ref['capture_s']:.2f} s), pool {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
-                f"on {card}")
-            grpc = _Grpc(engine)
-            try:
-                for k in KERNELS.values():
-                    k.launches = 0
-                ids = [grpc.generate([p], stream=True)[0][0] for p in MESH_PROMPTS]
-                counts = {name: k.launches for name, k in KERNELS.items()}
-                after = engine.stats()
-                turns = _walls_in_turns(singles[int8], engine)
-                profiles = [_replay_profile(e) for e in (engine, singles[int8])]
-            finally:
-                grpc.close()
-                singles.pop(int8).release_device_state()
-            for name, n in counts.items():
-                launches[name] = launches.get(name, 0) + n
-            say(phase, f"{kv}: kernel launches {counts}")
-            say(phase, f"{kv}: decode graph replays {after['decode_graph_replays']}, prefill "
-                f"graph replays {after['prefill_graph_replays']}, prefills run eagerly "
-                f"{after['prefill_eager']}")
-            for key, label in (("block_ms", "8-step decode block"),
-                               ("prefill_ms", "512-token prefill")):
-                a = [t[key] for t in turns["mesh"]]
-                b = [t[key] for t in turns["single"]]
-                ma, mb = statistics.median(a), statistics.median(b)
-                say(phase, f"{kv}: {label} replay wall at idle, in turns (single, mesh, "
-                    f"mesh, single) x 3, each turn the median of 5 replays: mesh "
-                    f"{ma:.3f} ms (turns {min(a):.3f}-{max(a):.3f}), single-card engine "
-                    f"{mb:.3f} ms ({min(b):.3f}-{max(b):.3f}): {(ma / mb - 1) * 100:+.2f}%, "
-                    f"the captured collectives over a group of one, on {card}")
-            # Per step: the embedding's sum, two sums a layer, the logits'
-            # gather; the decode keys run 2 x (8 + 1) steps, each of the 16
-            # prefill keys one forward.
-            layers = engine.model_cfg.num_layers
-            want_calls = (2 * (8 + 1) + 16) * (2 + 2 * layers)
-            say(phase, f"{kv}: collectives issued inside the graph captures: "
-                f"{captured['all_reduce']} all-reduces, {captured['all_gather']} all-gathers "
-                f"({want_calls} expected: {2 + 2 * layers} a forward over 34 forwards); one "
-                f"decode replay under torch.profiler: {profiles[0][0]} device "
-                f"activities, {profiles[0][1]} of them copies (the single-card "
-                f"engine's: {profiles[1][0]}, {profiles[1][1]})")
-            for prompt, got, want in zip(MESH_PROMPTS, ids, ref["ids"]):
-                check(got == want, f"{kv}: the mesh stream of a {len(prompt)}-character "
-                      f"prompt differs from the serve phase's: {got} against {want}")
-            say(phase, f"{kv}: all {len(ids)} greedy streams token for token the serve "
-                f"phase's ({sum(len(i) for i in ids)} tokens)")
-            check(after["decode_graph_replays"] > 0 and after["prefill_graph_replays"] > 0
-                  and after["prefill_eager"] == 0,
-                  f"{kv}: decode or prefill not all graph replays: {after}")
-            check(captured["all_reduce"] + captured["all_gather"] == want_calls,
-                  f"{kv}: {captured} collectives captured, not {want_calls}")
-            want = ("flash_attention",) + (("paged_attention_decode_int8", "paged_write_int8")
-                                           if int8 else ("paged_attention_decode",
-                                                         "paged_write"))
-            check(all(counts[n] > 0 for n in want), f"{kv}: a kernel was not launched: "
-                  f"{counts}")
-            del engine, grpc
-            gc.collect()
-            torch.cuda.empty_cache()
+        yield
     finally:
-        for engine in singles.values():
-            engine.release_device_state()
-        singles.clear()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -2075,7 +2027,310 @@ def phase_mesh(seed: int, params, card: str, refs: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     say(phase, "process group destroyed")
+
+
+def phase_mesh(seed: int, params, card: str, refs: dict) -> dict:
+    """The mesh engine on the serve phases' weights over a one-rank NCCL
+    group (module docstring, phase 7a); `refs[int8]` is the single-card
+    serve's `_mesh_reference`, its engine shut down but holding its graphs
+    (for the walls in turns; its device state is released here). Returns
+    the kernels' launches in the phase."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+
+    phase = "mesh"
+    singles = {int8: refs[int8].pop("engine") for int8 in (False, True)}
+    check(all(e.mesh is None for e in singles.values()), "a serve engine took a mesh")
+    launches = {}
+    try:
+        with _one_rank_nccl(phase):
+            for int8 in (False, True):
+                launches_of = _mesh_bucketed(seed, params, card, refs[int8], singles, int8)
+                for name, n in launches_of.items():
+                    launches[name] = launches.get(name, 0) + n
+    finally:
+        for engine in singles.values():
+            engine.release_device_state()
+        singles.clear()
     return {"launches": launches}
+
+
+def _mesh_engine(config, params, seed: int, label: str):
+    """The mesh engine of `config` on `params` over the one-rank group,
+    checked to have taken the mesh path on the caller's weight tensors;
+    returns (engine, the collectives its captures issued, seconds to up)."""
+    from polykey_tpu_torch.engine.engine import InferenceEngine
+
+    t0 = time.monotonic()
+    with _count_captured_collectives() as captured:
+        engine = InferenceEngine(config, params=params, device="cuda", seed=seed)
+    up = time.monotonic() - t0
+    stats = engine.stats()
+    check(engine.mesh is not None and stats["mesh"]["world"] == 1
+          and stats["mesh"]["role"] == "leader",
+          f"{label}: the engine did not take the mesh path: {stats.get('mesh')}")
+    check(engine.params["embed"] is params["embed"], f"{label}: a group of one copied "
+          "the weights")
+    return engine, captured, up
+
+
+def _mesh_bucketed(seed: int, params, card: str, ref: dict, singles: dict,
+                   int8: bool) -> dict:
+    """Phase 7a over one KV type: the bucketed mesh engine's streams, replay
+    walls in turns with the single-card engine's, captured collectives."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS
+
+    phase = "mesh"
+    kv = "int8 KV" if int8 else "bf16 KV"
+    engine, captured, up = _mesh_engine(
+        EngineConfig(model="llama-3-8b", kv_dtype="int8" if int8 else ""), params, seed, kv)
+    stats = engine.stats()
+    say(phase, f"{kv}: mesh engine up in {up:.1f} s over {stats['mesh']}, "
+        f"the serve phase's weight tensors (no copy), KV pool "
+        f"{stats['kv_pool_bytes'] / 2**30:.4f} GiB; graphs captured in "
+        f"{stats['graph_capture_s']:.2f} s ({stats['decode_graph_captures']} decode, "
+        f"{stats['prefill_graph_captures']} prefill; the serve phase's capture "
+        f"{ref['capture_s']:.2f} s), pool {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
+        f"on {card}")
+    grpc = _Grpc(engine)
+    try:
+        for k in KERNELS.values():
+            k.launches = 0
+        ids = [grpc.generate([p], stream=True)[0][0] for p in MESH_PROMPTS]
+        counts = {name: k.launches for name, k in KERNELS.items()}
+        after = engine.stats()
+        turns = _walls_in_turns(singles[int8], engine)
+        profiles = [_replay_profile(e) for e in (engine, singles[int8])]
+    finally:
+        grpc.close()
+        singles.pop(int8).release_device_state()
+    say(phase, f"{kv}: kernel launches {counts}")
+    say(phase, f"{kv}: decode graph replays {after['decode_graph_replays']}, prefill "
+        f"graph replays {after['prefill_graph_replays']}, prefills run eagerly "
+        f"{after['prefill_eager']}")
+    for key, label in (("block_ms", "8-step decode block"),
+                       ("prefill_ms", "512-token prefill")):
+        a = [t[key] for t in turns["mesh"]]
+        b = [t[key] for t in turns["single"]]
+        ma, mb = statistics.median(a), statistics.median(b)
+        say(phase, f"{kv}: {label} replay wall at idle, in turns (single, mesh, "
+            f"mesh, single) x 3, each turn the median of 5 replays: mesh "
+            f"{ma:.3f} ms (turns {min(a):.3f}-{max(a):.3f}), single-card engine "
+            f"{mb:.3f} ms ({min(b):.3f}-{max(b):.3f}): {(ma / mb - 1) * 100:+.2f}%, "
+            f"the captured collectives over a group of one, on {card}")
+    # Per step: the embedding's sum, two sums a layer, the logits'
+    # gather; the decode keys run 2 x (8 + 1) steps, each of the 16
+    # prefill keys one forward.
+    layers = engine.model_cfg.num_layers
+    want_calls = (2 * (8 + 1) + 16) * (2 + 2 * layers)
+    say(phase, f"{kv}: collectives issued inside the graph captures: "
+        f"{captured['all_reduce']} all-reduces, {captured['all_gather']} all-gathers "
+        f"({want_calls} expected: {2 + 2 * layers} a forward over 34 forwards); one "
+        f"decode replay under torch.profiler: {profiles[0][0]} device "
+        f"activities, {profiles[0][1]} of them copies (the single-card "
+        f"engine's: {profiles[1][0]}, {profiles[1][1]})")
+    _hold_mesh_ids(kv, MESH_PROMPTS, ids, ref["ids"], "the serve phase's")
+    check(after["decode_graph_replays"] > 0 and after["prefill_graph_replays"] > 0
+          and after["prefill_eager"] == 0,
+          f"{kv}: decode or prefill not all graph replays: {after}")
+    check(captured["all_reduce"] + captured["all_gather"] == want_calls,
+          f"{kv}: {captured} collectives captured, not {want_calls}")
+    want = ("flash_attention",) + (("paged_attention_decode_int8", "paged_write_int8")
+                                   if int8 else ("paged_attention_decode", "paged_write"))
+    check(all(counts[n] > 0 for n in want), f"{kv}: a kernel was not launched: {counts}")
+    del engine, grpc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _hold_mesh_ids(label: str, prompts: list, got: list, want: list, against: str,
+                   explain=None) -> None:
+    """The mesh engine's streams token for token the single-card ones; on a
+    difference `explain(prompt, position, got, want)` adds to the message
+    (the spec sub-phases: the two tokens' near-tie margin)."""
+    for prompt, g, w in zip(prompts, got, want):
+        if g != w and explain is not None:
+            i = next(j for j, (x, y) in enumerate(zip(g + [None], w + [None])) if x != y)
+            if i < min(len(g), len(w)):
+                say("mesh", f"{label}: differs at generated token {i}: "
+                    f"{explain(prompt, i, g, w)}")
+        check(g == w, f"{label}: the mesh stream of a {len(prompt)}-character prompt "
+              f"differs from {against}: {g} against {w}")
+    check(len(got) == len(want), f"{label}: {len(got)} streams, not {len(want)}")
+    say("mesh", f"{label}: all {len(got)} greedy streams token for token {against} "
+        f"({sum(len(i) for i in got)} tokens)")
+
+
+# -- phase 11a ---------------------------------------------------------------
+
+def phase_mesh_features(seed: int, params, card: str, refs: dict) -> dict:
+    """The engine's own features on the mesh engine over a one-rank NCCL
+    group (module docstring, phase 11a), each against the single-card
+    phase that ran it: `refs["ragged"][int8]` (the ragged serve phases'
+    streams), `refs["spec"][key]` (phase_spec's MESH_SPEC sub-phases) and
+    `refs["prefix"]` (phase_prefix's host-tier engine). Returns the
+    kernels' launches by sub-phase."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+
+    phase = "mesh"
+    launches = {}
+    t0 = time.monotonic()
+    with _one_rank_nccl(phase):
+        for int8 in (False, True):
+            kv = "int8 KV" if int8 else "bf16 KV"
+            config = EngineConfig(model="llama-3-8b", ragged_dispatch=True,
+                                  kv_dtype="int8" if int8 else "")
+            launches[f"ragged, {kv}"] = _mesh_ragged(seed, params, card, config,
+                                                     refs["ragged"][int8])
+        for key, fields in MESH_SPEC.items():
+            config = EngineConfig(model="llama-3-8b", spec_gamma=4, **fields)
+            launches[f"spec {key}"] = _mesh_spec(seed, params, card, config, key,
+                                                 refs["spec"][key])
+        launches["prefix"] = _mesh_prefix(seed, params, card, refs["prefix"])
+    say(phase, f"ragged, spec and prefix sub-phases: {time.monotonic() - t0:.1f} s")
+    return {"launches": launches}
+
+
+def _mesh_ragged(seed: int, params, card: str, config, want: list) -> dict:
+    """The ragged dispatch on the mesh engine: MESH_PROMPTS one at a time
+    over gRPC, held to the ragged serve phase's streams; the ragged kernel
+    of the KV type launches, flash does not."""
+    from polykey_tpu_torch.engine.engine import KERNELS
+
+    int8 = config.kv_dtype == "int8"
+    label = f"ragged, {'int8 KV' if int8 else 'bf16 KV'}"
+    t0 = time.monotonic()
+    engine, captured, up = _mesh_engine(config, params, seed, label)
+    grpc = _Grpc(engine)
+    try:
+        for k in KERNELS.values():
+            k.launches = 0
+        ids = [grpc.generate([p], stream=True)[0][0] for p in MESH_PROMPTS]
+        counts = {name: k.launches for name, k in KERNELS.items()}
+        st = engine.stats()
+    finally:
+        grpc.close()
+    rag = "ragged_paged_attention_int8" if int8 else "ragged_paged_attention"
+    say("mesh", f"{label}: mesh engine up in {up:.1f} s (graphs {st['graph_capture_s']:.2f} s, "
+        f"{captured['all_reduce']} all-reduces and {captured['all_gather']} all-gathers "
+        f"captured), stream width {st['ragged_width']}; {st['ragged_dispatches']} ragged "
+        f"dispatches; kernel launches {counts}; sub-phase {time.monotonic() - t0:.1f} s "
+        f"on {card}")
+    _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the ragged serve phase's")
+    check(counts[rag] > 0 and st["ragged_dispatches"] > 0,
+          f"{label}: the ragged kernel did not launch on the mesh engine: {counts}")
+    check(counts["flash_attention"] == 0, f"{label}: flash launched in ragged mode")
+    del engine, grpc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _mesh_spec(seed: int, params, card: str, config, key: str, want: list) -> dict:
+    """A 1B draft on the mesh engine (its weights drawn from seed + 2 as on
+    one card): SPEC_GREEDY one at a time over gRPC, held to phase_spec's
+    sub-phase `key`; the spec graphs capture their collectives and every
+    round is a replay."""
+    from polykey_tpu_torch.engine.engine import KERNELS
+
+    ragged = config.ragged_dispatch
+    label = f"spec {key}, 1B draft, {'ragged, ' if ragged else ''}{config.kv_dtype or 'bf16'} KV"
+    t0 = time.monotonic()
+    engine, captured, up = _mesh_engine(config, params, seed, label)
+    grpc = _Grpc(engine)
+    try:
+        for k in KERNELS.values():
+            k.launches = 0
+        ids = [grpc.generate([p], stream=True)[0][0] for p in SPEC_GREEDY]
+        counts = {name: k.launches for name, k in KERNELS.items()}
+        st = engine.stats()
+    finally:
+        grpc.close()
+    say("mesh", f"{label}: mesh engine up in {up:.1f} s; graphs captured in "
+        f"{st['graph_capture_s']:.2f} s ({st['decode_graph_captures']} decode, "
+        f"{st['prefill_graph_captures']} prefill, {st['spec_graph_captures']} spec), "
+        f"{captured['all_reduce']} all-reduces and {captured['all_gather']} all-gathers "
+        f"issued inside them; spec graph replays {st['spec_graph_replays']}, eager rounds "
+        f"{st['spec_eager']}, eager prefills {st['prefill_eager']}"
+        + (f", ragged spec dispatches {st['ragged_spec_dispatches']}" if ragged else "")
+        + f"; acceptance {st.get('spec_acceptance', 0.0)}; kernel launches {counts}; "
+        f"sub-phase {time.monotonic() - t0:.1f} s on {card}")
+    cfg, tokenizer = engine.model_cfg, engine.tokenizer
+
+    def margin(prompt, i, g, w):
+        m = _near_tie(params, cfg, tokenizer.encode(prompt), w[:i], g[i], w[i])
+        return (f"{g[i]} against {w[i]}, both within {m:.4f} of the top logit on the "
+                f"plain path")
+
+    _hold_mesh_ids(label, SPEC_GREEDY, ids, want, f"the spec phase's {key}", margin)
+    check(st["spec_graph_captures"] > 0 and st["spec_graph_replays"] > 0
+          and st["spec_eager"] == 0, f"{label}: rounds not all graph replays: {st}")
+    check(captured["all_reduce"] > 0 and captured["all_gather"] > 0,
+          f"{label}: no collective was captured: {captured}")
+    int8 = config.kv_dtype == "int8"
+    dec = "paged_attention_decode_int8" if int8 else "paged_attention_decode"
+    check(counts[dec] > 0, f"{label}: the decode kernel did not launch: {counts}")
+    if ragged:
+        rag = "ragged_paged_attention_int8" if int8 else "ragged_paged_attention"
+        check(counts[rag] > 0 and st["ragged_spec_dispatches"] > 0,
+              f"{label}: no ragged spec dispatch launched the ragged kernel: {counts}")
+    else:
+        check(st["prefill_eager"] == 0, f"{label}: a prefill ran eagerly")
+    del engine, grpc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _mesh_prefix(seed: int, params, card: str, ref: dict) -> dict:
+    """The prefix cache and the host tier on the mesh engine: phase_prefix's
+    host-tier engine's requests in its groups (the header's miss, 4 hits,
+    4 more, one alone, the second header that spills the first, the first
+    again, restored), their ids and the pages matched, spilled and
+    restored held to the single-card engine's; the lone hit's TTFT not
+    above the miss's."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS
+
+    label = "prefix, bucketed bf16 with the host tier"
+    config = EngineConfig(model="llama-3-8b", prefix_cache=True, **PREFIX_HOST_TIER)
+    t0 = time.monotonic()
+    engine, _, up = _mesh_engine(config, params, seed, label)
+    miss = PREFIX_HEADER + PREFIX_TAILS[0]
+    groups = [[miss], [PREFIX_HEADER + t for t in PREFIX_TAILS[1:5]],
+              [PREFIX_HEADER + t for t in PREFIX_TAILS[5:9]], [PREFIX_HEADER + PREFIX_TAILS[9]],
+              [PREFIX_OTHER + PREFIX_TAILS[0]], [miss]]
+    try:
+        for k in KERNELS.values():
+            k.launches = 0
+        got = []
+        for group in groups:
+            _drain(engine)
+            got += _generate(engine, group)
+        counts = {name: k.launches for name, k in KERNELS.items()}
+        end = engine.stats()
+    finally:
+        engine.shutdown()
+    pages = {k: end[k] for k in PREFIX_COUNTS}
+    say("mesh", f"{label}: mesh engine up in {up:.1f} s; {len(got)} requests; pages "
+        f"{pages} (the single-card engine's {ref['counts']}); TTFT miss {got[0][1]:.1f} ms, "
+        f"lone hit {got[9][1]:.1f} ms, the first header again after its spill "
+        f"{got[-1][1]:.1f} ms; kernel launches {counts}; sub-phase "
+        f"{time.monotonic() - t0:.1f} s on {card}")
+    _hold_mesh_ids(label, [p for g in groups for p in g], [r[0] for r in got], ref["ids"],
+                   "the prefix phase's host-tier engine's")
+    check(pages == ref["counts"], f"{label}: pages {pages}, not the single-card "
+          f"engine's {ref['counts']}")
+    check(pages["kv_pages_evicted"] > 0 and pages["kv_pages_restored"] > 0,
+          f"{label}: no spill and restore: {pages}")
+    check(got[9][1] <= got[0][1], f"{label}: the lone hit ({got[9][1]:.1f} ms) is slower "
+          f"than the miss ({got[0][1]:.1f} ms)")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -2294,12 +2549,15 @@ def _drain(engine) -> None:
 
 def phase_prefix(seed: int, params, card: str) -> dict:
     """The prefix cache and the host tier at full width (module docstring,
-    phase 10). Returns the kernel launches made in it."""
+    phase 10). Returns the kernel launches made in it ("launches") and the
+    host-tier engine's requests and page counts ("mesh_ref", the mesh
+    phase's reference)."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
     from polykey_tpu_torch.engine.kv_cache import host_kv_page_bytes
     from polykey_tpu_torch.models.config import get_config
 
+    mesh_ref = None
     for k in KERNELS.values():
         k.launches = 0
     cfg = get_config("llama-3-8b")
@@ -2315,8 +2573,7 @@ def phase_prefix(seed: int, params, card: str) -> dict:
     # request) leave no room for a second header beside the first's cached
     # pages, and 1 GiB of host memory holds 512 of them.
     modes = [
-        ("bucketed bf16", dict(), dict(num_pages=160, prefix_cache_pages=1024,
-                                       host_kv_bytes=1 << 30)),
+        ("bucketed bf16", dict(), PREFIX_HOST_TIER),
         ("bucketed int8", dict(kv_dtype="int8"), dict()),
         ("ragged bf16", dict(ragged_dispatch=True), dict()),
     ]
@@ -2378,18 +2635,34 @@ def phase_prefix(seed: int, params, card: str) -> dict:
                     f"prefills; capture {stats['graph_capture_s']:.2f} s, pool "
                     f"{stats['graph_pool_bytes'] / 2**20:.1f} MiB")
             if extra.get("host_kv_bytes"):
-                _host_tier(engine, miss, want[0], cold_other, page_bytes, card)
+                tail = _host_tier(engine, miss, want[0], cold_other, page_bytes, card)
+                # The mesh phase's reference: the same requests in the same
+                # groups, their ids and the pages matched, spilled and
+                # restored from the engine's start.
+                end = engine.stats()
+                mesh_ref = {"ids": [r[0] for r in got + tail],
+                            "counts": {k: end[k] for k in PREFIX_COUNTS}}
         finally:
             engine.shutdown()
     _round_trip(cfg, ps, card)
     counts = {name: k.launches for name, k in KERNELS.items()}
     say("prefix", f"kernel launches in this phase: {counts}")
-    return counts
+    return {"launches": counts, "mesh_ref": mesh_ref}
 
 
-def _host_tier(engine, miss, cold_miss, cold_other, page_bytes, card) -> None:
+# The prefix cache's and host tier's page counts the mesh phase holds to the
+# single-card engine's.
+PREFIX_COUNTS = ("prefix_hit_tokens", "prefix_host_hit_tokens", "kv_pages_evicted",
+                 "kv_pages_restored")
+# The host-tier engine of the prefix phase (its bucketed bf16 mode): 160
+# pages leave no room for a second header beside the first's cached pages.
+PREFIX_HOST_TIER = dict(num_pages=160, prefix_cache_pages=1024, host_kv_bytes=1 << 30)
+
+
+def _host_tier(engine, miss, cold_miss, cold_other, page_bytes, card) -> list:
     """A second header spills the first to the host tier; the first again
-    faults its pages back, in place, to the uncached text."""
+    faults its pages back, in place, to the uncached text. Returns the two
+    requests' `_generate` rows."""
     ptrs = [t.data_ptr() for t in engine.paged.pools]
     _drain(engine)
     before = engine.stats()
@@ -2418,6 +2691,7 @@ def _host_tier(engine, miss, cold_miss, cold_other, page_bytes, card) -> None:
         f"the issue), TTFT {again[0][1]:.1f} ms against {cold_miss[1]:.1f} ms recomputed "
         f"cold; text equal to the uncached engine's; the pools kept their addresses; on "
         f"{card}")
+    return other + again
 
 
 def _round_trip(cfg, ps, card) -> None:
@@ -2471,6 +2745,11 @@ def _round_trip(cfg, ps, card) -> None:
 # -- phase 11 --------------------------------------------------------------
 
 SPEC_GREEDY = [SHORT[0], SHORT[1], LONG[0], LONG[1], LONG_DOC]
+# The spec sub-phases the mesh phase serves again over a one-rank group:
+# (c), the 1B draft over int8 KV, bucketed; (d), the 1B draft in ragged
+# mode over bf16 KV (ragged x spec). Their EngineConfig fields.
+MESH_SPEC = {"(c)": dict(kv_dtype="int8", draft_model="llama-3.2-1b"),
+             "(d)": dict(draft_model="llama-3.2-1b", ragged_dispatch=True)}
 SPEC_SAMPLED = [SHORT[1], LONG[0], LONG[1], SHORT[0]]
 NEAR_TIE = 0.12     # the slices' kernel-against-plain logit tolerance
 
@@ -2663,8 +2942,10 @@ def phase_spec(seed: int, params, card: str) -> dict:
     and the prefix cache, (b) the target as its own draft, (c) the 1B draft
     over int8 KV, (d) and (e) the 1B draft in ragged mode over bf16 and
     int8 KV, each beside the plain engine of its KV type. Returns the
-    plain engines' texts by KV type ("plain") and the kernel launches of
-    each sub-phase ("launches")."""
+    plain engines' texts by KV type ("plain"), the kernel launches of
+    each sub-phase ("launches") and, for the sub-phases the mesh phase
+    repeats (MESH_SPEC), the greedy prompts' ids served one at a time
+    ("mesh_ref")."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
     from polykey_tpu_torch.models.config import get_config
@@ -2689,7 +2970,7 @@ def phase_spec(seed: int, params, card: str) -> dict:
         ("(e) 1B draft, ragged, int8 KV", "int8", dict(draft_model="llama-3.2-1b",
                                                         ragged_dispatch=True), None),
     ]
-    launches = {}
+    launches, mesh_refs = {}, {}
     for label, kv, extra, draft in subs:
         config = EngineConfig(model="llama-3-8b", kv_dtype=kv, spec_gamma=4, **extra)
         for k in KERNELS.values():
@@ -2712,6 +2993,15 @@ def phase_spec(seed: int, params, card: str) -> dict:
                 f"KV pools {st['kv_pool_bytes'] / 2**30:.4f} GiB target, "
                 f"{st['draft_kv_pool_bytes'] / 2**30:.4f} GiB draft on {card}"
                 + (f"; ragged spec stream widths {st['ragged_spec_width']}" if ragged else ""))
+            if label[:3] in MESH_SPEC:
+                # The mesh phase's reference: the greedy prompts one at a time
+                # (every prefill alone: the same group pads run after run),
+                # first, from the engine's start, as the mesh engine serves
+                # them: a ragged spec dispatch that merges a lane leaves the
+                # host's dial mirror at the slot's last occupant's dial, and
+                # with it the next rung (the reference's code does the same).
+                mesh_refs[label[:3]] = [eng.generate([p], stream=True)[0][0]
+                                        for p in SPEC_GREEDY]
             # Ragged: the document goes in once the other four have their
             # first tokens, so its chunks ride with their verify windows.
             got = eng.generate(SPEC_GREEDY, late=1 if ragged else 0)
@@ -2792,7 +3082,7 @@ def phase_spec(seed: int, params, card: str) -> dict:
         finally:
             eng.close()
         sync()
-    return {"plain": plain_texts, "launches": launches}
+    return {"plain": plain_texts, "launches": launches, "mesh_ref": mesh_refs}
 
 
 # -- phase 12 --------------------------------------------------------------
@@ -4368,9 +4658,13 @@ def main() -> int:
     sync()
     phase_prefill_graph(args.seed, params, dev["smi"])
     sync()
-    phase_prefix(args.seed, params, dev["smi"])
+    prefix = phase_prefix(args.seed, params, dev["smi"])
     sync()
     spec = phase_spec(args.seed, params, dev["smi"])
+    sync()
+    features = phase_mesh_features(args.seed, params, dev["smi"], {
+        "ragged": {int8: serves[(True, int8)]["mesh_ref"]["ids"] for int8 in (False, True)},
+        "spec": spec["mesh_ref"], "prefix": prefix["mesh_ref"]})
     sync()
     phase_generate(args.seed, params, dev["smi"], spec["plain"][""])
     sync()
@@ -4414,6 +4708,8 @@ def main() -> int:
     say("disagg", f"worker kernel launches {disagg['launches']}; starts (s) "
         f"{disagg['boot_s']} (the decode worker's second: its restart) on {dev['smi']}")
     say("mesh", f"kernel launches {mesh['launches']} on {dev['smi']}")
+    for sub, counts in features["launches"].items():
+        say("mesh", f"{sub} sub-phase: kernel launches {counts} on {dev['smi']}")
     say("train", f"kernel launches {train['launches']}; step {train['step_ms']:.1f} ms "
         f"(median), peak {train['peak_gib']:.2f} GiB on {dev['smi']}")
     say("replicas", f"kernel launches {replicas['launches']}; trip to SERVING "

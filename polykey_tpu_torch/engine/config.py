@@ -3,12 +3,14 @@
 The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
-for them fails at startup instead of being served by something else: pp
-above 1, a mesh with the ragged dispatch, a draft model, the prefix cache
-or host tier, disaggregated tiers or replicas (`refuse_on_mesh`, A.17),
-and the reference's spec A/B instrumentation. The mesh axes tp, dp, ep,
-sp and num_slices are served (engine/lockstep.py), with the reference's
-geometry checks here and in the engine. Local
+for them fails at startup instead of being served by something else:
+over a mesh the disaggregated tiers, replicas and the durable state dir
+(`refuse_on_mesh`, A.17), and the reference's spec A/B instrumentation.
+The mesh axes tp, dp, pp, ep, sp and num_slices are served
+(engine/lockstep.py), with the reference's geometry checks here and in
+the engine, and so are the ragged dispatch on tp-at-most meshes (the
+reference's rule), a draft model, the prefix cache and the host tier.
+Local
 safetensors checkpoints (`checkpoint_path`, `draft_checkpoint_path`;
 models/loader.py), weight-only int8/int4 (`quantize`,
 `quantize_bits`), chunked prefill
@@ -502,18 +504,21 @@ class EngineConfig:
             raise ValueError("disagg_miss must be >= 1")
         if self.disagg_recovery_wait_s < 0:
             raise ValueError("disagg_recovery_wait_s must be >= 0")
-        unported = [
-            (self.spec_host_sync, "spec_host_sync",
-             "scripts/occupancy_soak.py's A/B instrumentation"),
-            (self.pp > 1, "pp above 1 in serving", MESH_ITEM),
-        ]
-        for refused, knob, item in unported:
-            if refused:
-                raise NotImplementedError(
-                    f"{knob} is not ported to polykey_tpu_torch yet "
-                    f"(ROADMAP.md queue A: {item})"
-                )
-        if max(self.tp, self.dp, self.ep, self.sp, self.num_slices) > 1:
+        if self.ragged_dispatch and (
+                self.dp * self.num_slices > 1 or self.sp > 1 or self.pp > 1):
+            raise ValueError(
+                "ragged_dispatch serves tp-at-most meshes: the flat "
+                "token stream does not shard over dp/sp/pp (got "
+                f"dp={self.dp}×slices={self.num_slices}, sp={self.sp}, "
+                f"pp={self.pp})"
+            )
+        if self.spec_host_sync:
+            raise NotImplementedError(
+                "spec_host_sync is not ported to polykey_tpu_torch yet "
+                "(ROADMAP.md queue A: scripts/occupancy_soak.py's A/B "
+                "instrumentation)"
+            )
+        if max(self.tp, self.dp, self.ep, self.sp, self.pp, self.num_slices) > 1:
             self.refuse_on_mesh()
 
     def refuse_on_mesh(self) -> None:
@@ -522,12 +527,11 @@ class EngineConfig:
         above 1, and the engine again whenever it takes the mesh path (a
         process group is up, a group of one included)."""
         unported = [
-            (self.ragged_dispatch, "ragged_dispatch"),
-            (self.draft_model is not None, "a draft model"),
-            (self.prefix_cache or self.host_kv_bytes > 0,
-             "the prefix cache and the host KV tier"),
             (bool(self.disagg) or bool(self.disagg_tier), "disaggregated tiers"),
             (self.replicas > 1, "more than one replica"),
+            # Each rank's host pools hold its own shard of a page; the wire
+            # format's blobs hold whole pages.
+            (bool(self.kv_state_dir), "the host tier's durable state dir"),
         ]
         for refused, knob in unported:
             if refused:

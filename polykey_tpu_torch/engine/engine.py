@@ -159,27 +159,34 @@ GPU (the reference's engine/engine.py, default path).
   is delivered through the lazy first-token path. `config.disagg_tier`
   scopes ":tier=" faults.
 
-- Serving over a mesh (tp, dp, ep, sp, num_slices; engine/lockstep.py):
+- Serving over a mesh (tp, dp, pp, ep, sp, num_slices; engine/lockstep.py):
   whenever a torch.distributed process group is up (a group of one
   included), or a mesh is passed, the engine serves over a mesh of one
   process per card. It checks the reference's geometry (device count,
   num_kv_heads % tp, slots % (dp x num_slices), ep only for MoE and
-  dividing num_experts, num_layers % pp), shards the weights as it draws or
-  reads them (parallel/sharding.py) and holds its tp shard of the pools.
-  The mesh's first rank leads: it schedules as above and sends a record of
-  each device dispatch (a prefill with its operands, a lane merge or
-  retire, a decode block) to the followers, which replay them in order on
-  their shards through the same functions and graphs, the collectives
-  captured in them. Decode splits the lanes over dp and gathers the
-  sampled tokens, so every rank's lane state stays the same; a prefill's
-  columns split over sp (models/transformer.forward_paged). Without a
-  group the engine is the single-card one, with no collective.
+  dividing num_experts, num_layers % pp, and the draft's kv heads and
+  layers), shards the weights as it draws or reads them
+  (parallel/sharding.py) and holds its shard of the pools: its tp heads of
+  its pp stage's layers (the draft's too). The mesh's first rank leads: it
+  schedules as above and sends a record of each device dispatch (a prefill
+  with its operands, a lane merge or retire, a decode block, a spec round,
+  a ragged dispatch with its host-built operands and work lists, a spill
+  or a restore of the host tier) to the followers, which replay them in
+  order on their shards through the same functions and graphs, the
+  collectives captured in them. Decode splits the lanes over dp and
+  gathers the sampled tokens, so every rank's lane state stays the same; a
+  prefill's columns split over sp; pp's stages run in turn
+  (models/transformer.forward_paged); the ragged dispatch runs on
+  tp-at-most meshes (the reference's rule), on each rank's heads. The
+  prefix cache is the leader's alone (a hit is a prefill record of the
+  suffix); each rank's host tier holds its shard of each page, at the
+  single-card capacity. Without a group the engine is the single-card
+  one, with no collective.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch; over a mesh (A.17): pp above 1, the ragged dispatch, a draft
-model, the prefix cache and host tier, the disaggregated tiers, replicas,
-a capacity-bucketed MoE under dp or sp, and the supervisor's restart of
-a mesh engine (its factory raises).
+dispatch; over a mesh (A.17): the disaggregated tiers, replicas, the
+host tier's durable state dir, a capacity-bucketed MoE under dp or sp,
+and the supervisor's restart of a mesh engine (its factory raises).
 """
 
 from __future__ import annotations
@@ -516,7 +523,7 @@ def _ragged_fn(
     pre_range_start, pre_range_len, pre_range_kv, pre_range_table,
     pre_sample_idx, pre_sample_pos, pre_seeds, pre_temp, pre_top_p,
     pre_top_k,
-    *, greedy: bool, eos_id: int, work=None, candidates: int = 0,
+    *, greedy: bool, eos_id: int, work=None, candidates: int = 0, mesh=None,
 ):
     """One flat mixed prefill+decode dispatch: every decode lane advances
     exactly one step and up to W prefill tokens (ranges appended by the
@@ -534,7 +541,9 @@ def _ragged_fn(
     slot b's first token at position key `pre_sample_pos[b]` (= prompt
     length, as _prefill_fn keys it); the host reads only final-range
     slots' draws. `work` is the ragged kernel's work list for these
-    ranges. Returns (packed, tokens, seq_lens, active, first, paged)."""
+    ranges. Over a (tp-at-most) `mesh` every rank runs the whole stream on
+    its heads and the logits are gathered over tp before sampling.
+    Returns (packed, tokens, seq_lens, active, first, paged)."""
     B = last_tokens.shape[0]
     W = pre_tokens.shape[0]
     dev = last_tokens.device
@@ -549,9 +558,9 @@ def _ragged_fn(
     seq_tables = torch.cat([page_tables, tables_ext[pre_range_table.long()]])
     hidden, paged = forward_ragged(
         params, cfg, tokens, positions, paged, token_tables,
-        rng_starts, rng_lens, rng_kv, seq_tables, work=work,
+        rng_starts, rng_lens, rng_kv, seq_tables, work=work, mesh=mesh,
     )
-    logits = unembed(params, cfg, hidden[:B])
+    logits = unembed(params, cfg, hidden[:B], mesh)
     dec = sample_tail(logits, seeds, seq_lens, temperature, top_p, top_k, greedy,
                       candidates)
     dec = torch.where(active, dec, torch.zeros_like(dec))
@@ -560,7 +569,7 @@ def _ragged_fn(
     packed = torch.where(active, dec, torch.full_like(dec, -1))[None, :]
     rows = hidden[B + torch.clamp(pre_sample_idx, 0, W - 1).long()]
     first = sample_tail(
-        unembed(params, cfg, rows), pre_seeds, pre_sample_pos, pre_temp,
+        unembed(params, cfg, rows, mesh), pre_seeds, pre_sample_pos, pre_temp,
         pre_top_p, pre_top_k, greedy, candidates,
     )
     return packed, dec, new_seq, cont, first, paged
@@ -840,6 +849,7 @@ class InferenceEngine:
         self._leader: Optional[lockstep.Leader] = None
         self._digest: Optional[lockstep.TokenDigest] = None
         self.is_follower = False
+        self.replayed: dict[str, int] = {}     # a follower's records, by kind
         if self.mesh is not None:
             if self.mesh.rank == lockstep.leader_rank(self.mesh):
                 self._leader = lockstep.Leader(self.mesh)
@@ -924,10 +934,13 @@ class InferenceEngine:
         self._weight_bytes = params_bytes(params)
         B, P = config.max_decode_slots, config.pages_per_seq
         kv_q = torch.int8 if config.kv_dtype == "int8" else None
+        # This rank's shard of every pool (and host pool): its tp heads of
+        # its pp stage's layers.
+        self._pool_shard = ({"tp": self.mesh.shape["tp"], "pp": self.mesh.shape["pp"]}
+                            if self.mesh is not None else {})
         self.paged = init_paged_kv(
             self.model_cfg, config.num_pages, config.page_size,
-            pool_dtype, self.device, kv_dtype=kv_q,
-            tp=self.mesh.shape["tp"] if self.mesh is not None else 1,
+            pool_dtype, self.device, kv_dtype=kv_q, **self._pool_shard,
         )
         # Speculative decoding: the draft model and its own pools, indexed
         # by the same page tables (position -> (page, offset) does not
@@ -957,16 +970,21 @@ class InferenceEngine:
                 draft_params = load_checkpoint(
                     config.draft_checkpoint_path, self.draft_cfg, self._dtype,
                     self.device, quantize_bits=bits)
+                if self.mesh is not None:
+                    draft_params = shard_params(draft_params, self.draft_cfg, self.mesh)
             elif draft_params is None:
                 gen = torch.Generator(device=self.device).manual_seed(seed + 2)
                 draft_params = init_params(self.draft_cfg, self._dtype, self.device, gen,
-                                           quantize_bits=bits)
-            elif bits is not None:
-                draft_params = quantize_params(draft_params, self.draft_cfg, bits=bits)
+                                           quantize_bits=bits, mesh=self.mesh)
+            else:
+                if bits is not None:
+                    draft_params = quantize_params(draft_params, self.draft_cfg, bits=bits)
+                if self.mesh is not None:
+                    draft_params = shard_params(draft_params, self.draft_cfg, self.mesh)
             self.draft_params = draft_params
             self.d_paged = init_paged_kv(
                 self.draft_cfg, config.num_pages, config.page_size,
-                pool_dtype, self.device, kv_dtype=kv_q,
+                pool_dtype, self.device, kv_dtype=kv_q, **self._pool_shard,
             )
         # The weights as this engine holds them (on the device, quantized):
         # the supervisor's factory builds a replacement on them (`reuse`).
@@ -997,9 +1015,11 @@ class InferenceEngine:
                     f"than one KV page ({page_b} bytes for {self.model_cfg.name} "
                     f"at page_size {config.page_size})"
                 )
+            # The whole model's page bytes set the capacity, as on one card;
+            # over a mesh each rank's pool holds its shard of those pages.
             self._host_kv = HostKVPool(
                 self.model_cfg, capacity, config.page_size, pool_dtype,
-                kv_q is not None, pin=self.device.type == "cuda",
+                kv_q is not None, pin=self.device.type == "cuda", **self._pool_shard,
             )
         # _finish spills while fewer device pages than the resident floor
         # are free; the restore frontier issues at most `_restore_slots`
@@ -1161,8 +1181,8 @@ class InferenceEngine:
     def _serving_mesh(self, config: EngineConfig, mesh):
         """The mesh this engine serves over, or None for the single-card
         engine (no group up, no mesh passed). Checks the reference's
-        geometry in its order before any group is made, then refuses what
-        the mesh engine does not serve yet (A.17)."""
+        geometry in its order (the draft's last) before any group is made,
+        then refuses what the mesh engine does not serve yet (A.17)."""
         import torch.distributed as dist
 
         group_up = dist.is_available() and dist.is_initialized()
@@ -1200,6 +1220,17 @@ class InferenceEngine:
             raise ValueError(
                 f"pp={config.pp} must divide num_layers={mc.num_layers}"
             )
+        if config.draft_model is not None:
+            dc = get_config(config.draft_model)
+            if dc.num_kv_heads % config.tp != 0:
+                raise ValueError(
+                    f"tp={config.tp} must divide draft num_kv_heads={dc.num_kv_heads}"
+                )
+            if dc.num_layers % config.pp != 0:
+                raise ValueError(
+                    f"pp={config.pp} must divide draft num_layers={dc.num_layers} (the "
+                    "draft's params and page pool shard the same pp axis)"
+                )
         if mesh is None and not group_up:
             return None
         config.refuse_on_mesh()
@@ -1383,8 +1414,11 @@ class InferenceEngine:
         }
         if leader is not None:
             out["records_sent"] = leader.records
+            out["records_by_kind"] = dict(leader.by_kind)
             out["record_messages"] = leader.messages
             out["heartbeats"] = leader.heartbeats
+        if self.is_follower:
+            out["records_replayed"] = dict(self.replayed)
         if self._digest is not None:
             out["decode_blocks_hashed"] = self._digest.blocks
             out["tokens_digest"] = self._digest.hexdigest
@@ -1992,7 +2026,7 @@ class InferenceEngine:
             token, self.paged, self.d_paged = spec_prefill_fn(
                 self.params, self.draft_params, self.model_cfg, self.draft_cfg,
                 self.paged, self.d_paged, *ops, greedy=greedy, candidates=cand,
-                aligned=aligned,
+                aligned=aligned, mesh=self.mesh,
             )
             return token
         token, self.paged = _prefill_fn(
@@ -2441,7 +2475,8 @@ class InferenceEngine:
         flight the host's lengths lag the device's, so live lanes count the
         steps in flight on top, capped at their caps, an estimate that
         sizes the splits and orders the CTAs; the kernel reads the true key
-        counts on the device."""
+        counts on the device. Over a tp mesh the lists are cut for a rank's
+        kv heads: the CTA count, and so the splits, depend on them."""
         B = self.config.max_decode_slots
         act = self._active
         kv_est = np.where(act, np.minimum(self._seq_lens + self._steps_in_flight(),
@@ -2449,8 +2484,9 @@ class InferenceEngine:
         starts = np.concatenate([np.arange(B) * G1, B * G1 + ops[4]])
         lens = np.concatenate([np.full(B, G1, np.int32), ops[5]])
         kvs = np.concatenate([np.maximum(kv_est, 1) + G1 - 1, ops[6]])
+        tp = self.mesh.shape["tp"] if self.mesh is not None else 1
         return [ragged_work(starts, lens, kvs, B * G1 + W, mc.num_heads // mc.num_kv_heads,
-                            mc.num_kv_heads, "cpu") for mc in models]
+                            mc.num_kv_heads // tp, "cpu") for mc in models]
 
     def _dispatch_ragged(self, ranges: list,
                          spec_candidates: Optional[int] = None) -> Optional[_InflightBlock]:
@@ -2478,11 +2514,8 @@ class InferenceEngine:
         greedy = bool(np.all(self._temperature[act] == 0.0)) and bool(
             np.all(smp_temp == 0.0))
         models = (self.model_cfg, self.draft_cfg) if spec else (self.model_cfg,)
-        works = self._ragged_work_lists(ops, W, G1, models)
-        on_dev = _to_device([*ops, *(w.items.numpy() for w in works)], self.device)
-        ops_dev = on_dev[:len(ops)]
-        works = [dataclasses.replace(w, items=items)
-                 for w, items in zip(works, on_dev[len(ops):])]
+        works = [dataclasses.replace(w, items=w.items.numpy())
+                 for w in self._ragged_work_lists(ops, W, G1, models)]
         if spec:
             self._depth_target = min(
                 self._depth, max(1, -(-self._remaining_budget(act) // G1)))
@@ -2492,28 +2525,21 @@ class InferenceEngine:
         live = tuple(int(i) for i in np.flatnonzero(act))
         self.metrics.on_padding_tokens(W, useful)
         self.metrics.on_prefill_interleave(useful, lanes > 0)
-        dev = self._dev
-        lane_state = [dev[k] for k in ("last_tokens", "seq_lens", "page_tables", "active",
-                                       "caps", "seeds", "temperature", "top_p", "top_k")]
+        args = (spec_candidates, gamma, greedy, ops, works)
         try:
             if self._faults is not None:
                 self._faults.maybe_raise("prefill-error", replica=self.replica_id,
                                          tier=self._tier)
-            if spec:
-                packed_dev, first_dev = ragged_spec_fn(
-                    self.params, self.draft_params, self.model_cfg, self.draft_cfg,
-                    self.paged, self.d_paged, *lane_state, dev["accept_ewma"],
-                    dev["gamma_lane"], *ops_dev,
-                    gamma=gamma, eos_id=self.tokenizer.eos_id, gamma_low=self._gamma_low,
-                    gamma_max=self._gamma_max, greedy=greedy,
-                    candidates=spec_candidates, t_work=works[0], d_work=works[1],
-                )
+            if self._leader is not None:
+                try:
+                    self._leader.send(lockstep.Record("ragged", args))
+                    packed_dev, first_dev = self._ragged_device(*args)
+                except Exception as e:
+                    raise LockstepError(f"mesh ragged dispatch failed: {e}") from e
             else:
-                packed_dev, *lane, first_dev, self.paged = _ragged_fn(
-                    self.params, self.model_cfg, self.paged, *lane_state, *ops_dev,
-                    greedy=greedy, eos_id=self.tokenizer.eos_id, work=works[0],
-                    candidates=cfg.top_p_candidates,
-                )
+                packed_dev, first_dev = self._ragged_device(*args)
+        except LockstepError:
+            raise
         except Exception as e:
             # Contained to the ranged slots, as a failed prefill group is;
             # the decode lanes' state was not advanced.
@@ -2521,10 +2547,6 @@ class InferenceEngine:
                 if self._slots[i] is s:
                     self._finish(i, error=f"prefill failed: {e}")
             return None
-        if not spec:
-            # In place: the decode graphs captured these buffers.
-            for name, t in zip(("last_tokens", "seq_lens", "active"), lane):
-                dev[name].copy_(t)
         self._ragged_dispatches += 1
         self._ragged_behind += bool(self._inflight_q)
         if spec:
@@ -2535,7 +2557,7 @@ class InferenceEngine:
             self.timeline.dispatch(self._dispatch_seq, "spec" if spec else "ragged",
                                    lanes, G1, gap_ms)
         reqs = self._snapshot_requests()
-        pre_tables, smp_seeds = ops_dev[3], ops_dev[10]
+        _, pre_tables, smp_seeds = self._last_prefill
         finals = []
         for i, s, take in ranges:
             if self.timeline is not None:
@@ -2550,9 +2572,54 @@ class InferenceEngine:
         n = packed_dev.numel()
         host, event = self._await_first_tokens(
             torch.cat([packed_dev.reshape(-1), first_dev]), [(i, n + i) for i in finals])
+        if self._digest is not None:
+            self._digest.add(host[:n], event)
         return _InflightBlock(host[:n].view(packed_dev.shape), event, reqs,
                               self._dispatch_seq, "spec" if spec else "decode",
                               gap_ms, live)
+
+    def _ragged_device(self, spec_candidates: Optional[int], gamma: int, greedy: bool,
+                       ops: tuple, works: list):
+        """The device side of a ragged dispatch, the leader's and a
+        follower's replay of its record: the host-built operands `ops`
+        (`_ragged_prefill_operands`) and the kernel work lists `works` (one
+        `RaggedWork` a model, its items as a host array) go up by one copy,
+        then `_ragged_fn` (the lane state written back in place) or, with
+        `spec_candidates`, `ragged_spec_fn` at rung `gamma`. The work lists
+        ride the record rather than being rebuilt by each follower: they
+        come from the leader's host lengths and steps in flight, which
+        only the leader has, and every rank must launch the same list.
+        Returns (packed, first) on the device and keeps (first, prefill
+        tables, seeds) as the operands of the merges that follow."""
+        cfg = self.config
+        on_dev = _to_device([*ops, *(w.items for w in works)], self.device)
+        ops_dev = on_dev[:len(ops)]
+        works = [dataclasses.replace(w, items=items)
+                 for w, items in zip(works, on_dev[len(ops):])]
+        dev = self._dev
+        lane_state = [dev[k] for k in ("last_tokens", "seq_lens", "page_tables", "active",
+                                       "caps", "seeds", "temperature", "top_p", "top_k")]
+        if spec_candidates is not None:
+            packed_dev, first_dev = ragged_spec_fn(
+                self.params, self.draft_params, self.model_cfg, self.draft_cfg,
+                self.paged, self.d_paged, *lane_state, dev["accept_ewma"],
+                dev["gamma_lane"], *ops_dev,
+                gamma=gamma, eos_id=self.tokenizer.eos_id, gamma_low=self._gamma_low,
+                gamma_max=self._gamma_max, greedy=greedy,
+                candidates=spec_candidates, t_work=works[0], d_work=works[1],
+                mesh=self.mesh,
+            )
+        else:
+            packed_dev, *lane, first_dev, self.paged = _ragged_fn(
+                self.params, self.model_cfg, self.paged, *lane_state, *ops_dev,
+                greedy=greedy, eos_id=self.tokenizer.eos_id, work=works[0],
+                candidates=cfg.top_p_candidates, mesh=self.mesh,
+            )
+            # In place: the decode graphs captured these buffers.
+            for name, t in zip(("last_tokens", "seq_lens", "active"), lane):
+                dev[name].copy_(t)
+        self._last_prefill = (first_dev, ops_dev[3], ops_dev[10])
+        return packed_dev, first_dev
 
     def _dispatch_step(self) -> Optional[_InflightBlock]:
         """Dispatch one decode block, spec round or, in ragged mode with
@@ -2646,15 +2713,28 @@ class InferenceEngine:
             toks, tables, seeds = self._last_prefill
             slot, row = args[:2]
             _merge_lane_fn(self._dev, slot, toks, row, *args[2:], tables[row], seeds[row],
-                           eos_id=self.tokenizer.eos_id)
+                           eos_id=self.tokenizer.eos_id,
+                           gamma_reset=max(self._gamma_max, 1) if self._spec else None)
         elif kind == "retire":
             _retire_lane_fn(self._dev, *args)
-        elif kind == "decode":
+        elif kind in ("decode", "spec"):
             # Copied out like the leader's block before any other replay
             # (engine/graphs.py), and hashed.
-            self._digest.add(*self._copy_to_host(self._graphs.run("decode", *args)))
+            self._digest.add(*self._copy_to_host(self._graphs.run(kind, *args)))
+        elif kind == "ragged":
+            packed, first = self._ragged_device(*args)
+            host, event = self._copy_to_host(torch.cat([packed.reshape(-1), first]))
+            self._digest.add(host[:packed.numel()], event)
+        elif kind == "spill":
+            pages, rows = args
+            hosts = gather_to_host(self.paged, pages)
+            for j, row in enumerate(rows):
+                self._host_kv.write(row, *(t[:, j] for t in hosts))
+        elif kind == "restore":
+            restore_from_host(self.paged, self._host_kv, *args)
         elif kind != "heartbeat":
             raise ValueError(f"unknown lock-step record {kind!r}")
+        self.replayed[kind] = self.replayed.get(kind, 0) + 1
         self.last_progress = time.monotonic()
 
     def _dispatch_spec(self, act, cand: int) -> _InflightBlock:
@@ -2669,8 +2749,12 @@ class InferenceEngine:
         self._depth_target = min(self._depth, blocks_needed)
         gap_ms = self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
         live = tuple(int(i) for i in np.flatnonzero(act))
+        if self._leader is not None:
+            self._leader.send(lockstep.Record("spec", (gamma, greedy, cand)))
         packed = self._graphs.run("spec", gamma, greedy, cand)
         host, event = self._copy_to_host(packed)
+        if self._digest is not None:
+            self._digest.add(host, event)
         self._dispatch_seq += 1
         if self.timeline is not None:
             self.timeline.dispatch(self._dispatch_seq, "spec", lanes, steps, gap_ms)
@@ -2690,6 +2774,7 @@ class InferenceEngine:
             dev["accept_ewma"], dev["gamma_lane"],
             gamma=gamma, eos_id=self.tokenizer.eos_id, gamma_low=self._gamma_low,
             gamma_max=self._gamma_max, candidates=candidates, greedy=greedy,
+            mesh=self.mesh,
         )
 
     @staticmethod
@@ -3003,12 +3088,16 @@ class InferenceEngine:
         items = slot.restore_pages
         t0 = time.monotonic()
         host = self._host_kv
+        rows, pages = [hp for _, hp, _ in items], [slot.pages[ci] for _, _, ci in items]
         try:
-            restore_from_host(self.paged, host, [hp for _, hp, _ in items],
-                              [slot.pages[ci] for _, _, ci in items])
+            restore_from_host(self.paged, host, rows, pages)
         except Exception as e:
             self._finish(slot_idx, error=f"kv restore failed: {e}")
             return
+        if self._leader is not None:
+            # No collective: it rides with the next record that issues one,
+            # ahead of the prefill that reads the restored pages.
+            self._leader.queue(lockstep.Record("restore", (rows, pages)))
         for key, host_page, ci in items:
             host.release(host_page)
             # Promote under the slot's page; a key re-inserted meanwhile
@@ -3047,7 +3136,8 @@ class InferenceEngine:
         hosts = gather_to_host(self.paged, [page for _, page in cands])
         k, v, ks, vs = (hosts + [None, None])[:4]
         moved: list[tuple[bytes, int]] = []       # (key, gather row)
-        for r, (key, _page) in enumerate(cands):
+        placed: list[tuple[int, int]] = []        # (device page, host page)
+        for r, (key, page) in enumerate(cands):
             try:
                 host_page = self._host_kv.alloc()
             except AllocationError:
@@ -3057,11 +3147,16 @@ class InferenceEngine:
                     self._prefix.drop(key)
                     continue
                 host_page = self._host_kv.alloc()
-            self._host_kv.write(host_page, k[:, r], v[:, r],
-                                ks[:, r] if ks is not None else None,
-                                vs[:, r] if vs is not None else None)
+            self._host_kv.write(host_page, *(t[:, r] for t in hosts))
             self._prefix.mark_host(key, host_page)
             moved.append((key, r))
+            placed.append((page, host_page))
+        if placed and self._leader is not None:
+            # Each follower copies its own shard of the same pages into the
+            # same host rows; no collective, so it rides with the next
+            # record that issues one, ahead of any write to those pages.
+            self._leader.queue(lockstep.Record(
+                "spill", tuple(list(x) for x in zip(*placed))))
         if moved:
             self.metrics.on_kv_evict(len(moved))
             if self.timeline is not None:

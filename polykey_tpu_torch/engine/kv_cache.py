@@ -169,16 +169,16 @@ class PagedKV:
 def init_paged_kv(
     cfg: ModelConfig, num_pages: int, page_size: int,
     dtype: torch.dtype = torch.bfloat16, device="cpu",
-    kv_dtype: Optional[torch.dtype] = None, tp: int = 1,
+    kv_dtype: Optional[torch.dtype] = None, tp: int = 1, pp: int = 1,
 ) -> PagedKV:
     """`kv_dtype=torch.int8` builds quantized pools (+ bf16 scale pools);
     None keeps the full-precision layout in `dtype`. Over a serving mesh
-    the pools are one tp rank's shard (parallel/sharding.paged_kv_spec and
-    paged_kv_scale_spec): its num_kv_heads / `tp` heads, the scale pools
-    split on their last dimension; they are replicated over dp and sp."""
-    if cfg.num_kv_heads % tp:
-        raise ValueError(f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads}")
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
+    the pools are one rank's shard (parallel/sharding.paged_kv_spec and
+    paged_kv_scale_spec): its pp stage's num_layers / `pp` layers and its
+    num_kv_heads / `tp` heads, the scale pools split on their last
+    dimension; they are replicated over dp and sp."""
+    layers, heads = _shard_layers_heads(cfg, tp, pp)
+    shape = (layers, num_pages, page_size, heads, cfg.head_dim)
     if kv_dtype == torch.int8:
         return PagedKV(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -190,6 +190,15 @@ def init_paged_kv(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+def _shard_layers_heads(cfg: ModelConfig, tp: int, pp: int) -> tuple[int, int]:
+    """(layers, kv heads) of one rank's shard of a pool over tp and pp."""
+    if cfg.num_kv_heads % tp:
+        raise ValueError(f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads}")
+    if cfg.num_layers % pp:
+        raise ValueError(f"pp={pp} must divide num_layers={cfg.num_layers}")
+    return cfg.num_layers // pp, cfg.num_kv_heads // tp
 
 
 def kv_pool_bytes(
@@ -221,6 +230,11 @@ class HostKVPool:
     device pools when a lookup hits a spilled entry, so cold capacity is
     bounded by host RAM instead of device memory.
 
+    Over a serving mesh each rank's pool holds its shard of every page
+    (its pp stage's layers, its tp heads: `tp`, `pp`), at the capacity the
+    whole model's page bytes give, so the leader's spill and restore
+    decisions are the single-card engine's.
+
     Preallocated once, pinned (`pin`) when the engine serves on the card.
     No copy to the card ever reads this storage directly: a restore copies
     its pages into a fresh pinned staging buffer first, because the pages
@@ -229,12 +243,13 @@ class HostKVPool:
     """
 
     def __init__(self, cfg: ModelConfig, capacity_pages: int, page_size: int,
-                 dtype: torch.dtype, quantized: bool, pin: bool = False):
+                 dtype: torch.dtype, quantized: bool, pin: bool = False,
+                 tp: int = 1, pp: int = 1):
         if capacity_pages < 1:
             raise ValueError("HostKVPool needs capacity_pages >= 1")
         self.capacity = capacity_pages
-        shape = (cfg.num_layers, capacity_pages, page_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+        layers, heads = _shard_layers_heads(cfg, tp, pp)
+        shape = (layers, capacity_pages, page_size, heads, cfg.head_dim)
 
         def pool(shape, dt):
             return torch.zeros(shape, dtype=dt, pin_memory=pin)

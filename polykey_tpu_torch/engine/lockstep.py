@@ -18,10 +18,15 @@ differed, and its collectives would hang.
 Records (`Record`) travel over the mesh's control group, a gloo group
 beside the data groups (`serving_mesh`), as pickled lists. The leader
 queues the records that issue no collective (lane merges and retires) and
-sends them with the next one that does (a prefill, a decode block), always
-before that dispatch's first collective: a follower applies them in order,
-so a merge reads its prefill's output before any other replay, as the
-graph-output rule wants (engine/graphs.py). When idle the leader sends a
+sends them with the next one that does (a prefill, a decode block, a spec
+round, a ragged dispatch), always before that dispatch's first collective:
+a follower applies them in order, so a merge reads its prefill's output
+before any other replay, as the graph-output rule wants (engine/graphs.py).
+The host tier's spills and restores issue no collective either and are
+queued the same way: a follower gathers the pages, or writes them back,
+at the same point of the device work as the leader did, ahead of any
+later dispatch that writes or reads them. The prefix cache itself lives on
+the leader alone: a hit reaches the followers as the suffix's prefill. When idle the leader sends a
 heartbeat every `HEARTBEAT_S`, so a follower's receive, bounded by
 `CONTROL_TIMEOUT_S`, never times out while the leader lives; a leader that
 stops, by a shutdown or a failed engine, sends "shutdown" and the
@@ -33,8 +38,9 @@ requests with the error.
 Every rank computes the same tokens (logits are gathered over tp, sampled
 tokens over dp), so the lane state evolves identically on every rank and
 only the leader reads tokens back to serve them. `TokenDigest` hashes every
-decode block's packed tokens in dispatch order on every rank of a mesh of
-several, so the ranks' agreement can be checked.
+decode block's, spec round's and ragged dispatch's packed tokens in
+dispatch order on every rank of a mesh of several, so the ranks' agreement
+can be checked.
 """
 
 from __future__ import annotations
@@ -57,9 +63,13 @@ CONTROL_TIMEOUT_S = 120.0  # a follower's longest wait for its next record
 class Record(NamedTuple):
     """One of the leader's device dispatches: `kind` is "prefill" (width,
     group pad, greedy, aligned, the operand arrays), "merge" (slot, row of
-    the last prefill's tokens, seq_len, cap, temperature, top_p, top_k),
-    "retire" (slot), "decode" (greedy, steps), "heartbeat" or
-    "shutdown"."""
+    the last prefill's or ragged dispatch's first tokens, seq_len, cap,
+    temperature, top_p, top_k), "retire" (slot), "decode" (greedy, steps),
+    "spec" (gamma, greedy, candidates: a draft/verify round's graph),
+    "ragged" (the round's candidates or None, gamma, greedy, the host-built
+    operand arrays and the kernel work lists), "spill" (device pages, host
+    rows: each rank copies its shard of the pages into its host pool) and
+    "restore" (host rows, device pages), "heartbeat" or "shutdown"."""
 
     kind: str
     args: tuple = ()
@@ -100,6 +110,7 @@ class Leader:
         self._pending: list = []
         self._last = time.monotonic()
         self.records = 0
+        self.by_kind: dict[str, int] = {}
         self.messages = 0
         self.heartbeats = 0
 
@@ -107,12 +118,14 @@ class Leader:
         """Hold a record that issues no collective until the next send."""
         if not self._silent:
             self._pending.append(record)
+            self.by_kind[record.kind] = self.by_kind.get(record.kind, 0) + 1
 
     def send(self, record: Record) -> None:
         """Send the held records and `record`, before its dispatch runs."""
         if self._silent:
             return
         self._pending.append(record)
+        self.by_kind[record.kind] = self.by_kind.get(record.kind, 0) + 1
         box = [self._pending]
         self._pending = []
         dist.broadcast_object_list(box, src=self._src, group=self._group)

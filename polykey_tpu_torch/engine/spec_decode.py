@@ -38,6 +38,15 @@ ragged x spec dispatch): the verify windows ride one flat stream with the
 prefill ranges of prompts being admitted, through one `forward_ragged`
 per model (the ragged attention kernel), so admissions do not wait for a
 round of their own.
+
+Over a serving mesh (`mesh=`) both models run their sharded forwards (the
+draft's weights and pools are cut as the target's) and both models'
+logits are gathered over tp before any sampling or acceptance math. Under
+dp each rank runs the round for its dp share of the lanes: the draft
+steps, the verify window and the draft's resync all take forward_paged's
+decode rule (`dp_lanes`: K/V rows gathered over dp before the write),
+and the round's outputs are all-gathered over dp, so every rank advances
+the whole lane state alike. The ragged round serves tp-at-most meshes.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.speculative import rejection_accept, residual_extra_dist
 from ..models.transformer import forward_paged, forward_ragged, unembed
+from ..parallel.collectives import gather_from
 from .sampling import (
     ACCEPT_TAG,
     DRAFT_TAG,
@@ -80,7 +90,7 @@ def _dists(logits, temp, top_p, top_k, candidates: int):
 
 def _draft_scan(d_params, d_cfg, d_paged, last_tokens, pos, page_tables, greedy_row,
                 temp, eff_top_p, eff_top_k, draws, gamma: int, candidates: int,
-                greedy: bool):
+                greedy: bool, mesh=None):
     """Draft gamma tokens autoregressively, one T=1 paged step each.
     Returns (drafts [B, gamma] int32, d_dists [B, gamma, V], or None for
     the greedy body)."""
@@ -88,8 +98,8 @@ def _draft_scan(d_params, d_cfg, d_paged, last_tokens, pos, page_tables, greedy_
     drafts, dists = [], []
     for _ in range(gamma):
         hidden, d_paged = forward_paged(d_params, d_cfg, tok[:, None], p[:, None],
-                                        d_paged, page_tables)
-        logits = unembed(d_params, d_cfg, hidden[:, 0])
+                                        d_paged, page_tables, mesh=mesh)
+        logits = unembed(d_params, d_cfg, hidden[:, 0], mesh)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         if not greedy:
             dist = _dists(logits, temp, eff_top_p, eff_top_k, candidates)
@@ -188,7 +198,7 @@ def _accept_merge(t_logits, drafts, d_dists, last_tokens, seq_lens, active, caps
 def spec_prefill_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
                     t_paged, d_paged, tokens, start, last_rel, page_table, seeds,
                     temperature, top_p, top_k, *, greedy: bool, candidates: int = 0,
-                    aligned: Optional[bool] = None):
+                    aligned: Optional[bool] = None, mesh=None):
     """Prefill BOTH pools for N windows; the first token comes from the
     target. The contract of the engine's `_prefill_fn` (windows at per-row
     offsets, the draw keyed by the sampled token's position) plus the
@@ -198,11 +208,11 @@ def spec_prefill_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
     positions = (start[:, None]
                  + torch.arange(T, dtype=torch.int32, device=tokens.device)).to(torch.int32)
     hidden, t_paged = forward_paged(t_params, t_cfg, tokens, positions, t_paged,
-                                    page_table, aligned=aligned)
+                                    page_table, aligned=aligned, mesh=mesh)
     _, d_paged = forward_paged(d_params, d_cfg, tokens, positions, d_paged, page_table,
-                               aligned=aligned)
+                               aligned=aligned, mesh=mesh)
     last = hidden[torch.arange(N, device=tokens.device), last_rel.long()]
-    logits = unembed(t_params, t_cfg, last)
+    logits = unembed(t_params, t_cfg, last, mesh)
     token = sample_tail(logits, seeds, start + last_rel + 1, temperature, top_p, top_k,
                         greedy, candidates)
     return token, t_paged, d_paged
@@ -213,19 +223,28 @@ def spec_decode_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
                    seeds, temperature, top_p, top_k, accept_ewma, gamma_lane, *,
                    gamma: int, eos_id: int, gamma_low: Optional[int] = None,
                    gamma_max: Optional[int] = None, candidates: int = 0,
-                   greedy: bool = False, draws: Optional[TaggedDraws] = None
-                   ) -> torch.Tensor:
+                   greedy: bool = False, draws: Optional[TaggedDraws] = None,
+                   mesh=None) -> torch.Tensor:
     """One draft/verify round for the whole slot batch. `last_tokens` is
     the emitted token at position seq_lens - 1 whose KV is not written yet
     (the decode block's invariant); an active row emits n_acc + 1 tokens,
     cut at EOS and its cap. The lane state (last_tokens, seq_lens, active,
     accept_ewma, gamma_lane) advances IN PLACE; returns the packed
     [B, gamma + 1 + SPEC_STAT_COLS] int32 matrix. Greedy rows reproduce the
-    target's greedy chain for any draft."""
+    target's greedy chain for any draft. Over a `mesh` with dp > 1 this
+    rank runs the round for its dp share of the lanes (module docstring)."""
     gamma_low = gamma if gamma_low is None else gamma_low
     gamma_max = gamma if gamma_max is None else gamma_max
+    dp = mesh.shape["dp"] if mesh is not None else 1
+    lanes = slice(None)
+    if dp > 1:
+        b = last_tokens.shape[0] // dp
+        lanes = slice(mesh.coord("dp") * b, (mesh.coord("dp") + 1) * b)
+    last, seq, tables, act, cap = (t[lanes] for t in (last_tokens, seq_lens, page_tables,
+                                                      active, caps))
+    temperature, top_p, top_k, seeds = (t[lanes] for t in (temperature, top_p, top_k, seeds))
     dev = last_tokens.device
-    pos = torch.clamp(seq_lens - 1, min=0)
+    pos = torch.clamp(seq - 1, min=0)
     greedy_row = temperature == 0.0
     temp = torch.clamp(temperature, min=1e-6)
     draws = TaggedDraws(seeds) if draws is None else draws
@@ -235,26 +254,39 @@ def spec_decode_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
     eff_top_k = torch.where(greedy_row, torch.zeros_like(top_k), top_k)
 
     drafts, d_dists = _draft_scan(
-        d_params, d_cfg, d_paged, last_tokens, pos, page_tables, greedy_row, temp,
-        eff_top_p, eff_top_k, draws, gamma, candidates, greedy,
+        d_params, d_cfg, d_paged, last, pos, tables, greedy_row, temp,
+        eff_top_p, eff_top_k, draws, gamma, candidates, greedy, mesh,
     )
     # Verify: one target forward over [last, drafts] (gamma + 1 wide), then
     # the draft's pools rewritten over the same window. The window starts
     # anywhere, so its KV write is the per-token scatter.
-    window = torch.cat([last_tokens[:, None], drafts], dim=1)
+    window = torch.cat([last[:, None], drafts], dim=1)
     w_pos = (pos[:, None]
              + torch.arange(gamma + 1, dtype=torch.int32, device=dev)[None, :]).to(torch.int32)
     t_hidden, t_paged = forward_paged(t_params, t_cfg, window, w_pos, t_paged,
-                                      page_tables, aligned=False)
-    t_logits = unembed(t_params, t_cfg, t_hidden)                 # [B, gamma+1, V]
-    forward_paged(d_params, d_cfg, window, w_pos, d_paged, page_tables, aligned=False)
+                                      tables, aligned=False, mesh=mesh, dp_lanes=True)
+    t_logits = unembed(t_params, t_cfg, t_hidden, mesh)           # [B, gamma+1, V]
+    forward_paged(d_params, d_cfg, window, w_pos, d_paged, tables, aligned=False,
+                  mesh=mesh, dp_lanes=True)
 
     packed, new_last, new_seq, new_active, new_ewma, new_gamma = _accept_merge(
-        t_logits, drafts, d_dists, last_tokens, seq_lens, active, caps, accept_ewma,
-        gamma_lane, pos, greedy_row, temp, eff_top_p, eff_top_k, draws,
+        t_logits, drafts, d_dists, last, seq, act, cap, accept_ewma[lanes],
+        gamma_lane[lanes], pos, greedy_row, temp, eff_top_p, eff_top_k, draws,
         gamma=gamma, gamma_low=gamma_low, gamma_max=gamma_max, eos_id=eos_id,
         candidates=candidates, greedy=greedy,
     )
+    if dp > 1:
+        # One all-gather of every output column over dp (int32 words).
+        i32 = torch.int32
+        cols = torch.cat([packed, new_last[:, None], new_seq[:, None],
+                          new_active.to(i32)[:, None], new_ewma.view(i32)[:, None],
+                          new_gamma[:, None]], dim=1)
+        cols = gather_from(cols, mesh, "dp", 0)
+        n = packed.shape[1]
+        packed = cols[:, :n]
+        new_last, new_seq, new_gamma = cols[:, n], cols[:, n + 1], cols[:, n + 4]
+        new_active = cols[:, n + 2] != 0
+        new_ewma = cols[:, n + 3].contiguous().view(torch.float32)
     last_tokens.copy_(new_last)
     seq_lens.copy_(new_seq)
     active.copy_(new_active)
@@ -272,7 +304,7 @@ def ragged_spec_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
                    pre_top_k, *, gamma: int, eos_id: int, gamma_low: Optional[int] = None,
                    gamma_max: Optional[int] = None, greedy: bool = False,
                    candidates: int = 0, t_work=None, d_work=None,
-                   draws: Optional[TaggedDraws] = None):
+                   draws: Optional[TaggedDraws] = None, mesh=None):
     """One ragged dispatch of mixed prefill and speculative verify: every
     decode lane runs a whole draft/verify round and up to W prefill tokens
     advance, in one flat `forward_ragged` per model.
@@ -294,8 +326,9 @@ def ragged_spec_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
     from prefill row `pre_sample_idx[b]` at position key
     `pre_sample_pos[b]`, as in `_ragged_fn` (the host reads only final
     ranges' draws). `t_work` and `d_work` are each model's ragged kernel
-    work list (`ragged_work` depends on the heads). The lane state advances
-    IN PLACE; returns (packed [B, gamma + 1 + SPEC_STAT_COLS], first [B])."""
+    work list (`ragged_work` depends on the heads: over a tp mesh, a rank's
+    local kv heads). The lane state advances IN PLACE; returns (packed
+    [B, gamma + 1 + SPEC_STAT_COLS], first [B])."""
     gamma_low = gamma if gamma_low is None else gamma_low
     gamma_max = gamma if gamma_max is None else gamma_max
     B = last_tokens.shape[0]
@@ -312,7 +345,7 @@ def ragged_spec_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
 
     drafts, d_dists = _draft_scan(
         d_params, d_cfg, d_paged, last_tokens, pos, page_tables, greedy_row, temp,
-        eff_top_p, eff_top_k, draws, gamma, candidates, greedy,
+        eff_top_p, eff_top_k, draws, gamma, candidates, greedy, mesh,
     )
     window = torch.cat([last_tokens[:, None], drafts], dim=1)
     w_pos = pos[:, None] + torch.arange(G1, dtype=i32, device=dev)[None, :]
@@ -328,10 +361,10 @@ def ragged_spec_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
     seq_tables = torch.cat([page_tables, tables_ext[pre_range_table.long()]])
     ranges = (rng_starts, rng_lens, rng_kv, seq_tables)
     hidden, t_paged = forward_ragged(t_params, t_cfg, tokens, positions, t_paged,
-                                     token_tables, *ranges, work=t_work)
-    t_logits = unembed(t_params, t_cfg, hidden[:B * G1].reshape(B, G1, -1))
+                                     token_tables, *ranges, work=t_work, mesh=mesh)
+    t_logits = unembed(t_params, t_cfg, hidden[:B * G1].reshape(B, G1, -1), mesh)
     forward_ragged(d_params, d_cfg, tokens, positions, d_paged, token_tables, *ranges,
-                   work=d_work)
+                   work=d_work, mesh=mesh)
 
     packed, new_last, new_seq, new_active, new_ewma, new_gamma = _accept_merge(
         t_logits, drafts, d_dists, last_tokens, seq_lens, active, caps, accept_ewma,
@@ -340,7 +373,7 @@ def ragged_spec_fn(t_params, d_params, t_cfg: ModelConfig, d_cfg: ModelConfig,
         candidates=candidates, greedy=greedy,
     )
     rows = hidden[B * G1 + torch.clamp(pre_sample_idx, 0, W - 1).long()]
-    first = sample_tail(unembed(t_params, t_cfg, rows), pre_seeds, pre_sample_pos,
+    first = sample_tail(unembed(t_params, t_cfg, rows, mesh), pre_seeds, pre_sample_pos,
                         pre_temp, pre_top_p, pre_top_k, greedy, candidates)
     last_tokens.copy_(new_last)
     seq_lens.copy_(new_seq)

@@ -22,7 +22,9 @@ the logits are gathered over tp (parallel/collectives.py gives each its
 gradient). Sequence parallelism mounts through `make_sp_override`.
 `forward_paged` serves over a mesh too (the reference's shard_mapped
 kernels): tp's local heads, a decode batch's dp lanes, a prefill window's
-sp columns. `forward_ragged` stays single-device.
+sp columns, pp's stages in turn (each its run of layers and the pools of
+those layers). `forward_ragged` serves tp-at-most meshes (the reference's
+rule): the ragged kernel on a rank's local heads.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from ..ops.attention import attention
 from ..ops.moe import moe_mlp, moe_mlp_dispatch, moe_mlp_sharded
-from ..parallel.collectives import copy_to, gather_from, reduce_from
+from ..parallel.collectives import copy_to, gather_from, reduce_from, stage_hop
 from .config import ModelConfig
 from .layers import mlp, qkv_project, rms_norm, rope
 from .quant import embed_lookup, qdot, quantize, quantize_embed, quantize_tree, unembed_logits
@@ -86,10 +88,12 @@ def init_params(
     the same generator, for a model whose `dtype` weights do not fit on
     the card.
 
-    With `mesh` (a serving mesh, pp == 1) each layer, then the embedding
-    and lm_head, is cut to this rank's tp/ep shard as soon as it is drawn
-    (and quantized): `shard_params(init_params(...), cfg, mesh)` from the
-    same generator, holding one whole layer at a time."""
+    With `mesh` (a serving mesh) each layer, then the embedding and
+    lm_head, is cut to this rank's tp/ep shard as soon as it is drawn (and
+    quantized), and only this rank's pp stage's run of layers is kept
+    (every layer is drawn on every rank, so the draws stay the same):
+    `shard_params(init_params(...), cfg, mesh)` from the same generator,
+    holding one whole layer at a time."""
     if mesh is not None:
         from ..parallel.sharding import shard_tree
 
@@ -112,8 +116,9 @@ def init_params(
         return {"gate": normal((*lead, h, inter), h), "up": normal((*lead, h, inter), h),
                 "down": normal((*lead, inter, h), inter)}
 
+    keep = stage_layers(cfg, mesh)
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         layer = {
             "attn": {
                 "wq": normal((h, cfg.num_heads * d), h),
@@ -132,6 +137,8 @@ def init_params(
         if cfg.use_post_norms:
             layer["post_ln1"] = norm_init()
             layer["post_ln2"] = norm_init()
+        if i not in keep:
+            continue                 # another stage's layer: drawn, not kept
         if quantize_bits is not None:
             layer = quantize_tree(layer, quantize_bits)
         layers.append(shard("layers", [layer])[0])
@@ -146,6 +153,16 @@ def init_params(
         params["lm_head"] = shard(
             "lm_head", head if quantize_bits is None else quantize(head, bits=8))
     return params
+
+
+def stage_layers(cfg: ModelConfig, mesh=None) -> range:
+    """The global indices of the layers this rank's pp stage holds: a run
+    of num_layers / pp (all of them without a mesh or at pp 1), as
+    parallel/sharding.shard_params cuts them."""
+    pp = mesh.shape["pp"] if mesh is not None else 1
+    run = cfg.num_layers // pp
+    start = mesh.coord("pp") * run if pp > 1 else 0
+    return range(start, start + run)
 
 
 def layer_window(cfg: ModelConfig, layer_idx: int) -> Optional[int]:
@@ -310,7 +327,8 @@ def forward_paged(
     page_tables: torch.Tensor,   # [B, P] int32
     *,
     aligned: Optional[bool] = None,
-    mesh=None,                   # serving mesh (parallel/mesh.py), pp == 1
+    mesh=None,                   # serving mesh (parallel/mesh.py)
+    dp_lanes: Optional[bool] = None,
 ):
     """Forward pass over the paged KV cache; returns (hidden [B, T, H],
     paged). New K/V are written into the pools in place before attention
@@ -332,18 +350,31 @@ def forward_paged(
     computes its T / sp columns, K and V are all-gathered over sp before
     the write, flash runs the rank's query block against the whole window
     from the pools, and the hidden states are gathered back, so the result
-    is [B, T, H] on every rank."""
+    is [B, T, H] on every rank. `dp_lanes` (default: T == 1) says the
+    batch is this rank's dp share of the decode lanes, as a speculative
+    round's verify window of T = gamma + 1 is: its K/V rows are gathered
+    over dp before the write and its columns are not split over sp.
+
+    Under pp the stages run in turn: stage 0 embeds, each stage runs its
+    run of layers on its own pools (`paged` holds that run's layers; a
+    layer's pool is found by its local index, its Gemma-2 window by its
+    global one) and hops its output to the next (`stage_hop`); the last
+    stage's output hops back to every stage, and every rank applies the
+    final norm, so every rank returns the same hidden states and samples
+    the same tokens from them."""
     from ..ops.paged_attention import paged_attention, paged_write, positions_aligned
     from ..ops.paged_attention_kernel import paged_attention_decode
 
     T, ps = tokens.shape[1], paged.k.shape[2]
     decode = T == 1
+    lanes = decode if dp_lanes is None else dp_lanes
     op = paged_attention_decode if decode else paged_attention
     if aligned is None and not decode and T % ps == 0:
         aligned = positions_aligned(positions, ps)
     shape = mesh.shape if mesh is not None else {}
-    gather_dp = decode and shape.get("dp", 1) > 1        # KV rows over dp
-    split_sp = not decode and shape.get("sp", 1) > 1     # columns over sp
+    gather_dp = lanes and shape.get("dp", 1) > 1         # KV rows over dp
+    split_sp = not lanes and shape.get("sp", 1) > 1      # columns over sp
+    first = stage_layers(cfg, mesh).start
     write_tables, write_pos = page_tables, positions
     if gather_dp:
         write_tables = gather_from(page_tables, mesh, "dp", 0)
@@ -357,7 +388,7 @@ def forward_paged(
     kw = {"mesh": mesh} if decode else {"dispatch_T": T}
 
     def attend(layer_idx, q, k, v):
-        kc, vc = paged.layer(layer_idx)
+        kc, vc = paged.layer(layer_idx - first)
         if gather_dp or split_sp:
             kv = gather_from(torch.cat([k, v], dim=-1), mesh,
                              "dp" if gather_dp else "sp", 0 if gather_dp else 1)
@@ -371,14 +402,34 @@ def forward_paged(
             **kw,
         )
 
-    x = embed_tokens(params, cfg, tokens, mesh)
-    for i, layer in enumerate(params["layers"]):
-        x = apply_layer(layer, i, x, positions, cfg, attend, mesh)
+    x = _stages(params, cfg, tokens, positions, attend, mesh)
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, norm_offset)
     if split_sp:
         x = gather_from(x, mesh, "sp", 1)
     return x, paged
+
+
+def _stages(params: dict, cfg: ModelConfig, tokens, positions, attend, mesh):
+    """The embedding and this rank's layers, before the final norm. Over
+    pp > 1 the stages take turns: stage s runs its layers on what stage
+    s - 1 hopped to it, then hops its output on; the last hop (from the
+    last stage) reaches every stage. Every stage issues the same pp hops
+    in the same order, so the lock-step order holds."""
+    pp = mesh.shape["pp"] if mesh is not None else 1
+    stage = mesh.coord("pp") if pp > 1 else 0
+    first = stage_layers(cfg, mesh).start
+    x = embed_tokens(params, cfg, tokens, mesh) if stage == 0 else None
+    for s in range(pp):
+        if s == stage:
+            for i, layer in enumerate(params["layers"]):
+                x = apply_layer(layer, first + i, x, positions, cfg, attend, mesh)
+        if pp > 1:
+            if x is None:       # the hop's landing buffer, before any hop reached us
+                x = torch.empty((*tokens.shape, cfg.hidden_size),
+                                dtype=params["final_norm"].dtype, device=tokens.device)
+            x = stage_hop(x, mesh, s)
+    return x
 
 
 def forward_ragged(
@@ -394,6 +445,7 @@ def forward_ragged(
     page_tables: torch.Tensor,   # [S, P] int32 per-SEQUENCE tables
     *,
     work=None,
+    mesh=None,                   # serving mesh of tp (and ep) only
 ):
     """Forward pass over a ragged flat token stream: decode and prefill
     tokens of many sequences in one call, each attending over its own
@@ -407,10 +459,18 @@ def forward_ragged(
     the ranges on the host. Padding rows carry position 0 and all-garbage
     table rows: they write to the reserved garbage page, like inactive
     decode lanes. int8 pools go to each layer as (values, scales) pairs,
-    as in forward_paged."""
+    as in forward_paged.
+
+    Over a mesh (tp-at-most, the reference's rule for the ragged dispatch:
+    the flat stream does not shard over dp, sp or pp) every rank runs the
+    whole stream on its local heads and MLP columns, with apply_layer's
+    collectives: the write and the ragged kernel take the rank's Hq / tp,
+    Hk / tp heads, and `work` must be cut for Hk / tp kv heads."""
     from ..ops.paged_attention import paged_write
     from ..ops.ragged_paged_attention_kernel import ragged_paged_attention
 
+    if mesh is not None and max(mesh.shape["dp"], mesh.shape["sp"], mesh.shape["pp"]) > 1:
+        raise ValueError(f"the ragged forward serves tp-at-most meshes, not {mesh.shape}")
     T = tokens.shape[0]
     pos_row = positions.reshape(T, 1)
 
@@ -427,9 +487,9 @@ def forward_ragged(
         )
         return ctx[None]
 
-    x = embed_tokens(params, cfg, tokens[None])
+    x = embed_tokens(params, cfg, tokens[None], mesh)
     for i, layer in enumerate(params["layers"]):
-        x = apply_layer(layer, i, x, positions[None], cfg, attend)
+        x = apply_layer(layer, i, x, positions[None], cfg, attend, mesh)
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, norm_offset)
     return x[0], paged

@@ -105,7 +105,14 @@ def ragged_work(seq_starts, seq_lens, kv_lens, T: int, groups: int, kv_heads: in
     sizes the splits and the order only; the kernel reads the true KV
     lengths on the device, so an estimate is never wrong, at worst slower.
     Every row of every range must be covered, so the starts and lengths
-    must be the ones the kernel is given."""
+    must be the ones the kernel is given.
+
+    Over a tp mesh `kv_heads` is a rank's own count (Hk / tp): the CTA
+    count, and with it the choice to split, depends on it, so a rank's
+    list differs from the full-width one. The mesh engine cuts it once,
+    on the leader, and the ragged dispatch's record carries it to the
+    followers (engine.InferenceEngine._ragged_device): every rank launches
+    the same list, built from the leader's host lengths."""
     if groups not in RAGGED_GROUPS:
         raise ValueError(f"ragged kernel: Hq / Hk = {groups} not in {sorted(RAGGED_GROUPS)}")
     tq = TILE_ROWS // groups

@@ -20,7 +20,9 @@ whose backward is the collective's transpose:
 Every call communicates, over a group of one too. Axes may be one name or
 a tuple of names (reduced one after another). `all_reduce` is the plain
 sum (or another reduction) with no gradient, for counts, reported losses
-and the serving path's split-softmax merge.
+and the serving path's split-softmax merge. `stage_hop` is the serving
+path's pp hop (no gradient): a broadcast over the pp group, so it is a
+collective that a CUDA graph captures like the others.
 """
 
 from __future__ import annotations
@@ -181,3 +183,16 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str) -> tuple:
     """Rotate `tensors` one rank on around the axis's ring; the backward
     rotates their gradients one rank back."""
     return _RingShift.apply(mesh, axis, *tensors)
+
+
+def stage_hop(x: torch.Tensor, mesh: Mesh, stage: int) -> torch.Tensor:
+    """Stage `stage`'s `x` on every rank of this rank's pp line, in place
+    on the others (their `x` is the buffer it lands in, of the same shape
+    and dtype): the serving forward's hop from one stage to the next, and
+    from the last stage back to every stage (models/transformer.py). A
+    broadcast, not a send: every stage issues the same pp collectives in
+    the same order, which keeps the mesh's lock-step order and needs no
+    point-to-point capture. No gradient."""
+    x = x.contiguous()
+    dist.broadcast(x, src=mesh.ranks_along("pp")[stage], group=mesh.group("pp"))
+    return x

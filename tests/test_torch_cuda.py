@@ -1946,9 +1946,11 @@ def test_replica_restart_beside_a_live_replica_keeps_both_streams(gen, monkeypat
 
 # -- a mesh rank's shards (serving over a mesh, engine/lockstep.py) -----------
 
-# (groups, Hk) of a tp rank's local heads: Llama-3-8B (Hq 32, Hk 8) at tp=2
-# and tp=4, Gemma-2-27B (Hq 32, Hk 16) at tp=2; D 128, pages of 16, P 256.
-_SHARDS = {"llama-3-8b-tp2": (4, 4), "llama-3-8b-tp4": (4, 2), "gemma-2-27b-tp2": (2, 8)}
+# (groups, Hk, D) of a tp rank's local heads: Llama-3-8B (Hq 32, Hk 8) at
+# tp=2 and tp=4, Gemma-2-27B (Hq 32, Hk 16) at tp=2, D 128; the Llama-3.2-1B
+# draft (Hq 32, Hk 8, D 64) at tp=2; pages of 16, P 256.
+_SHARDS = {"llama-3-8b-tp2": (4, 4, 128), "llama-3-8b-tp4": (4, 2, 128),
+           "gemma-2-27b-tp2": (2, 8, 128), "llama-3.2-1b-tp2": (4, 4, 64)}
 _SHARD_CTX = [[512] * 16, [1, 15, 16, 17, 255, 256, 257, 1023, 1024, 1025, 2049, 4096]]
 
 
@@ -1958,10 +1960,43 @@ _SHARD_CTX = [[512] * 16, [1, 15, 16, 17, 255, 256, 257, 1023, 1024, 1025, 2049,
 def test_decode_kernels_at_shard_heads(gen, monkeypatch, int8, shard, ctx):
     """Both decode kernels at a tp rank's local heads, as
     test_decode_kernel_serve_geometries holds them."""
-    groups, Hk = _SHARDS[shard]
+    groups, Hk, D = _SHARDS[shard]
     _decode_repeat_and_poison(gen, monkeypatch,
                               _int8_decode_inputs if int8 else _bf16_decode_inputs,
-                              128, groups, Hk, 16, 256, ctx)
+                              D, groups, Hk, 16, 256, ctx)
+
+
+# (Hq, Hk) of a Llama-3-8B tp rank, and the ragged streams a mesh engine's
+# dispatches carry: the serve case (16 singles at 512 keys, a first and a
+# second 512-token chunk) and the spec stream (16 verify windows of 5 rows,
+# their last keys over 5..4096, and the same two chunks).
+_RAGGED_SHARDS = {"llama-3-8b-tp2": (16, 4), "llama-3-8b-tp4": (8, 2)}
+_SPEC_KVS = [5, 15, 16, 17, 31, 33, 255, 256, 257, 1000, 1024, 2047, 2049, 3001, 4095, 4096]
+_RAGGED_STREAMS = {
+    "serve": ([1] * 16 + [512, 512], [512] * 16 + [512, 1024]),
+    "spec": ([5] * 16 + [512, 512], _SPEC_KVS + [512, 1024]),
+}
+
+
+@pytest.mark.parametrize("stream", list(_RAGGED_STREAMS))
+@pytest.mark.parametrize("shard", list(_RAGGED_SHARDS))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_kernels_at_shard_heads(gen, monkeypatch, int8, shard, stream):
+    """Both ragged kernels at a tp rank's local heads, the work list cut for
+    those heads (as the mesh engine cuts it): three calls bit-identical,
+    the last with NaN in the split scratch, within the per-element
+    tolerance of the plain version, padding rows 0."""
+    from polykey_tpu_torch.ops import ragged_paged_attention_kernel as rk
+
+    Hq, Hk = _RAGGED_SHARDS[shard]
+    lens, kvs = _RAGGED_STREAMS[stream]
+    make = _ragged_int8_case if int8 else _ragged_case
+    args, used = make(gen, 128, Hq, Hk, lens, kvs, ps=16, P=256)
+    out, work = _ragged_calls(rk, monkeypatch, args, scale=128 ** -0.5)
+    assert torch.isfinite(out).all()
+    assert _ragged_within_tolerance(rk, out, args, scale=128 ** -0.5).all()
+    assert (out[used:] == 0).all()
+    assert work.items.shape[0] > 0
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])

@@ -170,12 +170,12 @@ def test_stats_report_kernel_launches(engines):
 
 
 def test_unported_knobs_refuse_to_start():
-    for knob in (dict(pp=2), dict(spec_host_sync=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            dataclasses.replace(TEST_CONFIG, **knob).validate()
-    # Serving over a mesh is ported (engine/lockstep.py); the engine checks
-    # its geometry against the process group.
+    with pytest.raises(NotImplementedError, match="not ported"):
+        dataclasses.replace(TEST_CONFIG, spec_host_sync=True).validate()
+    # Serving over a mesh is ported (engine/lockstep.py), pp included; the
+    # engine checks its geometry against the process group.
     dataclasses.replace(TEST_CONFIG, tp=2, dp=2, sp=2).validate()
+    dataclasses.replace(TEST_CONFIG, pp=2).validate()
     # The disaggregated pool is served now (engine/disagg_pool.py).
     dataclasses.replace(TEST_CONFIG, disagg="1x1").validate()
     # The replica pool is served now (engine/replica_pool.py).

@@ -14,8 +14,10 @@ engine on its simulated devices. Checks: the leader's greedy streams
 equal the JAX engine's token for token (fp32: the tp partial sums and the
 sp merge reorder additions, far from flipping an argmax here, as the JAX
 mesh tests rely on too); every follower's decode tokens hash to the
-leader's; the refusals (the reference's geometry ValueErrors,
-NotImplementedError naming A.17); the supervisor refuses to restart a
+leader's; the refusals (the reference's geometry ValueErrors, its
+ragged rule and its draft-layers check; NotImplementedError naming A.17
+for the disaggregated tiers, replicas and a capacity-bucketed MoE under
+dp); the supervisor refuses to restart a
 mesh engine. A second, 2-rank group loses a follower mid-stream: the
 leader's requests must end with an error, not hang.
 """
@@ -91,22 +93,24 @@ CASES = {    # in the order each rank runs them
 JAX_MESH = ("tp2", "sp2")    # also held to the JAX mesh engine
 IDLE = dict(heartbeat_s=0.2, idle_s=1.5)    # dp2's leader idles before it stops
 
+ODD_DRAFT = "tiny-llama-1l"     # a one-layer draft: pp=2 cannot split it
 GEOMETRY = {    # tests/test_engine_mesh.py::test_bad_geometry_rejected's cases
     "dp3-slots": (dict(dp=3), "must divide max_decode_slots"),
     "tp4-kv-heads": (dict(tp=4), "must divide num_kv_heads"),
     "ep2-dense": (dict(ep=2), "requires an MoE model"),
     "sp3-buckets": (dict(sp=3), "must divide every prefill bucket"),
     "sp0": (dict(sp=0), "must be >= 1"),
+    # The reference's ragged rule (polykey_tpu/engine/config.py) and its
+    # check of the draft's layers against pp (polykey_tpu/engine/engine.py).
+    "dp2-ragged": (dict(dp=2, ragged_dispatch=True), "serves tp-at-most meshes"),
+    "sp2-ragged": (dict(sp=2, ragged_dispatch=True), "serves tp-at-most meshes"),
+    "pp2-ragged": (dict(pp=2, ragged_dispatch=True), "serves tp-at-most meshes"),
+    "pp2-odd-draft": (dict(pp=2, draft_model=ODD_DRAFT), "must divide draft num_layers"),
 }
-A17 = {
-    "pp2": dict(pp=2),
-    "tp2-ragged": dict(tp=2, ragged_dispatch=True),
-    "tp2-draft": dict(tp=2, draft_model="tiny-llama"),
-    "tp2-prefix-cache": dict(tp=2, prefix_cache=True),
-    "tp2-host-tier": dict(tp=2, prefix_cache=True, host_kv_bytes=1 << 20),
+A17 = {    # the rest of serving over a mesh (the features ported since have
+    # their cases in tests/test_torch_engine_mesh_features.py)
     "tp2-disagg": dict(tp=2, disagg="1x1"),
     "tp2-replicas": dict(tp=2, replicas=2),
-    "one-rank-ragged": dict(ragged_dispatch=True),   # the group alone makes a mesh
     "dp2-moe-dispatch": dict(model="mixtral-8x7b", dp=2),
 }
 
@@ -163,7 +167,9 @@ def _mesh_runs(tmp):
             jt.init_params(jax.random.PRNGKey(0), j_get_config(name), jnp.float32))
         torch_ranks.save_tree(tmp / f"{name}.npz", params[name])
     model_fields = {n: torch_ranks.config_fields(c) for n, c in MODELS.items()}
-    jobs = [{"kind": "refusals", "name": "refusals", "models": [model_fields[FOUR_KV]],
+    odd = torch_ranks.config_fields(dataclasses.replace(TINY_LLAMA, name=ODD_DRAFT,
+                                                        num_layers=1))
+    jobs = [{"kind": "refusals", "name": "refusals", "models": [model_fields[FOUR_KV], odd],
              "cases": {**{k: {**FIELDS, **v[0]} for k, v in GEOMETRY.items()},
                        **{k: {**FIELDS, **v} for k, v in A17.items()}}}]
     for name, (axes, ranks, ref) in CASES.items():

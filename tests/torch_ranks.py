@@ -260,6 +260,8 @@ def _engine(job, mesh, **kw):
     MODEL_REGISTRY[cfg.name] = cfg
     config = EngineConfig(**job["config"])
     params = params_from_numpy(load_tree(job["params"]))
+    if job.get("draft_params"):
+        kw["draft_params"] = params_from_numpy(load_tree(job["draft_params"]))
     return InferenceEngine(config, params=params, device="cpu", mesh=mesh, **kw)
 
 
@@ -276,16 +278,24 @@ def _collect(request, timeout):
             return tokens, str(value)
 
 
+# The leader's prefix cache and host tier counts a job_engine returns.
+PAGE_COUNTS = ("prefix_hit_tokens", "prefix_host_hit_tokens", "kv_pages_evicted",
+               "kv_pages_restored")
+
+
 def job_engine(job, mesh):
-    """Serve `prompts` (greedy, `max_new` tokens each, submitted at once)
-    on the mesh's leader; followers replay until the leader shuts down.
+    """Serve `prompts` (greedy, `max_new` tokens each, submitted at once,
+    or one after another with `sequential`) on the mesh's leader, with the
+    draft weights of `draft_params` when given; followers replay until the
+    leader shuts down.
     `kill_after` (a follower's rank and a count of decode records) makes
     that follower exit at once on its Nth decode record, mid-stream;
     `heartbeat_s` sets the idle leader's heartbeat interval and `idle_s`
     idles the leader that long before it shuts down.
-    Every rank returns its decode tokens' digest and its pools' (every
+    Every rank returns its decode tokens' digest and its pools' (the draft's too; every
     page but the garbage page); the leader also each stream (-1 padded)
-    and its error."""
+    and its error, its prefix cache's and host tier's page counts and its
+    records by kind; a follower its records replayed by kind."""
     import hashlib
     import queue
 
@@ -316,9 +326,12 @@ def job_engine(job, mesh):
         requests = [GenRequest(prompt=p, max_new_tokens=job["max_new"])
                     for p in job["prompts"]]
         for r in requests:
-            engine.submit(r)
+            if not job.get("sequential"):
+                engine.submit(r)
         streams, errors = [], []
         for r in requests:
+            if job.get("sequential"):
+                engine.submit(r)
             try:
                 tokens, error = _collect(r, job.get("timeout", 120))
             except queue.Empty:
@@ -327,11 +340,15 @@ def job_engine(job, mesh):
             errors.append(error)
         time.sleep(job.get("idle_s", 0.0))      # heartbeats while idle
         engine.shutdown()
+        snap = engine.stats()
         out = {"tokens": np.asarray(streams), "errors": np.asarray(errors),
-               "dead": np.asarray(engine.dead or "")}
+               "dead": np.asarray(engine.dead or ""),
+               **{k: np.asarray(snap.get(k, 0)) for k in PAGE_COUNTS}}
     stats = engine.stats()["mesh"]
+    out["records"] = np.asarray(json.dumps(
+        stats.get("records_by_kind", stats.get("records_replayed", {}))))
     pools = hashlib.blake2b(digest_size=16)       # every page but the garbage page 0
-    for pool in engine.paged.pools:
+    for pool in engine.paged.pools + (engine.d_paged.pools if engine._spec else []):
         pools.update(pool[:, 1:].contiguous().view(torch.uint8).numpy().tobytes())
     out.update(pools=np.asarray(pools.hexdigest()),
                heartbeats=np.asarray(stats.get("heartbeats", -1)),
