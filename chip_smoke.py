@@ -98,36 +98,47 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
 7a. mesh:   serving over a mesh (engine/lockstep.py) on the serve phases'
             weights: initialize_from_env over a one-rank NCCL group
             (POLYKEY_COORDINATOR=127.0.0.1:<free port>, one process), then
-            the default EngineConfig's Llama-3-8B, which takes the mesh
-            path because the group is up (its collectives, a group of one's
-            copies, captured in the CUDA graphs), bf16 KV and then int8
-            KV. MESH_PROMPTS (the serve phase's five prompts) over streamed
-            gRPC, greedy, 32 tokens, one at a time: every stream must be
-            token for token the one the serve phase of the same KV type
-            served the same way just before (a group of one computes
-            exactly what one card does), every decode block and prefill a
-            graph replay (none eager), flash and the KV type's decode and
-            write kernels launched, no weight copied, and every collective
-            of the 34 captured forwards issued inside a capture (2244). It
-            prints the NCCL version, the capture seconds against the serve
-            phase's, the 8-step decode block's and the 512-token prefill's
-            replay walls at idle in turns against the serve phase's engine
-            of the same KV type (shut down, its graphs kept for this; the
-            cost of the captured collectives over a group of one), and one
-            decode replay's device activities under torch.profiler. The
-            group is destroyed at the end. The kernels phase holds the kernels at a mesh
-            rank's shard shapes too: decode (bf16 and int8) at Llama-3-8B
-            tp=2 (Hq 16, Hk 4) and tp=4 (Hq 8, Hk 2) at contexts 1..4096
-            and 16 lanes of 512, and Gemma-2-27B tp=2 (Hq 16, Hk 8); the
-            sp=2 decode's two page-range halves merged against the whole
-            range; flash at tp=4's heads and on sp=2's second query block
-            against the whole window; both writes at Hk 4 and 2; both
-            ragged kernels at Llama-3-8B tp=2 and tp=4's heads, at the
-            serve case and the spec stream, each cut into work items for
-            those heads; the 1B draft's D=64 decode (bf16 and int8) at
-            tp=2's heads (Hq 16, Hk 4). Phase 11a runs the engine's own
-            features on the mesh engine. pp needs a second rank: it runs
-            on the CPU only (tests/test_torch_engine_mesh_features.py).
+            the default EngineConfig's Llama-3-8B at MESH_FEATURE_LAYERS (4)
+            of its layers (full width; the serve weights' first layers),
+            which takes the mesh path because the group is up (its
+            collectives, a group of one's copies, captured in the CUDA
+            graphs), bf16 KV and then int8 KV, each beside the single-card
+            engine of the same config served first (before the group is
+            up). MESH_PROMPTS (the serve phase's five prompts) over
+            streamed gRPC, greedy, 32 tokens, one at a time: every stream
+            must be token for token the single-card engine's (a group of
+            one computes exactly what one card does), every decode block
+            and prefill a graph replay (none eager), flash and the KV
+            type's decode and write kernels launched, no weight copied, and
+            every collective of the 34 captured forwards issued inside a
+            capture (340 at 4 layers). It prints the NCCL version, the
+            capture seconds against the single-card engine's, the 8-step
+            decode block's and the 512-token prefill's replay walls at idle
+            in turns against the single-card engine (shut down, its graphs
+            kept for this; the cost of the captured collectives over a
+            group of one), and one decode replay's device activities under
+            torch.profiler. Then the full depth from a checkpoint: the
+            serve phases' bf16 weights written as an HF checkpoint (two
+            shards and an index, in a temporary directory removed at the
+            end) and read by a mesh engine (checkpoint_path) as its rank's
+            shard of each tensor (the whole of it, on a group of one): the
+            tree bit for bit the one written, MESH_PROMPTS token for token
+            the bf16 serve phase's; it prints the write's and the load's
+            seconds, the bytes copied and the load's peak device memory.
+            The group is destroyed at the end. The kernels phase holds the
+            kernels at a mesh rank's shard shapes too: decode (bf16 and
+            int8) at Llama-3-8B tp=2 (Hq 16, Hk 4) and tp=4 (Hq 8, Hk 2) at
+            contexts 1..4096 and 16 lanes of 512, and Gemma-2-27B tp=2 (Hq
+            16, Hk 8); the sp=2 decode's two page-range halves merged
+            against the whole range; flash at tp=4's heads and on sp=2's
+            second query block against the whole window; both writes at Hk
+            4 and 2; both ragged kernels at Llama-3-8B tp=2 and tp=4's
+            heads, at the serve case and the spec stream, each cut into
+            work items for those heads; the 1B draft's D=64 decode (bf16
+            and int8) at tp=2's heads (Hq 16, Hk 4). Phase 11a runs the
+            engine's own features on the mesh engine. pp needs a second
+            rank: it runs on the CPU only
+            (tests/test_torch_engine_mesh_features.py).
 8. graph:   the full-depth Llama-3-8B decode block (16 greedy lanes at
             context 512, as profile_decode sets it up; bf16 and int8 KV),
             eager and as a replay of its graph, from the same lane state:
@@ -158,7 +169,8 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and the header's TTFT recomputed cold. Last, pages gathered to
             a host pool and restored into other pages equal the originals
             bit for bit (bf16, and int8 values with their scales), with
-            the restore's device time for 64 pages.
+            the restore's device time for 64 pages. The host-tier engine
+            writes its spills to a state dir (phase 11a's reference).
 11. spec:   speculative decoding on the same weights, over gRPC, each beside
             the plain engine of its KV type on the same prompts (the serve
             phases' five, all greedy, 32 tokens): (a) a Llama-3.2-1B draft
@@ -188,25 +200,35 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             against the plain engine; (d) and (e) also the ragged spec
             dispatches, their lanes and prefill ranges, and their wall on
             the card (CUDA events around each dispatch) beside the host's
-            time in the call. (c) and (d) then serve the five once more,
-            one at a time: phase 11a's reference.
+            time in the call.
 11a. mesh (features): the engine's own features on the mesh engine over
             a one-rank NCCL group brought up as in phase 7a, each held
-            token for token to the single-card phase that ran it one
-            request at a time: ragged_dispatch over bf16 and int8 KV
-            (MESH_PROMPTS against phases 6 and 7's streams; the KV type's
-            ragged kernel launched on the mesh engine, flash not); the 1B
-            draft at gamma 4 as in phase 11's (c) (bucketed, int8 KV) and
-            (d) (ragged x spec, bf16 KV): the five greedy prompts, every
-            round a graph replay with its collectives captured; the prefix
+            token for token to a single-card engine serving the same
+            requests one at a time: at MESH_FEATURE_LAYERS (4) of Llama-3-8B's
+            layers (full width; the single-card engines of the same config
+            and depth served first), ragged_dispatch over bf16 and int8 KV
+            (MESH_PROMPTS; the KV type's ragged kernel launched on the mesh
+            engine, flash not) and the 1B draft at gamma 4 as in phase 11's
+            (c) (bucketed, int8 KV) and (d) (ragged x spec, bf16 KV): the
+            five greedy prompts, every round a graph replay with its
+            collectives captured; at full depth, the prefix
             cache with phase 10's host tier (160 pages, 1 GiB of host
             memory): the header's miss, four hits, four more, one alone,
             the second header (which spills the first) and the first again
             (restored): the ids and the pages matched, spilled and restored
             equal to phase 10's host-tier engine's, and the lone hit's TTFT
-            not above the miss's. Each sub-phase prints its seconds, its
-            engine's capture and its kernel launches; the group is
-            destroyed at the end.
+            not above the miss's; its spills go to a state dir (whole pages
+            assembled from the ranks' shards) whose blobs and sidecars must
+            be phase 10's byte for byte. Then the in-process restart: the
+            same mesh engine behind TorchService.create's supervisor, a
+            failure injected into its engine loop before any record of its
+            dispatch goes out, the fresh engine rebuilt on the same mesh
+            and weights, health SERVING again, the state dir reloaded into
+            its host tier, and the header's miss served again from it,
+            token for token phase 10's; it prints the seconds from the
+            failure to the fresh engine serving. Each sub-phase prints its
+            seconds, its engine's capture and its kernel launches; the
+            group is destroyed at the end.
 12. generate: offline generation over a contiguous KV cache
             (models/generate.py) on the same weights: `generate` greedy, 32
             tokens, of LONG's two ~390-token prompts right-padded into one
@@ -265,6 +287,11 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             replica's lookahead is the autopilot's setpoint (3 or more; it
             boots with 2). Only flash, the bf16 decode and the bf16 write
             kernels launch; it prints each replica's ITL p50 / p95.
+14a. mesh (replicas): two replicas on the serve phases' weight tensors
+            (their first MESH_FEATURE_LAYERS layers), each over its own
+            one-rank mesh (its own data, control and pages groups):
+            MESH_PROMPTS one at a time, the replicas in turn, token for
+            token the single-card engine of the same depth.
 15. disagg: after the Llama weights are freed (their fingerprint taken
             first), a 1x1 disaggregated pool (DisaggPool.create,
             POLYKEY_DISAGG="1x1", engine/disagg_pool.py): a prefill worker
@@ -296,6 +323,13 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             worker process must be gone at the end (their process groups
             are killed in any case). A text that differs is held to the
             near-tie rule on the weights drawn again in this process.
+15a. mesh (disagg): a second 1x1 pool, its workers one-rank meshes
+            (DisaggPool.create(mesh_workers=True): each worker process
+            brings a group of one up, so its engine takes the mesh path and its handoffs
+            move whole pages through lockstep's gather and scatter): the
+            five greedy prompts one at a time, token for token phase 15's
+            pool, every handoff imported, each worker's kernel launches
+            printed.
 16. serve-mixtral: after the Llama weights are freed, the full 32-layer
             mixtral-8x7b (46.7 B parameters, random weights from --seed,
             drawn and quantized to int8 a layer at a time: 43.5 GiB) behind
@@ -305,6 +339,14 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and no other; every decode block and prefill a graph replay.
             The capacity-bucketed dispatch drops by position in the batch,
             so the repeated greedy prompt is held to a solo run of it.
+16a. mesh (mixtral): the same int8 weights (their first
+            MESH_FEATURE_LAYERS layers) behind the mesh engine over a
+            one-rank NCCL group: the capacity-bucketed MoE through
+            moe_mlp_sharded's whole-batch routing (a group of one gathers
+            nothing); MIXTRAL_MESH_PROMPTS one at a time (16 tokens), token
+            for token the single-card engine of the same depth, every
+            dispatch a replay, flash and the bf16 decode and write kernels
+            launched.
 17. serve-gemma: after Mixtral's weights are freed, gemma-2-2b (26 layers,
             random bf16 weights from seed + 2) is written as an HF
             safetensors checkpoint (two shards and an index, by this
@@ -362,6 +404,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM: published HBM3 rate
 BF16_FLOPS_PER_S = 989e12       # H100 SXM: dense bf16 tensor-core peak
+
+
+def phase_done(start: float):
+    """A printer of the seconds since `start` at the end of each phase."""
+    def done(name: str) -> None:
+        say("timing", f"{name} ended at {time.monotonic() - start:.1f} s")
+    return done
 
 
 def say(phase: str, msg: str) -> None:
@@ -1886,9 +1935,7 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         # The mesh phases' reference: the same streams, one at a time (the
         # ragged modes' without their engine, which nothing replays after).
         mesh_ref = None
-        if phase in ("serve", "serve-int8"):
-            mesh_ref = _mesh_reference(grpc, engine)
-        elif phase in ("ragged", "ragged-int8"):
+        if phase == "serve":
             mesh_ref = {"ids": _mesh_reference(grpc, engine)["ids"]}
     finally:
         grpc.close()
@@ -2029,30 +2076,148 @@ def _one_rank_nccl(phase: str):
     say(phase, "process group destroyed")
 
 
-def phase_mesh(seed: int, params, card: str, refs: dict) -> dict:
+def phase_mesh(seed: int, params, card: str, want: list) -> dict:
     """The mesh engine on the serve phases' weights over a one-rank NCCL
-    group (module docstring, phase 7a); `refs[int8]` is the single-card
-    serve's `_mesh_reference`, its engine shut down but holding its graphs
-    (for the walls in turns; its device state is released here). Returns
-    the kernels' launches in the phase."""
+    group (module docstring, phase 7a): at MESH_FEATURE_LAYERS layers, bf16
+    and int8 KV, each beside a single-card engine of the same depth (served
+    first, before the group is up; shut down but holding its graphs for the
+    walls in turns); then the full depth read from a checkpoint, held to
+    `want` (the bf16 serve phase's one-at-a-time ids). Returns the kernels'
+    launches in the bucketed sub-phases ("launches") and the checkpoint
+    sub-phase ("checkpoint")."""
+    import shutil
+
     from polykey_tpu_torch.engine.config import EngineConfig
-    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+    from polykey_tpu_torch.engine.engine import InferenceEngine
 
     phase = "mesh"
-    singles = {int8: refs[int8].pop("engine") for int8 in (False, True)}
-    check(all(e.mesh is None for e in singles.values()), "a serve engine took a mesh")
+    model, cut = _cut_depth(params, MESH_FEATURE_LAYERS)
+    singles, refs = {}, {}
     launches = {}
+    ckpt = None
     try:
+        for int8 in (False, True):
+            grpc = _Grpc(InferenceEngine(EngineConfig(model=model,
+                                                      kv_dtype="int8" if int8 else ""),
+                                         params=cut, device="cuda", seed=seed))
+            try:
+                refs[int8] = _mesh_reference(grpc, grpc.engine)
+            finally:
+                grpc.close()
+            singles[int8] = refs[int8].pop("engine")
+        check(all(e.mesh is None for e in singles.values()), "a single-card engine took a mesh")
+        ckpt = _write_checkpoint(params, card)
         with _one_rank_nccl(phase):
             for int8 in (False, True):
-                launches_of = _mesh_bucketed(seed, params, card, refs[int8], singles, int8)
+                launches_of = _mesh_bucketed(seed, cut, card, refs[int8], singles, int8)
                 for name, n in launches_of.items():
                     launches[name] = launches.get(name, 0) + n
+            checkpoint = _mesh_checkpoint(seed, params, card, ckpt, want)
     finally:
         for engine in singles.values():
             engine.release_device_state()
         singles.clear()
-    return {"launches": launches}
+        if ckpt is not None:
+            shutil.rmtree(ckpt["dir"], ignore_errors=True)
+    return {"launches": launches, "checkpoint": checkpoint}
+
+
+def _mesh_checkpoint(seed: int, params, card: str, ckpt: dict, want: list) -> dict:
+    """Phase 7a's checkpoint sub-phase: the full-depth bf16 mesh engine
+    reading the serve weights from `ckpt` as its rank's shard
+    (`_checkpoint_engine`), MESH_PROMPTS one at a time over gRPC token for
+    token the serve phase's (`want`). Returns the kernels' launches."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS
+
+    label = "checkpoint, bf16 weights read as the rank's shard"
+    config = EngineConfig(model="llama-3-8b", checkpoint_path=ckpt["dir"])
+    engine, _, up = _checkpoint_engine(config, params, seed, card, ckpt, label)
+    grpc = _Grpc(engine)
+    try:
+        for k in KERNELS.values():
+            k.launches = 0
+        ids = [grpc.generate([p], stream=True)[0][0] for p in MESH_PROMPTS]
+        counts = {name: k.launches for name, k in KERNELS.items()}
+    finally:
+        grpc.close()
+    say("mesh", f"{label}: engine up in {up:.1f} s; kernel launches {counts} on {card}")
+    _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the serve phase's")
+    check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
+                                      "paged_write")),
+          f"{label}: a kernel was not launched: {counts}")
+    del engine, grpc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _write_checkpoint(params, card: str) -> dict:
+    """The serve phases' bf16 weights written as an HF checkpoint (this
+    script's writer, two shards and an index) in a temporary directory."""
+    import tempfile
+
+    from polykey_tpu_torch.models.config import get_config
+
+    ckpt = tempfile.mkdtemp(prefix="polykey-llama-3-8b-", dir=tempfile.gettempdir())
+    t0 = time.monotonic()
+    nbytes = write_hf_checkpoint(params, get_config("llama-3-8b"), ckpt)
+    say("mesh", f"checkpoint: {nbytes} bytes written in {time.monotonic() - t0:.1f} s "
+        f"on {card}")
+    return {"dir": ckpt, "bytes": nbytes}
+
+
+def _checkpoint_engine(config, params, seed: int, card: str, ckpt: dict, label: str):
+    """Phase 7a's bf16 mesh engine read from the checkpoint `ckpt`
+    (`config` with its checkpoint_path): each tensor read as the rank's
+    shard (models/loader.py with the mesh; all of it on a group of one).
+    Prints the load's seconds, bytes and peak device memory above what was
+    allocated before it, and checks the tree bit for bit the serve
+    weights written. Returns `_mesh_engine`'s triple."""
+    from polykey_tpu_torch.engine import engine as engine_mod
+    from polykey_tpu_torch.engine.engine import InferenceEngine
+
+    loads = []
+    load = engine_mod.load_checkpoint
+
+    def timed_load(*args, **kwargs):
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts = kwargs.setdefault("counts", {})
+        t0 = time.monotonic()
+        tree = load(*args, **kwargs)
+        sync()
+        loads.append({"s": time.monotonic() - t0, "counts": dict(counts), "base": base,
+                      "peak": torch.cuda.max_memory_allocated() - base,
+                      "mesh": kwargs.get("mesh")})
+        return tree
+
+    engine_mod.load_checkpoint = timed_load
+    try:
+        t0 = time.monotonic()
+        with _count_captured_collectives() as captured:
+            engine = InferenceEngine(config, device="cuda", seed=seed)
+        up = time.monotonic() - t0
+    finally:
+        engine_mod.load_checkpoint = load
+    check(len(loads) == 1 and loads[0]["mesh"] is engine.mesh and engine.mesh is not None
+          and engine.stats()["mesh"]["world"] == 1,
+          f"{label}: the engine did not read its checkpoint over its mesh: {loads}")
+    pairs = list(zip(_leaves_of(engine.params), _leaves_of(params)))
+    check(all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+              for a, b in pairs), f"{label}: a tensor read differs from the one written")
+    info = loads[0]
+    say("mesh", f"{label}: read from the checkpoint in {info['s']:.2f} s "
+        f"({info['counts']['copied']} bytes copied as the rank's shards, "
+        f"{info['counts']['scanned']} scanned for scales), peak device memory of the load "
+        f"{info['peak'] / 2**30:.3f} GiB above the {info['base'] / 2**30:.2f} GiB allocated "
+        f"before it; {len(pairs)} tensors "
+        f"({sum(a.numel() * a.element_size() for a, _ in pairs)} bytes) bit for bit the "
+        f"serve weights written, on {card}")
+    check(info["counts"]["copied"] == ckpt["bytes"], f"{label}: {info['counts']} against "
+          f"{ckpt['bytes']} bytes written (a rank of a group of one reads everything)")
+    return engine, captured, up
 
 
 def _mesh_engine(config, params, seed: int, label: str):
@@ -2069,28 +2234,33 @@ def _mesh_engine(config, params, seed: int, label: str):
     check(engine.mesh is not None and stats["mesh"]["world"] == 1
           and stats["mesh"]["role"] == "leader",
           f"{label}: the engine did not take the mesh path: {stats.get('mesh')}")
-    check(engine.params["embed"] is params["embed"], f"{label}: a group of one copied "
-          "the weights")
+    def storage(leaf):              # a quantized leaf's int8 values
+        return getattr(leaf, "q", leaf).data_ptr()
+
+    check(storage(engine.params["embed"]) == storage(params["embed"]),
+          f"{label}: a group of one copied the weights")
     return engine, captured, up
 
 
 def _mesh_bucketed(seed: int, params, card: str, ref: dict, singles: dict,
                    int8: bool) -> dict:
     """Phase 7a over one KV type: the bucketed mesh engine's streams, replay
-    walls in turns with the single-card engine's, captured collectives."""
+    walls in turns with the single-card engine's, captured collectives;
+    `params` are the single-card engine's (a cut of the serve weights)."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS
 
     phase = "mesh"
     kv = "int8 KV" if int8 else "bf16 KV"
-    engine, captured, up = _mesh_engine(
-        EngineConfig(model="llama-3-8b", kv_dtype="int8" if int8 else ""), params, seed, kv)
+    config = EngineConfig(model=singles[int8].config.model, kv_dtype="int8" if int8 else "")
+    engine, captured, up = _mesh_engine(config, params, seed, kv)
+    weights = "the single-card engine's weight tensors (no copy)"
     stats = engine.stats()
     say(phase, f"{kv}: mesh engine up in {up:.1f} s over {stats['mesh']}, "
-        f"the serve phase's weight tensors (no copy), KV pool "
+        f"{weights}, KV pool "
         f"{stats['kv_pool_bytes'] / 2**30:.4f} GiB; graphs captured in "
         f"{stats['graph_capture_s']:.2f} s ({stats['decode_graph_captures']} decode, "
-        f"{stats['prefill_graph_captures']} prefill; the serve phase's capture "
+        f"{stats['prefill_graph_captures']} prefill; the single-card engine's capture "
         f"{ref['capture_s']:.2f} s), pool {stats['graph_pool_bytes'] / 2**20:.1f} MiB "
         f"on {card}")
     grpc = _Grpc(engine)
@@ -2130,7 +2300,7 @@ def _mesh_bucketed(seed: int, params, card: str, ref: dict, singles: dict,
         f"decode replay under torch.profiler: {profiles[0][0]} device "
         f"activities, {profiles[0][1]} of them copies (the single-card "
         f"engine's: {profiles[1][0]}, {profiles[1][1]})")
-    _hold_mesh_ids(kv, MESH_PROMPTS, ids, ref["ids"], "the serve phase's")
+    _hold_mesh_ids(kv, MESH_PROMPTS, ids, ref["ids"], "the single-card engine's")
     check(after["decode_graph_replays"] > 0 and after["prefill_graph_replays"] > 0
           and after["prefill_eager"] == 0,
           f"{kv}: decode or prefill not all graph replays: {after}")
@@ -2163,32 +2333,246 @@ def _hold_mesh_ids(label: str, prompts: list, got: list, want: list, against: st
         f"({sum(len(i) for i in got)} tokens)")
 
 
+# -- phases 14a and 15a ------------------------------------------------------
+
+def phase_mesh_replicas(seed: int, params, card: str) -> dict:
+    """Phase 14a: two Llama-3-8B replicas (at MESH_FEATURE_LAYERS layers)
+    built of meshes over a one-rank NCCL group: each replica's engine on a
+    serving mesh of its own (its own data, control and pages groups), both
+    on the serve phases' weight tensors; MESH_PROMPTS one at a time, each
+    replica serving them in turn, token for token the single-card engine
+    of the same depth, served first. Returns the kernels' launches."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS
+    from polykey_tpu_torch.engine.replica_pool import ReplicaPool
+
+    label = "replicas, two replicas each over its own one-rank mesh"
+    t0 = time.monotonic()
+    model, cut = _cut_depth(params, MESH_FEATURE_LAYERS)
+    want = _one_at_a_time(EngineConfig(model=model), cut, seed, MESH_PROMPTS)
+    with _one_rank_nccl("mesh"):
+        t1 = time.monotonic()
+        pool = ReplicaPool.create(EngineConfig(model=model, replicas=2),
+                                  params=cut, device="cuda", seed=seed)
+        try:
+            up = time.monotonic() - t1
+            engines = [rep.engine for rep in pool.replicas]
+            check(all(e.mesh is not None and not e.is_follower for e in engines)
+                  and engines[0].mesh is not engines[1].mesh
+                  and engines[0].mesh.control is not engines[1].mesh.control,
+                  f"{label}: the replicas do not each lead a mesh of their own")
+            check(engines[0].params is engines[1].params
+                  and engines[0].params["embed"].data_ptr() == params["embed"].data_ptr(),
+                  f"{label}: the replicas do not share the serve phase's weights")
+            for k in KERNELS.values():
+                k.launches = 0
+            ids = [_generate(engines[i % 2], [p])[0][0] for i, p in enumerate(MESH_PROMPTS)]
+            counts = {name: k.launches for name, k in KERNELS.items()}
+            captures = [e.stats()["graph_capture_s"] for e in engines]
+        finally:
+            pool.shutdown()
+        del pool, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("mesh", f"{label}, {MESH_FEATURE_LAYERS} layers: both up in {up:.1f} s (captures "
+        f"{captures[0]:.2f} s and {captures[1]:.2f} s); kernel launches {counts}; "
+        f"sub-phase {time.monotonic() - t0:.1f} s on {card}")
+    _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the single-card engine's")
+    check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
+                                      "paged_write")),
+          f"{label}: a kernel was not launched: {counts}")
+    return counts
+
+
+def _stream_ids(engine, prompt: str, max_new: int = 32) -> list:
+    """One greedy request's token ids through `engine` (an engine or a pool)."""
+    from polykey_tpu_torch.engine.engine import GenRequest
+
+    request = GenRequest(prompt=prompt, max_new_tokens=max_new)
+    engine.submit(request)
+    toks = []
+    while True:
+        kind, value = request.out.get(timeout=600)
+        check(kind != "error", f"engine error: {value}")
+        if kind == "done":
+            return toks
+        toks.append(value)
+
+
+def phase_mesh_disagg(seed: int, card: str, want: list) -> dict:
+    """Phase 15a: a 1x1 Llama-3-8B pool whose workers are one-rank meshes
+    (mesh_workers: each worker process brings a group of one up
+    before its engine, which then takes the mesh path: its handoffs'
+    pages gathered and scattered as whole pages); SPEC_GREEDY one at a
+    time, token for token phase 15's pool (`want`). Returns each worker's
+    kernel launches."""
+    import shutil
+    import signal
+    import tempfile
+
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.disagg_pool import DisaggPool
+
+    label = "disagg, a 1x1 pool of one-rank mesh workers"
+    state_dir = tempfile.mkdtemp(prefix="polykey-disagg-mesh-")
+    config = EngineConfig(model="llama-3-8b", disagg="1x1", default_max_new_tokens=32,
+                          disagg_heartbeat_s=0.25, disagg_recovery_wait_s=300.0,
+                          request_timeout_s=600.0)
+    saved = {k: os.environ.pop(k, None) for k in ("POLYKEY_FAULTS", "POLYKEY_DEVICE")}
+    t0 = time.monotonic()
+    pool, procs = None, []
+    try:
+        pool = DisaggPool.create(config, seed=seed, state_dir=state_dir, device="cuda",
+                                 ready_timeout_s=400.0, mesh_workers=True)
+        up = time.monotonic() - t0
+        procs = [w.proc for w in pool.workers]
+        ids = [_stream_ids(pool, p) for p in SPEC_GREEDY]
+        stats = {w.tier: pool._worker_stats(w) for w in pool.workers}
+    finally:
+        if pool is not None:
+            pool.shutdown()
+        for proc in procs:
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                proc.wait(timeout=30)
+        shutil.rmtree(state_dir, ignore_errors=True)
+        for key, value in saved.items():
+            if value is not None:
+                os.environ[key] = value
+    counts = {tier: st.get("kernel_launches", {}) for tier, st in stats.items()}
+    say("mesh", f"{label}: pool up in {up:.1f} s; workers' meshes "
+        f"{ {t: st.get('mesh') for t, st in stats.items()} }; handoffs imported "
+        f"{stats['decode'].get('handoff_imports')}; kernel launches by worker {counts}; "
+        f"sub-phase {time.monotonic() - t0:.1f} s on {card}")
+    check(all(st.get("mesh", {}).get("world") == 1 and st["mesh"]["role"] == "leader"
+              for st in stats.values()), f"{label}: a worker is not a one-rank mesh")
+    _hold_mesh_ids(label, SPEC_GREEDY, ids, want, "phase 15's pool")
+    check(stats["decode"].get("handoff_imports") == len(SPEC_GREEDY),
+          f"{label}: handoffs {stats['decode'].get('handoff_imports')}")
+    return counts
+
+
+# -- phase 16a ---------------------------------------------------------------
+
+# The Mixtral mesh sub-phase's prompts and tokens.
+MIXTRAL_MESH_PROMPTS, MIXTRAL_MESH_TOKENS = MESH_PROMPTS[:3], 16
+
+
+def phase_mesh_mixtral(seed: int, params, card: str) -> dict:
+    """Phase 16a: Mixtral-8x7B's int8 weights (phase 16's tensors, their
+    first MESH_FEATURE_LAYERS layers) behind the mesh engine over a
+    one-rank NCCL group: the capacity-bucketed MoE through
+    ops/moe.moe_mlp_sharded's whole-batch routing (a group of one gathers
+    nothing); MIXTRAL_MESH_PROMPTS one at a time, token for token the
+    single-card engine of the same depth, served first. Returns the
+    kernels' launches."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS
+
+    label = "mixtral-8x7b, int8 weights, capacity-bucketed MoE"
+    t0 = time.monotonic()
+    model, cut = _cut_depth(params, MESH_FEATURE_LAYERS, "mixtral-8x7b")
+    # The weights come quantized: the engines take them as they are.
+    config = EngineConfig(model=model)
+    want = _one_at_a_time(config, cut, seed, MIXTRAL_MESH_PROMPTS, MIXTRAL_MESH_TOKENS)
+    with _one_rank_nccl("mesh"):
+        engine, captured, up = _mesh_engine(config, cut, seed, label)
+        check(engine.model_cfg.moe_dispatch, f"{label}: not the capacity-bucketed MoE")
+        grpc = _Grpc(engine)
+        try:
+            for k in KERNELS.values():
+                k.launches = 0
+            ids = [grpc.generate([p], max_new=MIXTRAL_MESH_TOKENS, stream=True)[0][0]
+                   for p in MIXTRAL_MESH_PROMPTS]
+            counts = {name: k.launches for name, k in KERNELS.items()}
+            st = engine.stats()
+        finally:
+            grpc.close()
+        say("mesh", f"{label}, {MESH_FEATURE_LAYERS} layers: mesh engine up in {up:.1f} s "
+            f"(graphs {st['graph_capture_s']:.2f} s, {captured['all_reduce']} all-reduces and "
+            f"{captured['all_gather']} all-gathers captured); decode graph replays "
+            f"{st['decode_graph_replays']}, prefill graph replays {st['prefill_graph_replays']}, "
+            f"eager prefills {st['prefill_eager']}; kernel launches {counts}; sub-phase "
+            f"{time.monotonic() - t0:.1f} s on {card}")
+        _hold_mesh_ids(label, MIXTRAL_MESH_PROMPTS, ids, want, "the single-card engine's")
+        check(st["prefill_eager"] == 0 and st["decode_graph_replays"] > 0,
+              f"{label}: not every dispatch a replay: {st}")
+        check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
+                                          "paged_write")),
+              f"{label}: a kernel was not launched: {counts}")
+        del engine, grpc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 # -- phase 11a ---------------------------------------------------------------
+
+# The depth (of Llama-3-8B's or Mixtral-8x7B's 32 layers, at full width)
+# the mesh sub-phases run at, to keep the script inside its time limit:
+# phase 7a's bucketed sub-phases, phase 11a's ragged and spec sub-phases and
+# phases 14a and 16a, each beside a single-card engine of the same depth.
+MESH_FEATURE_LAYERS = 4
+
+
+def _cut_depth(params, layers: int, model: str = "llama-3-8b") -> tuple:
+    """(the name of a registered `model` config of `layers` layers, the
+    weights' first `layers` layers: the same tensors, no copy)."""
+    from polykey_tpu_torch.models.config import MODEL_REGISTRY, get_config
+
+    cfg = replace(get_config(model), name=f"{model}-{layers}l", num_layers=layers)
+    MODEL_REGISTRY[cfg.name] = cfg
+    return cfg.name, dict(params, layers=params["layers"][:layers])
+
+
+def _one_at_a_time(config, params, seed: int, prompts: list, max_new: int = 32) -> list:
+    """The single-card engine of `config` on `params`: `prompts` one at a
+    time over streamed gRPC, greedy, `max_new` tokens each (its token ids)."""
+    from polykey_tpu_torch.engine.engine import InferenceEngine
+
+    grpc = _Grpc(InferenceEngine(config, params=params, device="cuda", seed=seed))
+    try:
+        check(grpc.engine.mesh is None, "a reference engine took the mesh path")
+        return [grpc.generate([p], max_new=max_new, stream=True)[0][0] for p in prompts]
+    finally:
+        grpc.close()
+        grpc.engine.release_device_state()
+
 
 def phase_mesh_features(seed: int, params, card: str, refs: dict) -> dict:
     """The engine's own features on the mesh engine over a one-rank NCCL
-    group (module docstring, phase 11a), each against the single-card
-    phase that ran it: `refs["ragged"][int8]` (the ragged serve phases'
-    streams), `refs["spec"][key]` (phase_spec's MESH_SPEC sub-phases) and
-    `refs["prefix"]` (phase_prefix's host-tier engine). Returns the
-    kernels' launches by sub-phase."""
+    group (module docstring, phase 11a). The ragged and spec sub-phases
+    run at MESH_FEATURE_LAYERS layers, each against the single-card engine
+    of the same config and depth, served first (before the group is up);
+    the prefix sub-phase at full depth against `refs["prefix"]`
+    (phase_prefix's host-tier engine). Returns the kernels' launches by
+    sub-phase."""
     from polykey_tpu_torch.engine.config import EngineConfig
 
     phase = "mesh"
     launches = {}
     t0 = time.monotonic()
+    model, cut = _cut_depth(params, MESH_FEATURE_LAYERS)
+    subs = [(f"ragged, {'int8 KV' if int8 else 'bf16 KV'}",
+             EngineConfig(model=model, ragged_dispatch=True, kv_dtype="int8" if int8 else ""),
+             MESH_PROMPTS) for int8 in (False, True)]
+    subs += [(f"spec {key}", EngineConfig(model=model, spec_gamma=4, **fields), SPEC_GREEDY)
+             for key, fields in MESH_SPEC.items()]
+    want = {label: _one_at_a_time(config, cut, seed, prompts)
+            for label, config, prompts in subs}
+    say(phase, f"references at {MESH_FEATURE_LAYERS} layers: {time.monotonic() - t0:.1f} s")
     with _one_rank_nccl(phase):
-        for int8 in (False, True):
-            kv = "int8 KV" if int8 else "bf16 KV"
-            config = EngineConfig(model="llama-3-8b", ragged_dispatch=True,
-                                  kv_dtype="int8" if int8 else "")
-            launches[f"ragged, {kv}"] = _mesh_ragged(seed, params, card, config,
-                                                     refs["ragged"][int8])
-        for key, fields in MESH_SPEC.items():
-            config = EngineConfig(model="llama-3-8b", spec_gamma=4, **fields)
-            launches[f"spec {key}"] = _mesh_spec(seed, params, card, config, key,
-                                                 refs["spec"][key])
-        launches["prefix"] = _mesh_prefix(seed, params, card, refs["prefix"])
+        for label, config, _ in subs:
+            if config.draft_model is None:
+                launches[label] = _mesh_ragged(seed, cut, card, config, want[label])
+            else:
+                launches[label] = _mesh_spec(seed, cut, card, config, label[5:], want[label])
+        prefix = _mesh_prefix(seed, card, refs["prefix"])
+        launches["prefix"] = prefix["prefix"]
+        launches["restart"] = prefix["restart"]["launches"]
     say(phase, f"ragged, spec and prefix sub-phases: {time.monotonic() - t0:.1f} s")
     return {"launches": launches}
 
@@ -2218,7 +2602,7 @@ def _mesh_ragged(seed: int, params, card: str, config, want: list) -> dict:
         f"captured), stream width {st['ragged_width']}; {st['ragged_dispatches']} ragged "
         f"dispatches; kernel launches {counts}; sub-phase {time.monotonic() - t0:.1f} s "
         f"on {card}")
-    _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the ragged serve phase's")
+    _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the single-card engine's")
     check(counts[rag] > 0 and st["ragged_dispatches"] > 0,
           f"{label}: the ragged kernel did not launch on the mesh engine: {counts}")
     check(counts["flash_attention"] == 0, f"{label}: flash launched in ragged mode")
@@ -2264,7 +2648,7 @@ def _mesh_spec(seed: int, params, card: str, config, key: str, want: list) -> di
         return (f"{g[i]} against {w[i]}, both within {m:.4f} of the top logit on the "
                 f"plain path")
 
-    _hold_mesh_ids(label, SPEC_GREEDY, ids, want, f"the spec phase's {key}", margin)
+    _hold_mesh_ids(label, SPEC_GREEDY, ids, want, "the single-card engine's", margin)
     check(st["spec_graph_captures"] > 0 and st["spec_graph_replays"] > 0
           and st["spec_eager"] == 0, f"{label}: rounds not all graph replays: {st}")
     check(captured["all_reduce"] > 0 and captured["all_gather"] > 0,
@@ -2284,18 +2668,31 @@ def _mesh_spec(seed: int, params, card: str, config, key: str, want: list) -> di
     return counts
 
 
-def _mesh_prefix(seed: int, params, card: str, ref: dict) -> dict:
+def _mesh_prefix(seed: int, card: str, ref: dict) -> dict:
     """The prefix cache and the host tier on the mesh engine: phase_prefix's
     host-tier engine's requests in its groups (the header's miss, 4 hits,
     4 more, one alone, the second header that spills the first, the first
     again, restored), their ids and the pages matched, spilled and
     restored held to the single-card engine's; the lone hit's TTFT not
-    above the miss's."""
+    above the miss's. Its spills go to a state dir, whose files (whole
+    pages, lockstep.gather_pages) must be the single-card engine's byte
+    for byte. Then the in-process restart: behind TorchService.create's
+    supervisor, a fault injected into the engine loop (before any record
+    of its dispatch goes out) kills the engine; the supervisor rebuilds it
+    on the same mesh and weights, the fresh engine reloads the state dir
+    (lockstep.scatter_pages) and serves the header's miss again from the
+    host tier, token for token the single-card engine's."""
+    import shutil
+    import tempfile
+
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS
 
     label = "prefix, bucketed bf16 with the host tier"
-    config = EngineConfig(model="llama-3-8b", prefix_cache=True, **PREFIX_HOST_TIER)
+    state_dir = tempfile.mkdtemp(prefix="polykey-mesh-state-", dir=tempfile.gettempdir())
+    config = EngineConfig(model=ref["model"], prefix_cache=True, kv_state_dir=state_dir,
+                          **PREFIX_HOST_TIER)
+    params = ref["params"]
     t0 = time.monotonic()
     engine, _, up = _mesh_engine(config, params, seed, label)
     miss = PREFIX_HEADER + PREFIX_TAILS[0]
@@ -2311,26 +2708,126 @@ def _mesh_prefix(seed: int, params, card: str, ref: dict) -> dict:
             got += _generate(engine, group)
         counts = {name: k.launches for name, k in KERNELS.items()}
         end = engine.stats()
+        pages = {k: end[k] for k in PREFIX_COUNTS}
+        say("mesh", f"{label}: mesh engine up in {up:.1f} s; {len(got)} requests; pages "
+            f"{pages} (the single-card engine's {ref['counts']}); TTFT miss {got[0][1]:.1f} ms, "
+            f"lone hit {got[9][1]:.1f} ms, the first header again after its spill "
+            f"{got[-1][1]:.1f} ms; kernel launches {counts}; sub-phase "
+            f"{time.monotonic() - t0:.1f} s on {card}")
+        _hold_mesh_ids(label, [p for g in groups for p in g], [r[0] for r in got], ref["ids"],
+                       "the prefix phase's host-tier engine's")
+        check(pages == ref["counts"], f"{label}: pages {pages}, not the single-card "
+              f"engine's {ref['counts']}")
+        check(pages["kv_pages_evicted"] > 0 and pages["kv_pages_restored"] > 0,
+              f"{label}: no spill and restore: {pages}")
+        check(got[9][1] <= got[0][1], f"{label}: the lone hit ({got[9][1]:.1f} ms) is slower "
+              f"than the miss ({got[0][1]:.1f} ms)")
+        # Compared once the engine has died: the last retirement's spill
+        # may still run after its request is done.
+        restart = _mesh_restart(engine, miss, ref["ids"][0], card, lambda: _same_state_dirs(
+            label, state_dir, ref["state_dir"], card))
     finally:
         engine.shutdown()
-    pages = {k: end[k] for k in PREFIX_COUNTS}
-    say("mesh", f"{label}: mesh engine up in {up:.1f} s; {len(got)} requests; pages "
-        f"{pages} (the single-card engine's {ref['counts']}); TTFT miss {got[0][1]:.1f} ms, "
-        f"lone hit {got[9][1]:.1f} ms, the first header again after its spill "
-        f"{got[-1][1]:.1f} ms; kernel launches {counts}; sub-phase "
-        f"{time.monotonic() - t0:.1f} s on {card}")
-    _hold_mesh_ids(label, [p for g in groups for p in g], [r[0] for r in got], ref["ids"],
-                   "the prefix phase's host-tier engine's")
-    check(pages == ref["counts"], f"{label}: pages {pages}, not the single-card "
-          f"engine's {ref['counts']}")
-    check(pages["kv_pages_evicted"] > 0 and pages["kv_pages_restored"] > 0,
-          f"{label}: no spill and restore: {pages}")
-    check(got[9][1] <= got[0][1], f"{label}: the lone hit ({got[9][1]:.1f} ms) is slower "
-          f"than the miss ({got[0][1]:.1f} ms)")
+        shutil.rmtree(state_dir, ignore_errors=True)
+        shutil.rmtree(ref["state_dir"], ignore_errors=True)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return {"prefix": counts, "restart": restart}
+
+
+def _state_batches(directory: str) -> dict:
+    """{seq: (blob bytes, sidecar dict)} of a state dir one engine wrote."""
+    out = {}
+    for name in os.listdir(directory):
+        if name.endswith(".pkkv"):
+            stem = name[:-len(".pkkv")]
+            with open(os.path.join(directory, name), "rb") as f:
+                blob = f.read()
+            with open(os.path.join(directory, stem + ".keys.json")) as f:
+                out[int(stem.split("-")[1])] = (blob, json.load(f))
+    return out
+
+
+def _same_state_dirs(label: str, mesh_dir: str, single_dir: str, card: str) -> None:
+    """The mesh engine's state dir byte for byte the single-card engine's:
+    the same batches in the same order, each blob and sidecar equal."""
+    got, want = _state_batches(mesh_dir), _state_batches(single_dir)
+    nbytes = sum(len(b) for b, _ in got.values())
+    say("mesh", f"{label}: state dir of {len(got)} spill batches ({nbytes} blob bytes, "
+        f"{sum(len(s['keys']) for _, s in got.values())} pages) against the single-card "
+        f"engine's {len(want)}: "
+        f"{sum(got.get(q) == want[q] for q in want)} byte-identical, on {card}")
+    check(want and sorted(got) == sorted(want), f"{label}: spill batches {sorted(got)} "
+          f"against the single-card engine's {sorted(want)}")
+    for seq in sorted(want):
+        check(got[seq][1] == want[seq][1], f"{label}: batch {seq}'s sidecar differs")
+        check(got[seq][0] == want[seq][0], f"{label}: batch {seq}'s blob differs")
+
+
+def _mesh_restart(engine, prompt: str, want: list, card: str, restarted) -> dict:
+    """The mesh engine behind TorchService.create's supervisor, restarted in
+    process after an injected failure of its engine loop; `restarted()`
+    runs once the fresh engine is up, before it serves. Returns the fresh
+    engine's kernel launches serving `prompt` (held to `want`) and the
+    seconds from the failure to the fresh engine up."""
+    from polykey_tpu_torch.engine.engine import KERNELS, GenRequest
+    from polykey_tpu_torch.gateway.health import SERVING, HealthService
+    from polykey_tpu_torch.gateway.torch_service import TorchService
+
+    label = "restart, the prefix sub-phase's mesh engine"
+    health = HealthService()
+    health.set_serving_status("", SERVING)
+    engine.health = health
+    service = TorchService.create(engine, health=health)
+    try:
+        check(engine.mesh_restart, f"{label}: the service did not arm the mesh restart")
+
+        def crash():
+            raise RuntimeError("injected engine-loop failure")
+
+        engine._dispatch_step = crash
+        t0 = time.monotonic()
+        request = GenRequest(prompt="restart", max_new_tokens=4)
+        engine.submit(request)
+        while True:
+            kind, value = request.out.get(timeout=120)
+            if kind != "token":
+                break
+        check(kind == "error" and "injected" in str(value), f"{label}: {kind} {value}")
+        while service.supervisor.restarts < 1 and not service.supervisor.gave_up \
+                and time.monotonic() - t0 < 300:
+            time.sleep(0.01)
+        restart_s = time.monotonic() - t0
+        fresh = service.engine
+        check(service.supervisor.restarts == 1 and fresh is not engine,
+              f"{label}: no restart (gave up: {service.supervisor.gave_up})")
+        check(engine.closed_with == "rebuild" and fresh.mesh is engine.mesh,
+              f"{label}: closed with {engine.closed_with!r}, mesh kept "
+              f"{fresh.mesh is engine.mesh}")
+        st = fresh.stats()
+        restarted()
+        for k in KERNELS.values():
+            k.launches = 0
+        got = _generate(fresh, [prompt])
+        counts = {name: k.launches for name, k in KERNELS.items()}
+        after = fresh.stats()
+        say("mesh", f"{label}: the failure to the fresh engine serving in {restart_s:.2f} s "
+            f"(its capture {st['graph_capture_s']:.2f} s), health "
+            f"{health._statuses['']} (SERVING is {SERVING}); {st['kv_reloaded_pages']} pages "
+            f"reloaded from the state dir; the header's miss again: TTFT "
+            f"{got[0][1]:.1f} ms, {after['prefix_host_hit_tokens']} tokens from the host "
+            f"tier; kernel launches {counts} on {card}")
+        _hold_mesh_ids(label, [prompt], [got[0][0]], [want], "the single-card engine's")
+        check(health._statuses[""] == SERVING, f"{label}: health not SERVING")
+        check(st["kv_reloaded_pages"] > 0 and after["prefix_host_hit_tokens"] > 0,
+              f"{label}: the state dir did not warm the fresh engine: {after}")
+        check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
+                                          "paged_write")),
+              f"{label}: a kernel was not launched: {counts}")
+    finally:
+        service.close()
+    return {"launches": counts, "restart_s": restart_s}
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -2560,7 +3057,8 @@ def phase_prefix(seed: int, params, card: str) -> dict:
     mesh_ref = None
     for k in KERNELS.values():
         k.launches = 0
-    cfg = get_config("llama-3-8b")
+    model = "llama-3-8b"
+    cfg = get_config(model)
     ps = EngineConfig().page_size
     page_bytes = host_kv_page_bytes(cfg, ps, torch.bfloat16)
     miss = PREFIX_HEADER + PREFIX_TAILS[0]
@@ -2572,13 +3070,18 @@ def phase_prefix(seed: int, params, card: str) -> dict:
     # The bucketed bf16 engine holds the host tier too: 160 pages (73 a
     # request) leave no room for a second header beside the first's cached
     # pages, and 1 GiB of host memory holds 512 of them.
+    # Its spills are written to a state dir too: phase 11a's mesh engine
+    # must write the same files (removed there).
+    import tempfile
+
+    state_dir = tempfile.mkdtemp(prefix="polykey-prefix-state-", dir=tempfile.gettempdir())
     modes = [
-        ("bucketed bf16", dict(), PREFIX_HOST_TIER),
+        ("bucketed bf16", dict(), dict(PREFIX_HOST_TIER, kv_state_dir=state_dir)),
         ("bucketed int8", dict(kv_dtype="int8"), dict()),
         ("ragged bf16", dict(ragged_dispatch=True), dict()),
     ]
     for label, mode, extra in modes:
-        base = EngineConfig(model="llama-3-8b", **mode)
+        base = EngineConfig(model=model, **mode)
         cold = InferenceEngine(base, params=params, device="cuda", seed=seed)
         try:
             want = []
@@ -2641,7 +3144,8 @@ def phase_prefix(seed: int, params, card: str) -> dict:
                 # restored from the engine's start.
                 end = engine.stats()
                 mesh_ref = {"ids": [r[0] for r in got + tail],
-                            "counts": {k: end[k] for k in PREFIX_COUNTS}}
+                            "counts": {k: end[k] for k in PREFIX_COUNTS},
+                            "state_dir": state_dir, "model": model, "params": params}
         finally:
             engine.shutdown()
     _round_trip(cfg, ps, card)
@@ -2942,10 +3446,8 @@ def phase_spec(seed: int, params, card: str) -> dict:
     and the prefix cache, (b) the target as its own draft, (c) the 1B draft
     over int8 KV, (d) and (e) the 1B draft in ragged mode over bf16 and
     int8 KV, each beside the plain engine of its KV type. Returns the
-    plain engines' texts by KV type ("plain"), the kernel launches of
-    each sub-phase ("launches") and, for the sub-phases the mesh phase
-    repeats (MESH_SPEC), the greedy prompts' ids served one at a time
-    ("mesh_ref")."""
+    plain engines' texts by KV type ("plain") and the kernel launches of
+    each sub-phase ("launches")."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
     from polykey_tpu_torch.models.config import get_config
@@ -2970,7 +3472,7 @@ def phase_spec(seed: int, params, card: str) -> dict:
         ("(e) 1B draft, ragged, int8 KV", "int8", dict(draft_model="llama-3.2-1b",
                                                         ragged_dispatch=True), None),
     ]
-    launches, mesh_refs = {}, {}
+    launches = {}
     for label, kv, extra, draft in subs:
         config = EngineConfig(model="llama-3-8b", kv_dtype=kv, spec_gamma=4, **extra)
         for k in KERNELS.values():
@@ -2993,15 +3495,6 @@ def phase_spec(seed: int, params, card: str) -> dict:
                 f"KV pools {st['kv_pool_bytes'] / 2**30:.4f} GiB target, "
                 f"{st['draft_kv_pool_bytes'] / 2**30:.4f} GiB draft on {card}"
                 + (f"; ragged spec stream widths {st['ragged_spec_width']}" if ragged else ""))
-            if label[:3] in MESH_SPEC:
-                # The mesh phase's reference: the greedy prompts one at a time
-                # (every prefill alone: the same group pads run after run),
-                # first, from the engine's start, as the mesh engine serves
-                # them: a ragged spec dispatch that merges a lane leaves the
-                # host's dial mirror at the slot's last occupant's dial, and
-                # with it the next rung (the reference's code does the same).
-                mesh_refs[label[:3]] = [eng.generate([p], stream=True)[0][0]
-                                        for p in SPEC_GREEDY]
             # Ragged: the document goes in once the other four have their
             # first tokens, so its chunks ride with their verify windows.
             got = eng.generate(SPEC_GREEDY, late=1 if ragged else 0)
@@ -3082,7 +3575,7 @@ def phase_spec(seed: int, params, card: str) -> dict:
         finally:
             eng.close()
         sync()
-    return {"plain": plain_texts, "launches": launches, "mesh_ref": mesh_refs}
+    return {"plain": plain_texts, "launches": launches}
 
 
 # -- phase 12 --------------------------------------------------------------
@@ -4184,6 +4677,7 @@ def phase_disagg(seed: int, card: str, fingerprint=None, plain=None) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     result["wall_s"] = time.monotonic() - t_phase
+    result["ids"] = got
     say(phase, f"5 greedy streams through the pool equal to the plain engine's and the "
         f"resumed stream to the uninterrupted one but at {ties} near-ties; all "
         f"{len(procs)} worker processes gone; the phase took {result['wall_s']:.1f} s "
@@ -4326,6 +4820,15 @@ def write_hf_checkpoint(params, cfg, directory: str, shards: int = 2) -> int:
         json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f,
                   indent=2)
     return total
+
+
+def _leaves_of(tree) -> list:
+    """The tensors of a parameter tree in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves_of(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves_of(v)]
+    return [tree]
 
 
 def _tree_map(fn, tree):
@@ -4636,14 +5139,19 @@ def main() -> int:
 
     from polykey_tpu_torch.engine.engine import KERNELS
 
+    start = time.monotonic()
+    done = phase_done(start)
     dev = phase_device()
     sync()
     phase_build()
     sync()
+    done("phase_build")
     train = phase_train(args.seed, dev["smi"])
+    done("phase_train")
     kernels = phase_kernels(args.seed)
     phase_slice(args.seed)
     sync()
+    done("phase_slice")
     serves = {}
     params = None
     for ragged, int8 in ((False, False), (True, False), (False, True), (True, True)):
@@ -4651,27 +5159,39 @@ def main() -> int:
                           int8=int8)
         params = out.pop("params")
         serves[(ragged, int8)] = out
-    mesh = phase_mesh(args.seed, params, dev["smi"],
-                      {int8: serves[(False, int8)]["mesh_ref"] for int8 in (False, True)})
+    done("phase_serve x4")
+    mesh = phase_mesh(args.seed, params, dev["smi"], serves[(False, False)]["mesh_ref"]["ids"])
     sync()
+    done("phase_mesh")
     phase_graph(args.seed, params, dev["smi"])
     sync()
+    done("phase_graph")
     phase_prefill_graph(args.seed, params, dev["smi"])
     sync()
+    done("phase_prefill_graph")
     prefix = phase_prefix(args.seed, params, dev["smi"])
     sync()
+    done("phase_prefix")
     spec = phase_spec(args.seed, params, dev["smi"])
     sync()
-    features = phase_mesh_features(args.seed, params, dev["smi"], {
-        "ragged": {int8: serves[(True, int8)]["mesh_ref"]["ids"] for int8 in (False, True)},
-        "spec": spec["mesh_ref"], "prefix": prefix["mesh_ref"]})
+    done("phase_spec")
+    # Popped: the prefix reference holds the Llama weights, which must be
+    # freed before Mixtral's and Gemma's are drawn.
+    features = phase_mesh_features(args.seed, params, dev["smi"],
+                                   {"prefix": prefix.pop("mesh_ref")})
     sync()
+    done("phase_mesh_features")
     phase_generate(args.seed, params, dev["smi"], spec["plain"][""])
     sync()
+    done("phase_generate")
     shell = phase_shell(args.seed, params, dev["smi"])
     sync()
+    done("phase_shell")
     replicas = phase_replicas(args.seed, params, dev["smi"], spec["plain"][""])
     sync()
+    done("phase_replicas")
+    mesh_replicas = phase_mesh_replicas(args.seed, params, dev["smi"])
+    done("phase_mesh_replicas")
     from polykey_tpu_torch.engine.worker import params_fingerprint
 
     fingerprint = params_fingerprint(params)
@@ -4682,12 +5202,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     disagg = phase_disagg(args.seed, dev["smi"], fingerprint, spec["plain"][""])
     sync()
+    done("phase_disagg")
+    mesh_disagg = phase_mesh_disagg(args.seed, dev["smi"], disagg["ids"])
+    done("phase_mesh_disagg")
     mixtral = phase_serve(args.seed, dev["smi"], model="mixtral-8x7b", quantize=True,
                           phase="serve-mixtral")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_mesh = phase_mesh_mixtral(args.seed, mixtral["params"], dev["smi"])
+    done("phase_mesh_mixtral")
     del mixtral["params"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_gemma(args.seed, dev["smi"])
+    done("phase_serve_gemma")
     gc.collect()
     torch.cuda.empty_cache()
     for int8 in (False, True):
@@ -4708,6 +5236,10 @@ def main() -> int:
     say("disagg", f"worker kernel launches {disagg['launches']}; starts (s) "
         f"{disagg['boot_s']} (the decode worker's second: its restart) on {dev['smi']}")
     say("mesh", f"kernel launches {mesh['launches']} on {dev['smi']}")
+    say("mesh", f"checkpoint sub-phase: kernel launches {mesh['checkpoint']} on {dev['smi']}")
+    say("mesh", f"mixtral sub-phase: kernel launches {mixtral_mesh} on {dev['smi']}")
+    say("mesh", f"replicas sub-phase: kernel launches {mesh_replicas} on {dev['smi']}")
+    say("mesh", f"disagg sub-phase: kernel launches by worker {mesh_disagg} on {dev['smi']}")
     for sub, counts in features["launches"].items():
         say("mesh", f"{sub} sub-phase: kernel launches {counts} on {dev['smi']}")
     say("train", f"kernel launches {train['launches']}; step {train['step_ms']:.1f} ms "

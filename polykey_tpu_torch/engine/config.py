@@ -3,13 +3,13 @@
 The fields, their env names and their defaults are the reference's.
 `validate` raises NotImplementedError for the knobs whose part of the port
 has not landed yet, naming the ROADMAP.md item, so a deployment that asks
-for them fails at startup instead of being served by something else:
-over a mesh the disaggregated tiers, replicas and the durable state dir
-(`refuse_on_mesh`, A.17), and the reference's spec A/B instrumentation.
-The mesh axes tp, dp, pp, ep, sp and num_slices are served
-(engine/lockstep.py), with the reference's geometry checks here and in
-the engine, and so are the ragged dispatch on tp-at-most meshes (the
-reference's rule), a draft model, the prefix cache and the host tier.
+for them fails at startup instead of being served by something else: the
+reference's spec A/B instrumentation. The mesh axes tp, dp, pp, ep, sp
+and num_slices are served (engine/lockstep.py), with the reference's
+geometry checks here and in the engine, and so is every knob over them:
+the ragged dispatch on tp-at-most meshes (the reference's rule), a draft
+model, the prefix cache, the host tier and its durable state dir,
+replicas and the disaggregated tiers, each worker or replica a mesh.
 Local
 safetensors checkpoints (`checkpoint_path`, `draft_checkpoint_path`;
 models/loader.py), weight-only int8/int4 (`quantize`,
@@ -518,24 +518,3 @@ class EngineConfig:
                 "(ROADMAP.md queue A: scripts/occupancy_soak.py's A/B "
                 "instrumentation)"
             )
-        if max(self.tp, self.dp, self.ep, self.sp, self.pp, self.num_slices) > 1:
-            self.refuse_on_mesh()
-
-    def refuse_on_mesh(self) -> None:
-        """Raise NotImplementedError, naming ROADMAP.md A.17, for a knob the
-        mesh engine does not serve yet. `validate` calls it when an axis is
-        above 1, and the engine again whenever it takes the mesh path (a
-        process group is up, a group of one included)."""
-        unported = [
-            (bool(self.disagg) or bool(self.disagg_tier), "disaggregated tiers"),
-            (self.replicas > 1, "more than one replica"),
-            # Each rank's host pools hold its own shard of a page; the wire
-            # format's blobs hold whole pages.
-            (bool(self.kv_state_dir), "the host tier's durable state dir"),
-        ]
-        for refused, knob in unported:
-            if refused:
-                raise NotImplementedError(
-                    f"{knob} over a serving mesh is not ported to "
-                    f"polykey_tpu_torch yet (ROADMAP.md queue A: {MESH_ITEM})"
-                )

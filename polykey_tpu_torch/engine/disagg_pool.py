@@ -61,6 +61,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from ..device import DEVICE_ENV
 from ..obs.clocks import ClockSync
@@ -74,10 +75,11 @@ from .kv_cache import KVWireError, validate_kv_blob
 from .replica_pool import _ADDITIVE_KEYS  # shared aggregation contract
 from .replica_pool import DEAD, DRAINING, NEW, RESTARTING, SERVING
 from .tokenizer import load_tokenizer
-from .worker import WorkerConn, session_key
+from .worker import WorkerConn, mesh_ranks, session_key
 
 PREFILL = "prefill"
 DECODE = "decode"
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # Handoff outcome labels (polykey_handoffs_total{outcome}).
 _OUTCOMES = ("ok", "retried", "aborted")
@@ -134,6 +136,9 @@ class _Worker:
     # Seconds from each spawn of this slot's process to its readiness
     # line: the first start, then every restart.
     boot_s: list = field(default_factory=list)
+    # A mesh worker's cards, one a rank (`DisaggPool._take_cards`): its
+    # own run, kept through respawns and freed when it leaves the pool.
+    cards: Optional[tuple] = None
     # Clock alignment: maps this worker's monotonic clock
     # onto the coordinator's; fed by the heartbeat's ping samples and
     # reset when the worker's pid changes (new process = new epoch).
@@ -167,6 +172,8 @@ class DisaggPool:
         self.tokenizer = load_tokenizer(config.tokenizer)
         self.workers: list[_Worker] = []
         self._lock = threading.Lock()
+        self._device: Optional[str] = None
+        self._mesh_workers = False
         self._closing = False
         self._serving_advertised = True
         self._inflight = 0
@@ -246,6 +253,7 @@ class DisaggPool:
         ready_timeout_s: float = 300.0,
         heartbeat: bool = True,
         device=None,
+        mesh_workers: bool = False,
     ) -> "DisaggPool":
         """Build and start a wired pool.
 
@@ -253,7 +261,11 @@ class DisaggPool:
         (``python -m polykey_tpu_torch.engine.worker``, weights from
         `seed`) and learns their ports from the readiness handshake; a
         worker runs on the card unless `device` (or POLYKEY_DEVICE) says
-        "cpu". Tests pass ``workers`` as ``[(tier, (host, port)), ...]``
+        "cpu". A worker whose config has mesh axes above 1 (or, with
+        `mesh_workers`, every worker, a mesh of one rank included) is a
+        mesh of processes, one a rank (engine/worker.py); on the card each
+        takes a run of cards of its own. Tests pass ``workers`` as
+        ``[(tier, (host, port)), ...]``
         for pre-started in-process servers, plus ``restart_cb(worker) ->
         addr | None`` to stand in for process respawn."""
         tiers = config.disagg_tiers()
@@ -264,6 +276,7 @@ class DisaggPool:
         pool = cls(config, health=health, logger=logger, recorder=recorder)
         pool._seed = seed
         pool._device = None if device is None else str(device)
+        pool._mesh_workers = mesh_workers
         pool._state_dir = state_dir
         pool._ready_timeout_s = ready_timeout_s
         pool._restart_cb = restart_cb
@@ -289,6 +302,8 @@ class DisaggPool:
                     worker = _Worker(tier=tier, index=i)
                     worker.spawn = pool._spawner(worker)
                     pool.workers.append(worker)
+            for worker in pool.workers:      # in order, before any spawn
+                pool._take_cards(worker)
             # Spawn concurrently: each worker pays its imports, its weights
             # and its graph capture before its readiness line, and the
             # spawns are independent — serial boot would cost N × that.
@@ -340,35 +355,66 @@ class DisaggPool:
             )
         return pool
 
+    def _take_cards(self, worker: _Worker) -> Optional[tuple]:
+        """The cards a worker of an n-rank mesh takes on the card, one a
+        rank: the first run of n (cards 0..n-1, n..2n-1, ...) that no other
+        worker of the pool holds, kept through the worker's respawns and
+        freed when it leaves the pool (scale-down, a failed spawn). None
+        for a worker of one rank or on the CPU. Raises when no run is
+        free: two ranks on one card are refused by NCCL."""
+        n = mesh_ranks(self.config)
+        if n == 1 or not (self._device or "cuda").startswith("cuda"):
+            return None
+        with self._lock:
+            if worker.cards is None:
+                taken = {w.cards for w in self.workers if w is not worker}
+                count = torch.cuda.device_count()
+                runs = [tuple(range(first, first + n)) for first in range(0, count - n + 1, n)]
+                free = [run for run in runs if run not in taken]
+                if not free:
+                    raise RuntimeError(
+                        f"worker {worker.name} needs {n} cards of its own (a rank a "
+                        f"card) and the host's {count} are taken by "
+                        f"{len(taken - {None})} mesh workers")
+                worker.cards = free[0]
+            return worker.cards
+
+    def _worker_command(self, worker: _Worker) -> tuple:
+        """(argv, env) of one tier slot's worker process."""
+        env = dict(os.environ)
+        # Ship THIS pool's config: workers rebuild EngineConfig from
+        # env, and a programmatically built pool would otherwise spawn
+        # default-geometry engines.
+        env.update(_config_env(self.config))
+        env["POLYKEY_DISAGG"] = ""          # workers never recurse
+        env["POLYKEY_REPLICAS"] = "1"
+        # Workers never run their own control loop: the coordinator's
+        # autopilot actuates them through the knobs op.
+        env["POLYKEY_AUTOPILOT"] = "0"
+        env["POLYKEY_METRICS_PORT"] = "0"   # the gateway's port only
+        if self._device is not None:
+            env[DEVICE_ENV] = self._device
+        env["PYTHONPATH"] = (
+            _REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        ).rstrip(os.pathsep)
+        cmd = [
+            sys.executable, "-m", "polykey_tpu_torch.engine.worker",
+            "--tier", worker.tier, "--replica", str(worker.index),
+            "--port", "0", "--seed", str(self._seed),
+        ]
+        if self._mesh_workers:
+            cmd.append("--mesh")
+        cards = self._take_cards(worker)
+        if cards is not None:
+            cmd += ["--cards", ",".join(str(c) for c in cards)]
+        return cmd, env
+
     def _spawner(self, worker: _Worker) -> Callable[[], tuple]:
         """Process factory for one tier slot: spawn, wait for the
         readiness handshake, return (addr, proc)."""
 
         def spawn() -> tuple:
-            env = dict(os.environ)
-            # Ship THIS pool's config: workers rebuild EngineConfig from
-            # env, and a programmatically built pool would otherwise spawn
-            # default-geometry engines.
-            env.update(_config_env(self.config))
-            env["POLYKEY_DISAGG"] = ""          # workers never recurse
-            env["POLYKEY_REPLICAS"] = "1"
-            # Workers never run their own control loop: the coordinator's
-            # autopilot actuates them through the knobs op.
-            env["POLYKEY_AUTOPILOT"] = "0"
-            env["POLYKEY_METRICS_PORT"] = "0"   # the gateway's port only
-            if self._device is not None:
-                env[DEVICE_ENV] = self._device
-            repo_root = os.path.dirname(os.path.dirname(
-                os.path.dirname(os.path.abspath(__file__))
-            ))
-            env["PYTHONPATH"] = (
-                repo_root + os.pathsep + env.get("PYTHONPATH", "")
-            ).rstrip(os.pathsep)
-            cmd = [
-                sys.executable, "-m", "polykey_tpu_torch.engine.worker",
-                "--tier", worker.tier, "--replica", str(worker.index),
-                "--port", "0", "--seed", str(self._seed),
-            ]
+            cmd, env = self._worker_command(worker)
             stderr = subprocess.DEVNULL
             if self._state_dir:
                 cmd += ["--state-dir", self._state_dir]
@@ -378,7 +424,7 @@ class DisaggPool:
             t0 = time.monotonic()
             try:
                 proc = subprocess.Popen(
-                    cmd, cwd=repo_root, env=env, stdout=subprocess.PIPE,
+                    cmd, cwd=_REPO_ROOT, env=env, stdout=subprocess.PIPE,
                     stderr=stderr, start_new_session=True,
                 )
             finally:

@@ -110,9 +110,9 @@ GPU (the reference's engine/engine.py, default path).
   it (`moe_dispatch`).
 - Checkpoints (`checkpoint_path`, `draft_checkpoint_path`; POLYKEY_CHECKPOINT,
   POLYKEY_DRAFT_CHECKPOINT; models/loader.py): local HF safetensors for
-  the target and the draft, read onto the device a tensor at a time and
-  quantized on load under `quantize`; without a path, weights are drawn
-  from the seed. The reference's orbax format is refused (ROADMAP.md
+  the target and the draft, read onto the device a tensor at a time (over
+  a mesh, each tensor's shard for this rank alone) and quantized on load
+  under `quantize`; without a path, weights are drawn from the seed. The reference's orbax format is refused (ROADMAP.md
   A.14).
 
 - Serving shell (the reference's): admission sheds on queue depth and on
@@ -180,13 +180,25 @@ GPU (the reference's engine/engine.py, default path).
   tp-at-most meshes (the reference's rule), on each rank's heads. The
   prefix cache is the leader's alone (a hit is a prefill record of the
   suffix); each rank's host tier holds its shard of each page, at the
-  single-card capacity. Without a group the engine is the single-card
-  one, with no collective.
+  single-card capacity. The durable state dir is the leader's too: a
+  spill batch's record goes out at once and every rank hands its shard
+  of the batch to the leader's whole pages (lockstep.gather_pages), and
+  a reload cuts the whole pages back to each rank's host rows
+  (lockstep.scatter_pages), so the files are the single-card engine's. A
+  checkpoint is read as each rank's shard (models/loader.py); a
+  capacity-bucketed MoE routes over the whole batch under dp and sp
+  (ops/moe.moe_mlp_sharded). A leader whose engine loop failed outside a
+  dispatch sends "restart" when its supervisor will rebuild it: every
+  rank frees its engine and, at the leader's word, builds the next one
+  on the same weights (`rebuild`, lockstep.next_life). Without a group
+  the engine is the single-card one, with no collective.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch; over a mesh (A.17): the disaggregated tiers, replicas, the
-host tier's durable state dir, a capacity-bucketed MoE under dp or sp,
-and the supervisor's restart of a mesh engine (its factory raises).
+dispatch; over a mesh (A.17): the disaggregated tiers, replicas, and
+the in-process restart of a mesh engine that failed inside a dispatch
+(wedged in a collective, or with its record sent: the supervisor's
+factory refuses it, health stays NOT_SERVING and the platform restarts
+the processes).
 """
 
 from __future__ import annotations
@@ -228,7 +240,7 @@ from ..ops import (
     ragged_paged_attention_kernel,
 )
 from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
-from .config import MESH_ITEM, EngineConfig
+from .config import EngineConfig
 from . import lockstep
 from .graphs import CAPTURE_LOCK, CudaGraphs
 from .kv_cache import (
@@ -849,6 +861,13 @@ class InferenceEngine:
         self._leader: Optional[lockstep.Leader] = None
         self._digest: Optional[lockstep.TokenDigest] = None
         self.is_follower = False
+        # The in-process restart of a mesh engine (engine/lockstep.py): set
+        # on a leader whose supervisor rebuilds it (gateway/torch_service);
+        # `closed_with` is the record its end sent; a follower's
+        # `restart_requested` says its leader sent "restart".
+        self.mesh_restart = False
+        self.closed_with: Optional[str] = None
+        self.restart_requested = False
         self.replayed: dict[str, int] = {}     # a follower's records, by kind
         if self.mesh is not None:
             if self.mesh.rank == lockstep.leader_rank(self.mesh):
@@ -914,11 +933,10 @@ class InferenceEngine:
             pass                # the replaced engine's tree, as it holds it
         elif params is None and config.checkpoint_path:
             # A local checkpoint (models/loader.py), read onto the device a
-            # tensor at a time and quantized a layer at a time.
+            # tensor at a time and quantized a layer at a time; over a mesh
+            # each tensor is cut to this rank's shard in the mapped file.
             params = load_checkpoint(config.checkpoint_path, self.model_cfg, self._dtype,
-                                     self.device, quantize_bits=bits)
-            if self.mesh is not None:
-                params = shard_params(params, self.model_cfg, self.mesh)
+                                     self.device, quantize_bits=bits, mesh=self.mesh)
         elif params is None:
             # Over a mesh each layer is cut to this rank's shard as it is
             # drawn (the same draws on every rank).
@@ -969,9 +987,7 @@ class InferenceEngine:
             elif draft_params is None and config.draft_checkpoint_path:
                 draft_params = load_checkpoint(
                     config.draft_checkpoint_path, self.draft_cfg, self._dtype,
-                    self.device, quantize_bits=bits)
-                if self.mesh is not None:
-                    draft_params = shard_params(draft_params, self.draft_cfg, self.mesh)
+                    self.device, quantize_bits=bits, mesh=self.mesh)
             elif draft_params is None:
                 gen = torch.Generator(device=self.device).manual_seed(seed + 2)
                 draft_params = init_params(self.draft_cfg, self._dtype, self.device, gen,
@@ -1039,19 +1055,7 @@ class InferenceEngine:
                 host_pool=self._host_kv,
             )
         if self._host_kv is not None and config.kv_state_dir:
-            # Reload the pages an earlier engine on the same weights spilled
-            # (the params_key gate), into the host tier.
-            self._kv_state = PrefixStateStore(
-                config.kv_state_dir, self.model_cfg.name, config.page_size,
-                params_key=self._params_fingerprint(seed),
-                quantized=kv_q is not None, logger=logger,
-            )
-            mc = self.model_cfg
-            self._kv_reloaded_pages = self._kv_state.load_into(
-                self._prefix, self._host_kv,
-                expect_shape=(mc.num_layers, 0, config.page_size,
-                              mc.num_kv_heads, mc.head_dim),
-            )
+            self._reload_state(config, seed, kv_q is not None, logger)
 
         # Host mirrors of the per-slot state the host decides on (engine
         # thread only), and the device-resident lane state the decode
@@ -1178,6 +1182,50 @@ class InferenceEngine:
         if self.dead is not None:
             raise EngineDeadError(self.dead)
 
+    def _reload_state(self, config: EngineConfig, seed: int, quantized: bool,
+                      logger) -> None:
+        """Reload the pages an earlier engine on the same weights spilled
+        (the params_key gate) into the host tier. The store is the leader's
+        (or the single-card engine's) alone: it reads and writes whole
+        pages. Over a mesh the leader keeps its shard of each reloaded page
+        and cuts the rest to every follower's shard
+        (lockstep.scatter_pages), each into the same host row."""
+        host = self._host_kv
+        if not self.is_follower:
+            self._kv_state = PrefixStateStore(
+                config.kv_state_dir, self.model_cfg.name, config.page_size,
+                params_key=self._params_fingerprint(seed), quantized=quantized,
+                logger=logger,
+            )
+        if self.mesh is None:
+            mc = self.model_cfg
+            self._kv_reloaded_pages = self._kv_state.load_into(
+                self._prefix, host,
+                expect_shape=(mc.num_layers, 0, config.page_size,
+                              mc.num_kv_heads, mc.head_dim),
+            )
+            return
+        rows, wholes = None, None
+        if not self.is_follower:
+            adopted: dict[int, list] = {}
+
+            def keep(page, *arrays):        # a whole page: scattered below
+                adopted[page] = [a for a in arrays if a is not None]
+
+            mc = self.model_cfg
+            self._kv_state.load_into(
+                self._prefix, host, write=keep,
+                expect_shape=(mc.num_layers, 0, config.page_size,
+                              mc.num_kv_heads, mc.head_dim),
+            )
+            rows = sorted(adopted)
+            wholes = ([torch.stack([adopted[r][i] for r in rows], dim=1)
+                       for i in range(len(host.pools))] if rows else [])
+        rows, shards = lockstep.scatter_pages(self.mesh, rows, wholes, host.pools)
+        for j, row in enumerate(rows):
+            host.write(row, *(t[:, j] for t in shards))
+        self._kv_reloaded_pages = len(rows)
+
     def _serving_mesh(self, config: EngineConfig, mesh):
         """The mesh this engine serves over, or None for the single-card
         engine (no group up, no mesh passed). Checks the reference's
@@ -1233,14 +1281,6 @@ class InferenceEngine:
                 )
         if mesh is None and not group_up:
             return None
-        config.refuse_on_mesh()
-        if mc.is_moe and mc.moe_dispatch and (total_dp > 1 or config.sp > 1):
-            # The capacity-bucketed dispatch drops by position in the whole
-            # batch; a rank's share of it would drop other tokens.
-            raise NotImplementedError(
-                f"{mc.name}'s capacity-bucketed MoE under dp or sp is not ported "
-                f"to polykey_tpu_torch yet (ROADMAP.md queue A: {MESH_ITEM})"
-            )
         if mesh is None:
             if n != have:
                 raise ValueError(
@@ -1256,6 +1296,17 @@ class InferenceEngine:
             raise ValueError("a serving mesh needs its control group "
                              "(engine/lockstep.serving_mesh)")
         return mesh
+
+    def rebuild(self) -> "InferenceEngine":
+        """The engine a supervised restart builds in place of this one (its
+        device state released first): the same config, device, health,
+        logger and mesh, on this engine's weights (`reuse`). Over a mesh
+        every rank builds it at the leader's word, so their captures issue
+        the same collectives in the same order (engine/lockstep.py)."""
+        fresh = InferenceEngine(self.config, device=self.device, health=self.health,
+                                logger=self.logger, reuse=self._ctor_args, mesh=self.mesh)
+        fresh.mesh_restart = self.mesh_restart
+        return fresh
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait for the engine thread to end (on a follower, the leader's
@@ -1597,7 +1648,9 @@ class InferenceEngine:
                 self.last_progress = time.monotonic()
                 self._started.set()
                 if self.is_follower:
-                    lockstep.follow(self)   # until the leader's "shutdown"
+                    # Until the leader's "shutdown", or its "restart": then
+                    # lockstep.next_life builds this rank's next engine.
+                    self.restart_requested = lockstep.follow(self) == "restart"
                 else:
                     self._serve()
                 if self._digest is not None:
@@ -1619,7 +1672,13 @@ class InferenceEngine:
                 self.health.shutdown()
         finally:
             if self._leader is not None:
-                self._leader.close()    # the followers stop with the leader
+                # The followers stop with the leader, or, when this engine
+                # failed, its supervisor will rebuild it in process and no
+                # dispatch was left half sent, wait for the rebuild
+                # (lockstep.next_life).
+                restart = (self.mesh_restart and self.dead is not None
+                           and not self._leader.open)
+                self.closed_with = self._leader.close("restart" if restart else "shutdown")
             self._started.set()     # also when the capture failed
 
     def _serve(self) -> None:
@@ -1995,8 +2054,8 @@ class InferenceEngine:
         if self._leader is None:
             return self._prefill_dispatch(*args)
         try:
-            self._leader.send(lockstep.Record("prefill", args))
-            return self._prefill_dispatch(*args)
+            with lockstep.dispatch(self._leader, lockstep.Record("prefill", args)):
+                return self._prefill_dispatch(*args)
         except Exception as e:
             raise LockstepError(f"mesh prefill failed: {e}") from e
 
@@ -2187,7 +2246,14 @@ class InferenceEngine:
         n_kv = -(-slot.prompt_len // self.config.page_size)
         t0 = time.monotonic()
         try:
-            pools = gather_to_host(self.paged, slot.pages[:n_kv])
+            if self.mesh is None:
+                pools = gather_to_host(self.paged, slot.pages[:n_kv])
+            else:
+                # Whole pages from every rank's shard (the wire format's).
+                pages = list(slot.pages[:n_kv])
+                with lockstep.dispatch(self._leader, lockstep.Record("export", (pages,))):
+                    pools = lockstep.gather_pages(self.mesh,
+                                                  gather_to_host(self.paged, pages))
         except Exception as e:
             self._finish(slot_idx, error=f"handoff export failed: {e}")
             return
@@ -2278,13 +2344,12 @@ class InferenceEngine:
                 if self.device.type == "cuda":
                     events = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
-                import_handoff(
-                    self.paged, self._dev, slot_idx, state, pages, table, seed_row,
-                    total_len, float(request.temperature), float(request.top_p), top_k,
-                    eos_id=self.tokenizer.eos_id,
-                    gamma_reset=max(self._gamma_max, 1) if self._spec else None,
-                    start=events[0] if events is not None else None,
-                )
+                args = (slot_idx, list(pages), table, seed_row, total_len,
+                        float(request.temperature), float(request.top_p), top_k,
+                        state.prompt_len, token)
+                with lockstep.dispatch(self._leader, lockstep.Record("import", args)):
+                    self._import(args, state,
+                                 start=events[0] if events is not None else None)
                 if events is not None:
                     events[1].record()
         except EngineDeadError:
@@ -2316,6 +2381,28 @@ class InferenceEngine:
             self.timeline.note("handoff_restore", slot=slot_idx, pages=n_kv,
                                seq_len=prompt_len + 1, host_ms=round(host_ms, 3))
         return None
+
+    def _import(self, args: tuple, state: Optional[KVHandoffState], start=None) -> None:
+        """A handoff's import (`import_handoff`) from the operands `args`
+        an "import" record carries; over a mesh the leader's whole pages
+        (`state`) are cut to every rank's shard first
+        (lockstep.scatter_pages), a follower passing None."""
+        slot, pages, table, seed_row, cap, temp, top_p, top_k, prompt_len, token = args
+        if self.mesh is not None:
+            rows = list(range(state.num_pages)) if state is not None else None
+            rows, shards = lockstep.scatter_pages(
+                self.mesh, rows, state.pools if state is not None else None,
+                self.paged.pools)
+            k, v, ks, vs = (shards + [None, None])[:4]
+            state = KVHandoffState(
+                model=self.model_cfg.name, page_size=self.config.page_size,
+                prompt_len=prompt_len, first_token=token, seed=0,
+                prompt_ids=torch.zeros((0,), dtype=torch.int32), k=k, v=v, ks=ks, vs=vs)
+        import_handoff(
+            self.paged, self._dev, slot, state, pages, table, seed_row, cap, temp, top_p,
+            top_k, eos_id=self.tokenizer.eos_id,
+            gamma_reset=max(self._gamma_max, 1) if self._spec else None, start=start,
+        )
 
     def _handoff_import_ms(self) -> list:
         """Device ms of the recent imports whose work has run (the copies
@@ -2532,8 +2619,8 @@ class InferenceEngine:
                                          tier=self._tier)
             if self._leader is not None:
                 try:
-                    self._leader.send(lockstep.Record("ragged", args))
-                    packed_dev, first_dev = self._ragged_device(*args)
+                    with lockstep.dispatch(self._leader, lockstep.Record("ragged", args)):
+                        packed_dev, first_dev = self._ragged_device(*args)
                 except Exception as e:
                     raise LockstepError(f"mesh ragged dispatch failed: {e}") from e
             else:
@@ -2678,9 +2765,8 @@ class InferenceEngine:
         )
         gap_ms = self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
         live = tuple(int(i) for i in np.flatnonzero(act))
-        if self._leader is not None:
-            self._leader.send(lockstep.Record("decode", (greedy, steps)))
-        packed = self._graphs.run("decode", greedy, steps)
+        with lockstep.dispatch(self._leader, lockstep.Record("decode", (greedy, steps))):
+            packed = self._graphs.run("decode", greedy, steps)
         host, event = self._copy_to_host(packed)
         if self._digest is not None:
             self._digest.add(host, event)
@@ -2726,12 +2812,18 @@ class InferenceEngine:
             host, event = self._copy_to_host(torch.cat([packed.reshape(-1), first]))
             self._digest.add(host[:packed.numel()], event)
         elif kind == "spill":
-            pages, rows = args
+            pages, rows, persist = args
             hosts = gather_to_host(self.paged, pages)
             for j, row in enumerate(rows):
                 self._host_kv.write(row, *(t[:, j] for t in hosts))
+            if persist:             # the leader writes the whole pages
+                lockstep.gather_pages(self.mesh, hosts)
         elif kind == "restore":
             restore_from_host(self.paged, self._host_kv, *args)
+        elif kind == "export":          # the leader assembles the whole pages
+            lockstep.gather_pages(self.mesh, gather_to_host(self.paged, args[0]))
+        elif kind == "import":
+            self._import(args, None)
         elif kind != "heartbeat":
             raise ValueError(f"unknown lock-step record {kind!r}")
         self.replayed[kind] = self.replayed.get(kind, 0) + 1
@@ -2749,9 +2841,8 @@ class InferenceEngine:
         self._depth_target = min(self._depth, blocks_needed)
         gap_ms = self.metrics.on_dispatch(lanes, steps, slots=len(self._slots))
         live = tuple(int(i) for i in np.flatnonzero(act))
-        if self._leader is not None:
-            self._leader.send(lockstep.Record("spec", (gamma, greedy, cand)))
-        packed = self._graphs.run("spec", gamma, greedy, cand)
+        with lockstep.dispatch(self._leader, lockstep.Record("spec", (gamma, greedy, cand))):
+            packed = self._graphs.run("spec", gamma, greedy, cand)
         host, event = self._copy_to_host(packed)
         if self._digest is not None:
             self._digest.add(host, event)
@@ -3134,7 +3225,6 @@ class InferenceEngine:
         are released only after the copy; a later writer of a freed page is
         queued behind the gather on the same stream anyway."""
         hosts = gather_to_host(self.paged, [page for _, page in cands])
-        k, v, ks, vs = (hosts + [None, None])[:4]
         moved: list[tuple[bytes, int]] = []       # (key, gather row)
         placed: list[tuple[int, int]] = []        # (device page, host page)
         for r, (key, page) in enumerate(cands):
@@ -3151,23 +3241,28 @@ class InferenceEngine:
             self._prefix.mark_host(key, host_page)
             moved.append((key, r))
             placed.append((page, host_page))
+        if self._kv_state is not None:
+            whole = [t[:, [r for _, r in moved]] for t in hosts]
         if placed and self._leader is not None:
             # Each follower copies its own shard of the same pages into the
             # same host rows; no collective, so it rides with the next
             # record that issues one, ahead of any write to those pages.
-            self._leader.queue(lockstep.Record(
-                "spill", tuple(list(x) for x in zip(*placed))))
+            # With the state dir it goes now, and every rank hands its
+            # shard of the batch to the leader's whole pages.
+            spill = lockstep.Record("spill", (*(list(x) for x in zip(*placed)),
+                                              self._kv_state is not None))
+            if self._kv_state is None:
+                self._leader.queue(spill)
+            else:
+                with lockstep.dispatch(self._leader, spill):
+                    whole = lockstep.gather_pages(self.mesh, whole)
         if moved:
             self.metrics.on_kv_evict(len(moved))
             if self.timeline is not None:
                 self.timeline.note("kv_evict", pages=len(moved))
             if self._kv_state is not None:
-                rows = [r for _, r in moved]
-                self._kv_state.save_batch(
-                    [key for key, _ in moved], k[:, rows], v[:, rows],
-                    ks[:, rows] if ks is not None else None,
-                    vs[:, rows] if vs is not None else None,
-                )
+                k, v, ks, vs = (whole + [None, None])[:4]
+                self._kv_state.save_batch([key for key, _ in moved], k, v, ks, vs)
                 self._kv_gc_countdown -= 1
                 if self._kv_gc_countdown <= 0:
                     self._kv_state.gc(self._host_kv.capacity)

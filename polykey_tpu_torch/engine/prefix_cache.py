@@ -415,11 +415,15 @@ class PrefixStateStore:
                 continue
             total += n
 
-    def load_into(self, cache: PrefixCache, host: HostKVPool, expect_shape: tuple) -> int:
+    def load_into(self, cache: PrefixCache, host: HostKVPool, expect_shape: tuple,
+                  write=None) -> int:
         """Adopt persisted pages into the host tier, newest batches first.
         Returns the pages adopted. Every rejection is a clean skip: another
         params_key, a CRC or truncation error, a geometry mismatch, or a
-        full host pool."""
+        full host pool. `write(page, k, v, ks, vs)` places a whole page in
+        host row `page` (default `host.write`; a mesh leader's host pool
+        holds its shard, and its engine cuts the page)."""
+        write = host.write if write is None else write
         adopted = 0
         for stem in reversed(self._batches()):
             try:
@@ -455,7 +459,7 @@ class PrefixStateStore:
                     page = host.alloc()
                 except Exception:
                     return adopted                    # host tier full
-                host.write(
+                write(
                     page, state.k[:, i], state.v[:, i],
                     state.ks[:, i] if state.ks is not None else None,
                     state.vs[:, i] if state.vs is not None else None,

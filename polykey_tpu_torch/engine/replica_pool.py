@@ -53,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 
+from . import lockstep
 from .config import EngineConfig
 from .engine import EngineDeadError, EngineOverloadedError, GenRequest, InferenceEngine
 from .supervisor import EngineSupervisor
@@ -245,11 +246,23 @@ class ReplicaPool:
         supervisor_interval_s: float = 0.5,
         join_timeout_s: float = 5.0,
         device=None,
+        meshes: Optional[list] = None,
     ) -> "ReplicaPool":
         """Build and start a fully wired pool: engines on one set of
         weights, per-replica watchdogs and (when `config.supervise`)
         supervisors, shared stall/restart counters from `obs`. The
-        interval knobs let chaos tests scale the detection latency."""
+        interval knobs let chaos tests scale the detection latency.
+
+        Over a mesh (a process group up, or `meshes`, one serving mesh a
+        replica built by engine/lockstep.serving_mesh on every rank) every
+        rank builds the same replicas in the same order, each on a mesh of
+        its own: its own data, control and pages groups, so two replicas'
+        collectives never share a group. Each rank's replicas share its
+        one set of weight shards. The mesh's first rank leads every
+        replica and routes; on the other ranks each replica is a follower
+        replaying its leader's records on its engine thread (`follow`),
+        with no watchdog or supervisor of its own: a leader replica's
+        supervised restart rebuilds it on every rank (lockstep)."""
         n = replicas or config.replicas
         recorder = obs.recorder if obs is not None else None
         stall_counter = restart_counter = None
@@ -287,10 +300,11 @@ class ReplicaPool:
                 config, replica=i, kv_state_dir=kv_dir,
             )
             shim = _ReplicaHealth(pool, i)
+            mesh = meshes[i] if meshes is not None else None
             if shared is None:
                 engine = InferenceEngine(
                     rep_cfg, params=params, device=device, health=shim,
-                    logger=logger, seed=seed, draft_params=draft_params,
+                    logger=logger, seed=seed, draft_params=draft_params, mesh=mesh,
                 )
                 # The weights as the first engine holds them (on the
                 # device, quantized if asked): every other engine serves
@@ -299,8 +313,13 @@ class ReplicaPool:
             else:
                 engine = InferenceEngine(
                     rep_cfg, device=device, health=shim, logger=logger,
-                    reuse=shared,
+                    reuse=shared, mesh=mesh,
                 )
+            if engine.is_follower:
+                pool.replicas.append(_Replica(index=i, engine=engine, watchdog=None,
+                                              supervisor=None))
+                continue
+            engine.mesh_restart = config.supervise and engine.mesh is not None
             watchdog = Watchdog(
                 engine, health=shim, logger=logger, recorder=recorder,
                 stall_counter=stall_counter,
@@ -335,7 +354,8 @@ class ReplicaPool:
         # Phase 2 — go live.
         for rep in pool.replicas:
             rep.state = SERVING
-            rep.watchdog.start()
+            if rep.watchdog is not None:
+                rep.watchdog.start()
             if rep.supervisor is not None:
                 rep.supervisor.start()
         if recorder is not None:
@@ -352,10 +372,13 @@ class ReplicaPool:
         state gauge, then build a fresh engine on the pool's weights (the
         supervisor released the dead engine's device state first)."""
         self._transition(index, RESTARTING, only_from=(DRAINING,))
-        return InferenceEngine(
-            rep_cfg, device=device, health=shim, logger=self.logger,
-            reuse=shared,
-        )
+        dead = self.replicas[index].engine
+        if dead.mesh is None:
+            return InferenceEngine(
+                rep_cfg, device=device, health=shim, logger=self.logger,
+                reuse=shared,
+            )
+        return lockstep.restart(dead)      # every rank of its mesh rebuilds
 
     # -- replica state machine ----------------------------------------------
 
@@ -415,6 +438,35 @@ class ReplicaPool:
 
     def _on_replica_giveup(self, index: int, reason: str) -> None:
         self._transition(index, DEAD)
+        lockstep.release(self.replicas[index].engine)
+
+    @property
+    def is_follower(self) -> bool:
+        """Every replica is a follower: a rank above the first of a mesh."""
+        return bool(self.replicas) and all(r.engine.is_follower for r in self.replicas)
+
+    def follow(self, stopped=lambda: False) -> Optional[str]:
+        """A follower rank's replicas, each on a thread of its own: its
+        engine replays its leader's records on its mesh's groups, and after
+        a "restart" record the replica's next engine is built at its
+        leader's word (lockstep.follow_lives). Returns once every replica has
+        ended (or `stopped()`): the first replica failure, or None."""
+        failures: list = []
+
+        def lives(rep: _Replica) -> None:
+            engine = lockstep.follow_lives(rep.engine, stopped,
+                                           lambda fresh: setattr(rep, "engine", fresh))
+            if engine.dead is not None:
+                failures.append(f"replica {rep.index}: {engine.dead}")
+
+        threads = [threading.Thread(target=lives, args=(rep,), daemon=True,
+                                    name=f"polykey-follow-{rep.index}")
+                   for rep in self.replicas]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return failures[0] if failures else None
 
     # -- engine-shaped surface ----------------------------------------------
 
@@ -544,6 +596,7 @@ class ReplicaPool:
                 rep.watchdog.stop()
         for rep in self.replicas:
             rep.engine.shutdown(timeout)
+            lockstep.release(rep.engine)
 
     # -- router --------------------------------------------------------------
 

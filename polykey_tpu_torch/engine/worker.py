@@ -45,7 +45,16 @@ which the coordinator's validation turns into a clean re-route.
 Run as a process: ``python -m polykey_tpu_torch.engine.worker --tier
 prefill --replica 0 --port 0 --seed 0`` prints one ``{"ready": true,
 "port": N, ...}`` JSON line on stdout once its engine has captured its
-graphs, and exits once the process that started it is gone. It runs on
+graphs, and exits once the process that started it is gone. A worker
+whose config has mesh axes above 1 (or with ``--mesh``, a mesh of one) is
+a mesh of processes, one a rank (engine/lockstep.py): the process the
+pool started is rank 0; it starts the other ranks with the bootstrap
+variables (`_start_ranks`), each on its card of ``--cards`` when the
+pool's spawner splits the host's cards between workers, every rank joins
+the group before its engine is built, rank 0 serves the protocol, and the
+others follow it (`_follow`). Its handoffs move whole pages: an export gathers every
+rank's shard to rank 0's blob, an import cuts the blob to every rank's
+shard. It runs on
 the card; ``POLYKEY_DEVICE=cpu`` asks for the CPU, and without CUDA it
 raises at start and never becomes ready. Tests run
 `WorkerServer` on a background thread with ``exit_mode="simulate"``:
@@ -75,6 +84,7 @@ import torch
 
 from ..faults import get_injector
 from ..obs import BlackBox, FlightRecorder, Span, Tracer
+from . import lockstep
 from .config import EngineConfig
 from .engine import (
     EngineDeadError,
@@ -246,20 +256,15 @@ class WorkerServer:
         # explicit POLYKEY_KV_STATE_DIR gets the worker-scoped subdir too:
         # each worker's durable-store gc() is capped at one engine's host
         # capacity and would delete the others' batches from a shared one.
-        kv_dir = config.kv_state_dir
-        if not kv_dir and state_dir and config.host_kv_bytes > 0:
-            kv_dir = state_dir
-        if kv_dir:
-            kv_dir = os.path.join(kv_dir, f"kv-{tier}-{replica}")
-        worker_cfg = dataclasses.replace(
-            config, replicas=1, disagg="", disagg_tier=tier,
-            replica=replica, kv_state_dir=kv_dir,
-        )
+        worker_cfg = worker_config(config, tier, replica, state_dir)
         self.config = worker_cfg
         self.engine = InferenceEngine(
             worker_cfg, params=params, device=device,
             health=_WorkerHealth(self), logger=logger, seed=seed,
         )
+        # A worker of a mesh (its ranks started by `main`): a failure of
+        # its leader's engine loop rebuilds every rank in process.
+        self.engine.mesh_restart = worker_cfg.supervise and self.engine.mesh is not None
         self.device = str(self.engine.device)
         self.fingerprint = params_fingerprint(self.engine.params)
         self.watchdog = Watchdog(
@@ -277,6 +282,7 @@ class WorkerServer:
                 check_interval_s=supervisor_interval_s,
             )
             self.supervisor.add_restart_listener(self._on_engine_restart)
+            self.supervisor.add_giveup_listener(lambda _reason: lockstep.release(self.engine))
         self._retained: OrderedDict[str, bytes] = OrderedDict()
         self._retained_lock = threading.Lock()
         self._conns: set = set()
@@ -319,12 +325,15 @@ class WorkerServer:
 
     def _replacement(self) -> InferenceEngine:
         """The supervisor's factory: a fresh engine on the dead one's
-        weight tensors (`reuse`), built after its device state was freed."""
+        weight tensors (`reuse`), built after its device state was freed;
+        over a mesh, on every rank at this word (engine/lockstep.py)."""
         dead = self.engine
-        return InferenceEngine(
-            self.config, device=dead.device, health=_WorkerHealth(self),
-            logger=self.logger, reuse=dead._ctor_args,
-        )
+        if dead.mesh is None:
+            return InferenceEngine(
+                self.config, device=dead.device, health=_WorkerHealth(self),
+                logger=self.logger, reuse=dead._ctor_args,
+            )
+        return lockstep.restart(dead)
 
     def _on_engine_restart(self, fresh) -> None:
         self.engine = fresh
@@ -375,6 +384,7 @@ class WorkerServer:
             self.supervisor.stop()
         self.watchdog.stop()
         self.engine.shutdown()
+        lockstep.release(self.engine)
 
     def _sever(self) -> None:
         try:
@@ -884,6 +894,68 @@ class WorkerConn:
 
 # -- process entry point ------------------------------------------------------
 
+def worker_config(config: EngineConfig, tier: str, replica: int,
+                  state_dir: Optional[str]) -> EngineConfig:
+    """The config a tier worker's engine serves (on every rank of its mesh).
+
+    With the host KV tier on, the worker's durable prefix pages land in a
+    per-worker subdir of the state dir (beside the warm-session index), so
+    a respawned worker reloads its own spilled pages. An explicit
+    POLYKEY_KV_STATE_DIR gets the worker-scoped subdir too: each worker's
+    durable-store gc() is capped at one engine's host capacity and would
+    delete the others' batches from a shared one."""
+    kv_dir = config.kv_state_dir
+    if not kv_dir and state_dir and config.host_kv_bytes > 0:
+        kv_dir = state_dir
+    if kv_dir:
+        kv_dir = os.path.join(kv_dir, f"kv-{tier}-{replica}")
+    return dataclasses.replace(config, replicas=1, disagg="", disagg_tier=tier,
+                               replica=replica, kv_state_dir=kv_dir)
+
+
+def mesh_ranks(config: EngineConfig) -> int:
+    """The processes a worker of `config` runs: one a rank of its mesh."""
+    return (config.tp * config.dp * config.ep * config.sp * config.pp
+            * config.num_slices)
+
+
+def _start_ranks(n: int) -> list:
+    """A worker's leader (rank 0) starts its other ranks as the gateway's
+    are started: the bootstrap variables (a free localhost port as the
+    coordinator) and a rank each, and the same arguments (each rank takes
+    its card of ``--cards``). They stay in this process's process group,
+    so the pool's kill of a worker reaches them."""
+    import subprocess
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    boot = {"POLYKEY_COORDINATOR": f"127.0.0.1:{port}", "POLYKEY_NUM_PROCESSES": str(n)}
+    procs = []
+    for rank in range(1, n):
+        env = dict(os.environ, **boot, POLYKEY_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "polykey_tpu_torch.engine.worker", *sys.argv[1:]],
+            env=env, stdout=subprocess.DEVNULL))
+    os.environ.update(boot, POLYKEY_PROCESS_ID="0")
+    return procs
+
+
+def _follow(config: EngineConfig, args) -> int:
+    """A follower rank of a worker's mesh: the same engine, replaying its
+    leader's records, rebuilt at its leader's supervised restart
+    (lockstep.follow_lives); it ends with its leader (its "shutdown", or
+    its death, which fails the next receive), or once its leader's process
+    is gone."""
+    engine = InferenceEngine(worker_config(config, args.tier, args.replica,
+                                           args.state_dir or None), seed=args.seed)
+    parent = os.getppid()
+    engine = lockstep.follow_lives(engine, lambda: os.getppid() != parent, poll_s=0.2)
+    if os.getppid() != parent:
+        os._exit(1)                     # the worker's leader is gone
+    return 1 if engine.dead else 0
+
+
 def main(argv: Optional[list] = None) -> int:
     parser = argparse.ArgumentParser(description="polykey disaggregated worker")
     parser.add_argument("--tier", required=True, choices=("prefill", "decode"))
@@ -891,9 +963,28 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--port", type=int, default=0)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--state-dir", default="")
+    parser.add_argument("--mesh", action="store_true",
+                        help="serve as a mesh even of one rank (a process group up)")
+    parser.add_argument("--cards", default="",
+                        help="the cards of the worker's ranks, a comma list, one a rank")
     args = parser.parse_args(argv)
 
     config = EngineConfig.from_env()
+    followers = []
+    n = mesh_ranks(config)
+    if n > 1 or args.mesh:
+        # A worker of a mesh: its leader starts the other ranks; every rank
+        # joins the group before its engine is built (the mesh path).
+        from ..parallel.distributed import initialize_from_env
+
+        if "POLYKEY_PROCESS_ID" not in os.environ:
+            followers = _start_ranks(n)
+        cards = [c for c in args.cards.split(",") if c]
+        if cards:
+            os.environ["CUDA_VISIBLE_DEVICES"] = cards[int(os.environ["POLYKEY_PROCESS_ID"])]
+        initialize_from_env()
+        if int(os.environ["POLYKEY_PROCESS_ID"]) > 0:
+            return _follow(config, args)
     server = WorkerServer(
         config, tier=args.tier, replica=args.replica, port=args.port,
         seed=args.seed, state_dir=args.state_dir or None,
@@ -904,7 +995,8 @@ def main(argv: Optional[list] = None) -> int:
     # from the worker's stdout to learn the bound port.
     print(json.dumps({"ready": True, "tier": args.tier,
                       "replica": args.replica, "port": server.port,
-                      "pid": os.getpid(), "device": server.device}), flush=True)
+                      "pid": os.getpid(), "device": server.device,
+                      "ranks": max(n, 1)}), flush=True)
     parent = os.getppid()
     try:
         while not server._closing and not server._died:
@@ -917,6 +1009,11 @@ def main(argv: Optional[list] = None) -> int:
                 break
     except KeyboardInterrupt:
         server.stop()
+    for proc in followers:              # they end on the leader's shutdown
+        try:
+            proc.wait(timeout=30)
+        except Exception:  # a follower that hangs dies with this process group
+            proc.kill()
     return 0
 
 

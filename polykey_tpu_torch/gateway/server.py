@@ -249,10 +249,16 @@ def start_metrics_server(obs: Observability, logger: Logger, service=None,
 
 
 def follow(service, engine, logger: Logger) -> int:
-    """A follower rank's life (engine/lockstep.py): no gRPC port, no
+    """A follower rank's lives (engine/lockstep.py): no gRPC port, no
     metrics endpoint; the engine thread replays the leader's records until
-    the leader's shutdown record, or until a signal here. Returns the
-    process's exit code: 1 when the engine failed."""
+    the leader's shutdown record, or until a signal here. After the
+    leader's "restart" record (its supervisor rebuilds it in process) the
+    follower frees its engine's device state and, at the leader's word,
+    builds the next one on the same weights and follows again
+    (lockstep.follow_lives). Returns the process's exit code: 1 when the
+    engine failed."""
+    from ..engine import lockstep
+
     stop = {"signal": None}
 
     def _on_signal(signum, _frame):
@@ -260,10 +266,26 @@ def follow(service, engine, logger: Logger) -> int:
 
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, _on_signal)
+    if hasattr(engine, "replicas"):
+        # A replica pool over meshes: each replica follows on its thread.
+        logger.info("mesh follower replaying the leader's dispatches",
+                    replicas=len(engine.replicas))
+        failure = engine.follow(lambda: stop["signal"] is not None)
+        service.close()
+        logger.info("mesh follower stopped", error=failure or "")
+        return 1 if failure else 0
     logger.info("mesh follower replaying the leader's dispatches",
                 **engine.stats()["mesh"])
-    while stop["signal"] is None and not engine.join(0.1):
-        pass
+
+    def adopt(fresh) -> None:
+        logger.info("mesh follower rebuilt at its leader's restart", **fresh.stats()["mesh"])
+        service.engine = fresh
+        if service.watchdog is not None:
+            service.watchdog.rearm(fresh)
+        if service.supervisor is not None:
+            service.supervisor.engine = fresh
+
+    engine = lockstep.follow_lives(engine, lambda: stop["signal"] is not None, adopt)
     dead = engine.dead
     service.close()
     logger.info("mesh follower stopped", error=dead or "")

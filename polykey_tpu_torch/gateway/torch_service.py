@@ -46,7 +46,8 @@ from typing import Iterator, Optional
 
 from google.protobuf import struct_pb2
 
-from ..engine.config import MESH_ITEM, EngineConfig
+from ..engine import lockstep
+from ..engine.config import EngineConfig
 from ..engine.engine import (
     DEADLINE_MSG,
     EngineDeadError,
@@ -156,16 +157,21 @@ class TorchService(Service):
         service.watchdog = watchdog
         if config.supervise:
             device = engine.device
+            # A mesh leader's failure restarts the whole mesh in process
+            # (engine/lockstep.py): its end sends "restart", and the
+            # followers rebuild at the word this factory gives.
+            engine.mesh_restart = engine.mesh is not None and not engine.is_follower
 
             def restart():
-                if engine.mesh is not None:
-                    # Every rank would have to rebuild in step; the mesh
-                    # goes NOT_SERVING and the platform restarts it.
+                dead = service.engine
+                if dead.mesh is None:
+                    return InferenceEngine(config, device=device, health=health,
+                                           logger=logger, reuse=dead._ctor_args)
+                if dead.is_follower:
                     raise NotImplementedError(
-                        "the in-process restart of a mesh engine is not ported to "
-                        f"polykey_tpu_torch yet (ROADMAP.md queue A: {MESH_ITEM})")
-                return InferenceEngine(config, device=device, health=health, logger=logger,
-                                       reuse=service.engine._ctor_args)
+                        "a follower rank of a mesh is rebuilt at its leader's restart "
+                        "only; a follower's own failure ends the mesh")
+                return lockstep.restart(dead)
 
             factory = engine_factory or restart
             supervisor = EngineSupervisor(
@@ -176,6 +182,7 @@ class TorchService(Service):
             )
             supervisor.add_restart_listener(
                 lambda fresh: setattr(service, "engine", fresh))
+            supervisor.add_giveup_listener(lambda _reason: lockstep.release(service.engine))
             supervisor.start()
             service.supervisor = supervisor
         return service
@@ -245,6 +252,7 @@ class TorchService(Service):
         if self.watchdog is not None:
             self.watchdog.stop()
         self.engine.shutdown()
+        lockstep.release(self.engine)
 
     # -- request plumbing ---------------------------------------------------
 

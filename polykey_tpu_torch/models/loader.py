@@ -29,12 +29,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.sharding import P, _spec_for_path, layer_spec, local_bounds, stage_run
 from .config import ModelConfig
-from .quant import quantize, quantize_embed, quantize_tree
+from .quant import (
+    _QUANT_LEAVES,
+    QuantizedTensor,
+    int4_group,
+    quantize,
+    quantize_embed,
+    quantize_rows,
+)
 
 # safetensors dtype names read here, and the torch dtype of each.
 SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
 INDEX_FILE = "model.safetensors.index.json"
+# A scale pass's chunk of rows on the device (fp32 bytes).
+_SCAN_BYTES = 64 << 20
 ORBAX_ITEM = "ROADMAP.md A.14: orbax checkpoints"
 
 
@@ -55,13 +65,22 @@ class SafetensorsFile:
         # Copy-on-write: a writable view, so torch takes it without a copy,
         # and nothing is ever written back to the file.
         self._map = np.memmap(path, dtype=np.uint8, mode="c")
+        self.copied = 0
 
     def keys(self) -> list:
         return list(self.entries)
 
-    def get(self, name: str, device="cpu") -> torch.Tensor:
-        """Tensor `name` in its stored dtype on `device`: its bytes copied
-        once, straight from the mapped file to the device."""
+    def shape(self, name: str) -> tuple:
+        return tuple(self.entries[name]["shape"])
+
+    def get(self, name: str, device="cpu", index=None) -> torch.Tensor:
+        """Tensor `name` in its stored dtype on `device`, its bytes copied
+        once from the mapped file to the device. `index`, a (start, size)
+        per dimension, copies that part alone: each dimension is narrowed
+        on the mapping first, so no byte outside the part is read. A part
+        that is a run of rows goes to the device straight from the
+        mapping; a strided one (a range of columns) is gathered on the
+        host first. `copied` counts the bytes copied."""
         entry = self.entries[name]
         dtype = SAFETENSORS_DTYPES.get(entry["dtype"])
         if dtype is None:
@@ -74,9 +93,22 @@ class SafetensorsFile:
         if end - start != int(np.prod(shape, dtype=np.int64)) * itemsize:
             raise ValueError(f"{self.path}: tensor {name!r} holds {end - start} bytes, "
                              f"not the {shape} {entry['dtype']} it declares")
-        raw = torch.from_numpy(self._map[self._base + start:self._base + end])
-        raw = raw.to(device) if torch.device(device).type != "cpu" else raw.clone()
-        return raw.view(dtype).reshape(shape)
+        mapped = self._map[self._base + start:self._base + end].view(
+            _NUMPY_OF_SIZE[itemsize]).reshape(shape)
+        if index is not None:
+            mapped = mapped[tuple(slice(a, a + n) for a, n in index)]
+        if torch.device(device).type == "cpu":
+            raw = torch.from_numpy(np.array(mapped, copy=True))
+        else:
+            raw = torch.from_numpy(np.ascontiguousarray(mapped)).reshape(mapped.shape)
+            raw = raw.to(device)
+        self.copied += raw.numel() * itemsize
+        return raw.view(dtype)
+
+
+# A numpy dtype of each item size, for the mapped bytes' views (bfloat16
+# travels as its 16-bit words).
+_NUMPY_OF_SIZE = {2: np.int16, 4: np.int32}
 
 
 def checkpoint_files(path: str) -> list:
@@ -146,47 +178,152 @@ def import_safetensors(
     dtype: torch.dtype = torch.bfloat16,
     device="cpu",
     quantize_bits: Optional[int] = None,
+    mesh=None,
+    counts: Optional[dict] = None,
 ) -> dict:
     """Map a local HF safetensors checkpoint into the port's parameter
     tree on `device`, in `dtype` (each tensor cast on the device, as the
     reference's `jnp.asarray(t, dtype)`). A tied model has no lm_head.
     With `quantize_bits` (8 or 4) each layer is quantized once read, then
     the embedding and lm_head: `quantize_params(import_safetensors(...))`
-    byte for byte."""
+    byte for byte.
+
+    With `mesh` (a serving mesh) each tensor is cut to this rank's shard
+    in the mapped file, before its bytes reach the device, as the serving
+    specs cut it (parallel/sharding.py): only the pp stage's run of layers
+    and the rank's E / ep experts are read; a column-parallel leaf (wq,
+    wk, wv, gate, up, lm_head) and the vocab-split embedding are a run of
+    the HF [out, in] tensor's rows, a row-parallel one (wo, down) a range
+    of its columns. The tree is `shard_params` of the whole import, bit
+    for bit, quantized too: where a leaf's quantization scale runs over
+    the part of its contraction axis other ranks hold (an int8 wo or down
+    at tp > 1, an int4 one whose groups tp does not split, the int8
+    embedding's scale over the whole vocabulary), one pass over the whole
+    tensor's rows, a chunk at a time on the device, takes the scale first.
+    `counts` (a dict) gathers the bytes copied as shards ("copied") and
+    read by those passes ("scanned")."""
     files = [SafetensorsFile(f) for f in checkpoint_files(path)]
     where = {name: f for f in files for name in f.keys()}
+    tp = mesh.shape["tp"] if mesh is not None else 1
+    scanned = [0]
 
-    def get(name: str, transpose: bool) -> torch.Tensor:
+    def entry(name: str) -> SafetensorsFile:
         if name not in where:
             raise KeyError(f"checkpoint {path} has no tensor {name!r} "
                            f"(model {cfg.name})")
-        t = where[name].get(name, device).to(dtype)
+        return where[name]
+
+    def bounds(name: str, transpose: bool, spec) -> Optional[list]:
+        """This rank's (start, size) along each port-layout dimension."""
+        if mesh is None or spec is None:
+            return None
+        shape = entry(name).shape(name)
+        return local_bounds(shape[::-1] if transpose else shape, spec, mesh)
+
+    def get(name: str, transpose: bool, spec=None) -> torch.Tensor:
+        """The tensor (or this rank's shard of it under `spec`, given in
+        the port's layout) in `dtype`, transposed to the port's layout."""
+        index = bounds(name, transpose, spec)
+        if index is not None and transpose:
+            index = index[::-1]
+        t = entry(name).get(name, device, index).to(dtype)
         return t.t().contiguous() if transpose else t
+
+    def absmax(name: str, transpose: bool, group: int = 0) -> torch.Tensor:
+        """The whole tensor's fp32 absmax over the port's contraction axis
+        (a row of the HF [out, in] tensor, or the embedding's column), per
+        group of `group` entries for int4: [out], [G, out] or [H]."""
+        f = entry(name)
+        rows, cols = f.shape(name)
+        step = max(1, _SCAN_BYTES // max(1, cols * 4))
+        before, parts = f.copied, []
+        for r in range(0, rows, step):
+            n = min(step, rows - r)
+            chunk = f.get(name, device, [(r, n), (0, cols)]).to(dtype).float().abs()
+            if not transpose:                           # the embedding: over rows
+                parts.append(chunk.amax(dim=0, keepdim=True))
+            elif group:
+                parts.append(chunk.reshape(n, cols // group, group).amax(dim=-1))
+            else:
+                parts.append(chunk.amax(dim=1))
+        scanned[0] += f.copied - before
+        out = torch.cat(parts)
+        if not transpose:
+            return out.amax(dim=0)
+        return out.t().contiguous() if group else out
+
+    def quantized(name: str, transpose: bool, spec, value: torch.Tensor,
+                  bits: int) -> QuantizedTensor:
+        """`value`, this rank's shard of `name`, quantized as the whole
+        tensor is (models/quant.quantize_rows where the scale spans other
+        ranks' rows)."""
+        if spec is None or spec[-2] is None or tp == 1:
+            return quantize(value, bits=bits)
+        first = bounds(name, transpose, spec)[-2][0]
+        cin = value.shape[-2] * tp
+        if bits == 4:
+            group = int4_group(cin)
+            if (cin // group) % tp == 0:    # the groups split with the rows
+                return quantize(value, bits=4)
+            return quantize_rows(value, 4, absmax(name, transpose, group), first, group)
+        return quantize_rows(value, 8, absmax(name, transpose))
+
+    def leaf(i: int, key_path: tuple, pattern: str, transpose: bool):
+        spec = layer_spec(key_path) if mesh is not None else None
+        bits = None
+        if quantize_bits is not None and key_path[-1] in _QUANT_LEAVES:
+            bits = quantize_bits
+        if "{e}" not in pattern:
+            name = pattern.format(i=i)
+            value = get(name, transpose, spec)
+            return value if bits is None else quantized(name, transpose, spec, value, bits)
+        experts, inner = range(cfg.num_experts), None
+        if spec is not None:
+            e0, ne = local_bounds((cfg.num_experts,), spec[:1], mesh)[0]
+            experts, inner = range(e0, e0 + ne), P(*spec[1:])
+        names = [pattern.format(i=i, e=e) for e in experts]
+        stack = [get(name, transpose, inner) for name in names]
+        if bits is None:
+            return torch.stack(stack)
+        if inner is None or inner[-2] is None or tp == 1:
+            return quantize(torch.stack(stack), bits=bits)
+        # Row-parallel experts: each expert's scale over its whole columns.
+        parts = [quantized(name, transpose, inner, value, bits)
+                 for name, value in zip(names, stack)]
+        return QuantizedTensor(q=torch.stack([q.q for q in parts]),
+                               s=torch.stack([q.s for q in parts]),
+                               act_dtype=parts[0].act_dtype, bits=bits)
 
     layer_map = _hf_layer_map(cfg)
     layers = []
-    for i in range(cfg.num_layers):
+    for i in stage_run(cfg.num_layers, mesh):
         layer: dict = {}
         for key_path, (pattern, transpose) in layer_map.items():
-            if "{e}" in pattern:
-                value = torch.stack([get(pattern.format(i=i, e=e), transpose)
-                                     for e in range(cfg.num_experts)])
-            else:
-                value = get(pattern.format(i=i), transpose)
             node = layer
             for k in key_path[:-1]:
                 node = node.setdefault(k, {})
-            node[key_path[-1]] = value
-        layers.append(layer if quantize_bits is None else quantize_tree(layer, quantize_bits))
-    embed = get("model.embed_tokens.weight", transpose=False)
+            node[key_path[-1]] = leaf(i, key_path, pattern, transpose)
+        layers.append(layer)
+    top = {k: P(*_spec_for_path((k,))) if mesh is not None else None
+           for k in ("embed", "lm_head")}
+    embed = get("model.embed_tokens.weight", False, top["embed"])
+    if quantize_bits is not None:
+        whole_vocab = None
+        if mesh is not None and mesh.shape["tp"] > 1:
+            whole_vocab = absmax("model.embed_tokens.weight", False)
+        embed = quantize_embed(embed, whole_vocab)
     params = {
-        "embed": embed if quantize_bits is None else quantize_embed(embed),
+        "embed": embed,
         "layers": layers,
         "final_norm": get("model.norm.weight", transpose=False),
     }
     if not cfg.tie_embeddings:
-        head = get("lm_head.weight", transpose=True)
+        head = get("lm_head.weight", True, top["lm_head"])
         params["lm_head"] = head if quantize_bits is None else quantize(head, bits=8)
+    if counts is not None:
+        counts["copied"] = (counts.get("copied", 0) + sum(f.copied for f in files)
+                            - scanned[0])
+        counts["scanned"] = counts.get("scanned", 0) + scanned[0]
     return params
 
 
@@ -196,16 +333,19 @@ def load_checkpoint(
     dtype: torch.dtype = torch.bfloat16,
     device="cpu",
     quantize_bits: Optional[int] = None,
+    mesh=None,
+    counts: Optional[dict] = None,
 ) -> dict:
     """The served weights at `path`, dispatched as the reference's
-    load_checkpoint: a safetensors path goes to `import_safetensors`; an
-    orbax directory (the reference's `save_checkpoint`) is not read here
-    and raises NotImplementedError; a missing path FileNotFoundError."""
+    load_checkpoint: a safetensors path goes to `import_safetensors` (with
+    `mesh`, read as this rank's shard); an orbax directory (the
+    reference's `save_checkpoint`) is not read here and raises
+    NotImplementedError; a missing path FileNotFoundError."""
     path = os.path.abspath(path)
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint {path} does not exist")
     if path.endswith(".safetensors") or glob.glob(os.path.join(path, "*.safetensors")):
-        return import_safetensors(path, cfg, dtype, device, quantize_bits)
+        return import_safetensors(path, cfg, dtype, device, quantize_bits, mesh, counts)
     raise NotImplementedError(
         f"checkpoint {path} is not safetensors: the reference's orbax format "
         f"is not ported to polykey_tpu_torch ({ORBAX_ITEM}); convert it to "

@@ -25,7 +25,7 @@ scales move by one ulp; the port follows the eager division.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -80,16 +80,45 @@ def quantize(w: torch.Tensor, bits: int = 8, group_size: int = 128) -> Quantized
     cin, cout = w.shape[-2], w.shape[-1]
     if cin % 2:
         raise ValueError(f"int4 needs an even contraction axis to nibble-pack, got {cin}")
-    g = group_size if cin % group_size == 0 else cin
+    g = int4_group(cin, group_size)
     lead = tuple(w.shape[:-2])
     grouped = wf.reshape(*lead, cin // g, g, cout)
     scale = grouped.abs().amax(dim=-2).clamp_min(1e-8) / 7.0       # [..., G, out]
     q = torch.round(grouped / scale.unsqueeze(-2)).clamp(-7, 7).reshape(w.shape)
+    return QuantizedTensor(q=_pack_nibbles(q), s=scale, act_dtype=w.dtype, bits=4)
+
+
+def _pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """Values in [-7, 7] of [..., in, out] as uint8 [..., in/2, out]:
+    two's-complement nibbles through the uint8 wrap, row 2i low, 2i+1
+    high."""
+    *lead, cin, cout = q.shape
     pairs = q.to(torch.int8).reshape(*lead, cin // 2, 2, cout)
-    # Two's-complement nibbles through the uint8 wrap: row 2i low, 2i+1 high.
-    packed = ((pairs[..., 0, :].to(torch.uint8) & 0xF)
-              | ((pairs[..., 1, :].to(torch.uint8) & 0xF) << 4))
-    return QuantizedTensor(q=packed, s=scale, act_dtype=w.dtype, bits=4)
+    return ((pairs[..., 0, :].to(torch.uint8) & 0xF)
+            | ((pairs[..., 1, :].to(torch.uint8) & 0xF) << 4))
+
+
+def quantize_rows(w: torch.Tensor, bits: int, absmax: torch.Tensor, first_row: int = 0,
+                  group: int = 0) -> QuantizedTensor:
+    """A run of rows (contraction-axis entries `first_row`, ...) of a
+    [..., in, out] weight, quantized as `quantize` quantizes the whole:
+    `absmax` is the whole weight's fp32 absmax over its contraction axis
+    ([..., out]) for int8, or over each of its groups of `group` rows
+    ([..., G, out]) for int4. The result's q is the whole q's rows and its
+    s the whole s, bit for bit, as a tp rank holds a row-parallel leaf."""
+    wf = w.float()
+    if bits == 8:
+        q, scale = _int8(wf, absmax, -2)
+        return QuantizedTensor(q=q, s=scale, act_dtype=w.dtype)
+    scale = absmax.clamp_min(1e-8) / 7.0                            # [..., G, out]
+    rows = torch.arange(first_row, first_row + w.shape[-2], device=w.device) // group
+    q = torch.round(wf / scale.index_select(-2, rows)).clamp(-7, 7)
+    return QuantizedTensor(q=_pack_nibbles(q), s=scale, act_dtype=w.dtype, bits=4)
+
+
+def int4_group(cin: int, group_size: int = 128) -> int:
+    """The rows a group of `quantize(bits=4)` spans on a `cin`-row weight."""
+    return group_size if cin % group_size == 0 else cin
 
 
 def _cast_q(w: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
@@ -195,11 +224,14 @@ def quantize_tree(node, bits: int = 8):
     return out
 
 
-def quantize_embed(embed: torch.Tensor) -> QuantizedTensor:
+def quantize_embed(embed: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                   ) -> QuantizedTensor:
     """The embedding in int8 with scales per hidden channel ([H], the axis
-    the tied unembedding contracts), so one tensor serves both uses."""
+    the tied unembedding contracts), so one tensor serves both uses. A
+    run of vocabulary rows passes the whole embedding's fp32 absmax over
+    its rows (`absmax`, [H]) and gets the whole's rows and scales."""
     ef = embed.float()
-    q, scale = _int8(ef, ef.abs().amax(dim=0), 0)
+    q, scale = _int8(ef, ef.abs().amax(dim=0) if absmax is None else absmax, 0)
     return QuantizedTensor(q=q, s=scale, act_dtype=embed.dtype)
 
 

@@ -191,20 +191,24 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def _moe_mlp(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+def _moe_mlp(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh=None,
+             split: tuple = ()) -> torch.Tensor:
     if mesh is not None:
-        return moe_mlp_sharded(layer_params, h, cfg, mesh)
+        return moe_mlp_sharded(layer_params, h, cfg, mesh, split)
     if cfg.moe_dispatch:
         return moe_mlp_dispatch(layer_params, h, cfg)
     return moe_mlp(layer_params, h, cfg)
 
 
 def apply_layer(layer_params: dict, layer_idx: int, x, positions, cfg: ModelConfig, attend,
-                mesh=None):
+                mesh=None, split: tuple = ()):
     """One transformer block at global layer index `layer_idx`. The KV
     mechanics are injected via `attend(layer_idx, q, k, v) -> ctx`
     [B, T, Hq, D]. Over a mesh: local heads and MLP columns, the
-    row-parallel outputs summed over tp before Gemma's post-norms."""
+    row-parallel outputs summed over tp before Gemma's post-norms; `split`
+    names the (axis, dimension) pairs the batch's tokens are split over,
+    for the capacity-bucketed MoE's whole-batch routing
+    (ops/moe.moe_mlp_sharded)."""
     B, T = x.shape[:2]
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
     eps = cfg.rms_norm_eps
@@ -227,7 +231,7 @@ def apply_layer(layer_params: dict, layer_idx: int, x, positions, cfg: ModelConf
 
     h = rms_norm(x, layer_params["ln2"], eps, norm_offset)
     if cfg.is_moe:
-        mlp_out = _moe_mlp(layer_params, h, cfg, mesh)
+        mlp_out = _moe_mlp(layer_params, h, cfg, mesh, split)
     elif mesh is not None:
         mlp_out = reduce_from(mlp(layer_params["mlp"], copy_to(h, mesh, "tp"), cfg.activation),
                               mesh, "tp")
@@ -353,7 +357,9 @@ def forward_paged(
     is [B, T, H] on every rank. `dp_lanes` (default: T == 1) says the
     batch is this rank's dp share of the decode lanes, as a speculative
     round's verify window of T = gamma + 1 is: its K/V rows are gathered
-    over dp before the write and its columns are not split over sp.
+    over dp before the write and its columns are not split over sp. A
+    capacity-bucketed MoE layer is told which axis splits the tokens, and
+    routes over the whole batch (ops/moe.moe_mlp_sharded).
 
     Under pp the stages run in turn: stage 0 embeds, each stage runs its
     run of layers on its own pools (`paged` holds that run's layers; a
@@ -402,7 +408,8 @@ def forward_paged(
             **kw,
         )
 
-    x = _stages(params, cfg, tokens, positions, attend, mesh)
+    split = (("dp", 0),) if gather_dp else (("sp", 1),) if split_sp else ()
+    x = _stages(params, cfg, tokens, positions, attend, mesh, split)
     norm_offset = 1.0 if cfg.scale_embeddings else 0.0
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, norm_offset)
     if split_sp:
@@ -410,7 +417,8 @@ def forward_paged(
     return x, paged
 
 
-def _stages(params: dict, cfg: ModelConfig, tokens, positions, attend, mesh):
+def _stages(params: dict, cfg: ModelConfig, tokens, positions, attend, mesh,
+            split: tuple = ()):
     """The embedding and this rank's layers, before the final norm. Over
     pp > 1 the stages take turns: stage s runs its layers on what stage
     s - 1 hopped to it, then hops its output on; the last hop (from the
@@ -423,7 +431,7 @@ def _stages(params: dict, cfg: ModelConfig, tokens, positions, attend, mesh):
     for s in range(pp):
         if s == stage:
             for i, layer in enumerate(params["layers"]):
-                x = apply_layer(layer, first + i, x, positions, cfg, attend, mesh)
+                x = apply_layer(layer, first + i, x, positions, cfg, attend, mesh, split)
         if pp > 1:
             if x is None:       # the hop's landing buffer, before any hop reached us
                 x = torch.empty((*tokens.shape, cfg.hidden_size),

@@ -20,7 +20,9 @@ engine's CUDA graphs.
 `moe_mlp_sharded` is the reference's expert-parallel layout over a mesh
 ("expert-replicated compute"): the router runs on every rank, each ep rank
 computes its local experts' contributions over its tp columns, and the
-combine is summed over ep and tp. No token moves between ranks.
+combine is summed over ep and tp. No token moves between ranks; under dp
+and sp the capacity-bucketed form gathers the router's choices alone, so
+its capacity and drops are the whole batch's, as the reference's.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.layers import _activate
 from ..models.quant import qeinsum_expert
-from ..parallel.collectives import copy_to, reduce_from
+from ..parallel.collectives import all_gather_along, copy_to, reduce_from
 
 
 def _router_weights(layer_params: dict, h: torch.Tensor, cfg: ModelConfig):
@@ -111,13 +113,26 @@ def moe_mlp_dispatch(layer_params: dict, h: torch.Tensor, cfg: ModelConfig,
     return _combine(out, combine, idx, slot, keep).reshape(B, T, H).to(h.dtype)
 
 
-def moe_mlp_sharded(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+def moe_mlp_sharded(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh,
+                    split: tuple = ()) -> torch.Tensor:
     """Either form over a mesh: `layer_params` holds this rank's experts
     (a contiguous run of E / ep, each with its tp columns) and the whole
-    router. Routing, capacity and drops are the single-device ones; the
-    fp32 partial sums of the combine are reduced over (ep, tp) before the
-    cast, and the router and the experts' input take the gradients of
-    every rank's share back."""
+    router. The fp32 partial sums of the combine are reduced over (ep, tp)
+    before the cast, and the router and the experts' input take the
+    gradients of every rank's share back.
+
+    `split` names the (mesh axis, dimension of `h`) pairs over which the
+    batch's tokens are split: ("dp", 0) for a serving mesh's decode lanes
+    (a rank holds one contiguous block of them), ("sp", 1) for a prefill's
+    columns (a rank holds a column range of every sequence). The
+    capacity-bucketed dispatch drops by position in the whole batch, as
+    the reference's (its MoE lies outside shard_map, so GSPMD takes the
+    capacity and the cumulative sum over the global batch): the router's
+    choices are gathered over those axes in the global token order
+    (b-major, padding lanes and padded columns in their places), the
+    capacity, slots and keep-mask are the whole batch's, and the rank
+    keeps its own tokens' rows. Expert products are row-independent, so
+    nothing else of the other ranks' tokens is needed."""
     axes = ("ep", "tp")
     B, T, H = h.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -129,9 +144,8 @@ def moe_mlp_sharded(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh)
     x = copy_to(h, mesh, axes)
     if cfg.moe_dispatch:
         N = B * T
-        capacity = max(1, int(N * k / E * 1.25))
+        slot, keep, capacity = _global_slots(idx, E, mesh, split)
         idx = idx.reshape(N, k)
-        slot, keep = _dispatch_slots(idx, E, capacity)
         keep = keep & (idx >= e0) & (idx < e0 + e)
         local = (idx - e0).clamp(0, e - 1)
         buckets = _scatter(x.reshape(N, H), local, slot, keep, e, capacity)
@@ -147,3 +161,26 @@ def moe_mlp_sharded(layer_params: dict, h: torch.Tensor, cfg: ModelConfig, mesh)
         out = qeinsum_expert("beti,eih->beth", gate * up, experts["down"], e_axis=1)
         y = torch.einsum("beth,bte->bth", out.float(), combine)
     return reduce_from(y, mesh, axes).to(h.dtype)
+
+
+def _global_slots(idx: torch.Tensor, num_experts: int, mesh, split: tuple):
+    """(slot [N, k], keep [N, k], capacity) of this rank's N = B * T tokens
+    (`idx` [B, T, k]) in the dispatch over the whole batch: the choices
+    gathered over each split axis of more than one rank (a group of one
+    holds the whole batch already), the global batch's capacity and
+    cumulative sum, and this rank's block of rows of the result."""
+    B, T, k = idx.shape
+    whole = idx
+    for axis, dim in split:
+        if mesh.shape[axis] > 1:
+            whole = all_gather_along(whole, mesh, axis, dim)
+    Bg, Tg = whole.shape[:2]
+    capacity = max(1, int(Bg * Tg * k / num_experts * 1.25))
+    slot, keep = _dispatch_slots(whole.reshape(Bg * Tg, k), num_experts, capacity)
+    slot, keep = slot.reshape(Bg, Tg, k), keep.reshape(Bg, Tg, k)
+    for axis, dim in split:
+        size = idx.shape[dim]
+        if whole.shape[dim] != size:
+            slot = slot.narrow(dim, mesh.coord(axis) * size, size)
+            keep = keep.narrow(dim, mesh.coord(axis) * size, size)
+    return slot.reshape(B * T, k), keep.reshape(B * T, k), capacity

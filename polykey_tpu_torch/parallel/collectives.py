@@ -86,6 +86,12 @@ def _gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def all_gather_along(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' `x` along `axis` concatenated on `dim` in rank order, with
+    no gradient (an int tensor's, as the MoE router's choices)."""
+    return _gather(x, mesh, axis, dim)
+
+
 def _split(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
     return x.chunk(mesh.shape[axis], dim=dim)[mesh.coord(axis)].contiguous()
 

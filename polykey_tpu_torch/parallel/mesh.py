@@ -57,7 +57,9 @@ class Mesh:
     its tensors live; `groups`, its process group on each axis (empty for
     a layout-only mesh, which can place shards but not communicate);
     `control`, a serving mesh's gloo group over all its ranks, which
-    carries the lock-step records (engine/lockstep.py)."""
+    carries the lock-step records, and `pages`, a second one, which
+    carries whole KV pages assembled from the ranks' shards
+    (engine/lockstep.py)."""
 
     devices: np.ndarray
     rank: int
@@ -65,6 +67,7 @@ class Mesh:
     groups: dict = field(default_factory=dict)
     axis_names: tuple = AXIS_NAMES
     control: Optional[object] = None
+    pages: Optional[object] = None
 
     @property
     def shape(self) -> dict:
@@ -151,7 +154,8 @@ def single_device_mesh(device=None) -> Mesh:
     dev = resolve_device(device)
     if not dist.is_initialized():
         if dev.type == "cuda":
-            torch.cuda.set_device(dev)
+            torch.cuda.set_device(dev.index if dev.index is not None
+                                  else torch.cuda.current_device())
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 store=dist.HashStore(), rank=0, world_size=1)
     if dist.get_world_size() != 1:

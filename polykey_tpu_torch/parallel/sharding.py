@@ -121,11 +121,12 @@ def param_shardings(cfg: ModelConfig, mesh: Optional[Mesh], params_tree: dict) -
     return _map(lambda path, leaf: _spec_for_path(path, leaf, mesh), params_tree)
 
 
-def local_slice(t: torch.Tensor, spec: P, mesh: Mesh) -> torch.Tensor:
-    """This rank's slice of `t` under `spec` (one entry per dimension of
-    `t`): the leaf itself when nothing splits, a contiguous copy
-    otherwise."""
-    out = t
+def local_bounds(shape: tuple, spec: P, mesh: Mesh) -> list:
+    """This rank's (start, size) along each dimension of a `shape` leaf
+    under `spec` (one entry per dimension): the whole extent where nothing
+    splits; an entry naming several axes splits them in order, each within
+    the last."""
+    bounds = [(0, int(n)) for n in shape]
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
@@ -133,27 +134,53 @@ def local_slice(t: torch.Tensor, spec: P, mesh: Mesh) -> torch.Tensor:
             n = mesh.shape[axis]
             if n == 1:
                 continue
-            if out.shape[dim] % n:
+            start, extent = bounds[dim]
+            if extent % n:
                 raise ValueError(
                     f"{axis}={n} does not divide dimension {dim} of a "
-                    f"{tuple(t.shape)} leaf"
+                    f"{tuple(shape)} leaf"
                 )
-            size = out.shape[dim] // n
-            out = out.narrow(dim, mesh.coord(axis) * size, size)
+            size = extent // n
+            bounds[dim] = (start + mesh.coord(axis) * size, size)
+    return bounds
+
+
+def local_slice(t: torch.Tensor, spec: P, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of `t` under `spec` (one entry per dimension of
+    `t`): the leaf itself when nothing splits, a contiguous copy
+    otherwise."""
+    out = t
+    for dim, (start, size) in enumerate(local_bounds(tuple(t.shape), spec, mesh)):
+        if size != t.shape[dim]:
+            out = out.narrow(dim, start, size)
     return out if out is t else out.contiguous()
+
+
+def layer_spec(path: tuple[str, ...], leaf=None, mesh: Optional[Mesh] = None) -> P:
+    """The spec of the leaf at `path` within a layer dict (("attn", "wq"),
+    ("experts", "down", "s"), ...), without the pp entry: a rank's run of
+    layers is the caller's choice."""
+    return P(*_spec_for_path(("layers",) + path, leaf, mesh)[1:])
+
+
+def stage_run(num_layers: int, mesh: Optional[Mesh]) -> range:
+    """The global indices of the layers this rank's pp stage holds: a run
+    of num_layers / pp (all of them without a mesh)."""
+    pp = mesh.shape["pp"] if mesh is not None else 1
+    if num_layers % pp:
+        raise ValueError(f"pp={pp} must divide num_layers={num_layers}")
+    run = num_layers // pp
+    start = mesh.coord("pp") * run if pp > 1 else 0
+    return range(start, start + run)
 
 
 def shard_params(params: dict, cfg: ModelConfig, mesh: Mesh) -> dict:
     """Each rank's local parameters: its run of `cfg.num_layers / pp`
     layers (global layer index = pp coordinate x run length + local
     index), and of every leaf its slice over tp and ep."""
-    pp = mesh.shape["pp"]
-    if cfg.num_layers % pp:
-        raise ValueError(f"pp={pp} must divide num_layers={cfg.num_layers}")
-    run = cfg.num_layers // pp
-    start = mesh.coord("pp") * run
+    run = stage_run(cfg.num_layers, mesh)
     local = dict(params)
-    local["layers"] = params["layers"][start:start + run]
+    local["layers"] = params["layers"][run.start:run.stop]
     return shard_tree(local, mesh)
 
 

@@ -2067,3 +2067,104 @@ def test_write_kernels_at_shard_heads(gen, int8, Hk):
     plain(*b, kn, vn, tables, pos)
     for x, y in zip(_leaves(a), _leaves(b)):
         assert torch.equal(x.view(torch.int8), y.view(torch.int8))
+
+
+# -- the rest of serving over a mesh, on one card ------------------------------
+
+
+def test_sliced_checkpoint_get_copies_its_part_alone_to_the_card(gen, tmp_path):
+    """A run of rows and a range of columns of one bf16 tensor read onto the
+    card: each equal to the CPU read's part, `copied` counts the part's
+    bytes, and the card's allocated memory grows by the part alone."""
+    import chip_smoke
+    from polykey_tpu_torch.models import loader as tl
+    from polykey_tpu_torch.models.config import get_config
+
+    cfg = get_config("tiny-llama")
+    rng = torch.Generator().manual_seed(1)
+    params = {"embed": torch.randn(1024, 64, generator=rng).to(torch.bfloat16), "layers": [],
+              "final_norm": torch.ones(64, dtype=torch.bfloat16),
+              "lm_head": torch.randn(64, 1024, generator=rng).to(torch.bfloat16)}
+    chip_smoke.write_hf_checkpoint(params, cfg, str(tmp_path), shards=1)
+    (f,) = [tl.SafetensorsFile(p) for p in tl.checkpoint_files(str(tmp_path))]
+    whole = f.get("model.embed_tokens.weight")
+    for index in ([(256, 512), (0, 64)], [(0, 1024), (16, 32)]):
+        torch.cuda.synchronize()
+        before, copied = torch.cuda.memory_allocated(), f.copied
+        part = f.get("model.embed_tokens.weight", "cuda", index)
+        grown = torch.cuda.memory_allocated() - before
+        (r0, nr), (c0, nc) = index
+        assert part.device.type == "cuda" and part.is_contiguous()
+        assert torch.equal(part.cpu().view(torch.int16),
+                           whole[r0:r0 + nr, c0:c0 + nc].contiguous().view(torch.int16))
+        assert f.copied - copied == nr * nc * 2
+        assert grown == nr * nc * 2, (grown, nr * nc * 2)
+        del part
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "int8", "int4"])
+def test_shard_read_on_the_card_equals_the_whole_read_cut(gen, tmp_path, bits):
+    """Each tp=2 rank's read of a checkpoint onto the card (the scale passes
+    of its row-parallel leaves on the card, a chunk at a time) equals
+    shard_params of the whole read onto the card, bit for bit."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    import chip_smoke
+    from polykey_tpu_torch.models import loader as tl
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.quant import QuantizedTensor
+    from polykey_tpu_torch.models.transformer import init_params
+    from polykey_tpu_torch.parallel.mesh import Mesh
+    from polykey_tpu_torch.parallel.sharding import shard_params
+
+    cfg = replace(get_config("tiny-llama"), name="tiny-llama-wide", intermediate_size=512)
+    params = init_params(cfg, torch.bfloat16, "cpu", torch.Generator().manual_seed(5))
+    chip_smoke.write_hf_checkpoint(params, cfg, str(tmp_path))
+    whole = tl.load_checkpoint(str(tmp_path), cfg, torch.bfloat16, "cuda", quantize_bits=bits)
+
+    def same(a, b):
+        if isinstance(b, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in b)
+        if isinstance(b, list):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(b, QuantizedTensor):
+            return same(a.q, b.q) and same(a.s, b.s)
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+    devices = np.arange(2).reshape(1, 1, 1, 1, 2)
+    for rank in range(2):
+        mesh = Mesh(devices, rank, torch.device("cuda"))
+        got = tl.load_checkpoint(str(tmp_path), cfg, torch.bfloat16, "cuda",
+                                 quantize_bits=bits, mesh=mesh)
+        assert same(got, shard_params(whole, cfg, mesh)), rank
+
+
+def test_gathered_moe_equals_the_rank_local_dispatch_on_one_rank(gen):
+    """The capacity-bucketed layer through moe_mlp_sharded's whole-batch
+    routing over a one-rank NCCL group (dp = sp = 1: nothing to gather)
+    equals moe_mlp_dispatch on the same tokens, at a decode batch and a
+    prefill's, in bf16 and int8 experts."""
+    import torch.distributed as dist
+
+    from polykey_tpu_torch.models.config import get_config
+    from polykey_tpu_torch.models.quant import quantize_params
+    from polykey_tpu_torch.models.transformer import init_params
+    from polykey_tpu_torch.ops.moe import moe_mlp_dispatch, moe_mlp_sharded
+    from polykey_tpu_torch.parallel.mesh import single_device_mesh
+
+    from dataclasses import replace
+
+    cfg = replace(get_config("tiny-mixtral"), moe_dispatch=True)
+    params = init_params(cfg, torch.bfloat16, "cuda", gen)
+    mesh = single_device_mesh("cuda")
+    try:
+        for layer in (params["layers"][0], quantize_params(params, cfg, 8)["layers"][0]):
+            for shape in ((16, 1), (2, 128)):
+                h = _randn((*shape, cfg.hidden_size), gen)
+                want = moe_mlp_dispatch(layer, h, cfg)
+                got = moe_mlp_sharded(layer, h, cfg, mesh, (("dp", 0), ("sp", 1)))
+                assert torch.equal(got, want), shape
+    finally:
+        dist.destroy_process_group()

@@ -15,11 +15,9 @@ equal the JAX engine's token for token (fp32: the tp partial sums and the
 sp merge reorder additions, far from flipping an argmax here, as the JAX
 mesh tests rely on too); every follower's decode tokens hash to the
 leader's; the refusals (the reference's geometry ValueErrors, its
-ragged rule and its draft-layers check; NotImplementedError naming A.17
-for the disaggregated tiers, replicas and a capacity-bucketed MoE under
-dp); the supervisor refuses to restart a
-mesh engine. A second, 2-rank group loses a follower mid-stream: the
-leader's requests must end with an error, not hang.
+ragged rule and its draft-layers check); the supervisor restarts a
+one-rank mesh engine in process. A second, 2-rank group loses a follower
+mid-stream: the leader's requests must end with an error, not hang.
 """
 
 import dataclasses
@@ -107,12 +105,6 @@ GEOMETRY = {    # tests/test_engine_mesh.py::test_bad_geometry_rejected's cases
     "pp2-ragged": (dict(pp=2, ragged_dispatch=True), "serves tp-at-most meshes"),
     "pp2-odd-draft": (dict(pp=2, draft_model=ODD_DRAFT), "must divide draft num_layers"),
 }
-A17 = {    # the rest of serving over a mesh (the features ported since have
-    # their cases in tests/test_torch_engine_mesh_features.py)
-    "tp2-disagg": dict(tp=2, disagg="1x1"),
-    "tp2-replicas": dict(tp=2, replicas=2),
-    "dp2-moe-dispatch": dict(model="mixtral-8x7b", dp=2),
-}
 
 
 def _collect(request, timeout=120.0):
@@ -170,8 +162,7 @@ def _mesh_runs(tmp):
     odd = torch_ranks.config_fields(dataclasses.replace(TINY_LLAMA, name=ODD_DRAFT,
                                                         num_layers=1))
     jobs = [{"kind": "refusals", "name": "refusals", "models": [model_fields[FOUR_KV], odd],
-             "cases": {**{k: {**FIELDS, **v[0]} for k, v in GEOMETRY.items()},
-                       **{k: {**FIELDS, **v} for k, v in A17.items()}}}]
+             "cases": {k: {**FIELDS, **v[0]} for k, v in GEOMETRY.items()}}]
     for name, (axes, ranks, ref) in CASES.items():
         fields = _fields(ref, axes)
         jobs.append({"kind": "engine", "name": name, "devices": ranks, "config": fields,
@@ -183,7 +174,8 @@ def _mesh_runs(tmp):
             jobs.append({"kind": "supervise", "name": "supervise", "devices": [6],
                          "config": dict(FIELDS, max_engine_restarts=1),
                          "model": model_fields["tiny-llama"],
-                         "params": str(tmp / "tiny-llama.npz")})
+                         "params": str(tmp / "tiny-llama.npz"), "prompts": PROMPTS,
+                         "max_new": MAX_NEW})
     box = {}
 
     def ranks():
@@ -282,25 +274,19 @@ def test_bad_geometry_rejected(mesh_runs, name):
     assert got.startswith("ValueError: ") and GEOMETRY[name][1] in got, got
 
 
-@pytest.mark.parametrize("name", list(A17))
-def test_unported_mesh_knobs_name_a17(mesh_runs, name):
-    results, _, _ = mesh_runs
-    got = str(results[0][f"refusals/{name}"])
-    assert got.startswith("NotImplementedError: ") and "A.17" in got, got
+def test_one_rank_mesh_engine_is_restarted_in_process(mesh_runs):
+    """A one-rank mesh engine behind the supervisor: after its engine loop
+    crashes, the factory rebuilds it on the same mesh and weights, health
+    is SERVING again and the fresh engine serves the JAX engine's streams
+    (a tp=2 mesh's restart: tests/test_torch_mesh_serving.py)."""
+    from polykey_tpu_torch.gateway.health import SERVING
 
-
-def test_mesh_engine_is_not_restarted_in_process(mesh_runs):
-    """The supervisor's factory refuses a mesh engine (A.17); after the
-    engine loop crashes the supervisor gives up and health stays
-    NOT_SERVING."""
-    from polykey_tpu_torch.gateway.health import NOT_SERVING
-
-    results, _, _ = mesh_runs
+    results, refs, _ = mesh_runs
     got = {k[10:]: v for k, v in results[6].items() if k.startswith("supervise/")}
-    assert "A.17" in str(got["refusal"])
     assert "injected dispatch failure" in str(got["error"])
-    assert bool(got["gave_up"]) and int(got["restarts"]) == 0
-    assert int(got["status"]) == NOT_SERVING
+    assert not bool(got["gave_up"]) and int(got["restarts"]) == 1
+    assert int(got["status"]) == SERVING
+    assert got["tokens"].tolist() == refs["base"]
 
 
 def test_lost_follower_fails_the_leaders_requests(tmp_path):

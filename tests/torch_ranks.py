@@ -91,11 +91,15 @@ def config_fields(cfg) -> dict:
 def _mesh_for(job):
     from polykey_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 
-    if job["kind"] in ("engine", "supervise"):
+    if job["kind"] in ("engine", "supervise", "replicas", "handoff"):
         from polykey_tpu_torch.engine.config import EngineConfig
         from polykey_tpu_torch.engine.lockstep import serving_mesh
 
-        return serving_mesh(EngineConfig(**job["config"]), job["devices"])
+        config = EngineConfig(**job["config"])
+        if job["kind"] == "replicas":        # a mesh of its own for each replica
+            meshes = [serving_mesh(config, job["devices"]) for _ in range(config.replicas)]
+            return None if meshes[0] is None else meshes
+        return serving_mesh(config, job["devices"])
     return create_mesh(MeshConfig(**job["mesh"]), job["devices"])
 
 
@@ -259,7 +263,8 @@ def _engine(job, mesh, **kw):
     cfg = model_config(job["model"])
     MODEL_REGISTRY[cfg.name] = cfg
     config = EngineConfig(**job["config"])
-    params = params_from_numpy(load_tree(job["params"]))
+    # No params with a checkpoint_path: each rank reads its shard of it.
+    params = params_from_numpy(load_tree(job["params"])) if job.get("params") else None
     if job.get("draft_params"):
         kw["draft_params"] = params_from_numpy(load_tree(job["draft_params"]))
     return InferenceEngine(config, params=params, device="cpu", mesh=mesh, **kw)
@@ -343,6 +348,7 @@ def job_engine(job, mesh):
         snap = engine.stats()
         out = {"tokens": np.asarray(streams), "errors": np.asarray(errors),
                "dead": np.asarray(engine.dead or ""),
+               "reloaded": np.asarray(snap.get("kv_reloaded_pages", 0)),
                **{k: np.asarray(snap.get(k, 0)) for k in PAGE_COUNTS}}
     stats = engine.stats()["mesh"]
     out["records"] = np.asarray(json.dumps(
@@ -359,42 +365,242 @@ def job_engine(job, mesh):
     return out
 
 
+def _serve_prompts(engine, prompts, max_new, timeout=120):
+    from polykey_tpu_torch.engine.engine import GenRequest
+
+    requests = [GenRequest(prompt=p, max_new_tokens=max_new) for p in prompts]
+    for r in requests:
+        engine.submit(r)
+    streams, errors = [], []
+    for r in requests:
+        tokens, error = _collect(r, timeout)
+        streams.append(tokens + [-1] * (max_new - len(tokens)))
+        errors.append(error)
+    return streams, errors
+
+
 def job_supervise(job, mesh):
-    """A mesh engine behind TorchService.create: the supervisor's factory
-    must refuse (A.17); after a crash of the engine loop the supervisor
-    gives up and health stays NOT_SERVING."""
+    """A mesh engine behind TorchService.create, its leader's engine loop
+    crashed by an injected failure. With `crash` "before" (the default)
+    the failure comes before any record of its dispatch went out: the
+    supervisor restarts the mesh in process, and the leader returns the
+    crashed request's error, the restarts, the health after them and the
+    streams of `prompts` served by the fresh engine. With "inside" the
+    leader first serves `prompts`, then fails inside a prefill's dispatch
+    (its record sent and replayed): the factory refuses the restart, and
+    the leader returns the refusals it logged and the health after the
+    supervisor gave up. Every rank returns its last engine's decode
+    tokens' digest; a follower follows its lives (lockstep.follow_lives)
+    and returns how many it had and the record that ended the last."""
+    import io
+    import json
+
+    from polykey_tpu_torch.engine import lockstep
+    from polykey_tpu_torch.engine.engine import GenRequest
     from polykey_tpu_torch.gateway import health as hs
+    from polykey_tpu_torch.gateway.jsonlog import Logger
     from polykey_tpu_torch.gateway.torch_service import TorchService
 
     health = hs.HealthService()
     health.set_serving_status("", hs.SERVING)
     engine = _engine(job, mesh, health=health)
-    service = TorchService.create(engine, health=health)
-    try:
+    inside = job.get("crash", "before") == "inside"
+    if engine.is_follower:
+        lives = [1]
+        deadline = time.monotonic() + job.get("timeout", 120)
+
+        def fresh(_engine):
+            lives[0] += 1
+
+        engine = lockstep.follow_lives(engine, lambda: time.monotonic() > deadline, fresh)
+        if not engine.join(0):
+            raise RuntimeError("the follower was not shut down by its leader")
+        out = {"lives": np.asarray(lives[0]), "error": np.asarray(engine.dead or ""),
+               "ended_with": np.asarray("restart" if engine.restart_requested
+                                        else "shutdown")}
+    else:
+        log = io.StringIO()
+        service = TorchService.create(engine, health=health, logger=Logger(log))
+        streams, errors = [], []
         try:
-            service.supervisor._factory()
-            refusal = ""
-        except NotImplementedError as e:
-            refusal = str(e)
+            if inside:
+                streams, errors = _serve_prompts(engine, job["prompts"], job["max_new"])
+                dispatch = engine._prefill_dispatch
 
-        def crash():
-            raise RuntimeError("injected dispatch failure")
+                def crash(*args):
+                    dispatch(*args)             # the followers replay it whole
+                    raise RuntimeError("injected failure inside a dispatch")
 
-        engine._dispatch_step = crash
-        from polykey_tpu_torch.engine.engine import GenRequest
+                engine._prefill_dispatch = crash
+            else:
+                def crash():
+                    raise RuntimeError("injected dispatch failure")
 
-        request = GenRequest(prompt="crash", max_new_tokens=4)
-        engine.submit(request)
-        _, error = _collect(request, 30)
-        deadline = time.monotonic() + 30
-        while not service.supervisor.gave_up and time.monotonic() < deadline:
-            time.sleep(0.05)
-        return {"refusal": np.asarray(refusal), "error": np.asarray(error),
-                "gave_up": np.asarray(service.supervisor.gave_up),
-                "restarts": np.asarray(service.supervisor.restarts),
-                "status": np.asarray(health._statuses[""])}
-    finally:
-        service.close()
+                engine._dispatch_step = crash
+            request = GenRequest(prompt="crash", max_new_tokens=4)
+            engine.submit(request)
+            _, error = _collect(request, 30)
+            deadline = time.monotonic() + 60
+            while service.supervisor.restarts < 1 and not service.supervisor.gave_up \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            restarted = service.engine is not engine
+            if restarted:
+                streams, errors = _serve_prompts(service.engine, job["prompts"],
+                                                 job["max_new"])
+            status = health._statuses[""]
+        finally:
+            service.close()
+        refusals = [r.get("error", "") for r in map(json.loads, log.getvalue().splitlines())
+                    if r.get("msg") == "engine restart failed; will retry"]
+        engine = service.engine
+        out = {"error": np.asarray(error), "gave_up": np.asarray(service.supervisor.gave_up),
+               "restarts": np.asarray(service.supervisor.restarts),
+               "status": np.asarray(status), "tokens": np.asarray(streams),
+               "errors": np.asarray(errors), "refusals": np.asarray(json.dumps(refusals)),
+               "closed_with": np.asarray(str(getattr(engine, "closed_with", "")))}
+    stats = engine.stats()["mesh"]
+    out.update(digest=np.asarray(stats.get("tokens_digest", "")),
+               blocks=np.asarray(stats.get("decode_blocks_hashed", 0)),
+               role=np.asarray(stats["role"]))
+    return out
+
+
+def job_replicas(job, meshes):
+    """A ReplicaPool of `config["replicas"]` replicas, each over its own
+    mesh of the job's ranks. The leader serves `prompts` at once, then a
+    failover: replica 0's engine loop fails after three decode dispatches
+    under `victim`'s stream, which resumes on replica 1; once replica 0 is
+    rebuilt (on every rank) `victim` is served again. Returns the streams,
+    the victim's replicas and the restarts; every rank each replica's
+    decode digest and engines built. Followers follow until the leader's
+    pool shuts down."""
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import GenRequest
+    from polykey_tpu_torch.engine.replica_pool import SERVING, ReplicaPool
+    from polykey_tpu_torch.gateway import health as hs
+    from polykey_tpu_torch.models.config import MODEL_REGISTRY
+    from polykey_tpu_torch.models.interop import params_from_numpy
+
+    cfg = model_config(job["model"])
+    MODEL_REGISTRY[cfg.name] = cfg
+    health = hs.HealthService()
+    health.set_serving_status("", hs.SERVING)
+    pool = ReplicaPool.create(EngineConfig(**job["config"]), health=health, device="cpu",
+                              params=params_from_numpy(load_tree(job["params"])),
+                              meshes=meshes)
+    engines = {rep.index: [rep.engine] for rep in pool.replicas}
+    out = {}
+    if pool.is_follower:
+        out["error"] = np.asarray(pool.follow() or "")
+    else:
+        try:
+            streams, errors = _serve_prompts(pool, job["prompts"], job["max_new"])
+            first = pool.replicas[0].engine
+            dispatch, calls = first._dispatch_step, [0]
+
+            def dying():
+                calls[0] += 1
+                if calls[0] > 3:
+                    raise RuntimeError("injected dispatch failure")
+                return dispatch()
+
+            first._dispatch_step = dying
+            victim = GenRequest(prompt=job["victim"], max_new_tokens=job["victim_new"])
+            pool.submit(victim)
+            routed = victim.replica
+            resumed, error = _collect(victim, 60)
+            deadline = time.monotonic() + 60
+            rep0 = pool.replicas[0]
+            while (rep0.supervisor.restarts < 1 or rep0.state != SERVING) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            again = GenRequest(prompt=job["victim"], max_new_tokens=job["victim_new"])
+            pool.submit(again)
+            after, after_error = _collect(again, 60)
+            out.update(tokens=np.asarray(streams), errors=np.asarray(errors),
+                       resumed=np.asarray(resumed), resumed_error=np.asarray(error),
+                       routed=np.asarray([routed, victim.replica, again.replica]),
+                       restarted=np.asarray(victim.restarted),
+                       after=np.asarray(after), after_error=np.asarray(after_error),
+                       restarts=np.asarray(rep0.supervisor.restarts),
+                       state=np.asarray(rep0.state), status=np.asarray(health._statuses[""]))
+        finally:
+            pool.shutdown()
+    for rep in pool.replicas:
+        stats = rep.engine.stats()["mesh"]
+        out[f"digest{rep.index}"] = np.asarray(stats.get("tokens_digest", ""))
+        out[f"blocks{rep.index}"] = np.asarray(stats.get("decode_blocks_hashed", 0))
+        out[f"fresh{rep.index}"] = np.asarray(rep.engine is not engines[rep.index][0])
+    out["role"] = np.asarray("follower" if pool.is_follower else "leader")
+    return out
+
+
+def job_handoff(job, mesh):
+    """The disaggregated handoff's halves on a mesh engine: the leader
+    prefills `prompt` as a prefill_only request (the whole pages gathered
+    from every rank's shard) and returns the serialized wire blob; then it
+    resumes that state as a resume_state request (the whole pages cut to
+    every rank's shard) and returns the stream. Followers replay both."""
+    from polykey_tpu_torch.engine.engine import GenRequest
+    from polykey_tpu_torch.engine.kv_cache import deserialize_kv_state, serialize_kv_state
+
+    engine = _engine(job, mesh)
+    if engine.is_follower:
+        if not engine.join(job.get("timeout", 120)):
+            raise RuntimeError("the follower was not shut down by its leader")
+        out = {"error": np.asarray(engine.dead or "")}
+    else:
+        try:
+            request = GenRequest(prompt=job["prompt"], max_new_tokens=job["max_new"],
+                                 seed=99, prefill_only=True)
+            engine.submit(request)
+            kind, state = request.out.get(timeout=60)
+            if kind != "handoff":
+                raise RuntimeError(f"the export failed: {kind} {state}")
+            blob = serialize_kv_state(state)
+            resumed = GenRequest(prompt="", max_new_tokens=job["max_new"],
+                                 resume_state=deserialize_kv_state(blob))
+            engine.submit(resumed)
+            tokens, error = _collect(resumed, 60)
+        finally:
+            engine.shutdown()
+        out = {"blob": np.frombuffer(blob, np.uint8), "tokens": np.asarray(tokens),
+               "resume_error": np.asarray(error),
+               "imports": np.asarray(engine._handoff_imported),
+               "exports": np.asarray(engine._handoff_exports)}
+    mesh_stats = engine.stats()["mesh"]
+    out.update(digest=np.asarray(mesh_stats.get("tokens_digest", "")),
+               blocks=np.asarray(mesh_stats.get("decode_blocks_hashed", 0)),
+               records=np.asarray(json.dumps(mesh_stats.get(
+                   "records_by_kind", mesh_stats.get("records_replayed", {})))),
+               role=np.asarray(mesh_stats["role"]))
+    return out
+
+
+def job_moe(job, mesh):
+    """ops/moe.moe_mlp_sharded on this rank's share of one batch of hidden
+    states [B, T, H]: its dp block of rows under dp (its lanes), its sp
+    block of columns under sp (a prefill), and its experts under ep."""
+    import torch
+
+    from polykey_tpu_torch.models.interop import params_from_numpy
+    from polykey_tpu_torch.ops.moe import moe_mlp_sharded
+    from polykey_tpu_torch.parallel.sharding import shard_params
+
+    cfg = model_config(job["cfg"])
+    params = shard_params(params_from_numpy(load_tree(job["params"])), cfg, mesh)
+    h = torch.from_numpy(np.load(job["inputs"])["h"])
+    split = []
+    for axis, dim in (("dp", 0), ("sp", 1)):
+        if job["split"].get(axis):
+            n = h.shape[dim] // mesh.shape[axis]
+            h = h.narrow(dim, mesh.coord(axis) * n, n)
+            split.append((axis, dim))
+    with torch.no_grad():
+        y = moe_mlp_sharded(params["layers"][0], h, cfg, mesh, tuple(split))
+    return {"y": y.numpy(), "dp": np.asarray(mesh.coord("dp")),
+            "sp": np.asarray(mesh.coord("sp"))}
 
 
 def job_refusals(job, mesh):
@@ -439,7 +645,8 @@ def _grad_tree(node):
 
 JOBS = {"bootstrap": job_bootstrap, "forward": job_forward, "attention": job_attention,
         "pipeline": job_pipeline, "train": job_train, "engine": job_engine,
-        "supervise": job_supervise, "refusals": job_refusals}
+        "supervise": job_supervise, "refusals": job_refusals, "moe": job_moe,
+        "replicas": job_replicas, "handoff": job_handoff}
 
 
 # -- processes ---------------------------------------------------------------
