@@ -117,14 +117,16 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             in turns against the single-card engine (shut down, its graphs
             kept for this; the cost of the captured collectives over a
             group of one), and one decode replay's device activities under
-            torch.profiler. Then the full depth from a checkpoint: the
-            serve phases' bf16 weights written as an HF checkpoint (two
+            torch.profiler. Then the same depth from a checkpoint: those
+            layers' bf16 weights written as an HF checkpoint (two
             shards and an index, in a temporary directory removed at the
             end) and read by a mesh engine (checkpoint_path) as its rank's
             shard of each tensor (the whole of it, on a group of one): the
             tree bit for bit the one written, MESH_PROMPTS token for token
-            the bf16 serve phase's; it prints the write's and the load's
-            seconds, the bytes copied and the load's peak device memory.
+            the bf16 single-card engine's of that depth (the full-depth
+            checkpoint reads are phase 7b's and phase 17's); it prints the
+            write's and the load's seconds, the bytes copied and the load's
+            peak device memory.
             The group is destroyed at the end. The kernels phase holds the
             kernels at a mesh rank's shard shapes too: decode (bf16 and
             int8) at Llama-3-8B tp=2 (Hq 16, Hk 4) and tp=4 (Hq 8, Hk 2) at
@@ -139,6 +141,18 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             engine's own features on the mesh engine. pp needs a second
             rank: it runs on the CPU only
             (tests/test_torch_engine_mesh_features.py).
+7b. orbax:  (run inside phase 11, whose plain bf16 engine it is) the
+            reference's own checkpoint format (OCDBT + zarr + zstd)
+            on one card: the serve weights (32-layer Llama-3-8B) written by
+            the port's save_checkpoint (raw-block zstd frames, streamed a
+            chunk at a time through one pinned buffer) into a temporary
+            directory (free space checked first; removed at the end), and
+            a single-card InferenceEngine with that checkpoint_path: the
+            tree bit for bit the serve weights, MESH_PROMPTS one at a time
+            token for token the bf16 serve phase's, flash, the paged write
+            and the paged decode launched from it. It prints the bytes and
+            seconds of the write, the read's seconds, bytes decoded and
+            copied, the load's peak device memory, and the phase's wall.
 8. graph:   the full-depth Llama-3-8B decode block (16 greedy lanes at
             context 512, as profile_decode sets it up; bf16 and int8 KV),
             eager and as a replay of its graph, from the same lane state:
@@ -173,7 +187,8 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             writes its spills to a state dir (phase 11a's reference).
 11. spec:   speculative decoding on the same weights, over gRPC, each beside
             the plain engine of its KV type on the same prompts (the serve
-            phases' five, all greedy, 32 tokens): (a) a Llama-3.2-1B draft
+            phases' five, all greedy, 32 tokens; the plain bf16 engine is
+            phase 7b's, read from the orbax checkpoint): (a) a Llama-3.2-1B draft
             (random weights from seed + 2) at gamma 4 over bf16 KV with
             top_p_candidates=64 and the prefix cache: the five, then four
             sampled requests (temperature 0.8, top_p 0.9), then the first
@@ -200,7 +215,13 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             against the plain engine; (d) and (e) also the ragged spec
             dispatches, their lanes and prefill ranges, and their wall on
             the card (CUDA events around each dispatch) beside the host's
-            time in the call.
+            time in the call. On (c)'s engine, the spec_host_sync A/B: one
+            greedy prompt alone (16 tokens) with the knob off and on, in
+            turns, two each (the engine's config swapped while idle: no second
+            engine); each turn prints its mean host stall, blocks_synced
+            and tok/s; with the knob on every dispatched round makes three
+            timed reads, landing in blocks_synced, and every turn's streams
+            are the same token ids.
 11a. mesh (features): the engine's own features on the mesh engine over
             a one-rank NCCL group brought up as in phase 7a, each held
             token for token to a single-card engine serving the same
@@ -376,6 +397,12 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             allocates its own (a second set does not fit beside 27B
             weights), the fresh engine serves on the same weight tensors,
             and the peak memory allocated during the restart is printed.
+
+The summary grades each serve request against the card's roofline
+(engine/roofline.py: detect_chip must give the H100 SXM's spec): its
+decode MBU (one lane's stream: the weights and its KV read once a token)
+and its prefill MFU at TTFT, each at most 1.05 (a higher reading means a
+byte or FLOP count is wrong).
 
 The second-to-last line of standard output is the card's name and power
 limit as nvidia-smi reports them; before it, one JSON line sums up each
@@ -1856,7 +1883,7 @@ def phase_serve(seed: int, card: str, ragged: bool = False, params=None,
         # repeat is held to a solo run below, not to its concurrent run.
         moe = engine.model_cfg.is_moe and engine.model_cfg.moe_dispatch
         results = _serve_requests(grpc.stub, grpc.pk, grpc.submitted,
-                                  batch_invariant=not moe)
+                                  batch_invariant=not moe, engine=engine)
         counts = {name: k.launches for name, k in KERNELS.items()}
         stats = engine.stats()
         sync()
@@ -2076,13 +2103,13 @@ def _one_rank_nccl(phase: str):
     say(phase, "process group destroyed")
 
 
-def phase_mesh(seed: int, params, card: str, want: list) -> dict:
+def phase_mesh(seed: int, params, card: str) -> dict:
     """The mesh engine on the serve phases' weights over a one-rank NCCL
     group (module docstring, phase 7a): at MESH_FEATURE_LAYERS layers, bf16
     and int8 KV, each beside a single-card engine of the same depth (served
     first, before the group is up; shut down but holding its graphs for the
-    walls in turns); then the full depth read from a checkpoint, held to
-    `want` (the bf16 serve phase's one-at-a-time ids). Returns the kernels'
+    walls in turns); then the same depth read from a checkpoint, held to
+    the bf16 single-card engine's one-at-a-time ids. Returns the kernels'
     launches in the bucketed sub-phases ("launches") and the checkpoint
     sub-phase ("checkpoint")."""
     import shutil
@@ -2106,13 +2133,13 @@ def phase_mesh(seed: int, params, card: str, want: list) -> dict:
                 grpc.close()
             singles[int8] = refs[int8].pop("engine")
         check(all(e.mesh is None for e in singles.values()), "a single-card engine took a mesh")
-        ckpt = _write_checkpoint(params, card)
+        ckpt = _write_checkpoint(cut, model, card)
         with _one_rank_nccl(phase):
             for int8 in (False, True):
                 launches_of = _mesh_bucketed(seed, cut, card, refs[int8], singles, int8)
                 for name, n in launches_of.items():
                     launches[name] = launches.get(name, 0) + n
-            checkpoint = _mesh_checkpoint(seed, params, card, ckpt, want)
+            checkpoint = _mesh_checkpoint(seed, model, cut, card, ckpt, refs[False]["ids"])
     finally:
         for engine in singles.values():
             engine.release_device_state()
@@ -2122,16 +2149,19 @@ def phase_mesh(seed: int, params, card: str, want: list) -> dict:
     return {"launches": launches, "checkpoint": checkpoint}
 
 
-def _mesh_checkpoint(seed: int, params, card: str, ckpt: dict, want: list) -> dict:
-    """Phase 7a's checkpoint sub-phase: the full-depth bf16 mesh engine
-    reading the serve weights from `ckpt` as its rank's shard
-    (`_checkpoint_engine`), MESH_PROMPTS one at a time over gRPC token for
-    token the serve phase's (`want`). Returns the kernels' launches."""
+def _mesh_checkpoint(seed: int, model: str, params, card: str, ckpt: dict,
+                     want: list) -> dict:
+    """Phase 7a's checkpoint sub-phase: the bf16 mesh engine of `model` (at
+    MESH_FEATURE_LAYERS layers) reading `params` from `ckpt` as its rank's
+    shard (`_checkpoint_engine`), MESH_PROMPTS one at a time over gRPC
+    token for token the single-card engine's of the same depth (`want`).
+    Returns the kernels' launches."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS
 
-    label = "checkpoint, bf16 weights read as the rank's shard"
-    config = EngineConfig(model="llama-3-8b", checkpoint_path=ckpt["dir"])
+    label = (f"checkpoint, {MESH_FEATURE_LAYERS} layers, bf16 weights read as the "
+             f"rank's shard")
+    config = EngineConfig(model=model, checkpoint_path=ckpt["dir"])
     engine, _, up = _checkpoint_engine(config, params, seed, card, ckpt, label)
     grpc = _Grpc(engine)
     try:
@@ -2142,7 +2172,7 @@ def _mesh_checkpoint(seed: int, params, card: str, ckpt: dict, want: list) -> di
     finally:
         grpc.close()
     say("mesh", f"{label}: engine up in {up:.1f} s; kernel launches {counts} on {card}")
-    _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the serve phase's")
+    _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the single-card engine's")
     check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
                                       "paged_write")),
           f"{label}: a kernel was not launched: {counts}")
@@ -2152,16 +2182,16 @@ def _mesh_checkpoint(seed: int, params, card: str, ckpt: dict, want: list) -> di
     return counts
 
 
-def _write_checkpoint(params, card: str) -> dict:
-    """The serve phases' bf16 weights written as an HF checkpoint (this
+def _write_checkpoint(params, model: str, card: str) -> dict:
+    """`model`'s bf16 weights `params` written as an HF checkpoint (this
     script's writer, two shards and an index) in a temporary directory."""
     import tempfile
 
     from polykey_tpu_torch.models.config import get_config
 
-    ckpt = tempfile.mkdtemp(prefix="polykey-llama-3-8b-", dir=tempfile.gettempdir())
+    ckpt = tempfile.mkdtemp(prefix=f"polykey-{model}-", dir=tempfile.gettempdir())
     t0 = time.monotonic()
-    nbytes = write_hf_checkpoint(params, get_config("llama-3-8b"), ckpt)
+    nbytes = write_hf_checkpoint(params, get_config(model), ckpt)
     say("mesh", f"checkpoint: {nbytes} bytes written in {time.monotonic() - t0:.1f} s "
         f"on {card}")
     return {"dir": ckpt, "bytes": nbytes}
@@ -2331,6 +2361,126 @@ def _hold_mesh_ids(label: str, prompts: list, got: list, want: list, against: st
     check(len(got) == len(want), f"{label}: {len(got)} streams, not {len(want)}")
     say("mesh", f"{label}: all {len(got)} greedy streams token for token {against} "
         f"({sum(len(i) for i in got)} tokens)")
+
+
+# -- phase 7b ---------------------------------------------------------------
+
+def phase_orbax(seed: int, params, card: str, want: list) -> dict:
+    """Phase 7b alone (`orbax_engine`, which the spec phase's plain bf16
+    engine comes from in a whole run). Returns the kernels' launches."""
+    out: dict = {}
+    with orbax_engine(seed, params, card, want, out):
+        pass
+    return out["launches"]
+
+
+@contextlib.contextmanager
+def orbax_engine(seed: int, params, card: str, want: list, out: dict):
+    """The reference's own checkpoint format on the card (module docstring,
+    phase 7b): the serve weights (the full 32-layer Llama-3-8B) written by
+    the port's `save_checkpoint` as an orbax directory (OCDBT + zarr +
+    zstd, raw-block frames) in a temporary directory, then a single-card
+    InferenceEngine (the default EngineConfig) from it as its
+    `checkpoint_path`: the tree bit for bit the serve weights, MESH_PROMPTS
+    one at a time over gRPC token for token `want` (the bf16 serve
+    phase's), and flash, the paged write and the paged decode launched from
+    it (`out["launches"]`). Yields the engine behind gRPC (`_Grpc`) for the
+    caller's own requests; the directory is removed at the end."""
+    import shutil
+    import tempfile
+
+    from polykey_tpu_torch.engine import engine as engine_mod
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
+    from polykey_tpu_torch.models.loader import save_checkpoint
+    from polykey_tpu_torch.models.quant import params_bytes
+
+    from polykey_tpu_torch.ops._build import load_codec
+
+    phase, label = "orbax", "orbax checkpoint, full depth, single card"
+    t_phase = time.monotonic()
+    load_codec()            # the host codec, built here, outside the timed write
+    say(phase, f"checkpoint codec (csrc/checkpoint_codec.cc) built and loaded in "
+        f"{time.monotonic() - t_phase:.2f} s")
+    nbytes = params_bytes(params)
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    check(free > nbytes * 1.05 + 2**30, f"{phase}: {free} bytes free under "
+          f"{tempfile.gettempdir()}, the checkpoint needs {nbytes} (plus framing)")
+    root = tempfile.mkdtemp(prefix="polykey-orbax-", dir=tempfile.gettempdir())
+    path = os.path.join(root, "llama-3-8b")
+    engine = grpc = None
+    try:
+        sync()
+        t0 = time.monotonic()
+        written = save_checkpoint(path, params)
+        write_s = time.monotonic() - t0
+        on_disk = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(path) for f in files)
+        say(phase, f"save_checkpoint: {on_disk} bytes on disk ({written} of chunk frames "
+            f"for {nbytes} bytes of weights) in {write_s:.2f} s on {card}")
+        loads = []
+        load = engine_mod.load_checkpoint
+
+        def timed_load(*args, **kwargs):
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            counts = kwargs.setdefault("counts", {})
+            t1 = time.monotonic()
+            tree = load(*args, **kwargs)
+            sync()
+            loads.append({"s": time.monotonic() - t1, "counts": dict(counts), "base": base,
+                          "peak": torch.cuda.max_memory_allocated() - base})
+            return tree
+
+        engine_mod.load_checkpoint = timed_load
+        try:
+            t0 = time.monotonic()
+            engine = InferenceEngine(EngineConfig(model="llama-3-8b", checkpoint_path=path),
+                                     device="cuda", seed=seed)
+            up = time.monotonic() - t0
+        finally:
+            engine_mod.load_checkpoint = load
+        check(len(loads) == 1 and engine.mesh is None,
+              f"{label}: the engine did not read its checkpoint once, alone: {loads}")
+        info = loads[0]
+        pairs = list(zip(_leaves_of(engine.params), _leaves_of(params)))
+        check(len(pairs) == len(_leaves_of(params)) and all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in pairs), f"{label}: a tensor read differs from the one written")
+        say(phase, f"{label}: engine up in {up:.1f} s, the read {info['s']:.2f} s "
+            f"({info['counts']['decoded']} bytes decoded, {info['counts']['copied']} "
+            f"copied to the card), peak device memory of the load "
+            f"{info['peak'] / 2**30:.3f} GiB above the {info['base'] / 2**30:.2f} GiB "
+            f"allocated before it; {len(pairs)} tensors bit for bit the serve weights "
+            f"on {card}")
+        check(info["counts"]["copied"] == info["counts"]["decoded"] == nbytes,
+              f"{label}: {info['counts']} against {nbytes} bytes of weights")
+        grpc = _Grpc(engine)
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.monotonic()
+        ids = [grpc.generate([p], stream=True)[0][0] for p in MESH_PROMPTS]
+        serve_s = time.monotonic() - t0
+        counts = {name: k.launches for name, k in KERNELS.items()}
+        say(phase, f"{label}: {len(MESH_PROMPTS)} greedy prompts one at a time in "
+            f"{serve_s:.2f} s; kernel launches {counts} on {card}")
+        _hold_mesh_ids(label, MESH_PROMPTS, ids, want, "the serve phase's")
+        check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
+                                          "paged_write")),
+              f"{label}: a kernel was not launched: {counts}")
+        out["launches"] = counts
+        say(phase, f"wall {time.monotonic() - t_phase:.1f} s (write, read, capture, serve)")
+        yield grpc
+    finally:
+        if grpc is not None:
+            grpc.close()
+        elif engine is not None:
+            engine.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    del engine, grpc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- phases 14a and 15a ------------------------------------------------------
@@ -3440,21 +3590,28 @@ def _ragged_walls(label: str, marks: list, card: str) -> None:
                     for _, lanes, n, a, b, host in spec) + f" on {card}")
 
 
-def phase_spec(seed: int, params, card: str) -> dict:
+def phase_spec(seed: int, params, card: str, orbax_want: list = None) -> dict:
     """Speculative decoding on the serve phases' weights over gRPC (module
     docstring, phase 11): (a) a 1B draft over bf16 KV with the prefilter
     and the prefix cache, (b) the target as its own draft, (c) the 1B draft
     over int8 KV, (d) and (e) the 1B draft in ragged mode over bf16 and
-    int8 KV, each beside the plain engine of its KV type. Returns the
-    plain engines' texts by KV type ("plain") and the kernel launches of
-    each sub-phase ("launches")."""
+    int8 KV, each beside the plain engine of its KV type. With
+    `orbax_want` (the bf16 serve phase's one-at-a-time ids) the plain bf16
+    engine is phase 7b's, read from the orbax checkpoint of the same
+    weights (`orbax_engine`). Returns the plain engines' texts by KV type
+    ("plain"), the kernel launches of each sub-phase ("launches") and
+    phase 7b's ("orbax")."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
     from polykey_tpu_torch.models.config import get_config
 
     cfg = get_config("llama-3-8b")
-    plain_texts = {}
+    plain_texts, orbax = {}, {}
     for kv in ("", "int8"):
+        if kv == "" and orbax_want is not None:
+            with orbax_engine(seed, params, card, orbax_want, orbax) as eng:
+                plain_texts[kv] = eng.generate(SPEC_GREEDY)
+            continue
         eng = _Grpc(InferenceEngine(EngineConfig(model="llama-3-8b", kv_dtype=kv),
                                     params=params, device="cuda", seed=seed))
         try:
@@ -3572,10 +3729,78 @@ def phase_spec(seed: int, params, card: str) -> dict:
                       and counts["ragged_paged_attention_int8"] == 0,
                       f"spec {label}: a ragged kernel launched: {counts}")
             launches[label] = counts
+            if label.startswith("(c)"):
+                _spec_host_sync_ab(eng, label, card)
         finally:
             eng.close()
         sync()
-    return {"plain": plain_texts, "launches": launches}
+    return {"plain": plain_texts, "launches": launches, "orbax": orbax.get("launches")}
+
+
+# The spec_host_sync A/B's workload: one prompt alone, 16 tokens (a round
+# of the random 1B draft yields about one token, about 0.12 s on the card),
+# so every turn runs the same rounds.
+SPEC_AB = [SHORT[0]]
+SPEC_AB_TOKENS = 16
+
+
+def _spec_host_sync_ab(grpc, label: str, card: str, turns: int = 2) -> None:
+    """EngineConfig.spec_host_sync's A/B on the spec engine of sub-phase
+    (c): SPEC_AB greedy, a request at a time, with the knob off and on in
+    turns, `turns` each. The knob is read at each dispatch, so the engine's
+    config is swapped between turns (while it is idle) and no second engine
+    is built. Prints each turn's mean host stall, blocks_synced and tok/s;
+    checks three timed reads a dispatched round with the knob on (none
+    off), each landing in blocks_synced, and the same token ids in every
+    turn."""
+    t_ab = time.monotonic()
+    engine, m = grpc.engine, grpc.engine.metrics
+    off = engine.config
+    on = replace(off, spec_host_sync=True)
+    calls = {"rounds": 0, "syncs": 0}
+    dispatch, on_sync = engine._dispatch_spec, m.on_spec_host_sync
+
+    def counted_dispatch(*args, **kwargs):
+        calls["rounds"] += 1
+        return dispatch(*args, **kwargs)
+
+    def counted_sync(stall_ms):
+        calls["syncs"] += 1
+        on_sync(stall_ms)
+
+    engine._dispatch_spec, m.on_spec_host_sync = counted_dispatch, counted_sync
+    streams = []
+    try:
+        for turn in range(2 * turns):
+            knob = turn % 2 == 1
+            engine.config = on if knob else off
+            before, seen = m.counter_sample(), dict(calls)
+            got = [grpc.generate([p], max_new=SPEC_AB_TOKENS)[0] for p in SPEC_AB]
+            after = m.counter_sample()
+            rounds = calls["rounds"] - seen["rounds"]
+            syncs = calls["syncs"] - seen["syncs"]
+            synced = after["blocks_synced"] - before["blocks_synced"]
+            stall = after["host_stall_ms_total"] - before["host_stall_ms_total"]
+            say("spec", f"{label}: spec_host_sync {'on' if knob else 'off'} (turn "
+                f"{turn + 1} of {2 * turns}): {rounds} rounds dispatched, {syncs} "
+                f"dispatch-time reads, blocks_synced +{synced}, host_stall_ms mean "
+                f"{stall / max(1, synced):.3f} ms ({stall:.2f} ms in all); tok/s "
+                f"{statistics.mean(r[2] for r in got):.1f} (per request "
+                f"{', '.join(f'{r[2]:.1f}' for r in got)}) on {card}")
+            check(rounds > 0, f"spec {label}: no spec round in the A/B's turn {turn + 1}")
+            check(syncs == (3 * rounds if knob else 0),
+                  f"spec {label}: {syncs} dispatch-time reads for {rounds} rounds with "
+                  f"spec_host_sync {'on' if knob else 'off'}")
+            check(synced >= syncs, f"spec {label}: blocks_synced +{synced} under the "
+                  f"{syncs} reads")
+            streams.append([r[0] for r in got])
+    finally:
+        engine.config = off
+        del engine._dispatch_spec, m.on_spec_host_sync
+    check(all(ids == streams[0] for ids in streams),
+          f"spec {label}: the A/B's greedy streams differ between turns")
+    say("spec", f"{label}: spec_host_sync A/B: {len(SPEC_AB)} greedy streams token for "
+        f"token the same in all {2 * turns} turns; wall {time.monotonic() - t_ab:.1f} s")
 
 
 # -- phase 12 --------------------------------------------------------------
@@ -5031,13 +5256,16 @@ def phase_serve_gemma(seed: int, card: str) -> None:
         shutil.rmtree(ckpt)
 
 
-def _serve_requests(stub, pk, submitted: list, batch_invariant: bool = True) -> list[dict]:
+def _serve_requests(stub, pk, submitted: list, batch_invariant: bool = True,
+                    engine=None) -> list[dict]:
     """After one warm-up request per bucket, 5 concurrent requests: two
     short prompts (bucket 128), two long (bucket 512), one ~1500-token
     document (chunked prefill); one streamed, the rest unary; then the
     first greedy prompt again, which must return the same text where the
     model is `batch_invariant` (otherwise it is sent twice alone, and the
-    two texts must agree)."""
+    two texts must agree). With `engine`, each request's record also
+    holds `run_lanes`: the concurrent run's mean live decode lanes per
+    dispatched step, from the engine's lane counters."""
     specs = [
         ("short greedy", SHORT[0], dict(), False),
         ("short sampled stream", SHORT[1], dict(temperature=0.8, top_p=0.9,
@@ -5090,11 +5318,18 @@ def _serve_requests(stub, pk, submitted: list, batch_invariant: bool = True) -> 
             errors.put(f"{label}: {e!r}")
 
     threads = [threading.Thread(target=one, args=(i, *s)) for i, s in enumerate(specs)]
+    lanes0 = engine.stats() if engine is not None else None
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     check(errors.empty(), "request failed: " + "; ".join(list(errors.queue)))
+    run_lanes = None
+    if engine is not None:
+        lanes1 = engine.stats()
+        steps = lanes1["steps_dispatched"] - lanes0["steps_dispatched"]
+        check(steps > 0, "the concurrent run dispatched no decode step")
+        run_lanes = (lanes1["lane_steps"] - lanes0["lane_steps"]) / steps
     # Unary responses carry no Usage: read the engine's record of each
     # request (the timings the streamed Usage is built from).
     by_prompt = {r.prompt: r.timings for r in submitted}
@@ -5105,6 +5340,7 @@ def _serve_requests(stub, pk, submitted: list, batch_invariant: bool = True) -> 
         r.setdefault("completion_tokens", t.completion_tokens)
         r.setdefault("ttft_ms", t.ttft_ms)
         r.setdefault("tok_s", t.tokens_per_sec)
+        r["run_lanes"] = run_lanes
     stats = stub.ExecuteTool(pk.ExecuteToolRequest(tool_name="engine_stats"), timeout=60)
     check(stats.status.code == 200, "engine_stats failed")
     def again() -> str:
@@ -5160,7 +5396,7 @@ def main() -> int:
         params = out.pop("params")
         serves[(ragged, int8)] = out
     done("phase_serve x4")
-    mesh = phase_mesh(args.seed, params, dev["smi"], serves[(False, False)]["mesh_ref"]["ids"])
+    mesh = phase_mesh(args.seed, params, dev["smi"])
     sync()
     done("phase_mesh")
     phase_graph(args.seed, params, dev["smi"])
@@ -5172,7 +5408,7 @@ def main() -> int:
     prefix = phase_prefix(args.seed, params, dev["smi"])
     sync()
     done("phase_prefix")
-    spec = phase_spec(args.seed, params, dev["smi"])
+    spec = phase_spec(args.seed, params, dev["smi"], serves[(False, False)]["mesh_ref"]["ids"])
     sync()
     done("phase_spec")
     # Popped: the prefix reference holds the Llama weights, which must be
@@ -5218,14 +5454,45 @@ def main() -> int:
     done("phase_serve_gemma")
     gc.collect()
     torch.cuda.empty_cache()
+    from polykey_tpu_torch.engine.roofline import CHIP_SPECS, detect_chip, grade
+
+    chip = detect_chip()
+    check(chip == CHIP_SPECS["h100-sxm"], f"detect_chip() gave {chip} for {dev['name']}")
     for int8 in (False, True):
         kv = "int8 KV" if int8 else "bf16 KV"
-        for bucketed, rag in zip(serves[(False, int8)]["requests"],
-                                 serves[(True, int8)]["requests"]):
+        kv_dtype = "int8" if int8 else "bfloat16"
+        runs = [serves[(ragged, int8)]["requests"] for ragged in (False, True)]
+        # The five streams decode together: the run's rate is the sum of
+        # theirs, graded at the run's measured mean of live lanes (each
+        # decode step reads the weights once for all of them) and the
+        # streams' mean context.
+        marks = [grade("llama-3-8b", "bfloat16", False, 8, kv_dtype,
+                       sum(r["tok_s"] for r in run), run[0]["run_lanes"],
+                       sum(r["prompt_tokens"] + r["completion_tokens"] / 2
+                           for r in run) / len(run), chip=chip)
+                 for run in runs]
+        say("serve", f"{kv}, the concurrent run: tok/s (sum of the streams') bucketed "
+            f"{sum(r['tok_s'] for r in runs[0]):.1f}, ragged "
+            f"{sum(r['tok_s'] for r in runs[1]):.1f}; live lanes "
+            f"({marks[0]['avg_lanes_source']}) bucketed {marks[0]['avg_lanes']}, ragged "
+            f"{marks[1]['avg_lanes']}; MBU bucketed {marks[0]['mbu']}, ragged "
+            f"{marks[1]['mbu']} ({chip.name}) on {dev['smi']}")
+        for g in marks:
+            check(g["avg_lanes_source"] == "measured" and g["mbu"] is not None
+                  and g["mbu"] <= 1.05, f"{kv}: an MBU reading above 1.05: {g}")
+        for bucketed, rag in zip(*runs):
+            # The prefill's FLOPs over the request's own TTFT.
+            pf = [grade("llama-3-8b", "bfloat16", False, 8, kv_dtype, r["tok_s"],
+                        r["run_lanes"], r["prompt_tokens"] + r["completion_tokens"] / 2,
+                        r["ttft_ms"], r["prompt_tokens"], chip=chip)
+                  .get("prefill_mfu_at_ttft") for r in (bucketed, rag)]
             say("serve", f"{kv}, {bucketed['label']}: TTFT bucketed "
                 f"{bucketed['ttft_ms']:.1f} ms, ragged {rag['ttft_ms']:.1f} ms; "
-                f"tok/s bucketed {bucketed['tok_s']:.1f}, ragged {rag['tok_s']:.1f} "
+                f"tok/s bucketed {bucketed['tok_s']:.1f}, ragged {rag['tok_s']:.1f}; "
+                f"prefill MFU at TTFT bucketed {pf[0]}, ragged {pf[1]} ({chip.name}) "
                 f"on {dev['smi']}")
+            check(all(m is not None and m <= 1.05 for m in pf),
+                  f"{kv}, {bucketed['label']}: a prefill MFU reading above 1.05: {pf}")
     say("serve", f"KV pool: bf16 {serves[(False, False)]['kv_gib']:.4f} GiB, int8 "
         f"{serves[(False, True)]['kv_gib']:.4f} GiB (scales included)")
     say("serve-mixtral", f"mixtral-8x7b, int8 weights, bf16 KV: kernel launches "
@@ -5237,6 +5504,7 @@ def main() -> int:
         f"{disagg['boot_s']} (the decode worker's second: its restart) on {dev['smi']}")
     say("mesh", f"kernel launches {mesh['launches']} on {dev['smi']}")
     say("mesh", f"checkpoint sub-phase: kernel launches {mesh['checkpoint']} on {dev['smi']}")
+    say("orbax", f"kernel launches {spec['orbax']} on {dev['smi']}")
     say("mesh", f"mixtral sub-phase: kernel launches {mixtral_mesh} on {dev['smi']}")
     say("mesh", f"replicas sub-phase: kernel launches {mesh_replicas} on {dev['smi']}")
     say("mesh", f"disagg sub-phase: kernel launches by worker {mesh_disagg} on {dev['smi']}")

@@ -39,7 +39,8 @@ from typing import Optional
 
 
 # The ROADMAP.md item that the mesh engine's refusals name.
-MESH_ITEM = "A.17, the rest of serving over a mesh"
+MESH_ITEM = ("A.17, the in-process restart of a mesh engine that failed "
+             "inside a dispatch")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -139,8 +140,10 @@ class EngineConfig:
     # spec_gamma}, driven by each lane's acceptance EWMA on the device;
     # off pins spec_gamma. Page slack always reserves spec_gamma.
     adaptive_gamma: bool = True
-    # The reference's A/B instrumentation (three synchronous readbacks a
-    # round); programmatic only, as there.
+    # A/B instrumentation only: three timed blocking reads of the spec
+    # round's packed result after its dispatch (metrics.on_spec_host_sync),
+    # the reference's host tax of a round read back at dispatch time.
+    # Programmatic only, as in the reference: no env knob.
     spec_host_sync: bool = False
 
     # Flight-deck timeline (obs/timeline.py): a bounded ring of engine
@@ -511,10 +514,4 @@ class EngineConfig:
                 "token stream does not shard over dp/sp/pp (got "
                 f"dp={self.dp}×slices={self.num_slices}, sp={self.sp}, "
                 f"pp={self.pp})"
-            )
-        if self.spec_host_sync:
-            raise NotImplementedError(
-                "spec_host_sync is not ported to polykey_tpu_torch yet "
-                "(ROADMAP.md queue A: scripts/occupancy_soak.py's A/B "
-                "instrumentation)"
             )

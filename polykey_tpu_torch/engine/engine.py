@@ -194,11 +194,10 @@ GPU (the reference's engine/engine.py, default path).
   the engine is the single-card one, with no collective.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch; over a mesh (A.17): the disaggregated tiers, replicas, and
-the in-process restart of a mesh engine that failed inside a dispatch
-(wedged in a collective, or with its record sent: the supervisor's
-factory refuses it, health stays NOT_SERVING and the platform restarts
-the processes).
+dispatch; over a mesh (A.17): the in-process restart of a mesh engine
+that failed inside a dispatch (wedged in a collective, or with its
+record sent: the supervisor's factory refuses it, health stays
+NOT_SERVING and the platform restarts the processes).
 """
 
 from __future__ import annotations
@@ -932,9 +931,10 @@ class InferenceEngine:
         if reuse is not None:
             pass                # the replaced engine's tree, as it holds it
         elif params is None and config.checkpoint_path:
-            # A local checkpoint (models/loader.py), read onto the device a
-            # tensor at a time and quantized a layer at a time; over a mesh
-            # each tensor is cut to this rank's shard in the mapped file.
+            # A local checkpoint (models/loader.py: safetensors or orbax),
+            # read onto the device a tensor at a time and quantized a layer
+            # at a time; over a mesh each tensor is cut to this rank's shard
+            # before it reaches the device.
             params = load_checkpoint(config.checkpoint_path, self.model_cfg, self._dtype,
                                      self.device, quantize_bits=bits, mesh=self.mesh)
         elif params is None:
@@ -1230,7 +1230,7 @@ class InferenceEngine:
         """The mesh this engine serves over, or None for the single-card
         engine (no group up, no mesh passed). Checks the reference's
         geometry in its order (the draft's last) before any group is made,
-        then refuses what the mesh engine does not serve yet (A.17)."""
+        and checks that a mesh passed in is the config's."""
         import torch.distributed as dist
 
         group_up = dist.is_available() and dist.is_initialized()
@@ -2639,6 +2639,8 @@ class InferenceEngine:
         if spec:
             self._ragged_spec_dispatches += 1
             self._ragged_spec_lanes += lanes
+            if cfg.spec_host_sync:
+                self._spec_host_sync(packed_dev)
         self._dispatch_seq += 1
         if self.timeline is not None:
             self.timeline.dispatch(self._dispatch_seq, "spec" if spec else "ragged",
@@ -2844,6 +2846,8 @@ class InferenceEngine:
         with lockstep.dispatch(self._leader, lockstep.Record("spec", (gamma, greedy, cand))):
             packed = self._graphs.run("spec", gamma, greedy, cand)
         host, event = self._copy_to_host(packed)
+        if self.config.spec_host_sync:
+            self._spec_host_sync(packed)
         if self._digest is not None:
             self._digest.add(host, event)
         self._dispatch_seq += 1
@@ -2851,6 +2855,17 @@ class InferenceEngine:
             self.timeline.dispatch(self._dispatch_seq, "spec", lanes, steps, gap_ms)
         return _InflightBlock(host, event, self._snapshot_requests(), self._dispatch_seq,
                               "spec", gap_ms, live)
+
+    def _spec_host_sync(self, packed: torch.Tensor) -> None:
+        """EngineConfig.spec_host_sync (A/B instrumentation only): three
+        timed blocking reads of the round's packed result right after its
+        dispatch, outside any graph capture, each one host stall
+        (metrics.on_spec_host_sync), as a round read back at dispatch time
+        costs. Only the leader dispatches, so followers never read."""
+        for _ in range(3):
+            t0 = time.monotonic()
+            packed.to("cpu", copy=True)
+            self.metrics.on_spec_host_sync((time.monotonic() - t0) * 1e3)
 
     def _spec_round(self, gamma: int, greedy: bool, candidates: int) -> torch.Tensor:
         """The body the spec graphs capture: `spec_decode_fn` over both

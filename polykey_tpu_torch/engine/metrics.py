@@ -192,6 +192,18 @@ class EngineMetrics:
         if stall_ms is not None:
             self.host_stall_hist.observe(stall_ms, trace_id=trace_id)
 
+    def on_spec_host_sync(self, stall_ms: float) -> None:
+        """One blocking read of a spec round's packed result forced at
+        dispatch time (EngineConfig.spec_host_sync, A/B instrumentation
+        only). It is host stall exactly like the process-side read, so it
+        lands in the same accounting: otherwise the A/B's
+        host_stall_ms_mean would show the synced leg as stall-free (its
+        process-side read finds the data already copied)."""
+        with self._lock:
+            self.blocks_synced += 1
+            self.host_stall_ms_total += stall_ms
+        self.host_stall_hist.observe(stall_ms)
+
     def on_device_busy(self, busy_ms: float) -> None:
         """Device-busy ms attributed to one processed block."""
         with self._lock:

@@ -12,14 +12,21 @@ Formats:
   tree. With `quantize_bits` each layer is quantized as soon as it is
   read (the tree of `quantize_params` over the whole import), so a
   checkpoint whose bf16 weights would not fit on the card loads in int8.
-- orbax (the reference's `save_checkpoint` format): refused. Orbax and
-  tensorstore are JAX-side libraries, and their on-disk layout is not
-  read here (ROADMAP.md A.14); `save_checkpoint` is not ported for the
-  same reason. Nothing is fetched: paths are local.
+- orbax (the reference's `save_checkpoint` format: OCDBT + zarr v2 +
+  zstd; `import_orbax`, `save_checkpoint`): read and written by
+  models/orbax.py without orbax, tensorstore or a zstd package. The
+  reference's tree stacks layers on a leading [L, ...] axis (experts
+  [L, E, in, out]); each layer's slice becomes the port's layer dict, as
+  models/interop.py maps it. `save_checkpoint` writes the port's tree in
+  that layout, so the reference's `load_checkpoint` restores it; its zstd
+  frames are raw blocks (models/orbax.py), larger on disk than the
+  reference's level-1 frames.
+Nothing is fetched: paths are local.
 """
 
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import os
@@ -29,7 +36,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..parallel.sharding import P, _spec_for_path, layer_spec, local_bounds, stage_run
+from ..parallel.sharding import (
+    P,
+    _spec_for_path,
+    layer_spec,
+    local_bounds,
+    local_slice,
+    stage_run,
+)
+from . import orbax
 from .config import ModelConfig
 from .quant import (
     _QUANT_LEAVES,
@@ -45,7 +60,8 @@ SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.
 INDEX_FILE = "model.safetensors.index.json"
 # A scale pass's chunk of rows on the device (fp32 bytes).
 _SCAN_BYTES = 64 << 20
-ORBAX_ITEM = "ROADMAP.md A.14: orbax checkpoints"
+# zarr dtype names read and written for orbax, and the torch dtype of each.
+ZARR_DTYPES = {"bfloat16": torch.bfloat16, "<f4": torch.float32, "<f2": torch.float16}
 
 
 class SafetensorsFile:
@@ -327,6 +343,193 @@ def import_safetensors(
     return params
 
 
+def _host_tensor(leaf: orbax.Leaf) -> torch.Tensor:
+    """A decoded orbax leaf as a CPU tensor of its dtype and shape, on its
+    buffer (no copy)."""
+    dtype = ZARR_DTYPES.get(leaf.dtype)
+    if dtype is None:
+        raise ValueError(f"orbax leaf {'.'.join(leaf.path)} has dtype {leaf.dtype}; "
+                         f"the reader takes {', '.join(ZARR_DTYPES)}")
+    return torch.from_numpy(leaf.data).view(dtype).reshape(
+        (len(leaf.rows),) + leaf.shape[1:] if leaf.shape else leaf.shape)
+
+
+def import_orbax(
+    path: str,
+    cfg: ModelConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    device="cpu",
+    quantize_bits: Optional[int] = None,
+    mesh=None,
+    counts: Optional[dict] = None,
+) -> dict:
+    """The reference's orbax checkpoint at `path` (its `save_checkpoint`)
+    as the port's parameter tree on `device`, in `dtype`: each leaf is
+    decoded on the host a leaf at a time (models/orbax.read_tree), and each
+    layer's slice of a stacked leaf goes onto the device alone and is cast
+    there. With `quantize_bits` each layer is quantized once on the device,
+    then the embedding and lm_head: `quantize_params` of the whole import,
+    byte for byte.
+
+    With `mesh` only the pp stage's run of layers is placed, and every
+    tensor is cut to this rank's shard as the serving specs cut it
+    (parallel/sharding.py): the rank decodes the chunks that hold its
+    stage's layers (the whole of a leaf stored as one chunk, as the
+    reference stores it) and copies only its shard to the device (a quantized leaf is quantized whole on
+    the device first, so its scales are the whole tensor's). The tree is
+    `shard_params` of the whole import, bit for bit. `counts` (a dict)
+    gathers the bytes copied to the device ("copied") and decoded on the
+    host ("decoded")."""
+    run = stage_run(cfg.num_layers, mesh)
+    want_top = {"embed", "final_norm"} | (set() if cfg.tie_embeddings else {"lm_head"})
+    want_layer = set(_hf_layer_map(cfg))
+    layers: list = [{} for _ in run]
+    params: dict = {}
+    copied = decoded = 0
+
+    def place(host: torch.Tensor, spec, quantizer=None):
+        """`host` on the device in `dtype`, quantized by `quantizer` when
+        given, cut to this rank's shard under `spec(extra, leaf)`."""
+        nonlocal copied
+        if quantizer is None and mesh is not None:
+            index = local_bounds(tuple(host.shape), spec((), host), mesh)
+            for dim, (a, n) in enumerate(index):
+                host = host.narrow(dim, a, n)
+        host = host.contiguous()
+        copied += host.numel() * host.element_size()
+        value = host.to(device).to(dtype)
+        if quantizer is None:
+            return value
+        value = quantizer(value)
+        if mesh is None:
+            return value
+        return QuantizedTensor(q=local_slice(value.q, spec(("q",), value.q), mesh),
+                               s=local_slice(value.s, spec(("s",), value.s), mesh),
+                               act_dtype=value.act_dtype, bits=value.bits)
+
+    # A pp stage decodes only its layers where the chunks allow it.
+    for leaf in orbax.read_tree(path, rows=lambda keys: run if keys[0] == "layers" else None):
+        decoded += leaf.data.nbytes
+        host = _host_tensor(leaf)
+        keys = leaf.path
+        if keys[0] == "layers":
+            key_path = keys[1:]
+            if key_path not in want_layer:
+                raise KeyError(f"checkpoint {path} has layer leaf {key_path} "
+                               f"that model {cfg.name} does not")
+            if leaf.shape[0] != cfg.num_layers:
+                raise ValueError(f"checkpoint {path}: {'.'.join(keys)} stacks "
+                                 f"{leaf.shape[0]} layers, model {cfg.name} has "
+                                 f"{cfg.num_layers}")
+            quantizer = None
+            if quantize_bits is not None and key_path[-1] in _QUANT_LEAVES:
+                quantizer = functools.partial(quantize, bits=quantize_bits)
+            for j, i in enumerate(run):
+                node = layers[j]
+                for k in key_path[:-1]:
+                    node = node.setdefault(k, {})
+                node[key_path[-1]] = place(
+                    host[i - leaf.rows.start], lambda extra, t, kp=key_path: layer_spec(kp + extra, t, mesh),
+                    quantizer)
+        else:
+            (name,) = keys if len(keys) == 1 else (None,)
+            if name not in want_top:
+                raise KeyError(f"checkpoint {path} has leaf {keys} that model "
+                               f"{cfg.name} does not")
+            quantizer = None
+            if quantize_bits is not None and name != "final_norm":
+                quantizer = (quantize_embed if name == "embed"
+                             else functools.partial(quantize, bits=8))
+            params[name] = place(
+                host, lambda extra, t, n=name: P(*_spec_for_path((n,) + extra, t, mesh)),
+                quantizer)
+        del host, leaf
+    missing = sorted(want_top - set(params))
+    missing += [p for p in sorted(want_layer) if layers and _at(layers[0], p) is None]
+    if missing:
+        raise KeyError(f"checkpoint {path} lacks {missing} (model {cfg.name})")
+    params["layers"] = layers
+    if counts is not None:
+        counts["copied"] = counts.get("copied", 0) + copied
+        counts["decoded"] = counts.get("decoded", 0) + decoded
+    return params
+
+
+def _at(node: dict, key_path: tuple):
+    """The leaf at `key_path` of a nested dict, None where there is none."""
+    for k in key_path:
+        if not isinstance(node, dict) or k not in node:
+            return None
+        node = node[k]
+    return node
+
+
+def _walk(node: dict, prefix: tuple = ()):
+    """(key path, tensor) of every leaf of a nested dict, keys sorted (the
+    reference's tree order)."""
+    for k in sorted(node):
+        v = node[k]
+        if isinstance(v, dict):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def save_checkpoint(path: str, params: dict) -> int:
+    """Write the port's parameter tree `params` (unquantized) as the
+    reference's orbax checkpoint at `path`, which must not exist: layers
+    stacked on a leading [L, ...] axis, so the reference's
+    `load_checkpoint` restores it with its `init_params` template. Each
+    stacked leaf is streamed a chunk (a layer, or part of one) at a time
+    through one host buffer (pinned when the tree is on the card): the
+    tree is never joined on the device. Returns the bytes written."""
+    path = os.path.abspath(path)
+    if os.path.exists(path):
+        raise FileExistsError(f"checkpoint {path} already exists")
+    layers = params["layers"]
+    leaves = [(("layers",) + p, [_at(layer, p) for layer in layers])
+              for p, _ in _walk(layers[0])]
+    leaves = sorted([((k,), params[k]) for k in params if k != "layers"] + leaves)
+    specs, biggest = [], 0
+    for keys, value in leaves:
+        stacked = isinstance(value, list)
+        first = value[0] if stacked else value
+        if isinstance(first, QuantizedTensor) or not isinstance(first, torch.Tensor):
+            raise TypeError(f"save_checkpoint writes unquantized tensors; {keys} is "
+                            f"{type(first).__name__}")
+        zdtype = {v: k for k, v in ZARR_DTYPES.items()}.get(first.dtype)
+        if zdtype is None:
+            raise TypeError(f"{keys} has dtype {first.dtype}; the writer takes "
+                            f"{', '.join(map(str, ZARR_DTYPES.values()))}")
+        shape = ((len(value),) if stacked else ()) + tuple(first.shape)
+        chunks = orbax.chunk_shape(shape, first.element_size(), stacked)
+        specs.append((keys, value, stacked, zdtype, shape, chunks, first.element_size()))
+        biggest = max(biggest, int(np.prod(chunks, dtype=np.int64)) * first.element_size())
+    on_card = any((v[0] if isinstance(v, list) else v).device.type == "cuda"
+                  for _, v in leaves)
+    buf = torch.empty(max(biggest, 1), dtype=torch.uint8, pin_memory=on_card)
+
+    def reader(value, stacked: bool, shape: tuple, chunks: tuple, itemsize: int):
+        def chunk(idx: tuple) -> memoryview:
+            starts = [i * c for i, c in zip(idx, chunks)]
+            valid = [min(c, s - a) for c, s, a in zip(chunks, shape, starts)]
+            t = value[idx[0]] if stacked else value
+            inner = (starts[1:], shape[1:]) if stacked else (starts, shape)
+            at = int(np.ravel_multi_index(*inner)) * itemsize if inner[1] else 0
+            count = int(np.prod(valid, dtype=np.int64)) * itemsize
+            size = int(np.prod(chunks, dtype=np.int64)) * itemsize
+            flat = t.contiguous().reshape(-1).view(torch.uint8)
+            buf[:count].copy_(flat[at:at + count])
+            buf[count:size].zero_()
+            return memoryview(buf[:size].numpy())
+        return chunk
+
+    return orbax.write_tree(path, [
+        orbax.WriteLeaf(keys, zdtype, shape, chunks,
+                        reader(value, stacked, shape, chunks, itemsize))
+        for keys, value, stacked, zdtype, shape, chunks, itemsize in specs])
+
+
 def load_checkpoint(
     path: str,
     cfg: ModelConfig,
@@ -337,16 +540,19 @@ def load_checkpoint(
     counts: Optional[dict] = None,
 ) -> dict:
     """The served weights at `path`, dispatched as the reference's
-    load_checkpoint: a safetensors path goes to `import_safetensors` (with
-    `mesh`, read as this rank's shard); an orbax directory (the
-    reference's `save_checkpoint`) is not read here and raises
-    NotImplementedError; a missing path FileNotFoundError."""
+    load_checkpoint: a safetensors path goes to `import_safetensors`, an
+    orbax directory (the reference's `save_checkpoint`, recognised by its
+    `_METADATA` or `manifest.ocdbt`) to `import_orbax`, both read as this
+    rank's shard with `mesh`. A missing path raises FileNotFoundError; a
+    path that is neither ValueError."""
     path = os.path.abspath(path)
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint {path} does not exist")
     if path.endswith(".safetensors") or glob.glob(os.path.join(path, "*.safetensors")):
         return import_safetensors(path, cfg, dtype, device, quantize_bits, mesh, counts)
-    raise NotImplementedError(
-        f"checkpoint {path} is not safetensors: the reference's orbax format "
-        f"is not ported to polykey_tpu_torch ({ORBAX_ITEM}); convert it to "
-        "safetensors where JAX and orbax are installed")
+    if orbax.is_checkpoint(path):
+        return import_orbax(path, cfg, dtype, device, quantize_bits, mesh, counts)
+    raise ValueError(
+        f"checkpoint {path} is neither safetensors (a *.safetensors file, or a "
+        f"directory of them or with {INDEX_FILE}) nor orbax (a directory with "
+        f"_METADATA or {orbax.MANIFEST})")

@@ -1,5 +1,6 @@
-"""Build and bind the hand-written CUDA kernels (csrc/*.cu), and the
-native block allocator (csrc/block_allocator.cc, `load_allocator`).
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu), the native
+block allocator (csrc/block_allocator.cc, `load_allocator`) and the
+checkpoint codec (csrc/checkpoint_codec.cc, `load_codec`).
 
 Route: `nvcc` for `sm_90a` into ONE shared library with a plain C
 interface, loaded with `ctypes` — seconds to build, against minutes for a
@@ -24,9 +25,10 @@ replays its kernels without a call: `uncounted` takes a capture's launches
 back out of the counts and records them, and `count_replay` adds them
 again for each replay, so the counts stay the launches the card ran.
 
-The allocator is host code: the host C++ compiler builds it into
-`build/allocator/` with its own library and stamp, under the same flock
-scheme, so engines and worker processes starting together build it once.
+The allocator and the codec are host code: the host C++ compiler builds
+each into its own directory (`build/allocator/`, `build/codec/`) with its
+own library and stamp, under the same flock scheme, so engines and worker
+processes starting together build it once.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -201,22 +203,43 @@ def _cxx() -> str:
             return found
     raise RuntimeError(
         "no host C++ compiler (g++ or c++ on PATH): the native block "
-        "allocator is built from csrc/block_allocator.cc on first use"
+        "allocator and the checkpoint codec are built from csrc/*.cc on "
+        "first use"
     )
 
 
-def _build_allocator(out: Path) -> None:
+def _host_build(source: Path, flags: tuple, out: Path) -> None:
+    """Compile the host C++ `source` with `flags` into the shared library
+    `out`."""
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_cxx(), *CXX_FLAGS, str(ALLOCATOR_SOURCE), "-o", str(tmp)],
+        [_cxx(), *flags, str(source), "-o", str(tmp)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"building {ALLOCATOR_SOURCE.name} failed:\n{proc.stdout}{proc.stderr}"
+            f"building {source.name} failed:\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
+
+
+def _bind_host(directory: Path, lib_name: str, source: Path, flags: tuple,
+               build: Callable[[Path], None], signatures: tuple) -> ctypes.CDLL:
+    """The host library `lib_name` in `directory`, built by `build` first
+    if it is missing or its source or flags changed, with `signatures`
+    ((symbol, restype, argtypes), ...) bound. Call under `_lock`."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    lib, _ = _fresh_library(directory, lib_name, h.hexdigest()[:16], build)
+    for symbol, restype, argtypes in signatures:
+        fn = getattr(lib, symbol)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def _build_allocator(out: Path) -> None:
+    _host_build(ALLOCATOR_SOURCE, CXX_FLAGS, out)
 
 
 def load_allocator() -> ctypes.CDLL:
@@ -225,32 +248,68 @@ def load_allocator() -> ctypes.CDLL:
     whenever its source or flags change, under the same kind of flock as
     the kernels. A failed build raises, now and on every later call."""
     global _allocator, _allocator_failed
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(ALLOCATOR_SOURCE.read_bytes())
+    i32, ptr = ctypes.c_int32, ctypes.c_void_p
     with _lock:
         if _allocator is not None:
             return _allocator
         if _allocator_failed is not None:
             raise _allocator_failed
         try:
-            lib, _ = _fresh_library(ALLOCATOR_DIR, ALLOCATOR_LIB,
-                                    h.hexdigest()[:16], _build_allocator)
+            _allocator = _bind_host(ALLOCATOR_DIR, ALLOCATOR_LIB, ALLOCATOR_SOURCE,
+                                    CXX_FLAGS, _build_allocator, (
+                ("pk_allocator_new", ptr, [i32]),
+                ("pk_allocator_free", None, [ptr]),
+                ("pk_num_free", i32, [ptr]),
+                ("pk_alloc", i32, [ptr, i32, ctypes.POINTER(i32)]),
+                ("pk_retain", i32, [ptr, i32]),
+                ("pk_release", i32, [ptr, i32]),
+            ))
         except RuntimeError as e:
             _allocator_failed = e
             raise
-        i32, ptr = ctypes.c_int32, ctypes.c_void_p
-        for name, restype, argtypes in (
-            ("pk_allocator_new", ptr, [i32]),
-            ("pk_allocator_free", None, [ptr]),
-            ("pk_num_free", i32, [ptr]),
-            ("pk_alloc", i32, [ptr, i32, ctypes.POINTER(i32)]),
-            ("pk_retain", i32, [ptr, i32]),
-            ("pk_release", i32, [ptr, i32]),
-        ):
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = restype, argtypes
-        _allocator = lib
-        return lib
+        return _allocator
+
+
+# -- the checkpoint codec (host C++, models/orbax.py) ------------------------
+
+CODEC_DIR = _ROOT / "build" / "codec"
+CODEC_SOURCE = CSRC / "checkpoint_codec.cc"
+CODEC_LIB = "libcheckpoint_codec.so"
+CODEC_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
+
+_codec: Optional[ctypes.CDLL] = None
+_codec_failed: Optional[RuntimeError] = None
+
+
+def _build_codec(out: Path) -> None:
+    _host_build(CODEC_SOURCE, CODEC_FLAGS, out)
+
+
+def load_codec() -> ctypes.CDLL:
+    """The checkpoint codec's library (the zstd frame decoder
+    `pk_zstd_decompress`, `pk_crc32c`, `pk_codec_error`), built
+    with the host C++ compiler into `build/codec/` on first use and
+    whenever its source or flags change, as the allocator is. Nothing
+    falls back to Python: a failed build raises, now and on every later
+    call."""
+    global _codec, _codec_failed
+    u8p, u64, i64 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64
+    with _lock:
+        if _codec is not None:
+            return _codec
+        if _codec_failed is not None:
+            raise _codec_failed
+        try:
+            _codec = _bind_host(CODEC_DIR, CODEC_LIB, CODEC_SOURCE, CODEC_FLAGS,
+                                _build_codec, (
+                ("pk_zstd_decompress", i64, [u8p, u64, u8p, u64]),
+                ("pk_crc32c", ctypes.c_uint32, [u8p, u64, ctypes.c_uint32]),
+                ("pk_codec_error", ctypes.c_char_p, [i64]),
+            ))
+        except RuntimeError as e:
+            _codec_failed = e
+            raise
+        return _codec
 
 
 P = ctypes.c_void_p

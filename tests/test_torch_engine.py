@@ -170,8 +170,9 @@ def test_stats_report_kernel_launches(engines):
 
 
 def test_unported_knobs_refuse_to_start():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dataclasses.replace(TEST_CONFIG, spec_host_sync=True).validate()
+    # The spec round's A/B instrumentation is served now (three timed reads
+    # a round, metrics.on_spec_host_sync).
+    dataclasses.replace(TEST_CONFIG, draft_model="tiny-llama", spec_host_sync=True).validate()
     # Serving over a mesh is ported (engine/lockstep.py), pp included; the
     # engine checks its geometry against the process group.
     dataclasses.replace(TEST_CONFIG, tp=2, dp=2, sp=2).validate()

@@ -7,9 +7,10 @@ plane, the replica pool, the autopilot and the dev client — and the
 disaggregated tiers — the worker, the pool, clock sync and the black
 boxes — among them), and chip_smoke.py with its shell, replicas and
 disagg phases, imports with
-JAX, Flax, ml_dtypes, the JAX package, safetensors and orbax made
-unimportable (in a fresh interpreter, so this test process's own JAX
-imports cannot mask a leak)."""
+JAX, Flax, ml_dtypes, the JAX package, safetensors, orbax, tensorstore
+and zstandard made unimportable (in a fresh interpreter, so this test
+process's own JAX imports cannot mask a leak); and the orbax format is
+written and read back there, through the port's own codec."""
 
 import os
 import subprocess
@@ -22,7 +23,7 @@ import importlib, pkgutil, sys
 
 sys.modules["jax"] = None
 BLOCKED = ("jax", "flax", "ml_dtypes", "polykey_tpu", "safetensors", "orbax",
-           "cryptography")
+           "cryptography", "tensorstore", "zstandard")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -60,6 +61,17 @@ assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_ca
 import chip_smoke
 assert callable(chip_smoke.phase_shell) and callable(chip_smoke.phase_replicas)
 assert callable(chip_smoke.phase_disagg)
+# The reference's orbax layout, written and read with every blocker in place.
+import tempfile, torch
+from polykey_tpu_torch.models import loader
+from polykey_tpu_torch.models.config import get_config
+from polykey_tpu_torch.models.transformer import init_params
+cfg = get_config("tiny-llama")
+params = init_params(cfg, torch.float32, "cpu", torch.Generator().manual_seed(0))
+with tempfile.TemporaryDirectory() as tmp:
+    loader.save_checkpoint(tmp + "/ckpt", params)
+    back = loader.load_checkpoint(tmp + "/ckpt", cfg, torch.float32)
+assert torch.equal(back["layers"][1]["mlp"]["down"], params["layers"][1]["mlp"]["down"])
 leaked = [m for m in sys.modules if m and any(
     m == b or m.startswith(b + ".") for b in BLOCKED) and sys.modules[m] is not None]
 assert not leaked, leaked

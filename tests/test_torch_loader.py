@@ -16,8 +16,9 @@ CPU, against the safetensors package and the JAX package's loader.
   tiny-gemma draft from `draft_checkpoint_path`: greedy streams equal to
   the JAX bucketed engines' from the same paths, plain and spec, and the
   same `params_key`.
-- Refusals: an orbax directory (the JAX package's save_checkpoint) and a
-  missing path, by name.
+- Refusals: a path that is neither safetensors nor orbax, and a missing
+  path, by name. An orbax directory (the JAX package's save_checkpoint)
+  is read now (tests/test_torch_orbax.py holds the format).
 """
 
 import dataclasses
@@ -364,16 +365,24 @@ def test_engines_from_checkpoints_match_the_jax_engines(tmp_path, monkeypatch):
 # -- refusals -----------------------------------------------------------------
 
 def test_an_orbax_checkpoint_is_refused_naming_the_roadmap_item(tmp_path):
-    """The JAX package's own format (save_checkpoint writes orbax) is not
-    read by the port: the loader and the engine both refuse it by name."""
+    """The JAX package's own format (save_checkpoint writes orbax) is read
+    by the port now (ROADMAP.md A.14 is done): the tree is the JAX one bit
+    for bit. A path that is neither safetensors nor orbax is refused by
+    name, by the loader and by the engine, naming what was looked for."""
     path = str(tmp_path / "orbax")
-    jl.save_checkpoint(path, jt.init_params(jax.random.PRNGKey(0),
-                                            j_get_config("tiny-llama"), jnp.float32))
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tl.load_checkpoint(path, get_config("tiny-llama"), torch.float32)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    jp = jt.init_params(jax.random.PRNGKey(0), j_get_config("tiny-llama"), jnp.float32)
+    jl.save_checkpoint(path, jp)
+    _same(tl.load_checkpoint(path, get_config("tiny-llama"), torch.float32),
+          params_from_numpy(jax.device_get(jp)))
+    neither = tmp_path / "neither"
+    neither.mkdir()
+    (neither / "weights.bin").write_bytes(b"not a checkpoint")
+    for target in (str(neither), str(neither / "weights.bin")):
+        with pytest.raises(ValueError, match="neither safetensors .* nor orbax"):
+            tl.load_checkpoint(target, get_config("tiny-llama"), torch.float32)
+    with pytest.raises(ValueError, match="_METADATA"):
         InferenceEngine(EngineConfig(model="tiny-llama", dtype="float32", num_pages=16,
-                                     checkpoint_path=path), device="cpu")
+                                     checkpoint_path=str(neither)), device="cpu")
 
 
 def test_a_missing_checkpoint_is_refused_by_name(tmp_path):

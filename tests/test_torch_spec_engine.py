@@ -477,15 +477,19 @@ def test_spec_stats_carry_the_reference_keys(port):
     (dict(checkpoint_path="/nonexistent"), FileNotFoundError, "/nonexistent"),
     (dict(draft_model="tiny-llama", draft_checkpoint_path="/nonexistent"),
      FileNotFoundError, "/nonexistent"),
-    (dict(draft_model="tiny-llama", spec_host_sync=True), NotImplementedError,
-     "occupancy_soak"),
+    (dict(draft_model="tiny-llama", spec_host_sync=True), None, None),
 ], ids=["replicas", "checkpoint", "draft-checkpoint", "spec-host-sync"])
 def test_config_refuses_what_is_not_ported(fields, error, item):
     """What is not ported is refused at validation, naming its ROADMAP.md
     item; checkpoints are loaded now (tests/test_torch_loader.py), so a
     path that does not exist is refused by name when the engine starts.
     The disaggregated pool is served now: with replicas and a draft it is
-    refused as the reference refuses it (both exclusive with it)."""
+    refused as the reference refuses it (both exclusive with it).
+    spec_host_sync is served now: it validates and the engine starts."""
+    if error is None:
+        EngineConfig(**fields).validate()
+        InferenceEngine(EngineConfig(**{**FIELDS, **fields}), device="cpu").shutdown()
+        return
     if error in (NotImplementedError, ValueError):
         with pytest.raises(error, match=item):
             EngineConfig(**fields).validate()
@@ -493,6 +497,30 @@ def test_config_refuses_what_is_not_ported(fields, error, item):
         EngineConfig(**fields).validate()
     with pytest.raises(error, match=item):
         InferenceEngine(EngineConfig(**{**FIELDS, **fields}), device="cpu")
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["bucketed", "ragged"])
+def test_spec_host_sync_reads_three_times_a_round(port, monkeypatch, ragged):
+    """spec_host_sync (the reference's A/B instrumentation): the greedy
+    streams are those without it, and each spec round adds three timed
+    blocking reads to blocks_synced and the host-stall accounting, on the
+    bucketed round and on the ragged stream's. Depth 1 makes the two
+    runs' schedules the same."""
+    monkeypatch.setenv("POLYKEY_DISPATCH_LOOKAHEAD", "1")
+    extra = dict(ragged_dispatch=True, top_p_candidates=32) if ragged else {}
+    runs = {}
+    for sync in (False, True):
+        eng = port(dict(spec_host_sync=sync, **extra))
+        outs = _streams(eng, GenRequest, PROMPTS)
+        m = eng.metrics
+        runs[sync] = outs, dict(m.counter_sample(), hist=m.host_stall_hist.count), eng.stats()
+    (off, m_off, s_off), (on, m_on, s_on) = runs[False], runs[True]
+    assert on == off
+    assert s_on["spec_rounds"] == s_off["spec_rounds"] > 0
+    assert m_on["blocks_synced"] - m_off["blocks_synced"] == 3 * s_on["spec_rounds"]
+    assert m_on["hist"] - m_off["hist"] == 3 * s_on["spec_rounds"]
+    if ragged:
+        assert s_on["ragged_spec_dispatches"] == s_off["ragged_spec_dispatches"] > 0
 
 
 def test_config_takes_spec_and_the_prefilter_and_checks_them(monkeypatch):
