@@ -183,8 +183,7 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             and the header's TTFT recomputed cold. Last, pages gathered to
             a host pool and restored into other pages equal the originals
             bit for bit (bf16, and int8 values with their scales), with
-            the restore's device time for 64 pages. The host-tier engine
-            writes its spills to a state dir (phase 11a's reference).
+            the restore's device time for 64 pages.
 11. spec:   speculative decoding on the same weights, over gRPC, each beside
             the plain engine of its KV type on the same prompts (the serve
             phases' five, all greedy, 32 tokens; the plain bf16 engine is
@@ -232,22 +231,35 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             engine, flash not) and the 1B draft at gamma 4 as in phase 11's
             (c) (bucketed, int8 KV) and (d) (ragged x spec, bf16 KV): the
             five greedy prompts, every round a graph replay with its
-            collectives captured; at full depth, the prefix
-            cache with phase 10's host tier (160 pages, 1 GiB of host
-            memory): the header's miss, four hits, four more, one alone,
-            the second header (which spills the first) and the first again
-            (restored): the ids and the pages matched, spilled and restored
-            equal to phase 10's host-tier engine's, and the lone hit's TTFT
-            not above the miss's; its spills go to a state dir (whole pages
-            assembled from the ranks' shards) whose blobs and sidecars must
-            be phase 10's byte for byte. Then the in-process restart: the
-            same mesh engine behind TorchService.create's supervisor, a
-            failure injected into its engine loop before any record of its
-            dispatch goes out, the fresh engine rebuilt on the same mesh
-            and weights, health SERVING again, the state dir reloaded into
-            its host tier, and the header's miss served again from it,
-            token for token phase 10's; it prints the seconds from the
-            failure to the fresh engine serving. Each sub-phase prints its
+            collectives captured; and the prefix cache with phase 10's
+            host tier (160 pages, 1 GiB of host memory) against a
+            single-card engine of that config and depth: the header's
+            miss, four hits, four more, one alone, the second header (which
+            spills the first) and the first again (restored): the ids and
+            the pages matched, spilled and restored equal to the
+            single-card engine's, and the lone hit's TTFT not above the
+            miss's; its spills go to a state dir (whole pages assembled
+            from the ranks' shards) whose blobs and sidecars must be the
+            single-card engine's byte for byte. Then the in-process
+            restarts: the same mesh engine behind TorchService.create's
+            supervisor (a 3 s watchdog window, a 1 s join), restarted three
+            times, each into the mesh's next life (the old life's NCCL
+            communicators aborted, new groups made and warmed by the fresh
+            engine's captures): after a failure injected into its engine
+            loop before any record of its dispatch goes out (the state dir
+            reloaded into the fresh engine's host tier); (a) after the
+            prefill-error point fires inside a prefill's dispatch; (b)
+            after a 7 s step-stall wedges the engine thread past the window
+            and the join, so the supervisor keeps it as an orphan, reaped
+            once it wakes into its dead engine. After each, health is
+            SERVING, the header's miss is served token for token as the
+            single-card engine's with flash, decode and write launched, and
+            the seconds from the failure to the fresh engine serving, its
+            capture seconds and the memory allocated are printed; a
+            collective on each aborted communicator must
+            raise at once, and the flight recorder and
+            polykey_engine_restarts_total must hold three restarts and the
+            watchdog's trip. Each sub-phase prints its
             seconds, its engine's capture and its kernel launches; the
             group is destroyed at the end.
 12. generate: offline generation over a contiguous KV cache
@@ -2692,14 +2704,13 @@ def _one_at_a_time(config, params, seed: int, prompts: list, max_new: int = 32) 
         grpc.engine.release_device_state()
 
 
-def phase_mesh_features(seed: int, params, card: str, refs: dict) -> dict:
+def phase_mesh_features(seed: int, params, card: str) -> dict:
     """The engine's own features on the mesh engine over a one-rank NCCL
-    group (module docstring, phase 11a). The ragged and spec sub-phases
-    run at MESH_FEATURE_LAYERS layers, each against the single-card engine
-    of the same config and depth, served first (before the group is up);
-    the prefix sub-phase at full depth against `refs["prefix"]`
-    (phase_prefix's host-tier engine). Returns the kernels' launches by
-    sub-phase."""
+    group (module docstring, phase 11a). Every sub-phase runs at
+    MESH_FEATURE_LAYERS layers, each against the single-card engine of the
+    same config and depth, served first (before the group is up): the
+    prefix sub-phase's is the host-tier engine of `_prefix_reference`.
+    Returns the kernels' launches by sub-phase."""
     from polykey_tpu_torch.engine.config import EngineConfig
 
     phase = "mesh"
@@ -2713,6 +2724,7 @@ def phase_mesh_features(seed: int, params, card: str, refs: dict) -> dict:
              for key, fields in MESH_SPEC.items()]
     want = {label: _one_at_a_time(config, cut, seed, prompts)
             for label, config, prompts in subs}
+    prefix_ref = _prefix_reference(seed, model, cut)
     say(phase, f"references at {MESH_FEATURE_LAYERS} layers: {time.monotonic() - t0:.1f} s")
     with _one_rank_nccl(phase):
         for label, config, _ in subs:
@@ -2720,9 +2732,11 @@ def phase_mesh_features(seed: int, params, card: str, refs: dict) -> dict:
                 launches[label] = _mesh_ragged(seed, cut, card, config, want[label])
             else:
                 launches[label] = _mesh_spec(seed, cut, card, config, label[5:], want[label])
-        prefix = _mesh_prefix(seed, card, refs["prefix"])
+        prefix = _mesh_prefix(seed, card, prefix_ref)
         launches["prefix"] = prefix["prefix"]
-        launches["restart"] = prefix["restart"]["launches"]
+        for kind, restart in prefix["restart"].items():
+            if kind != "memory_gib":
+                launches[f"restart {kind}"] = restart["launches"]
     say(phase, f"ragged, spec and prefix sub-phases: {time.monotonic() - t0:.1f} s")
     return {"launches": launches}
 
@@ -2818,6 +2832,45 @@ def _mesh_spec(seed: int, params, card: str, config, key: str, want: list) -> di
     return counts
 
 
+def _prefix_groups() -> list:
+    """The prefix sub-phase's requests in their groups, each sent from an
+    idle card: phase 10's header's miss, 4 hits at once, 4 more, one
+    alone, the second header (which spills the first) and the first again
+    (restored)."""
+    miss = PREFIX_HEADER + PREFIX_TAILS[0]
+    return [[miss], [PREFIX_HEADER + t for t in PREFIX_TAILS[1:5]],
+            [PREFIX_HEADER + t for t in PREFIX_TAILS[5:9]], [PREFIX_HEADER + PREFIX_TAILS[9]],
+            [PREFIX_OTHER + PREFIX_TAILS[0]], [miss]]
+
+
+def _prefix_reference(seed: int, model: str, params) -> dict:
+    """The single-card engine with phase 10's host tier, of `model` on
+    `params`, serving `_prefix_groups()`: their ids, the pages matched,
+    spilled and restored, and the state dir its spills wrote (removed by
+    `_mesh_prefix`)."""
+    import tempfile
+
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import InferenceEngine
+
+    state_dir = tempfile.mkdtemp(prefix="polykey-prefix-state-", dir=tempfile.gettempdir())
+    config = EngineConfig(model=model, prefix_cache=True, kv_state_dir=state_dir,
+                          **PREFIX_HOST_TIER)
+    engine = InferenceEngine(config, params=params, device="cuda", seed=seed)
+    try:
+        check(engine.mesh is None, "the prefix reference took the mesh path")
+        got = []
+        for group in _prefix_groups():
+            _drain(engine)
+            got += _generate(engine, group)
+        end = engine.stats()
+    finally:
+        engine.shutdown()
+        engine.release_device_state()
+    return {"ids": [r[0] for r in got], "counts": {k: end[k] for k in PREFIX_COUNTS},
+            "state_dir": state_dir, "model": model, "params": params}
+
+
 def _mesh_prefix(seed: int, card: str, ref: dict) -> dict:
     """The prefix cache and the host tier on the mesh engine: phase_prefix's
     host-tier engine's requests in its groups (the header's miss, 4 hits,
@@ -2826,12 +2879,14 @@ def _mesh_prefix(seed: int, card: str, ref: dict) -> dict:
     restored held to the single-card engine's; the lone hit's TTFT not
     above the miss's. Its spills go to a state dir, whose files (whole
     pages, lockstep.gather_pages) must be the single-card engine's byte
-    for byte. Then the in-process restart: behind TorchService.create's
-    supervisor, a fault injected into the engine loop (before any record
-    of its dispatch goes out) kills the engine; the supervisor rebuilds it
-    on the same mesh and weights, the fresh engine reloads the state dir
-    (lockstep.scatter_pages) and serves the header's miss again from the
-    host tier, token for token the single-card engine's."""
+    for byte. Then the in-process restarts (`_mesh_restart`): behind
+    TorchService.create's supervisor, a fault injected into the engine
+    loop (before any record of its dispatch goes out) kills the engine;
+    the supervisor rebuilds it on the mesh's next life and the same
+    weights, the fresh engine reloads the state dir (lockstep.scatter_pages)
+    and serves the header's miss again from the host tier, token for token
+    the single-card engine's; then (a) a failure inside a prefill's
+    dispatch and (b) a wedge restart it twice more."""
     import shutil
     import tempfile
 
@@ -2841,14 +2896,12 @@ def _mesh_prefix(seed: int, card: str, ref: dict) -> dict:
     label = "prefix, bucketed bf16 with the host tier"
     state_dir = tempfile.mkdtemp(prefix="polykey-mesh-state-", dir=tempfile.gettempdir())
     config = EngineConfig(model=ref["model"], prefix_cache=True, kv_state_dir=state_dir,
-                          **PREFIX_HOST_TIER)
+                          watchdog_timeout_s=MESH_WATCHDOG_S, **PREFIX_HOST_TIER)
     params = ref["params"]
     t0 = time.monotonic()
     engine, _, up = _mesh_engine(config, params, seed, label)
-    miss = PREFIX_HEADER + PREFIX_TAILS[0]
-    groups = [[miss], [PREFIX_HEADER + t for t in PREFIX_TAILS[1:5]],
-              [PREFIX_HEADER + t for t in PREFIX_TAILS[5:9]], [PREFIX_HEADER + PREFIX_TAILS[9]],
-              [PREFIX_OTHER + PREFIX_TAILS[0]], [miss]]
+    groups = _prefix_groups()
+    miss = groups[0][0]
     try:
         for k in KERNELS.values():
             k.launches = 0
@@ -2915,69 +2968,179 @@ def _same_state_dirs(label: str, mesh_dir: str, single_dir: str, card: str) -> N
         check(got[seq][0] == want[seq][0], f"{label}: batch {seq}'s blob differs")
 
 
+MESH_WATCHDOG_S = 3.0   # the mesh restarts' watchdog window
+MESH_JOIN_S = 1.0       # their supervisor's join window
+MESH_STALL_S = 7.0      # restart (b)'s step-stall: past the window and the join
+
+
 def _mesh_restart(engine, prompt: str, want: list, card: str, restarted) -> dict:
-    """The mesh engine behind TorchService.create's supervisor, restarted in
-    process after an injected failure of its engine loop; `restarted()`
-    runs once the fresh engine is up, before it serves. Returns the fresh
-    engine's kernel launches serving `prompt` (held to `want`) and the
-    seconds from the failure to the fresh engine up."""
+    """The mesh engine behind TorchService.create's supervisor (watchdog
+    window MESH_WATCHDOG_S, join window MESH_JOIN_S), restarted in process
+    three times, each into the mesh's next life (lockstep.restart: the old
+    life's NCCL communicators aborted, new groups made, the fresh engine's
+    captures warming them): after an injected failure of its engine loop
+    before any record of its dispatch goes out (`restarted()` runs once
+    that fresh engine is up, before it serves); (a) after the prefill-error
+    point fires inside a prefill's dispatch; (b) after a step-stall of
+    MESH_STALL_S wedges the engine thread past the watchdog window and the
+    join, so the supervisor keeps it as an orphan, reaped once it wakes.
+    After each, `prompt` is served and held to `want`. Returns the kernel
+    launches serving `prompt` after each restart and the seconds from each
+    failure to the fresh engine serving, with its capture seconds."""
+    from polykey_tpu_torch import faults
     from polykey_tpu_torch.engine.engine import KERNELS, GenRequest
     from polykey_tpu_torch.gateway.health import SERVING, HealthService
     from polykey_tpu_torch.gateway.torch_service import TorchService
+    from polykey_tpu_torch.obs import Observability
 
     label = "restart, the prefix sub-phase's mesh engine"
-    health = HealthService()
+    health, obs = HealthService(), Observability()
     health.set_serving_status("", SERVING)
     engine.health = health
-    service = TorchService.create(engine, health=health)
+    service = TorchService.create(engine, health=health, obs=obs)
+    supervisor = service.supervisor
+    supervisor.check_interval_s = service.watchdog.check_interval_s = 0.1
+    supervisor.join_timeout_s = MESH_JOIN_S
+    sync()
+    def held() -> tuple:            # (allocated, reserved) bytes
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    memory = {"before the faults": held()}
+    # Read as the supervisor swaps the fresh engine in, before it can reap
+    # an orphan (the next tick of its thread).
+    at_restart: list = []
+    supervisor.add_restart_listener(lambda _: at_restart.append(held()))
+    out = {}
     try:
         check(engine.mesh_restart, f"{label}: the service did not arm the mesh restart")
 
-        def crash():
-            raise RuntimeError("injected engine-loop failure")
+        def fail(old, arm, expect: str, kind: str):
+            """Fail `old` with `arm`, wait for the supervisor's restart and
+            serve `prompt` on the fresh engine; returns it."""
+            restarts = supervisor.restarts
+            arm(old)
+            t0 = time.monotonic()
+            request = GenRequest(prompt=prompt, max_new_tokens=4)
+            old.submit(request)
+            while (item := request.out.get(timeout=300))[0] == "token":
+                pass
+            check(item[0] == "error" and expect in str(item[1]),
+                  f"{label} ({kind}): the failed request ended {item}")
+            while supervisor.restarts == restarts and not supervisor.gave_up \
+                    and time.monotonic() - t0 < 300:
+                time.sleep(0.01)
+            up = time.monotonic() - t0
+            fresh = service.engine
+            check(supervisor.restarts == restarts + 1 and fresh is not old,
+                  f"{label} ({kind}): no restart (gave up: {supervisor.gave_up})")
+            check(old.closed_with == "rebuild" and fresh.mesh.life == old.mesh.life + 1
+                  and np.array_equal(fresh.mesh.devices, old.mesh.devices)
+                  and fresh.params is old.params,
+                  f"{label} ({kind}): closed with {old.closed_with!r}, life "
+                  f"{old.mesh.life} -> {fresh.mesh.life}")
+            check(health._statuses[""] == SERVING, f"{label} ({kind}): health not SERVING")
+            memory[f"at restart {kind}"] = at_restart[-1]
+            st = fresh.stats()
+            if restarts == 0:
+                restarted()
+            for k in KERNELS.values():
+                k.launches = 0
+            got = _generate(fresh, [prompt])
+            counts = {name: k.launches for name, k in KERNELS.items()}
+            _hold_mesh_ids(f"{label} ({kind})", [prompt], [got[0][0]], [want],
+                           "the single-card engine's")
+            check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
+                                              "paged_write")),
+                  f"{label} ({kind}): a kernel was not launched: {counts}")
+            groups = {g.group_name[:8] for g in fresh.mesh.groups.values()}
+            say("mesh", f"{label} ({kind}): the failure to the fresh engine serving in "
+                f"{up:.2f} s (its capture {st['graph_capture_s']:.2f} s), life "
+                f"{fresh.mesh.life} on groups {sorted(groups)}, health SERVING, restarts "
+                f"{supervisor.restarts}; {st['kv_reloaded_pages']} pages reloaded from the "
+                f"state dir; the header's miss again: TTFT {got[0][1]:.1f} ms, its ids the "
+                f"single-card engine's; kernel launches {counts}; "
+                f"{memory[f'at restart {kind}'][0] / 2**30:.3f} GiB allocated at the restart "
+                f"on {card}")
+            out[kind] = {"launches": counts, "restart_s": up,
+                         "capture_s": st["graph_capture_s"]}
+            return fresh
 
-        engine._dispatch_step = crash
-        t0 = time.monotonic()
-        request = GenRequest(prompt="restart", max_new_tokens=4)
-        engine.submit(request)
-        while True:
-            kind, value = request.out.get(timeout=120)
-            if kind != "token":
-                break
-        check(kind == "error" and "injected" in str(value), f"{label}: {kind} {value}")
-        while service.supervisor.restarts < 1 and not service.supervisor.gave_up \
-                and time.monotonic() - t0 < 300:
-            time.sleep(0.01)
-        restart_s = time.monotonic() - t0
-        fresh = service.engine
-        check(service.supervisor.restarts == 1 and fresh is not engine,
-              f"{label}: no restart (gave up: {service.supervisor.gave_up})")
-        check(engine.closed_with == "rebuild" and fresh.mesh is engine.mesh,
-              f"{label}: closed with {engine.closed_with!r}, mesh kept "
-              f"{fresh.mesh is engine.mesh}")
+        def crash(old):
+            def failing():
+                raise RuntimeError("injected engine-loop failure")
+
+            old._dispatch_step = failing
+
+        fresh = fail(engine, crash, "injected", "outside a dispatch")
         st = fresh.stats()
-        restarted()
-        for k in KERNELS.values():
-            k.launches = 0
-        got = _generate(fresh, [prompt])
-        counts = {name: k.launches for name, k in KERNELS.items()}
-        after = fresh.stats()
-        say("mesh", f"{label}: the failure to the fresh engine serving in {restart_s:.2f} s "
-            f"(its capture {st['graph_capture_s']:.2f} s), health "
-            f"{health._statuses['']} (SERVING is {SERVING}); {st['kv_reloaded_pages']} pages "
-            f"reloaded from the state dir; the header's miss again: TTFT "
-            f"{got[0][1]:.1f} ms, {after['prefix_host_hit_tokens']} tokens from the host "
-            f"tier; kernel launches {counts} on {card}")
-        _hold_mesh_ids(label, [prompt], [got[0][0]], [want], "the single-card engine's")
-        check(health._statuses[""] == SERVING, f"{label}: health not SERVING")
-        check(st["kv_reloaded_pages"] > 0 and after["prefix_host_hit_tokens"] > 0,
-              f"{label}: the state dir did not warm the fresh engine: {after}")
-        check(all(counts[n] > 0 for n in ("flash_attention", "paged_attention_decode",
-                                          "paged_write")),
-              f"{label}: a kernel was not launched: {counts}")
+        check(st["kv_reloaded_pages"] > 0 and st["prefix_host_hit_tokens"] > 0,
+              f"{label}: the state dir did not warm the fresh engine: {st}")
+        # (a) A failure inside a dispatch: the prefill's record sent.
+        old = fresh
+        fresh = fail(old, lambda e: setattr(e, "_faults", faults.install("prefill-error@1")),
+                     "injected fault: prefill-error", "(a) inside a dispatch")
+        _aborted(old, label, card)
+        # (b) A wedge: the thread sleeps past the watchdog and the join.
+        old = fresh
+        fresh = fail(old, lambda e: setattr(e, "_faults", faults.install(
+            f"step-stall={MESH_STALL_S}@1")), "engine", "(b) a wedge")
+        restart = [e for e in obs.recorder.events() if e["kind"] == "engine_restart"][-1]
+        check(restart["wedged"], f"{label} (b): the wedged engine was not orphaned")
+        t0 = time.monotonic()
+        while supervisor.orphans and time.monotonic() - t0 < 60:
+            time.sleep(0.05)
+        check(not supervisor.orphans and old.paged is None and not old._thread.is_alive()
+              and old.dead is not None,
+              f"{label} (b): the orphan was not reaped within 60 s")
+        sync()
+        memory["after the reap"] = held()
+        _aborted(old, label, card)
+        kinds = [e["kind"] for e in obs.recorder.events()]
+        counter = service.restart_counter.value()
+        check("watchdog_stall" in kinds and kinds.count("engine_restart") == 3
+              and "engine_released" in kinds and counter == 3,
+              f"{label}: flight recorder {kinds}, polykey_engine_restarts_total {counter}")
+        say("mesh", f"{label} (b): the orphan woke {MESH_STALL_S} s into its stall into a "
+            f"dead engine, dispatched nothing, ended and was reaped (the reap seen "
+            f"{time.monotonic() - t0:.2f} s after the fresh engine served); the process lives on "
+            f"(TORCH_NCCL_ASYNC_ERROR_HANDLING="
+            f"{os.environ.get('TORCH_NCCL_ASYNC_ERROR_HANDLING', 'unset')}); flight "
+            f"recorder {kinds}, polykey_engine_restarts_total {counter:g}; memory "
+            f"allocated / reserved (GiB) " + ", ".join(
+                f"{k} {a / 2**30:.3f} / {r / 2**30:.3f}" for k, (a, r) in memory.items())
+            + f" on {card}")
+        _generate(fresh, [prompt])
     finally:
+        faults.clear()
         service.close()
-    return {"launches": counts, "restart_s": restart_s}
+    out["memory_gib"] = {k: (a / 2**30, r / 2**30) for k, (a, r) in memory.items()}
+    return out
+
+
+def _aborted(old, label: str, card: str) -> None:
+    """A collective on `old`'s life's tp group, aborted at the restart,
+    raises at once (in a thread, joined within 30 s)."""
+    import torch.distributed as dist
+
+    group, box = old.mesh.group("tp"), {}
+
+    def probe():
+        t0 = time.monotonic()
+        try:
+            dist.all_reduce(torch.ones(1, device="cuda"), group=group)
+            torch.cuda.synchronize()
+            box["got"] = "returned"
+        except Exception as e:
+            box["got"] = f"{type(e).__name__}: {str(e)[:80]}"
+        box["s"] = time.monotonic() - t0
+
+    thread = threading.Thread(target=probe, daemon=True)
+    thread.start()
+    thread.join(30)
+    check(not thread.is_alive() and box.get("got", "returned") != "returned",
+          f"{label}: a collective on life {old.mesh.life}'s aborted group {box or 'hung'}")
+    say("mesh", f"{label}: life {old.mesh.life}'s communicator aborted: a collective on it "
+        f"raised in {box['s'] * 1e3:.1f} ms ({box['got']}) on {card}")
 
 
 # -- phase 8 ---------------------------------------------------------------
@@ -3196,15 +3359,12 @@ def _drain(engine) -> None:
 
 def phase_prefix(seed: int, params, card: str) -> dict:
     """The prefix cache and the host tier at full width (module docstring,
-    phase 10). Returns the kernel launches made in it ("launches") and the
-    host-tier engine's requests and page counts ("mesh_ref", the mesh
-    phase's reference)."""
+    phase 10). Returns the kernel launches made in it ("launches")."""
     from polykey_tpu_torch.engine.config import EngineConfig
     from polykey_tpu_torch.engine.engine import KERNELS, InferenceEngine
     from polykey_tpu_torch.engine.kv_cache import host_kv_page_bytes
     from polykey_tpu_torch.models.config import get_config
 
-    mesh_ref = None
     for k in KERNELS.values():
         k.launches = 0
     model = "llama-3-8b"
@@ -3220,13 +3380,8 @@ def phase_prefix(seed: int, params, card: str) -> dict:
     # The bucketed bf16 engine holds the host tier too: 160 pages (73 a
     # request) leave no room for a second header beside the first's cached
     # pages, and 1 GiB of host memory holds 512 of them.
-    # Its spills are written to a state dir too: phase 11a's mesh engine
-    # must write the same files (removed there).
-    import tempfile
-
-    state_dir = tempfile.mkdtemp(prefix="polykey-prefix-state-", dir=tempfile.gettempdir())
     modes = [
-        ("bucketed bf16", dict(), dict(PREFIX_HOST_TIER, kv_state_dir=state_dir)),
+        ("bucketed bf16", dict(), dict(PREFIX_HOST_TIER)),
         ("bucketed int8", dict(kv_dtype="int8"), dict()),
         ("ragged bf16", dict(ragged_dispatch=True), dict()),
     ]
@@ -3288,20 +3443,13 @@ def phase_prefix(seed: int, params, card: str) -> dict:
                     f"prefills; capture {stats['graph_capture_s']:.2f} s, pool "
                     f"{stats['graph_pool_bytes'] / 2**20:.1f} MiB")
             if extra.get("host_kv_bytes"):
-                tail = _host_tier(engine, miss, want[0], cold_other, page_bytes, card)
-                # The mesh phase's reference: the same requests in the same
-                # groups, their ids and the pages matched, spilled and
-                # restored from the engine's start.
-                end = engine.stats()
-                mesh_ref = {"ids": [r[0] for r in got + tail],
-                            "counts": {k: end[k] for k in PREFIX_COUNTS},
-                            "state_dir": state_dir, "model": model, "params": params}
+                _host_tier(engine, miss, want[0], cold_other, page_bytes, card)
         finally:
             engine.shutdown()
     _round_trip(cfg, ps, card)
     counts = {name: k.launches for name, k in KERNELS.items()}
     say("prefix", f"kernel launches in this phase: {counts}")
-    return {"launches": counts, "mesh_ref": mesh_ref}
+    return {"launches": counts}
 
 
 # The prefix cache's and host tier's page counts the mesh phase holds to the
@@ -5405,16 +5553,13 @@ def main() -> int:
     phase_prefill_graph(args.seed, params, dev["smi"])
     sync()
     done("phase_prefill_graph")
-    prefix = phase_prefix(args.seed, params, dev["smi"])
+    phase_prefix(args.seed, params, dev["smi"])
     sync()
     done("phase_prefix")
     spec = phase_spec(args.seed, params, dev["smi"], serves[(False, False)]["mesh_ref"]["ids"])
     sync()
     done("phase_spec")
-    # Popped: the prefix reference holds the Llama weights, which must be
-    # freed before Mixtral's and Gemma's are drawn.
-    features = phase_mesh_features(args.seed, params, dev["smi"],
-                                   {"prefix": prefix.pop("mesh_ref")})
+    features = phase_mesh_features(args.seed, params, dev["smi"])
     sync()
     done("phase_mesh_features")
     phase_generate(args.seed, params, dev["smi"], spec["plain"][""])

@@ -38,11 +38,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 
-# The ROADMAP.md item that the mesh engine's refusals name.
-MESH_ITEM = ("A.17, the in-process restart of a mesh engine that failed "
-             "inside a dispatch")
-
-
 def _env_int(name: str, default: int) -> int:
     try:
         return int(os.environ.get(name, default))

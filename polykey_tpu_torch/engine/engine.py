@@ -135,7 +135,9 @@ GPU (the reference's engine/engine.py, default path).
   (`reuse`: no second copy, no second checkpoint read, no second
   quantization, the same `_params_fingerprint`) after
   `release_device_state` has freed the dead one's pools, graphs and
-  pinned buffers.
+  pinned buffers, or, when its thread is wedged, keeps the dead one as an
+  orphan and frees them once the thread ends; a mesh follower's loop
+  does the same with its own engine at each new life (lockstep.follow_lives).
 
 - Replica tier and control (the reference's): `queue_delay_estimate_s`,
   `load_fraction` and `prefix_warmth` are the replica pool's routing
@@ -187,17 +189,16 @@ GPU (the reference's engine/engine.py, default path).
   (lockstep.scatter_pages), so the files are the single-card engine's. A
   checkpoint is read as each rank's shard (models/loader.py); a
   capacity-bucketed MoE routes over the whole batch under dp and sp
-  (ops/moe.moe_mlp_sharded). A leader whose engine loop failed outside a
-  dispatch sends "restart" when its supervisor will rebuild it: every
-  rank frees its engine and, at the leader's word, builds the next one
-  on the same weights (`rebuild`, lockstep.next_life). Without a group
+  (ops/moe.moe_mlp_sharded). A supervised mesh engine restarts in
+  process however it failed (lockstep.restart): every rank starts a new
+  life, the next engine on the same weights over fresh groups (`rebuild`,
+  lockstep.remake), the old life's engine freed or kept as an orphan.
+  Over a mesh the prefill-error point fires inside the dispatch, and a
+  follower's decode dispatch takes the step-stall point. Without a group
   the engine is the single-card one, with no collective.
 
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
-dispatch; over a mesh (A.17): the in-process restart of a mesh engine
-that failed inside a dispatch (wedged in a collective, or with its
-record sent: the supervisor's factory refuses it, health stays
-NOT_SERVING and the platform restarts the processes).
+dispatch.
 """
 
 from __future__ import annotations
@@ -862,8 +863,9 @@ class InferenceEngine:
         self.is_follower = False
         # The in-process restart of a mesh engine (engine/lockstep.py): set
         # on a leader whose supervisor rebuilds it (gateway/torch_service);
-        # `closed_with` is the record its end sent; a follower's
-        # `restart_requested` says its leader sent "restart".
+        # `closed_with` is the record its end sent, or the word said of its
+        # life ("rebuild", "shutdown"); a follower's `restart_requested`
+        # says its leader sent "restart".
         self.mesh_restart = False
         self.closed_with: Optional[str] = None
         self.restart_requested = False
@@ -1205,7 +1207,7 @@ class InferenceEngine:
                               mc.num_kv_heads, mc.head_dim),
             )
             return
-        rows, wholes = None, None
+        rows, wholes, reloaded = None, None, 0
         if not self.is_follower:
             adopted: dict[int, list] = {}
 
@@ -1213,7 +1215,10 @@ class InferenceEngine:
                 adopted[page] = [a for a in arrays if a is not None]
 
             mc = self.model_cfg
-            self._kv_state.load_into(
+            # The pages adopted, as the single-card engine counts them: a
+            # row an adoption freed again (an evicted entry) is written
+            # once, with its last page.
+            reloaded = self._kv_state.load_into(
                 self._prefix, host, write=keep,
                 expect_shape=(mc.num_layers, 0, config.page_size,
                               mc.num_kv_heads, mc.head_dim),
@@ -1224,7 +1229,7 @@ class InferenceEngine:
         rows, shards = lockstep.scatter_pages(self.mesh, rows, wholes, host.pools)
         for j, row in enumerate(rows):
             host.write(row, *(t[:, j] for t in shards))
-        self._kv_reloaded_pages = len(rows)
+        self._kv_reloaded_pages = len(rows) if self.is_follower else reloaded
 
     def _serving_mesh(self, config: EngineConfig, mesh):
         """The mesh this engine serves over, or None for the single-card
@@ -1297,14 +1302,18 @@ class InferenceEngine:
                              "(engine/lockstep.serving_mesh)")
         return mesh
 
-    def rebuild(self) -> "InferenceEngine":
+    def rebuild(self, mesh=None) -> "InferenceEngine":
         """The engine a supervised restart builds in place of this one (its
-        device state released first): the same config, device, health,
-        logger and mesh, on this engine's weights (`reuse`). Over a mesh
-        every rank builds it at the leader's word, so their captures issue
-        the same collectives in the same order (engine/lockstep.py)."""
+        device state released first, or this engine kept as an orphan): the
+        same config, device, health and logger, on this engine's weights
+        (`reuse`), over `mesh` (default this engine's). Over a mesh every
+        rank builds it at the leader's word on the mesh's next life
+        (lockstep.remake), so their captures issue the same collectives in
+        the same order, each new communicator warmed by the capture's eager
+        run first (engine/lockstep.py)."""
         fresh = InferenceEngine(self.config, device=self.device, health=self.health,
-                                logger=self.logger, reuse=self._ctor_args, mesh=self.mesh)
+                                logger=self.logger, reuse=self._ctor_args,
+                                mesh=self.mesh if mesh is None else mesh)
         fresh.mesh_restart = self.mesh_restart
         return fresh
 
@@ -1648,8 +1657,8 @@ class InferenceEngine:
                 self.last_progress = time.monotonic()
                 self._started.set()
                 if self.is_follower:
-                    # Until the leader's "shutdown", or its "restart": then
-                    # lockstep.next_life builds this rank's next engine.
+                    # Until the leader's "shutdown" or "restart" record, or
+                    # until a new life stops this one (lockstep.follow_lives).
                     self.restart_requested = lockstep.follow(self) == "restart"
                 else:
                     self._serve()
@@ -1672,13 +1681,17 @@ class InferenceEngine:
                 self.health.shutdown()
         finally:
             if self._leader is not None:
-                # The followers stop with the leader, or, when this engine
-                # failed, its supervisor will rebuild it in process and no
-                # dispatch was left half sent, wait for the rebuild
-                # (lockstep.next_life).
-                restart = (self.mesh_restart and self.dead is not None
-                           and not self._leader.open)
-                self.closed_with = self._leader.close("restart" if restart else "shutdown")
+                # The followers stop with the leader; when this engine failed
+                # and its supervisor rebuilds the mesh they end their threads
+                # on "restart" and wait for its word (lockstep.follow_lives).
+                # Inside a dispatch they cannot hear a record, and the word
+                # reaches them through the store alone. An orphan that wakes
+                # sends on its own life's control group only.
+                restart = self.mesh_restart and self.dead is not None
+                if not (restart and self._leader.open):
+                    sent = self._leader.close("restart" if restart else "shutdown")
+                    if self.closed_with is None:
+                        self.closed_with = sent
             self._started.set()     # also when the capture failed
 
     def _serve(self) -> None:
@@ -2044,20 +2057,27 @@ class InferenceEngine:
             top_p[r] = slot.request.top_p
             top_k[r] = self._eff_top_k(slot.request)
             seeds[r] = slot.seed_row
-        if self._faults is not None:
-            self._faults.maybe_raise("prefill-error", replica=self.replica_id,
-                                     tier=self._tier)
         ps = cfg.page_size
         args = (width, n_pad, bool(np.all(temp == 0.0)),
                 width % ps == 0 and not np.any(starts % ps),
                 (tokens, starts, last_rel, tables, seeds, temp, top_p, top_k))
         if self._leader is None:
+            self._prefill_fault()
             return self._prefill_dispatch(*args)
         try:
             with lockstep.dispatch(self._leader, lockstep.Record("prefill", args)):
+                self._prefill_fault()
                 return self._prefill_dispatch(*args)
         except Exception as e:
             raise LockstepError(f"mesh prefill failed: {e}") from e
+
+    def _prefill_fault(self) -> None:
+        """The prefill-error point, a device failure of the prefill dispatch:
+        over a mesh it fires inside the dispatch, its record sent, where a
+        device failure leaves the followers in its collectives."""
+        if self._faults is not None:
+            self._faults.maybe_raise("prefill-error", replica=self.replica_id,
+                                     tier=self._tier)
 
     def _prefill_dispatch(self, width: int, n_pad: int, greedy: bool, aligned: bool,
                           arrays: tuple):
@@ -2614,16 +2634,15 @@ class InferenceEngine:
         self.metrics.on_prefill_interleave(useful, lanes > 0)
         args = (spec_candidates, gamma, greedy, ops, works)
         try:
-            if self._faults is not None:
-                self._faults.maybe_raise("prefill-error", replica=self.replica_id,
-                                         tier=self._tier)
             if self._leader is not None:
                 try:
                     with lockstep.dispatch(self._leader, lockstep.Record("ragged", args)):
+                        self._prefill_fault()
                         packed_dev, first_dev = self._ragged_device(*args)
                 except Exception as e:
                     raise LockstepError(f"mesh ragged dispatch failed: {e}") from e
             else:
+                self._prefill_fault()
                 packed_dev, first_dev = self._ragged_device(*args)
         except LockstepError:
             raise
@@ -2795,6 +2814,15 @@ class InferenceEngine:
         """A follower's application of one of the leader's records, through
         the functions and graphs the leader ran (engine/lockstep.py)."""
         kind, args = record
+        if self._faults is not None and kind in ("decode", "spec", "ragged"):
+            # The leader's step-stall point (`_dispatch_step`) at a
+            # follower's decode dispatch: a wedged device call there holds
+            # the leader in the dispatch's collectives. A follower that wakes
+            # into a stopped engine (a new life's orphan) replays nothing.
+            self._faults.maybe_sleep("step-stall", replica=self.replica_id,
+                                     tier=self._tier)
+            if self._stop.is_set():
+                return
         if kind == "prefill":
             self._prefill_dispatch(*args)
         elif kind == "merge":

@@ -38,23 +38,33 @@ heartbeat every `HEARTBEAT_S`, so a follower's receive, bounded by
 `CONTROL_TIMEOUT_S`, never times out while the leader lives; a leader that
 stops sends "shutdown" and the followers' loops end.
 
-The in-process restart: a leader whose engine loop failed outside a
-dispatch (`Leader.open` is set from a dispatch's record until its
-collectives are issued, `dispatch`), and whose supervisor will rebuild it,
-sends "restart" instead. Each follower leaves its loop, frees its
-engine's pools and graphs and waits (`next_life`): the supervisor's
-factory announces "rebuild" and every rank builds the replacement on the
-same weights and mesh, capturing in the same order, then follows again
-(`follow_lives`, the loop of a server's, a replica's and a worker's
-follower); a supervisor that gives up, or a server that stops first,
-announces "shutdown". A failure inside a dispatch (a wedged collective, or a record
-sent whose dispatch then failed) may leave the followers inside its
-collectives, and a gloo group cannot be aborted and made again in step:
-it ends with "shutdown", the factory refuses it, health stays
-NOT_SERVING and the platform restarts the processes. A follower that dies makes the leader's next record
-or collective fail: gloo reports the closed connection at once, NCCL at
-its process group's timeout; the leader's engine then dies and fails its
-requests with the error.
+The in-process restart, the reference supervisor's for any failure (a
+crash outside a dispatch, one with a dispatch's record sent, a wedge the
+watchdog trips): every rank of the mesh starts a new life, an engine on
+the same weight shards over fresh groups (`remake`), and gives up the old
+life's groups. A rank whose engine thread has ended frees its device
+state first; one still inside the old life (a leader wedged in a
+collective, a follower blocked in one its leader never entered) keeps it
+as an orphan, reaped once its thread ends: the old life's NCCL
+communicators are aborted (`abandon`), which frees a stream blocked in
+one of them, and a gloo collective raises at its group's timeout. An
+orphan that wakes touches nothing of the fresh engine: it holds the old
+mesh, and a stopped engine flips no health. The leader's word, "rebuild"
+or "shutdown", goes through the default group's store under a key of the
+mesh and its life (`say`, `heard`), where a follower hears it whatever its
+engine thread is blocked in: the supervisor's factory says "rebuild"
+(`restart`), a supervisor that gives up or a server that stops says
+"shutdown" (`release`). A leader whose engine failed while its followers
+wait for a record also sends them "restart", so their threads end before
+the word comes and free their state first. Every follower loop (a
+server's, a replica's, a worker's: `follow_lives`) polls the word between
+joins. A follower that is gone ends the mesh: the new groups cannot form,
+the factory raises within `REMAKE_TIMEOUT_S` and the supervisor spends
+its budget and gives up, as the reference's engine ends with a lost
+device. A follower that dies makes the leader's next record or collective
+fail: gloo reports the closed connection at once, NCCL at its process
+group's timeout; the leader's engine then dies and fails its requests
+with the error.
 
 Every rank computes the same tokens (logits are gathered over tp, sampled
 tokens over dp), so the lane state evolves identically on every rank and
@@ -68,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import threading
 import time
 from collections import deque
 from datetime import timedelta
@@ -76,13 +87,20 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed import distributed_c10d
 
-from ..parallel.distributed import create_hybrid_mesh
-from ..parallel.mesh import Mesh, MeshConfig
-from .config import MESH_ITEM
+from ..parallel.distributed import hybrid_device_array
+from ..parallel.mesh import Mesh, MeshConfig, build_mesh
 
 HEARTBEAT_S = 5.0          # the idle leader's record interval
-CONTROL_TIMEOUT_S = 120.0  # a follower's longest wait for its next record
+CONTROL_TIMEOUT_S = 120.0  # a follower's longest wait for its next record (and any
+                           # gloo collective's of a serving mesh, by default)
+REMAKE_TIMEOUT_S = 30.0    # the longest wait for the mesh's other ranks at a new life
+
+# One life's groups are made at a time in a process: the meshes that share
+# a rank make theirs in the same order on every rank (`_make_life`).
+_lives_lock = threading.Lock()
+_made: dict = {}           # serving meshes made over each set of ranks here
 
 
 class Record(NamedTuple):
@@ -96,27 +114,129 @@ class Record(NamedTuple):
     rows, persist: each rank copies its shard of the pages into its host
     pool and, with persist, hands it to the leader's whole pages for the
     state dir) and "restore" (host rows, device pages), "heartbeat",
-    "shutdown" or "restart" (then "rebuild" or "shutdown", `announce`)."""
+    "shutdown" or "restart" (its thread ends; the word comes through the
+    store, `heard`)."""
 
     kind: str
     args: tuple = ()
 
 
-def serving_mesh(config, ranks=None, device=None) -> Optional[Mesh]:
+def serving_mesh(config, ranks=None, device=None, timeout_s=None) -> Optional[Mesh]:
     """The engine's mesh of `config`'s axes over `ranks` (default every
     rank of the default group), num_slices folded outermost into dp
-    (parallel/distributed.create_hybrid_mesh), with its control group.
-    Every rank of the default group calls it, in the same order as every
-    other group it makes; a rank outside `ranks` gets None."""
+    (parallel/distributed.create_hybrid_mesh), with its control and pages
+    groups, its first life. Only the mesh's ranks make its groups
+    (parallel/mesh.build_mesh with `local`); every rank of the default
+    group may call it, and one outside `ranks` gets None. `timeout_s`
+    (default CONTROL_TIMEOUT_S) bounds each collective of its gloo groups,
+    where an orphan's blocked collective ends."""
     ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
     mc = MeshConfig(dp=config.dp, pp=config.pp, sp=config.sp, ep=config.ep, tp=config.tp)
-    mesh = create_hybrid_mesh(mc, config.num_slices, ranks, device)
-    timeout = timedelta(seconds=CONTROL_TIMEOUT_S)
-    control = dist.new_group(ranks, backend="gloo", timeout=timeout)
-    pages = dist.new_group(ranks, backend="gloo", timeout=timeout)
-    if mesh is not None:
-        mesh.control, mesh.pages = control, pages
+    array = hybrid_device_array(mc, config.num_slices, ranks)
+    if dist.get_rank() not in ranks:
+        return None
+    key = "-".join(str(r) for r in sorted(ranks))
+    with _lives_lock:
+        n = _made.get(key, 0)
+        _made[key] = n + 1
+        # polylint: disable=CL004(a life's groups are made under the lives lock, bounded by REMAKE_TIMEOUT_S and the groups' timeout: see _make_life)
+        return _make_life(array, device, f"{key}.{n}", 0,
+                          CONTROL_TIMEOUT_S if timeout_s is None else timeout_s)
+
+
+def remake(mesh: Mesh, word: Optional[str] = None) -> Mesh:
+    """`mesh`'s next life: its life's NCCL communicators aborted
+    (`abandon`), then the same device array, rank, device and key over
+    fresh groups, made as `serving_mesh` makes them. Every rank of the
+    mesh calls it at the leader's word; the leader passes that `word` to
+    say first. All under the lives lock, so the meshes that share ranks
+    (replicas) start their lives in the order of their words on every
+    rank."""
+    with _lives_lock:
+        if word is not None:
+            say(mesh, word)
+        abandon(mesh)
+        # polylint: disable=CL004(a life's groups are made under the lives lock, bounded by REMAKE_TIMEOUT_S and the groups' timeout: see _make_life)
+        return _make_life(mesh.devices, mesh.device, mesh.key, mesh.life + 1, mesh.timeout_s)
+
+
+def _make_life(array, device, key: str, life: int, timeout_s: float) -> Mesh:
+    """A life's groups, made in one fixed order under `_lives_lock` (the
+    caller holds it): the lock covers the count of groups `_align_group_names`
+    agrees on and every group made after it, or another mesh's life could
+    take a name in between."""
+    ranks = sorted(int(r) for r in array.flat)
+    timeout = timedelta(seconds=timeout_s)
+    _align_group_names(key, life, ranks)
+    # NCCL's data groups keep their backend's timeout: a stream blocked in
+    # one is freed by its abort (`abandon`), not by a timeout.
+    mesh = build_mesh(array, device, local=True,
+                      timeout=None if dist.get_backend() == "nccl" else timeout)
+    control = dist.new_group(ranks, backend="gloo", timeout=timeout,
+                             use_local_synchronization=True)
+    pages = dist.new_group(ranks, backend="gloo", timeout=timeout,
+                           use_local_synchronization=True)
+    mesh.control, mesh.pages = control, pages
+    mesh.key, mesh.life, mesh.timeout_s = key, life, timeout_s
     return mesh
+
+
+def _align_group_names(key: str, life: int, ranks: list) -> None:
+    """torch names a group made with `use_local_synchronization` after its
+    ranks and the number of groups this process holds
+    (distributed_c10d._process_group_name), so the mesh's ranks must hold
+    as many before they make a life's groups. Ranks that also serve other
+    meshes may not: each tells the others its count through the store and
+    the ones behind make groups of their own rank until all agree. Raises
+    when a rank of the mesh is not there within REMAKE_TIMEOUT_S."""
+    store = distributed_c10d._get_default_store()
+    rank = dist.get_rank()
+    have = len(distributed_c10d._world.pg_names)
+    keys = [f"polykey/mesh/{key}/{life}/groups/{r}" for r in ranks]
+    store.set(keys[ranks.index(rank)], str(have))
+    try:
+        store.wait(keys, timedelta(seconds=REMAKE_TIMEOUT_S))
+    except Exception as e:
+        raise RuntimeError(f"the mesh's ranks {ranks} did not all reach life {life} within "
+                           f"{REMAKE_TIMEOUT_S} s: {e}") from e
+    for _ in range(max(int(store.get(k)) for k in keys) - have):
+        dist.new_group([rank], backend="gloo", use_local_synchronization=True)
+
+
+def abandon(mesh: Mesh) -> None:
+    """Give up `mesh`'s life: abort its NCCL communicators, which frees a
+    stream blocked in one of their collectives; a later collective on one
+    raises. The groups stay registered, so no later group takes a name
+    theirs had. Gloo groups are left as they are: an abort wakes no thread
+    blocked in one, which raises at the group's timeout instead."""
+    for group in {id(g): g for g in mesh.groups.values()}.values():
+        if dist.get_backend(group) == "nccl":
+            group.abort()
+
+
+def say(mesh: Mesh, word: str) -> None:
+    """The leader's word to its followers about the end of `mesh`'s life:
+    "rebuild" (every rank builds the next life now) or "shutdown"."""
+    if world(mesh) > 1:
+        distributed_c10d._get_default_store().set(_word_key(mesh), word)
+
+
+def heard(mesh: Mesh) -> Optional[str]:
+    """A follower's look at its leader's word about `mesh`'s life: None
+    while there is none, or while the store cannot be reached (its host,
+    the leader's process, is gone: the engine thread's own failure then
+    ends the lives, `follow_lives`)."""
+    store = distributed_c10d._get_default_store()
+    try:
+        if not store.check([_word_key(mesh)]):
+            return None
+        return store.get(_word_key(mesh)).decode()
+    except Exception:  # the store is gone with the leader: no word comes
+        return None
+
+
+def _word_key(mesh: Mesh) -> str:
+    return f"polykey/mesh/{mesh.key}/{mesh.life}/word"
 
 
 def leader_rank(mesh: Mesh) -> int:
@@ -170,10 +290,10 @@ class Leader:
             self.heartbeats += 1
 
     def close(self, kind: str = "shutdown") -> str:
-        """Tell the followers to stop ("shutdown"), or to wait for the
-        supervisor's rebuild ("restart"); best effort (a lost follower
-        cannot hear it, and its loss is the leader's error already).
-        Returns `kind`."""
+        """End the followers' engine threads: "shutdown", or "restart" when
+        the supervisor will rebuild the mesh (a follower then waits for the
+        word, `heard`); best effort (a lost follower cannot hear it, and
+        its loss is the leader's error already). Returns `kind`."""
         try:
             self.send(Record(kind))
         except Exception:  # a follower lost: the engine's own error names it
@@ -195,93 +315,116 @@ def dispatch(leader: Optional[Leader], record: Record):
     leader.open = False
 
 
-def announce(mesh: Mesh, kind: str) -> None:
-    """The leader's word to followers waiting after a "restart" record:
-    "rebuild" (the supervisor builds the fresh engine now, and so must
-    they) or "shutdown" (it gave up, or the server stops)."""
-    if world(mesh) > 1:
-        dist.broadcast_object_list([[Record(kind)]], src=leader_rank(mesh),
-                                   group=mesh.control)
-
-
 def restart(dead):
     """The supervisor factory's rebuild of a mesh engine (a single engine's,
-    a replica's or a worker's): when `dead`'s end sent "restart", announce
-    "rebuild" and build the fresh engine (`dead.rebuild()`) as every
-    follower does at that word. A failure inside a dispatch cannot be
-    restarted in process (the module docstring): NotImplementedError."""
-    if dead.closed_with != "restart":
-        raise NotImplementedError(
-            "the in-process restart of a mesh engine that failed inside a dispatch "
-            "(wedged in a collective, or with its record sent) is not ported to "
-            f"polykey_tpu_torch (ROADMAP.md queue A: {MESH_ITEM})")
-    announce(dead.mesh, "rebuild")
+    a replica's or a worker's), however it failed: say "rebuild" for its
+    life, abort that life's NCCL groups (the supervisor has released its
+    device state or kept it as an orphan), make the next life's groups with
+    every follower (`remake`) and build the fresh engine on them
+    (`dead.rebuild`). Raises when a rank of the mesh does not come."""
     dead.closed_with = "rebuild"
-    return dead.rebuild()
+    return dead.rebuild(mesh=remake(dead.mesh, "rebuild"))
 
 
 def release(engine) -> None:
-    """Tell the followers waiting after `engine`'s "restart" record to stop,
-    when no rebuild follows (the supervisor gave up, or the server stops);
-    a no-op for any other engine."""
-    if getattr(engine, "closed_with", None) == "restart":
-        engine.closed_with = "shutdown"
-        try:
-            announce(engine.mesh, "shutdown")
-        except Exception:  # a follower lost: nothing is left to tell
-            pass
-
-
-def await_rebuild(mesh: Mesh) -> bool:
-    """A follower's wait after a "restart" record: True when the leader
-    announces the rebuild, False on "shutdown"."""
-    box = [None]
-    dist.broadcast_object_list(box, src=leader_rank(mesh), group=mesh.control)
-    return any(record.kind == "rebuild" for record in box[0])
+    """Tell the followers of a mesh leader's engine that no rebuild follows
+    (the supervisor gave up, or the server stops): "shutdown" for its
+    life; a no-op for any other engine."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None or getattr(engine, "is_follower", True):
+        return
+    engine.closed_with = "shutdown"
+    try:
+        say(mesh, "shutdown")
+    except Exception:  # the store is gone: nothing is left to tell
+        pass
 
 
 def follow(engine) -> str:
     """A follower's loop: receive the leader's records and apply them in
-    order (`engine._replay`) until "shutdown" or "restart"; returns which."""
+    order (`engine._replay`) until "shutdown" or "restart", or until the
+    engine is stopped (an orphan of a new life replays no more); returns
+    which."""
     mesh = engine.mesh
     src = leader_rank(mesh)
-    while True:
+    while not engine._stop.is_set():
         box = [None]
         dist.broadcast_object_list(box, src=src, group=mesh.control)
         for record in box[0]:
             if record.kind in ("shutdown", "restart"):
                 return record.kind
+            if engine._stop.is_set():
+                break
             engine._replay(record)
         engine._digest.drain()
-
-
-def next_life(engine):
-    """A follower's engine after its thread ended: the fresh engine built in
-    step with the leader's supervised restart, or None when the mesh ends
-    (the leader shut it down, the supervisor gave up, or this engine
-    failed: a dead follower ends the mesh)."""
-    if engine.dead is not None or not engine.restart_requested:
-        return None
-    engine.release_device_state()
-    if not await_rebuild(engine.mesh):
-        return None
-    return engine.rebuild()
+    return "stopped"
 
 
 def follow_lives(engine, stopped=lambda: False, on_fresh=None, poll_s: float = 0.1):
     """A follower's lives (a server's, a replica's or a worker's rank):
-    wait for `engine`'s thread to end, or for `stopped()`; then take its
-    next life (`next_life`), hand it to `on_fresh` and follow again.
-    Returns the last engine: its `dead` says whether it failed."""
+    follow until the leader's word for the engine's life, polled between
+    joins of its thread; at "rebuild" start the next life (`_next_life`),
+    hand the fresh engine to `on_fresh` and follow again. Without a word
+    the lives end when the thread ends on the leader's "shutdown" record,
+    or on this rank's own failure (a dead follower ends the mesh), or
+    CONTROL_TIMEOUT_S after a "restart" record, or at `stopped()`. Orphans
+    are reaped as their threads end. Unless stopped, it waits for the
+    engine's thread and its orphans' to end (each within its mesh's
+    timeout: the "shutdown" record goes out before the word) before it
+    returns. Returns the last engine: its `dead` says whether it failed."""
+    orphans: list = []
     while True:
-        while not stopped() and not engine.join(poll_s):
-            pass
-        fresh = None if stopped() else next_life(engine)
-        if fresh is None:
+        word = _await_word(engine, stopped, poll_s, orphans)
+        if word != "rebuild":
+            if not stopped():
+                for old in [engine] + orphans:
+                    old.join(old.mesh.timeout_s + 10.0)
+            _reap(orphans)
             return engine
-        engine = fresh
+        try:
+            engine = _next_life(engine, orphans)
+        except Exception as e:  # a rank did not come: the mesh ends
+            engine.dead = engine.dead or f"the mesh's restart failed: {e}"
+            return engine
         if on_fresh is not None:
             on_fresh(engine)
+
+
+def _await_word(engine, stopped, poll_s: float, orphans: list) -> Optional[str]:
+    since = None
+    while not stopped():
+        _reap(orphans)
+        ended = engine.join(poll_s)
+        word = heard(engine.mesh)
+        if word is not None:
+            return word
+        if ended:
+            if engine.dead is not None or not engine.restart_requested:
+                return None
+            since = since or time.monotonic()
+            if time.monotonic() - since > CONTROL_TIMEOUT_S:
+                return None
+    return None
+
+
+def _next_life(engine, orphans: list):
+    """A follower's next engine at its leader's "rebuild": the old one's
+    device state freed when its thread has ended, else the engine stopped
+    and kept as an orphan; its life's NCCL groups aborted, the next life's
+    groups made and the engine built on them, in step with every rank."""
+    if engine.join(0):
+        engine.release_device_state()
+    else:
+        engine.shutdown(timeout=0.0)    # it replays nothing once it wakes
+        orphans.append(engine)
+    return engine.rebuild(mesh=remake(engine.mesh))
+
+
+def _reap(orphans: list) -> None:
+    """Release the device state of orphans whose thread has ended."""
+    for old in [o for o in orphans if not o._thread.is_alive()]:
+        old.release_device_state()
+        orphans.remove(old)
 
 
 # -- whole pages from shards ---------------------------------------------------

@@ -447,9 +447,9 @@ class ReplicaPool:
 
     def follow(self, stopped=lambda: False) -> Optional[str]:
         """A follower rank's replicas, each on a thread of its own: its
-        engine replays its leader's records on its mesh's groups, and after
-        a "restart" record the replica's next engine is built at its
-        leader's word (lockstep.follow_lives). Returns once every replica has
+        engine replays its leader's records on its mesh's groups, and at
+        its leader's "rebuild" word the replica's next engine is built on
+        its mesh's next life (lockstep.follow_lives). Returns once every replica has
         ended (or `stopped()`): the first replica failure, or None."""
         failures: list = []
 

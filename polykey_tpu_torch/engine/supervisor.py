@@ -23,6 +23,10 @@ the engine is kept as an orphan, and its device state is released once
 its thread has exited (it touches the device no more after waking, see
 engine/engine.py). The factory serves the same weights (the engine's
 `reuse` path: no second copy on the card, no second checkpoint read).
+Over a mesh the factory starts the mesh's next life on every rank
+(engine/lockstep.restart); each follower rank frees or orphans its own
+engine the same way and reaps its orphans itself
+(lockstep.follow_lives), with no supervisor of its own.
 
 Restarts are bounded: more than `max_restarts` inside `restart_window_s`
 means the failure is not transient (a bad checkpoint, a broken device, a

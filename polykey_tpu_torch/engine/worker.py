@@ -943,10 +943,10 @@ def _start_ranks(n: int) -> list:
 
 def _follow(config: EngineConfig, args) -> int:
     """A follower rank of a worker's mesh: the same engine, replaying its
-    leader's records, rebuilt at its leader's supervised restart
-    (lockstep.follow_lives); it ends with its leader (its "shutdown", or
-    its death, which fails the next receive), or once its leader's process
-    is gone."""
+    leader's records, rebuilt on the mesh's next life at its leader's
+    supervised restart (lockstep.follow_lives); it ends with its leader
+    (its "shutdown", or its death, which fails the next receive or empties
+    the store), or once its leader's process is gone."""
     engine = InferenceEngine(worker_config(config, args.tier, args.replica,
                                            args.state_dir or None), seed=args.seed)
     parent = os.getppid()

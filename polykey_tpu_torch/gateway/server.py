@@ -251,12 +251,13 @@ def start_metrics_server(obs: Observability, logger: Logger, service=None,
 def follow(service, engine, logger: Logger) -> int:
     """A follower rank's lives (engine/lockstep.py): no gRPC port, no
     metrics endpoint; the engine thread replays the leader's records until
-    the leader's shutdown record, or until a signal here. After the
-    leader's "restart" record (its supervisor rebuilds it in process) the
-    follower frees its engine's device state and, at the leader's word,
-    builds the next one on the same weights and follows again
-    (lockstep.follow_lives). Returns the process's exit code: 1 when the
-    engine failed."""
+    the leader's shutdown record, or until a signal here. At the leader's
+    "rebuild" word (its supervisor restarts the mesh in process, however
+    the leader failed) the follower frees its engine's device state, or
+    keeps the engine as an orphan while its thread is still inside the old
+    life, builds the next one on the same weights over the mesh's next
+    life and follows again (lockstep.follow_lives). Returns the process's
+    exit code: 1 when the engine failed."""
     from ..engine import lockstep
 
     stop = {"signal": None}

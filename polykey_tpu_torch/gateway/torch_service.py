@@ -155,22 +155,20 @@ class TorchService(Service):
         )
         watchdog.start()
         service.watchdog = watchdog
-        if config.supervise:
+        # A follower rank of a mesh has no supervisor: its lives follow its
+        # leader's (engine/lockstep.follow_lives).
+        if config.supervise and not engine.is_follower:
             device = engine.device
-            # A mesh leader's failure restarts the whole mesh in process
-            # (engine/lockstep.py): its end sends "restart", and the
-            # followers rebuild at the word this factory gives.
-            engine.mesh_restart = engine.mesh is not None and not engine.is_follower
+            # A mesh leader's failure, of any kind, restarts the whole mesh
+            # in process (engine/lockstep.py): every rank starts a new life
+            # at the word this factory says.
+            engine.mesh_restart = engine.mesh is not None
 
             def restart():
                 dead = service.engine
                 if dead.mesh is None:
                     return InferenceEngine(config, device=device, health=health,
                                            logger=logger, reuse=dead._ctor_args)
-                if dead.is_follower:
-                    raise NotImplementedError(
-                        "a follower rank of a mesh is rebuilt at its leader's restart "
-                        "only; a follower's own failure ends the mesh")
                 return lockstep.restart(dead)
 
             factory = engine_factory or restart

@@ -93,19 +93,25 @@ def create_hybrid_mesh(
     if devices is None:
         devices = range(dist.get_world_size() if dist.is_initialized() else 1)
     devices = list(devices)
+    device_array = hybrid_device_array(config, num_slices, devices)
+    if num_slices == 1:
+        return create_mesh(config, devices, device)
+    return build_mesh(device_array, device)
+
+
+def hybrid_device_array(config: MeshConfig, num_slices: int,
+                        devices: Sequence[int]) -> np.ndarray:
+    """`create_hybrid_mesh`'s layout of `devices` (global ranks) in
+    AXIS_NAMES order, without making any group."""
+    devices = list(devices)
     per_slice = config.num_devices
     if per_slice * num_slices != len(devices):
         raise ValueError(
             f"hybrid mesh needs {per_slice} × {num_slices} devices, "
             f"have {len(devices)}"
         )
-    if num_slices == 1:
-        return create_mesh(config, devices, device)
     device_array = np.asarray(devices).reshape((num_slices,) + config.shape)
-    device_array = device_array.reshape(
-        (num_slices * config.dp,) + config.shape[1:]
-    )
-    return build_mesh(device_array, device)
+    return device_array.reshape((num_slices * config.dp,) + config.shape[1:])
 
 
 def mesh_from_env(devices: Optional[Sequence[int]] = None, device=None) -> Optional[Mesh]:

@@ -59,7 +59,10 @@ class Mesh:
     `control`, a serving mesh's gloo group over all its ranks, which
     carries the lock-step records, and `pages`, a second one, which
     carries whole KV pages assembled from the ranks' shards
-    (engine/lockstep.py)."""
+    (engine/lockstep.py). A serving mesh also carries its `key`, the same
+    on all its ranks, and its `life`: the number of times its groups were
+    made anew (engine/lockstep.remake), each life on groups of its own;
+    `timeout_s` bounds each of its gloo groups' collectives."""
 
     devices: np.ndarray
     rank: int
@@ -68,6 +71,9 @@ class Mesh:
     axis_names: tuple = AXIS_NAMES
     control: Optional[object] = None
     pages: Optional[object] = None
+    key: str = ""
+    life: int = 0
+    timeout_s: Optional[float] = None
 
     @property
     def shape(self) -> dict:
@@ -94,11 +100,19 @@ def _lines(devices: np.ndarray, i: int) -> list[list[int]]:
     return [[int(r) for r in line] for line in moved.reshape(-1, moved.shape[-1])]
 
 
-def build_mesh(device_array: np.ndarray, device=None) -> Optional[Mesh]:
+def build_mesh(device_array: np.ndarray, device=None, local: bool = False,
+               timeout=None) -> Optional[Mesh]:
     """The mesh over `device_array` (global ranks in AXIS_NAMES order).
     Every rank of the default group must call it, in the same order as
     every other group it creates: a group is made collectively. Returns
-    None on a rank outside `device_array`."""
+    None on a rank outside `device_array`.
+
+    `local` (a serving mesh, engine/lockstep.py): only the mesh's ranks
+    call it, and each line's group is made by its own ranks alone
+    (`use_local_synchronization`, with `timeout`), one group for each
+    distinct line (the axes of size 1 share this rank's own), never the
+    default group: that one carries the store and every later group, and
+    a serving mesh may give its groups up (engine/lockstep.remake)."""
     if not dist.is_initialized():
         raise RuntimeError(
             "torch.distributed is not initialized: call "
@@ -107,13 +121,23 @@ def build_mesh(device_array: np.ndarray, device=None) -> Optional[Mesh]:
         )
     rank = dist.get_rank()
     world = dist.get_world_size()
-    groups = {}
+    if local and rank not in device_array:
+        return None
+    groups, made = {}, {}
     for i, axis in enumerate(AXIS_NAMES):
         for line in _lines(device_array, i):
             if line != sorted(line):
                 # A group's ranks are numbered in ascending order; the
                 # gathers and exchanges rely on that order being the axis's.
                 raise ValueError(f"ranks along {axis} must increase, got {line}")
+            if local:
+                if rank in line:
+                    key = tuple(line)
+                    if key not in made:
+                        made[key] = dist.new_group(line, timeout=timeout,
+                                                   use_local_synchronization=True)
+                    groups[axis] = made[key]
+                continue
             group = (dist.group.WORLD if sorted(line) == list(range(world))
                      else dist.new_group(line))
             if rank in line:

@@ -2168,3 +2168,75 @@ def test_gathered_moe_equals_the_rank_local_dispatch_on_one_rank(gen):
                 assert torch.equal(got, want), shape
     finally:
         dist.destroy_process_group()
+
+
+# -- a serving mesh's lives over NCCL (engine/lockstep.py) ----------------------
+
+
+def _nccl_life(mesh, gen) -> None:
+    """The life's tp group warmed by an eager sum (which makes its
+    communicator), then a sum captured in a CUDA graph and replayed on new
+    input: over one rank, the input itself."""
+    import torch.distributed as dist
+
+    group = mesh.group("tp")
+    assert group is not dist.group.WORLD and dist.get_backend(group) == "nccl"
+    warm = torch.ones(8, device="cuda")
+    dist.all_reduce(warm, group=group)
+    torch.cuda.synchronize()
+    assert torch.equal(warm, torch.ones(8, device="cuda"))
+    x = torch.zeros(8, device="cuda")
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        dist.all_reduce(x, group=group)
+        y = x * 2
+    want = _randn((8,), gen, torch.float32)
+    x.copy_(want)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want * 2)
+
+
+def test_a_serving_mesh_life_over_nccl_is_aborted_and_remade(gen):
+    """One rank's NCCL serving mesh: its life warmed and captured, then
+    remade (lockstep.remake aborts its communicators and makes the next
+    life's groups): a collective on the aborted group, issued from a
+    thread as an orphan's first call after it wakes, raises within 30 s
+    instead of hanging, and the next life, on new groups of the same
+    geometry and key, warms, captures and replays like the first."""
+    import threading
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from polykey_tpu_torch.engine import lockstep
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.parallel.mesh import single_device_mesh
+
+    single_device_mesh("cuda")
+    try:
+        old = lockstep.serving_mesh(EngineConfig(), device="cuda")
+        _nccl_life(old, gen)
+        fresh = lockstep.remake(old)
+        box = {}
+
+        def orphan():
+            try:
+                dist.all_reduce(torch.ones(1, device="cuda"), group=old.group("tp"))
+                torch.cuda.synchronize()
+                box["got"] = "returned"
+            except Exception as e:
+                box["got"] = type(e).__name__
+
+        thread = threading.Thread(target=orphan, daemon=True)
+        thread.start()
+        thread.join(30)
+        assert not thread.is_alive() and box["got"] != "returned", box
+        assert fresh.life == old.life + 1 and fresh.key == old.key
+        assert np.array_equal(fresh.devices, old.devices) and fresh.device == old.device
+        assert fresh.group("tp") is not old.group("tp")
+        assert fresh.control is not old.control and fresh.pages is not old.pages
+        _nccl_life(fresh, gen)
+    finally:
+        dist.destroy_process_group()

@@ -28,12 +28,13 @@ single-card engine that writes the state dir the mesh's is held to.
   them); a second tp=2 mesh, the JAX engine and the single-card port
   engine each reload one, hit it and serve the JAX engine's streams.
 - **Restart**: a tp=2 mesh whose leader's engine loop crashed before a
-  record of its dispatch went out is rebuilt in process on every rank
-  (the supervisor's factory, lockstep's "restart" record and "rebuild"
-  word); the fresh mesh serves the JAX engine's streams, the followers'
-  decode digests equal the leader's, and health is SERVING. One that
-  failed inside a dispatch whose record went out is refused the restart
-  (A.17): NOT_SERVING, and its follower ends on "shutdown".
+  record of its dispatch went out, and one whose leader failed inside a
+  prefill's dispatch (its record replayed, the follower blocked in its
+  collectives), are restarted in process on every rank (the supervisor's
+  factory, a new life's groups, the "rebuild" word through the store);
+  the fresh mesh serves the JAX engine's streams, the followers' decode
+  digests equal the leader's, and health is SERVING. The other restart
+  kinds are in tests/test_torch_mesh_lives.py.
 - **Handoffs**: the prefill_only export's wire blob (whole pages) against
   the single-card engine's at tp=2 (fp32 and int8 KV) and dp=2, resumed
   on the same mesh to the JAX stream.
@@ -121,7 +122,7 @@ CASES = {
     "replicas-tp2": ("replicas", dict(tp=2, replicas=2), [4, 5], "base"),
     "handoff-tp2": ("handoff", dict(tp=2), [6, 7], "handoff"),
     "handoff-dp2": ("handoff", dict(dp=2), [0, 1], "handoff"),
-    "refused-restart-tp2": ("supervise", dict(tp=2, max_engine_restarts=1), [2, 3], "base"),
+    "restart-inside-tp2": ("supervise", dict(tp=2, max_engine_restarts=1), [2, 3], "base"),
     "state-tp2-int8": ("engine", dict(tp=2), [4, 5], "host-int8"),
     "handoff-tp2-int8": ("handoff", dict(tp=2), [6, 7], "handoff-int8"),
 }
@@ -134,9 +135,11 @@ SINGLE = {"state-tp2": "single", "state-dp2": "single", "state-tp2-int8": "singl
           "handoff-tp2": "handoff", "handoff-dp2": "handoff",
           "handoff-tp2-int8": "handoff-int8"}
 # Where the supervise jobs' leaders fail: before a record of the dispatch
-# went out (restarted), or inside a dispatch whose record was replayed
-# (refused).
-CRASH = {"restart-tp2": "before", "refused-restart-tp2": "inside"}
+# went out, or inside a dispatch whose record was replayed; the latter's
+# follower orphan wakes at its gloo groups' timeout (GROUP_TIMEOUT_S), the
+# idle leader's heartbeats well inside it.
+CRASH = {"restart-tp2": "before", "restart-inside-tp2": "inside"}
+GROUP_TIMEOUT_S = {"restart-inside-tp2": 8.0}
 # The layer alone: name -> (mesh axes, ranks, which of the batch's axes split)
 OPS = {
     "op-dp2": (dict(dp=2), [0, 1], dict(dp=True)),
@@ -241,6 +244,8 @@ def _runs(tmp):
                      "prompts": REFS[ref][1], "sequential": REFS[ref][2],
                      "max_new": MAX_NEW, "victim": VICTIM, "victim_new": VICTIM_NEW,
                      "prompt": HANDOFF_PROMPT, "crash": CRASH.get(name, "before")})
+        if name in GROUP_TIMEOUT_S:
+            jobs[-1].update(group_timeout_s=GROUP_TIMEOUT_S[name], heartbeat_s=1.0)
     for name, (axes, ranks, split) in OPS.items():
         jobs.append({"kind": "moe", "name": name, "devices": ranks, "mesh": axes,
                      "cfg": model_fields[MOE], "params": str(tmp / f"{MOE}.npz"),
@@ -347,30 +352,27 @@ def test_restarted_mesh_serves_the_jax_streams(runs):
     assert int(results[1]["restart-tp2/lives"]) == 2
 
 
-def test_mesh_engine_failed_inside_a_dispatch_is_refused_a_restart(runs):
-    """The leader serves the JAX streams, then fails inside a prefill's
-    dispatch whose record the follower replayed: its end sends "shutdown",
-    the factory refuses the restart (NotImplementedError naming A.17),
-    the supervisor gives up, health stays NOT_SERVING, and the follower
-    ends on "shutdown" after one life instead of waiting for a rebuild."""
-    from polykey_tpu_torch.engine.config import MESH_ITEM
-    from polykey_tpu_torch.gateway.health import NOT_SERVING
-
+def test_mesh_engine_failed_inside_a_dispatch_restarts(runs):
+    """The leader serves the JAX streams, then the prefill-error point
+    fires inside a prefill's dispatch whose record the follower replayed
+    (the follower blocked in its collectives): the supervisor restarts the
+    mesh once, the follower starts its second life beside its orphan,
+    health is NOT_SERVING and then SERVING again, the flight recorder and
+    the restart counter hold the restart, and the fresh mesh serves the
+    JAX engine's streams."""
     results = runs["results"]
-    name = "refused-restart-tp2"
+    name = "restart-inside-tp2"
     got = _leader(results, name)
-    assert got["tokens"].tolist() == runs["refs"]["base"]
+    assert "injected fault: prefill-error" in str(got["error"]), str(got["error"])
+    assert int(got["restarts"]) == 1 and not bool(got["gave_up"])
+    assert int(got["status"]) == SERVING and int(got["life"]) == 1
+    assert json.loads(str(got["transitions"])) == ["NOT_SERVING", "SERVING"]
+    assert "engine_restart" in json.loads(str(got["events"]))
+    assert str(got["restarts_total"]).endswith(" 1")
     assert list(got["errors"]) == [""] * len(PROMPTS)
-    assert "injected failure inside a dispatch" in str(got["error"])
-    assert str(got["closed_with"]) == "shutdown"
-    assert int(got["restarts"]) == 0 and bool(got["gave_up"])
-    assert int(got["status"]) == NOT_SERVING
-    refusals = json.loads(str(got["refusals"]))
-    assert refusals and all("failed inside a dispatch" in r and MESH_ITEM in r
-                            for r in refusals), refusals
+    assert got["tokens"].tolist() == runs["refs"]["base"]
     follower = results[CASES[name][2][1]]
-    assert int(follower[f"{name}/lives"]) == 1
-    assert str(follower[f"{name}/ended_with"]) == "shutdown"
+    assert int(follower[f"{name}/lives"]) == 2
     assert str(follower[f"{name}/error"]) == ""
 
 

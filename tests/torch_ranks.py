@@ -22,6 +22,7 @@ import json
 import os
 import time
 import traceback
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -91,15 +92,29 @@ def config_fields(cfg) -> dict:
 def _mesh_for(job):
     from polykey_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 
-    if job["kind"] in ("engine", "supervise", "replicas", "handoff"):
+    if job["kind"] in ("engine", "supervise", "replicas", "handoff", "replica_restart"):
         from polykey_tpu_torch.engine.config import EngineConfig
         from polykey_tpu_torch.engine.lockstep import serving_mesh
 
         config = EngineConfig(**job["config"])
+        timeout_s = job.get("group_timeout_s")
         if job["kind"] == "replicas":        # a mesh of its own for each replica
-            meshes = [serving_mesh(config, job["devices"]) for _ in range(config.replicas)]
+            meshes = [serving_mesh(config, job["devices"], timeout_s=timeout_s)
+                      for _ in range(config.replicas)]
             return None if meshes[0] is None else meshes
-        return serving_mesh(config, job["devices"])
+        if job["kind"] == "replica_restart":  # each replica's mesh over its own ranks
+            meshes = [serving_mesh(config, ranks, timeout_s=timeout_s)
+                      for ranks in job["replica_ranks"]]
+            return None if all(m is None for m in meshes) else meshes
+        return serving_mesh(config, job["devices"], timeout_s=timeout_s)
+    if job["kind"] == "mesh_groups":
+        from polykey_tpu_torch.engine.config import EngineConfig
+        from polykey_tpu_torch.engine.lockstep import serving_mesh
+
+        axes = job["mesh"]
+        serving = serving_mesh(EngineConfig(**axes), job["devices"])
+        training = create_mesh(MeshConfig(**axes), job["devices"])
+        return None if serving is None else (serving, training)
     return create_mesh(MeshConfig(**job["mesh"]), job["devices"])
 
 
@@ -365,104 +380,307 @@ def job_engine(job, mesh):
     return out
 
 
-def _serve_prompts(engine, prompts, max_new, timeout=120):
+def _serve_prompts(engine, prompts, max_new, timeout=120, sequential=False):
     from polykey_tpu_torch.engine.engine import GenRequest
 
     requests = [GenRequest(prompt=p, max_new_tokens=max_new) for p in prompts]
     for r in requests:
-        engine.submit(r)
+        if not sequential:
+            engine.submit(r)
     streams, errors = [], []
     for r in requests:
+        if sequential:
+            engine.submit(r)
         tokens, error = _collect(r, timeout)
         streams.append(tokens + [-1] * (max_new - len(tokens)))
         errors.append(error)
     return streams, errors
 
 
-def job_supervise(job, mesh):
-    """A mesh engine behind TorchService.create, its leader's engine loop
-    crashed by an injected failure. With `crash` "before" (the default)
-    the failure comes before any record of its dispatch went out: the
-    supervisor restarts the mesh in process, and the leader returns the
-    crashed request's error, the restarts, the health after them and the
-    streams of `prompts` served by the fresh engine. With "inside" the
-    leader first serves `prompts`, then fails inside a prefill's dispatch
-    (its record sent and replayed): the factory refuses the restart, and
-    the leader returns the refusals it logged and the health after the
-    supervisor gave up. Every rank returns its last engine's decode
-    tokens' digest; a follower follows its lives (lockstep.follow_lives)
-    and returns how many it had and the record that ended the last."""
-    import io
-    import json
+def _health_log():
+    """A HealthService, SERVING, that records its transitions."""
+    from polykey_tpu_torch.gateway import health as hs
 
+    class HealthLog(hs.HealthService):
+        def __init__(self):
+            super().__init__()
+            self.transitions = []
+            self.set_serving_status("", hs.SERVING)
+
+        def shutdown(self):
+            self.transitions.append("NOT_SERVING")
+            super().shutdown()
+
+        def resume_serving(self):
+            self.transitions.append("SERVING")
+            super().resume_serving()
+
+    return HealthLog()
+
+
+def _await(predicate, timeout: float) -> bool:
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.02)
+    return True
+
+
+def _group_count() -> int:
+    from torch.distributed import distributed_c10d
+
+    return len(distributed_c10d._world.pg_names)
+
+
+def _follow_lives(engine, job):
+    """A follower's lives (lockstep.follow_lives) until its leader's end,
+    within the job's timeout: returns the last engine and how many lives it
+    had; `stall` arms the step-stall point on this rank first, and
+    `kill_after` makes this rank exit at its Nth decode record."""
+    from polykey_tpu_torch import faults
+    from polykey_tpu_torch.engine import lockstep
+
+    rank = engine.mesh.rank
+    stall = job.get("stall")
+    if stall is not None and rank in stall[0]:
+        engine._faults = faults.install(f"step-stall={stall[1]}@1")
+    kill = job.get("kill_after")
+    if kill is not None and kill[0] == rank:
+        replay, seen = engine._replay, [0]
+
+        def dying(record):
+            seen[0] += record.kind == "decode"
+            if seen[0] >= kill[1]:
+                os._exit(3)
+            replay(record)
+
+        engine._replay = dying
+    lives = [1]
+    deadline = time.monotonic() + job.get("timeout", 120)
+
+    def fresh(_engine):
+        lives[0] += 1
+
+    try:
+        engine = lockstep.follow_lives(engine, lambda: time.monotonic() > deadline, fresh)
+    finally:
+        faults.clear()
+    if not engine.join(0):
+        raise RuntimeError("the follower was not shut down by its leader")
+    return engine, lives[0]
+
+
+def _dispatch_records(engine) -> int:
+    """The records a mesh leader has sent, heartbeats aside."""
+    by_kind = engine.stats()["mesh"].get("records_by_kind", {})
+    return sum(n for kind, n in by_kind.items() if kind != "heartbeat")
+
+
+def job_supervise(job, mesh):
+    """A mesh engine behind TorchService.create (with an Observability
+    bundle), its leader's engine failed on purpose, as `crash` says:
+    "before" (the default), the engine loop fails before a record of its
+    dispatch went out; "inside", the leader serves `prompts`, then the
+    prefill-error point fires inside a prefill's dispatch (its record
+    replayed by the followers, which block in its collectives); "stall",
+    the follower ranks `stall[0]` sleep `stall[1]` s at their first decode
+    replay (the step-stall point), so the leader wedges in the decode's
+    collectives and its watchdog (`watchdog_timeout_s`) trips; "lost",
+    follower `kill_after[0]` exits at its `kill_after[1]`th decode record.
+    The supervisor restarts the mesh in process (a new life on every rank)
+    or, when a rank is lost, gives up. The leader returns the failed
+    request's error, the restarts, the health after them and its
+    transitions, the flight recorder's event kinds, the restart counter's
+    exposition line, the factory's failures it logged and the streams of
+    `prompts` served by the fresh engine (each one after another with
+    `sequential`); after a stall also the fresh engine's records before
+    and after its orphan is reaped and the streams served after the reap;
+    with a state dir, a copy of it as the fresh engine reloaded it
+    (`snapshot`) and its reload and hit counts. Every rank returns its
+    last engine's decode tokens' digest; a follower follows its lives and
+    returns how many it had and how many orphans it reaped."""
+    import io
+    import shutil
+
+    from polykey_tpu_torch import faults
     from polykey_tpu_torch.engine import lockstep
     from polykey_tpu_torch.engine.engine import GenRequest
-    from polykey_tpu_torch.gateway import health as hs
     from polykey_tpu_torch.gateway.jsonlog import Logger
     from polykey_tpu_torch.gateway.torch_service import TorchService
+    from polykey_tpu_torch.obs import Observability
 
-    health = hs.HealthService()
-    health.set_serving_status("", hs.SERVING)
+    if job.get("heartbeat_s"):
+        lockstep.HEARTBEAT_S = job["heartbeat_s"]
+    if job.get("remake_timeout_s"):
+        lockstep.REMAKE_TIMEOUT_S = job["remake_timeout_s"]
+    health = _health_log()
     engine = _engine(job, mesh, health=health)
-    inside = job.get("crash", "before") == "inside"
+    crash = job.get("crash", "before")
     if engine.is_follower:
-        lives = [1]
-        deadline = time.monotonic() + job.get("timeout", 120)
-
-        def fresh(_engine):
-            lives[0] += 1
-
-        engine = lockstep.follow_lives(engine, lambda: time.monotonic() > deadline, fresh)
-        if not engine.join(0):
-            raise RuntimeError("the follower was not shut down by its leader")
-        out = {"lives": np.asarray(lives[0]), "error": np.asarray(engine.dead or ""),
+        engine, lives = _follow_lives(engine, job)
+        out = {"lives": np.asarray(lives), "error": np.asarray(engine.dead or ""),
                "ended_with": np.asarray("restart" if engine.restart_requested
                                         else "shutdown")}
     else:
-        log = io.StringIO()
-        service = TorchService.create(engine, health=health, logger=Logger(log))
-        streams, errors = [], []
+        log, obs = io.StringIO(), Observability()
+        service = TorchService.create(engine, health=health, logger=Logger(log), obs=obs)
+        supervisor = service.supervisor
+        supervisor.check_interval_s = service.watchdog.check_interval_s = 0.05
+        supervisor.join_timeout_s = job.get("join_timeout_s", supervisor.join_timeout_s)
+        serve = partial(_serve_prompts, prompts=job["prompts"], max_new=job["max_new"],
+                        sequential=job.get("sequential", False))
+        streams, errors, out = [], [], {}
         try:
-            if inside:
-                streams, errors = _serve_prompts(engine, job["prompts"], job["max_new"])
-                dispatch = engine._prefill_dispatch
-
-                def crash(*args):
-                    dispatch(*args)             # the followers replay it whole
-                    raise RuntimeError("injected failure inside a dispatch")
-
-                engine._prefill_dispatch = crash
-            else:
-                def crash():
+            if crash == "inside":
+                streams, errors = serve(engine)
+                engine._faults = faults.install("prefill-error@1")
+            elif crash == "before":
+                def fail():
                     raise RuntimeError("injected dispatch failure")
 
-                engine._dispatch_step = crash
+                engine._dispatch_step = fail
+            t0 = time.monotonic()
             request = GenRequest(prompt="crash", max_new_tokens=4)
             engine.submit(request)
             _, error = _collect(request, 30)
-            deadline = time.monotonic() + 60
-            while service.supervisor.restarts < 1 and not service.supervisor.gave_up \
-                    and time.monotonic() < deadline:
-                time.sleep(0.05)
-            restarted = service.engine is not engine
-            if restarted:
-                streams, errors = _serve_prompts(service.engine, job["prompts"],
-                                                 job["max_new"])
+            _await(lambda: supervisor.restarts >= 1 or supervisor.gave_up, 60)
+            out["ended_s"] = np.asarray(time.monotonic() - t0)
+            fresh = service.engine
+            if fresh is not engine:
+                if "kv_state_dir" in job["config"]:
+                    shutil.copytree(job["config"]["kv_state_dir"], job["snapshot"])
+                    out["reloaded"] = np.asarray(fresh.stats()["kv_reloaded_pages"])
+                streams, errors = serve(fresh)
+                out["life"] = np.asarray(fresh.mesh.life)
+                snap = fresh.stats()
+                out.update({k: np.asarray(snap.get(k, 0)) for k in PAGE_COUNTS})
+                if crash == "stall":
+                    before = _dispatch_records(fresh)
+                    out["reaped"] = np.asarray(_await(lambda: not supervisor.orphans, 60))
+                    out["records"] = np.asarray([before, _dispatch_records(fresh)])
+                    out["status_after_reap"] = np.asarray(health._statuses[""])
+                    again, again_errors = serve(fresh)
+                    out.update(again=np.asarray(again), again_errors=np.asarray(again_errors))
             status = health._statuses[""]
         finally:
             service.close()
-        refusals = [r.get("error", "") for r in map(json.loads, log.getvalue().splitlines())
+            faults.clear()
+        failures = [r.get("error", "") for r in map(json.loads, log.getvalue().splitlines())
                     if r.get("msg") == "engine restart failed; will retry"]
+        page = obs.registry.render()
         engine = service.engine
-        out = {"error": np.asarray(error), "gave_up": np.asarray(service.supervisor.gave_up),
-               "restarts": np.asarray(service.supervisor.restarts),
-               "status": np.asarray(status), "tokens": np.asarray(streams),
-               "errors": np.asarray(errors), "refusals": np.asarray(json.dumps(refusals)),
-               "closed_with": np.asarray(str(getattr(engine, "closed_with", "")))}
+        out.update(error=np.asarray(error), gave_up=np.asarray(supervisor.gave_up),
+                   restarts=np.asarray(supervisor.restarts),
+                   status=np.asarray(status), tokens=np.asarray(streams),
+                   errors=np.asarray(errors), failures=np.asarray(json.dumps(failures)),
+                   transitions=np.asarray(json.dumps(health.transitions)),
+                   events=np.asarray(json.dumps([e["kind"] for e in obs.recorder.events()])),
+                   restarts_total=np.asarray("\n".join(
+                       line for line in page.splitlines()
+                       if line.startswith("polykey_engine_restarts_total"))),
+                   closed_with=np.asarray(str(engine.closed_with)))
     stats = engine.stats()["mesh"]
     out.update(digest=np.asarray(stats.get("tokens_digest", "")),
                blocks=np.asarray(stats.get("decode_blocks_hashed", 0)),
                role=np.asarray(stats["role"]))
+    return out
+
+
+def job_replica_restart(job, meshes):
+    """Two replicas, each over a mesh of its own ranks with the same leader
+    (`replica_ranks`, e.g. [[0, 1], [0, 2]]): the leader's ReplicaPool
+    serves `prompts`; then replica 0's prefill-error point fires inside a
+    prefill's dispatch and its mesh restarts, while the pool serves
+    `prompts` on replica 1; once replica 0 serves again the pool serves
+    `prompts` once more. The leader returns the three rounds' streams, both
+    replicas' restarts and replica 1's states seen meanwhile, and the
+    pool's health transitions; every rank the groups it made during the
+    job; a follower its lives."""
+    from polykey_tpu_torch import faults
+    from polykey_tpu_torch.engine.config import EngineConfig
+    from polykey_tpu_torch.engine.engine import GenRequest, InferenceEngine
+    from polykey_tpu_torch.engine.replica_pool import SERVING, ReplicaPool
+    from polykey_tpu_torch.models.config import MODEL_REGISTRY
+    from polykey_tpu_torch.models.interop import params_from_numpy
+
+    cfg = model_config(job["model"])
+    MODEL_REGISTRY[cfg.name] = cfg
+    config = EngineConfig(**job["config"])
+    params = params_from_numpy(load_tree(job["params"]))
+    groups = _group_count()
+    mine = [i for i, m in enumerate(meshes) if m is not None]
+    out = {}
+    if meshes[0] is not None and meshes[1] is not None:       # the leader of both
+        health = _health_log()
+        pool = ReplicaPool.create(config, health=health, device="cpu", params=params,
+                                  meshes=meshes, supervisor_interval_s=0.05)
+        try:
+            first, first_errors = _serve_prompts(pool, job["prompts"], job["max_new"])
+            rep0, rep1 = pool.replicas
+            rep0.engine._faults = faults.install("prefill-error@1:replica=0")
+            victim = GenRequest(prompt="crash", max_new_tokens=4)
+            rep0.engine.submit(victim)
+            _, error = _collect(victim, 30)
+            states = []
+            during, during_errors = _serve_prompts(pool, job["prompts"], job["max_new"])
+            states.append(rep1.state)
+            _await(lambda: rep0.supervisor.restarts >= 1 and rep0.state == SERVING, 60)
+            states.append(rep1.state)
+            after, after_errors = _serve_prompts(pool, job["prompts"], job["max_new"])
+            out.update(first=np.asarray(first), during=np.asarray(during),
+                       after=np.asarray(after), error=np.asarray(error),
+                       errors=np.asarray(first_errors + during_errors + after_errors),
+                       restarts=np.asarray([rep0.supervisor.restarts,
+                                            rep1.supervisor.restarts]),
+                       states=np.asarray(states), state0=np.asarray(rep0.state),
+                       life=np.asarray([rep0.engine.mesh.life, rep1.engine.mesh.life]),
+                       transitions=np.asarray(json.dumps(health.transitions)))
+        finally:
+            pool.shutdown()
+            faults.clear()
+        out["role"] = np.asarray("leader")
+    else:
+        (i,) = mine
+        engine = InferenceEngine(dataclasses.replace(config, replica=i), params=params,
+                                 device="cpu", mesh=meshes[i])
+        engine, lives = _follow_lives(engine, job)
+        out.update(lives=np.asarray(lives), error=np.asarray(engine.dead or ""),
+                   replica=np.asarray(i), role=np.asarray("follower"))
+    out["groups_made"] = np.asarray(_group_count() - groups)
+    return out
+
+
+def job_mesh_groups(job, meshes):
+    """A serving mesh and a training mesh of the same axes over the job's
+    ranks, and the serving mesh's next life (lockstep.remake, on every
+    rank): their geometry, which of their groups is the default group,
+    whether the next life's groups are new, and a sum over the next
+    life's groups of each axis."""
+    import torch
+    import torch.distributed as dist
+
+    from polykey_tpu_torch.engine import lockstep
+    from polykey_tpu_torch.parallel.collectives import all_reduce
+
+    serving, training = meshes
+    fresh = lockstep.remake(serving)
+    world = dist.group.WORLD
+    out = {}
+    for name, mesh in (("serving", serving), ("training", training), ("fresh", fresh)):
+        groups = list(mesh.groups.values()) + [g for g in (mesh.control, mesh.pages)
+                                               if g is not None]
+        out[f"{name}/devices"] = mesh.devices
+        out[f"{name}/world_groups"] = np.asarray(sum(g is world for g in groups))
+    out["same"] = np.asarray([
+        np.array_equal(fresh.devices, serving.devices), fresh.rank == serving.rank,
+        fresh.device == serving.device, fresh.key == serving.key,
+        fresh.life == serving.life + 1])
+    old = {id(g) for g in list(serving.groups.values()) + [serving.control, serving.pages]}
+    new = list(fresh.groups.values()) + [fresh.control, fresh.pages]
+    out["shared_groups"] = np.asarray(sum(id(g) in old for g in new))
+    out["sums"] = np.asarray([float(all_reduce(torch.tensor(float(dist.get_rank())), fresh,
+                                               axis)) for axis in fresh.axis_names])
     return out
 
 
@@ -646,7 +864,8 @@ def _grad_tree(node):
 JOBS = {"bootstrap": job_bootstrap, "forward": job_forward, "attention": job_attention,
         "pipeline": job_pipeline, "train": job_train, "engine": job_engine,
         "supervise": job_supervise, "refusals": job_refusals, "moe": job_moe,
-        "replicas": job_replicas, "handoff": job_handoff}
+        "replicas": job_replicas, "handoff": job_handoff,
+        "replica_restart": job_replica_restart, "mesh_groups": job_mesh_groups}
 
 
 # -- processes ---------------------------------------------------------------
