@@ -348,12 +348,15 @@ schedlint: ## Scheduler liveness & fairness contract analysis (stdlib-only)
 
 # The four stdlib-only analyzer tiers over the PyTorch/CUDA port, with no
 # baseline: every finding is fixed or carries a line-comment suppression
-# with its reason, so the gate is zero blocking findings.
-port-lint: ## polylint, racelint, memlint and schedlint over polykey_tpu_torch
+# with its reason, so the gate is zero blocking findings. Then the port's
+# own graphlint (polykey_tpu_torch/analysis/graph.py) over its CPU engines,
+# against torch-graphlint-baseline.json (each entry with its reason).
+port-lint: ## polylint, racelint, memlint, schedlint and the port's graphlint over polykey_tpu_torch
 	$(PYTHON) -m polykey_tpu.analysis polykey_tpu_torch --no-baseline
 	$(PYTHON) -m polykey_tpu.analysis race polykey_tpu_torch --no-baseline
 	$(PYTHON) -m polykey_tpu.analysis mem polykey_tpu_torch --no-baseline
 	$(PYTHON) -m polykey_tpu.analysis sched polykey_tpu_torch --no-baseline
+	$(PYTHON) -m polykey_tpu_torch.analysis graph
 
 ASAN_FLAGS := -g -O1 -fsanitize=address,undefined -fno-omit-frame-pointer
 

@@ -410,6 +410,28 @@ torch.cuda.synchronize(); any failure ends the run with a non-zero exit:
             weights), the fresh engine serves on the same weight tensors,
             and the peak memory allocated during the restart is printed.
 
+18. graphlint: last, with nothing else on the card (so its engines' capture
+            streams and their cuBLAS workspaces come after every other
+            phase's): the port's graphlint
+            (polykey_tpu_torch/analysis/graph.py) with device="cuda" over
+            its five engine modes (plain, spec, ragged, spec x ragged, host
+            KV), each a single-card engine of MESH_FEATURE_LAYERS (4) of
+            Llama-3-8B's layers at full width, bf16 weights drawn on the
+            card from --seed (one set shared; the spec engines draft with
+            the target itself), GRAPHLINT_CONFIG's geometry (4 slots, pages
+            of 16, buckets 128 and 256, so flash serves the bucketed
+            prefills). GL001 on the real captures: no capture after start,
+            every replay's key captured, no kernel built; GL002 on the
+            captured addresses and the graph pool's bytes; GL003 on one
+            dispatch of each step; GL004 under
+            torch.cuda.set_sync_debug_mode("error") and the host-sync guard,
+            one engine at a time; GL005 abstract. Any finding outside the
+            committed baseline (torch-graphlint-baseline.json) fails the
+            run. It prints per engine the graphs captured and replayed, the
+            crossing census by site and the guard's trips (0), each
+            kernel's launches in the sweeps (flash, bf16 decode, the bf16
+            write and bf16 ragged must be above 0) and the phase's wall.
+
 The summary grades each serve request against the card's roofline
 (engine/roofline.py: detect_chip must give the H100 SXM's spec): its
 decode MBU (one lane's stream: the weights and its KV read once a token)
@@ -2688,6 +2710,92 @@ def _cut_depth(params, layers: int, model: str = "llama-3-8b") -> tuple:
     cfg = replace(get_config(model), name=f"{model}-{layers}l", num_layers=layers)
     MODEL_REGISTRY[cfg.name] = cfg
     return cfg.name, dict(params, layers=params["layers"][:layers])
+
+
+# Phase 18's engine geometry (analysis/graph.py GraphEnv's "full" profile
+# with the card's page size and buckets wide enough for flash).
+GRAPHLINT_CONFIG = dict(page_size=16, num_pages=160, max_seq_len=512,
+                        prefill_buckets=(128, 256))
+GRAPHLINT_KERNELS = ("flash_attention", "paged_attention_decode", "paged_write",
+                     "ragged_paged_attention")
+
+
+def phase_graphlint(seed: int, card: str) -> dict:
+    """The port's graphlint on the card (module docstring, phase 18).
+    Returns the sweeps' kernel launches ("launches")."""
+    from pathlib import Path
+
+    from polykey_tpu_torch.analysis import graph
+    from polykey_tpu_torch.analysis.core import apply_baseline, load_baseline
+    from polykey_tpu_torch.engine.engine import KERNELS
+
+    from polykey_tpu_torch.engine.host_guard import HostSyncGuard, HostSyncTrip
+    from polykey_tpu_torch.models.config import MODEL_REGISTRY, get_config
+    from polykey_tpu_torch.models.transformer import init_params
+
+    phase = "graphlint"
+    t0 = time.monotonic()
+    # The guard's teeth on the card: a host read trips it; the sync debug
+    # mode it sets raises on a stream wait that no dispatch mode sees.
+    teeth: list = []
+    with contextlib.suppress(HostSyncTrip), HostSyncGuard(teeth, sync_debug=True):
+        torch.ones(1, device="cuda").sum().item()
+    check(len(teeth) == 1, f"the host-sync guard let .item() on the card pass: {teeth}")
+    try:
+        with HostSyncGuard(sync_debug=True):
+            torch.cuda.current_stream().synchronize()
+        sync_teeth = "did not raise"
+    except RuntimeError as e:
+        sync_teeth = f"raised ({str(e).splitlines()[0][:120]})"
+    say(phase, f"guard teeth: .item() tripped it ({teeth[0]}); under sync debug mode "
+        f"\"error\" a stream synchronize {sync_teeth}")
+    check(sync_teeth.startswith("raised") and "synchroniz" in sync_teeth,
+          f"the sync debug mode \"error\" is not in effect: a stream synchronize "
+          f"{sync_teeth}")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "the host-sync guard left the sync debug mode set")
+    cfg = replace(get_config("llama-3-8b"), name=f"llama-3-8b-{MESH_FEATURE_LAYERS}l",
+                  num_layers=MESH_FEATURE_LAYERS)
+    MODEL_REGISTRY[cfg.name] = cfg
+    params = init_params(cfg, torch.bfloat16, "cuda",
+                         torch.Generator(device="cuda").manual_seed(seed))
+    env = graph.GraphEnv(device="cuda", model=cfg.name, params=params, dtype="bfloat16",
+                         overrides=GRAPHLINT_CONFIG)
+    try:
+        findings, env = graph.run_graph_checks(env)
+        pools = {label: engine._graphs.pool_bytes for label, engine in env.engines()}
+    finally:
+        env.close()
+    for line in env.logs:
+        say(phase, line)
+    baseline = load_baseline(Path(__file__).resolve().parent / graph.GRAPH_BASELINE)
+    findings, _ = apply_baseline(findings, baseline)
+    for f in findings:
+        say(phase, ("BLOCKING " if f.blocking else "baselined ") + f.render())
+    for label, pool in pools.items():
+        census = dict(env.census.get(label, {}))
+        crossings = census.pop("crossings", None)
+        keys = ", ".join(f"{body} {c['keys']}" for body, c in sorted(census.items()))
+        trips = sum(t.startswith(label + ":") for t in env.trips)
+        start = sum(c["keys"] for c in census.values())
+        after = sum(c["captures"] for c in census.values())
+        check(start == after and start > 0,
+              f"{label}: {start} graphs captured at start, {after} after the sweeps")
+        say(phase, f"{label}: {start} graphs captured at start ({keys}), {after} after "
+            f"the sweeps; replays in the sweeps "
+            f"{sum(c['replays'] for c in census.values())}; graph pool "
+            f"{pool / 2**20:.1f} MiB; crossing census {crossings}; guard trips {trips}")
+    launches = {k: env.sweep_launches[k] for k in KERNELS}
+    say(phase, f"kernel launches in the sweeps {launches}")
+    say(phase, f"wall {time.monotonic() - t0:.1f} s (5 engines of {MESH_FEATURE_LAYERS} "
+        f"layers: captures, three guarded or watched sweeps each at depths 1 and 2, "
+        f"one dispatch of each step, the abstract contracts) on {card}")
+    blocking = [f for f in findings if f.blocking]
+    check(not blocking, f"graphlint: {len(blocking)} blocking finding(s)")
+    check(not env.trips, f"graphlint: guard trips {env.trips}")
+    check(all(launches[k] > 0 for k in GRAPHLINT_KERNELS),
+          f"graphlint: a kernel of the sweeps launched 0 times: {launches}")
+    return {"launches": launches}
 
 
 def _one_at_a_time(config, params, seed: int, prompts: list, max_new: int = 32) -> list:
@@ -5296,7 +5404,7 @@ def phase_serve_gemma(seed: int, card: str) -> None:
             counts = {name: k.launches for name, k in KERNELS.items()}
             ran = {n for n, c in counts.items() if c}
             check(ran == set(BUCKETED), f"{phase}: launched {counts}, not {BUCKETED} alone")
-            check(engine._graphs.eager["decode"] == 0 and engine.stats()["prefill_eager"] == 0,
+            check(engine._graphs.eager_calls("decode") == 0 and engine.stats()["prefill_eager"] == 0,
                   f"{phase}: an eager decode block or prefill: {dict(engine._graphs.eager)}")
             _gemma_restart(grpc, engine.params, tcfg, engine.tokenizer, texts, card)
             return texts, engine.tokenizer
@@ -5386,7 +5494,7 @@ def phase_serve_gemma(seed: int, card: str) -> None:
             check(st["spec_graph_replays"] > 0 and st["spec_eager"] == 0,
                   f"{phase}: {st['spec_graph_replays']} round replays, "
                   f"{st['spec_eager']} eager")
-            check(st["prefill_eager"] == 0 and engine._graphs.eager["decode"] == 0,
+            check(st["prefill_eager"] == 0 and engine._graphs.eager_calls("decode") == 0,
                   f"{phase}: an eager prefill or block: {dict(engine._graphs.eager)}")
             check(counts["paged_attention_decode"] > 0 and counts["paged_write"] > 0,
                   f"{phase}: the decode or write kernel did not launch: {counts}")
@@ -5599,6 +5707,11 @@ def main() -> int:
     done("phase_serve_gemma")
     gc.collect()
     torch.cuda.empty_cache()
+    lint = phase_graphlint(args.seed, dev["smi"])
+    sync()
+    done("phase_graphlint")
+    gc.collect()
+    torch.cuda.empty_cache()
     from polykey_tpu_torch.engine.roofline import CHIP_SPECS, detect_chip, grade
 
     chip = detect_chip()
@@ -5655,6 +5768,7 @@ def main() -> int:
     say("mesh", f"disagg sub-phase: kernel launches by worker {mesh_disagg} on {dev['smi']}")
     for sub, counts in features["launches"].items():
         say("mesh", f"{sub} sub-phase: kernel launches {counts} on {dev['smi']}")
+    say("graphlint", f"kernel launches in the sweeps {lint['launches']} on {dev['smi']}")
     say("train", f"kernel launches {train['launches']}; step {train['step_ms']:.1f} ms "
         f"(median), peak {train['peak_gib']:.2f} GiB on {dev['smi']}")
     say("replicas", f"kernel launches {replicas['launches']}; trip to SERVING "

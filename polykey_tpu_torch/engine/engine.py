@@ -197,12 +197,22 @@ GPU (the reference's engine/engine.py, default path).
   follower's decode dispatch takes the step-stall point. Without a group
   the engine is the single-card one, with no collective.
 
+- Host crossings (the reference's census): every deliberate crossing of
+  the serving loop (a resolve point's wait and read, a copy to pinned
+  memory, an upload of host-built operands, the merge's and retire's
+  scalar writes, the host tier's gathers and restores) sits in a
+  `_host_crossing(site)` scope, counted in `CROSSING_CENSUS`. graphlint
+  (analysis/graph.py) runs the loop under a host-sync guard entered
+  through `loop_guard` on the engine thread, and holds the sites each
+  mode fires to the reference's table.
+
 Not ported yet (ROADMAP.md queue A): a CUDA graph of the ragged
 dispatch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -241,7 +251,7 @@ from ..ops import (
 )
 from ..ops.ragged_paged_attention_kernel import TOKEN_TILE, ragged_work
 from .config import EngineConfig
-from . import lockstep
+from . import host_guard, lockstep
 from .graphs import CAPTURE_LOCK, CudaGraphs
 from .kv_cache import (
     AllocationError,
@@ -290,6 +300,34 @@ KERNELS = {
     "paged_write_int8": paged_write_kernel.KERNEL_INT8,
     "ragged_paged_attention_int8": ragged_paged_attention_kernel.KERNEL_INT8,
 }
+
+# Sanctioned-crossing census (the reference's engine/engine.py): every
+# `_host_crossing` scope names its site and counts here, so graphlint's
+# GL004 (analysis/graph.py SANCTIONED_CROSSINGS) pins the SET of crossing
+# sites a serving sweep fires per engine mode. Engine-thread writes only;
+# GL004 reads the deltas around its guarded drive.
+CROSSING_CENSUS: dict = {}
+_NO_GUARD = contextlib.nullcontext()
+
+
+def _host_crossing(site: str = "unlabeled"):
+    """A deliberate host<->device crossing: a resolve point's wait and read
+    of a landed copy, the start of a copy to pinned memory, an upload of
+    host-built operands, the lane merge's and retire's scalar writes into
+    the lane buffers (on the card a Python scalar goes up as a CPU tensor),
+    the host tier's gathers and restores. graphlint's GL004 sweeps the
+    serving loop under `host_guard.HostSyncGuard`; these scopes mark the
+    sanctioned crossings, so a NEW host read or device copy in the loop
+    trips the guard there instead of shipping silently.
+
+    `site` labels the crossing for the census above, by the reference's
+    names where the reference has the site. Fast path: with no guard open
+    in the process (every run but graphlint's) the scope is its count and
+    one test, a shared no-op context."""
+    CROSSING_CENSUS[site] = CROSSING_CENSUS.get(site, 0) + 1
+    if not host_guard.OPEN:
+        return _NO_GUARD
+    return host_guard.sanctioned()
 
 
 @dataclass
@@ -1163,6 +1201,10 @@ class InferenceEngine:
                 (self._gamma_low, self._gamma_max), config.top_p_candidates))
         self._graphs = CudaGraphs(self.device, bodies)
 
+        # A context factory the loop enters around each iteration, on the
+        # engine thread (graphlint's host-sync guard and pool watch,
+        # analysis/graph.py): dispatch modes are per thread. None serving.
+        self.loop_guard = None
         self._submit: queue.Queue[GenRequest] = queue.Queue()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -1411,7 +1453,7 @@ class InferenceEngine:
             "decode_graph_replays": self._graphs.replays["decode"],
             "prefill_graph_captures": self._graphs.captures["prefill"],
             "prefill_graph_replays": self._graphs.replays["prefill"],
-            "prefill_eager": self._graphs.eager["prefill"],
+            "prefill_eager": self._graphs.eager_calls("prefill"),
             "graph_pool_bytes": self._graphs.pool_bytes,
             "graph_capture_s": round(self._graphs.capture_seconds, 3),
             "graph_pool_bytes_by_body": dict(self._graphs.pool_bytes_after),
@@ -1494,7 +1536,7 @@ class InferenceEngine:
             "spec_accept_ewma": round(self._accept_ewma, 4),
             "spec_graph_captures": self._graphs.captures["spec"],
             "spec_graph_replays": self._graphs.replays["spec"],
-            "spec_eager": self._graphs.eager["spec"],
+            "spec_eager": self._graphs.eager_calls("spec"),
             "spec_rounds": self._spec_rounds,
             "spec_lane_rounds": self._spec_lane_rounds,
             "spec_tokens": self._spec_tokens,
@@ -1695,81 +1737,91 @@ class InferenceEngine:
             self._started.set()     # also when the capture failed
 
     def _serve(self) -> None:
-        """The engine loop (the leader's, over a mesh)."""
+        """The engine loop (the leader's, over a mesh): one iteration at a
+        time, each inside `loop_guard()` when it is set."""
         while not self._stop.is_set():
-            if self.dead is not None:
-                break       # the watchdog tripped while we were out
-            # With live decode lanes, admissions and chunks share
-            # the per-iteration prefill budget; with none there is
-            # no stream to stall and the budget is waived.
-            decode_live = bool(self._active.any())
-            budget = self._prefill_budget if decode_live else None
-            worked, spent = self._admit(budget)
-            if self.dead is not None:
-                break       # tripped while this iteration ran
-            # Restore frontier: faulting slots' host pages go back
-            # to the device ahead of this iteration's dispatches.
-            if self._host_kv is not None and self._issue_restores():
-                worked = True
-            if not self._ragged:
-                remaining = None if budget is None else max(0, budget - spent)
-                chunked = self._advance_chunked_prefills(remaining)
-                worked = worked or chunked > 0
-                self.metrics.on_prefill_interleave(spent + chunked, decode_live)
-            if self.dead is not None:
+            guard = self.loop_guard
+            with guard() if guard is not None else _NO_GUARD:
+                go_on = self._serve_once()
+            if not go_on:
                 break
-            # Dispatch frontier: keep up to `_depth_target` blocks
-            # in flight, the one dispatched now included.
-            dispatched = False
-            if self._active.any() or (
-                self._ragged and self._has_pending_prefill()
-            ):
-                block = self._dispatch_step()
-                if self.dead is not None or self._stop.is_set():
-                    # Woke from a fault's sleep into a dead or
-                    # stopped engine: touch the device no more.
-                    break
-                worked = True
-                if block is not None:
-                    self._inflight_q.append(block)
-                    dispatched = True
-                del block
-            # First tokens whose copies have landed, after the
-            # dispatch: the prefill's device time overlaps the
-            # block's, and its read never blocks the loop.
-            self._resolve_prefills()
-            # Processed frontier: process down to `_depth_target -
-            # 1` queued blocks, and any older block whose copy has
-            # landed, but keep the freshest in flight at depth > 1:
-            # block N is read after block N + 1 is dispatched.
-            # Iterations that dispatched nothing drain it all.
-            target = max(0, self._depth_target - 1) if dispatched else 0
-            floor = 1 if (dispatched and self._depth > 1) else 0
-            while self._inflight_q and (
-                len(self._inflight_q) > target
-                or (len(self._inflight_q) > floor
-                    and self._block_ready(self._inflight_q[0]))
-            ):
-                self._process_step(self._inflight_q.popleft())
-                worked = True
-            if self._digest is not None:
-                self._digest.drain()
-            # A signal-plane sample at the block boundary (idle
-            # iterations reach here too, at the idle tick's rate):
-            # time-gated, host counters only, never a device read.
-            signals = self.metrics.signals
-            if signals is not None:
-                signals.maybe_sample()
-            if not worked:
-                self.metrics.on_dispatch_idle()
-                self._resolve_prefills(block=True)
-                if self._leader is not None:
-                    self._leader.heartbeat()
-                self._wake.wait(timeout=0.05)
-                self._wake.clear()
-            # Idle time is not a stall: both kinds of iteration
-            # stamp the watchdog's clock.
-            self.last_progress = time.monotonic()
+
+    def _serve_once(self) -> bool:
+        """One loop iteration; False when the engine died or stopped in it."""
+        if self.dead is not None:
+            return False    # the watchdog tripped while we were out
+        # With live decode lanes, admissions and chunks share
+        # the per-iteration prefill budget; with none there is
+        # no stream to stall and the budget is waived.
+        decode_live = bool(self._active.any())
+        budget = self._prefill_budget if decode_live else None
+        worked, spent = self._admit(budget)
+        if self.dead is not None:
+            return False    # tripped while this iteration ran
+        # Restore frontier: faulting slots' host pages go back
+        # to the device ahead of this iteration's dispatches.
+        if self._host_kv is not None and self._issue_restores():
+            worked = True
+        if not self._ragged:
+            remaining = None if budget is None else max(0, budget - spent)
+            chunked = self._advance_chunked_prefills(remaining)
+            worked = worked or chunked > 0
+            self.metrics.on_prefill_interleave(spent + chunked, decode_live)
+        if self.dead is not None:
+            return False
+        # Dispatch frontier: keep up to `_depth_target` blocks
+        # in flight, the one dispatched now included.
+        dispatched = False
+        if self._active.any() or (
+            self._ragged and self._has_pending_prefill()
+        ):
+            block = self._dispatch_step()
+            if self.dead is not None or self._stop.is_set():
+                # Woke from a fault's sleep into a dead or
+                # stopped engine: touch the device no more.
+                return False
+            worked = True
+            if block is not None:
+                self._inflight_q.append(block)
+                dispatched = True
+            del block
+        # First tokens whose copies have landed, after the
+        # dispatch: the prefill's device time overlaps the
+        # block's, and its read never blocks the loop.
+        self._resolve_prefills()
+        # Processed frontier: process down to `_depth_target -
+        # 1` queued blocks, and any older block whose copy has
+        # landed, but keep the freshest in flight at depth > 1:
+        # block N is read after block N + 1 is dispatched.
+        # Iterations that dispatched nothing drain it all.
+        target = max(0, self._depth_target - 1) if dispatched else 0
+        floor = 1 if (dispatched and self._depth > 1) else 0
+        while self._inflight_q and (
+            len(self._inflight_q) > target
+            or (len(self._inflight_q) > floor
+                and self._block_ready(self._inflight_q[0]))
+        ):
+            self._process_step(self._inflight_q.popleft())
+            worked = True
+        if self._digest is not None:
+            self._digest.drain()
+        # A signal-plane sample at the block boundary (idle
+        # iterations reach here too, at the idle tick's rate):
+        # time-gated, host counters only, never a device read.
+        signals = self.metrics.signals
+        if signals is not None:
+            signals.maybe_sample()
+        if not worked:
+            self.metrics.on_dispatch_idle()
+            self._resolve_prefills(block=True)
+            if self._leader is not None:
+                self._leader.heartbeat()
+            self._wake.wait(timeout=0.05)
+            self._wake.clear()
+        # Idle time is not a stall: both kinds of iteration
+        # stamp the watchdog's clock.
+        self.last_progress = time.monotonic()
+        return True
 
     def _bucket_for(self, length: int) -> Optional[int]:
         for b in self.config.prefill_buckets:
@@ -2087,7 +2139,8 @@ class InferenceEngine:
         record here. Returns (and keeps, for the merges after it) the
         sampled tokens and the device tables and seeds the dispatch read."""
         ops = self._prefill_ops[n_pad]
-        ops.upload(*arrays)
+        with _host_crossing("merge-upload"):
+            ops.upload(*arrays)
         toks_dev = self._graphs.run("prefill", width, n_pad, greedy, aligned)
         _, _, _, tables_dev, seeds_dev, *_ = ops.views(width)
         self._last_prefill = (toks_dev, tables_dev, seeds_dev)
@@ -2167,11 +2220,12 @@ class InferenceEngine:
                  float(request.temperature), float(request.top_p), top_k)
         if self._leader is not None:
             self._leader.queue(lockstep.Record("merge", merge))
-        _merge_lane_fn(
-            self._dev, slot_idx, toks_dev, row, *merge[2:], table_row, seed_row,
-            eos_id=self.tokenizer.eos_id,
-            gamma_reset=max(self._gamma_max, 1) if self._spec else None,
-        )
+        with _host_crossing("merge-upload"):
+            _merge_lane_fn(
+                self._dev, slot_idx, toks_dev, row, *merge[2:], table_row, seed_row,
+                eos_id=self.tokenizer.eos_id,
+                gamma_reset=max(self._gamma_max, 1) if self._spec else None,
+            )
         slot.merged = True
         slot.pending = None
         self._seq_lens[slot_idx] = slot.prompt_len + 1
@@ -2196,7 +2250,8 @@ class InferenceEngine:
         (host tensor, event). In stream order right behind the merges and
         before any other replay: the tokens may live in a graph's memory
         (engine/graphs.py). Depth 1 reads them at once."""
-        host, event = self._copy_to_host(toks_dev)
+        with _host_crossing("first-token-resolve"):
+            host, event = self._copy_to_host(toks_dev)
         for slot_idx, row in rows:
             self._slots[slot_idx].first = _FirstToken(host, event, row, self._dispatch_seq)
         if self._depth == 1:
@@ -2225,9 +2280,10 @@ class InferenceEngine:
         if request.cancelled.is_set():
             self._finish(slot_idx, error="cancelled")
             return
-        if first.event is not None:
-            first.event.synchronize()
-        token = int(first.host[first.row])
+        with _host_crossing("first-token-resolve"):
+            if first.event is not None:
+                first.event.synchronize()
+            token = int(first.host[first.row])
         if slot.cache_ids is not None:
             # The token proves the prefill ran, so the prompt's pages hold
             # its KV: publish them now, never at merge time. Any consumer's
@@ -2266,14 +2322,16 @@ class InferenceEngine:
         n_kv = -(-slot.prompt_len // self.config.page_size)
         t0 = time.monotonic()
         try:
-            if self.mesh is None:
-                pools = gather_to_host(self.paged, slot.pages[:n_kv])
-            else:
-                # Whole pages from every rank's shard (the wire format's).
-                pages = list(slot.pages[:n_kv])
-                with lockstep.dispatch(self._leader, lockstep.Record("export", (pages,))):
-                    pools = lockstep.gather_pages(self.mesh,
-                                                  gather_to_host(self.paged, pages))
+            with _host_crossing("handoff-export"):
+                if self.mesh is None:
+                    pools = gather_to_host(self.paged, slot.pages[:n_kv])
+                else:
+                    # Whole pages from every rank's shard (the wire format's).
+                    pages = list(slot.pages[:n_kv])
+                    with lockstep.dispatch(self._leader,
+                                           lockstep.Record("export", (pages,))):
+                        pools = lockstep.gather_pages(
+                            self.mesh, gather_to_host(self.paged, pages))
         except Exception as e:
             self._finish(slot_idx, error=f"handoff export failed: {e}")
             return
@@ -2418,11 +2476,12 @@ class InferenceEngine:
                 model=self.model_cfg.name, page_size=self.config.page_size,
                 prompt_len=prompt_len, first_token=token, seed=0,
                 prompt_ids=torch.zeros((0,), dtype=torch.int32), k=k, v=v, ks=ks, vs=vs)
-        import_handoff(
-            self.paged, self._dev, slot, state, pages, table, seed_row, cap, temp, top_p,
-            top_k, eos_id=self.tokenizer.eos_id,
-            gamma_reset=max(self._gamma_max, 1) if self._spec else None, start=start,
-        )
+        with _host_crossing("handoff-restore"):
+            import_handoff(
+                self.paged, self._dev, slot, state, pages, table, seed_row, cap, temp,
+                top_p, top_k, eos_id=self.tokenizer.eos_id,
+                gamma_reset=max(self._gamma_max, 1) if self._spec else None, start=start,
+            )
 
     def _handoff_import_ms(self) -> list:
         """Device ms of the recent imports whose work has run (the copies
@@ -2700,7 +2759,8 @@ class InferenceEngine:
         Returns (packed, first) on the device and keeps (first, prefill
         tables, seeds) as the operands of the merges that follow."""
         cfg = self.config
-        on_dev = _to_device([*ops, *(w.items for w in works)], self.device)
+        with _host_crossing("ragged-upload"):
+            on_dev = _to_device([*ops, *(w.items for w in works)], self.device)
         ops_dev = on_dev[:len(ops)]
         works = [dataclasses.replace(w, items=items)
                  for w, items in zip(works, on_dev[len(ops):])]
@@ -2788,7 +2848,8 @@ class InferenceEngine:
         live = tuple(int(i) for i in np.flatnonzero(act))
         with lockstep.dispatch(self._leader, lockstep.Record("decode", (greedy, steps))):
             packed = self._graphs.run("decode", greedy, steps)
-        host, event = self._copy_to_host(packed)
+        with _host_crossing("block-packed"):
+            host, event = self._copy_to_host(packed)
         if self._digest is not None:
             self._digest.add(host, event)
         self._dispatch_seq += 1
@@ -2828,30 +2889,38 @@ class InferenceEngine:
         elif kind == "merge":
             toks, tables, seeds = self._last_prefill
             slot, row = args[:2]
-            _merge_lane_fn(self._dev, slot, toks, row, *args[2:], tables[row], seeds[row],
-                           eos_id=self.tokenizer.eos_id,
-                           gamma_reset=max(self._gamma_max, 1) if self._spec else None)
+            with _host_crossing("merge-upload"):
+                _merge_lane_fn(self._dev, slot, toks, row, *args[2:], tables[row],
+                               seeds[row], eos_id=self.tokenizer.eos_id,
+                               gamma_reset=max(self._gamma_max, 1) if self._spec else None)
         elif kind == "retire":
-            _retire_lane_fn(self._dev, *args)
+            with _host_crossing("retire-upload"):
+                _retire_lane_fn(self._dev, *args)
         elif kind in ("decode", "spec"):
             # Copied out like the leader's block before any other replay
             # (engine/graphs.py), and hashed.
-            self._digest.add(*self._copy_to_host(self._graphs.run(kind, *args)))
+            packed = self._graphs.run(kind, *args)
+            with _host_crossing("block-packed" if kind == "decode" else "spec-packed"):
+                self._digest.add(*self._copy_to_host(packed))
         elif kind == "ragged":
             packed, first = self._ragged_device(*args)
-            host, event = self._copy_to_host(torch.cat([packed.reshape(-1), first]))
+            with _host_crossing("first-token-resolve"):
+                host, event = self._copy_to_host(torch.cat([packed.reshape(-1), first]))
             self._digest.add(host[:packed.numel()], event)
         elif kind == "spill":
             pages, rows, persist = args
-            hosts = gather_to_host(self.paged, pages)
+            with _host_crossing("kv-evict-gather"):
+                hosts = gather_to_host(self.paged, pages)
             for j, row in enumerate(rows):
                 self._host_kv.write(row, *(t[:, j] for t in hosts))
             if persist:             # the leader writes the whole pages
                 lockstep.gather_pages(self.mesh, hosts)
         elif kind == "restore":
-            restore_from_host(self.paged, self._host_kv, *args)
+            with _host_crossing("kv-fault-restore"):
+                restore_from_host(self.paged, self._host_kv, *args)
         elif kind == "export":          # the leader assembles the whole pages
-            lockstep.gather_pages(self.mesh, gather_to_host(self.paged, args[0]))
+            with _host_crossing("handoff-export"):
+                lockstep.gather_pages(self.mesh, gather_to_host(self.paged, args[0]))
         elif kind == "import":
             self._import(args, None)
         elif kind != "heartbeat":
@@ -2873,7 +2942,8 @@ class InferenceEngine:
         live = tuple(int(i) for i in np.flatnonzero(act))
         with lockstep.dispatch(self._leader, lockstep.Record("spec", (gamma, greedy, cand))):
             packed = self._graphs.run("spec", gamma, greedy, cand)
-        host, event = self._copy_to_host(packed)
+        with _host_crossing("spec-packed"):
+            host, event = self._copy_to_host(packed)
         if self.config.spec_host_sync:
             self._spec_host_sync(packed)
         if self._digest is not None:
@@ -2892,7 +2962,8 @@ class InferenceEngine:
         costs. Only the leader dispatches, so followers never read."""
         for _ in range(3):
             t0 = time.monotonic()
-            packed.to("cpu", copy=True)
+            with _host_crossing("spec-host-sync"):
+                packed.to("cpu", copy=True)
             self.metrics.on_spec_host_sync((time.monotonic() - t0) * 1e3)
 
     def _spec_round(self, gamma: int, greedy: bool, candidates: int) -> torch.Tensor:
@@ -2915,7 +2986,8 @@ class InferenceEngine:
     def _copy_to_host(packed: torch.Tensor):
         """Start the tokens' copy to host memory (pinned, non-blocking);
         returns (host tensor, CUDA event that fires when it has landed). On
-        the CPU the tensor itself is the host copy and there is no event."""
+        the CPU the tensor itself is the host copy and there is no event.
+        Callers hold the crossing's scope (`_host_crossing`)."""
         if packed.device.type != "cuda":
             return packed, None
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -2969,9 +3041,10 @@ class InferenceEngine:
         # First tokens queued ahead of this block land no later than it:
         # deliver them before waiting for it, not after.
         self._resolve_prefills(ahead_of=block.seq)
-        if block.event is not None:
-            block.event.synchronize()
-        packed = block.host.numpy()
+        with _host_crossing("block-packed"):
+            if block.event is not None:
+                block.event.synchronize()
+            packed = block.host.numpy()
         stall_ms = (time.monotonic() - t_sync) * 1e3
         self.metrics.on_process_block(lookahead, stall_ms,
                                       trace_id=self._block_trace_id(block))
@@ -3019,9 +3092,10 @@ class InferenceEngine:
         wants more than gamma_low, under the cap."""
         t_sync = time.monotonic()
         self._resolve_prefills(ahead_of=block.seq)
-        if block.event is not None:
-            block.event.synchronize()
-        packed = block.host.numpy()
+        with _host_crossing("spec-packed"):
+            if block.event is not None:
+                block.event.synchronize()
+            packed = block.host.numpy()
         stall_ms = (time.monotonic() - t_sync) * 1e3
         self.metrics.on_process_block(lookahead, stall_ms,
                                       trace_id=self._block_trace_id(block))
@@ -3172,7 +3246,8 @@ class InferenceEngine:
         if slot.merged and self.dead is None:
             if self._leader is not None:
                 self._leader.queue(lockstep.Record("retire", (slot_idx,)))
-            _retire_lane_fn(self._dev, slot_idx)
+            with _host_crossing("retire-upload"):
+                _retire_lane_fn(self._dev, slot_idx)
         if error is not None:
             self._fail_request(request, error)
         else:
@@ -3224,7 +3299,8 @@ class InferenceEngine:
         host = self._host_kv
         rows, pages = [hp for _, hp, _ in items], [slot.pages[ci] for _, _, ci in items]
         try:
-            restore_from_host(self.paged, host, rows, pages)
+            with _host_crossing("kv-fault-restore"):
+                restore_from_host(self.paged, host, rows, pages)
         except Exception as e:
             self._finish(slot_idx, error=f"kv restore failed: {e}")
             return
@@ -3267,7 +3343,8 @@ class InferenceEngine:
         write the batch to the durable store. The cache's device references
         are released only after the copy; a later writer of a freed page is
         queued behind the gather on the same stream anyway."""
-        hosts = gather_to_host(self.paged, [page for _, page in cands])
+        with _host_crossing("kv-evict-gather"):
+            hosts = gather_to_host(self.paged, [page for _, page in cands])
         moved: list[tuple[bytes, int]] = []       # (key, gather row)
         placed: list[tuple[int, int]] = []        # (device page, host page)
         for r, (key, page) in enumerate(cands):

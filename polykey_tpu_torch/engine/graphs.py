@@ -77,7 +77,10 @@ graph's memory. The engine's keys: "decode" (greedy, steps), "prefill"
 - **No fallback.** A failed capture, a missing key or a failed replay
   raises; nothing here runs a body eagerly on a CUDA device but the
   capture's warm-up. On CPU tensors `run` calls the body itself: that is
-  the CPU path, with nothing to capture (`eager` counts those calls).
+  the CPU path, with nothing to capture (`eager` counts those calls by
+  (name, key)). A key the body was not declared for raises on the CPU as
+  it does on the card, so a shape the warm-up never covers fails the CPU
+  tests too; `refused` counts those calls (graphlint's GL001 reads it).
 """
 
 from __future__ import annotations
@@ -112,12 +115,29 @@ class CudaGraphs:
         self._graphs: dict = {}
         self.captures: Counter = Counter()
         self.replays: Counter = Counter()
-        self.eager: Counter = Counter()
+        self.eager: Counter = Counter()      # (name, key) -> CPU-path calls
+        self.refused: Counter = Counter()    # (name, key) -> undeclared calls
         self.pool_bytes = 0
         self.pool_bytes_after: dict[str, int] = {}
         self.capture_seconds = 0.0
         # Monotonic start and end of the capture (0.0 until it ran).
         self.capture_window = (0.0, 0.0)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def names(self) -> tuple:
+        return tuple(self._bodies)
+
+    def keys(self, name: str) -> tuple:
+        """The keys `name` is declared (and on the card captured) for."""
+        return self._bodies[name][1]
+
+    def eager_calls(self, name: str) -> int:
+        """CPU-path calls of `name`, over all its keys."""
+        return sum(n for (body, _), n in self.eager.items() if body == name)
 
     def capture(self) -> None:
         """Warm up and capture every key of every body (CUDA only; on the
@@ -188,10 +208,16 @@ class CudaGraphs:
         body itself (CPU). On CUDA the output is the graph's own, valid
         until the next replay of any graph (module docstring)."""
         if self._device.type != "cuda":
-            self.eager[name] += 1
+            if key not in self._bodies[name][1]:
+                self.refused[(name, key)] += 1
+                raise RuntimeError(
+                    f"no {name} graph for {key}: declared {list(self._bodies[name][1])}"
+                )
+            self.eager[(name, key)] += 1
             return self._bodies[name][0](*key)
         entry = self._graphs.get((name, key))
         if entry is None:
+            self.refused[(name, key)] += 1
             raise RuntimeError(
                 f"no {name} graph for {key}: captured {list(self._bodies[name][1])}"
             )

@@ -61,6 +61,7 @@ _lib: Optional[ctypes.CDLL] = None
 _failed: Optional[RuntimeError] = None   # a failed build, raised again, not redone
 build_log: str = ""          # ptxas register/spill report of the last build
 build_seconds: float = 0.0   # 0.0 when the library came from the cache
+loads: int = 0               # the library built or loaded in this process (0 or 1)
 
 
 def _nvcc() -> str:
@@ -168,7 +169,7 @@ def load_library() -> ctypes.CDLL:
     """The kernel library, built first if it is missing or stale. A build
     that fails is not tried again in this process: every later call raises
     its error at once."""
-    global _lib, _failed, build_seconds
+    global _lib, _failed, build_seconds, loads
     with _lock:
         if _lib is not None:
             return _lib
@@ -182,6 +183,7 @@ def load_library() -> ctypes.CDLL:
             raise
         if seconds:
             build_seconds = seconds
+        loads += 1
         return _lib
 
 
@@ -332,7 +334,13 @@ class Kernel:
 
     def __call__(self, *args) -> None:
         """Launch on the current stream. Pointer arguments are passed as
-        tensors (their data_ptr is taken here); the stream goes last."""
+        tensors (their data_ptr is taken here); the stream goes last. On
+        `meta` tensors nothing launches and nothing counts: a wrapper called
+        on them runs its checks and allocations alone, the abstract
+        evaluation that graphlint's GL005 holds output contracts with
+        (analysis/graph.py)."""
+        if any(isinstance(a, torch.Tensor) and a.is_meta for a in args):
+            return
         if self._fn is None:
             fn = getattr(load_library(), self.symbol)
             fn.argtypes = self.argtypes + [P]
@@ -380,8 +388,9 @@ def _error_name(err: int) -> str:
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None, ndim=None) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of the given dtype/rank."""
-    if t.device.type != "cuda":
+    """Raise unless `t` is a contiguous CUDA tensor of the given dtype/rank
+    (or a `meta` one, for an abstract evaluation: `Kernel.__call__`)."""
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")

@@ -1046,7 +1046,7 @@ def test_prefill_graph_replay_matches_eager_at_every_key(gen, int8):
         assert got.shape == (n,) and torch.equal(got, want), key
         for a, b in zip(_pools(paged), _pools(ref_paged)):
             assert torch.equal(a, b), key
-    assert graphs.replays["prefill"] == 10 and graphs.eager["prefill"] == 0
+    assert graphs.replays["prefill"] == 10 and graphs.eager_calls("prefill") == 0
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])

@@ -5,8 +5,9 @@ serving shell — faults, the watchdog, the supervisor, obs/*, the secret
 store, reflection and its protos —, the replica tier — the signal
 plane, the replica pool, the autopilot and the dev client — and the
 disaggregated tiers — the worker, the pool, clock sync and the black
-boxes — among them), and chip_smoke.py with its shell, replicas and
-disagg phases, imports with
+boxes — and graphlint's tier with the host-sync guard among them), and
+chip_smoke.py with its shell, replicas, disagg and graphlint phases,
+imports with
 JAX, Flax, ml_dtypes, the JAX package, safetensors, orbax, tensorstore
 and zstandard made unimportable (in a fresh interpreter, so this test
 process's own JAX imports cannot mask a leak); and the orbax format is
@@ -57,10 +58,19 @@ assert {"polykey_tpu_torch.engine.prefix_cache", "polykey_tpu_torch.engine.kv_ca
         "polykey_tpu_torch.gateway.config", "polykey_tpu_torch.gateway.beautify",
         "polykey_tpu_torch.gateway.log_beautifier",
         "polykey_tpu_torch.engine.worker", "polykey_tpu_torch.engine.disagg_pool",
-        "polykey_tpu_torch.obs.clocks", "polykey_tpu_torch.obs.postmortem"} <= set(names)
+        "polykey_tpu_torch.obs.clocks", "polykey_tpu_torch.obs.postmortem",
+        "polykey_tpu_torch.analysis.graph", "polykey_tpu_torch.analysis.core",
+        "polykey_tpu_torch.analysis.__main__", "polykey_tpu_torch.engine.host_guard",
+        "polykey_tpu_torch.tools.crossing_cost"} <= set(names)
 import chip_smoke
 assert callable(chip_smoke.phase_shell) and callable(chip_smoke.phase_replicas)
-assert callable(chip_smoke.phase_disagg)
+assert callable(chip_smoke.phase_disagg) and callable(chip_smoke.phase_graphlint)
+# graphlint's abstract contracts and gates run with every blocker in place.
+from polykey_tpu_torch.analysis import graph
+from polykey_tpu_torch.models.config import get_config
+assert graph._GRAPH_REGISTRY["GL005"]._kernel_contracts() == []
+assert graph.gate_consistency_findings(
+    [get_config(m) for m in graph.ShapeLayoutContracts.MODELS]) == []
 # The reference's orbax layout, written and read with every blocker in place.
 import tempfile, torch
 from polykey_tpu_torch.models import loader
